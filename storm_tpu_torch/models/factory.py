@@ -1,0 +1,80 @@
+"""Model construction from a flat config dict (counterpart of storm_tpu/models/factory.py).
+
+Takes the same config dicts as the reference (the JSON a checkpoint carries).
+This slice builds the two StoRM modes with NCSN++ backbones and the OUVE SDE
+in float32; other choices raise NotImplementedError.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from ..backbones.ncsnpp import NCSNpp
+from ..nn.init import reset_parameters
+from ..sde.sdes import OUVESDE
+from ..signal.stft import STFTConfig
+from ..signal.transforms import SpecTransform
+from .storm import CONDITION_CHANNELS, StochasticRegenerationModel
+
+STORM_MODES = ("regen-joint-training", "regen-freeze-denoiser")
+
+
+def resolve_device(device) -> torch.device:
+    """torch.device for `device`; a CUDA device must exist, and gets TF32 off
+    so float32 matmuls and convolutions stay float32."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available; pass device='cpu' to run on the CPU")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return device
+
+
+def build_model(config: Dict[str, Any], device="cuda", seed: int = 0) -> StochasticRegenerationModel:
+    """Build the StoRM model of `config` on `device`, in eval mode, with
+    weights drawn from a generator seeded with `seed`."""
+    device = resolve_device(device)
+    cfg = dict(config)
+    mode = cfg.pop("mode", "regen-joint-training")
+    if mode not in STORM_MODES:
+        raise NotImplementedError(f"mode {mode!r} is not ported yet")
+    for key in ("backbone_denoiser", "backbone_score"):
+        if cfg.pop(key, "ncsnpp") != "ncsnpp":
+            raise NotImplementedError(f"{key}: only ncsnpp is ported yet")
+    if cfg.pop("sde", "ouve") != "ouve":
+        raise NotImplementedError("sde: only ouve is ported yet")
+    if cfg.pop("dtype", "float32") != "float32":
+        raise NotImplementedError("dtype: only float32 is ported yet")
+
+    stft_config = STFTConfig(
+        n_fft=cfg.pop("n_fft", 510),
+        hop_length=cfg.pop("hop_length", 128),
+        window=cfg.pop("window", "hann"),
+    )
+    transform = SpecTransform(
+        factor=cfg.pop("spec_factor", 0.15),
+        abs_exponent=cfg.pop("spec_abs_exponent", 0.5),
+    )
+    for k in ("ch_mult", "attn_resolutions", "fir_kernel"):
+        if k in cfg:
+            cfg[k] = tuple(cfg[k])
+    if "sde_n" in cfg:
+        cfg["N"] = cfg.pop("sde_n")
+    condition = cfg.pop("condition", "both")
+    t_eps = cfg.pop("t_eps", 0.03)
+
+    denoiser = NCSNpp.from_kwargs(**{**cfg, "input_channels": 2, "discriminative": True})
+    score = NCSNpp.from_kwargs(**{
+        **cfg, "input_channels": 2 * (1 + CONDITION_CHANNELS[condition]),
+        "discriminative": False,
+    })
+    sde = OUVESDE(**{k: cfg[k] for k in ("theta", "sigma_min", "sigma_max", "N") if k in cfg})
+    model = StochasticRegenerationModel(
+        denoiser, score, sde, stft_config=stft_config, transform=transform,
+        t_eps=t_eps, condition=condition,
+    )
+    reset_parameters(model, torch.Generator().manual_seed(seed))
+    return model.to(device).eval()
