@@ -20,9 +20,23 @@ Phases, each of which exits non-zero on failure:
    files of 1, 2.5 and 4 s; outputs must be finite and as long as the inputs,
    and upfirdn2d must have launched 18 times per NCSN++ forward.
 
-With `--profile`, a last phase traces one enhancement of the 4 s file with
-torch.profiler and prints the device time by kernel and the device's busy
-share of the wall time.
+6. (with `--profile`) one enhancement of the 4 s file traced with
+   torch.profiler: the device time by kernel and the device's busy share.
+7. backward kernel against plain: the gradient through upfirdn2d at every
+   shape a full-width train step gives it (B=8, 256 bins x 256 frames), from
+   `torch.autograd.grad` through the kernel path (forward and backward
+   kernels) against PyTorch's autograd of the plain version, NCSN++ and
+   asymmetric FIRs, atol = rtol = 1e-5; backward kernel, plain backward and
+   library-call times beside the memory bound.
+8. training: (a) one full-width step's gradients (B=2, same weights, t, z
+   and batch) through the kernels against the plain path, with cuDNN
+   deterministic; (b) `python -m storm_tpu_torch.train` for 8 steps at B=8
+   on a synthesized wsj0-layout corpus: finite losses, parameters and EMA
+   moved, `last.pt` and `best_loss.pt` written, exactly 36 forward and 33
+   backward upfirdn2d launches per step; ms per step, audio seconds trained
+   per second and peak memory; (c) the written checkpoint enhances one file
+   through `python -m storm_tpu_torch.enhancement` at N=2.
+9. (with `--profile`) two full-width train steps traced with torch.profiler.
 
 The line before the last holds the per-kernel JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero and
@@ -45,13 +59,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from storm_tpu_torch import enhancement
+from storm_tpu_torch import enhancement, train
 from storm_tpu_torch.backbones.ncsnpp import NCSNpp, count_parameters
-from storm_tpu_torch.ckpt import save_checkpoint
+from storm_tpu_torch.ckpt import load_training_checkpoint, save_checkpoint
 from storm_tpu_torch.data.audio import load_wav, save_wav
 from storm_tpu_torch.kernels import build
 from storm_tpu_torch.kernels import upfirdn as kup
+from storm_tpu_torch.models.base import init_train_state
 from storm_tpu_torch.models.factory import build_model, resolve_device
+from storm_tpu_torch.models.storm import StochasticRegenerationModel
 from storm_tpu_torch.nn import resample
 from storm_tpu_torch.nn.init import reset_parameters
 
@@ -69,6 +85,20 @@ STORM_CONFIG = {"mode": "regen-joint-training", "init_scale": 1.0}
 N_STEPS, NFE = 50, 1 + 50 * 2  # CLI defaults: 1 denoiser + N x (ald + predictor)
 SECONDS = (1.0, 2.5, 4.0)
 SR = 16000
+# training: the CLI defaults' batch and crop (256 frames = 32640 samples, 2.04 s)
+TRAIN_B, TRAIN_FRAMES, TRAIN_STEPS = 8, 256, 8
+TRAIN_AUDIO_S = (TRAIN_FRAMES - 1) * 128 / SR
+TRAIN_FILES, VALID_FILES, FILE_S = 32, 4, 2.5  # 4 steps per epoch, 2 epochs
+# upfirdn2d launches per joint-training step: 18 per forward of each net, and
+# a backward for every call whose input needs a gradient, which is all but
+# the denoiser's input pyramid (3 calls on the raw noisy spec)
+STEP_FWD, STEP_BWD = 2 * 18, 2 * 18 - 3
+# gradients through the kernels against the plain path, per tensor:
+# max|kernel - plain| <= GRAD_RTOL * max|plain| + GRAD_FLOOR * (largest gradient
+# element), the floor for tensors whose exact gradient is 0 (the attention key
+# bias); and the global L2 norm of the difference <= GRAD_NORM_RTOL * the norm.
+# The two paths differ only in K1's summation order.
+GRAD_RTOL, GRAD_FLOOR, GRAD_NORM_RTOL = 1e-3, 1e-5, 1e-4
 
 
 def fail(msg: str):
@@ -81,16 +111,26 @@ def check(cond: bool, msg: str):
         fail(msg)
 
 
-def k1_calls(pyramid_ch: int):
+def k1_calls(pyramid_ch: int, frames: int = FRAMES):
     """(config, C, H, W) of the 18 upfirdn2d calls of one NCSN++ forward."""
     calls = []
     L = len(CH_MULT)
     for i in range(L - 1):  # down resblocks (h and x), then the input pyramid
-        H, W = FREQS >> i, FRAMES >> i
+        H, W = FREQS >> i, frames >> i
         calls += [("down", NF * CH_MULT[i], H, W)] * 2 + [("down", pyramid_ch, H, W)]
     for i in range(L - 1, 0, -1):  # output pyramid, then up resblocks (h and x)
-        H, W = FREQS >> i, FRAMES >> i
+        H, W = FREQS >> i, frames >> i
         calls += [("up", pyramid_ch, H, W)] + [("up", NF * CH_MULT[i], H, W)] * 2
+    return calls
+
+
+def k1_bwd_calls():
+    """(forward config, C, H, W) of the upfirdn2d calls whose backward runs in
+    one joint-training step: every call of the score net (its input holds
+    D(Y)), every call of the denoiser but its input pyramid's."""
+    denoiser = [c for c in k1_calls(2, TRAIN_FRAMES) if c[:2] != ("down", 2)]
+    calls = denoiser + k1_calls(6, TRAIN_FRAMES)
+    check(len(calls) == STEP_BWD, f"{len(calls)} backward calls, expected {STEP_BWD}")
     return calls
 
 
@@ -110,14 +150,27 @@ def time_ms(fn, reps: int = 20, repeats: int = 5) -> float:
     return statistics.median(times)
 
 
-def library_call(cfg: str, C: int):
-    """One PyTorch call computing the same function (yardstick only)."""
+def library_call(cfg: str, C: int, backward: bool = False):
+    """One PyTorch call computing the same function (yardstick only); with
+    `backward`, the adjoint of the forward call of `cfg`, which is the other
+    call with the same weight."""
     k = torch.as_tensor(CONFIGS[cfg]["kernel"], device="cuda")
     if cfg == "down":  # correlation with the flipped FIR on the 1-padded input
         w = k.flip(0, 1).expand(C, 1, 4, 4).contiguous()
+        if backward:
+            return lambda g: F.conv_transpose2d(g, w, stride=2, padding=1, groups=C)
         return lambda x: F.conv2d(x, w, stride=2, padding=1, groups=C)
     w = k.expand(C, 1, 4, 4).contiguous()  # transposed conv with the FIR as is
+    if backward:
+        return lambda g: F.conv2d(g, w, stride=2, padding=1, groups=C)
     return lambda x: F.conv_transpose2d(x, w, stride=2, padding=1, groups=C)
+
+
+def bound_ms(n_in: int, n_out: int, taps: int):
+    """(bytes bound, operations bound) in ms: float32 in and out once over the
+    memory rate; `taps` multiply-adds per output over the f32 peak."""
+    return (4.0 * (n_in + n_out) / PEAK_BYTES_PER_S * 1e3,
+            2.0 * taps * n_out / PEAK_F32_FLOP_PER_S * 1e3)
 
 
 def phase_kernel_vs_plain(gen: torch.Generator):
@@ -146,10 +199,7 @@ def phase_kernel_vs_plain(gen: torch.Generator):
         plain_ms = time_ms(lambda: kup.upfirdn2d_plain(x, c["kernel"], **args), reps=5)
         library_ms = time_ms(lambda: lib(x))
         Ho, Wo = want.shape[-2:]
-        n_in, n_out = C * H * W, C * Ho * Wo
-        taps = 16 // (c["up"] ** 2)
-        bound_bytes_ms = 4.0 * (n_in + n_out) / PEAK_BYTES_PER_S * 1e3
-        bound_ops_ms = 2.0 * taps * n_out / PEAK_F32_FLOP_PER_S * 1e3
+        bound_bytes_ms, bound_ops_ms = bound_ms(C * H * W, C * Ho * Wo, 16 // (c["up"] ** 2))
         per_shape[(cfg, C, H, W)] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                                          bytes_ms=bound_bytes_ms, ops_ms=bound_ops_ms)
         by = "bytes" if bound_bytes_ms >= bound_ops_ms else "operations"
@@ -251,10 +301,249 @@ def phase_main_path(workdir: str):
     return launches
 
 
+def phase_backward_vs_plain(gen: torch.Generator):
+    """The gradient through upfirdn2d at each backward shape of a train step."""
+    asym = torch.randn(4, 4, generator=torch.Generator().manual_seed(1)).numpy()
+    shapes = sorted(set(k1_bwd_calls()), key=lambda s: (s[0], -s[1], -s[2]))
+    per_shape, max_err = {}, 0.0
+    for cfg, C, H, W in shapes:
+        c = CONFIGS[cfg]
+        args = dict(up=c["up"], down=c["down"], pad=c["pad"])
+        x = torch.randn(TRAIN_B, C, H, W, device="cuda", generator=gen)
+        Ho, Wo = (kup.output_size(n, 4, c["up"], c["down"], c["pad"]) for n in (H, W))
+        g = torch.randn(TRAIN_B, C, Ho, Wo, device="cuda", generator=gen)
+        for kern in (asym, c["kernel"]):  # the NCSN++ FIR last: `want` serves below
+            xk = x.clone().requires_grad_()
+            (got,) = torch.autograd.grad(kup.upfirdn2d(xk, kern, **args), xk, g)
+            xp = x.clone().requires_grad_()
+            (want,) = torch.autograd.grad(kup.upfirdn2d_plain(xp, kern, **args), xp, g)
+            torch.cuda.synchronize()
+            check(got.shape == want.shape == x.shape, f"upfirdn2d_bwd {cfg} C={C}: shape")
+            err = (got - want).abs().max().item()
+            max_err = max(max_err, err)
+            check(torch.allclose(got, want, atol=1e-5, rtol=1e-5),
+                  f"upfirdn2d_bwd {cfg} C={C} {H}x{W}: kernel disagrees with plain (max {err:.3e})")
+        lib = library_call(cfg, C, backward=True)
+        lib_err = (lib(g) - want).abs().max().item()
+        check(lib_err <= 1e-5 + 1e-5 * want.abs().max().item(),
+              f"library yardstick bwd {cfg} C={C}: not the same function (max {lib_err:.3e})")
+        bwd = (g, c["kernel"], c["up"], c["down"], c["pad"], (H, W))
+        ms = time_ms(lambda: kup.upfirdn2d_bwd_cuda(*bwd))
+        plain_ms = time_ms(lambda: kup.upfirdn2d_bwd_plain(*bwd), reps=5)
+        library_ms = time_ms(lambda: lib(g))
+        bytes_ms, ops_ms = bound_ms(g.numel(), x.numel(), 16 // (c["down"] ** 2))
+        per_shape[(cfg, C, H, W)] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                                         bytes_ms=bytes_ms, ops_ms=ops_ms)
+        print(f"  upfirdn2d_bwd of {cfg:4s} B={TRAIN_B} C={C:3d} {Ho:3d}x{Wo:3d} -> {H}x{W}: "
+              f"ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} "
+              f"bound_ms={max(bytes_ms, ops_ms):.5f} "
+              f"({'bytes' if bytes_ms >= ops_ms else 'operations'}) lib_err={lib_err:.2e}",
+              flush=True)
+    return per_shape, max_err
+
+
+def grads_of(model, batch, t, z):
+    model.compute_gradients(batch, t, z)
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters() if p.requires_grad}
+
+
+def phase_train_gradients(gen: torch.Generator):
+    """One full-width step's gradients through the kernels against the plain path."""
+    model = build_model(STORM_CONFIG, device="cuda", seed=0).train()
+    B = 2
+    x = 0.3 * torch.randn(B, FREQS, TRAIN_FRAMES, 2, device="cuda", generator=gen)
+    y = x + 0.2 * torch.randn(B, FREQS, TRAIN_FRAMES, 2, device="cuda", generator=gen)
+    t = torch.tensor([0.3, 0.8], device="cuda")
+    z = torch.randn(B, FREQS, TRAIN_FRAMES, 2, device="cuda", generator=gen) / 2 ** 0.5
+    torch.backends.cudnn.deterministic = True
+    try:
+        kup.upfirdn2d_cuda.launches = kup.upfirdn2d_bwd_cuda.launches = 0
+        g_k = grads_of(model, (x, y), t, z)
+        torch.cuda.synchronize()
+        counts = (kup.upfirdn2d_cuda.launches, kup.upfirdn2d_bwd_cuda.launches)
+        with mock.patch.object(resample, "upfirdn2d", kup.upfirdn2d_plain):
+            g_p = grads_of(model, (x, y), t, z)
+            torch.cuda.synchronize()
+        check(counts == (kup.upfirdn2d_cuda.launches, kup.upfirdn2d_bwd_cuda.launches),
+              "the plain path launched a kernel")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    check(counts == (STEP_FWD, STEP_BWD),
+          f"one step's gradients launched {counts}, expected {(STEP_FWD, STEP_BWD)}")
+    check(all(bool(torch.isfinite(v).all()) for v in g_k.values()), "gradients not finite")
+    g_max = max(v.abs().max().item() for v in g_p.values())
+    worst, worst_name = 0.0, None
+    for name, want in g_p.items():
+        err = (g_k[name] - want).abs().max().item()
+        ratio = err / (GRAD_RTOL * want.abs().max().item() + GRAD_FLOOR * g_max)
+        if ratio > worst:
+            worst, worst_name = ratio, name
+    d_norm = torch.sqrt(sum(((g_k[n] - g_p[n]) ** 2).sum() for n in g_p)).item()
+    norm = torch.sqrt(sum((v ** 2).sum() for v in g_p.values())).item()
+    print(f"  B={B} full-width gradients, kernel vs plain: {len(g_p)} tensors, launches "
+          f"{counts}; worst tensor at {worst:.3f} of its tolerance ({worst_name}); "
+          f"global norm {norm:.6e}, |diff| {d_norm:.3e} ({d_norm / norm:.3e} relative)",
+          flush=True)
+    check(worst <= 1.0, f"gradient of {worst_name} disagrees with the plain path")
+    check(d_norm <= GRAD_NORM_RTOL * norm, "global gradient disagrees with the plain path")
+    del model, g_k, g_p
+    torch.cuda.empty_cache()
+
+
+def write_corpus(root: str):
+    """wsj0 layout: TRAIN_FILES `tr` and VALID_FILES `cv` pairs of FILE_S seconds."""
+    rng = np.random.default_rng(1)
+    for sub, n in (("tr", TRAIN_FILES), ("cv", VALID_FILES)):
+        for kind in ("clean", "noisy"):
+            os.makedirs(os.path.join(root, sub, kind))
+        for i in range(n):
+            clean = synth_wav(FILE_S, i, rng)
+            noisy = clean + 0.1 * rng.standard_normal(clean.shape[-1]).astype(np.float32)
+            save_wav(os.path.join(root, sub, "clean", f"u{i:03d}.wav"), clean, SR)
+            save_wav(os.path.join(root, sub, "noisy", f"u{i:03d}.wav"), noisy, SR)
+
+
+def phase_train(workdir: str):
+    """The training path through `python -m storm_tpu_torch.train`."""
+    corpus, logs = os.path.join(workdir, "corpus"), os.path.join(workdir, "logs")
+    write_corpus(corpus)
+    steps, first_params = [], {}
+    original = StochasticRegenerationModel.train_step
+
+    def timed_step(model, state, batch, generator=None):
+        if not first_params:
+            first_params.update({k: v.detach().clone() for k, v in model.state_dict().items()})
+        before = (kup.upfirdn2d_cuda.launches, kup.upfirdn2d_bwd_cuda.launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        aux = original(model, state, batch, generator)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        steps.append(dict(t0=t0, t1=t1, launches=(kup.upfirdn2d_cuda.launches - before[0],
+                                                  kup.upfirdn2d_bwd_cuda.launches - before[1])))
+        return aux
+
+    argv = ["--mode", "regen-joint-training", "--base_dir", corpus, "--format", "wsj0",
+            "--batch_size", str(TRAIN_B), "--num_frames", str(TRAIN_FRAMES),
+            "--max_steps", str(TRAIN_STEPS), "--num_eval_files", "0", "--log_dir", logs,
+            "--log_every_n_steps", "1", "--num_workers", "4", "--seed", "0",
+            "--device", "cuda"]
+    torch.cuda.reset_peak_memory_stats()
+    kup.upfirdn2d_cuda.launches = kup.upfirdn2d_bwd_cuda.launches = 0
+    t0 = time.perf_counter()
+    with mock.patch.object(StochasticRegenerationModel, "train_step", timed_step):
+        train.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = (kup.upfirdn2d_cuda.launches, kup.upfirdn2d_bwd_cuda.launches)
+    peak = torch.cuda.max_memory_allocated()
+
+    (run,) = os.listdir(logs)
+    rows = [json.loads(line) for line in open(os.path.join(logs, run, "metrics.jsonl"))]
+    losses = [r["train_loss"] for r in rows if "train_loss" in r]
+    valid = [r["valid_loss"] for r in rows if "valid_loss" in r]
+    check(len(steps) == len(losses) == TRAIN_STEPS, f"{len(steps)} steps, {len(losses)} losses")
+    check(all(np.isfinite(v) for r in rows for k, v in r.items() if k != "step"),
+          "a training or validation loss is not finite")
+    check(all(s["launches"] == (STEP_FWD, STEP_BWD) for s in steps),
+          f"launches per step {[s['launches'] for s in steps]}, expected {(STEP_FWD, STEP_BWD)}")
+    n_valid_fwd = STEP_FWD * len(valid) * -(-VALID_FILES // TRAIN_B)  # no backward
+    check(launches == (STEP_FWD * TRAIN_STEPS + n_valid_fwd, STEP_BWD * TRAIN_STEPS),
+          f"training launched {launches}")
+    ckpt_dir = os.path.join(logs, run, "checkpoints")
+    check(sorted(os.listdir(ckpt_dir)) == ["best_loss.pt", "last.pt"],
+          f"checkpoints {os.listdir(ckpt_dir)}")
+    last = load_training_checkpoint(os.path.join(ckpt_dir, "last.pt"))
+    check(last["step"] == TRAIN_STEPS, f"last.pt at step {last['step']}")
+    moved = [k for k, v in last["params"].items() if not torch.equal(v, first_params[k].cpu())]
+    ema_moved = [k for k in moved if not torch.equal(last["ema_params"][k], first_params[k].cpu())]
+    check(len(moved) > 0.9 * len(first_params) and len(ema_moved) == len(moved),
+          f"{len(moved)} of {len(first_params)} tensors moved, {len(ema_moved)} in the EMA")
+
+    # step time: the loop's period between consecutive steps of one epoch
+    # (data loading included), and one train_step call alone
+    epoch_len = TRAIN_FILES // TRAIN_B
+    periods = [(steps[i]["t1"] - steps[i - 1]["t1"]) * 1e3
+               for i in range(1, len(steps)) if i % epoch_len]
+    calls = [(s["t1"] - s["t0"]) * 1e3 for s in steps[1:]]
+    step_ms = statistics.median(periods)
+    print(f"  trained {TRAIN_STEPS} steps at B={TRAIN_B} x {TRAIN_FRAMES} frames in {wall:.1f} s "
+          f"wall (setup, validation and checkpoints included); losses "
+          f"{[round(v, 2) for v in losses]}; valid {[round(v, 2) for v in valid]}", flush=True)
+    print(f"  step: {step_ms:.2f} ms median period (first step {steps[0]['t1'] - steps[0]['t0']:.3f} s; "
+          f"train_step alone median {statistics.median(calls):.2f} ms); "
+          f"{TRAIN_B * TRAIN_AUDIO_S / (step_ms / 1e3):.3f} audio s trained per s; "
+          f"peak memory {peak / 2**30:.2f} GiB; launches per step {steps[-1]['launches']}, "
+          f"in all {launches}; {len(moved)} of {len(first_params)} tensors moved",
+          flush=True)
+
+    # the written checkpoint serves
+    noisy, out = os.path.join(workdir, "noisy_one"), os.path.join(workdir, "enhanced_one")
+    os.makedirs(noisy)
+    x = synth_wav(1.0, 3, np.random.default_rng(2))
+    save_wav(os.path.join(noisy, "one.wav"), x, SR)
+    enhancement.main(["--test_dir", noisy, "--enhanced_dir", out, "--ckpt",
+                      os.path.join(ckpt_dir, "last.pt"), "--mode", "storm", "--N", "2",
+                      "--device", "cuda"])
+    y, sr = load_wav(os.path.join(out, "one.wav"))
+    check(sr == SR and y.shape == (1, x.shape[-1]) and bool(np.isfinite(y).all()),
+          f"enhancing with the trained checkpoint gave {y.shape}")
+    print(f"  the trained checkpoint enhanced a {x.shape[-1] / SR:.1f} s file at N=2", flush=True)
+    return launches
+
+
+def print_profile(what: str, prof, wall_ms: float):
+    """Device time by kernel (kernel rows only: an operator's row repeats the
+    time of the kernels it launched), the summed kernel time, and the busy
+    time as the union of the kernels' intervals, which overlapping kernels do
+    not count twice."""
+    from torch.autograd import DeviceType
+
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                  key=lambda r: -r[1])
+    device_ms = sum(r[1] for r in rows)
+    check(device_ms > 0, "the profiler saw no device time")
+    busy_us, end = 0.0, -float("inf")
+    for start, stop in sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                              if e.device_type == DeviceType.CUDA):
+        busy_us += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    print(f"  {what} under the profiler: wall {wall_ms:.1f} ms, kernel time summed "
+          f"{device_ms:.1f} ms ({100 * device_ms / wall_ms:.1f}% of wall), device busy "
+          f"(union of kernel intervals) {busy_us / 1e3:.1f} ms "
+          f"({100 * busy_us / 1e3 / wall_ms:.1f}% of wall)", flush=True)
+    for key, ms, count in rows[:15]:
+        print(f"    {100 * ms / device_ms:5.1f}%  {ms:9.2f} ms  x{count:6d}  {key[:90]}")
+    for name in ("upfirdn2d_k4<1, 2>", "upfirdn2d_k4<2, 1>"):
+        sel = [r for r in rows if name in r[0]]
+        print(f"  {name}: {sum(r[1] for r in sel):.2f} ms in {sum(r[2] for r in sel)} launches "
+              f"({100 * sum(r[1] for r in sel) / device_ms:.2f}% of kernel time)", flush=True)
+
+
+def phase_profile_train():
+    """Trace two full-width train steps (B=8, 256 x 256)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    model = build_model({"mode": "regen-joint-training"}, device="cuda", seed=0).train()
+    state = init_train_state(model, model.lr)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = 0.3 * torch.randn(TRAIN_B, FREQS, TRAIN_FRAMES, 2, device="cuda", generator=gen)
+    batch = (x, x + 0.2 * torch.randn(x.shape, device="cuda", generator=gen))
+    model.train_step(state, batch, gen)  # warm-up at the same shapes
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            model.train_step(state, batch, gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    print_profile(f"two train steps (B={TRAIN_B}, {FREQS} x {TRAIN_FRAMES})", prof, wall_ms)
+
+
 def phase_profile():
     """Trace one enhancement of the longest file (CLI defaults) and print where
     the device time goes."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     model = build_model(STORM_CONFIG, device="cuda", seed=0)
@@ -266,25 +555,14 @@ def phase_profile():
         model.enhance(y, N=N_STEPS, corrector="ald")
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # kernel rows only: an operator's row repeats the time of the kernels it launched
-    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                   for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
-                  key=lambda r: -r[1])
-    device_ms = sum(r[1] for r in rows)
-    check(device_ms > 0, "the profiler saw no device time")
-    print(f"  enhance {max(SECONDS)} s file under the profiler: wall {wall_ms:.1f} ms, "
-          f"device busy {device_ms:.1f} ms ({100 * device_ms / wall_ms:.1f}%)", flush=True)
-    for key, ms, count in rows[:15]:
-        print(f"    {100 * ms / device_ms:5.1f}%  {ms:9.2f} ms  x{count:6d}  {key[:90]}")
-    ufd = [r for r in rows if "upfirdn2d" in r[0]]
-    print(f"  upfirdn2d: {sum(r[1] for r in ufd):.2f} ms in {sum(r[2] for r in ufd)} launches "
-          f"({100 * sum(r[1] for r in ufd) / device_ms:.2f}% of device time)", flush=True)
+    print_profile(f"enhance {max(SECONDS)} s file", prof, wall_ms)
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
-                        help="also trace one enhancement and print the device time by kernel")
+                        help="also trace one enhancement and two train steps and print "
+                             "the device time by kernel")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         fail("no CUDA device: chip_smoke.py runs on a card only")
@@ -323,24 +601,39 @@ def main():
         print("== phase 6: where the device time goes", flush=True)
         phase_profile()
 
-    # one score-net forward's worth of upfirdn2d work (its 18 calls)
-    calls = k1_calls(6)
-    total = {k: sum(per_shape[c][k] for c in calls)
-             for k in ("ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms")}
-    record = {"kernels": [{
-        "name": "upfirdn2d",
-        "route": "cuda",
-        "source": "storm_tpu_torch/csrc/upfirdn2d.cu",
-        "replaces": "storm_tpu/kernels/upfirdn.py:139",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": total["ms"],
-        "plain_ms": total["plain_ms"],
-        "bound_ms": max(total["bytes_ms"], total["ops_ms"]),
-        "bound_by": "bytes" if total["bytes_ms"] >= total["ops_ms"] else "operations",
-        "library_ms": total["library_ms"],
-        "work": "the 18 calls of one full-width score-net forward, B=1, 256 x 512",
-    }]}
+    print("== phase 7: upfirdn2d backward kernel against plain at a train step's shapes",
+          flush=True)
+    bwd_shape, bwd_err = phase_backward_vs_plain(gen)
+
+    print("== phase 8: training through storm_tpu_torch.train", flush=True)
+    phase_train_gradients(gen)
+    with tempfile.TemporaryDirectory() as workdir:
+        train_launches = phase_train(workdir)
+
+    if args.profile:
+        print("== phase 9: where a train step's device time goes", flush=True)
+        phase_profile_train()
+
+    def entry(name, replaces, per_shape_ms, calls, err, launches, work, **extra):
+        total = {k: sum(per_shape_ms[c][k] for c in calls)
+                 for k in ("ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms")}
+        return {"name": name, "route": "cuda", "source": "storm_tpu_torch/csrc/upfirdn2d.cu",
+                "replaces": replaces, "launches": launches, "max_abs_err": err,
+                "ms": total["ms"], "plain_ms": total["plain_ms"],
+                "bound_ms": max(total["bytes_ms"], total["ops_ms"]),
+                "bound_by": "bytes" if total["bytes_ms"] >= total["ops_ms"] else "operations",
+                "library_ms": total["library_ms"], "work": work, **extra}
+
+    record = {"kernels": [
+        entry("upfirdn2d", "storm_tpu/kernels/upfirdn.py:139", per_shape, k1_calls(6), max_err,
+              launches + train_launches[0],
+              "the 18 calls of one full-width score-net forward, B=1, 256 x 512",
+              launches_by_path={"enhancement": launches, "train": train_launches[0]}),
+        entry("upfirdn2d_bwd", "storm_tpu/kernels/upfirdn.py:172-181", bwd_shape, k1_bwd_calls(),
+              bwd_err, train_launches[1],
+              f"the {STEP_BWD} backward calls of one full-width joint-training step, "
+              f"B={TRAIN_B}, 256 x {TRAIN_FRAMES}"),
+    ]}
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)
     print(json.dumps(record))

@@ -1,31 +1,58 @@
-"""Checkpoints as one `.pt` file: {config, params, ema_params}.
+"""Checkpoints as one `.pt` file: {config, params, ema_params} and, from the
+trainer, {optimizer, step, meta}.
 
 `config` is the flat model config (stored as JSON text), `params` and
-`ema_params` are state_dicts of `StochasticRegenerationModel`. Loading uses
-`torch.load(weights_only=True)`, which unpickles tensors and plain containers
-only.
+`ema_params` are state_dicts of `StochasticRegenerationModel`, `optimizer`
+the Adam state_dict, `step` the optimizer step count and `meta` (JSON text)
+the training loop's state: epoch, best_valid, bad_epochs, best_loss. Loading
+uses `torch.load(weights_only=True)`, which unpickles tensors and plain
+containers only. `python -m storm_tpu_torch.enhancement` reads the first
+three keys, so a trainer's checkpoint enhances as it is.
+
+`CheckpointManager` keeps `last.pt` and `best_loss.pt` (lowest validation
+loss) in one directory, as the reference's manager keeps `last` and
+`best_loss` (its `best_pesq` waits for the metrics, ROADMAP R5).
 """
 from __future__ import annotations
 
 import json
+import math
 import os
+import shutil
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
 
 
+def _to_host(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    if isinstance(tree, dict):
+        return {k: _to_host(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_host(v) for v in tree)
+    return tree
+
+
 def save_checkpoint(path: str, config: Mapping[str, Any],
                     params: Mapping[str, torch.Tensor],
-                    ema_params: Optional[Mapping[str, torch.Tensor]] = None) -> None:
-    """Write the checkpoint; without `ema_params` the EMA weights are `params`."""
-    def host(sd):
-        return {k: v.detach().cpu() for k, v in sd.items()}
-
+                    ema_params: Optional[Mapping[str, torch.Tensor]] = None,
+                    optimizer: Optional[Mapping[str, Any]] = None,
+                    step: Optional[int] = None,
+                    meta: Optional[Mapping[str, Any]] = None) -> None:
+    """Write the checkpoint atomically; without `ema_params` the EMA weights
+    are `params`. `optimizer` is an optimizer's state_dict."""
     payload = {
         "config": json.dumps(dict(config)),
-        "params": host(params),
-        "ema_params": host(ema_params if ema_params is not None else params),
+        "params": _to_host(dict(params)),
+        "ema_params": _to_host(dict(ema_params if ema_params is not None else params)),
     }
+    if optimizer is not None:
+        payload["optimizer"] = _to_host(optimizer)
+    if step is not None:
+        payload["step"] = int(step)
+    if meta is not None:
+        payload["meta"] = json.dumps(dict(meta))
     tmp = f"{path}.tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)
@@ -34,5 +61,60 @@ def save_checkpoint(path: str, config: Mapping[str, Any],
 def load_checkpoint(path: str) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor],
                                         Dict[str, torch.Tensor]]:
     """(config, params, ema_params) from a checkpoint file."""
+    ckpt = load_training_checkpoint(path)
+    return ckpt["config"], ckpt["params"], ckpt["ema_params"]
+
+
+def load_training_checkpoint(path: str) -> Dict[str, Any]:
+    """Every key of a checkpoint, config and meta decoded; `optimizer`,
+    `step` and `meta` are None where the checkpoint has none."""
     payload = torch.load(path, map_location="cpu", weights_only=True)
-    return json.loads(payload["config"]), payload["params"], payload["ema_params"]
+    return {
+        "config": json.loads(payload["config"]),
+        "params": payload["params"],
+        "ema_params": payload["ema_params"],
+        "optimizer": payload.get("optimizer"),
+        "step": payload.get("step"),
+        "meta": json.loads(payload["meta"]) if "meta" in payload else None,
+    }
+
+
+def _finite_or_none(v: Optional[float]) -> Optional[float]:
+    return v if v is not None and math.isfinite(v) else None
+
+
+class CheckpointManager:
+    """Writes `last.pt` every epoch and copies it to `best_loss.pt` when the
+    validation loss improves."""
+
+    def __init__(self, ckpt_dir: str, config: Mapping[str, Any]):
+        self.ckpt_dir = ckpt_dir
+        self.config = dict(config)
+        self.best_loss = math.inf
+        os.makedirs(ckpt_dir, exist_ok=True)
+
+    def path(self, tag: str) -> str:
+        return os.path.join(self.ckpt_dir, f"{tag}.pt")
+
+    def restore_from_meta(self, meta: Mapping[str, Any]) -> None:
+        """Keep a resumed run's best loss, so that a worse epoch never
+        overwrites the better checkpoint."""
+        if meta.get("best_loss") is not None:
+            self.best_loss = float(meta["best_loss"])
+
+    def step(self, state, valid_loss: float, epoch: int, bad_epochs: int,
+             best_valid: float) -> None:
+        """Save `state` (a models.base.TrainState) after `epoch`."""
+        improved = math.isfinite(valid_loss) and valid_loss < self.best_loss
+        if improved:
+            self.best_loss = float(valid_loss)
+        meta = {"epoch": epoch, "bad_epochs": bad_epochs,
+                "best_valid": _finite_or_none(best_valid),
+                "best_loss": _finite_or_none(self.best_loss)}
+        last = self.path("last")
+        save_checkpoint(last, self.config, state.model.state_dict(), state.ema,
+                        optimizer=state.optimizer.state_dict(), step=state.step, meta=meta)
+        if improved:
+            tmp = self.path("best_loss") + ".tmp"
+            shutil.copyfile(last, tmp)
+            os.replace(tmp, self.path("best_loss"))

@@ -1,9 +1,18 @@
-"""wav <-> compressed-spec plumbing (counterpart of storm_tpu/models/base.py)."""
+"""Train state, EMA, optimizer and wav <-> compressed-spec plumbing
+(counterpart of storm_tpu/models/base.py).
+
+The EMA follows torch-ema with warmup, as the reference does: after every
+optimizer step n (counted from 1), shadow = d*shadow + (1-d)*param with
+d = min(decay, (1+n)/(10+n)). Evaluation uses the shadow weights.
+"""
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import contextlib
+import dataclasses
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
+from torch import nn
 
 from ..signal.stft import STFTConfig, istft_real, stft_real
 from ..signal.transforms import SpecTransform, pad_spec
@@ -46,3 +55,50 @@ def prepare_spec(y: torch.Tensor, stft_config: STFTConfig, transform: SpecTransf
     """wav (B, T) -> (compressed spec padded to a multiple of 64 frames, frames before padding)."""
     Y = wav_to_spec(y, stft_config, transform)
     return pad_spec(Y, multiple=multiple, axis=-2), Y.shape[-2]
+
+
+@dataclasses.dataclass
+class TrainState:
+    """What a training step changes: the step count, the model's parameters,
+    the EMA shadow (a state_dict of `model`) and the optimizer's moments."""
+
+    step: int
+    model: nn.Module
+    ema: Dict[str, torch.Tensor]
+    optimizer: torch.optim.Optimizer
+
+
+def make_optimizer(model: nn.Module, lr: float) -> torch.optim.Adam:
+    """Adam over the trainable parameters with the defaults of `optax.adam`:
+    b1 0.9, b2 0.999, eps 1e-8 added outside the square root. Frozen
+    parameters (the Fourier features' W) are left out; the reference stops
+    their gradient, so Adam leaves them unchanged there too."""
+    return torch.optim.Adam([p for p in model.parameters() if p.requires_grad],
+                            lr=lr, betas=(0.9, 0.999), eps=1e-8)
+
+
+def init_train_state(model: nn.Module, lr: float) -> TrainState:
+    return TrainState(step=0, model=model,
+                      ema={k: v.detach().clone() for k, v in model.state_dict().items()},
+                      optimizer=make_optimizer(model, lr))
+
+
+@torch.no_grad()
+def ema_update(ema: Dict[str, torch.Tensor], params: Dict[str, torch.Tensor],
+               decay: float, step: int) -> None:
+    """In place: ema = d*ema + (1-d)*params, d = min(decay, (1+step)/(10+step)),
+    `step` being the count of optimizer steps taken, this one included."""
+    d = min(decay, (1.0 + step) / (10.0 + step))
+    for k, e in ema.items():
+        e.mul_(d).add_(params[k], alpha=1.0 - d)
+
+
+@contextlib.contextmanager
+def swapped_in(model: nn.Module, weights: Dict[str, torch.Tensor]) -> Iterator[nn.Module]:
+    """Run `model` with `weights` (the EMA shadow, say), then put its own back."""
+    own = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    model.load_state_dict(weights, strict=True)
+    try:
+        yield model
+    finally:
+        model.load_state_dict(own, strict=True)

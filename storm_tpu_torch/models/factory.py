@@ -1,8 +1,9 @@
 """Model construction from a flat config dict (counterpart of storm_tpu/models/factory.py).
 
-Takes the same config dicts as the reference (the JSON a checkpoint carries).
-This slice builds the two StoRM modes with NCSN++ backbones and the OUVE SDE
-in float32; other choices raise NotImplementedError.
+Takes the same config dicts as the reference (the JSON a checkpoint carries),
+training keys included (lr, ema_decay, loss types, weighting, mode). This
+slice builds the two StoRM modes with NCSN++ backbones and the OUVE SDE in
+float32; other choices raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -15,9 +16,11 @@ from ..nn.init import reset_parameters
 from ..sde.sdes import OUVESDE
 from ..signal.stft import STFTConfig
 from ..signal.transforms import SpecTransform
-from .storm import CONDITION_CHANNELS, StochasticRegenerationModel
+from .storm import CONDITION_CHANNELS, STORM_MODES, StochasticRegenerationModel
 
-STORM_MODES = ("regen-joint-training", "regen-freeze-denoiser")
+# training keys of the config and their defaults (those of the reference class)
+TRAINING_KEYS = {"lr": 1e-4, "ema_decay": 0.999, "loss_type_denoiser": "mse",
+                 "loss_type_score": "mse", "weighting_denoiser_to_score": 0.5}
 
 
 def resolve_device(device) -> torch.device:
@@ -34,7 +37,8 @@ def resolve_device(device) -> torch.device:
 
 
 def build_model(config: Dict[str, Any], device="cuda", seed: int = 0) -> StochasticRegenerationModel:
-    """Build the StoRM model of `config` on `device`, in eval mode, with
+    """Build the StoRM model of `config` on `device`, in eval mode (the trainer
+    calls .train(); NCSN++'s dropout is 0, so both compute the same), with
     weights drawn from a generator seeded with `seed`."""
     device = resolve_device(device)
     cfg = dict(config)
@@ -65,6 +69,7 @@ def build_model(config: Dict[str, Any], device="cuda", seed: int = 0) -> Stochas
         cfg["N"] = cfg.pop("sde_n")
     condition = cfg.pop("condition", "both")
     t_eps = cfg.pop("t_eps", 0.03)
+    training = {k: cfg.pop(k, v) for k, v in TRAINING_KEYS.items()}
 
     denoiser = NCSNpp.from_kwargs(**{**cfg, "input_channels": 2, "discriminative": True})
     score = NCSNpp.from_kwargs(**{
@@ -74,7 +79,7 @@ def build_model(config: Dict[str, Any], device="cuda", seed: int = 0) -> Stochas
     sde = OUVESDE(**{k: cfg[k] for k in ("theta", "sigma_min", "sigma_max", "N") if k in cfg})
     model = StochasticRegenerationModel(
         denoiser, score, sde, stft_config=stft_config, transform=transform,
-        t_eps=t_eps, condition=condition,
+        t_eps=t_eps, condition=condition, mode=mode, **training,
     )
     reset_parameters(model, torch.Generator().manual_seed(seed))
     return model.to(device).eval()

@@ -17,6 +17,11 @@ def abs2(p: torch.Tensor) -> torch.Tensor:
     return p[..., 0] ** 2 + p[..., 1] ** 2
 
 
+def cabs(p: torch.Tensor) -> torch.Tensor:
+    """|z|, shape (...)."""
+    return torch.sqrt(abs2(p))
+
+
 def complex_normal(shape: Sequence[int], generator: Optional[torch.Generator] = None,
                    device=None, dtype=torch.float32) -> torch.Tensor:
     """Standard complex normal as packed (..., 2): Re/Im each N(0, 1/2)."""

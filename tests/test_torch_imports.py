@@ -49,5 +49,7 @@ def test_port_imports_no_jax():
     line = [ln for ln in out.stdout.splitlines() if ln.startswith("IMPORTED")][-1]
     names = line.split()[2:]
     for expected in ("storm_tpu_torch.kernels.upfirdn", "storm_tpu_torch.enhancement",
-                     "storm_tpu_torch.models.storm", "storm_tpu_torch.convert"):
+                     "storm_tpu_torch.models.storm", "storm_tpu_torch.convert",
+                     "storm_tpu_torch.train", "storm_tpu_torch.data.datasets",
+                     "storm_tpu_torch.data.loader", "storm_tpu_torch.data.datamodule"):
         assert expected in names, names
