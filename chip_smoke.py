@@ -11,7 +11,8 @@ Phases, each of which exits non-zero on failure:
    gives it (4 s request: 256 bins x 512 frames, B=1), with the NCSN++ FIR and
    with an asymmetric one, held to atol = rtol = 1e-5 against the plain
    PyTorch version; kernel, plain and library-call times (CUDA events) beside
-   the memory bound.
+   the memory bound. The same check, untimed, at the widths of the shorter
+   files (128 and 320 frames).
 4. full-width NCSN++: one 27.8M score-net forward through the kernel and
    through the plain version, same weights, held to 1e-4 of the output scale.
 5. main path: the full-width StoRM model (2 x 27.8M, seeded random weights)
@@ -22,8 +23,9 @@ Phases, each of which exits non-zero on failure:
 
 6. (with `--profile`) one enhancement of the 4 s file traced with
    torch.profiler: the device time by kernel and the device's busy share.
-7. backward kernel against plain: the gradient through upfirdn2d at every
-   shape a full-width train step gives it (B=8, 256 bins x 256 frames), from
+7. kernels against plain at a train step's shapes (B=8, 256 bins x 256
+   frames, which validation shares): the forward output at every forward
+   shape, and the gradient at every backward shape from
    `torch.autograd.grad` through the kernel path (forward and backward
    kernels) against PyTorch's autograd of the plain version, NCSN++ and
    asymmetric FIRs, atol = rtol = 1e-5; backward kernel, plain backward and
@@ -33,10 +35,16 @@ Phases, each of which exits non-zero on failure:
    deterministic; (b) `python -m storm_tpu_torch.train` for 8 steps at B=8
    on a synthesized wsj0-layout corpus: finite losses, parameters and EMA
    moved, `last.pt` and `best_loss.pt` written, exactly 36 forward and 33
-   backward upfirdn2d launches per step; ms per step, audio seconds trained
-   per second and peak memory; (c) the written checkpoint enhances one file
+   backward upfirdn2d launches per step; ms per step (CUDA events, no sync
+   added to the trainer's loop), audio seconds trained per second and peak
+   memory; (c) the written checkpoint enhances one file
    through `python -m storm_tpu_torch.enhancement` at N=2.
 9. (with `--profile`) two full-width train steps traced with torch.profiler.
+
+A profile's kernel times come from its device events, each counted once;
+shares are of the summed kernel time. The busy time is the union of the
+kernels' intervals, which kernels running side by side on several streams
+(cuDNN's FFT convolutions in a train step) do not count twice.
 
 The line before the last holds the per-kernel JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero and
@@ -70,6 +78,7 @@ from storm_tpu_torch.models.factory import build_model, resolve_device
 from storm_tpu_torch.models.storm import StochasticRegenerationModel
 from storm_tpu_torch.nn import resample
 from storm_tpu_torch.nn.init import reset_parameters
+from storm_tpu_torch.signal.transforms import pad_spec_amount
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, float32 outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -85,6 +94,17 @@ STORM_CONFIG = {"mode": "regen-joint-training", "init_scale": 1.0}
 N_STEPS, NFE = 50, 1 + 50 * 2  # CLI defaults: 1 denoiser + N x (ald + predictor)
 SECONDS = (1.0, 2.5, 4.0)
 SR = 16000
+
+
+def padded_frames(seconds: float) -> int:
+    """NCSN++ input width of a file: centred STFT frames, padded to 64."""
+    n = 1 + int(seconds * SR) // 128
+    return n + pad_spec_amount(n)
+
+
+# the other widths the enhancement path gives upfirdn2d (the trained
+# checkpoint's 1 s file included)
+OTHER_FRAMES = sorted({padded_frames(s) for s in SECONDS} - {FRAMES})
 # training: the CLI defaults' batch and crop (256 frames = 32640 samples, 2.04 s)
 TRAIN_B, TRAIN_FRAMES, TRAIN_STEPS = 8, 256, 8
 TRAIN_AUDIO_S = (TRAIN_FRAMES - 1) * 128 / SR
@@ -173,28 +193,51 @@ def bound_ms(n_in: int, n_out: int, taps: int):
             2.0 * taps * n_out / PEAK_F32_FLOP_PER_S * 1e3)
 
 
+ASYM = torch.randn(4, 4, generator=torch.Generator().manual_seed(1)).numpy()
+
+
+def forward_shapes(frames: int):
+    return sorted(set(k1_calls(6, frames) + k1_calls(2, frames)),
+                  key=lambda s: (s[0], -s[1], -s[2]))
+
+
+def compare(what: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want|; fails unless they agree to atol = rtol = 1e-5."""
+    torch.cuda.synchronize()
+    check(got.shape == want.shape, f"{what}: shape {tuple(got.shape)} vs {tuple(want.shape)}")
+    err = (got - want).abs().max().item()
+    check(torch.allclose(got, want, atol=1e-5, rtol=1e-5),
+          f"{what}: kernel disagrees with plain (max {err:.3e})")
+    return err
+
+
+def check_forward(cfg: str, x: torch.Tensor) -> float:
+    """upfirdn2d_cuda against the plain version on x, both FIRs."""
+    c = CONFIGS[cfg]
+    args = dict(up=c["up"], down=c["down"], pad=c["pad"])
+    return max(compare(f"upfirdn2d {cfg} {tuple(x.shape)}", kup.upfirdn2d_cuda(x, kern, **args),
+                       kup.upfirdn2d_plain(x, kern, **args))
+               for kern in (c["kernel"], ASYM))
+
+
 def phase_kernel_vs_plain(gen: torch.Generator):
-    asym = torch.randn(4, 4, generator=torch.Generator().manual_seed(1)).numpy()
-    shapes = sorted(set(k1_calls(6) + k1_calls(2)), key=lambda s: (s[0], -s[1], -s[2]))
     per_shape, max_err = {}, 0.0
-    for cfg, C, H, W in shapes:
+    for frames in OTHER_FRAMES:  # correctness only
+        errs = [check_forward(cfg, torch.randn(1, C, H, W, device="cuda", generator=gen))
+                for cfg, C, H, W in forward_shapes(frames)]
+        max_err = max(max_err, *errs)
+        print(f"  upfirdn2d at 256 x {frames} (B=1): {len(errs)} shapes agree with plain, "
+              f"max abs err {max(errs):.2e}", flush=True)
+    for cfg, C, H, W in forward_shapes(FRAMES):
         c = CONFIGS[cfg]
+        args = dict(up=c["up"], down=c["down"], pad=c["pad"])
         x = torch.randn(1, C, H, W, device="cuda", generator=gen)
-        for kern in (c["kernel"], asym):
-            got = kup.upfirdn2d_cuda(x, kern, up=c["up"], down=c["down"], pad=c["pad"])
-            want = kup.upfirdn2d_plain(x, kern, up=c["up"], down=c["down"], pad=c["pad"])
-            torch.cuda.synchronize()
-            check(got.shape == want.shape, f"upfirdn2d {cfg} C={C} {H}x{W}: shape")
-            err = (got - want).abs().max().item()
-            max_err = max(max_err, err)
-            check(torch.allclose(got, want, atol=1e-5, rtol=1e-5),
-                  f"upfirdn2d {cfg} C={C} {H}x{W}: kernel disagrees with plain (max {err:.3e})")
+        max_err = max(max_err, check_forward(cfg, x))
         lib = library_call(cfg, C)
-        want = kup.upfirdn2d_plain(x, c["kernel"], up=c["up"], down=c["down"], pad=c["pad"])
+        want = kup.upfirdn2d_plain(x, c["kernel"], **args)
         lib_err = (lib(x) - want).abs().max().item()
         check(lib_err <= 1e-5 + 1e-5 * want.abs().max().item(),
               f"library yardstick {cfg} C={C}: not the same function (max {lib_err:.3e})")
-        args = dict(up=c["up"], down=c["down"], pad=c["pad"])
         ms = time_ms(lambda: kup.upfirdn2d_cuda(x, c["kernel"], **args))
         plain_ms = time_ms(lambda: kup.upfirdn2d_plain(x, c["kernel"], **args), reps=5)
         library_ms = time_ms(lambda: lib(x))
@@ -302,27 +345,32 @@ def phase_main_path(workdir: str):
 
 
 def phase_backward_vs_plain(gen: torch.Generator):
-    """The gradient through upfirdn2d at each backward shape of a train step."""
-    asym = torch.randn(4, 4, generator=torch.Generator().manual_seed(1)).numpy()
-    shapes = sorted(set(k1_bwd_calls()), key=lambda s: (s[0], -s[1], -s[2]))
-    per_shape, max_err = {}, 0.0
-    for cfg, C, H, W in shapes:
+    """upfirdn2d at each forward shape of a train step, through the autograd
+    Function the model calls: its output, and where the step takes one its
+    gradient, against the plain version. Returns (per-shape backward times,
+    backward max error, forward max error)."""
+    bwd_calls = set(k1_bwd_calls())
+    per_shape, max_err, fwd_err = {}, 0.0, 0.0
+    for cfg, C, H, W in forward_shapes(TRAIN_FRAMES):
         c = CONFIGS[cfg]
         args = dict(up=c["up"], down=c["down"], pad=c["pad"])
+        needs_grad = (cfg, C, H, W) in bwd_calls
+        what = f"{cfg} B={TRAIN_B} C={C} {H}x{W}"
         x = torch.randn(TRAIN_B, C, H, W, device="cuda", generator=gen)
         Ho, Wo = (kup.output_size(n, 4, c["up"], c["down"], c["pad"]) for n in (H, W))
         g = torch.randn(TRAIN_B, C, Ho, Wo, device="cuda", generator=gen)
-        for kern in (asym, c["kernel"]):  # the NCSN++ FIR last: `want` serves below
-            xk = x.clone().requires_grad_()
-            (got,) = torch.autograd.grad(kup.upfirdn2d(xk, kern, **args), xk, g)
-            xp = x.clone().requires_grad_()
-            (want,) = torch.autograd.grad(kup.upfirdn2d_plain(xp, kern, **args), xp, g)
-            torch.cuda.synchronize()
-            check(got.shape == want.shape == x.shape, f"upfirdn2d_bwd {cfg} C={C}: shape")
-            err = (got - want).abs().max().item()
-            max_err = max(max_err, err)
-            check(torch.allclose(got, want, atol=1e-5, rtol=1e-5),
-                  f"upfirdn2d_bwd {cfg} C={C} {H}x{W}: kernel disagrees with plain (max {err:.3e})")
+        for kern in (ASYM, c["kernel"]):  # the NCSN++ FIR last: `want` serves below
+            xk = x.clone().requires_grad_(needs_grad)
+            xp = x.clone().requires_grad_(needs_grad)
+            out_k, out_p = kup.upfirdn2d(xk, kern, **args), kup.upfirdn2d_plain(xp, kern, **args)
+            fwd_err = max(fwd_err, compare(f"upfirdn2d {what}", out_k.detach(), out_p.detach()))
+            if needs_grad:
+                (got,) = torch.autograd.grad(out_k, xk, g)
+                (want,) = torch.autograd.grad(out_p, xp, g)
+                check(got.shape == x.shape, f"upfirdn2d_bwd {what}: shape")
+                max_err = max(max_err, compare(f"upfirdn2d_bwd {what}", got, want))
+        if not needs_grad:
+            continue
         lib = library_call(cfg, C, backward=True)
         lib_err = (lib(g) - want).abs().max().item()
         check(lib_err <= 1e-5 + 1e-5 * want.abs().max().item(),
@@ -339,7 +387,9 @@ def phase_backward_vs_plain(gen: torch.Generator):
               f"bound_ms={max(bytes_ms, ops_ms):.5f} "
               f"({'bytes' if bytes_ms >= ops_ms else 'operations'}) lib_err={lib_err:.2e}",
               flush=True)
-    return per_shape, max_err
+    print(f"  forward at every train-step shape: max abs err {fwd_err:.2e}; backward: "
+          f"max abs err {max_err:.2e}", flush=True)
+    return per_shape, max_err, fwd_err
 
 
 def grads_of(model, batch, t, z):
@@ -411,22 +461,26 @@ def phase_train(workdir: str):
     original = StochasticRegenerationModel.train_step
 
     def timed_step(model, state, batch, generator=None):
+        """train_step between two CUDA events; adds no host sync to the loop."""
         if not first_params:
             first_params.update({k: v.detach().clone() for k, v in model.state_dict().items()})
         before = (kup.upfirdn2d_cuda.launches, kup.upfirdn2d_bwd_cuda.launches)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
         aux = original(model, state, batch, generator)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        steps.append(dict(t0=t0, t1=t1, launches=(kup.upfirdn2d_cuda.launches - before[0],
-                                                  kup.upfirdn2d_bwd_cuda.launches - before[1])))
+        end.record()
+        steps.append(dict(start=start, end=end, loss=aux["loss"],
+                          launches=(kup.upfirdn2d_cuda.launches - before[0],
+                                    kup.upfirdn2d_bwd_cuda.launches - before[1])))
         return aux
 
+    # the loss is logged at the last step of each epoch only, where the epoch's
+    # mean reads it back anyway: the loop keeps its own host syncs and no more
+    epoch_len = TRAIN_FILES // TRAIN_B
     argv = ["--mode", "regen-joint-training", "--base_dir", corpus, "--format", "wsj0",
             "--batch_size", str(TRAIN_B), "--num_frames", str(TRAIN_FRAMES),
             "--max_steps", str(TRAIN_STEPS), "--num_eval_files", "0", "--log_dir", logs,
-            "--log_every_n_steps", "1", "--num_workers", "4", "--seed", "0",
+            "--log_every_n_steps", str(epoch_len), "--num_workers", "4", "--seed", "0",
             "--device", "cuda"]
     torch.cuda.reset_peak_memory_stats()
     kup.upfirdn2d_cuda.launches = kup.upfirdn2d_bwd_cuda.launches = 0
@@ -440,10 +494,15 @@ def phase_train(workdir: str):
 
     (run,) = os.listdir(logs)
     rows = [json.loads(line) for line in open(os.path.join(logs, run, "metrics.jsonl"))]
-    losses = [r["train_loss"] for r in rows if "train_loss" in r]
+    losses = [s["loss"].item() for s in steps]
+    logged = [r["step"] for r in rows if "train_loss" in r]
     valid = [r["valid_loss"] for r in rows if "valid_loss" in r]
-    check(len(steps) == len(losses) == TRAIN_STEPS, f"{len(steps)} steps, {len(losses)} losses")
-    check(all(np.isfinite(v) for r in rows for k, v in r.items() if k != "step"),
+    check(len(steps) == TRAIN_STEPS, f"{len(steps)} steps, expected {TRAIN_STEPS}")
+    check(logged == list(range(epoch_len, TRAIN_STEPS + 1, epoch_len)),
+          f"train losses logged at steps {logged}")
+    check(len(valid) == TRAIN_STEPS // epoch_len, f"{len(valid)} validations")
+    check(all(np.isfinite(losses))
+          and all(np.isfinite(v) for r in rows for k, v in r.items() if k != "step"),
           "a training or validation loss is not finite")
     check(all(s["launches"] == (STEP_FWD, STEP_BWD) for s in steps),
           f"launches per step {[s['launches'] for s in steps]}, expected {(STEP_FWD, STEP_BWD)}")
@@ -460,18 +519,19 @@ def phase_train(workdir: str):
     check(len(moved) > 0.9 * len(first_params) and len(ema_moved) == len(moved),
           f"{len(moved)} of {len(first_params)} tensors moved, {len(ema_moved)} in the EMA")
 
-    # step time: the loop's period between consecutive steps of one epoch
-    # (data loading included), and one train_step call alone
-    epoch_len = TRAIN_FILES // TRAIN_B
-    periods = [(steps[i]["t1"] - steps[i - 1]["t1"]) * 1e3
+    # step time on the card's clock: the loop's period between the ends of
+    # consecutive steps of one epoch (data loading included), and one
+    # train_step call from its first launch to its last kernel's end
+    periods = [steps[i - 1]["end"].elapsed_time(steps[i]["end"])
                for i in range(1, len(steps)) if i % epoch_len]
-    calls = [(s["t1"] - s["t0"]) * 1e3 for s in steps[1:]]
+    calls = [s["start"].elapsed_time(s["end"]) for s in steps[1:]]
+    first_s = steps[0]["start"].elapsed_time(steps[0]["end"]) / 1e3
     step_ms = statistics.median(periods)
     print(f"  trained {TRAIN_STEPS} steps at B={TRAIN_B} x {TRAIN_FRAMES} frames in {wall:.1f} s "
           f"wall (setup, validation and checkpoints included); losses "
           f"{[round(v, 2) for v in losses]}; valid {[round(v, 2) for v in valid]}", flush=True)
-    print(f"  step: {step_ms:.2f} ms median period (first step {steps[0]['t1'] - steps[0]['t0']:.3f} s; "
-          f"train_step alone median {statistics.median(calls):.2f} ms); "
+    print(f"  step: {step_ms:.2f} ms median period {[round(p, 2) for p in periods]} "
+          f"(first step {first_s:.3f} s; train_step alone median {statistics.median(calls):.2f} ms); "
           f"{TRAIN_B * TRAIN_AUDIO_S / (step_ms / 1e3):.3f} audio s trained per s; "
           f"peak memory {peak / 2**30:.2f} GiB; launches per step {steps[-1]['launches']}, "
           f"in all {launches}; {len(moved)} of {len(first_params)} tensors moved",
@@ -493,32 +553,54 @@ def phase_train(workdir: str):
 
 
 def print_profile(what: str, prof, wall_ms: float):
-    """Device time by kernel (kernel rows only: an operator's row repeats the
-    time of the kernels it launched), the summed kernel time, and the busy
-    time as the union of the kernels' intervals, which overlapping kernels do
-    not count twice."""
+    """Device time by kernel from the trace's device events. The spans of
+    record_function ranges on the device's timeline (user annotations, such
+    as the optimizer's step) cover kernels and are left out; an event listed
+    twice (same name, stream and interval) counts once. The busy time is the
+    union of the intervals; each kernel's share is of the summed kernel
+    time. Also printed: the sum of key_averages' device time over every
+    device row (annotations included) and the kernels that overlap, if any."""
     from torch.autograd import DeviceType
 
-    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                   for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
-                  key=lambda r: -r[1])
-    device_ms = sum(r[1] for r in rows)
-    check(device_ms > 0, "the profiler saw no device time")
-    busy_us, end = 0.0, -float("inf")
-    for start, stop in sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                              if e.device_type == DeviceType.CUDA):
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = [e for e in device if getattr(e, "is_user_annotation", False)]
+    events = [e for e in device if not getattr(e, "is_user_annotation", False)]
+    unique = sorted({(e.time_range.start, e.time_range.end, e.name,
+                      getattr(e, "device_resource_id", e.thread)) for e in events})
+    check(len(unique) > 0, "the profiler saw no device time")
+    by_name = {}
+    busy_us, end, end_name, overlaps = 0.0, -float("inf"), None, {}
+    for start, stop, name, _ in unique:
+        ms, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (ms + (stop - start) / 1e3, n + 1)
+        if start < end:
+            pair = (end_name[:40], name[:40])
+            overlaps[pair] = overlaps.get(pair, 0.0) + (min(stop, end) - start) / 1e3
         busy_us += max(0.0, stop - max(start, end))
-        end = max(end, stop)
-    print(f"  {what} under the profiler: wall {wall_ms:.1f} ms, kernel time summed "
-          f"{device_ms:.1f} ms ({100 * device_ms / wall_ms:.1f}% of wall), device busy "
-          f"(union of kernel intervals) {busy_us / 1e3:.1f} ms "
-          f"({100 * busy_us / 1e3 / wall_ms:.1f}% of wall)", flush=True)
+        if stop > end:
+            end, end_name = stop, name
+    rows = sorted(((k, ms, n) for k, (ms, n) in by_name.items()), key=lambda r: -r[1])
+    summed_ms, busy_ms = sum(r[1] for r in rows), busy_us / 1e3
+    averages_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA) / 1e3
+    span_ms = {}
+    for e in spans:
+        span_ms[e.name] = span_ms.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+    print(f"  {what} under the profiler: wall {wall_ms:.1f} ms; {len(events)} device events, "
+          f"{len(unique)} distinct, {len({u[3] for u in unique})} stream ids; kernel time summed "
+          f"{summed_ms:.1f} ms, device busy (union) {busy_ms:.1f} ms "
+          f"({100 * busy_ms / wall_ms:.1f}% of wall); key_averages' device time summed "
+          f"{averages_ms:.1f} ms; annotation spans {sum(span_ms.values()):.1f} ms "
+          f"{ {k[:40]: round(v, 2) for k, v in sorted(span_ms.items(), key=lambda kv: -kv[1])[:4]} }",
+          flush=True)
+    for (a, b), ms in sorted(overlaps.items(), key=lambda o: -o[1])[:5]:
+        print(f"    overlap {ms:8.2f} ms: {a} | {b}")
     for key, ms, count in rows[:15]:
-        print(f"    {100 * ms / device_ms:5.1f}%  {ms:9.2f} ms  x{count:6d}  {key[:90]}")
+        print(f"    {100 * ms / summed_ms:5.1f}%  {ms:9.2f} ms  x{count:6d}  {key[:90]}")
     for name in ("upfirdn2d_k4<1, 2>", "upfirdn2d_k4<2, 1>"):
         sel = [r for r in rows if name in r[0]]
         print(f"  {name}: {sum(r[1] for r in sel):.2f} ms in {sum(r[2] for r in sel)} launches "
-              f"({100 * sum(r[1] for r in sel) / device_ms:.2f}% of kernel time)", flush=True)
+              f"({100 * sum(r[1] for r in sel) / summed_ms:.2f}% of kernel time)", flush=True)
 
 
 def phase_profile_train():
@@ -601,9 +683,10 @@ def main():
         print("== phase 6: where the device time goes", flush=True)
         phase_profile()
 
-    print("== phase 7: upfirdn2d backward kernel against plain at a train step's shapes",
+    print("== phase 7: upfirdn2d forward and backward kernels against plain at a train "
+          "step's shapes",
           flush=True)
-    bwd_shape, bwd_err = phase_backward_vs_plain(gen)
+    bwd_shape, bwd_err, train_fwd_err = phase_backward_vs_plain(gen)
 
     print("== phase 8: training through storm_tpu_torch.train", flush=True)
     phase_train_gradients(gen)
@@ -625,7 +708,8 @@ def main():
                 "library_ms": total["library_ms"], "work": work, **extra}
 
     record = {"kernels": [
-        entry("upfirdn2d", "storm_tpu/kernels/upfirdn.py:139", per_shape, k1_calls(6), max_err,
+        entry("upfirdn2d", "storm_tpu/kernels/upfirdn.py:139", per_shape, k1_calls(6),
+              max(max_err, train_fwd_err),
               launches + train_launches[0],
               "the 18 calls of one full-width score-net forward, B=1, 256 x 512",
               launches_by_path={"enhancement": launches, "train": train_launches[0]}),

@@ -18,9 +18,9 @@ from ..signal.stft import STFTConfig
 from ..signal.transforms import SpecTransform
 from .storm import CONDITION_CHANNELS, STORM_MODES, StochasticRegenerationModel
 
-# training keys of the config and their defaults (those of the reference class)
-TRAINING_KEYS = {"lr": 1e-4, "ema_decay": 0.999, "loss_type_denoiser": "mse",
-                 "loss_type_score": "mse", "weighting_denoiser_to_score": 0.5}
+# training keys of the config; their defaults are StochasticRegenerationModel's
+TRAINING_KEYS = ("lr", "ema_decay", "loss_type_denoiser", "loss_type_score",
+                 "weighting_denoiser_to_score")
 
 
 def resolve_device(device) -> torch.device:
@@ -69,7 +69,7 @@ def build_model(config: Dict[str, Any], device="cuda", seed: int = 0) -> Stochas
         cfg["N"] = cfg.pop("sde_n")
     condition = cfg.pop("condition", "both")
     t_eps = cfg.pop("t_eps", 0.03)
-    training = {k: cfg.pop(k, v) for k, v in TRAINING_KEYS.items()}
+    training = {k: cfg.pop(k) for k in TRAINING_KEYS if k in cfg}
 
     denoiser = NCSNpp.from_kwargs(**{**cfg, "input_channels": 2, "discriminative": True})
     score = NCSNpp.from_kwargs(**{
