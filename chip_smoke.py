@@ -40,6 +40,30 @@ Phases, each of which exits non-zero on failure:
    memory; (c) the written checkpoint enhances one file
    through `python -m storm_tpu_torch.enhancement` at N=2.
 9. (with `--profile`) two full-width train steps traced with torch.profiler.
+10. int8 quantizer (K3) against plain: activation scales calibrated on the
+   4 s file, then the input of every quantized conv of one denoiser and one
+   score forward at the 4 s request's width (110 calls, f32), with exact .5
+   ties and values beyond +-127 written in; the codes must be identical.
+   Kernel and plain times per input shape beside the memory bound (5 B per
+   element). The same at the probe's shape, (16*256*256, 128) bf16, s = 12.7
+   (3 B per element), and with bf16 ties at s = 2. The record's error is
+   the largest |kernel code - plain code| over all these inputs.
+11. int8 main path: `python -m storm_tpu_torch.enhancement --quant int8` on
+   phase 5's checkpoint and files: the first run calibrates and writes the
+   scale cache, the second loads it; outputs finite and as long as the
+   inputs; per file exactly 55 + 55 x 100 = 5555 quantizer launches and 18
+   upfirdn2d launches per forward (calibration runs with quantization off:
+   no quantizer launch, 18 per calibration forward). Then, with cuDNN
+   deterministic and the same noise, the 4 s file's int8 output through the
+   kernel against the same path with the plain quantizer (<= 1e-6 of the
+   output's scale), and each file's int8 output against float32; RTF int8
+   against float32 (phase 5).
+12. fused_leaky_relu (K2) through its op API at (8, 256, 256, 128) and
+   (3, 17, 33, 6): forward against the plain version at atol = rtol = 1e-6,
+   and both gradients (torch.autograd.grad) equal to autograd of the plain
+   version's, bit for bit; kernel and plain times
+   beside the memory bound (8 B per element).
+13. (with `--profile`) one int8 enhancement of the 4 s file traced.
 
 A profile's kernel times come from its device events, each counted once;
 shares are of the summed kernel time. The busy time is the union of the
@@ -54,8 +78,10 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -72,13 +98,17 @@ from storm_tpu_torch.backbones.ncsnpp import NCSNpp, count_parameters
 from storm_tpu_torch.ckpt import load_training_checkpoint, save_checkpoint
 from storm_tpu_torch.data.audio import load_wav, save_wav
 from storm_tpu_torch.kernels import build
+from storm_tpu_torch.kernels import fused_act as kfa
+from storm_tpu_torch.kernels import quant as kq
 from storm_tpu_torch.kernels import upfirdn as kup
+from storm_tpu_torch.models import quant as quant_mod
 from storm_tpu_torch.models.base import init_train_state
 from storm_tpu_torch.models.factory import build_model, resolve_device
 from storm_tpu_torch.models.storm import StochasticRegenerationModel
-from storm_tpu_torch.nn import resample
+from storm_tpu_torch.nn import qconv, resample
 from storm_tpu_torch.nn.init import reset_parameters
 from storm_tpu_torch.signal.transforms import pad_spec_amount
+from storm_tpu_torch.utils.serving import n_quantized, scale_cache_path
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, float32 outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -119,6 +149,17 @@ STEP_FWD, STEP_BWD = 2 * 18, 2 * 18 - 3
 # bias); and the global L2 norm of the difference <= GRAD_NORM_RTOL * the norm.
 # The two paths differ only in K1's summation order.
 GRAD_RTOL, GRAD_FLOOR, GRAD_NORM_RTOL = 1e-3, 1e-5, 1e-4
+# int8 serving at --quant_min_channels 128: every resblock's Conv_0, Conv_1 and
+# Conv_2 of each full-width net; per file 1 denoiser forward and N x 2 score
+# forwards, each launching the quantizer once per quantized conv
+QUANT_MIN_CHANNELS, N_QUANT = 128, 55
+K3_PER_FILE = N_QUANT + N_QUANT * N_STEPS * 2
+# calibration (quantization off): the denoiser, a trajectory of min(N, 10)
+# steps, then the prior and 8 probes spread over it (np.unique of 8 indices)
+CALIB_N = min(N_STEPS, 10)
+CALIB_FORWARDS = 1 + CALIB_N + 1 + len(np.unique(np.linspace(0, CALIB_N - 1, 8).astype(int)))
+PROBE_SHAPE, PROBE_S = (16 * 256 * 256, 128), 12.7  # scripts/perf_fusion_probe.py's qkernel
+K2_SHAPES = [(8, 256, 256, 128), (3, 17, 33, 6)]
 
 
 def fail(msg: str):
@@ -301,7 +342,34 @@ def write_wavs(directory: str):
     return lengths
 
 
+def run_enhancement(argv) -> str:
+    """`python -m storm_tpu_torch.enhancement` in this process; its standard
+    output is printed and returned."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        enhancement.main(argv)
+    torch.cuda.synchronize()
+    text = buf.getvalue()
+    print("".join(f"    | {line}\n" for line in text.splitlines()), end="", flush=True)
+    return text
+
+
+def rtf_of(text: str):
+    """{file name: RTF} from the CLI's --timeit lines."""
+    return {m.group(1): float(m.group(2))
+            for m in re.finditer(r"^(\S+\.wav): nfe=\d+ rtf=([0-9.]+)", text, re.M)}
+
+
+def check_outputs(out: str, lengths):
+    for name, n in lengths.items():
+        x, sr = load_wav(os.path.join(out, name))
+        check(sr == SR and x.shape == (1, n), f"{name}: output shape {x.shape}, expected (1, {n})")
+        check(bool(np.isfinite(x).all()), f"{name}: output not finite")
+
+
 def phase_main_path(workdir: str):
+    """Returns (upfirdn2d launches, {file: RTF}, {file: samples}); leaves the
+    checkpoint and the files in `workdir` for phase 11."""
     model = build_model(STORM_CONFIG, device="cuda", seed=0)
     ckpt = os.path.join(workdir, "storm.pt")
     save_checkpoint(ckpt, STORM_CONFIG, model.state_dict())
@@ -310,16 +378,11 @@ def phase_main_path(workdir: str):
 
     kup.upfirdn2d_cuda.launches = 0
     t0 = time.perf_counter()
-    enhancement.main(["--test_dir", noisy, "--enhanced_dir", out, "--ckpt", ckpt,
-                      "--mode", "storm", "--timeit", "--device", "cuda"])
-    torch.cuda.synchronize()
+    text = run_enhancement(["--test_dir", noisy, "--enhanced_dir", out, "--ckpt", ckpt,
+                            "--mode", "storm", "--timeit", "--device", "cuda"])
     wall = time.perf_counter() - t0
     launches = kup.upfirdn2d_cuda.launches
-
-    for name, n in lengths.items():
-        x, sr = load_wav(os.path.join(out, name))
-        check(sr == SR and x.shape == (1, n), f"{name}: output shape {x.shape}, expected (1, {n})")
-        check(bool(np.isfinite(x).all()), f"{name}: output not finite")
+    check_outputs(out, lengths)
     expected = 18 * NFE * len(SECONDS)
     print(f"  enhanced {len(SECONDS)} files ({sum(SECONDS)} s of audio) in {wall:.2f} s wall; "
           f"upfirdn2d launches {launches} (expected 18 x {NFE} x {len(SECONDS)} = {expected})",
@@ -341,7 +404,7 @@ def phase_main_path(workdir: str):
     print(f"  enhance (1 s file) kernel vs plain: max abs err {err:.3e} (scale {scale:.3e})",
           flush=True)
     check(err <= 1e-3 * scale, f"main path with the kernel disagrees with plain ({err:.3e})")
-    return launches
+    return launches, rtf_of(text), lengths
 
 
 def phase_backward_vs_plain(gen: torch.Generator):
@@ -552,7 +615,11 @@ def phase_train(workdir: str):
     return launches
 
 
-def print_profile(what: str, prof, wall_ms: float):
+K1_KERNELS = {"upfirdn2d_k4<1, 2>": ("upfirdn2d_k4<1, 2>",),
+              "upfirdn2d_k4<2, 1>": ("upfirdn2d_k4<2, 1>",)}
+
+
+def print_profile(what: str, prof, wall_ms: float, groups=K1_KERNELS):
     """Device time by kernel from the trace's device events. The spans of
     record_function ranges on the device's timeline (user annotations, such
     as the optimizer's step) cover kernels and are left out; an event listed
@@ -595,11 +662,11 @@ def print_profile(what: str, prof, wall_ms: float):
           flush=True)
     for (a, b), ms in sorted(overlaps.items(), key=lambda o: -o[1])[:5]:
         print(f"    overlap {ms:8.2f} ms: {a} | {b}")
-    for key, ms, count in rows[:15]:
+    for key, ms, count in rows[:20]:
         print(f"    {100 * ms / summed_ms:5.1f}%  {ms:9.2f} ms  x{count:6d}  {key[:90]}")
-    for name in ("upfirdn2d_k4<1, 2>", "upfirdn2d_k4<2, 1>"):
-        sel = [r for r in rows if name in r[0]]
-        print(f"  {name}: {sum(r[1] for r in sel):.2f} ms in {sum(r[2] for r in sel)} launches "
+    for label, keys in groups.items():
+        sel = [r for r in rows if any(k in r[0] for k in keys)]
+        print(f"  {label}: {sum(r[1] for r in sel):.2f} ms in {sum(r[2] for r in sel)} launches "
               f"({100 * sum(r[1] for r in sel) / summed_ms:.2f}% of kernel time)", flush=True)
 
 
@@ -640,11 +707,286 @@ def phase_profile():
     print_profile(f"enhance {max(SECONDS)} s file", prof, wall_ms)
 
 
+# --- int8 serving (phases 10, 11, 13) and fused_leaky_relu (phase 12)
+
+
+def f32_ties(inv: float) -> np.ndarray:
+    """float32 values x with x * inv (a float32 product) exactly k + 0.5, for
+    k in [-130, 130) where such an x exists."""
+    inv32 = np.float32(inv)
+    want = (np.arange(-130, 130) + 0.5).astype(np.float32)
+    base = (want.astype(np.float64) / float(inv32)).astype(np.float32)
+    found = [c[(c * inv32) == want]
+             for c in (base, np.nextafter(base, np.float32(np.inf)),
+                       np.nextafter(base, np.float32(-np.inf)))]
+    return np.unique(np.concatenate(found))
+
+
+def bf16_ties(inv: float) -> np.ndarray:
+    """Every bfloat16 value (as float32) whose float32 product with inv is
+    exactly k + 0.5, |k + 0.5| < 130."""
+    x = (np.arange(1 << 16, dtype=np.uint32) << 16).view(np.float32)
+    x = x[np.isfinite(x) & (np.abs(x) < np.float32(130 / inv))]
+    v = x * np.float32(inv)
+    return x[v - np.floor(v) == 0.5]
+
+
+def with_ties(x: torch.Tensor, inv: float) -> int:
+    """Write exact .5 ties (tiled over the first elements) and values beyond
+    +-127 (the last ones) into x in place; returns the count of ties."""
+    ties = bf16_ties(inv) if x.dtype == torch.bfloat16 else f32_ties(inv)
+    flat = x.view(-1)
+    n = min(len(ties) * 64, flat.numel() // 2)
+    if n:
+        flat[:n] = torch.from_numpy(np.resize(ties, n)).to(flat)
+    sat = np.array([200, -200, 1e4, -1e4, 127.49, -127.6], np.float32) / np.float32(inv)
+    flat[-len(sat):] = torch.from_numpy(sat).to(flat)
+    return n
+
+
+def check_codes(what: str, x: torch.Tensor, inv: float) -> int:
+    """Hold the kernel's codes to plain's, exactly; returns max |got - want|."""
+    got, want = kq.quantize_int8_cuda(x, inv), kq.quantize_int8_plain(x, inv)
+    diff = (got.to(torch.int16) - want.to(torch.int16)).abs()
+    differ, err = int((diff != 0).sum().item()), int(diff.max().item())
+    check(differ == 0, f"quantize_int8 {what}: {differ} codes differ from plain, by up to {err}")
+    return err
+
+
+def k3_bound_ms(x: torch.Tensor):
+    """(bytes bound, operations bound) in ms: the input and one byte per
+    element once over the memory rate; multiply, round and clip (3 ops) per
+    element over the f32 peak."""
+    return ((x.element_size() + 1) * x.numel() / PEAK_BYTES_PER_S * 1e3,
+            3.0 * x.numel() / PEAK_F32_FLOP_PER_S * 1e3)
+
+
+def phase_quantizer_vs_plain(workdir: str, gen: torch.Generator):
+    """K3 at every quantized-conv input of the 4 s request, and at the probe's
+    shape. Returns ({input shape: times}, the score forward's shapes, probe,
+    the largest |kernel code - plain code| over every input)."""
+    model = build_model(STORM_CONFIG, device="cuda", seed=0)
+    name = f"utt{len(SECONDS) - 1}_{SECONDS[-1]:.1f}s.wav"
+    y = torch.from_numpy(load_wav(os.path.join(workdir, "noisy", name))[0]).cuda()
+    quant = quant_mod.calibrate_storm(model, y, N=CALIB_N, min_channels=QUANT_MIN_CHANNELS,
+                                      generator=torch.Generator(device="cuda").manual_seed(1))
+    check(n_quantized(quant) == 2 * N_QUANT,
+          f"{n_quantized(quant)} convs quantized, expected {2 * N_QUANT}")
+    calls = []  # (net, input, inv) of every quantized conv call of one forward per net
+
+    def capture(net):
+        def hook(mod, inp, out):
+            if mod.a_scale is not None:
+                calls.append((net, inp[0].clone(), qconv.activation_inverse(mod.a_scale)))
+        return hook
+
+    hooks = [m.register_forward_hook(capture(net))
+             for net in ("denoiser", "score")
+             for m in qconv.quantizable_convs(getattr(model, f"{net}_net")).values()]
+    try:
+        with torch.inference_mode():
+            model.enhance(y, N=1, corrector="none", quant=quant)  # one forward of each net
+    finally:
+        for h in hooks:
+            h.remove()
+    check(len(calls) == 2 * N_QUANT, f"{len(calls)} quantized conv calls, expected {2 * N_QUANT}")
+    per_shape, score_shapes, ties, max_err = {}, [], 0, 0
+    with torch.inference_mode():  # the captured inputs are inference tensors
+        for net, x, inv in calls:
+            shape = tuple(x.shape)
+            ties += with_ties(x, inv)
+            max_err = max(max_err, check_codes(f"{net} {shape}", x, inv))
+            if net != "score":
+                continue
+            score_shapes.append(shape)
+            if shape not in per_shape:
+                bytes_ms, ops_ms = k3_bound_ms(x)
+                per_shape[shape] = dict(
+                    ms=time_ms(lambda: kq.quantize_int8_cuda(x, inv)),
+                    plain_ms=time_ms(lambda: kq.quantize_int8_plain(x, inv), reps=5),
+                    bytes_ms=bytes_ms, ops_ms=ops_ms, calls=0)
+            per_shape[shape]["calls"] += 1
+    del calls
+    print(f"  {2 * N_QUANT} quantized conv inputs (f32), {ties} exact ties written in: codes "
+          f"identical to plain", flush=True)
+    for shape, r in per_shape.items():
+        print(f"  quantize_int8 f32 {shape} x{r['calls']} per score forward: ms={r['ms']:.5f} "
+              f"plain_ms={r['plain_ms']:.5f} bound_ms={max(r['bytes_ms'], r['ops_ms']):.5f} "
+              f"(bytes) ratio={r['ms'] / r['bytes_ms']:.2f}", flush=True)
+
+    x = (10.0 * torch.randn(PROBE_SHAPE, device="cuda", generator=gen)).to(torch.bfloat16)
+    probe_ties = with_ties(x, PROBE_S)
+    max_err = max(max_err, check_codes(f"probe {PROBE_SHAPE} bf16", x, PROBE_S))
+    bytes_ms, ops_ms = k3_bound_ms(x)
+    probe = dict(shape=PROBE_SHAPE, dtype="bfloat16", s=PROBE_S, ties=probe_ties,
+                 ms=time_ms(lambda: kq.quantize_int8_cuda(x, PROBE_S)),
+                 plain_ms=time_ms(lambda: kq.quantize_int8_plain(x, PROBE_S), reps=5),
+                 bound_ms=max(bytes_ms, ops_ms))
+    half = x[: PROBE_SHAPE[0] // 16].clone()  # bf16 ties exist at s = 2
+    two_ties = with_ties(half, 2.0)
+    check(two_ties > 0, "no bf16 tie at s = 2")
+    max_err = max(max_err, check_codes("bf16 at s = 2", half, 2.0))
+    print(f"  probe {PROBE_SHAPE} bf16 s={PROBE_S} ({probe_ties} exact ties): "
+          f"ms={probe['ms']:.5f} plain_ms={probe['plain_ms']:.5f} "
+          f"bound_ms={probe['bound_ms']:.5f} (bytes); bf16 at s=2 with {two_ties} ties: codes "
+          f"identical; max |kernel code - plain code| over all {2 * N_QUANT + 2} inputs: "
+          f"{max_err}", flush=True)
+    return per_shape, score_shapes, probe, max_err
+
+
+def phase_int8_path(workdir: str, f32_rtf, lengths):
+    """`python -m storm_tpu_torch.enhancement --quant int8` twice on phase 5's
+    checkpoint and files; then the int8 path against the plain quantizer and
+    against float32. Returns the first run's quantizer launches."""
+    ckpt = os.path.join(workdir, "storm.pt")
+    noisy, out = os.path.join(workdir, "noisy"), os.path.join(workdir, "enhanced_int8")
+    cache = scale_cache_path(ckpt)
+    argv = ["--test_dir", noisy, "--enhanced_dir", out, "--ckpt", ckpt, "--mode", "storm",
+            "--timeit", "--device", "cuda", "--quant", "int8",
+            "--quant_min_channels", str(QUANT_MIN_CHANNELS)]
+    per_file = []
+    original = StochasticRegenerationModel.enhance
+
+    def counted(model, *args, **kwargs):
+        before = (kq.quantize_int8_cuda.launches, kup.upfirdn2d_cuda.launches)
+        result = original(model, *args, **kwargs)
+        per_file.append((kq.quantize_int8_cuda.launches - before[0],
+                         kup.upfirdn2d_cuda.launches - before[1]))
+        return result
+
+    runs = []
+    for run in (1, 2):
+        per_file.clear()
+        kq.quantize_int8_cuda.launches = kup.upfirdn2d_cuda.launches = 0
+        t0 = time.perf_counter()
+        with mock.patch.object(StochasticRegenerationModel, "enhance", counted):
+            text = run_enhancement(argv)
+        wall = time.perf_counter() - t0
+        totals = (kq.quantize_int8_cuda.launches, kup.upfirdn2d_cuda.launches)
+        check_outputs(out, lengths)
+        calibrated = 1 if run == 1 else 0
+        if run == 1:
+            check(f"int8 calibration done ({2 * N_QUANT} convs quantized; scales saved to "
+                  f"{cache})" in text and os.path.exists(cache), "run 1 did not calibrate")
+        else:
+            check(f"int8 scales loaded from {cache} ({2 * N_QUANT} convs quantized" in text,
+                  "run 2 did not load the cached scales")
+        check(per_file == [(K3_PER_FILE, 18 * NFE)] * len(SECONDS),
+              f"run {run}: launches per file {per_file}, expected "
+              f"{(K3_PER_FILE, 18 * NFE)} for each of {len(SECONDS)}")
+        check(totals == (K3_PER_FILE * len(SECONDS),
+                         18 * (NFE * len(SECONDS) + calibrated * CALIB_FORWARDS)),
+              f"run {run}: launches {totals}")
+        runs.append(dict(rtf=rtf_of(text), totals=totals, wall=wall))
+        print(f"  run {run}: {wall:.2f} s wall; quantizer launches {totals[0]} "
+              f"({K3_PER_FILE} per file), upfirdn2d {totals[1]} (18 x {NFE} per file"
+              f"{f' + 18 x {CALIB_FORWARDS} calibration forwards' if calibrated else ''})",
+              flush=True)
+
+    # the same files and noise, direct: int8 through the kernel, int8 with
+    # the plain quantizer (4 s file), float32; cuDNN deterministic
+    model = build_model(STORM_CONFIG, device="cuda", seed=0)
+    quant = quant_mod.load_scales(cache)
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name in lengths:
+            y = torch.from_numpy(load_wav(os.path.join(noisy, name))[0]).cuda()
+
+            def enhance(**kw):
+                gen = torch.Generator(device="cuda").manual_seed(0)
+                return model.enhance(y, N=N_STEPS, corrector="ald", generator=gen, **kw)[0]
+
+            x8, x32 = enhance(quant=quant), enhance()
+            check(bool(torch.isfinite(x8).all()), f"{name}: int8 output not finite")
+            scale = x32.abs().max().item()
+            rel = (x8 - x32).abs().max().item() / scale
+            line = (f"  {name}: RTF f32 {f32_rtf[name]:.4f} (phase 5), int8 "
+                    f"{runs[0]['rtf'][name]:.4f} / {runs[1]['rtf'][name]:.4f} (runs 1 / 2); "
+                    f"max|int8 - f32| / max|f32| = {rel:.4e}")
+            if name == max(lengths, key=lengths.get):
+                with mock.patch.object(qconv, "quantize_int8", kq.quantize_int8_plain):
+                    xp = enhance(quant=quant)
+                err, s8 = (x8 - xp).abs().max().item(), xp.abs().max().item()
+                line += f"; kernel vs plain quantizer max abs err {err:.3e} (scale {s8:.3e})"
+                check(err <= 1e-6 * s8, f"{name}: int8 path with the kernel disagrees with the "
+                                        f"plain quantizer ({err:.3e})")
+            print(line, flush=True)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return runs[0]["totals"][0]
+
+
+def phase_fused_act(gen: torch.Generator):
+    """K2 through its op API, forward and gradient, against autograd of plain."""
+    inputs = [tuple(torch.randn(shape if i != 1 else shape[-1:], device="cuda", generator=gen)
+                    for i in range(3)) for shape in K2_SHAPES]
+    kfa.fused_leaky_relu_cuda.launches = 0
+    results = []
+    for x, b, g in inputs:
+        xk, bk = x.clone().requires_grad_(), b.clone().requires_grad_()
+        out = kfa.fused_leaky_relu(xk, bk)
+        results.append((out.detach(), *torch.autograd.grad(out, (xk, bk), g)))
+    torch.cuda.synchronize()
+    launches = kfa.fused_leaky_relu_cuda.launches
+    check(launches == len(K2_SHAPES), f"fused_leaky_relu launched {launches} times")
+    max_err = 0.0
+    for (x, b, g), (out, gx, gb) in zip(inputs, results):
+        xp, bp = x.clone().requires_grad_(), b.clone().requires_grad_()
+        want = kfa.fused_leaky_relu_plain(xp, bp)
+        hx, hb = torch.autograd.grad(want, (xp, bp), g)
+        what = f"fused_leaky_relu {tuple(x.shape)}"
+        errs = []
+        # the forward at atol = rtol = 1e-6; both gradients exactly: the
+        # backward is autograd's own arithmetic on the kernel's mask
+        for part, got, ref, exact in (("forward", out, want.detach(), False),
+                                      ("grad x", gx, hx, True), ("grad bias", gb, hb, True)):
+            errs.append((got - ref).abs().max().item())
+            ok = torch.equal(got, ref) if exact else torch.allclose(got, ref, atol=1e-6, rtol=1e-6)
+            check(ok, f"{what} {part}: max abs err {errs[-1]:.3e}"
+                      f"{' (must be 0)' if exact else ''}")
+        max_err = max(max_err, *errs)
+        print(f"  {what}: max abs err forward {errs[0]:.2e}, grad x {errs[1]:.2e}, grad bias "
+              f"{errs[2]:.2e} (largest grad bias {hb.abs().max().item():.3e})", flush=True)
+    x, b, _ = inputs[0]
+    n = x.numel()
+    bytes_ms = (8.0 * n + 4.0 * b.numel()) / PEAK_BYTES_PER_S * 1e3
+    ops_ms = 4.0 * n / PEAK_F32_FLOP_PER_S * 1e3
+    with torch.no_grad():
+        r = dict(ms=time_ms(lambda: kfa.fused_leaky_relu_cuda(x, b)),
+                 mask_ms=time_ms(lambda: kfa.fused_leaky_relu_cuda(x, b, with_mask=True)),
+                 plain_ms=time_ms(lambda: kfa.fused_leaky_relu_plain(x, b), reps=5),
+                 bytes_ms=bytes_ms, ops_ms=ops_ms, launches=launches, max_abs_err=max_err)
+    print(f"  fused_leaky_relu {tuple(x.shape)}: ms={r['ms']:.5f} (with the mask "
+          f"{r['mask_ms']:.5f}) plain_ms={r['plain_ms']:.5f} bound_ms={max(bytes_ms, ops_ms):.5f} "
+          f"(bytes; 9 B per element with the mask: "
+          f"{9.0 * n / PEAK_BYTES_PER_S * 1e3:.5f})", flush=True)
+    return r
+
+
+def phase_profile_int8(workdir: str):
+    """Trace one int8 enhancement of the 4 s file (CLI defaults)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    model = build_model(STORM_CONFIG, device="cuda", seed=0)
+    quant = quant_mod.load_scales(scale_cache_path(os.path.join(workdir, "storm.pt")))
+    y = torch.from_numpy(synth_wav(max(SECONDS), 0, np.random.default_rng(0))[None]).cuda()
+    model.enhance(y, N=2, corrector="ald", quant=quant)  # warm-up at the same shapes
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.enhance(y, N=N_STEPS, corrector="ald", quant=quant)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    print_profile(f"int8 enhance {max(SECONDS)} s file", prof, wall_ms,
+                  groups={**K1_KERNELS, "quantize_int8 (K3)": ("quantize_int8_kernel",),
+                          "int8 GEMM (torch._int_mm)": ("gemm_s8", "imma", "i8i8", "s8s8")})
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
-                        help="also trace one enhancement and two train steps and print "
-                             "the device time by kernel")
+                        help="also trace one enhancement, two train steps and one int8 "
+                             "enhancement and print the device time by kernel")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         fail("no CUDA device: chip_smoke.py runs on a card only")
@@ -661,7 +1003,7 @@ def main():
     print("== phase 2: build", flush=True)
     t0 = time.perf_counter()
     logs = build.build()
-    kup._lib()
+    kup._lib(), kq._lib(), kfa._lib()
     print(f"  built {list(logs) or 'nothing (cached)'} in {time.perf_counter() - t0:.2f} s", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
@@ -675,48 +1017,78 @@ def main():
     print("== phase 4: full-width NCSN++ forward, kernel path against plain path", flush=True)
     phase_full_width_forward(gen)
 
-    print("== phase 5: main path through storm_tpu_torch.enhancement", flush=True)
-    with tempfile.TemporaryDirectory() as workdir:
-        launches = phase_main_path(workdir)
+    with tempfile.TemporaryDirectory() as workdir:  # phase 5's checkpoint and files, for 10-11
+        print("== phase 5: main path through storm_tpu_torch.enhancement", flush=True)
+        launches, f32_rtf, lengths = phase_main_path(workdir)
 
-    if args.profile:
-        print("== phase 6: where the device time goes", flush=True)
-        phase_profile()
+        if args.profile:
+            print("== phase 6: where the device time goes", flush=True)
+            phase_profile()
 
-    print("== phase 7: upfirdn2d forward and backward kernels against plain at a train "
-          "step's shapes",
-          flush=True)
-    bwd_shape, bwd_err, train_fwd_err = phase_backward_vs_plain(gen)
+        print("== phase 7: upfirdn2d forward and backward kernels against plain at a train "
+              "step's shapes", flush=True)
+        bwd_shape, bwd_err, train_fwd_err = phase_backward_vs_plain(gen)
 
-    print("== phase 8: training through storm_tpu_torch.train", flush=True)
-    phase_train_gradients(gen)
-    with tempfile.TemporaryDirectory() as workdir:
-        train_launches = phase_train(workdir)
+        print("== phase 8: training through storm_tpu_torch.train", flush=True)
+        phase_train_gradients(gen)
+        with tempfile.TemporaryDirectory() as train_dir:
+            train_launches = phase_train(train_dir)
 
-    if args.profile:
-        print("== phase 9: where a train step's device time goes", flush=True)
-        phase_profile_train()
+        if args.profile:
+            print("== phase 9: where a train step's device time goes", flush=True)
+            phase_profile_train()
 
-    def entry(name, replaces, per_shape_ms, calls, err, launches, work, **extra):
-        total = {k: sum(per_shape_ms[c][k] for c in calls)
-                 for k in ("ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms")}
-        return {"name": name, "route": "cuda", "source": "storm_tpu_torch/csrc/upfirdn2d.cu",
+        print("== phase 10: int8 quantizer kernel against plain at the int8 path's inputs",
+              flush=True)
+        k3_shape, k3_calls, probe, k3_err = phase_quantizer_vs_plain(workdir, gen)
+
+        print("== phase 11: int8 main path through storm_tpu_torch.enhancement --quant int8",
+              flush=True)
+        k3_launches = phase_int8_path(workdir, f32_rtf, lengths)
+
+        print("== phase 12: fused_leaky_relu kernel through its op API against plain",
+              flush=True)
+        k2 = phase_fused_act(gen)
+
+        if args.profile:
+            print("== phase 13: where an int8 enhancement's device time goes", flush=True)
+            phase_profile_int8(workdir)
+
+    def entry(name, source, replaces, per_shape_ms, calls, err, launches, work, **extra):
+        keys = ("ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms")
+        total = {k: sum(per_shape_ms[c][k] for c in calls) if k in per_shape_ms[calls[0]]
+                 else None for k in keys}
+        return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches, "max_abs_err": err,
                 "ms": total["ms"], "plain_ms": total["plain_ms"],
                 "bound_ms": max(total["bytes_ms"], total["ops_ms"]),
                 "bound_by": "bytes" if total["bytes_ms"] >= total["ops_ms"] else "operations",
                 "library_ms": total["library_ms"], "work": work, **extra}
 
+    k1_src = "storm_tpu_torch/csrc/upfirdn2d.cu"
+    no_library = "no single PyTorch call computes this function"
     record = {"kernels": [
-        entry("upfirdn2d", "storm_tpu/kernels/upfirdn.py:139", per_shape, k1_calls(6),
+        entry("upfirdn2d", k1_src, "storm_tpu/kernels/upfirdn.py:139", per_shape, k1_calls(6),
               max(max_err, train_fwd_err),
               launches + train_launches[0],
               "the 18 calls of one full-width score-net forward, B=1, 256 x 512",
               launches_by_path={"enhancement": launches, "train": train_launches[0]}),
-        entry("upfirdn2d_bwd", "storm_tpu/kernels/upfirdn.py:172-181", bwd_shape, k1_bwd_calls(),
-              bwd_err, train_launches[1],
+        entry("upfirdn2d_bwd", k1_src, "storm_tpu/kernels/upfirdn.py:172-181", bwd_shape,
+              k1_bwd_calls(), bwd_err, train_launches[1],
               f"the {STEP_BWD} backward calls of one full-width joint-training step, "
               f"B={TRAIN_B}, 256 x {TRAIN_FRAMES}"),
+        entry("quantize_int8", "storm_tpu_torch/csrc/quantize_int8.cu",
+              "scripts/perf_fusion_probe.py:88", k3_shape, k3_calls, k3_err, k3_launches,
+              f"the {N_QUANT} quantized-conv inputs of one full-width score-net forward, "
+              f"B=1, 256 x 512, float32", library=no_library,
+              probe={k: probe[k] for k in ("shape", "dtype", "s", "ms", "plain_ms", "bound_ms")}),
+        {"name": "fused_leaky_relu", "route": "cuda", "source": "storm_tpu_torch/csrc/fused_act.cu",
+         "replaces": "storm_tpu/kernels/fused_act.py:61", "launches": k2["launches"],
+         "max_abs_err": k2["max_abs_err"], "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+         "bound_ms": max(k2["bytes_ms"], k2["ops_ms"]),
+         "bound_by": "bytes" if k2["bytes_ms"] >= k2["ops_ms"] else "operations",
+         "library_ms": None, "work": f"forward at {K2_SHAPES[0]} float32, no mask",
+         "library": no_library},
     ]}
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)

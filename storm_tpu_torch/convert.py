@@ -12,10 +12,15 @@ layouts change as follows:
 
 Conversion is strict: a leaf it cannot map raises, and with `target` (a
 module or state_dict) a missing, leftover or misshapen key raises too.
+
+`module_name` and `flax_path` map a flax module path (`m5/Conv_0`) to the
+port's module name (`all_modules.5.Conv_0`) and back, by the rule `_leaf`
+uses for parameters; the int8 scale files (models/quant.py) key their
+scales by flax path.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -23,11 +28,27 @@ import torch
 _PREFIXES = {"denoiser": "denoiser_net", "score": "score_net"}
 
 
+def module_name(path: Sequence[str]) -> str:
+    """Flax module path -> the port's module name: ("m5", "Conv_0") ->
+    "all_modules.5.Conv_0"."""
+    mods = list(path)
+    if mods and mods[0].startswith("m") and mods[0][1:].isdigit():
+        mods = ["all_modules", mods[0][1:]] + mods[1:]
+    return ".".join(mods)
+
+
+def flax_path(name: str) -> Tuple[str, ...]:
+    """Inverse of `module_name`: "all_modules.5.Conv_0" -> ("m5", "Conv_0")."""
+    mods = name.split(".") if name else []
+    if len(mods) >= 2 and mods[0] == "all_modules" and mods[1].isdigit():
+        mods = [f"m{mods[1]}"] + mods[2:]
+    return tuple(mods)
+
+
 def _leaf(path, v: np.ndarray):
     """(flax path tuple, array) -> (torch dotted name, array)."""
     *mods, name = path
-    if mods and mods[0].startswith("m") and mods[0][1:].isdigit():
-        mods = ["all_modules", mods[0][1:]] + mods[1:]
+    mods = module_name(mods).split(".") if mods else []
     if name == "kernel" and v.ndim == 4:
         name, v = "weight", np.transpose(v, (3, 2, 0, 1))
     elif name == "kernel" and v.ndim == 2:

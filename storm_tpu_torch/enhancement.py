@@ -7,6 +7,12 @@ Flags and defaults are those of the reference CLI for `--mode storm
 --sampler pc`: reverse diffusion with the ald corrector, one corrector step,
 snr 0.5, N=50, EMA weights unless `--no-ema`. Files are enhanced one at a
 time, with noise from one torch.Generator seeded with 0.
+
+`--quant int8` serves W8A8: activation scales are calibrated on the first 4
+files (noise from a generator of its own, seeded with 1, so serving draws
+the same noise as without it) and cached beside the checkpoint as
+`<ckpt>.quant_int8_scales.json`; the convs with at least
+`--quant_min_channels` input and output channels then run on the int8 path.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ from .data.audio import load_wav, save_wav
 from .models.factory import STORM_MODES, build_model
 from .sampling.correctors import CORRECTORS
 from .sampling.predictors import PREDICTORS
+from .utils.serving import calibrate_or_load_scales
 
 MODEL_SR = 16000
 
@@ -47,6 +54,13 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--no-ema", action="store_true",
                    help="use raw instead of EMA parameters")
     p.add_argument("--timeit", action="store_true", help="report RTF per file")
+    p.add_argument("--quant", default=None, choices=("int8",),
+                   help="post-training W8A8 int8 serving: calibrates activation scales on "
+                        "the first files, then runs the large NCSN++ convs as int8 x int8 -> "
+                        "int32 products (storm_tpu_torch/models/quant.py)")
+    p.add_argument("--quant_min_channels", type=int, default=128,
+                   help="int8 coverage threshold: convs whose in AND out channel counts are "
+                        ">= this run int8; smaller (quality-critical) convs stay float32")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cpu' runs the kernels' plain versions")
     return p.parse_args(argv)
@@ -65,17 +79,29 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     if not noisy_files:
         raise SystemExit(f"no .wav files in {args.test_dir}")
     os.makedirs(args.enhanced_dir, exist_ok=True)
-    gen = torch.Generator(device=device).manual_seed(0)
 
-    for f in noisy_files:
-        y, sr = load_wav(f)
+    def load_checked(path) -> np.ndarray:
+        """(T,) float32: the file's first channel."""
+        y, sr = load_wav(path)
         if sr != MODEL_SR:
-            raise SystemExit(f"{f}: sample rate {sr}, the model needs {MODEL_SR}: resample first")
-        y = torch.from_numpy(y[:1]).to(device)  # (1, T), first channel
+            raise SystemExit(f"{path}: sample rate {sr}, the model needs {MODEL_SR}: resample first")
+        return y[0]
+
+    quant = None
+    if args.quant == "int8":
+        quant = calibrate_or_load_scales(
+            model, args.mode, args.ckpt, lambda: [load_checked(f) for f in noisy_files[:4]],
+            torch.Generator(device=device).manual_seed(1), N=args.N,
+            min_channels=args.quant_min_channels,
+            params_source="raw" if args.no_ema else "ema")
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    for f in noisy_files:
+        y = torch.from_numpy(load_checked(f)[None]).to(device)  # (1, T)
         t0 = time.perf_counter()
         x_hat, nfe = model.enhance(
             y, N=args.N, predictor=args.predictor, corrector=args.corrector,
-            corrector_steps=args.corrector_steps, snr=args.snr, generator=gen,
+            corrector_steps=args.corrector_steps, snr=args.snr, generator=gen, quant=quant,
         )
         x_hat = x_hat[0].cpu().numpy()  # waits for the device
         elapsed = time.perf_counter() - t0

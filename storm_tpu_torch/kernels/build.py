@@ -21,7 +21,7 @@ CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "_build"
 
 # every CUDA source of the port; a new kernel adds its name here
-SOURCES = ("upfirdn2d",)
+SOURCES = ("upfirdn2d", "quantize_int8", "fused_act")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -77,8 +77,19 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of `csrc/<name>.cu`, built first if needed."""
+    """The loaded library of `csrc/<name>.cu`, built first if needed. Every
+    source exports `storm_cuda_error_string(int) -> const char*`."""
     if name not in _loaded:
         build([name])
-        _loaded[name] = ctypes.CDLL(str(library_path(name)))
+        lib = ctypes.CDLL(str(library_path(name)))
+        lib.storm_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.storm_cuda_error_string.restype = ctypes.c_char_p
+        _loaded[name] = lib
     return _loaded[name]
+
+
+def check_launch(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise unless a C entry point returned 0 (cudaSuccess) for its launch."""
+    if err != 0:
+        raise RuntimeError(f"{what}: launch failed: "
+                           + lib.storm_cuda_error_string(err).decode())

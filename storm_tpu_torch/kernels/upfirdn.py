@@ -110,8 +110,6 @@ def _lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.storm_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.storm_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -145,9 +143,7 @@ def _launch(x: torch.Tensor, k: np.ndarray, up: int, down: int, pad0: int,
         H, W, Ho, Wo, up, down, pad0,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
-    if err != 0:
-        raise RuntimeError("upfirdn2d_cuda: launch failed: "
-                           + lib.storm_cuda_error_string(err).decode())
+    build.check_launch(lib, err, "upfirdn2d_cuda")
     return out
 
 

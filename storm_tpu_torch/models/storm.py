@@ -9,11 +9,13 @@ score net learns.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
 
+from ..nn.qconv import scales_attached, stats_collected
 from ..sampling.samplers import NoiseSource, pc_sample
 from ..sde.sdes import OUVESDE
 from ..signal import cplx
@@ -27,6 +29,10 @@ STORM_MODES = ("regen-joint-training", "regen-freeze-denoiser")
 LOSS_TYPES = ("mse", "mae")
 
 Batch = Tuple[torch.Tensor, torch.Tensor]  # (clean X, noisy Y) specs (B, F, T, 2)
+
+
+def _stats_if(net: nn.Module, collect_stats: bool):
+    return stats_collected(net) if collect_stats else contextlib.nullcontext()
 
 
 class StochasticRegenerationModel(nn.Module):
@@ -66,24 +72,32 @@ class StochasticRegenerationModel(nn.Module):
         self.weighting_denoiser_to_score = weighting_denoiser_to_score
         self.mode = mode
 
-    def forward_denoiser(self, Y: torch.Tensor) -> torch.Tensor:
-        """D(Y) for Y (B, F, T, 2) or (B, D, F, T, 2); keeps Y's shape."""
+    def forward_denoiser(self, Y: torch.Tensor, collect_stats: bool = False):
+        """D(Y) for Y (B, F, T, 2) or (B, D, F, T, 2); keeps Y's shape.
+
+        `collect_stats=True` returns (D(Y), {conv module name: max|input|, a
+        0-d tensor}), the calibration statistics of models/quant.py."""
         Y5, squeezed = lift_spec(Y)
         t = torch.ones(Y5.shape[0], dtype=torch.float32, device=Y5.device)
-        out = self.denoiser_net(Y5, t)
-        return out[:, 0] if squeezed else out
+        with _stats_if(self.denoiser_net, collect_stats) as stats:
+            out = self.denoiser_net(Y5, t)
+        out = out[:, 0] if squeezed else out
+        return (out, stats) if collect_stats else out
 
     def _conditioning(self, Y: torch.Tensor, Y_denoised: torch.Tensor) -> List[torch.Tensor]:
         return {"noisy": [Y], "post_denoiser": [Y_denoised],
                 "both": [Y, Y_denoised]}[self.condition]
 
     def forward_score(self, x: torch.Tensor, t: torch.Tensor,
-                      score_conditioning: List[torch.Tensor]) -> torch.Tensor:
-        """score = -score_net(cat[x, *cond], t); keeps x's shape."""
+                      score_conditioning: List[torch.Tensor], collect_stats: bool = False):
+        """score = -score_net(cat[x, *cond], t); keeps x's shape.
+        `collect_stats` as in `forward_denoiser`, for the score net."""
         x5, squeezed = lift_spec(x)
         cond5 = [lift_spec(c)[0] for c in score_conditioning]
-        out = self.score_net(torch.cat([x5] + cond5, dim=1), t)
-        return -(out[:, 0] if squeezed else out)
+        with _stats_if(self.score_net, collect_stats) as stats:
+            out = self.score_net(torch.cat([x5] + cond5, dim=1), t)
+        out = -(out[:, 0] if squeezed else out)
+        return (out, stats) if collect_stats else out
 
     # --- loss / training (storm_tpu/models/storm.py:246-389) ------------------
 
@@ -183,27 +197,36 @@ class StochasticRegenerationModel(nn.Module):
         probability_flow: bool = False,
         generator: Optional[torch.Generator] = None,
         noise: Optional[NoiseSource] = None,
+        quant: Optional[Dict[str, Optional[Dict[str, float]]]] = None,
     ) -> Tuple[torch.Tensor, int]:
         """Enhance waveforms y (B, T) -> (x_hat (B, T), nfe).
 
         Defaults are the reference model's: N=30, reverse diffusion, no
         corrector. Noise comes from `noise` if given, else from `generator`.
+        `quant`: {"denoiser": scales or None, "score": scales or None}, int8
+        activation scales by conv module name from
+        `models.quant.calibrate_storm`; the convs they name run on the int8
+        path for the whole call (scales attached, and weights quantized,
+        once per call).
         """
         T_orig = y.shape[-1]
         y_n, norm = normalize_wav(y)
         Y, _ = prepare_spec(y_n, self.stft_config, self.transform)
-        Y_denoised = self.forward_denoiser(Y)
-        cond = self._conditioning(Y, Y_denoised)
+        quant = quant or {}
+        with scales_attached(self.denoiser_net, quant.get("denoiser") or {}), \
+                scales_attached(self.score_net, quant.get("score") or {}):
+            Y_denoised = self.forward_denoiser(Y)
+            cond = self._conditioning(Y, Y_denoised)
 
-        def score_fn(x, t, y_sde):
-            return self.forward_score(x, t, cond)
+            def score_fn(x, t, y_sde):
+                return self.forward_score(x, t, cond)
 
-        sample, n = pc_sample(
-            self.sde, score_fn, Y_denoised, predictor=predictor, corrector=corrector,
-            N=N, snr=snr, corrector_steps=corrector_steps,
-            probability_flow=probability_flow, denoise=True, eps=self.t_eps,
-            noise=noise, generator=generator,
-        )
+            sample, n = pc_sample(
+                self.sde, score_fn, Y_denoised, predictor=predictor, corrector=corrector,
+                N=N, snr=snr, corrector_steps=corrector_steps,
+                probability_flow=probability_flow, denoise=True, eps=self.t_eps,
+                noise=noise, generator=generator,
+            )
         # the whole padded spec goes through the iSTFT, cut to T_orig samples
         x_hat = spec_to_wav(sample, self.stft_config, self.transform, length=T_orig)
         return x_hat * norm, 1 + n

@@ -14,6 +14,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .init import ddpm_init_, lecun_normal_
+from .qconv import QuantizableConv
 from .resample import (
     downsample_2d,
     naive_downsample_2d,
@@ -39,8 +40,9 @@ def group_norm(ch: int) -> nn.GroupNorm:
     return nn.GroupNorm(min(ch // 4, 32), ch, eps=1e-6)
 
 
-class Conv2d(nn.Conv2d):
-    """nn.Conv2d with DDPM init at `init_scale` and zero bias."""
+class Conv2d(QuantizableConv):
+    """nn.Conv2d with DDPM init at `init_scale` and zero bias; a
+    QuantizableConv, so serving can put it on the int8 path (nn/qconv.py)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int, padding: int = 0,
                  bias: bool = True, init_scale: float = 1.0):

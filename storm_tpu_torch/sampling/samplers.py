@@ -40,6 +40,7 @@ def pc_sample(
     eps: float = 3e-2,
     noise: Optional[NoiseSource] = None,
     generator: Optional[torch.Generator] = None,
+    intermediate: bool = False,
 ):
     """Predictor-corrector sampling of the reverse SDE started at p_T(.|y).
 
@@ -50,9 +51,12 @@ def pc_sample(
         N: reverse steps (replaces sde.N).
         denoise: return the noise-free mean of the last predictor step.
         noise: noise source; by default drawn from `generator`.
+        intermediate: also return the (N, ...) trajectory of the predictor's
+            means, one per step.
 
     Returns:
-        (x, nfe), nfe = N * (corrector_steps * (corrector != "none") + 1).
+        (x, nfe), nfe = N * (corrector_steps * (corrector != "none") + 1);
+        (x, trajectory, nfe) with `intermediate`.
     """
     if N is not None and N != sde.N:
         sde = sde.copy(N=N)
@@ -67,9 +71,14 @@ def pc_sample(
     rsde = sde.reverse(score_fn, probability_flow=probability_flow)
     timesteps = torch.linspace(sde.T, eps, n, dtype=torch.float32)
     batch = y.shape[0]
+    trajectory = []
     for t in timesteps.tolist():
         vec_t = torch.full((batch,), t, dtype=torch.float32, device=y.device)
         x, x_mean = corrector_fn(sde, score_fn, x, vec_t, y, noise, snr, corrector_steps)
         x, x_mean = predictor_fn(rsde, x, vec_t, y, noise)
+        if intermediate:
+            trajectory.append(x_mean)
     nfe = n * (corrector_steps * (corrector != "none") + 1)
+    if intermediate:
+        return (x_mean if denoise else x), torch.stack(trajectory), nfe
     return (x_mean if denoise else x), nfe
