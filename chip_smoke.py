@@ -10,9 +10,12 @@ Phases, each of which exits non-zero on failure:
 3. kernel against plain: upfirdn2d at every shape the full-width main path
    gives it (4 s request: 256 bins x 512 frames, B=1), with the NCSN++ FIR and
    with an asymmetric one, held to atol = rtol = 1e-5 against the plain
-   PyTorch version; kernel, plain and library-call times (CUDA events) beside
-   the memory bound. The same check, untimed, at the widths of the shorter
-   files (128 and 320 frames).
+   PyTorch version; kernel, plain and library-call times (CUDA events, back to
+   back: a small call shows the host's enqueue cost) and the kernel's device
+   time (`device_ms`, from profiler kernel events, each call after a read
+   that clears the L2) beside the memory bound.
+   The same check, untimed, at the widths of the shorter files (128 and 320
+   frames).
 4. full-width NCSN++: one 27.8M score-net forward through the kernel and
    through the plain version, same weights, held to 1e-4 of the output scale.
 5. main path: the full-width StoRM model (2 x 27.8M, seeded random weights)
@@ -28,8 +31,8 @@ Phases, each of which exits non-zero on failure:
    shape, and the gradient at every backward shape from
    `torch.autograd.grad` through the kernel path (forward and backward
    kernels) against PyTorch's autograd of the plain version, NCSN++ and
-   asymmetric FIRs, atol = rtol = 1e-5; backward kernel, plain backward and
-   library-call times beside the memory bound.
+   asymmetric FIRs, atol = rtol = 1e-5; backward kernel (event and device
+   time), plain backward and library-call times beside the memory bound.
 8. training: (a) one full-width step's gradients (B=2, same weights, t, z
    and batch) through the kernels against the plain path, with cuDNN
    deterministic; (b) `python -m storm_tpu_torch.train` for 8 steps at B=8
@@ -44,8 +47,8 @@ Phases, each of which exits non-zero on failure:
    4 s file, then the input of every quantized conv of one denoiser and one
    score forward at the 4 s request's width (110 calls, f32), with exact .5
    ties and values beyond +-127 written in; the codes must be identical.
-   Kernel and plain times per input shape beside the memory bound (5 B per
-   element). The same at the probe's shape, (16*256*256, 128) bf16, s = 12.7
+   Kernel (event and device time) and plain times per input shape beside the
+   memory bound (5 B per element). The same at the probe's shape, (16*256*256, 128) bf16, s = 12.7
    (3 B per element), and with bf16 ties at s = 2. The record's error is
    the largest |kernel code - plain code| over all these inputs.
 11. int8 main path: `python -m storm_tpu_torch.enhancement --quant int8` on
@@ -68,7 +71,11 @@ Phases, each of which exits non-zero on failure:
 A profile's kernel times come from its device events, each counted once;
 shares are of the summed kernel time. The busy time is the union of the
 kernels' intervals, which kernels running side by side on several streams
-(cuDNN's FFT convolutions in a train step) do not count twice.
+(cuDNN's FFT convolutions in a train step) do not count twice. A profile
+fails if K1's or K3's wrapper counted launches in the traced window and one
+of their groups (kernel-name stems: K1's down and up configurations) matches
+no device event, or if the groups' events fall short of 95% of the counted
+launches or exceed them.
 
 The line before the last holds the per-kernel JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero and
@@ -78,6 +85,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import io
 import json
 import os
@@ -124,6 +132,12 @@ STORM_CONFIG = {"mode": "regen-joint-training", "init_scale": 1.0}
 N_STEPS, NFE = 50, 1 + 50 * 2  # CLI defaults: 1 denoiser + N x (ald + predictor)
 SECONDS = (1.0, 2.5, 4.0)
 SR = 16000
+GAP_S = 0.02  # host pause between the runs of `device_ms`
+L2_FLUSH_BYTES = 256 << 20  # read before each call of `device_ms`: 5x the H100's 50 MB L2
+# a profile fails unless the device events of each counted kernel number at
+# least this share of its wrapper's counted launches (the profiler may drop a
+# few) and at most all of them
+PROFILE_MIN_MATCHED = 0.95
 
 
 def padded_frames(seconds: float) -> int:
@@ -211,6 +225,56 @@ def time_ms(fn, reps: int = 20, repeats: int = 5) -> float:
     return statistics.median(times)
 
 
+def kernel_events(prof):
+    """The trace's kernel events as sorted (start us, end us, name, stream)
+    tuples: the spans of record_function ranges on the device's timeline
+    (user annotations, such as the optimizer's step) cover kernels and are
+    left out; an event listed twice (same name, stream and interval) counts
+    once."""
+    from torch.autograd import DeviceType
+
+    return sorted({(e.time_range.start, e.time_range.end, e.name,
+                    getattr(e, "device_resource_id", e.thread))
+                   for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)})
+
+
+def device_ms(fns, stem: str, reps: int = 20):
+    """Mean device time per call (ms) of each function in `fns`, each of which
+    launches one kernel whose name holds `stem`: the durations of that
+    kernel's events in a torch.profiler trace of `reps` calls of each. Unlike
+    `time_ms`, the host's enqueue between calls does not count. Each call
+    finds the L2 cold, as the memory bound assumes: a read of L2_FLUSH_BYTES
+    (another kernel, not counted) runs before it. A pause of GAP_S after each
+    function's calls splits the trace's events into one run per function
+    (the profiler may miss a few events, so they are not split by count)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.zeros(L2_FLUSH_BYTES // 4, device="cuda")
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for fn in fns:
+            for _ in range(reps):
+                flush.sum()
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(GAP_S)
+    runs, last_end = [], -float("inf")
+    for start, end, name, _ in kernel_events(prof):
+        if stem not in name:
+            continue
+        if start - last_end > GAP_S * 1e6 / 2:  # microseconds
+            runs.append([])
+        runs[-1].append(end - start)
+        last_end = end
+    check(len(runs) == len(fns) and all(len(r) >= reps // 2 for r in runs),
+          f"device events of {stem}: runs of {[len(r) for r in runs]}, expected "
+          f"{len(fns)} runs of {reps}")
+    return [statistics.mean(r) / 1e3 for r in runs]
+
+
 def library_call(cfg: str, C: int, backward: bool = False):
     """One PyTorch call computing the same function (yardstick only); with
     `backward`, the adjoint of the forward call of `cfg`, which is the other
@@ -262,7 +326,7 @@ def check_forward(cfg: str, x: torch.Tensor) -> float:
 
 
 def phase_kernel_vs_plain(gen: torch.Generator):
-    per_shape, max_err = {}, 0.0
+    per_shape, launch, max_err = {}, {}, 0.0
     for frames in OTHER_FRAMES:  # correctness only
         errs = [check_forward(cfg, torch.randn(1, C, H, W, device="cuda", generator=gen))
                 for cfg, C, H, W in forward_shapes(frames)]
@@ -285,13 +349,24 @@ def phase_kernel_vs_plain(gen: torch.Generator):
         Ho, Wo = want.shape[-2:]
         bound_bytes_ms, bound_ops_ms = bound_ms(C * H * W, C * Ho * Wo, 16 // (c["up"] ** 2))
         per_shape[(cfg, C, H, W)] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                                         bytes_ms=bound_bytes_ms, ops_ms=bound_ops_ms)
-        by = "bytes" if bound_bytes_ms >= bound_ops_ms else "operations"
-        print(f"  upfirdn2d {cfg:4s} C={C:3d} {H:3d}x{W:3d} -> {Ho}x{Wo}: "
-              f"ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} "
-              f"bound_ms={max(bound_bytes_ms, bound_ops_ms):.5f} ({by}) "
-              f"lib_err={lib_err:.2e}", flush=True)
+                                         bytes_ms=bound_bytes_ms, ops_ms=bound_ops_ms,
+                                         lib_err=lib_err, out=f"{Ho}x{Wo}")
+        launch[(cfg, C, H, W)] = functools.partial(kup.upfirdn2d_cuda, x, c["kernel"], **args)
+    print_per_shape("upfirdn2d", per_shape, launch, "upfirdn2d_")
     return per_shape, max_err
+
+
+def print_per_shape(what: str, per_shape, launch, stem: str):
+    """Add each shape's device time to its times and print one line per shape."""
+    for key, dev in zip(launch, device_ms(list(launch.values()), stem)):
+        per_shape[key]["device_ms"] = dev
+    for (cfg, C, H, W), r in per_shape.items():
+        by = "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations"
+        print(f"  {what} {cfg:4s} C={C:3d} {H:3d}x{W:3d} -> {r['out']}: ms={r['ms']:.5f} "
+              f"device_ms={r['device_ms']:.5f} plain_ms={r['plain_ms']:.5f} "
+              f"library_ms={r['library_ms']:.5f} bound_ms={max(r['bytes_ms'], r['ops_ms']):.5f} "
+              f"({by}) device/bound={r['device_ms'] / max(r['bytes_ms'], r['ops_ms']):.2f} "
+              f"lib_err={r['lib_err']:.2e}", flush=True)
 
 
 def phase_full_width_forward(gen: torch.Generator):
@@ -413,7 +488,7 @@ def phase_backward_vs_plain(gen: torch.Generator):
     gradient, against the plain version. Returns (per-shape backward times,
     backward max error, forward max error)."""
     bwd_calls = set(k1_bwd_calls())
-    per_shape, max_err, fwd_err = {}, 0.0, 0.0
+    per_shape, launch, max_err, fwd_err = {}, {}, 0.0, 0.0
     for cfg, C, H, W in forward_shapes(TRAIN_FRAMES):
         c = CONFIGS[cfg]
         args = dict(up=c["up"], down=c["down"], pad=c["pad"])
@@ -444,12 +519,10 @@ def phase_backward_vs_plain(gen: torch.Generator):
         library_ms = time_ms(lambda: lib(g))
         bytes_ms, ops_ms = bound_ms(g.numel(), x.numel(), 16 // (c["down"] ** 2))
         per_shape[(cfg, C, H, W)] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                                         bytes_ms=bytes_ms, ops_ms=ops_ms)
-        print(f"  upfirdn2d_bwd of {cfg:4s} B={TRAIN_B} C={C:3d} {Ho:3d}x{Wo:3d} -> {H}x{W}: "
-              f"ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} "
-              f"bound_ms={max(bytes_ms, ops_ms):.5f} "
-              f"({'bytes' if bytes_ms >= ops_ms else 'operations'}) lib_err={lib_err:.2e}",
-              flush=True)
+                                         bytes_ms=bytes_ms, ops_ms=ops_ms, lib_err=lib_err,
+                                         out=f"(g {Ho}x{Wo} -> grad x {H}x{W})")
+        launch[(cfg, C, H, W)] = functools.partial(kup.upfirdn2d_bwd_cuda, *bwd)
+    print_per_shape(f"upfirdn2d_bwd (B={TRAIN_B}) of", per_shape, launch, "upfirdn2d_")
     print(f"  forward at every train-step shape: max abs err {fwd_err:.2e}; backward: "
           f"max abs err {max_err:.2e}", flush=True)
     return per_shape, max_err, fwd_err
@@ -615,25 +688,33 @@ def phase_train(workdir: str):
     return launches
 
 
-K1_KERNELS = {"upfirdn2d_k4<1, 2>": ("upfirdn2d_k4<1, 2>",),
-              "upfirdn2d_k4<2, 1>": ("upfirdn2d_k4<2, 1>",)}
+# profile groups: label -> (kernel-name stems, the launch counter of the
+# wrapper that launches them, or None for a library's kernels)
+K1_GROUPS = {"upfirdn2d (K1) down config": (("upfirdn2d_down",), "K1"),
+             "upfirdn2d (K1) up config": (("upfirdn2d_up",), "K1")}
+INT8_GROUPS = {**K1_GROUPS, "quantize_int8 (K3)": (("quantize_int8_kernel",), "K3"),
+               "int8 GEMM (torch._int_mm)": (("gemm_s8", "imma", "i8i8", "s8s8"), None)}
+LAUNCH_COUNTERS = {
+    "K1": lambda: kup.upfirdn2d_cuda.launches + kup.upfirdn2d_bwd_cuda.launches,
+    "K3": lambda: kq.quantize_int8_cuda.launches,
+}
 
 
-def print_profile(what: str, prof, wall_ms: float, groups=K1_KERNELS):
-    """Device time by kernel from the trace's device events. The spans of
-    record_function ranges on the device's timeline (user annotations, such
-    as the optimizer's step) cover kernels and are left out; an event listed
-    twice (same name, stream and interval) counts once. The busy time is the
-    union of the intervals; each kernel's share is of the summed kernel
-    time. Also printed: the sum of key_averages' device time over every
-    device row (annotations included) and the kernels that overlap, if any."""
+def print_profile(what: str, prof, wall_ms: float, groups, launched):
+    """Device time by kernel from the trace's kernel events (`kernel_events`).
+    The busy time is the union of the intervals; each kernel's share is of the
+    summed kernel time. Also printed: the sum of key_averages' device time
+    over every device row (annotations included), the annotation spans and
+    the kernels that overlap, if any. `launched` holds {counter: launches in
+    the traced window}. Fails if a group whose counter counted launches
+    matches no device event (a renamed kernel would otherwise show 0 ms), or
+    if a counter's groups together match fewer than PROFILE_MIN_MATCHED of
+    its launches, or more."""
     from torch.autograd import DeviceType
 
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    spans = [e for e in device if getattr(e, "is_user_annotation", False)]
-    events = [e for e in device if not getattr(e, "is_user_annotation", False)]
-    unique = sorted({(e.time_range.start, e.time_range.end, e.name,
-                      getattr(e, "device_resource_id", e.thread)) for e in events})
+    spans = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+             and getattr(e, "is_user_annotation", False)]
+    unique = kernel_events(prof)
     check(len(unique) > 0, "the profiler saw no device time")
     by_name = {}
     busy_us, end, end_name, overlaps = 0.0, -float("inf"), None, {}
@@ -653,8 +734,8 @@ def print_profile(what: str, prof, wall_ms: float, groups=K1_KERNELS):
     span_ms = {}
     for e in spans:
         span_ms[e.name] = span_ms.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
-    print(f"  {what} under the profiler: wall {wall_ms:.1f} ms; {len(events)} device events, "
-          f"{len(unique)} distinct, {len({u[3] for u in unique})} stream ids; kernel time summed "
+    print(f"  {what} under the profiler: wall {wall_ms:.1f} ms; {len(unique)} distinct kernel "
+          f"events, {len({u[3] for u in unique})} stream ids; kernel time summed "
           f"{summed_ms:.1f} ms, device busy (union) {busy_ms:.1f} ms "
           f"({100 * busy_ms / wall_ms:.1f}% of wall); key_averages' device time summed "
           f"{averages_ms:.1f} ms; annotation spans {sum(span_ms.values()):.1f} ms "
@@ -664,47 +745,65 @@ def print_profile(what: str, prof, wall_ms: float, groups=K1_KERNELS):
         print(f"    overlap {ms:8.2f} ms: {a} | {b}")
     for key, ms, count in rows[:20]:
         print(f"    {100 * ms / summed_ms:5.1f}%  {ms:9.2f} ms  x{count:6d}  {key[:90]}")
-    for label, keys in groups.items():
+    matched = dict.fromkeys(launched, 0)
+    for label, (keys, counter) in groups.items():
         sel = [r for r in rows if any(k in r[0] for k in keys)]
-        print(f"  {label}: {sum(r[1] for r in sel):.2f} ms in {sum(r[2] for r in sel)} launches "
-              f"({100 * sum(r[1] for r in sel) / summed_ms:.2f}% of kernel time)", flush=True)
+        ms, n = sum(r[1] for r in sel), sum(r[2] for r in sel)
+        print(f"  {label}: {ms:.2f} ms in {n} launches ({100 * ms / summed_ms:.2f}% of kernel "
+              f"time)", flush=True)
+        if counter is not None:
+            matched[counter] += n
+            check(launched[counter] == 0 or n > 0,
+                  f"{what}: {counter}'s wrapper counted {launched[counter]} launches, but no "
+                  f"device event matches the group {label!r} ({keys})")
+    for counter, n in launched.items():
+        print(f"  {counter}: {matched[counter]} device events for {n} counted launches",
+              flush=True)
+        check(PROFILE_MIN_MATCHED * n <= matched[counter] <= n,
+              f"{what}: {counter}'s groups match {matched[counter]} device events for {n} "
+              f"counted launches")
+
+
+def profile_run(what: str, fn, groups=K1_GROUPS):
+    """Trace fn() with torch.profiler (after the caller's warm-up) and print
+    where the device time went."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    before = {k: count() for k, count in LAUNCH_COUNTERS.items()}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    launched = {k: count() - before[k] for k, count in LAUNCH_COUNTERS.items()}
+    print_profile(what, prof, wall_ms, groups, launched)
 
 
 def phase_profile_train():
     """Trace two full-width train steps (B=8, 256 x 256)."""
-    from torch.profiler import ProfilerActivity, profile
-
     model = build_model({"mode": "regen-joint-training"}, device="cuda", seed=0).train()
     state = init_train_state(model, model.lr)
     gen = torch.Generator(device="cuda").manual_seed(0)
     x = 0.3 * torch.randn(TRAIN_B, FREQS, TRAIN_FRAMES, 2, device="cuda", generator=gen)
     batch = (x, x + 0.2 * torch.randn(x.shape, device="cuda", generator=gen))
     model.train_step(state, batch, gen)  # warm-up at the same shapes
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def two_steps():
         for _ in range(2):
             model.train_step(state, batch, gen)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    print_profile(f"two train steps (B={TRAIN_B}, {FREQS} x {TRAIN_FRAMES})", prof, wall_ms)
+
+    profile_run(f"two train steps (B={TRAIN_B}, {FREQS} x {TRAIN_FRAMES})", two_steps)
 
 
 def phase_profile():
     """Trace one enhancement of the longest file (CLI defaults) and print where
     the device time goes."""
-    from torch.profiler import ProfilerActivity, profile
-
     model = build_model(STORM_CONFIG, device="cuda", seed=0)
     y = torch.from_numpy(synth_wav(max(SECONDS), 0, np.random.default_rng(0))[None]).cuda()
     model.enhance(y, N=2, corrector="ald")  # warm-up at the same shapes
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        model.enhance(y, N=N_STEPS, corrector="ald")
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    print_profile(f"enhance {max(SECONDS)} s file", prof, wall_ms)
+    profile_run(f"enhance {max(SECONDS)} s file",
+                lambda: model.enhance(y, N=N_STEPS, corrector="ald"))
 
 
 # --- int8 serving (phases 10, 11, 13) and fused_leaky_relu (phase 12)
@@ -790,7 +889,7 @@ def phase_quantizer_vs_plain(workdir: str, gen: torch.Generator):
         for h in hooks:
             h.remove()
     check(len(calls) == 2 * N_QUANT, f"{len(calls)} quantized conv calls, expected {2 * N_QUANT}")
-    per_shape, score_shapes, ties, max_err = {}, [], 0, 0
+    per_shape, launch, score_shapes, ties, max_err = {}, {}, [], 0, 0
     with torch.inference_mode():  # the captured inputs are inference tensors
         for net, x, inv in calls:
             shape = tuple(x.shape)
@@ -805,14 +904,19 @@ def phase_quantizer_vs_plain(workdir: str, gen: torch.Generator):
                     ms=time_ms(lambda: kq.quantize_int8_cuda(x, inv)),
                     plain_ms=time_ms(lambda: kq.quantize_int8_plain(x, inv), reps=5),
                     bytes_ms=bytes_ms, ops_ms=ops_ms, calls=0)
+                launch[shape] = functools.partial(kq.quantize_int8_cuda, x, inv)
             per_shape[shape]["calls"] += 1
-    del calls
+        for shape, dev in zip(launch, device_ms(list(launch.values()), "quantize_int8_kernel")):
+            per_shape[shape]["device_ms"] = dev
+    del calls, launch
     print(f"  {2 * N_QUANT} quantized conv inputs (f32), {ties} exact ties written in: codes "
           f"identical to plain", flush=True)
     for shape, r in per_shape.items():
         print(f"  quantize_int8 f32 {shape} x{r['calls']} per score forward: ms={r['ms']:.5f} "
-              f"plain_ms={r['plain_ms']:.5f} bound_ms={max(r['bytes_ms'], r['ops_ms']):.5f} "
-              f"(bytes) ratio={r['ms'] / r['bytes_ms']:.2f}", flush=True)
+              f"device_ms={r['device_ms']:.5f} plain_ms={r['plain_ms']:.5f} "
+              f"bound_ms={max(r['bytes_ms'], r['ops_ms']):.5f} (bytes) "
+              f"ratio={r['ms'] / r['bytes_ms']:.2f} device/bound="
+              f"{r['device_ms'] / r['bytes_ms']:.2f}", flush=True)
 
     x = (10.0 * torch.randn(PROBE_SHAPE, device="cuda", generator=gen)).to(torch.bfloat16)
     probe_ties = with_ties(x, PROBE_S)
@@ -965,21 +1069,12 @@ def phase_fused_act(gen: torch.Generator):
 
 def phase_profile_int8(workdir: str):
     """Trace one int8 enhancement of the 4 s file (CLI defaults)."""
-    from torch.profiler import ProfilerActivity, profile
-
     model = build_model(STORM_CONFIG, device="cuda", seed=0)
     quant = quant_mod.load_scales(scale_cache_path(os.path.join(workdir, "storm.pt")))
     y = torch.from_numpy(synth_wav(max(SECONDS), 0, np.random.default_rng(0))[None]).cuda()
     model.enhance(y, N=2, corrector="ald", quant=quant)  # warm-up at the same shapes
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        model.enhance(y, N=N_STEPS, corrector="ald", quant=quant)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    print_profile(f"int8 enhance {max(SECONDS)} s file", prof, wall_ms,
-                  groups={**K1_KERNELS, "quantize_int8 (K3)": ("quantize_int8_kernel",),
-                          "int8 GEMM (torch._int_mm)": ("gemm_s8", "imma", "i8i8", "s8s8")})
+    profile_run(f"int8 enhance {max(SECONDS)} s file",
+                lambda: model.enhance(y, N=N_STEPS, corrector="ald", quant=quant), INT8_GROUPS)
 
 
 def main():
@@ -1055,12 +1150,12 @@ def main():
             phase_profile_int8(workdir)
 
     def entry(name, source, replaces, per_shape_ms, calls, err, launches, work, **extra):
-        keys = ("ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms")
+        keys = ("ms", "device_ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms")
         total = {k: sum(per_shape_ms[c][k] for c in calls) if k in per_shape_ms[calls[0]]
                  else None for k in keys}
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches, "max_abs_err": err,
-                "ms": total["ms"], "plain_ms": total["plain_ms"],
+                "ms": total["ms"], "device_ms": total["device_ms"], "plain_ms": total["plain_ms"],
                 "bound_ms": max(total["bytes_ms"], total["ops_ms"]),
                 "bound_by": "bytes" if total["bytes_ms"] >= total["ops_ms"] else "operations",
                 "library_ms": total["library_ms"], "work": work, **extra}

@@ -8,9 +8,14 @@ two configurations: up=1, down=2, pad=(1, 1) and up=2, down=1, pad=(2, 1).
 
 Bound on the card: memory. The op does at most 16 multiply-adds per output
 and reads each input once from device memory, so the least time is
-(input bytes + output bytes) / 3.35 TB/s. The kernel folds the zero-insertion
-and the padding into its index arithmetic, so it moves only those bytes: the
-Pallas kernel instead wrote the zero-inserted, padded input to memory first.
+(input bytes + output bytes) / 3.35 TB/s. The kernel stages each output
+tile's input window in shared memory with asynchronous copies (the pad and
+the zero-insertion become zeros written there and taps skipped at compile
+time) and computes several outputs per thread, so it moves only those bytes:
+the Pallas kernel instead wrote the zero-inserted, padded input to memory
+first. Per call the launch path reads the taps' address; their conversion
+to float32 is a no-op for the read-only float32 FIR that `nn/resample.py`
+makes once, and the adjoint's flip happens where the C entry copies them.
 
 The gradient replaces the reference's custom VJP (`_ufd_bwd`, same file): the
 adjoint of upfirdn2d is upfirdn2d again with the taps flipped, up and down
@@ -78,15 +83,15 @@ def upfirdn2d_plain(x: torch.Tensor, kernel, up: int = 1, down: int = 1,
     return out
 
 
-def _bwd_args(kernel, up: int, down: int, pad: Sequence[int]):
-    """(flipped taps, up', down', pad0') of the adjoint call (`_ufd_bwd`).
+def _adjoint(up: int, down: int, pad: Sequence[int], K: int = _TAPS):
+    """(up', down', pad0') of the adjoint call (`_ufd_bwd`), whose taps are
+    the forward's flipped in both axes.
 
     pad1' is not needed: an output sample depends on pad0 alone, and pad1
     only sets how many there are, which the adjoint takes from the forward
     input's size (the reference's g_pad1 = H*up - Ho*down + pad0 - up + 1
     gives exactly that size along H)."""
-    k = _host_taps(kernel)
-    return np.ascontiguousarray(k[::-1, ::-1]), down, up, k.shape[0] - int(pad[0]) - 1
+    return down, up, K - int(pad[0]) - 1
 
 
 def upfirdn2d_bwd_plain(g: torch.Tensor, kernel, up: int, down: int,
@@ -95,12 +100,13 @@ def upfirdn2d_bwd_plain(g: torch.Tensor, kernel, up: int, down: int,
     `x_hw`, given the output's gradient `g`: the adjoint identity run through
     `upfirdn2d_plain`. pad1' is made large enough on both axes and the result
     cut to `x_hw`."""
-    kflip, g_up, g_down, g_pad0 = _bwd_args(kernel, up, down, pad)
+    k = _host_taps(kernel)
+    K = k.shape[0]
+    g_up, g_down, g_pad0 = _adjoint(up, down, pad, K)
     H, W = x_hw
-    K = kflip.shape[0]
     g_pad1 = max((n - 1) * g_down + K - m * g_up - g_pad0
                  for n, m in ((H, g.shape[2]), (W, g.shape[3])))
-    out = upfirdn2d_plain(g, kflip, up=g_up, down=g_down, pad=(g_pad0, g_pad1))
+    out = upfirdn2d_plain(g, k[::-1, ::-1], up=g_up, down=g_down, pad=(g_pad0, g_pad1))
     return out[:, :, :H, :W]
 
 
@@ -108,7 +114,8 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("upfirdn2d")
     fn = lib.storm_upfirdn2d_f32
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_longlong]
+                       + [ctypes.c_int] * 7 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
 
@@ -126,23 +133,24 @@ def _check_kernel_contract(x: torch.Tensor, k: np.ndarray, up: int, down: int) -
         raise ValueError(f"upfirdn2d: (up, down)={(up, down)} not built")
 
 
-def _launch(x: torch.Tensor, k: np.ndarray, up: int, down: int, pad0: int,
+def _launch(x: torch.Tensor, kernel, flip: bool, up: int, down: int, pad0: int,
             Ho: int, Wo: int) -> torch.Tensor:
-    """Run the kernel on a CUDA tensor into a new (B, C, Ho, Wo) tensor; the
-    output size carries pad1 (the kernel takes pad0 only)."""
+    """Run the kernel on a CUDA tensor into a new (B, C, Ho, Wo) tensor, with
+    the FIR `kernel` (flipped if `flip`); the output size carries pad1 (the
+    kernel takes pad0 only)."""
     if not x.is_cuda:
         raise ValueError("upfirdn2d_cuda: input must be a CUDA tensor")
+    k = _host_taps(kernel)
     _check_kernel_contract(x, k, up, down)
     if Ho < 1 or Wo < 1:
         raise ValueError(f"upfirdn2d_cuda: empty output {Ho}x{Wo}")
     B, C, H, W = x.shape
     out = torch.empty((B, C, Ho, Wo), dtype=x.dtype, device=x.device)
+    device = x.get_device()
     lib = _lib()
-    err = lib.storm_upfirdn2d_f32(
-        x.data_ptr(), out.data_ptr(), k.ctypes.data, x.device.index, B * C,
-        H, W, Ho, Wo, up, down, pad0,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    err = lib.storm_upfirdn2d_f32(x.data_ptr(), out.data_ptr(), k.ctypes.data, flip, device,
+                                  B * C, H, W, Ho, Wo, up, down, pad0,
+                                  torch._C._cuda_getCurrentRawStream(device))
     build.check_launch(lib, err, "upfirdn2d_cuda")
     return out
 
@@ -151,9 +159,8 @@ def upfirdn2d_cuda(x: torch.Tensor, kernel, up: int = 1, down: int = 1,
                    pad: Tuple[int, int] = (0, 0)) -> torch.Tensor:
     """Launch the sm_90a kernel on a contiguous float32 CUDA tensor (B, C, H, W).
     The output has no grad_fn: `upfirdn2d` is the differentiable entry."""
-    k = _host_taps(kernel)
     H, W = x.shape[-2:]
-    out = _launch(x, k, up, down, int(pad[0]),
+    out = _launch(x, kernel, False, up, down, int(pad[0]),
                   output_size(H, _TAPS, up, down, pad), output_size(W, _TAPS, up, down, pad))
     upfirdn2d_cuda.launches += 1
     return out
@@ -163,9 +170,9 @@ def upfirdn2d_bwd_cuda(g: torch.Tensor, kernel, up: int, down: int,
                        pad: Tuple[int, int], x_hw: Tuple[int, int]) -> torch.Tensor:
     """The gradient of `upfirdn2d_cuda(x, kernel, up, down, pad)` w.r.t. x of
     spatial size `x_hw`: one launch of the same kernel with the adjoint's
-    arguments, on the output gradient `g` made contiguous."""
-    kflip, g_up, g_down, g_pad0 = _bwd_args(kernel, up, down, pad)
-    out = _launch(g.contiguous(), kflip, g_up, g_down, g_pad0, *x_hw)
+    arguments (`_adjoint`), on the output gradient `g` made contiguous."""
+    g_up, g_down, g_pad0 = _adjoint(up, down, pad)
+    out = _launch(g.contiguous(), kernel, True, g_up, g_down, g_pad0, *x_hw)
     upfirdn2d_bwd_cuda.launches += 1
     return out
 
@@ -194,8 +201,8 @@ class UpFirDn2d(torch.autograd.Function):
         if g.is_cuda:
             return upfirdn2d_bwd_cuda(g, kernel, up, down, pad, x_hw), None, None, None, None
         g = g.contiguous()
-        kflip, g_up, g_down, _ = _bwd_args(kernel, up, down, pad)
-        _check_kernel_contract(g, kflip, g_up, g_down)
+        g_up, g_down, _ = _adjoint(up, down, pad)
+        _check_kernel_contract(g, _host_taps(kernel), g_up, g_down)
         return upfirdn2d_bwd_plain(g, kernel, up, down, pad, x_hw), None, None, None, None
 
 

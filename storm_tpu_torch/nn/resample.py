@@ -6,6 +6,8 @@ host-side numpy constants.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -27,11 +29,20 @@ def setup_kernel(k) -> np.ndarray:
     return k
 
 
+@functools.lru_cache(maxsize=None)
+def _scaled_kernel(k: tuple, scale: float) -> np.ndarray:
+    """setup_kernel(k) * scale for 1-D taps `k`, made once per (taps, scale)
+    and read-only, so a forward's 18 resampling calls compute no FIR."""
+    kern = setup_kernel(k) * scale
+    kern.setflags(write=False)  # shared by every later call
+    return kern
+
+
 def upsample_2d(x: torch.Tensor, k=None, factor: int = 2, gain: float = 1.0) -> torch.Tensor:
     """FIR upsample by `factor` (gain factor**2 keeps the DC level)."""
     if k is None:
-        k = [1] * factor
-    kern = setup_kernel(k) * (gain * factor**2)
+        k = (1,) * factor
+    kern = _scaled_kernel(tuple(k), gain * factor**2)
     p = kern.shape[0] - factor
     return upfirdn2d(x, kern, up=factor, pad=((p + 1) // 2 + factor - 1, p // 2))
 
@@ -39,8 +50,8 @@ def upsample_2d(x: torch.Tensor, k=None, factor: int = 2, gain: float = 1.0) -> 
 def downsample_2d(x: torch.Tensor, k=None, factor: int = 2, gain: float = 1.0) -> torch.Tensor:
     """FIR downsample by `factor`."""
     if k is None:
-        k = [1] * factor
-    kern = setup_kernel(k) * gain
+        k = (1,) * factor
+    kern = _scaled_kernel(tuple(k), gain)
     p = kern.shape[0] - factor
     return upfirdn2d(x, kern, down=factor, pad=((p + 1) // 2, p // 2))
 

@@ -50,6 +50,48 @@ def test_kernel_matches_plain(cuda, shape, up, down, pad, kernel):
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
 
 
+# shapes that cross the kernel's tile and vector boundaries (output tiles of
+# 16 x 64 for down, 32 x 128 for up; 16-byte chunks): H and W that are not
+# multiples of the tile or of 4, H = 1, W = 1, one past a tile, whole aligned
+# tiles, and more planes than one grid dimension holds
+EDGE_SHAPES = [(1, 2, 17, 131), (2, 3, 1, 70), (2, 3, 45, 1), (1, 1, 33, 129),
+               (2, 4, 128, 256), (1, 65537, 2, 3)]
+EDGE_CONFIGS = [(1, 2, (1, 1)), (1, 2, (2, 2)), (2, 1, (2, 1)), (2, 1, (1, 2))]
+EDGE_CASES = [(shape, cfg) for shape in EDGE_SHAPES for cfg in EDGE_CONFIGS
+              if min(kup.output_size(n, 4, *cfg) for n in shape[2:]) >= 1]
+
+
+@pytest.mark.parametrize("kernel", [SYM, ASYM], ids=["sym", "asym"])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "odd_offset"])
+@pytest.mark.parametrize("shape,cfg", EDGE_CASES)
+def test_kernel_matches_plain_at_tile_edges(cuda, shape, cfg, offset, kernel):
+    """offset 1: a contiguous view one float into its storage, which the
+    kernel fills through its 4-byte copies."""
+    up, down, pad = cfg
+    n = int(np.prod(shape))
+    x = torch.randn(n + offset, generator=torch.Generator().manual_seed(n)).to(cuda)
+    x = x[offset:].view(shape)
+    assert x.is_contiguous() and x.storage_offset() == offset
+    got = kup.upfirdn2d_cuda(x, kernel, up=up, down=down, pad=pad)
+    want = kup.upfirdn2d_plain(x, kernel, up=up, down=down, pad=pad)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("kernel", [SYM, ASYM], ids=["sym", "asym"])
+@pytest.mark.parametrize("shape,cfg", [c for c in EDGE_CASES if c[1] in ((1, 2, (1, 1)),
+                                                                         (2, 1, (2, 1)))])
+def test_adjoint_matches_plain_at_tile_edges(cuda, shape, cfg, kernel):
+    """The backward kernel's explicit output size is the forward input's:
+    odd, 1, or one past a tile."""
+    up, down, pad = cfg
+    Ho, Wo = (kup.output_size(n, 4, up, down, pad) for n in shape[2:])
+    g = torch.randn(shape[:2] + (Ho, Wo), generator=torch.Generator().manual_seed(2)).to(cuda)
+    got = kup.upfirdn2d_bwd_cuda(g, kernel, up, down, pad, shape[2:])
+    want = kup.upfirdn2d_bwd_plain(g, kernel, up, down, pad, shape[2:])
+    assert got.shape == shape
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
 def test_kernel_refuses_what_it_was_not_built_for(cuda):
     x = torch.zeros(1, 2, 8, 8, device=cuda)
     with pytest.raises(ValueError, match="float32"):

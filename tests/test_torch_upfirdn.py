@@ -166,3 +166,40 @@ def test_backward_wrapper_refuses_cpu_tensor():
     with pytest.raises(ValueError, match="CUDA tensor"):
         kup.upfirdn2d_bwd_cuda(tt(np.zeros((1, 2, 4, 4))), SYM, 1, 2, (1, 1), (8, 8))
     assert kup.upfirdn2d_bwd_cuda.launches == 0
+
+
+@pytest.mark.parametrize("factor_gain", [(2, 1.0), (2, 4.0)])
+def test_resample_fir_is_made_once_and_unchanged(factor_gain):
+    """The FIR of upsample_2d / downsample_2d is computed once per tuple and
+    equals, bit for bit, the one computed on every call before."""
+    factor, gain = factor_gain
+    scale = gain * factor**2
+    first = pres._scaled_kernel((1, 3, 3, 1), scale)
+    assert pres._scaled_kernel((1, 3, 3, 1), scale) is first
+    assert not first.flags.writeable
+    np.testing.assert_array_equal(first, pres.setup_kernel([1, 3, 3, 1]) * scale)
+    assert first.dtype == np.float32
+    x = nchw(_x(2, seed=7))
+    want = kup.upfirdn2d_plain(x, pres.setup_kernel([1, 3, 3, 1]) * scale, up=2, pad=(2, 1))
+    for k in ((1, 3, 3, 1), [1, 3, 3, 1]):  # a list of taps finds the same FIR
+        torch.testing.assert_close(pres.upsample_2d(x, k, gain=gain), want, rtol=0, atol=0)
+    assert pres._scaled_kernel((1, 3, 3, 1), scale) is first
+
+
+@pytest.mark.parametrize("kname", ["sym", "asym"])
+def test_launch_taps_are_converted_once(kname):
+    """The launch path's taps: the float32 FIR that nn/resample.py makes once
+    is passed as it is (no copy per call); other dtypes and CPU tensors become
+    the same float32 values. The adjoint passes the same taps with its flag:
+    the C entry reads element K*K-1-i for i, which is the FIR flipped in both
+    axes, and `_adjoint` gives the swapped (up, down) and pad0' = K-pad0-1."""
+    k = KERNELS[kname]
+    fir = pres._scaled_kernel((1, 3, 3, 1), 4.0)
+    assert kup._host_taps(fir) is fir
+    for other in (k.astype(np.float64), torch.from_numpy(k)):
+        got = kup._host_taps(other)
+        assert got.dtype == np.float32 and got.flags.c_contiguous
+        np.testing.assert_array_equal(got, k)
+    np.testing.assert_array_equal(k.ravel()[::-1].reshape(4, 4), k[::-1, ::-1])
+    assert kup._adjoint(1, 2, (1, 1)) == (2, 1, 2)
+    assert kup._adjoint(2, 1, (2, 1)) == (1, 2, 1)
