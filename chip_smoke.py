@@ -8,13 +8,14 @@ Phases, each of which exits non-zero on failure:
    versions; TF32 off.
 2. build: every CUDA source of the port with nvcc (sm_90a), timed.
 3. kernel against plain: upfirdn2d at every shape the full-width main path
-   gives it (4 s request: 256 bins x 512 frames, B=1), with the NCSN++ FIR and
+   gives it (4 s request: 256 bins x 576 frames, B=1: the wave padded to its
+   bucket of 64 hops, 65536 samples, 513 frames padded to 576), with the NCSN++ FIR and
    with an asymmetric one, held to atol = rtol = 1e-5 against the plain
    PyTorch version; kernel, plain and library-call times (CUDA events, back to
    back: a small call shows the host's enqueue cost) and the kernel's device
    time (`device_ms`, from profiler kernel events, each call after a read
    that clears the L2) beside the memory bound.
-   The same check, untimed, at the widths of the shorter files (128 and 320
+   The same check, untimed, at the widths of the shorter files (192 and 384
    frames).
 4. full-width NCSN++: one 27.8M score-net forward through the kernel and
    through the plain version, same weights, held to 1e-4 of the output scale.
@@ -64,9 +65,33 @@ Phases, each of which exits non-zero on failure:
 12. fused_leaky_relu (K2) through its op API at (8, 256, 256, 128) and
    (3, 17, 33, 6): forward against the plain version at atol = rtol = 1e-6,
    and both gradients (torch.autograd.grad) equal to autograd of the plain
-   version's, bit for bit; kernel and plain times
+   version's, bit for bit; kernel (event and device time) and plain times
    beside the memory bound (8 B per element).
 13. (with `--profile`) one int8 enhancement of the 4 s file traced.
+14. batched CLI: `python -m storm_tpu_torch.enhancement --batch 4 --timeit` at
+   the CLI defaults on 8 files of 1.0-4.0 s, two length buckets of 4: outputs
+   finite and as long as the inputs, exactly 18 x 101 upfirdn2d launches per
+   batch call; upfirdn2d against plain at every shape the batches gave it;
+   one batch with injected noise against each of its rows enhanced alone with
+   that row's noise (N=5, 1e-4 of the row's scale).
+15. HTTP server: `storm_tpu_torch.serve` built in this process (port 0, --batch
+   4, --N 10, both traffic buckets warmed at every row size); 12 requests of
+   1-4 s from 8 client threads: every reply 200, a finite WAV of the input's
+   length, X-NFE = 21; /stats: 12 requests, 0 errors, a batch of more than one
+   row; exactly 18 x 21 upfirdn2d launches per warm-up call and batch. Then
+   with --quant int8 --calib_dir on 8 requests: 55 x 21 quantizer launches per
+   warm-up call and batch (calibration launches none). Prints throughput
+   (audio s per wall s), latency p50 / p95 / max (over 12 requests the p95
+   lies between the two slowest: smoke readings, not a serving baseline),
+   batch fill and device_s; both kernels against plain at every shape the
+   server gave them.
+16. streaming: `--stream_chunk_s 2.0 --stream_overlap_s 0.5 --N 10` on one 12 s
+   file, f32 then int8 (the scale cache records stream_chunk_s 2.0): output
+   finite and as long as the input, 18 x 21 upfirdn2d launches per call of 8
+   chunks (B=8, 256 x 320) and, int8, 55 x 21 quantizer launches per call;
+   upfirdn2d against plain at every shape both runs gave it, the quantizer's
+   codes at every input shape the int8 run gave it.
+17. (with `--profile`) one B=4 enhancement at the 4 s bucket traced.
 
 A profile's kernel times come from its device events, each counted once;
 shares are of the summed kernel time. The busy time is the union of the
@@ -84,8 +109,10 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import functools
+import http.client
 import io
 import json
 import os
@@ -94,6 +121,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from unittest import mock
 
@@ -101,7 +129,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from storm_tpu_torch import enhancement, train
+from storm_tpu_torch import enhancement, serve, train
 from storm_tpu_torch.backbones.ncsnpp import NCSNpp, count_parameters
 from storm_tpu_torch.ckpt import load_training_checkpoint, save_checkpoint
 from storm_tpu_torch.data.audio import load_wav, save_wav
@@ -116,6 +144,8 @@ from storm_tpu_torch.models.storm import StochasticRegenerationModel
 from storm_tpu_torch.nn import qconv, resample
 from storm_tpu_torch.nn.init import reset_parameters
 from storm_tpu_torch.signal.transforms import pad_spec_amount
+from storm_tpu_torch.utils.inference import BucketedEnhancer
+from storm_tpu_torch.utils.server import decode_wav_bytes, encode_wav_bytes
 from storm_tpu_torch.utils.serving import n_quantized, scale_cache_path
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, float32 outside the tensor cores
@@ -123,7 +153,29 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
 
 NF, CH_MULT = 128, (1, 2, 2, 2)
-FREQS, FRAMES = 256, 512  # a 4 s request: 501 STFT frames padded to 512
+SR, HOP = 16000, 128
+BUCKET = 64 * HOP  # BucketedEnhancer pads every waveform to a multiple of 64 hops
+
+
+def bucket_frames(samples: int) -> int:
+    """NCSN++ input width of a wave of `samples`, as BucketedEnhancer gives
+    it: the wave padded to its bucket, its centred STFT frames padded to 64."""
+    n = 1 + -(-samples // BUCKET) * BUCKET // HOP
+    return n + pad_spec_amount(n)
+
+
+def padded_frames(seconds: float) -> int:
+    return bucket_frames(int(seconds * SR))
+
+
+def bucketed(y: np.ndarray) -> torch.Tensor:
+    """(B, T) waves on the card, zero-padded at the tail to their bucket as
+    BucketedEnhancer pads them (for the phases that call the model directly)."""
+    T = y.shape[-1]
+    return torch.from_numpy(np.pad(y, [(0, 0), (0, -(-T // BUCKET) * BUCKET - T)])).cuda()
+
+
+FREQS, FRAMES = 256, padded_frames(4.0)  # a 4 s request: 65536 samples, 513 frames -> 576
 FIR = resample.setup_kernel((1, 3, 3, 1))
 CONFIGS = {"down": dict(up=1, down=2, pad=(1, 1), kernel=FIR),
            "up": dict(up=2, down=1, pad=(2, 1), kernel=FIR * 4.0)}
@@ -131,7 +183,6 @@ CONFIGS = {"down": dict(up=1, down=2, pad=(1, 1), kernel=FIR),
 STORM_CONFIG = {"mode": "regen-joint-training", "init_scale": 1.0}
 N_STEPS, NFE = 50, 1 + 50 * 2  # CLI defaults: 1 denoiser + N x (ald + predictor)
 SECONDS = (1.0, 2.5, 4.0)
-SR = 16000
 GAP_S = 0.02  # host pause between the runs of `device_ms`
 L2_FLUSH_BYTES = 256 << 20  # read before each call of `device_ms`: 5x the H100's 50 MB L2
 # a profile fails unless the device events of each counted kernel number at
@@ -140,14 +191,8 @@ L2_FLUSH_BYTES = 256 << 20  # read before each call of `device_ms`: 5x the H100'
 PROFILE_MIN_MATCHED = 0.95
 
 
-def padded_frames(seconds: float) -> int:
-    """NCSN++ input width of a file: centred STFT frames, padded to 64."""
-    n = 1 + int(seconds * SR) // 128
-    return n + pad_spec_amount(n)
-
-
 # the other widths the enhancement path gives upfirdn2d (the trained
-# checkpoint's 1 s file included)
+# checkpoint's 1 s file included): 192 and 384
 OTHER_FRAMES = sorted({padded_frames(s) for s in SECONDS} - {FRAMES})
 # training: the CLI defaults' batch and crop (256 frames = 32640 samples, 2.04 s)
 TRAIN_B, TRAIN_FRAMES, TRAIN_STEPS = 8, 256, 8
@@ -171,7 +216,13 @@ K3_PER_FILE = N_QUANT + N_QUANT * N_STEPS * 2
 # calibration (quantization off): the denoiser, a trajectory of min(N, 10)
 # steps, then the prior and 8 probes spread over it (np.unique of 8 indices)
 CALIB_N = min(N_STEPS, 10)
-CALIB_FORWARDS = 1 + CALIB_N + 1 + len(np.unique(np.linspace(0, CALIB_N - 1, 8).astype(int)))
+
+
+def calib_forwards(calib_n: int) -> int:
+    return 1 + calib_n + 1 + len(np.unique(np.linspace(0, calib_n - 1, 8).astype(int)))
+
+
+CALIB_FORWARDS = calib_forwards(CALIB_N)
 PROBE_SHAPE, PROBE_S = (16 * 256 * 256, 128), 12.7  # scripts/perf_fusion_probe.py's qkernel
 K2_SHAPES = [(8, 256, 256, 128), (3, 17, 33, 6)]
 
@@ -417,16 +468,22 @@ def write_wavs(directory: str):
     return lengths
 
 
-def run_enhancement(argv) -> str:
-    """`python -m storm_tpu_torch.enhancement` in this process; its standard
-    output is printed and returned."""
+def captured(fn, *args):
+    """fn(*args) with its standard output captured, then printed indented;
+    returns (fn's result, the output)."""
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        enhancement.main(argv)
+        result = fn(*args)
     torch.cuda.synchronize()
     text = buf.getvalue()
     print("".join(f"    | {line}\n" for line in text.splitlines()), end="", flush=True)
-    return text
+    return result, text
+
+
+def run_enhancement(argv) -> str:
+    """`python -m storm_tpu_torch.enhancement` in this process; its standard
+    output is printed and returned."""
+    return captured(enhancement.main, argv)[1]
 
 
 def rtf_of(text: str):
@@ -465,7 +522,7 @@ def phase_main_path(workdir: str):
     check(launches == expected, f"upfirdn2d launched {launches} times, expected {expected}")
 
     # the whole path once more on the shortest file, kernel against plain, same noise
-    y = torch.from_numpy(load_wav(os.path.join(noisy, next(iter(lengths))))[0]).cuda()
+    y = bucketed(load_wav(os.path.join(noisy, next(iter(lengths))))[0])
     runs = []
     for plain in (False, True):
         gen = torch.Generator(device="cuda").manual_seed(0)
@@ -800,7 +857,7 @@ def phase_profile():
     """Trace one enhancement of the longest file (CLI defaults) and print where
     the device time goes."""
     model = build_model(STORM_CONFIG, device="cuda", seed=0)
-    y = torch.from_numpy(synth_wav(max(SECONDS), 0, np.random.default_rng(0))[None]).cuda()
+    y = bucketed(synth_wav(max(SECONDS), 0, np.random.default_rng(0))[None])
     model.enhance(y, N=2, corrector="ald")  # warm-up at the same shapes
     profile_run(f"enhance {max(SECONDS)} s file",
                 lambda: model.enhance(y, N=N_STEPS, corrector="ald"))
@@ -866,7 +923,7 @@ def phase_quantizer_vs_plain(workdir: str, gen: torch.Generator):
     the largest |kernel code - plain code| over every input)."""
     model = build_model(STORM_CONFIG, device="cuda", seed=0)
     name = f"utt{len(SECONDS) - 1}_{SECONDS[-1]:.1f}s.wav"
-    y = torch.from_numpy(load_wav(os.path.join(workdir, "noisy", name))[0]).cuda()
+    y = bucketed(load_wav(os.path.join(workdir, "noisy", name))[0])
     quant = quant_mod.calibrate_storm(model, y, N=CALIB_N, min_channels=QUANT_MIN_CHANNELS,
                                       generator=torch.Generator(device="cuda").manual_seed(1))
     check(n_quantized(quant) == 2 * N_QUANT,
@@ -994,7 +1051,7 @@ def phase_int8_path(workdir: str, f32_rtf, lengths):
     torch.backends.cudnn.deterministic = True
     try:
         for name in lengths:
-            y = torch.from_numpy(load_wav(os.path.join(noisy, name))[0]).cuda()
+            y = bucketed(load_wav(os.path.join(noisy, name))[0])
 
             def enhance(**kw):
                 gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1057,10 +1114,13 @@ def phase_fused_act(gen: torch.Generator):
     ops_ms = 4.0 * n / PEAK_F32_FLOP_PER_S * 1e3
     with torch.no_grad():
         r = dict(ms=time_ms(lambda: kfa.fused_leaky_relu_cuda(x, b)),
+                 device_ms=device_ms([lambda: kfa.fused_leaky_relu_cuda(x, b)],
+                                     "fused_leaky_relu_kernel")[0],
                  mask_ms=time_ms(lambda: kfa.fused_leaky_relu_cuda(x, b, with_mask=True)),
                  plain_ms=time_ms(lambda: kfa.fused_leaky_relu_plain(x, b), reps=5),
                  bytes_ms=bytes_ms, ops_ms=ops_ms, launches=launches, max_abs_err=max_err)
-    print(f"  fused_leaky_relu {tuple(x.shape)}: ms={r['ms']:.5f} (with the mask "
+    print(f"  fused_leaky_relu {tuple(x.shape)}: ms={r['ms']:.5f} device_ms={r['device_ms']:.5f} "
+          f"(with the mask "
           f"{r['mask_ms']:.5f}) plain_ms={r['plain_ms']:.5f} bound_ms={max(bytes_ms, ops_ms):.5f} "
           f"(bytes; 9 B per element with the mask: "
           f"{9.0 * n / PEAK_BYTES_PER_S * 1e3:.5f})", flush=True)
@@ -1071,17 +1131,343 @@ def phase_profile_int8(workdir: str):
     """Trace one int8 enhancement of the 4 s file (CLI defaults)."""
     model = build_model(STORM_CONFIG, device="cuda", seed=0)
     quant = quant_mod.load_scales(scale_cache_path(os.path.join(workdir, "storm.pt")))
-    y = torch.from_numpy(synth_wav(max(SECONDS), 0, np.random.default_rng(0))[None]).cuda()
+    y = bucketed(synth_wav(max(SECONDS), 0, np.random.default_rng(0))[None])
     model.enhance(y, N=2, corrector="ald", quant=quant)  # warm-up at the same shapes
     profile_run(f"int8 enhance {max(SECONDS)} s file",
                 lambda: model.enhance(y, N=N_STEPS, corrector="ald", quant=quant), INT8_GROUPS)
 
 
+# --- serving at batch > 1 (phases 14-17)
+
+# the batched CLI: two buckets of four files, 1 s (16384 samples, 192 frames)
+# and 4 s (65536 samples, 576 frames), 19.6 s of audio
+CLI_BATCH, BATCH_SECONDS = 4, (1.0, 1.0, 1.01, 1.02, 3.7, 3.85, 4.0, 4.0)
+INVARIANCE_N = 5
+# the server and streaming runs use N=10 (21 NFE) to stay within time
+SERVE_N = 10
+SERVE_NFE = 1 + 2 * SERVE_N
+SERVE_BATCH, SERVE_CLIENTS, INT8_REQUESTS = 4, 8, 8
+SERVE_SECONDS = (1.0, 3.6, 1.0, 3.7, 1.01, 3.8, 1.02, 3.9, 1.0, 4.0, 1.015, 4.0)
+SERVE_WARMUP = "1.0,4.0"  # the two buckets the requests span
+STREAM_S, STREAM_CHUNK_S, STREAM_OVERLAP_S, STREAM_ROWS = 12.0, 2.0, 0.5, 8
+K1_PER_FORWARD = len(k1_calls(6))  # 18 upfirdn2d calls per NCSN++ forward
+
+
+@contextlib.contextmanager
+def shapes_recorded():
+    """While active, every upfirdn2d call of NCSN++ (nn/resample.py) adds its
+    (config, B, C, H, W) to the first yielded set and every activation
+    quantizer call (nn/qconv.py) its input shape to the second; the calls run
+    as before (threads included)."""
+    k1, k3 = set(), set()
+
+    def upfirdn2d(x, kernel, up=1, down=1, pad=(0, 0)):
+        k1.add(("up" if up == 2 else "down", *x.shape))
+        return kup.upfirdn2d(x, kernel, up=up, down=down, pad=pad)
+
+    def quantize_int8(x, inv):
+        k3.add(tuple(x.shape))
+        return kq.quantize_int8(x, inv)
+
+    with mock.patch.object(resample, "upfirdn2d", upfirdn2d), \
+            mock.patch.object(qconv, "quantize_int8", quantize_int8):
+        yield k1, k3
+
+
+def check_k1_at(what: str, shapes, gen) -> float:
+    """upfirdn2d against plain (both FIRs) at every recorded shape."""
+    errs = [check_forward(cfg, torch.randn(B, C, H, W, device="cuda", generator=gen))
+            for cfg, B, C, H, W in sorted(shapes)]
+    tops = sorted({(B, W) for cfg, B, C, H, W in shapes if cfg == "down" and H == FREQS})
+    print(f"  upfirdn2d against plain at the {len(shapes)} shapes {what} gave it ((B, W) at "
+          f"the top level: {tops}): max abs err {max(errs):.2e}", flush=True)
+    torch.cuda.empty_cache()
+    return max(errs)
+
+
+def check_k3_at(what: str, shapes, gen) -> int:
+    """The quantizer's codes against plain at every recorded input shape
+    (f32, ties and saturating values written in, s = 12.7)."""
+    err = 0
+    for shape in sorted(shapes):
+        x = 10.0 * torch.randn(shape, device="cuda", generator=gen)
+        with_ties(x, PROBE_S)
+        err = max(err, check_codes(f"{what} {shape}", x, PROBE_S))
+    print(f"  quantize_int8 codes identical to plain at the {len(shapes)} input shapes {what} "
+          f"gave it (batch rows {sorted({s[0] for s in shapes})})", flush=True)
+    torch.cuda.empty_cache()
+    return err
+
+
+def write_named_wavs(directory: str, seconds, prefix: str, seed: int):
+    """One synthesized file per entry of `seconds`; returns {name: samples}."""
+    os.makedirs(directory)
+    rng = np.random.default_rng(seed)
+    lengths = {}
+    for i, s in enumerate(seconds):
+        name = f"{prefix}{i:02d}_{s:.3f}s.wav"
+        x = synth_wav(s, i, rng)
+        save_wav(os.path.join(directory, name), x, SR)
+        lengths[name] = x.shape[-1]
+    return lengths
+
+
+class SlicedNoise:
+    """A noise source handing out pre-drawn (B, F, T, 2) draws in order,
+    rows `rows` of each."""
+
+    def __init__(self, draws, rows):
+        self.draws, self.rows, self.used = draws, rows, 0
+
+    def __call__(self, shape):
+        z = self.draws[self.used][self.rows]
+        check(tuple(z.shape[:-1]) == tuple(shape), f"noise {tuple(z.shape)} for {shape}")
+        self.used += 1
+        return z
+
+
+def phase_batch_invariance(model, ys: np.ndarray, gen: torch.Generator) -> float:
+    """One batch with injected noise against each row enhanced alone with its
+    rows of the same noise; returns the largest |row alone - row in batch| /
+    max|row in batch|."""
+    B, T = ys.shape
+    enh = BucketedEnhancer(model, N=INVARIANCE_N, corrector="ald")
+    draws = [torch.randn(B, FREQS, bucket_frames(T), 2, device="cuda", generator=gen) * 0.5 ** 0.5
+             for _ in range(1 + 2 * INVARIANCE_N)]
+    torch.backends.cudnn.deterministic = True
+    try:
+        x_all, _ = enh(ys, noise=SlicedNoise(draws, slice(None)))
+        worst = 0.0
+        for i in range(B):
+            xi, _ = enh(ys[i: i + 1], noise=SlicedNoise(draws, slice(i, i + 1)))
+            worst = max(worst, float(np.abs(xi[0] - x_all[i]).max() / np.abs(x_all[i]).max()))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    print(f"  batch invariance (B={B} at {bucket_frames(T)} frames, N={INVARIANCE_N}, injected "
+          f"noise): max |row alone - row in batch| / max |row| = {worst:.3e}", flush=True)
+    check(worst <= 1e-4, f"a row enhanced alone differs from its batch by {worst:.3e} (> 1e-4)")
+    return worst
+
+
+def phase_batched_cli(workdir: str, gen: torch.Generator):
+    """Phase 14. Returns (upfirdn2d launches, the kernel's max error)."""
+    ckpt = os.path.join(workdir, "storm.pt")
+    noisy, out = os.path.join(workdir, "batch_noisy"), os.path.join(workdir, "batch_enhanced")
+    lengths = write_named_wavs(noisy, BATCH_SECONDS, "b", seed=3)
+    buckets = {}
+    for n in lengths.values():
+        buckets[-(-n // BUCKET)] = buckets.get(-(-n // BUCKET), 0) + 1
+    calls = sum(-(-k // CLI_BATCH) for k in buckets.values())
+    kup.upfirdn2d_cuda.launches = 0
+    t0 = time.perf_counter()
+    with shapes_recorded() as (k1_shapes, _):
+        text = run_enhancement(["--test_dir", noisy, "--enhanced_dir", out, "--ckpt", ckpt,
+                                "--mode", "storm", "--batch", str(CLI_BATCH), "--timeit",
+                                "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    launches = kup.upfirdn2d_cuda.launches
+    check_outputs(out, lengths)
+    batches = [(int(k), int(nfe), float(rtf)) for k, nfe, rtf in
+               re.findall(r"batch of (\d+): nfe=(\d+) rtf=([0-9.]+)", text)]
+    check(len(batches) == calls and all(nfe == NFE for _, nfe, _ in batches),
+          f"batch lines {batches}, expected {calls} of nfe {NFE}")
+    expected = K1_PER_FORWARD * NFE * calls
+    audio_s = sum(lengths.values()) / SR
+    print(f"  {len(lengths)} files ({audio_s:.3f} s of audio) in {calls} calls of B={CLI_BATCH} "
+          f"(buckets {sorted(b * BUCKET for b in buckets)} samples): {wall:.2f} s wall, "
+          f"{audio_s / wall:.4f} audio s per wall s; RTF per batch {[b[2] for b in batches]}; "
+          f"upfirdn2d launches {launches} (expected {K1_PER_FORWARD} x {NFE} x {calls} = "
+          f"{expected})",
+          flush=True)
+    check(launches == expected, f"upfirdn2d launched {launches} times, expected {expected}")
+    err = check_k1_at("the batched CLI", k1_shapes, gen)
+
+    model = build_model(STORM_CONFIG, device="cuda", seed=0)  # the checkpoint's weights
+    first = sorted(lengths)[:CLI_BATCH]  # the 1 s bucket
+    padded = -(-max(lengths[f] for f in first) // BUCKET) * BUCKET
+    ys = np.stack([np.pad(load_wav(os.path.join(noisy, f))[0][0], (0, padded - lengths[f]))
+                   for f in first])
+    phase_batch_invariance(model, ys, gen)
+    del model
+    torch.cuda.empty_cache()
+    return launches, err, noisy
+
+
+def serve_args(ckpt: str, *extra):
+    return serve.build_argparser().parse_args(
+        ["--ckpt", ckpt, "--mode", "storm", "--port", "0", "--batch", str(SERVE_BATCH),
+         "--N", str(SERVE_N), "--warmup_buckets", SERVE_WARMUP, "--device", "cuda", *extra])
+
+
+def http_call(host, port, method, path, body=None):
+    """(status, headers, payload, seconds) of one request on its own connection."""
+    conn = http.client.HTTPConnection(host, port, timeout=900)
+    try:
+        t0 = time.perf_counter()
+        conn.request(method, path, body=body)
+        r = conn.getresponse()
+        payload = r.read()
+        return r.status, dict(r.getheaders()), payload, time.perf_counter() - t0
+    finally:
+        conn.close()
+
+
+def run_server(what: str, args, waves):
+    """Build the server in this process, send `waves` from SERVE_CLIENTS
+    client threads, read /healthz and /stats, stop it. Returns a dict of what
+    was measured, with the kernels' launches from before the build (warm-up
+    and calibration included) and the shapes the kernels were given."""
+    kup.upfirdn2d_cuda.launches = kq.quantize_int8_cuda.launches = 0
+    with shapes_recorded() as (k1_shapes, k3_shapes):
+        t0 = time.perf_counter()
+        (httpd, batcher), _ = captured(serve.build_server, args)
+        build_s = time.perf_counter() - t0
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        try:
+            host, port = httpd.server_address[:2]
+            health = json.loads(http_call(host, port, "GET", "/healthz")[2])
+            bodies = [encode_wav_bytes(w, SR) for w in waves]
+            with concurrent.futures.ThreadPoolExecutor(SERVE_CLIENTS) as pool:
+                t0 = time.perf_counter()
+                replies = list(pool.map(
+                    lambda body: http_call(host, port, "POST", "/enhance", body), bodies))
+                wall = time.perf_counter() - t0
+            stats = json.loads(http_call(host, port, "GET", "/stats")[2])
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            batcher.close()
+            thread.join(timeout=60)
+    torch.cuda.synchronize()
+    check(not thread.is_alive(), f"{what}: the server thread did not stop")
+    for (status, headers, payload, _), w in zip(replies, waves):
+        check(status == 200, f"{what}: reply {status}: {payload[:300]!r}")
+        x, sr = decode_wav_bytes(payload)
+        check(sr == SR and x.shape == (1, w.shape[-1]) and bool(np.isfinite(x).all()),
+              f"{what}: reply of shape {x.shape} for {w.shape[-1]} samples")
+        check(int(headers["X-NFE"]) == SERVE_NFE, f"{what}: X-NFE {headers['X-NFE']}")
+    n = len(waves)
+    check(stats["requests"] == n and stats["errors"] == 0 and stats["batched_requests"] == n,
+          f"{what}: /stats {stats}")
+    check(stats["batched_requests"] > stats["batches"], f"{what}: no batch of more than one row")
+    latency = np.array([r[3] for r in replies])
+    warmups = len(health["warmup_buckets_s"]) * len(health["row_sizes"])
+    audio_s = sum(w.shape[-1] for w in waves) / SR
+    print(f"  {what} on {health['device_name']} ({health['device']}), N={SERVE_N} "
+          f"({SERVE_NFE} NFE), row sizes {health['row_sizes']}, {warmups} warm-up calls; "
+          f"built in {build_s:.2f} s", flush=True)
+    print(f"  {what}: {n} requests ({audio_s:.3f} s of audio) from {SERVE_CLIENTS} clients in "
+          f"{wall:.3f} s: {audio_s / wall:.4f} audio s served per wall s", flush=True)
+    print(f"  {what}: latency p50 {np.percentile(latency, 50):.3f} s, p95 "
+          f"{np.percentile(latency, 95):.3f} s, max {latency.max():.3f} s (over {n} requests "
+          f"the p95 is interpolated between the two slowest: a smoke reading, not a tail)",
+          flush=True)
+    print(f"  {what}: {stats['batches']} batches, batch fill {stats['batch_fill']} "
+          f"({stats['batched_requests']} requests in {stats['row_slots']} rows), device_s "
+          f"{stats['device_s']:.3f}, /stats rtf {stats['rtf']}", flush=True)
+    return dict(stats=stats, warmups=warmups, k1=kup.upfirdn2d_cuda.launches,
+                k3=kq.quantize_int8_cuda.launches, k1_shapes=k1_shapes, k3_shapes=k3_shapes)
+
+
+def phase_server(workdir: str, calib_dir: str, gen: torch.Generator):
+    """Phase 15. Returns ({path: upfirdn2d launches}, K3 launches, K1 error, K3 error)."""
+    rng = np.random.default_rng(4)
+    waves = [synth_wav(s, i, rng) for i, s in enumerate(SERVE_SECONDS)]
+    ckpt = os.path.join(workdir, "storm.pt")
+    f32 = run_server("f32 server", serve_args(ckpt), waves)
+    want = K1_PER_FORWARD * SERVE_NFE * (f32["warmups"] + f32["stats"]["batches"])
+    print(f"  f32 server: upfirdn2d launches {f32['k1']} (expected {K1_PER_FORWARD} x "
+          f"{SERVE_NFE} x "
+          f"({f32['warmups']} warm-up + {f32['stats']['batches']} batches) = {want})", flush=True)
+    check(f32["k1"] == want and f32["k3"] == 0, f"f32 server launched {f32['k1']}, {f32['k3']}")
+
+    # int8 at a checkpoint path of its own, so that it calibrates
+    ckpt8 = os.path.join(workdir, "storm_serve.pt")
+    os.link(ckpt, ckpt8)
+    q = run_server("int8 server", serve_args(ckpt8, "--quant", "int8", "--calib_dir", calib_dir),
+                   waves[:INT8_REQUESTS])
+    check(os.path.exists(scale_cache_path(ckpt8)), "the int8 server did not write its scales")
+    served = q["warmups"] + q["stats"]["batches"]
+    want1 = K1_PER_FORWARD * (calib_forwards(min(SERVE_N, 10)) + SERVE_NFE * served)
+    want3 = N_QUANT * SERVE_NFE * served
+    print(f"  int8 server: quantizer launches {q['k3']} (expected {N_QUANT} x {SERVE_NFE} x "
+          f"({q['warmups']} warm-up + {q['stats']['batches']} batches) = {want3}; calibration "
+          f"launches none), upfirdn2d {q['k1']} (expected {want1}, calibration included)",
+          flush=True)
+    check(q["k3"] == want3 and q["k1"] == want1, f"int8 server launched {q['k3']}, {q['k1']}")
+    k1_err = check_k1_at("the servers", f32["k1_shapes"] | q["k1_shapes"], gen)
+    k3_err = check_k3_at("the int8 server", q["k3_shapes"], gen)
+    return {"server": f32["k1"], "server_int8": q["k1"]}, q["k3"], k1_err, k3_err
+
+
+def phase_streaming(workdir: str, gen: torch.Generator):
+    """Phase 16: the streaming CLI on one long file, f32 then int8, with K1
+    held to plain at every shape both runs gave it and K3 at every input
+    shape of the int8 run. Returns ({path: upfirdn2d launches}, K3 launches,
+    K1 error, K3 error)."""
+    ckpt = os.path.join(workdir, "storm.pt")
+    noisy = os.path.join(workdir, "stream_noisy")
+    out = os.path.join(workdir, "stream_enhanced")
+    lengths = write_named_wavs(noisy, (STREAM_S,), "long", seed=5)
+    T = next(iter(lengths.values()))
+    chunk = -(-int(STREAM_CHUNK_S * SR) // BUCKET) * BUCKET
+    overlap = int(STREAM_OVERLAP_S * SR)
+    chunks = len(range(0, T - overlap, chunk - overlap))
+    calls = -(-chunks // STREAM_ROWS)
+    argv = ["--test_dir", noisy, "--enhanced_dir", out, "--ckpt", ckpt, "--mode", "storm",
+            "--N", str(SERVE_N), "--stream_chunk_s", str(STREAM_CHUNK_S), "--stream_overlap_s",
+            str(STREAM_OVERLAP_S), "--timeit", "--device", "cuda"]
+    k1, k3_launches, shapes, k3_shapes = {}, 0, set(), set()
+    for run, extra in (("streaming", []), ("streaming_int8", ["--quant", "int8"])):
+        kup.upfirdn2d_cuda.launches = kq.quantize_int8_cuda.launches = 0
+        t0 = time.perf_counter()
+        with shapes_recorded() as (k1_shapes, q_shapes):
+            text = run_enhancement(argv + extra)
+        wall = time.perf_counter() - t0
+        check_outputs(out, lengths)
+        shapes |= k1_shapes
+        k3_shapes |= q_shapes
+        k1[run] = kup.upfirdn2d_cuda.launches
+        k3 = kq.quantize_int8_cuda.launches
+        calib = calib_forwards(min(SERVE_N, 10)) if extra else 0
+        want1 = K1_PER_FORWARD * (calib + SERVE_NFE * calls)
+        want3 = N_QUANT * SERVE_NFE * calls if extra else 0
+        rtf = rtf_of(text)
+        print(f"  {run}: {T / SR:.1f} s file in {chunks} chunks of {chunk} samples "
+              f"({bucket_frames(chunk)} frames), {calls} call(s) of {STREAM_ROWS} rows; "
+              f"{wall:.2f} s wall, RTF {list(rtf.values())}; upfirdn2d launches {k1[run]} "
+              f"(expected {want1}{' with calibration' if calib else ''}), quantizer {k3} "
+              f"(expected {want3})", flush=True)
+        check(k1[run] == want1 and k3 == want3, f"{run}: launches {k1[run]}, {k3}")
+        if extra:
+            k3_launches = k3
+            meta = quant_mod.load_scales_with_meta(scale_cache_path(ckpt))[1]
+            check(meta["stream_chunk_s"] == STREAM_CHUNK_S and meta["calib_len"] == chunk,
+                  f"int8 scale cache meta {meta}")
+            print(f"  int8 scale cache: stream_chunk_s {meta['stream_chunk_s']}, calib_len "
+                  f"{meta['calib_len']}", flush=True)
+    check(bool(k3_shapes), "the int8 streaming run gave the quantizer no input")
+    return (k1, k3_launches, check_k1_at("streaming", shapes, gen),
+            check_k3_at("the int8 streaming run", k3_shapes, gen))
+
+
+def phase_profile_batch():
+    """Phase 17: trace one B=4 enhancement at the 4 s bucket (CLI defaults)."""
+    model = build_model(STORM_CONFIG, device="cuda", seed=0)
+    rng = np.random.default_rng(0)
+    ys = np.stack([synth_wav(max(SECONDS), i, rng) for i in range(CLI_BATCH)])
+    BucketedEnhancer(model, N=2, corrector="ald")(ys)  # warm-up at the same shapes
+    enh = BucketedEnhancer(model, N=N_STEPS, corrector="ald")
+    profile_run(f"enhance B={CLI_BATCH} x {max(SECONDS)} s ({FRAMES} frames)", lambda: enh(ys))
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
-                        help="also trace one enhancement, two train steps and one int8 "
-                             "enhancement and print the device time by kernel")
+                        help="also trace one enhancement, two train steps, one int8 "
+                             "enhancement and one B=4 enhancement and print the device time "
+                             "by kernel")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         fail("no CUDA device: chip_smoke.py runs on a card only")
@@ -1149,6 +1535,20 @@ def main():
             print("== phase 13: where an int8 enhancement's device time goes", flush=True)
             phase_profile_int8(workdir)
 
+        print(f"== phase 14: batched CLI (--batch {CLI_BATCH})", flush=True)
+        batch_launches, batch_err, batch_dir = phase_batched_cli(workdir, gen)
+
+        print("== phase 15: HTTP server with dynamic batching (storm_tpu_torch.serve)",
+              flush=True)
+        serve_launches, serve_k3, serve_err, serve_k3_err = phase_server(workdir, batch_dir, gen)
+
+        print(f"== phase 16: streaming (--stream_chunk_s {STREAM_CHUNK_S})", flush=True)
+        stream_launches, stream_k3, stream_err, stream_k3_err = phase_streaming(workdir, gen)
+
+        if args.profile:
+            print(f"== phase 17: where a B={CLI_BATCH} enhancement's device time goes", flush=True)
+            phase_profile_batch()
+
     def entry(name, source, replaces, per_shape_ms, calls, err, launches, work, **extra):
         keys = ("ms", "device_ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms")
         total = {k: sum(per_shape_ms[c][k] for c in calls) if k in per_shape_ms[calls[0]]
@@ -1160,26 +1560,33 @@ def main():
                 "bound_by": "bytes" if total["bytes_ms"] >= total["ops_ms"] else "operations",
                 "library_ms": total["library_ms"], "work": work, **extra}
 
+    k1_by_path = {"enhancement": launches, "train": train_launches[0],
+                  "batched_cli": batch_launches, **serve_launches, **stream_launches}
+    k3_by_path = {"enhancement_int8": k3_launches, "server_int8": serve_k3,
+                  "streaming_int8": stream_k3}
     k1_src = "storm_tpu_torch/csrc/upfirdn2d.cu"
     no_library = "no single PyTorch call computes this function"
     record = {"kernels": [
         entry("upfirdn2d", k1_src, "storm_tpu/kernels/upfirdn.py:139", per_shape, k1_calls(6),
-              max(max_err, train_fwd_err),
-              launches + train_launches[0],
-              "the 18 calls of one full-width score-net forward, B=1, 256 x 512",
-              launches_by_path={"enhancement": launches, "train": train_launches[0]}),
+              max(max_err, train_fwd_err, batch_err, serve_err, stream_err),
+              sum(k1_by_path.values()),
+              f"the 18 calls of one full-width score-net forward, B=1, 256 x {FRAMES}",
+              launches_by_path=k1_by_path),
         entry("upfirdn2d_bwd", k1_src, "storm_tpu/kernels/upfirdn.py:172-181", bwd_shape,
               k1_bwd_calls(), bwd_err, train_launches[1],
               f"the {STEP_BWD} backward calls of one full-width joint-training step, "
               f"B={TRAIN_B}, 256 x {TRAIN_FRAMES}"),
         entry("quantize_int8", "storm_tpu_torch/csrc/quantize_int8.cu",
-              "scripts/perf_fusion_probe.py:88", k3_shape, k3_calls, k3_err, k3_launches,
+              "scripts/perf_fusion_probe.py:88", k3_shape, k3_calls,
+              max(k3_err, serve_k3_err, stream_k3_err),
+              sum(k3_by_path.values()),
               f"the {N_QUANT} quantized-conv inputs of one full-width score-net forward, "
-              f"B=1, 256 x 512, float32", library=no_library,
+              f"B=1, 256 x {FRAMES}, float32", library=no_library, launches_by_path=k3_by_path,
               probe={k: probe[k] for k in ("shape", "dtype", "s", "ms", "plain_ms", "bound_ms")}),
         {"name": "fused_leaky_relu", "route": "cuda", "source": "storm_tpu_torch/csrc/fused_act.cu",
          "replaces": "storm_tpu/kernels/fused_act.py:61", "launches": k2["launches"],
-         "max_abs_err": k2["max_abs_err"], "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+         "max_abs_err": k2["max_abs_err"], "ms": k2["ms"], "device_ms": k2["device_ms"],
+         "plain_ms": k2["plain_ms"],
          "bound_ms": max(k2["bytes_ms"], k2["ops_ms"]),
          "bound_by": "bytes" if k2["bytes_ms"] >= k2["ops_ms"] else "operations",
          "library_ms": None, "work": f"forward at {K2_SHAPES[0]} float32, no mask",

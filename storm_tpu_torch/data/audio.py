@@ -1,6 +1,7 @@
 """WAV I/O with scipy (counterpart of storm_tpu/data/audio.py)."""
 from __future__ import annotations
 
+import struct
 from typing import Tuple
 
 import numpy as np
@@ -34,3 +35,31 @@ def save_wav(path, data, sr: int = 16000) -> None:
         data = data.T
     data = np.clip(data, -1.0, 1.0)
     wavfile.write(path, sr, (data * 32767.0).astype(np.int16))
+
+
+def wav_info(path) -> Tuple[int, int, int]:
+    """(sample rate, channels, frames) of a WAV file, from its header: the
+    samples are not read."""
+    with open(path, "rb") as f:
+        riff = f.read(12)
+        if len(riff) < 12 or riff[:4] != b"RIFF" or riff[8:] != b"WAVE":
+            raise ValueError(f"{path}: not a RIFF/WAVE file")
+        fmt = None
+        while True:
+            head = f.read(8)
+            if len(head) < 8:
+                raise ValueError(f"{path}: no fmt and data chunks")
+            chunk, size = head[:4], struct.unpack("<I", head[4:])[0]
+            if chunk == b"fmt ":
+                body = f.read(size)
+                if len(body) < 14:
+                    raise ValueError(f"{path}: short fmt chunk")
+                _, channels, sr, _, block_align = struct.unpack("<HHIIH", body[:14])
+                fmt = (sr, channels, block_align)
+                f.seek(size & 1, 1)  # chunks are padded to an even size
+            elif chunk == b"data":
+                if fmt is None or fmt[2] == 0:
+                    raise ValueError(f"{path}: data chunk before a valid fmt chunk")
+                return fmt[0], fmt[1], size // fmt[2]
+            else:
+                f.seek(size + (size & 1), 1)

@@ -1,0 +1,265 @@
+"""Online StoRM enhancement server: HTTP front end over the dynamic batcher
+(counterpart of serve.py).
+
+    python -m storm_tpu_torch.serve --ckpt model.pt --mode storm --port 8571 \\
+        [--batch 8] [--warmup_buckets 1,2.5,4] [--quant int8 --calib_dir noisy/]
+    curl -s --data-binary @noisy.wav localhost:8571/enhance > clean.wav
+
+Endpoints:
+    POST /enhance   16 kHz WAV in, enhanced WAV out (X-NFE and X-RTF headers)
+    GET  /healthz   readiness and the serving configuration (torch device, card)
+    GET  /stats     request and batch counters, audio seconds served, batch fill
+
+Sampler flags and defaults are the enhancement CLI's. The compute dtype is
+float32 (`--dtype float32`, or `checkpoint` for a float32 checkpoint); the
+reference serves bfloat16 by default, which is not ported yet. Noise comes
+from one torch.Generator seeded with `--seed`, owned by the batcher's
+dispatcher thread; int8 calibration draws from its own, seeded `--seed` + 1.
+SIGTERM stops accepting requests and drains the queue.
+"""
+from __future__ import annotations
+
+import argparse
+import glob
+import json
+import os
+import signal
+import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from .ckpt import load_checkpoint
+from .data.audio import load_wav
+from .models.factory import STORM_MODES, build_model
+from .sampling.correctors import CORRECTORS
+from .sampling.predictors import PREDICTORS
+from .utils.inference import BucketedEnhancer
+from .utils.server import DynamicBatcher, _default_row_sizes, decode_wav_bytes, encode_wav_bytes
+from .utils.serving import calibrate_or_load_scales
+
+MODEL_SR = 16000
+
+
+class _Server(ThreadingHTTPServer):
+    # a deep listen backlog: bursts of clients are what a batching server expects
+    request_queue_size = 128
+    daemon_threads = True
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--ckpt", required=True, help="Checkpoint file (.pt, storm_tpu_torch.ckpt).")
+    p.add_argument("--mode", required=True, choices=["storm"])
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8571)
+    p.add_argument("--batch", type=int, default=8, help="largest dynamic batch")
+    p.add_argument("--max_wait_ms", type=float, default=100.0,
+                   help="linger: longest queueing wait before a partial batch leaves")
+    p.add_argument("--warmup_s", type=float, default=0.0,
+                   help="before serving, run every row size at the bucket of this many "
+                        "seconds (0: none)")
+    p.add_argument("--warmup_buckets", default=None,
+                   help="comma-separated lengths in seconds to warm as well; a batch is "
+                        "padded to its largest bucket, so warm the buckets traffic spans")
+    p.add_argument("--row_sizes", default=None,
+                   help="comma-separated allowed batch row counts (default 1,2,4,...,--batch)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--sampler", choices=("pc", "ode"), default="pc")
+    p.add_argument("--predictor", default="reverse_diffusion", choices=tuple(PREDICTORS))
+    p.add_argument("--corrector", default="ald", choices=tuple(CORRECTORS))
+    p.add_argument("--corrector-steps", dest="corrector_steps", type=int, default=1)
+    p.add_argument("--snr", type=float, default=0.5)
+    p.add_argument("--N", type=int, default=50)
+    p.add_argument("--no-ema", action="store_true")
+    p.add_argument("--dtype", default="float32", choices=("checkpoint", "float32", "bfloat16"),
+                   help="compute dtype; bfloat16 (the reference's default) is not ported yet")
+    p.add_argument("--quant", default=None, choices=("int8",))
+    p.add_argument("--quant_min_channels", type=int, default=128)
+    p.add_argument("--calib_dir", default=None,
+                   help="representative noisy wavs for int8 calibration (needed with "
+                        "--quant int8 unless the scales are cached beside the checkpoint)")
+    p.add_argument("--deepcache", type=int, default=0, help="not ported yet (ROADMAP R7)")
+    p.add_argument("--data_parallel", action="store_true", help="not ported yet (ROADMAP R7)")
+    p.add_argument("--seq_parallel", type=int, default=0, help="not ported yet (ROADMAP R7)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device; 'cpu' runs the kernels' plain versions")
+    return p
+
+
+def make_handler(batcher: DynamicBatcher, info: dict, model_sr: int = MODEL_SR):
+    class Handler(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+
+        def log_message(self, fmt, *args):  # no access log
+            pass
+
+        def _json(self, code, obj):
+            body = json.dumps(obj).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            if self.path == "/healthz":
+                self._json(200, {"status": "ok", **info})
+            elif self.path == "/stats":
+                with batcher._lock:
+                    s = dict(batcher.stats)
+                audio_s = s.pop("audio_samples") / model_sr
+                s["audio_s"] = round(audio_s, 3)
+                s["rtf"] = round(s["device_s"] / audio_s, 4) if audio_s else None
+                s["batch_fill"] = (round(s["batched_requests"] / s["row_slots"], 4)
+                                   if s["row_slots"] else None)
+                self._json(200, s)
+            else:
+                self._json(404, {"error": f"unknown path {self.path}"})
+
+        def do_POST(self):
+            if self.path != "/enhance":
+                self._json(404, {"error": f"unknown path {self.path}"})
+                return
+            body = self.rfile.read(int(self.headers.get("Content-Length", 0)))
+            try:
+                y, sr = decode_wav_bytes(body)
+            except Exception as e:  # any malformed payload is the client's
+                self._json(400, {"error": f"not a WAV payload: {e}"})
+                return
+            if sr != model_sr:
+                self._json(400, {"error": f"sample rate {sr} != {model_sr}; resample to 16 kHz"})
+                return
+            y = y[0]
+            t0 = time.perf_counter()
+            try:
+                x_hat, nfe = batcher.submit(y)
+            except Exception as e:  # the enhancer's failure, reported to this client
+                self._json(500, {"error": str(e)})
+                return
+            elapsed = time.perf_counter() - t0
+            wav = encode_wav_bytes(x_hat, model_sr)
+            self.send_response(200)
+            self.send_header("Content-Type", "audio/wav")
+            self.send_header("Content-Length", str(len(wav)))
+            self.send_header("X-NFE", str(nfe))
+            self.send_header("X-RTF", f"{elapsed / (y.shape[-1] / model_sr):.4f}")
+            self.end_headers()
+            self.wfile.write(wav)
+
+    return Handler
+
+
+def _refuse_unported(args) -> None:
+    if args.sampler != "pc":
+        raise NotImplementedError(f"--sampler {args.sampler} is not ported yet (ROADMAP R3)")
+    if args.dtype == "bfloat16":
+        raise NotImplementedError("--dtype bfloat16 is not ported yet (ROADMAP M9); the port "
+                                  "serves float32")
+    if args.deepcache:
+        raise NotImplementedError("--deepcache is not ported yet (ROADMAP R7)")
+
+
+def build_server(args):
+    """Load the model, calibrate or load int8 scales, warm the buckets, and
+    return (the HTTP server, bound but not serving, and its DynamicBatcher)."""
+    _refuse_unported(args)
+    device = torch.device(args.device)
+    config, params, ema_params = load_checkpoint(args.ckpt)
+    if config.get("mode", "regen-joint-training") not in STORM_MODES:
+        raise SystemExit(f"--mode storm incompatible with checkpoint mode {config['mode']}")
+    config = dict(config)
+    if args.dtype != "checkpoint":
+        config["dtype"] = args.dtype
+    model = build_model(config, device=device)  # raises on a dtype other than float32
+    model.load_state_dict(params if args.no_ema else ema_params, strict=True)
+
+    quant = None
+    if args.quant == "int8":
+        def calib():
+            files = sorted(glob.glob(os.path.join(args.calib_dir or "", "*.wav")))[:4]
+            if not files:
+                raise SystemExit("--quant int8 needs --calib_dir with wavs (or scales cached "
+                                 "beside the checkpoint)")
+            return [load_wav(f)[0][0] for f in files]
+
+        quant = calibrate_or_load_scales(
+            model, args.mode, args.ckpt, calib,
+            torch.Generator(device=device).manual_seed(args.seed + 1), N=args.N,
+            min_channels=args.quant_min_channels,
+            params_source="raw" if args.no_ema else "ema", model_sr=MODEL_SR)
+
+    enhancer = BucketedEnhancer(
+        model, data_parallel=args.data_parallel, seq_parallel=args.seq_parallel,
+        N=args.N, predictor=args.predictor, corrector=args.corrector,
+        corrector_steps=args.corrector_steps, snr=args.snr, quant=quant)
+    if args.row_sizes:
+        row_sizes = sorted({int(r) for r in args.row_sizes.split(",")})
+        if row_sizes[0] < 1 or row_sizes[-1] > args.batch:
+            raise SystemExit(f"--row_sizes must lie in [1, {args.batch}]")
+        if row_sizes[-1] != args.batch:
+            row_sizes.append(args.batch)  # a full batch must be dispatchable
+    else:
+        row_sizes = _default_row_sizes(args.batch)
+
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+    warmup_s = [args.warmup_s] if args.warmup_s > 0 else []
+    if args.warmup_buckets:
+        warmup_s += [float(s) for s in args.warmup_buckets.split(",")]
+    # every row size at every warmed bucket, so that traffic there meets no
+    # first-call cost (cuDNN's plan for a new shape, the allocator's growth);
+    # the kernels build here too
+    lens = sorted({enhancer.padded_len(int(s * MODEL_SR)) for s in warmup_s})
+    shapes = [(rows, T) for T in lens for rows in row_sizes]
+    for done, (rows, T) in enumerate(shapes, 1):
+        enhancer(np.zeros((rows, T), np.float32), generator)
+        print(f"warmup {done}/{len(shapes)}: rows={rows} bucket={T / MODEL_SR:.3f}s", flush=True)
+
+    batcher = DynamicBatcher(enhancer, generator, max_batch=args.batch,
+                             max_wait_ms=args.max_wait_ms, row_sizes=row_sizes)
+    info = {
+        "mode": args.mode, "sampler": args.sampler, "N": args.N,
+        "quant": args.quant or "none", "batch": args.batch,
+        "device": str(enhancer.device),
+        "device_name": (torch.cuda.get_device_name(enhancer.device)
+                        if enhancer.device.type == "cuda" else "cpu"),
+        "predictor": args.predictor, "corrector": args.corrector,
+        "corrector_steps": args.corrector_steps, "snr": args.snr,
+        "row_sizes": row_sizes, "max_wait_ms": args.max_wait_ms,
+        "warmup_buckets_s": [T / MODEL_SR for T in lens],
+        "backbone": "ncsnpp", "dtype": "float32", "seed": args.seed,
+        "ckpt": os.path.abspath(args.ckpt),
+    }
+    try:
+        httpd = _Server((args.host, args.port), make_handler(batcher, info))
+    except OSError:
+        batcher.close()
+        raise
+    return httpd, batcher
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    args = build_argparser().parse_args(argv)
+    httpd, batcher = build_server(args)
+    host, port = httpd.server_address[:2]
+    print(f"serving on http://{host}:{port} (POST /enhance)", flush=True)
+
+    # orchestrators stop containers with SIGTERM: stop accepting, then drain
+    # the queued batches in close() instead of dying mid-request
+    signal.signal(signal.SIGTERM,
+                  lambda *_: threading.Thread(target=httpd.shutdown, daemon=True).start())
+    try:
+        httpd.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        httpd.server_close()
+        batcher.close()
+        print("drained; bye", flush=True)
+
+
+if __name__ == "__main__":
+    main()

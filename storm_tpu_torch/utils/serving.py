@@ -49,7 +49,9 @@ def calibrate_or_load_scales(
     *,
     N: int,
     min_channels: int,
+    stream_chunk_s: float = 0.0,
     params_source: str = "ema",
+    model_sr: int = 16000,
 ):
     """The int8 activation-scale trees for serving `model`.
 
@@ -57,15 +59,17 @@ def calibrate_or_load_scales(
     ((T,) float32 arrays), padded to one length that is a multiple of 64
     hops, with noise from `generator`, and writes the cache with the
     calibration configuration; a later run whose configuration matches
-    (parameters used and their digest, channel threshold, mode, calibration
-    trajectory length) loads it."""
+    (parameters used and their digest, channel threshold, mode, streaming
+    chunk length, calibration trajectory length) loads it. With
+    `stream_chunk_s` > 0 the files are cut to one chunk's length first, so
+    calibration runs at the streaming path's width, not the whole file's."""
     if mode != "storm":
         raise NotImplementedError(f"int8 calibration for mode {mode!r} is not ported yet")
     calib_meta = {
         "params": params_source,
         "min_channels": min_channels,
         "mode": mode,
-        "stream_chunk_s": 0.0,  # the reference's streaming mode; the port serves whole files
+        "stream_chunk_s": stream_chunk_s,
         # trajectory length the scales were integrated over: scales from an
         # --N 2 run must not be reused by an --N 50 run
         "calib_N": min(N, 10),
@@ -86,6 +90,9 @@ def calibrate_or_load_scales(
     calib = calib_loader()
     hop = model.stft_config.hop_length
     L = max(y.shape[-1] for y in calib)
+    if stream_chunk_s > 0:
+        L = min(L, int(stream_chunk_s * model_sr))
+        calib = [y[..., :L] for y in calib]
     L = -(-L // (64 * hop)) * (64 * hop)
     y_cal = np.stack([np.pad(y, [(0, 0)] * (y.ndim - 1) + [(0, L - y.shape[-1])])
                       for y in calib]).astype(np.float32)

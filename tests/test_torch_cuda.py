@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions, on a card: upfirdn2d
-in both directions (forward, and the gradient through `UpFirDn2d`), the int8
-quantizer (codes identical) and the int8 conv built on it, and the fused
-bias + leaky ReLU (forward and gradient).
+in both directions (forward, and the gradient through `UpFirDn2d`), also at
+the serving path's batches and bucket widths, the int8 quantizer (codes
+identical) and the int8 conv built on it, and the fused bias + leaky ReLU
+(forward and gradient); and the dynamic batcher's pipelined path on the card.
 
 Skips without a CUDA device. On a card, from the repository root:
 
@@ -13,6 +14,8 @@ atol = rtol = 1e-5: a 16-tap float32 sum in another order, with fused
 multiply-adds; the quantizer's codes are exact; fused_leaky_relu's forward
 1e-6 (the same float32 operations), its gradients exact (autograd's own).
 """
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -21,7 +24,10 @@ from storm_tpu_torch.kernels import fused_act as kfa
 from storm_tpu_torch.kernels import quant as kq
 from storm_tpu_torch.kernels import upfirdn as kup
 from storm_tpu_torch.nn.layers import conv1x1, conv3x3
+from storm_tpu_torch.models.factory import build_model
 from storm_tpu_torch.nn.qconv import conv2d_int8, scales_attached, weight_columns
+from storm_tpu_torch.utils.inference import BucketedEnhancer
+from storm_tpu_torch.utils.server import DynamicBatcher
 
 pytestmark = pytest.mark.cuda
 
@@ -75,6 +81,33 @@ def test_kernel_matches_plain_at_tile_edges(cuda, shape, cfg, offset, kernel):
     got = kup.upfirdn2d_cuda(x, kernel, up=up, down=down, pad=pad)
     want = kup.upfirdn2d_plain(x, kernel, up=up, down=down, pad=pad)
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+def _serving_calls(B, W):
+    """(config, shape) of the distinct upfirdn2d calls of a full-width NCSN++
+    forward (nf 128, ch_mult 1,2,2,2, 256 bins) on B rows of width W: down
+    into each of the three lower levels, up out of them, each at the
+    resblock's channels and at the pyramids' 6 and 2."""
+    calls = set()
+    for level, C in ((0, 128), (1, 256), (2, 256)):
+        H, Wl = 256 >> level, W >> level
+        calls |= {((1, 2, (1, 1)), (B, c, H, Wl)) for c in (C, 6, 2)}
+        calls |= {((2, 1, (2, 1)), (B, c, H // 2, Wl // 2)) for c in (256, 6, 2)}
+    return sorted(calls)
+
+
+@pytest.mark.parametrize("W", [192, 320, 384, 576])
+@pytest.mark.parametrize("B", [2, 4, 8])
+def test_kernel_matches_plain_at_serving_shapes(cuda, B, W):
+    """The batches the batched CLI, the server and streaming give the kernel:
+    B rows at the bucket widths of 1, 2 (a stream chunk), 2.5 and 4 s."""
+    gen = torch.Generator(device=cuda).manual_seed(B * W)
+    for (up, down, pad), shape in _serving_calls(B, W):
+        x = torch.randn(shape, device=cuda, generator=gen)
+        for kernel in (SYM, ASYM):
+            got = kup.upfirdn2d_cuda(x, kernel, up=up, down=down, pad=pad)
+            want = kup.upfirdn2d_plain(x, kernel, up=up, down=down, pad=pad)
+            torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.parametrize("kernel", [SYM, ASYM], ids=["sym", "asym"])
@@ -154,6 +187,15 @@ def test_quantizer_kernel_codes_equal_plain(cuda, dtype, inv, n, offset):
         assert got.min().item() == -127 and got.max().item() == 127
 
 
+@pytest.mark.parametrize("shape", [(4, 256, 256, 576), (8, 384, 128, 160), (2, 512, 32, 48)])
+def test_quantizer_codes_equal_plain_at_serving_shapes(cuda, shape):
+    """Quantized-conv inputs of B > 1 batches at bucket widths, ties included."""
+    n = int(np.prod(shape))
+    x = _quant_input(n, 2.0, torch.Generator().manual_seed(n % 1000)).to(cuda).view(shape)
+    got = kq.quantize_int8(x, 2.0)
+    assert torch.equal(got, kq.quantize_int8_plain(x, 2.0))
+
+
 def test_quantizer_refuses_what_it_was_not_built_for(cuda):
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         kq.quantize_int8(torch.zeros(8, 8, device=cuda, dtype=torch.float16), 1.0)
@@ -214,3 +256,37 @@ def test_fused_leaky_relu_refuses_what_it_was_not_built_for(cuda):
                              torch.zeros(8, device=cuda).half())
     with pytest.raises(ValueError, match="contiguous"):
         kfa.fused_leaky_relu(torch.zeros(8, 4, device=cuda).t(), torch.zeros(8, device=cuda))
+
+
+def test_pipelined_batcher_on_the_card_equals_the_enhancer(cuda):
+    """Two concurrent requests in one batch through the pipelined path
+    (`enhance_async`, the copy to pinned memory and its event): the results
+    of the enhancer on the same batch with the same generator, exactly."""
+    config = {"mode": "regen-joint-training", "nf": 16, "ch_mult": [1, 2, 2],
+              "init_scale": 1.0, "n_fft": 62, "hop_length": 16}
+    model = build_model(config, device=cuda, seed=0)
+    enh = BucketedEnhancer(model, N=2, corrector="ald")
+    waves = [np.sin(np.arange(n) / 7.0).astype(np.float32) for n in (900, 1500)]
+    batcher = DynamicBatcher(enh, torch.Generator(device=cuda).manual_seed(0), max_batch=2,
+                             max_wait_ms=20_000.0)
+    outs = [None, None]
+    try:
+        assert batcher._async
+
+        def work(i):
+            outs[i] = batcher.submit(waves[i], timeout=120)
+
+        threads = [threading.Thread(target=work, args=(i,)) for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+            assert not t.is_alive()
+    finally:
+        batcher.close()
+    assert batcher.stats["batches"] == 1 and batcher.stats["errors"] == 0
+    ys = np.stack([np.pad(w, (0, 2048 - w.shape[0])) for w in waves])
+    want, nfe = enh(ys, torch.Generator(device=cuda).manual_seed(0))
+    for (x, n), w, row in zip(outs, waves, want):
+        assert n == nfe == 5
+        np.testing.assert_array_equal(x, row[: w.shape[0]])

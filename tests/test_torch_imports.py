@@ -51,5 +51,7 @@ def test_port_imports_no_jax():
     for expected in ("storm_tpu_torch.kernels.upfirdn", "storm_tpu_torch.enhancement",
                      "storm_tpu_torch.models.storm", "storm_tpu_torch.convert",
                      "storm_tpu_torch.train", "storm_tpu_torch.data.datasets",
-                     "storm_tpu_torch.data.loader", "storm_tpu_torch.data.datamodule"):
+                     "storm_tpu_torch.data.loader", "storm_tpu_torch.data.datamodule",
+                     "storm_tpu_torch.serve", "storm_tpu_torch.utils.inference",
+                     "storm_tpu_torch.utils.server", "storm_tpu_torch.utils.streaming"):
         assert expected in names, names
