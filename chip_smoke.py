@@ -74,8 +74,9 @@ Phases, each of which exits non-zero on failure:
    batch call; upfirdn2d against plain at every shape the batches gave it;
    one batch with injected noise against each of its rows enhanced alone with
    that row's noise (N=5, 1e-4 of the row's scale).
-15. HTTP server: `storm_tpu_torch.serve` built in this process (port 0, --batch
-   4, --N 10, both traffic buckets warmed at every row size); 12 requests of
+15. HTTP server: `storm_tpu_torch.serve --dtype float32` built in this process
+   (port 0, --batch 4, --N 10, both traffic buckets warmed at every row
+   size); 12 requests of
    1-4 s from 8 client threads: every reply 200, a finite WAV of the input's
    length, X-NFE = 21; /stats: 12 requests, 0 errors, a batch of more than one
    row; exactly 18 x 21 upfirdn2d launches per warm-up call and batch. Then
@@ -92,6 +93,32 @@ Phases, each of which exits non-zero on failure:
    upfirdn2d against plain at every shape both runs gave it, the quantizer's
    codes at every input shape the int8 run gave it.
 17. (with `--profile`) one B=4 enhancement at the 4 s bucket traced.
+18. bfloat16 kernels: upfirdn2d at every main-path shape (B=1, 576 frames)
+   against plain, within 1 ulp of each element (NCSN++'s FIR: equal; an
+   asymmetric FIR's inexact products add their float32 rounding), the
+   elements that differ counted; kernel (event and L2-cold device time),
+   plain and bf16 library-call times beside the 2 B-per-element bound. The
+   adjoint's bf16 instance at every train-step backward shape. GroupNorm on
+   bf16 with float32 scale and bias against float32 GroupNorm rounded once.
+   One full-width NCSN++ forward in bf16 through the kernel and the plain
+   version, and its time against float32's.
+19. `python -m storm_tpu_torch.enhancement --dtype bfloat16` at the CLI
+   defaults on phase 5's three files, with `--batch 4` on phase 14's eight,
+   and with `--quant int8`: exact launch counts (18 upfirdn2d and, int8, 55
+   quantizer launches per forward), every launch in bf16, RTF, and
+   max|bf16 - f32| / max|f32| against the float32 runs on the same files
+   and seed; upfirdn2d against plain at every shape the runs gave it.
+20. the quantizer's bf16-product mode at every quantized-conv input of one
+   int8 bf16 forward of each net (110 calls), ties of the bf16 product
+   written in: codes identical to plain; per-shape times for the score net;
+   and at every input shape of phase 19's int8 run.
+21. the HTTP server at its default dtype, bfloat16, then int8 + bf16, on
+   phase 15's burst: replies, launch counts, /healthz's dtype, both kernels
+   against plain at every shape the servers gave them.
+22. streaming in bf16 on phase 16's file: launch counts, K1 at its shapes.
+23. (with `--profile`) one bf16 enhancement of the 4 s file traced: the
+   shares of convolutions, layout transforms, GroupNorm statistics,
+   elementwise kernels and K1.
 
 A profile's kernel times come from its device events, each counted once;
 shares are of the summed kernel time. The busy time is the union of the
@@ -142,7 +169,9 @@ from storm_tpu_torch.models.base import init_train_state
 from storm_tpu_torch.models.factory import build_model, resolve_device
 from storm_tpu_torch.models.storm import StochasticRegenerationModel
 from storm_tpu_torch.nn import qconv, resample
+from storm_tpu_torch.nn.cast import cast_params
 from storm_tpu_torch.nn.init import reset_parameters
+from storm_tpu_torch.nn.layers import group_norm
 from storm_tpu_torch.signal.transforms import pad_spec_amount
 from storm_tpu_torch.utils.inference import BucketedEnhancer
 from storm_tpu_torch.utils.server import decode_wav_bytes, encode_wav_bytes
@@ -298,7 +327,9 @@ def device_ms(fns, stem: str, reps: int = 20):
     finds the L2 cold, as the memory bound assumes: a read of L2_FLUSH_BYTES
     (another kernel, not counted) runs before it. A pause of GAP_S after each
     function's calls splits the trace's events into one run per function
-    (the profiler may miss a few events, so they are not split by count)."""
+    (the profiler may miss a few events, so they are not split by count).
+    A first run of the first function, dropped, takes the tracer's start:
+    it has been seen to lose half the events of the run it starts with."""
     from torch.profiler import ProfilerActivity, profile
 
     flush = torch.zeros(L2_FLUSH_BYTES // 4, device="cuda")
@@ -306,7 +337,7 @@ def device_ms(fns, stem: str, reps: int = 20):
         fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for fn in fns:
+        for fn in [fns[0], *fns]:
             for _ in range(reps):
                 flush.sum()
                 fn()
@@ -320,17 +351,19 @@ def device_ms(fns, stem: str, reps: int = 20):
             runs.append([])
         runs[-1].append(end - start)
         last_end = end
+    runs = runs[-len(fns):]  # without the first run, or what the tracer kept of it
     check(len(runs) == len(fns) and all(len(r) >= reps // 2 for r in runs),
           f"device events of {stem}: runs of {[len(r) for r in runs]}, expected "
           f"{len(fns)} runs of {reps}")
     return [statistics.mean(r) / 1e3 for r in runs]
 
 
-def library_call(cfg: str, C: int, backward: bool = False):
+def library_call(cfg: str, C: int, backward: bool = False, dtype=torch.float32):
     """One PyTorch call computing the same function (yardstick only); with
     `backward`, the adjoint of the forward call of `cfg`, which is the other
-    call with the same weight."""
-    k = torch.as_tensor(CONFIGS[cfg]["kernel"], device="cuda")
+    call with the same weight. In bfloat16 the weight is the FIR cast to it,
+    which is exact."""
+    k = torch.as_tensor(CONFIGS[cfg]["kernel"], device="cuda").to(dtype)
     if cfg == "down":  # correlation with the flipped FIR on the 1-padded input
         w = k.flip(0, 1).expand(C, 1, 4, 4).contiguous()
         if backward:
@@ -342,10 +375,11 @@ def library_call(cfg: str, C: int, backward: bool = False):
     return lambda x: F.conv_transpose2d(x, w, stride=2, padding=1, groups=C)
 
 
-def bound_ms(n_in: int, n_out: int, taps: int):
-    """(bytes bound, operations bound) in ms: float32 in and out once over the
-    memory rate; `taps` multiply-adds per output over the f32 peak."""
-    return (4.0 * (n_in + n_out) / PEAK_BYTES_PER_S * 1e3,
+def bound_ms(n_in: int, n_out: int, taps: int, elem_bytes: int = 4):
+    """(bytes bound, operations bound) in ms: in and out once (`elem_bytes`
+    per element: 4 float32, 2 bfloat16) over the memory rate; `taps`
+    multiply-adds per output, in float32 either way, over the f32 peak."""
+    return (elem_bytes * (n_in + n_out) / PEAK_BYTES_PER_S * 1e3,
             2.0 * taps * n_out / PEAK_F32_FLOP_PER_S * 1e3)
 
 
@@ -357,23 +391,56 @@ def forward_shapes(frames: int):
                   key=lambda s: (s[0], -s[1], -s[2]))
 
 
-def compare(what: str, got: torch.Tensor, want: torch.Tensor) -> float:
-    """max |got - want|; fails unless they agree to atol = rtol = 1e-5."""
+# bfloat16 checks of a kernel against its plain version, by kernel and FIR
+# (NCSN++'s or the asymmetric one): [elements compared, elements that differ]
+BF16_FLIPS = {k: {"ncsnpp": [0, 0], "asym": [0, 0]} for k in ("upfirdn2d", "upfirdn2d_bwd")}
+
+
+def ulps_of_scale(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| in bfloat16 ulps of max |want|: 2^-7 of its leading
+    power of two."""
+    scale = want.float().abs().max().clamp_min(2.0 ** -126)
+    return ((got.float() - want.float()).abs().max()
+            / torch.exp2(torch.floor(torch.log2(scale)) - 7)).item()
+
+
+def compare(what: str, got: torch.Tensor, want: torch.Tensor, kernel: str = "upfirdn2d",
+            terms: torch.Tensor = None, fir: str = "ncsnpp") -> float:
+    """max |got - want|; fails unless they agree to atol = rtol = 1e-5 in
+    float32, or in bfloat16 to 1 ulp of each element plus 2^-18 of `terms`
+    (the sum of the element's products' magnitudes): both sum in float32
+    and round once, but the kernel's fused multiply-add rounds a product
+    that is not exact once less, which shows where an asymmetric FIR's sum
+    cancels; NCSN++'s FIR's products are exact. The elements that differ
+    are counted in BF16_FLIPS[kernel][fir]."""
     torch.cuda.synchronize()
     check(got.shape == want.shape, f"{what}: shape {tuple(got.shape)} vs {tuple(want.shape)}")
-    err = (got - want).abs().max().item()
-    check(torch.allclose(got, want, atol=1e-5, rtol=1e-5),
-          f"{what}: kernel disagrees with plain (max {err:.3e})")
+    check(got.dtype == want.dtype, f"{what}: dtype {got.dtype} vs {want.dtype}")
+    err = (got.float() - want.float()).abs().max().item()
+    if got.dtype == torch.bfloat16:
+        w = want.float().abs().clamp_min(2.0 ** -126)
+        allowed = torch.exp2(torch.floor(torch.log2(w)) - 7) + 2.0 ** -18 * terms.float()
+        worst = ((got.float() - want.float()).abs() / allowed).max().item()
+        flips = int((got != want).sum().item())
+        BF16_FLIPS[kernel][fir][0] += got.numel()
+        BF16_FLIPS[kernel][fir][1] += flips
+        check(worst <= 1.0, f"{what}: kernel {worst:.2f} of its allowance from plain ({flips} "
+                            f"elements differ)")
+    else:
+        check(torch.allclose(got, want, atol=1e-5, rtol=1e-5),
+              f"{what}: kernel disagrees with plain (max {err:.3e})")
     return err
 
 
 def check_forward(cfg: str, x: torch.Tensor) -> float:
-    """upfirdn2d_cuda against the plain version on x, both FIRs."""
+    """upfirdn2d_cuda against the plain version on x (float32 or bfloat16),
+    both FIRs."""
     c = CONFIGS[cfg]
     args = dict(up=c["up"], down=c["down"], pad=c["pad"])
-    return max(compare(f"upfirdn2d {cfg} {tuple(x.shape)}", kup.upfirdn2d_cuda(x, kern, **args),
-                       kup.upfirdn2d_plain(x, kern, **args))
-               for kern in (c["kernel"], ASYM))
+    return max(compare(f"upfirdn2d {cfg} {tuple(x.shape)} {x.dtype}",
+                       kup.upfirdn2d_cuda(x, kern, **args), kup.upfirdn2d_plain(x, kern, **args),
+                       terms=kup.upfirdn2d_plain(x.abs(), np.abs(kern), **args), fir=fir)
+               for fir, kern in (("ncsnpp", c["kernel"]), ("asym", ASYM)))
 
 
 def phase_kernel_vs_plain(gen: torch.Generator):
@@ -417,7 +484,8 @@ def print_per_shape(what: str, per_shape, launch, stem: str):
               f"device_ms={r['device_ms']:.5f} plain_ms={r['plain_ms']:.5f} "
               f"library_ms={r['library_ms']:.5f} bound_ms={max(r['bytes_ms'], r['ops_ms']):.5f} "
               f"({by}) device/bound={r['device_ms'] / max(r['bytes_ms'], r['ops_ms']):.2f} "
-              f"lib_err={r['lib_err']:.2e}", flush=True)
+              f"lib_err={r['lib_err']:.2e}"
+              + (f" flips={r['flips']}" if "flips" in r else ""), flush=True)
 
 
 def phase_full_width_forward(gen: torch.Generator):
@@ -480,10 +548,21 @@ def captured(fn, *args):
     return result, text
 
 
-def run_enhancement(argv) -> str:
+def run_enhancement(argv, outputs=None) -> str:
     """`python -m storm_tpu_torch.enhancement` in this process; its standard
-    output is printed and returned."""
-    return captured(enhancement.main, argv)[1]
+    output is printed and returned. With `outputs` (a dict), each enhanced
+    waveform is also kept there by file name, as float32 before the WAV
+    writer's 16-bit rounding."""
+    if outputs is None:
+        return captured(enhancement.main, argv)[1]
+    real = enhancement.save_wav
+
+    def save_wav(path, x, sr=SR):
+        outputs[os.path.basename(path)] = np.array(x, np.float32)
+        real(path, x, sr)
+
+    with mock.patch.object(enhancement, "save_wav", save_wav):
+        return captured(enhancement.main, argv)[1]
 
 
 def rtf_of(text: str):
@@ -500,8 +579,8 @@ def check_outputs(out: str, lengths):
 
 
 def phase_main_path(workdir: str):
-    """Returns (upfirdn2d launches, {file: RTF}, {file: samples}); leaves the
-    checkpoint and the files in `workdir` for phase 11."""
+    """Returns (upfirdn2d launches, {file: RTF}, {file: samples}, {file: output});
+    leaves the checkpoint and the files in `workdir` for phase 11."""
     model = build_model(STORM_CONFIG, device="cuda", seed=0)
     ckpt = os.path.join(workdir, "storm.pt")
     save_checkpoint(ckpt, STORM_CONFIG, model.state_dict())
@@ -510,8 +589,9 @@ def phase_main_path(workdir: str):
 
     kup.upfirdn2d_cuda.launches = 0
     t0 = time.perf_counter()
+    outputs = {}
     text = run_enhancement(["--test_dir", noisy, "--enhanced_dir", out, "--ckpt", ckpt,
-                            "--mode", "storm", "--timeit", "--device", "cuda"])
+                            "--mode", "storm", "--timeit", "--device", "cuda"], outputs)
     wall = time.perf_counter() - t0
     launches = kup.upfirdn2d_cuda.launches
     check_outputs(out, lengths)
@@ -536,7 +616,7 @@ def phase_main_path(workdir: str):
     print(f"  enhance (1 s file) kernel vs plain: max abs err {err:.3e} (scale {scale:.3e})",
           flush=True)
     check(err <= 1e-3 * scale, f"main path with the kernel disagrees with plain ({err:.3e})")
-    return launches, rtf_of(text), lengths
+    return launches, rtf_of(text), lengths, outputs
 
 
 def phase_backward_vs_plain(gen: torch.Generator):
@@ -887,10 +967,27 @@ def bf16_ties(inv: float) -> np.ndarray:
     return x[v - np.floor(v) == 0.5]
 
 
-def with_ties(x: torch.Tensor, inv: float) -> int:
-    """Write exact .5 ties (tiled over the first elements) and values beyond
-    +-127 (the last ones) into x in place; returns the count of ties."""
-    ties = bf16_ties(inv) if x.dtype == torch.bfloat16 else f32_ties(inv)
+def bf16_product_ties(inv: float) -> np.ndarray:
+    """Every bfloat16 value (as float32) whose product with bf16(inv),
+    rounded to bfloat16, is exactly k + 0.5, |k + 0.5| < 130, where its
+    float32 product with inv is not: the bfloat16-product mode's ties, at
+    which the two modes' codes part."""
+    inv_b = np.float32(torch.tensor(np.float32(inv)).bfloat16().item())
+    x = (np.arange(1 << 16, dtype=np.uint32) << 16).view(np.float32)
+    x = x[np.isfinite(x) & (np.abs(x) < np.float32(130 / inv))]
+    p = torch.from_numpy(x * inv_b).bfloat16().float().numpy()  # x * inv_b is exact
+    f = x * np.float32(inv)
+    return x[(p - np.floor(p) == 0.5) & (f - np.floor(f) != 0.5)]
+
+
+def with_ties(x: torch.Tensor, inv: float, product: torch.dtype = torch.float32) -> int:
+    """Write exact .5 ties of the product in `product` (tiled over the first
+    elements) and values beyond +-127 (the last ones) into x in place;
+    returns the count of ties."""
+    if product == torch.bfloat16:
+        ties = bf16_product_ties(inv)
+    else:
+        ties = bf16_ties(inv) if x.dtype == torch.bfloat16 else f32_ties(inv)
     flat = x.view(-1)
     n = min(len(ties) * 64, flat.numel() // 2)
     if n:
@@ -900,9 +997,10 @@ def with_ties(x: torch.Tensor, inv: float) -> int:
     return n
 
 
-def check_codes(what: str, x: torch.Tensor, inv: float) -> int:
+def check_codes(what: str, x: torch.Tensor, inv: float,
+                product: torch.dtype = torch.float32) -> int:
     """Hold the kernel's codes to plain's, exactly; returns max |got - want|."""
-    got, want = kq.quantize_int8_cuda(x, inv), kq.quantize_int8_plain(x, inv)
+    got, want = kq.quantize_int8_cuda(x, inv, product), kq.quantize_int8_plain(x, inv, product)
     diff = (got.to(torch.int16) - want.to(torch.int16)).abs()
     differ, err = int((diff != 0).sum().item()), int(diff.max().item())
     check(differ == 0, f"quantize_int8 {what}: {differ} codes differ from plain, by up to {err}")
@@ -1156,18 +1254,18 @@ K1_PER_FORWARD = len(k1_calls(6))  # 18 upfirdn2d calls per NCSN++ forward
 @contextlib.contextmanager
 def shapes_recorded():
     """While active, every upfirdn2d call of NCSN++ (nn/resample.py) adds its
-    (config, B, C, H, W) to the first yielded set and every activation
-    quantizer call (nn/qconv.py) its input shape to the second; the calls run
-    as before (threads included)."""
+    (config, B, C, H, W, dtype) to the first yielded set and every activation
+    quantizer call (nn/qconv.py) its (input shape, dtype, product dtype) to
+    the second; the calls run as before (threads included)."""
     k1, k3 = set(), set()
 
     def upfirdn2d(x, kernel, up=1, down=1, pad=(0, 0)):
-        k1.add(("up" if up == 2 else "down", *x.shape))
+        k1.add(("up" if up == 2 else "down", *x.shape, x.dtype))
         return kup.upfirdn2d(x, kernel, up=up, down=down, pad=pad)
 
-    def quantize_int8(x, inv):
-        k3.add(tuple(x.shape))
-        return kq.quantize_int8(x, inv)
+    def quantize_int8(x, inv, product=torch.float32):
+        k3.add((tuple(x.shape), x.dtype, product))
+        return kq.quantize_int8(x, inv, product)
 
     with mock.patch.object(resample, "upfirdn2d", upfirdn2d), \
             mock.patch.object(qconv, "quantize_int8", quantize_int8):
@@ -1175,26 +1273,36 @@ def shapes_recorded():
 
 
 def check_k1_at(what: str, shapes, gen) -> float:
-    """upfirdn2d against plain (both FIRs) at every recorded shape."""
-    errs = [check_forward(cfg, torch.randn(B, C, H, W, device="cuda", generator=gen))
-            for cfg, B, C, H, W in sorted(shapes)]
-    tops = sorted({(B, W) for cfg, B, C, H, W in shapes if cfg == "down" and H == FREQS})
-    print(f"  upfirdn2d against plain at the {len(shapes)} shapes {what} gave it ((B, W) at "
-          f"the top level: {tops}): max abs err {max(errs):.2e}", flush=True)
+    """upfirdn2d against plain (both FIRs) at every recorded shape, in its
+    recorded dtype."""
+    flips = {fir: n[1] for fir, n in BF16_FLIPS["upfirdn2d"].items()}
+    errs = [check_forward(cfg, torch.randn(B, C, H, W, device="cuda", generator=gen).to(dtype))
+            for cfg, B, C, H, W, dtype in sorted(shapes, key=str)]
+    tops = sorted({(B, W) for cfg, B, C, H, W, _ in shapes if cfg == "down" and H == FREQS})
+    dtypes = sorted({str(s[-1]).split(".")[-1] for s in shapes})
+    flips = {fir: n[1] - flips[fir] for fir, n in BF16_FLIPS["upfirdn2d"].items()}
+    print(f"  upfirdn2d against plain at the {len(shapes)} shapes {what} gave it ({dtypes}; "
+          f"(B, W) at the top level: {tops}): max abs err {max(errs):.2e}"
+          + (f"; bfloat16 elements that differ (by 1 ulp): {flips['ncsnpp']} with NCSN++'s "
+             f"FIR, {flips['asym']} with the asymmetric one" if "bfloat16" in dtypes else ""),
+          flush=True)
     torch.cuda.empty_cache()
     return max(errs)
 
 
 def check_k3_at(what: str, shapes, gen) -> int:
-    """The quantizer's codes against plain at every recorded input shape
-    (f32, ties and saturating values written in, s = 12.7)."""
+    """The quantizer's codes against plain at every recorded (input shape,
+    dtype, product), ties of that product's mode and saturating values
+    written in, s = 12.7."""
     err = 0
-    for shape in sorted(shapes):
-        x = 10.0 * torch.randn(shape, device="cuda", generator=gen)
-        with_ties(x, PROBE_S)
-        err = max(err, check_codes(f"{what} {shape}", x, PROBE_S))
+    for shape, dtype, product in sorted(shapes, key=str):
+        x = (10.0 * torch.randn(shape, device="cuda", generator=gen)).to(dtype)
+        with_ties(x, PROBE_S, product)
+        err = max(err, check_codes(f"{what} {shape} {dtype} product {product}", x, PROBE_S,
+                                   product))
     print(f"  quantize_int8 codes identical to plain at the {len(shapes)} input shapes {what} "
-          f"gave it (batch rows {sorted({s[0] for s in shapes})})", flush=True)
+          f"gave it (batch rows {sorted({s[0][0] for s in shapes})}; "
+          f"{sorted({(str(d), str(p)) for _, d, p in shapes})})", flush=True)
     torch.cuda.empty_cache()
     return err
 
@@ -1250,7 +1358,8 @@ def phase_batch_invariance(model, ys: np.ndarray, gen: torch.Generator) -> float
 
 
 def phase_batched_cli(workdir: str, gen: torch.Generator):
-    """Phase 14. Returns (upfirdn2d launches, the kernel's max error)."""
+    """Phase 14. Returns (upfirdn2d launches, the kernel's max error, the files'
+    directory, {file: output})."""
     ckpt = os.path.join(workdir, "storm.pt")
     noisy, out = os.path.join(workdir, "batch_noisy"), os.path.join(workdir, "batch_enhanced")
     lengths = write_named_wavs(noisy, BATCH_SECONDS, "b", seed=3)
@@ -1260,10 +1369,11 @@ def phase_batched_cli(workdir: str, gen: torch.Generator):
     calls = sum(-(-k // CLI_BATCH) for k in buckets.values())
     kup.upfirdn2d_cuda.launches = 0
     t0 = time.perf_counter()
+    outputs = {}
     with shapes_recorded() as (k1_shapes, _):
         text = run_enhancement(["--test_dir", noisy, "--enhanced_dir", out, "--ckpt", ckpt,
                                 "--mode", "storm", "--batch", str(CLI_BATCH), "--timeit",
-                                "--device", "cuda"])
+                                "--device", "cuda"], outputs)
     wall = time.perf_counter() - t0
     launches = kup.upfirdn2d_cuda.launches
     check_outputs(out, lengths)
@@ -1290,7 +1400,7 @@ def phase_batched_cli(workdir: str, gen: torch.Generator):
     phase_batch_invariance(model, ys, gen)
     del model
     torch.cuda.empty_cache()
-    return launches, err, noisy
+    return launches, err, noisy, outputs
 
 
 def serve_args(ckpt: str, *extra):
@@ -1320,7 +1430,7 @@ def run_server(what: str, args, waves):
     kup.upfirdn2d_cuda.launches = kq.quantize_int8_cuda.launches = 0
     with shapes_recorded() as (k1_shapes, k3_shapes):
         t0 = time.perf_counter()
-        (httpd, batcher), _ = captured(serve.build_server, args)
+        (httpd, batcher), build_text = captured(serve.build_server, args)
         build_s = time.perf_counter() - t0
         thread = threading.Thread(target=httpd.serve_forever, daemon=True)
         thread.start()
@@ -1366,8 +1476,11 @@ def run_server(what: str, args, waves):
     print(f"  {what}: {stats['batches']} batches, batch fill {stats['batch_fill']} "
           f"({stats['batched_requests']} requests in {stats['row_slots']} rows), device_s "
           f"{stats['device_s']:.3f}, /stats rtf {stats['rtf']}", flush=True)
+    check(health["dtype"] == args.dtype, f"{what}: /healthz reports dtype {health['dtype']}")
     return dict(stats=stats, warmups=warmups, k1=kup.upfirdn2d_cuda.launches,
-                k3=kq.quantize_int8_cuda.launches, k1_shapes=k1_shapes, k3_shapes=k3_shapes)
+                k3=kq.quantize_int8_cuda.launches, k1_shapes=k1_shapes, k3_shapes=k3_shapes,
+                build_text=build_text, audio_per_s=audio_s / wall,
+                p50=float(np.percentile(latency, 50)), max=float(latency.max()))
 
 
 def phase_server(workdir: str, calib_dir: str, gen: torch.Generator):
@@ -1375,7 +1488,7 @@ def phase_server(workdir: str, calib_dir: str, gen: torch.Generator):
     rng = np.random.default_rng(4)
     waves = [synth_wav(s, i, rng) for i, s in enumerate(SERVE_SECONDS)]
     ckpt = os.path.join(workdir, "storm.pt")
-    f32 = run_server("f32 server", serve_args(ckpt), waves)
+    f32 = run_server("f32 server", serve_args(ckpt, "--dtype", "float32"), waves)
     want = K1_PER_FORWARD * SERVE_NFE * (f32["warmups"] + f32["stats"]["batches"])
     print(f"  f32 server: upfirdn2d launches {f32['k1']} (expected {K1_PER_FORWARD} x "
           f"{SERVE_NFE} x "
@@ -1385,8 +1498,8 @@ def phase_server(workdir: str, calib_dir: str, gen: torch.Generator):
     # int8 at a checkpoint path of its own, so that it calibrates
     ckpt8 = os.path.join(workdir, "storm_serve.pt")
     os.link(ckpt, ckpt8)
-    q = run_server("int8 server", serve_args(ckpt8, "--quant", "int8", "--calib_dir", calib_dir),
-                   waves[:INT8_REQUESTS])
+    q = run_server("int8 server", serve_args(ckpt8, "--dtype", "float32", "--quant", "int8",
+                                             "--calib_dir", calib_dir), waves[:INT8_REQUESTS])
     check(os.path.exists(scale_cache_path(ckpt8)), "the int8 server did not write its scales")
     served = q["warmups"] + q["stats"]["batches"]
     want1 = K1_PER_FORWARD * (calib_forwards(min(SERVE_N, 10)) + SERVE_NFE * served)
@@ -1462,12 +1575,354 @@ def phase_profile_batch():
     profile_run(f"enhance B={CLI_BATCH} x {max(SECONDS)} s ({FRAMES} frames)", lambda: enh(ys))
 
 
+# --- bfloat16 serving (phases 18-23)
+
+BF16 = torch.bfloat16
+# GroupNorm inputs of a full-width net: 128 channels at the top level of a
+# 4 s request (B=1) and 256 channels one level down at B=4
+GN_SHAPES = [(1, 128, FREQS, FRAMES), (4, 256, FREQS // 2, FRAMES // 2)]
+BF16_GROUPS = {
+    **K1_GROUPS,
+    "convolutions (cuDNN)": (("fprop", "implicit_convolve", "conv2d", "convolve"), None),
+    "NCHW/NHWC layout transforms": (("ToNhwc", "ToNchw", "nchwToNhwc", "nhwcToNchw"), None),
+    "matrix products (cuBLAS)": (("nvjet", "xmma_gemm", "gemv"), None),
+    "GroupNorm statistics (reductions)": (("reduce_kernel",), None),
+    "elementwise": (("elementwise",), None),
+}
+
+
+def phase_bf16_kernels(gen: torch.Generator):
+    """Phase 18. K1 in bfloat16 against plain at the main path's shapes (B=1,
+    576 frames), timed; the adjoint's bfloat16 instance at every train-step
+    backward shape (B=8, 256 x 256); GroupNorm on bfloat16 with float32 scale
+    and bias against float32 GroupNorm rounded once; one full-width NCSN++
+    forward in bfloat16 through the kernel and the plain version, and its
+    time against float32's. Returns (per-shape times, the kernel's max error)."""
+    per_shape, launch, max_err = {}, {}, 0.0
+    for cfg, C, H, W in forward_shapes(FRAMES):
+        c = CONFIGS[cfg]
+        args = dict(up=c["up"], down=c["down"], pad=c["pad"])
+        x = torch.randn(1, C, H, W, device="cuda", generator=gen).to(BF16)
+        flips = [n[1] for n in BF16_FLIPS["upfirdn2d"].values()]
+        max_err = max(max_err, check_forward(cfg, x))
+        flips = "/".join(str(n[1] - f) for n, f in zip(BF16_FLIPS["upfirdn2d"].values(), flips))
+        lib = library_call(cfg, C, dtype=BF16)
+        want = kup.upfirdn2d_plain(x, c["kernel"], **args)
+        lib_err = ulps_of_scale(lib(x), want)
+        check(lib_err <= 2.0, f"library yardstick bf16 {cfg} C={C}: {lib_err:.2f} ulps off")
+        Ho, Wo = want.shape[-2:]
+        bytes_ms, ops_ms = bound_ms(C * H * W, C * Ho * Wo, 16 // (c["up"] ** 2), elem_bytes=2)
+        per_shape[(cfg, C, H, W)] = dict(
+            ms=time_ms(lambda: kup.upfirdn2d_cuda(x, c["kernel"], **args)),
+            plain_ms=time_ms(lambda: kup.upfirdn2d_plain(x, c["kernel"], **args), reps=5),
+            library_ms=time_ms(lambda: lib(x)), bytes_ms=bytes_ms, ops_ms=ops_ms,
+            lib_err=lib_err, out=f"{Ho}x{Wo}", flips=flips)
+        launch[(cfg, C, H, W)] = functools.partial(kup.upfirdn2d_cuda, x, c["kernel"], **args)
+    print_per_shape("upfirdn2d bf16", per_shape, launch, "upfirdn2d_")
+    print("  (bf16 lib_err in ulps of the output's scale; flips: elements that differ from "
+          "plain, NCSN++'s FIR / the asymmetric one)", flush=True)
+
+    bwd_calls = set(k1_bwd_calls())
+    bwd_err = 0.0
+    for cfg, C, H, W in forward_shapes(TRAIN_FRAMES):
+        if (cfg, C, H, W) not in bwd_calls:
+            continue
+        c = CONFIGS[cfg]
+        Ho, Wo = (kup.output_size(n, 4, c["up"], c["down"], c["pad"]) for n in (H, W))
+        g = torch.randn(TRAIN_B, C, Ho, Wo, device="cuda", generator=gen).to(BF16)
+        for fir, kern in (("ncsnpp", c["kernel"]), ("asym", ASYM)):
+            bwd = (g, kern, c["up"], c["down"], c["pad"], (H, W))
+            terms = kup.upfirdn2d_bwd_plain(g.abs(), np.abs(kern), *bwd[2:])
+            bwd_err = max(bwd_err, compare(f"upfirdn2d_bwd bf16 {cfg} B={TRAIN_B} C={C} {H}x{W}",
+                                           kup.upfirdn2d_bwd_cuda(*bwd),
+                                           kup.upfirdn2d_bwd_plain(*bwd), "upfirdn2d_bwd", terms,
+                                           fir))
+    flips = BF16_FLIPS["upfirdn2d_bwd"]
+    print(f"  upfirdn2d_bwd bf16 at every train-step backward shape (B={TRAIN_B}): within its "
+          f"allowance of plain; elements that differ (by 1 ulp): {flips['ncsnpp'][1]} of "
+          f"{flips['ncsnpp'][0]} with NCSN++'s FIR, {flips['asym'][1]} of {flips['asym'][0]} "
+          f"with the asymmetric one; max abs err {bwd_err:.2e}", flush=True)
+    torch.cuda.empty_cache()
+
+    for shape in GN_SHAPES:
+        C = shape[1]
+        gn = group_norm(C).cuda().eval()
+        with torch.no_grad():
+            gn.weight.copy_(1.0 + 0.1 * torch.randn(C, device="cuda", generator=gen))
+            gn.bias.copy_(0.1 * torch.randn(C, device="cuda", generator=gen))
+        x = (torch.randn(shape, device="cuda", generator=gen) * 0.7 + 0.5).to(BF16)
+        with torch.inference_mode():
+            got = gn(x)
+            want = F.group_norm(x.float(), gn.num_groups, gn.weight, gn.bias, gn.eps).to(BF16)
+            worst = ulps_of_scale(got, want)
+            differ = (got != want).float().mean().item()
+            ms = time_ms(lambda: gn(x))
+            f32 = x.float()
+            ms_f32 = time_ms(lambda: F.group_norm(f32, gn.num_groups, gn.weight, gn.bias, gn.eps))
+        print(f"  GroupNorm bf16 {shape} (float32 statistics, scale and bias): {worst:.2f} ulps "
+              f"of the output's scale from float32 GroupNorm rounded once ({100 * differ:.4f}% "
+              f"of elements differ); "
+              f"{ms:.4f} ms against {ms_f32:.4f} ms for float32 GroupNorm of the float32 "
+              f"tensor", flush=True)
+        check(worst <= 1.0 and differ < 1e-3,
+              f"GroupNorm bf16 {shape}: {worst:.2f} ulps, {differ:.2e} of elements from float32 "
+              f"rounded once")
+    torch.cuda.empty_cache()
+
+    nets = {}
+    for dtype in (torch.float32, BF16):
+        net = NCSNpp(input_channels=6, init_scale=1.0, dtype=dtype)
+        reset_parameters(net, torch.Generator().manual_seed(0))
+        nets[dtype] = net.cuda().eval()
+    x = 0.5 * torch.randn(1, 3, FREQS, FRAMES, 2, device="cuda", generator=gen)
+    t = torch.full((1,), 0.5, device="cuda")
+    with torch.inference_mode(), cast_params(nets[BF16], BF16):
+        kup.upfirdn2d_cuda.launches = 0
+        out_k = nets[BF16](x, t)
+        torch.cuda.synchronize()
+        launches = kup.upfirdn2d_cuda.launches
+        with mock.patch.object(resample, "upfirdn2d", kup.upfirdn2d_plain):
+            out_p = nets[BF16](x, t)
+        out_32 = nets[torch.float32](x, t)
+        ms = {dtype: time_ms(lambda: nets[dtype](x, t), reps=5, repeats=3) for dtype in nets}
+    check(launches == 18, f"a bf16 NCSN++ forward launched upfirdn2d {launches} times")
+    check(out_k.dtype == torch.float32 and bool(torch.isfinite(out_k).all()),
+          "bf16 NCSN++ output is not finite float32")
+    scale = out_32.abs().max().item()
+    err = (out_k - out_p).abs().max().item()
+    rel = (out_k - out_32).abs().max().item() / scale
+    print(f"  NCSN++ forward in bf16 (full width, B=1, {FREQS} x {FRAMES}): kernel vs plain "
+          f"path max abs err {err:.3e}; max|bf16 - f32| / max|f32| = {rel:.4e}; "
+          f"{ms[BF16]:.2f} ms per forward against {ms[torch.float32]:.2f} ms in float32 "
+          f"({ms[torch.float32] / ms[BF16]:.2f}x)", flush=True)
+    check(err <= 1e-2 * scale, f"bf16 NCSN++ kernel path disagrees with plain ({err:.3e})")
+    del nets
+    torch.cuda.empty_cache()
+    return per_shape, max(max_err, bwd_err)
+
+
+def relative_to(outputs, reference):
+    """{file: max|out - reference| / max|reference|} over the files of both."""
+    return {name: float(np.abs(outputs[name] - reference[name]).max()
+                        / np.abs(reference[name]).max()) for name in reference}
+
+
+def phase_bf16_cli(workdir: str, f32_outputs, f32_rtf, lengths, batch_dir, batch_outputs,
+                   gen: torch.Generator):
+    """Phase 19. `python -m storm_tpu_torch.enhancement --dtype bfloat16` at the
+    CLI defaults: the three files of phase 5, then `--batch 4` on phase 14's
+    files, then `--quant int8`, which calibrates in bfloat16 (phase 16's
+    streaming run left scales of another configuration in the cache; a
+    cache of the same configuration would be reused whatever its dtype, as
+    the reference's meta has none); exact launch counts, RTF, max|bf16 -
+    f32| / max|f32| against the float32 runs on the same files and seed, K1
+    at every shape. Returns ({path: K1 launches}, K3 launches, the K3 input
+    shapes, K1's max error)."""
+    ckpt = os.path.join(workdir, "storm.pt")
+    noisy = os.path.join(workdir, "noisy")
+    base = ["--ckpt", ckpt, "--mode", "storm", "--timeit", "--device", "cuda", "--dtype",
+            "bfloat16"]
+    k1, shapes, k3_shapes = {}, set(), set()
+    outputs = {}
+    kup.upfirdn2d_cuda.launches = kq.quantize_int8_cuda.launches = 0
+    with shapes_recorded() as (k1_shapes, _):
+        text = run_enhancement(["--test_dir", noisy, "--enhanced_dir",
+                                os.path.join(workdir, "enhanced_bf16"), *base], outputs)
+    check_outputs(os.path.join(workdir, "enhanced_bf16"), lengths)
+    shapes |= k1_shapes
+    k1["enhancement_bf16"] = kup.upfirdn2d_cuda.launches
+    want = 18 * NFE * len(SECONDS)
+    rtf, rel = rtf_of(text), relative_to(outputs, f32_outputs)
+    for name in lengths:
+        print(f"  {name}: RTF bf16 {rtf[name]:.4f} against f32 {f32_rtf[name]:.4f} (phase 5); "
+              f"max|bf16 - f32| / max|f32| = {rel[name]:.4e}", flush=True)
+    print(f"  bf16 CLI: upfirdn2d launches {k1['enhancement_bf16']} (expected {want})",
+          flush=True)
+    check(k1["enhancement_bf16"] == want and kq.quantize_int8_cuda.launches == 0,
+          f"bf16 CLI launched {k1['enhancement_bf16']}, {kq.quantize_int8_cuda.launches}")
+
+    out, outputs = os.path.join(workdir, "batch_enhanced_bf16"), {}
+    kup.upfirdn2d_cuda.launches = 0
+    t0 = time.perf_counter()
+    with shapes_recorded() as (k1_shapes, _):
+        text = run_enhancement(["--test_dir", batch_dir, "--enhanced_dir", out, "--batch",
+                                str(CLI_BATCH), *base], outputs)
+    wall = time.perf_counter() - t0
+    batches = [float(r) for r in re.findall(r"batch of \d+: nfe=\d+ rtf=([0-9.]+)", text)]
+    shapes |= k1_shapes
+    k1["batched_cli_bf16"] = kup.upfirdn2d_cuda.launches
+    want = K1_PER_FORWARD * NFE * len(batches)
+    rel = relative_to(outputs, batch_outputs)
+    audio_s = sum(len(v) for v in batch_outputs.values()) / SR
+    print(f"  bf16 --batch {CLI_BATCH}: {len(batches)} calls, RTF per batch {batches}; "
+          f"{audio_s / wall:.4f} audio s per wall s; max|bf16 - f32| / max|f32| up to "
+          f"{max(rel.values()):.4e}; upfirdn2d launches {k1['batched_cli_bf16']} "
+          f"(expected {want})", flush=True)
+    check(len(batches) == 2 and k1["batched_cli_bf16"] == want,
+          f"bf16 batched CLI: {batches}, {k1['batched_cli_bf16']} launches")
+
+    out, outputs = os.path.join(workdir, "enhanced_int8_bf16"), {}
+    kup.upfirdn2d_cuda.launches = kq.quantize_int8_cuda.launches = 0
+    with shapes_recorded() as (k1_shapes, q_shapes):
+        text = run_enhancement(["--test_dir", noisy, "--enhanced_dir", out, "--quant", "int8",
+                                "--quant_min_channels", str(QUANT_MIN_CHANNELS), *base], outputs)
+    check_outputs(out, lengths)
+    calibrated = "int8 calibration done" in text
+    check(calibrated or f"int8 scales loaded from {scale_cache_path(ckpt)}" in text,
+          "the int8 bf16 run neither calibrated nor loaded scales")
+    shapes |= k1_shapes
+    k3_shapes |= q_shapes
+    k1["enhancement_int8_bf16"] = kup.upfirdn2d_cuda.launches
+    k3 = kq.quantize_int8_cuda.launches
+    rtf, rel = rtf_of(text), relative_to(outputs, f32_outputs)
+    for name in lengths:
+        print(f"  {name}: RTF int8 bf16 {rtf[name]:.4f}; max|int8 bf16 - f32| / max|f32| = "
+              f"{rel[name]:.4e}", flush=True)
+    want = 18 * (NFE * len(SECONDS) + (CALIB_FORWARDS if calibrated else 0))
+    print(f"  int8 bf16 CLI ({'calibrated in bf16' if calibrated else 'scales loaded'}): "
+          f"quantizer launches {k3} (expected {K3_PER_FILE * len(SECONDS)}), upfirdn2d "
+          f"{k1['enhancement_int8_bf16']} (expected {want})", flush=True)
+    check(k3 == K3_PER_FILE * len(SECONDS) and k1["enhancement_int8_bf16"] == want,
+          f"int8 bf16 CLI launched {k3}, {k1['enhancement_int8_bf16']}")
+    check({s[-1] for s in shapes} == {BF16}, f"a bf16 run gave upfirdn2d {shapes}")
+    check({(d, p) for _, d, p in k3_shapes} == {(BF16, BF16)},
+          f"the int8 bf16 run's quantizer inputs {k3_shapes}")
+    return k1, k3, k3_shapes, check_k1_at("the bf16 CLI runs", shapes, gen)
+
+
+def phase_bf16_quantizer(workdir: str):
+    """Phase 20. K3's bfloat16-product mode at every quantized-conv input of
+    one int8 bf16 forward of each net at the 4 s request's width (110 calls),
+    bfloat16-product ties and saturating values written in: codes identical
+    to plain; per-shape times for the score net. Returns (per-shape times,
+    the score forward's shapes, the largest |kernel code - plain code|)."""
+    model = build_model(dict(STORM_CONFIG, dtype="bfloat16"), device="cuda", seed=0)
+    quant = quant_mod.load_scales(scale_cache_path(os.path.join(workdir, "storm.pt")))
+    name = f"utt{len(SECONDS) - 1}_{SECONDS[-1]:.1f}s.wav"
+    y = bucketed(load_wav(os.path.join(workdir, "noisy", name))[0])
+    calls = []
+
+    def capture(net):
+        def hook(mod, inp, out):
+            if mod.a_scale is not None:
+                calls.append((net, inp[0].clone(), qconv.activation_inverse(mod.a_scale)))
+        return hook
+
+    hooks = [m.register_forward_hook(capture(net))
+             for net in ("denoiser", "score")
+             for m in qconv.quantizable_convs(getattr(model, f"{net}_net")).values()]
+    try:
+        with torch.inference_mode():
+            model.enhance(y, N=1, corrector="none", quant=quant)
+    finally:
+        for h in hooks:
+            h.remove()
+    check(len(calls) == 2 * N_QUANT and all(x.dtype == BF16 for _, x, _ in calls),
+          f"{len(calls)} bf16 quantized conv calls, expected {2 * N_QUANT}")
+    per_shape, launch, score_shapes, ties, max_err = {}, {}, [], 0, 0
+    with torch.inference_mode():
+        for net, x, inv in calls:
+            shape = tuple(x.shape)
+            ties += with_ties(x, inv, BF16)
+            max_err = max(max_err, check_codes(f"{net} {shape} bf16", x, inv, BF16))
+            if net != "score":
+                continue
+            score_shapes.append(shape)
+            if shape not in per_shape:
+                bytes_ms, ops_ms = k3_bound_ms(x)
+                per_shape[shape] = dict(
+                    ms=time_ms(lambda: kq.quantize_int8_cuda(x, inv, BF16)),
+                    plain_ms=time_ms(lambda: kq.quantize_int8_plain(x, inv, BF16), reps=5),
+                    bytes_ms=bytes_ms, ops_ms=ops_ms, calls=0)
+                launch[shape] = functools.partial(kq.quantize_int8_cuda, x, inv, BF16)
+            per_shape[shape]["calls"] += 1
+        for shape, dev in zip(launch, device_ms(list(launch.values()), "quantize_int8_kernel")):
+            per_shape[shape]["device_ms"] = dev
+    del calls, launch, model
+    print(f"  {2 * N_QUANT} quantized conv inputs (bf16, product in bf16), {ties} bf16-product "
+          f"ties written in: codes identical to plain", flush=True)
+    for shape, r in per_shape.items():
+        print(f"  quantize_int8 bf16-product {shape} x{r['calls']} per score forward: "
+              f"ms={r['ms']:.5f} device_ms={r['device_ms']:.5f} plain_ms={r['plain_ms']:.5f} "
+              f"bound_ms={max(r['bytes_ms'], r['ops_ms']):.5f} (bytes) device/bound="
+              f"{r['device_ms'] / r['bytes_ms']:.2f}", flush=True)
+    torch.cuda.empty_cache()
+    return per_shape, score_shapes, max_err
+
+
+def phase_bf16_server(workdir: str, gen: torch.Generator):
+    """Phase 21. The server at its default dtype (bfloat16) on phase 15's
+    burst, then int8 + bf16 on phase 15's int8 checkpoint (its scales
+    loaded). Returns ({path: K1 launches}, K3 launches, K1 error, K3 error)."""
+    rng = np.random.default_rng(4)
+    waves = [synth_wav(s, i, rng) for i, s in enumerate(SERVE_SECONDS)]
+    ckpt = os.path.join(workdir, "storm.pt")
+    args = serve_args(ckpt)
+    check(args.dtype == "bfloat16", f"the server's default dtype is {args.dtype}")
+    bf = run_server("bf16 server", args, waves)
+    want = K1_PER_FORWARD * SERVE_NFE * (bf["warmups"] + bf["stats"]["batches"])
+    print(f"  bf16 server: upfirdn2d launches {bf['k1']} (expected {want})", flush=True)
+    check(bf["k1"] == want and bf["k3"] == 0, f"bf16 server launched {bf['k1']}, {bf['k3']}")
+    ckpt8 = os.path.join(workdir, "storm_serve.pt")
+    q = run_server("int8 bf16 server", serve_args(ckpt8, "--quant", "int8"),
+                   waves[:INT8_REQUESTS])
+    check("int8 scales loaded" in q["build_text"], "the int8 bf16 server did not load its scales")
+    served = q["warmups"] + q["stats"]["batches"]
+    want1, want3 = K1_PER_FORWARD * SERVE_NFE * served, N_QUANT * SERVE_NFE * served
+    print(f"  int8 bf16 server: quantizer launches {q['k3']} (expected {want3}), upfirdn2d "
+          f"{q['k1']} (expected {want1}); audio s per wall s {q['audio_per_s']:.4f} against "
+          f"bf16's {bf['audio_per_s']:.4f}", flush=True)
+    check(q["k3"] == want3 and q["k1"] == want1, f"int8 bf16 server launched {q['k3']}, {q['k1']}")
+    check({s[-1] for s in bf["k1_shapes"] | q["k1_shapes"]} == {BF16}, "a bf16 server ran f32")
+    k1_err = check_k1_at("the bf16 servers", bf["k1_shapes"] | q["k1_shapes"], gen)
+    k3_err = check_k3_at("the int8 bf16 server", q["k3_shapes"], gen)
+    return {"server_bf16": bf["k1"], "server_int8_bf16": q["k1"]}, q["k3"], k1_err, k3_err
+
+
+def phase_bf16_streaming(workdir: str, gen: torch.Generator):
+    """Phase 22. The streaming CLI in bfloat16 on phase 16's 12 s file.
+    Returns (K1 launches, K1 error)."""
+    ckpt = os.path.join(workdir, "storm.pt")
+    noisy, out = os.path.join(workdir, "stream_noisy"), os.path.join(workdir, "stream_bf16")
+    lengths = {f: load_wav(os.path.join(noisy, f))[0].shape[-1] for f in os.listdir(noisy)}
+    T = next(iter(lengths.values()))
+    chunk = -(-int(STREAM_CHUNK_S * SR) // BUCKET) * BUCKET
+    overlap = int(STREAM_OVERLAP_S * SR)
+    calls = -(-len(range(0, T - overlap, chunk - overlap)) // STREAM_ROWS)
+    kup.upfirdn2d_cuda.launches = 0
+    t0 = time.perf_counter()
+    with shapes_recorded() as (k1_shapes, _):
+        text = run_enhancement(["--test_dir", noisy, "--enhanced_dir", out, "--ckpt", ckpt,
+                                "--mode", "storm", "--N", str(SERVE_N), "--stream_chunk_s",
+                                str(STREAM_CHUNK_S), "--stream_overlap_s", str(STREAM_OVERLAP_S),
+                                "--timeit", "--device", "cuda", "--dtype", "bfloat16"])
+    wall = time.perf_counter() - t0
+    check_outputs(out, lengths)
+    launches = kup.upfirdn2d_cuda.launches
+    want = K1_PER_FORWARD * SERVE_NFE * calls
+    print(f"  streaming bf16: {T / SR:.1f} s file, {calls} call(s) of {STREAM_ROWS} rows; "
+          f"{wall:.2f} s wall, RTF {list(rtf_of(text).values())}; upfirdn2d launches "
+          f"{launches} (expected {want})", flush=True)
+    check(launches == want and {s[-1] for s in k1_shapes} == {BF16},
+          f"streaming bf16 launched {launches}")
+    return launches, check_k1_at("bf16 streaming", k1_shapes, gen)
+
+
+def phase_profile_bf16():
+    """Phase 23: trace one bfloat16 enhancement of the 4 s file (CLI defaults)."""
+    model = build_model(dict(STORM_CONFIG, dtype="bfloat16"), device="cuda", seed=0)
+    y = bucketed(synth_wav(max(SECONDS), 0, np.random.default_rng(0))[None])
+    model.enhance(y, N=2, corrector="ald")  # warm-up at the same shapes
+    profile_run(f"bf16 enhance {max(SECONDS)} s file",
+                lambda: model.enhance(y, N=N_STEPS, corrector="ald"), BF16_GROUPS)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
                         help="also trace one enhancement, two train steps, one int8 "
-                             "enhancement and one B=4 enhancement and print the device time "
-                             "by kernel")
+                             "enhancement, one B=4 enhancement and one bf16 enhancement and "
+                             "print the device time by kernel")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         fail("no CUDA device: chip_smoke.py runs on a card only")
@@ -1500,7 +1955,7 @@ def main():
 
     with tempfile.TemporaryDirectory() as workdir:  # phase 5's checkpoint and files, for 10-11
         print("== phase 5: main path through storm_tpu_torch.enhancement", flush=True)
-        launches, f32_rtf, lengths = phase_main_path(workdir)
+        launches, f32_rtf, lengths, f32_outputs = phase_main_path(workdir)
 
         if args.profile:
             print("== phase 6: where the device time goes", flush=True)
@@ -1536,7 +1991,7 @@ def main():
             phase_profile_int8(workdir)
 
         print(f"== phase 14: batched CLI (--batch {CLI_BATCH})", flush=True)
-        batch_launches, batch_err, batch_dir = phase_batched_cli(workdir, gen)
+        batch_launches, batch_err, batch_dir, batch_outputs = phase_batched_cli(workdir, gen)
 
         print("== phase 15: HTTP server with dynamic batching (storm_tpu_torch.serve)",
               flush=True)
@@ -1548,6 +2003,33 @@ def main():
         if args.profile:
             print(f"== phase 17: where a B={CLI_BATCH} enhancement's device time goes", flush=True)
             phase_profile_batch()
+
+        print("== phase 18: bfloat16 kernels against plain: upfirdn2d at the main path's "
+              "shapes and the adjoint at a train step's, GroupNorm, one NCSN++ forward",
+              flush=True)
+        bf16_shape, bf16_err = phase_bf16_kernels(gen)
+
+        print("== phase 19: bfloat16 CLI (--dtype bfloat16; --batch 4; --quant int8)",
+              flush=True)
+        bf16_k1, bf16_k3, bf16_k3_shapes, bf16_cli_err = phase_bf16_cli(
+            workdir, f32_outputs, f32_rtf, lengths, batch_dir, batch_outputs, gen)
+
+        print("== phase 20: the quantizer's bfloat16-product mode against plain at the int8 "
+              "bf16 path's inputs", flush=True)
+        k3b_shape, k3b_calls, k3b_err = phase_bf16_quantizer(workdir)
+        k3b_err = max(k3b_err, check_k3_at("the int8 bf16 CLI", bf16_k3_shapes, gen))
+
+        print("== phase 21: HTTP server at its default dtype (bfloat16), then int8 + bf16",
+              flush=True)
+        bf16_serve_k1, bf16_serve_k3, bf16_serve_err, bf16_serve_k3_err = phase_bf16_server(
+            workdir, gen)
+
+        print("== phase 22: streaming in bfloat16", flush=True)
+        bf16_stream_k1, bf16_stream_err = phase_bf16_streaming(workdir, gen)
+
+        if args.profile:
+            print("== phase 23: where a bfloat16 enhancement's device time goes", flush=True)
+            phase_profile_bf16()
 
     def entry(name, source, replaces, per_shape_ms, calls, err, launches, work, **extra):
         keys = ("ms", "device_ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms")
@@ -1564,6 +2046,8 @@ def main():
                   "batched_cli": batch_launches, **serve_launches, **stream_launches}
     k3_by_path = {"enhancement_int8": k3_launches, "server_int8": serve_k3,
                   "streaming_int8": stream_k3}
+    k1_bf16_by_path = {**bf16_k1, **bf16_serve_k1, "streaming_bf16": bf16_stream_k1}
+    k3_bf16_by_path = {"enhancement_int8_bf16": bf16_k3, "server_int8_bf16": bf16_serve_k3}
     k1_src = "storm_tpu_torch/csrc/upfirdn2d.cu"
     no_library = "no single PyTorch call computes this function"
     record = {"kernels": [
@@ -1591,6 +2075,21 @@ def main():
          "bound_by": "bytes" if k2["bytes_ms"] >= k2["ops_ms"] else "operations",
          "library_ms": None, "work": f"forward at {K2_SHAPES[0]} float32, no mask",
          "library": no_library},
+        entry("upfirdn2d_bf16", k1_src, "storm_tpu/kernels/upfirdn.py:139", bf16_shape,
+              k1_calls(6), max(bf16_err, bf16_cli_err, bf16_serve_err, bf16_stream_err),
+              sum(k1_bf16_by_path.values()),
+              f"the 18 calls of one full-width score-net forward, B=1, 256 x {FRAMES}, "
+              f"bfloat16 in and out", launches_by_path=k1_bf16_by_path,
+              bf16_elements_that_differ={k: {f: n[1] for f, n in v.items()}
+                                         for k, v in BF16_FLIPS.items()},
+              bf16_elements_compared={k: {f: n[0] for f, n in v.items()}
+                                      for k, v in BF16_FLIPS.items()}),
+        entry("quantize_int8_bf16_product", "storm_tpu_torch/csrc/quantize_int8.cu",
+              "scripts/perf_fusion_probe.py:88", k3b_shape, k3b_calls,
+              max(k3b_err, bf16_serve_k3_err), sum(k3_bf16_by_path.values()),
+              f"the {N_QUANT} quantized-conv inputs of one full-width score-net forward, "
+              f"B=1, 256 x {FRAMES}, bfloat16, the product in bfloat16", library=no_library,
+              launches_by_path=k3_bf16_by_path),
     ]}
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)

@@ -9,6 +9,13 @@ discriminative (denoiser) variant. Other options raise NotImplementedError.
 The public interface keeps the reference's packed-real layout: input
 (B, Cc, F, T, 2) with complex channel c at real channels [2c, 2c+1], output
 (B, D, F, T, 2) from a 1x1 conv whose channels are [re(d)...] + [im(d)...].
+
+`dtype` is the compute dtype (float32 or bfloat16), the reference's `dtype`
+field (storm_tpu/backbones/ncsnpp.py:92): parameters stay float32, the
+input is cast to it at the pack, the time embedding before its first Dense
+(the Fourier features stay float32), sigma before the division, and the
+output is cast back to float32, so the STFT, the SDE and the sampler around
+the net stay float32.
 """
 from __future__ import annotations
 
@@ -62,8 +69,12 @@ class NCSNpp(nn.Module):
         dropout: float = 0.0,
         centered: bool = False,
         discriminative: bool = False,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise NotImplementedError(f"NCSNpp: dtype {dtype} is not ported")
+        self.dtype = dtype
         unsupported = {
             "resblock_type": (resblock_type, "biggan"),
             "progressive": (progressive, "output_skip"),
@@ -156,9 +167,10 @@ class NCSNpp(nn.Module):
         if 2 * Cc != self.total_channels:
             raise ValueError(f"got {Cc} complex channels, expected {self.total_channels // 2}")
         # contiguous: for Cc=1 the reshape is a strided view, which upfirdn2d refuses
-        h_in = x.permute(0, 1, 4, 2, 3).reshape(B, 2 * Cc, Fdim, Tdim).contiguous()
+        h_in = x.permute(0, 1, 4, 2, 3).reshape(B, 2 * Cc, Fdim, Tdim)
+        h_in = h_in.to(self.dtype).contiguous()
         h = self._unet(h_in, time_cond)
-        h = self.output_layer(h)  # (B, 2D, F, T): [re(d)...] + [im(d)...]
+        h = self.output_layer(h).float()  # (B, 2D, F, T): [re(d)...] + [im(d)...]
         D = self.spatial_channels
         return h.reshape(B, 2, D, Fdim, Tdim).permute(0, 2, 3, 4, 1)
 
@@ -171,7 +183,7 @@ class NCSNpp(nn.Module):
         temb = modules[m_idx](torch.log(time_cond)) if time_cond is not None else None
         m_idx += 1
         if self.conditional:
-            temb = modules[m_idx](temb)
+            temb = modules[m_idx](temb.to(self.dtype))
             m_idx += 1
             temb = modules[m_idx](act(temb))
             m_idx += 1
@@ -229,8 +241,8 @@ class NCSNpp(nn.Module):
 
         h = pyramid
         if self.scale_by_sigma:
-            # divides by t itself, as the reference does
-            h = h / time_cond[:, None, None, None]
+            # divides by t itself, cast to h's dtype, as the reference does
+            h = h / time_cond.to(h.dtype)[:, None, None, None]
         return h
 
 

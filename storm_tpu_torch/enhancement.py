@@ -15,6 +15,11 @@ rows. `--stream_chunk_s s` enhances each file in crossfaded chunks of s
 seconds (rounded up to the bucket), 8 chunks per call unless `--batch` sets
 another count.
 
+`--dtype` sets the NCSN++ compute dtype: `checkpoint` (the default) keeps
+the checkpoint config's, `float32` or `bfloat16` overrides it; parameters
+stay float32 either way, and the STFT, the SDE and the sampler run in
+float32.
+
 `--quant int8` serves W8A8: activation scales are calibrated on the first 4
 files (cut to one chunk in streaming mode; noise from a generator of its
 own, seeded with 1, so serving draws the same noise as without it) and cached
@@ -63,6 +68,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--N", type=int, default=50)
     p.add_argument("--no-ema", action="store_true",
                    help="use raw instead of EMA parameters")
+    p.add_argument("--dtype", default="checkpoint", choices=("checkpoint", "float32", "bfloat16"),
+                   help="NCSN++ compute dtype: bfloat16 is the reference's production serving "
+                        "program; the default keeps the checkpoint's (reference-exact)")
     p.add_argument("--timeit", action="store_true", help="report RTF per file or batch")
     p.add_argument("--batch", type=int, default=1,
                    help="group files by padded-length bucket and enhance up to this many "
@@ -94,6 +102,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     config, params, ema_params = load_checkpoint(args.ckpt)
     if config.get("mode", "regen-joint-training") not in STORM_MODES:
         raise SystemExit(f"--mode storm incompatible with checkpoint mode {config['mode']}")
+    if args.dtype != "checkpoint":
+        config = dict(config, dtype=args.dtype)
     model = build_model(config, device=device)
     model.load_state_dict(params if args.no_ema else ema_params, strict=True)
 

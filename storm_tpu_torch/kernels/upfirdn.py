@@ -1,4 +1,5 @@
-"""upfirdn2d: zero-insert upsample -> pad -> FIR -> downsample, on NCHW tensors.
+"""upfirdn2d: zero-insert upsample -> pad -> FIR -> downsample, on NCHW tensors
+of float32 or bfloat16 (the sum in float32, the output in the input's type).
 
 Replaces the Pallas TPU kernel `upfirdn2d_pallas` (storm_tpu/kernels/upfirdn.py,
 `pl.pallas_call` in its body) with a CUDA kernel written for sm_90a
@@ -8,7 +9,8 @@ two configurations: up=1, down=2, pad=(1, 1) and up=2, down=1, pad=(2, 1).
 
 Bound on the card: memory. The op does at most 16 multiply-adds per output
 and reads each input once from device memory, so the least time is
-(input bytes + output bytes) / 3.35 TB/s. The kernel stages each output
+(input bytes + output bytes) / 3.35 TB/s: 4 bytes per element in float32, 2
+in bfloat16. The kernel stages each output
 tile's input window in shared memory with asynchronous copies (the pad and
 the zero-insertion become zeros written there and taps skipped at compile
 time) and computes several outputs per thread, so it moves only those bytes:
@@ -27,8 +29,9 @@ and vice versa (pad0 1), so the same kernel serves both directions.
 and dispatches on the tensor's device in both directions: a CUDA tensor
 launches the kernel (or raises), a CPU tensor takes `upfirdn2d_plain`, the
 same function written tap by tap in PyTorch. The FIR taps are a host-side
-constant (numpy array or CPU tensor), as in the reference where they are
-fixed at build time.
+float32 constant (numpy array or CPU tensor), as in the reference where they
+are fixed at build time; the reference casts them to x's type, which leaves
+the NCSN++ FIR (outer([1,3,3,1]) / 64, times 4 for up) exact in bfloat16.
 """
 from __future__ import annotations
 
@@ -44,6 +47,7 @@ from . import build
 
 _CONFIGS = {(1, 2), (2, 1)}  # (up, down) pairs the kernel is built for
 _TAPS = 4
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the kernel's dtype codes
 
 
 def _host_taps(kernel) -> np.ndarray:
@@ -61,7 +65,11 @@ def output_size(n: int, k: int, up: int, down: int, pad: Sequence[int]) -> int:
 def upfirdn2d_plain(x: torch.Tensor, kernel, up: int = 1, down: int = 1,
                     pad: Tuple[int, int] = (0, 0)) -> torch.Tensor:
     """Plain PyTorch upfirdn2d on (B, C, H, W): zero-insert, pad, then a sum
-    over the K*K taps of strided slices (the kernel flipped: a convolution)."""
+    over the K*K taps of strided slices (the kernel flipped: a convolution).
+    A bfloat16 input is summed in float32 and the output rounded once to
+    bfloat16, as the kernel does."""
+    if x.dtype == torch.bfloat16:
+        return upfirdn2d_plain(x.float(), kernel, up, down, pad).to(torch.bfloat16)
     k = _host_taps(kernel)
     K = k.shape[0]
     B, C, H, W = x.shape
@@ -112,10 +120,10 @@ def upfirdn2d_bwd_plain(g: torch.Tensor, kernel, up: int, down: int,
 
 def _lib() -> ctypes.CDLL:
     lib = build.load("upfirdn2d")
-    fn = lib.storm_upfirdn2d_f32
+    fn = lib.storm_upfirdn2d
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_longlong]
-                       + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 8 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
 
@@ -123,8 +131,8 @@ def _lib() -> ctypes.CDLL:
 def _check_kernel_contract(x: torch.Tensor, k: np.ndarray, up: int, down: int) -> None:
     """Raise unless the CUDA kernel was built for these arguments. The
     dispatcher checks CPU tensors too, so a CPU run refuses what a card would."""
-    if x.dtype != torch.float32:
-        raise ValueError(f"upfirdn2d: float32 only, got {x.dtype}")
+    if x.dtype not in _DTYPES:
+        raise ValueError(f"upfirdn2d: float32 or bfloat16 only, got {x.dtype}")
     if x.dim() != 4 or not x.is_contiguous():
         raise ValueError("upfirdn2d: input must be a contiguous (B, C, H, W) tensor")
     if k.shape != (_TAPS, _TAPS):
@@ -148,16 +156,17 @@ def _launch(x: torch.Tensor, kernel, flip: bool, up: int, down: int, pad0: int,
     out = torch.empty((B, C, Ho, Wo), dtype=x.dtype, device=x.device)
     device = x.get_device()
     lib = _lib()
-    err = lib.storm_upfirdn2d_f32(x.data_ptr(), out.data_ptr(), k.ctypes.data, flip, device,
-                                  B * C, H, W, Ho, Wo, up, down, pad0,
-                                  torch._C._cuda_getCurrentRawStream(device))
+    err = lib.storm_upfirdn2d(x.data_ptr(), out.data_ptr(), k.ctypes.data, flip, device,
+                              B * C, H, W, Ho, Wo, up, down, pad0, _DTYPES[x.dtype],
+                              torch._C._cuda_getCurrentRawStream(device))
     build.check_launch(lib, err, "upfirdn2d_cuda")
     return out
 
 
 def upfirdn2d_cuda(x: torch.Tensor, kernel, up: int = 1, down: int = 1,
                    pad: Tuple[int, int] = (0, 0)) -> torch.Tensor:
-    """Launch the sm_90a kernel on a contiguous float32 CUDA tensor (B, C, H, W).
+    """Launch the sm_90a kernel on a contiguous float32 or bfloat16 CUDA tensor
+    (B, C, H, W).
     The output has no grad_fn: `upfirdn2d` is the differentiable entry."""
     H, W = x.shape[-2:]
     out = _launch(x, kernel, False, up, down, int(pad[0]),

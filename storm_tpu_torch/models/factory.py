@@ -2,8 +2,9 @@
 
 Takes the same config dicts as the reference (the JSON a checkpoint carries),
 training keys included (lr, ema_decay, loss types, weighting, mode). This
-slice builds the two StoRM modes with NCSN++ backbones and the OUVE SDE in
-float32; other choices raise NotImplementedError.
+slice builds the two StoRM modes with NCSN++ backbones and the OUVE SDE,
+computing in the config's `dtype`, "float32" (the default) or "bfloat16",
+with float32 parameters; other choices raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -21,11 +22,13 @@ from .storm import CONDITION_CHANNELS, STORM_MODES, StochasticRegenerationModel
 # training keys of the config; their defaults are StochasticRegenerationModel's
 TRAINING_KEYS = ("lr", "ema_decay", "loss_type_denoiser", "loss_type_score",
                  "weighting_denoiser_to_score")
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}  # the config's `dtype`
 
 
 def resolve_device(device) -> torch.device:
     """torch.device for `device`; a CUDA device must exist, and gets TF32 off
-    so float32 matmuls and convolutions stay float32."""
+    so float32 matmuls and convolutions stay float32, and bfloat16 matmuls
+    reduce in float32 (as XLA's do) instead of cuBLAS's reduced precision."""
     device = torch.device(device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
@@ -33,6 +36,7 @@ def resolve_device(device) -> torch.device:
                 "CUDA is not available; pass device='cpu' to run on the CPU")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return device
 
 
@@ -50,8 +54,9 @@ def build_model(config: Dict[str, Any], device="cuda", seed: int = 0) -> Stochas
             raise NotImplementedError(f"{key}: only ncsnpp is ported yet")
     if cfg.pop("sde", "ouve") != "ouve":
         raise NotImplementedError("sde: only ouve is ported yet")
-    if cfg.pop("dtype", "float32") != "float32":
-        raise NotImplementedError("dtype: only float32 is ported yet")
+    dtype = cfg.pop("dtype", "float32")
+    if dtype not in DTYPES:
+        raise NotImplementedError(f"dtype {dtype!r}: float32 and bfloat16 are ported")
 
     stft_config = STFTConfig(
         n_fft=cfg.pop("n_fft", 510),
@@ -71,10 +76,11 @@ def build_model(config: Dict[str, Any], device="cuda", seed: int = 0) -> Stochas
     t_eps = cfg.pop("t_eps", 0.03)
     training = {k: cfg.pop(k) for k in TRAINING_KEYS if k in cfg}
 
-    denoiser = NCSNpp.from_kwargs(**{**cfg, "input_channels": 2, "discriminative": True})
+    denoiser = NCSNpp.from_kwargs(**{**cfg, "input_channels": 2, "discriminative": True,
+                                     "dtype": DTYPES[dtype]})
     score = NCSNpp.from_kwargs(**{
         **cfg, "input_channels": 2 * (1 + CONDITION_CHANNELS[condition]),
-        "discriminative": False,
+        "discriminative": False, "dtype": DTYPES[dtype],
     })
     sde = OUVESDE(**{k: cfg[k] for k in ("theta", "sigma_min", "sigma_max", "N") if k in cfg})
     model = StochasticRegenerationModel(

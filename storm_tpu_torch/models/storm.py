@@ -15,6 +15,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
+from ..nn.cast import cast_params
 from ..nn.qconv import scales_attached, stats_collected
 from ..sampling.samplers import NoiseSource, pc_sample
 from ..sde.sdes import OUVESDE
@@ -206,14 +207,18 @@ class StochasticRegenerationModel(nn.Module):
         `quant`: {"denoiser": scales or None, "score": scales or None}, int8
         activation scales by conv module name from
         `models.quant.calibrate_storm`; the convs they name run on the int8
-        path for the whole call (scales attached, and weights quantized,
-        once per call).
+        path for the whole call (scales attached, and weights quantized
+        from the float32 weights, once per call). The nets compute in their
+        dtype with their parameters cast to it once per call; the
+        spectrograms, the SDE and the output stay float32.
         """
         T_orig = y.shape[-1]
         y_n, norm = normalize_wav(y)
         Y, _ = prepare_spec(y_n, self.stft_config, self.transform)
         quant = quant or {}
-        with scales_attached(self.denoiser_net, quant.get("denoiser") or {}), \
+        with cast_params(self.denoiser_net, self.denoiser_net.dtype), \
+                cast_params(self.score_net, self.score_net.dtype), \
+                scales_attached(self.denoiser_net, quant.get("denoiser") or {}), \
                 scales_attached(self.score_net, quant.get("score") or {}):
             Y_denoised = self.forward_denoiser(Y)
             cond = self._conditioning(Y, Y_denoised)

@@ -3,6 +3,13 @@
 Module and parameter names follow the reference's (`GroupNorm_0`, `Conv_0`,
 `Dense_0`, `NIN_0`, ...) so the converter maps flax paths one to one. Each
 layer that owns weights has `init_from(generator)`, its DDPM initialisation.
+
+Every layer computes in the dtype of its input, float32 or bfloat16, with
+float32 parameters, as the reference's layers with `dtype=x.dtype`: convs,
+Dense and NIN cast their parameters (nn/cast.py) and round the product
+before adding the bias; GroupNorm takes its statistics and normalizes in
+float32 and rounds once; attention's softmax runs in float32; Python
+scalars are rounded to the dtype as JAX's weak typing rounds them.
 """
 from __future__ import annotations
 
@@ -13,8 +20,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .cast import param, scalar
 from .init import ddpm_init_, lecun_normal_
-from .qconv import QuantizableConv
+from .qconv import QuantizableConv, conv_forward
 from .resample import (
     downsample_2d,
     naive_downsample_2d,
@@ -35,9 +43,35 @@ def get_act(name: str) -> Callable:
     raise NotImplementedError("activation function does not exist!")
 
 
-def group_norm(ch: int) -> nn.GroupNorm:
+class GroupNorm(nn.GroupNorm):
+    """nn.GroupNorm in the dtype of its input, with float32 scale and bias.
+
+    A float32 input takes `F.group_norm`. A bfloat16 input gets flax's
+    numerics (storm_tpu/nn/layers.py:63-69, 103-128): the group moments in
+    float32, the normalize step x * mul + add in float32 (the form of the
+    reference's SplitGroupNorm; flax's GroupNorm writes (x - mean) * mul +
+    bias, which differs in float32 rounding only), and one rounding to
+    bfloat16. (PyTorch's CUDA `group_norm` refuses a bfloat16 input with
+    float32 scale and bias, and rounding those to bfloat16 would change the
+    result.) Without autograd the normalize step writes bfloat16 directly."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == self.weight.dtype:
+            return super().forward(x)
+        B, C = x.shape[:2]
+        G = self.num_groups
+        var, mean = torch.var_mean(x.reshape(B, G, -1).float(), dim=-1, correction=0)
+        mul = (torch.rsqrt(var + self.eps)[:, :, None] * self.weight.view(G, -1)).reshape(B, C)
+        add = self.bias - mean.repeat_interleave(C // G, dim=1) * mul
+        shape = (B, C) + (1,) * (x.dim() - 2)
+        if torch.is_grad_enabled() and (x.requires_grad or self.weight.requires_grad):
+            return torch.addcmul(add.view(shape), x, mul.view(shape)).to(x.dtype)
+        return torch.addcmul(add.view(shape), x, mul.view(shape), out=torch.empty_like(x))
+
+
+def group_norm(ch: int) -> GroupNorm:
     """GroupNorm with the NCSN++ heuristic: min(ch // 4, 32) groups, eps 1e-6."""
-    return nn.GroupNorm(min(ch // 4, 32), ch, eps=1e-6)
+    return GroupNorm(min(ch // 4, 32), ch, eps=1e-6)
 
 
 class Conv2d(QuantizableConv):
@@ -61,10 +95,16 @@ class Conv2d(QuantizableConv):
 
 
 class OutputConv(nn.Conv2d):
-    """1x1 output projection with flax's default (LeCun normal) init."""
+    """1x1 output projection with flax's default (LeCun normal) init, in the
+    dtype of its input."""
+
+    CAST_PARAMS = ("weight", "bias")
 
     def __init__(self, in_ch: int, out_ch: int):
         super().__init__(in_ch, out_ch, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv_forward(self, x)
 
     def init_from(self, generator=None):
         lecun_normal_(self.weight, self.in_channels, generator)
@@ -75,7 +115,13 @@ class OutputConv(nn.Conv2d):
 
 
 class Dense(nn.Linear):
-    """nn.Linear with DDPM init and zero bias."""
+    """nn.Linear with DDPM init and zero bias, in the dtype of its input: the
+    product rounded, then the bias added (flax's Dense)."""
+
+    CAST_PARAMS = ("weight", "bias")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, param(self, "weight", x.dtype)) + param(self, "bias", x.dtype)
 
     def init_from(self, generator=None):
         ddpm_init_(self.weight, self.in_features, self.out_features, 1.0, generator)
@@ -111,7 +157,10 @@ class GaussianFourierProjection(nn.Module):
 
 
 class NIN(nn.Module):
-    """1x1 projection over channels with a (C_in, C_out) matrix `W`."""
+    """1x1 projection over channels with a (C_in, C_out) matrix `W`, in the
+    dtype of its input."""
+
+    CAST_PARAMS = ("W", "b")
 
     def __init__(self, in_dim: int, num_units: int, init_scale: float = 0.1):
         super().__init__()
@@ -125,7 +174,8 @@ class NIN(nn.Module):
         nn.init.zeros_(self.b)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.einsum("bchw,cd->bdhw", x, self.W) + self.b[None, :, None, None]
+        W, b = param(self, "W", x.dtype), param(self, "b", x.dtype)
+        return torch.einsum("bchw,cd->bdhw", x, W) + b[None, :, None, None]
 
 
 class Combine(nn.Module):
@@ -144,7 +194,10 @@ class Combine(nn.Module):
 
 
 class AttnBlockpp(nn.Module):
-    """Single-head self-attention over all H*W positions, softmax in float32."""
+    """Single-head self-attention over all H*W positions, softmax in float32:
+    the logits are rounded to the compute dtype, scaled by C^-0.5 in it, and
+    the softmax's weights rounded to it before the second product
+    (storm_tpu/nn/layers.py:319-332)."""
 
     def __init__(self, channels: int, skip_rescale: bool = False, init_scale: float = 0.0):
         super().__init__()
@@ -161,11 +214,11 @@ class AttnBlockpp(nn.Module):
         q = self.NIN_0(h).reshape(B, C, H * W)
         k = self.NIN_1(h).reshape(B, C, H * W)
         v = self.NIN_2(h).reshape(B, C, H * W)
-        logits = torch.einsum("bcq,bck->bqk", q, k) * (int(C) ** (-0.5))
+        logits = torch.einsum("bcq,bck->bqk", q, k) * scalar(int(C) ** (-0.5), x.dtype)
         w = torch.softmax(logits.float(), dim=-1).to(x.dtype)
         h = torch.einsum("bqk,bck->bcq", w, v).reshape(B, C, H, W)
         h = self.NIN_3(h)
-        return (x + h) / math.sqrt(2.0) if self.skip_rescale else x + h
+        return (x + h) / scalar(math.sqrt(2.0), x.dtype) if self.skip_rescale else x + h
 
 
 class Upsample(nn.Module):
@@ -194,7 +247,11 @@ class ResnetBlockBigGANpp(nn.Module):
     """BigGAN resblock with optional FIR up/down resampling.
 
     `temb_dim=None` builds no Dense_0 (the unconditional denoiser). The
-    up path calls it on torch.cat([h, skip], dim=1).
+    up path calls it on torch.cat([h, skip], dim=1): Conv_0 and Conv_2 are
+    then each one conv of the concatenation, rounded once, where the
+    reference (`split_skip`, storm_tpu/nn/qconv.py:109-118) sums two partial
+    convs, each rounded: in float32 the two agree to rounding, in bfloat16
+    the single rounding is the more exact.
     """
 
     def __init__(self, act: Callable, in_ch: int, out_ch: Optional[int] = None,
@@ -239,4 +296,4 @@ class ResnetBlockBigGANpp(nn.Module):
         h = self.Conv_1(h)
         if hasattr(self, "Conv_2"):
             x = self.Conv_2(x)
-        return (x + h) / math.sqrt(2.0) if self.skip_rescale else x + h
+        return (x + h) / scalar(math.sqrt(2.0), x.dtype) if self.skip_rescale else x + h

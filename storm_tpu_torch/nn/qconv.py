@@ -3,8 +3,13 @@ storm_tpu/nn/qconv.py `QuantizableConv`).
 
 `QuantizableConv` is an `nn.Conv2d` (stride 1, symmetric zero padding, one
 group: what `conv3x3` and `conv1x1` build) with the same parameters
-(`weight`, `bias`) and, by default, the same float32 convolution. Two modes
-are switched on per module, for the duration of a `with` block:
+(`weight`, `bias`, float32) and, by default, the reference's convolution in
+the dtype of its input: the weight cast to it (nn/cast.py), the product
+rounded to it, then the bias, cast to it, added in it (flax rounds twice in
+bfloat16; a bias passed to `F.conv2d` would be added before the one
+rounding on the CPU; on the card PyTorch adds it in a kernel of its own
+either way). Two modes are switched on per module, for the duration of a
+`with` block:
 
 - calibration (`stats_collected`): the running max|input| of every conv that
   runs, kept on the device as a 0-d tensor (no host sync per call);
@@ -13,12 +18,16 @@ are switched on per module, for the duration of a `with` block:
   (`kernels/quant.py`, inv = 1 / a_scale), the weight per output channel
   (w_scale = max|w| over (I, kh, kw) / 127, codes round(w / w_scale)), the
   conv runs as an int8 x int8 -> int32 product with exact int32
-  accumulation, and the epilogue is acc * (a_scale * w_scale) + bias in
-  float32, in the reference's order.
+  accumulation, and the epilogue is acc * (a_scale * w_scale) + bias in the
+  compute dtype, in the reference's order (storm_tpu/nn/qconv.py:156-161).
+  Under bfloat16 the quantizer forms x * inv in bfloat16, and the epilogue
+  rounds acc to bfloat16 (through float32, as XLA converts int32 to
+  bfloat16), multiplies by the scale rounded to bfloat16 and adds the bias
+  rounded to bfloat16, each step rounded.
 
 The scales become float32 values, and the weight codes and dequantizing
-scales tensors, once when they are attached: a conv call then syncs nothing
-with the host. The int8 product is an im2col of the int8 codes (a quarter of
+scales (float32 and bfloat16) tensors, once when they are attached: a conv
+call then syncs nothing with the host. The int8 product is an im2col of the int8 codes (a quarter of
 the bytes of a float32 im2col) followed by `torch._int_mm`; the reference
 leaves the same integer product to XLA's `conv_general_dilated` outside any
 Pallas kernel. A float32 conv of the codes would not be exact: 3*3*512
@@ -41,6 +50,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.quant import quantize_int8
+from .cast import param
 
 
 def activation_inverse(a_scale: float) -> float:
@@ -87,16 +97,29 @@ def weight_columns(codes: torch.Tensor) -> torch.Tensor:
     return codes.permute(0, 2, 3, 1).reshape(O, -1).t()
 
 
+def conv_forward(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """`conv` applied to x in x's dtype, as flax's Conv with `dtype=`: the
+    product with the weight cast to x's dtype, rounded, then the bias, cast
+    to x's dtype, added."""
+    y = F.conv2d(x, param(conv, "weight", x.dtype), None, conv.stride, conv.padding,
+                 conv.dilation, conv.groups)
+    bias = param(conv, "bias", x.dtype)
+    return y if bias is None else y.add_(bias[:, None, None])
+
+
 class QuantizableConv(nn.Conv2d):
-    """nn.Conv2d with a calibration mode and an int8 W8A8 serving path."""
+    """nn.Conv2d with a calibration mode and an int8 W8A8 serving path,
+    computing in the dtype of its input."""
+
+    CAST_PARAMS = ("weight", "bias")
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
         self.calibrating = False
         self.amax: Optional[torch.Tensor] = None  # running max|input| while calibrating
         self.a_scale: Optional[float] = None
-        # (inv, weight columns, dequantizing scale (O,)) while a scale is attached
-        self._int8: Optional[Tuple[float, torch.Tensor, torch.Tensor]] = None
+        # (inv, weight columns, {dtype: dequantizing scale (O,)}) while a scale is attached
+        self._int8: Optional[Tuple[float, torch.Tensor, Dict[torch.dtype, torch.Tensor]]] = None
 
     def _check_int8_geometry(self) -> None:
         k, p = self.kernel_size, self.padding
@@ -118,21 +141,24 @@ class QuantizableConv(nn.Conv2d):
         codes, w_scale = quantize_weight(self.weight)
         dequant = torch.tensor(a, device=w_scale.device) * w_scale  # float32 (qconv.py:158)
         self.a_scale = float(a)
-        self._int8 = (activation_inverse(a), weight_columns(codes), dequant)
+        self._int8 = (activation_inverse(a), weight_columns(codes),
+                      {torch.float32: dequant, torch.bfloat16: dequant.to(torch.bfloat16)})
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.calibrating:
             big = x.detach().abs().amax().to(torch.float32)
             self.amax = big if self.amax is None else torch.maximum(self.amax, big)
         if self._int8 is None:
-            return super().forward(x)
+            return conv_forward(self, x)
         inv, wq_cols, dequant = self._int8
-        xq = quantize_int8(x.contiguous(), inv)  # K3
+        xq = quantize_int8(x.contiguous(), inv, product=x.dtype)  # K3
         acc = conv2d_int8(xq, wq_cols, self.kernel_size[0], self.padding[0])
-        y = torch.empty(acc.shape, dtype=torch.float32, device=acc.device)
-        torch.mul(acc, dequant[:, None, None], out=y)  # acc in float32, times the scale
-        if self.bias is not None:
-            y += self.bias[:, None, None]
+        # acc in the compute dtype, times the scale in it, into a contiguous output
+        y = torch.empty(acc.shape, dtype=x.dtype, device=acc.device)
+        torch.mul(acc, dequant[x.dtype][:, None, None], out=y)
+        bias = param(self, "bias", x.dtype)
+        if bias is not None:
+            y += bias[:, None, None]
         return y
 
 

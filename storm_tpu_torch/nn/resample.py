@@ -1,8 +1,9 @@
 """StyleGAN2-style FIR resampling on NCHW tensors (counterpart of storm_tpu/nn/resample.py).
 
 `upfirdn2d` is the kernel's dispatcher (kernels/upfirdn.py): the CUDA kernel
-for a CUDA tensor, the plain PyTorch version for a CPU tensor. FIR kernels are
-host-side numpy constants.
+for a CUDA tensor, the plain PyTorch version for a CPU tensor, in the input's
+dtype (float32 or bfloat16). FIR kernels are host-side float32 numpy
+constants, in bfloat16 too: NCSN++'s are exact there.
 """
 from __future__ import annotations
 

@@ -10,9 +10,10 @@ Endpoints:
     GET  /healthz   readiness and the serving configuration (torch device, card)
     GET  /stats     request and batch counters, audio seconds served, batch fill
 
-Sampler flags and defaults are the enhancement CLI's. The compute dtype is
-float32 (`--dtype float32`, or `checkpoint` for a float32 checkpoint); the
-reference serves bfloat16 by default, which is not ported yet. Noise comes
+Sampler flags and defaults are the enhancement CLI's. The NCSN++ compute
+dtype defaults to bfloat16, as the reference serves (`--dtype float32`, or
+`checkpoint` for the checkpoint config's); /healthz reports the dtype
+served. Noise comes
 from one torch.Generator seeded with `--seed`, owned by the batcher's
 dispatcher thread; int8 calibration draws from its own, seeded `--seed` + 1.
 SIGTERM stops accepting requests and drains the queue.
@@ -75,8 +76,10 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--snr", type=float, default=0.5)
     p.add_argument("--N", type=int, default=50)
     p.add_argument("--no-ema", action="store_true")
-    p.add_argument("--dtype", default="float32", choices=("checkpoint", "float32", "bfloat16"),
-                   help="compute dtype; bfloat16 (the reference's default) is not ported yet")
+    p.add_argument("--dtype", default="bfloat16", choices=("checkpoint", "float32", "bfloat16"),
+                   help="NCSN++ compute dtype; bfloat16 (the default) is the reference's "
+                        "production serving program, 'checkpoint' keeps the checkpoint "
+                        "config's dtype; parameters stay float32")
     p.add_argument("--quant", default=None, choices=("int8",))
     p.add_argument("--quant_min_channels", type=int, default=128)
     p.add_argument("--calib_dir", default=None,
@@ -156,9 +159,6 @@ def make_handler(batcher: DynamicBatcher, info: dict, model_sr: int = MODEL_SR):
 def _refuse_unported(args) -> None:
     if args.sampler != "pc":
         raise NotImplementedError(f"--sampler {args.sampler} is not ported yet (ROADMAP R3)")
-    if args.dtype == "bfloat16":
-        raise NotImplementedError("--dtype bfloat16 is not ported yet (ROADMAP M9); the port "
-                                  "serves float32")
     if args.deepcache:
         raise NotImplementedError("--deepcache is not ported yet (ROADMAP R7)")
 
@@ -173,8 +173,9 @@ def build_server(args):
         raise SystemExit(f"--mode storm incompatible with checkpoint mode {config['mode']}")
     config = dict(config)
     if args.dtype != "checkpoint":
+        # a program property: the parameters stay as stored, float32
         config["dtype"] = args.dtype
-    model = build_model(config, device=device)  # raises on a dtype other than float32
+    model = build_model(config, device=device)
     model.load_state_dict(params if args.no_ema else ema_params, strict=True)
 
     quant = None
@@ -230,7 +231,7 @@ def build_server(args):
         "corrector_steps": args.corrector_steps, "snr": args.snr,
         "row_sizes": row_sizes, "max_wait_ms": args.max_wait_ms,
         "warmup_buckets_s": [T / MODEL_SR for T in lens],
-        "backbone": "ncsnpp", "dtype": "float32", "seed": args.seed,
+        "backbone": "ncsnpp", "dtype": config.get("dtype", "float32"), "seed": args.seed,
         "ckpt": os.path.abspath(args.ckpt),
     }
     try:

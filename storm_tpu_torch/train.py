@@ -120,7 +120,7 @@ def check_supported(args: argparse.Namespace) -> None:
     if args.return_time:
         todo.append("--return_time (ROADMAP R4, time-domain backbones)")
     if args.dtype != "float32":
-        todo.append(f"--dtype {args.dtype} (ROADMAP M9)")
+        todo.append(f"--dtype {args.dtype} (ROADMAP M9b, bfloat16 training)")
     if args.spatial_channels != 1:
         todo.append(f"--spatial_channels {args.spatial_channels} (ROADMAP R7)")
     if todo:

@@ -10,6 +10,9 @@ its output, cut back to T samples, is the reference's. There is no compile
 cache here: the bucket fixes the shapes, and with them the cuDNN plans and
 allocator blocks that later calls of the same bucket reuse.
 
+The model computes in its own dtype (`model.enhance` casts); the waveforms,
+the pinned upload buffers and the outputs stay float32.
+
 Noise for every call comes from one `torch.Generator` owned by the caller
 (or an injected noise source), drawn in order: chunk after chunk, each chunk
 as `pc_sample` draws it. The reference splits a PRNG key per chunk; the

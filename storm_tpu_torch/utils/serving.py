@@ -8,7 +8,9 @@ stale scales. The port's checkpoint is one `.pt` file, so the cache is
 `<ckpt>.quant_int8_scales.json`, in the reference's file format. That file
 outlives a checkpoint written anew at the same path (training rewrites
 `last.pt` and `best_loss.pt` in place), so the configuration also holds a
-digest of the weights served: new weights recalibrate.
+digest of the weights served: new weights recalibrate. As in the reference,
+the configuration holds no compute dtype: scales calibrated in float32
+serve bfloat16 and back.
 """
 from __future__ import annotations
 
@@ -83,7 +85,7 @@ def calibrate_or_load_scales(
         if meta is not None and all(meta.get(k) == v for k, v in calib_meta.items()):
             print(f"int8 scales loaded from {cache} ({n_quantized(quant)} convs quantized; 0 "
                   f"means every conv is below the {min_channels}-channel threshold and "
-                  "serving is float32)")
+                  "serves in the model's compute dtype)")
             return quant
         print("int8 scale cache config mismatch — recalibrating")
 

@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain versions, on a card: upfirdn2d
 in both directions (forward, and the gradient through `UpFirDn2d`), also at
-the serving path's batches and bucket widths, the int8 quantizer (codes
-identical) and the int8 conv built on it, and the fused bias + leaky ReLU
-(forward and gradient); and the dynamic batcher's pipelined path on the card.
+the serving path's batches and bucket widths, in float32 and bfloat16, the
+int8 quantizer in both product modes (codes identical) and the int8 conv
+built on it, and the fused bias + leaky ReLU (forward and gradient); the
+bfloat16 GroupNorm; and the dynamic batcher's pipelined path on the card.
 
 Skips without a CUDA device. On a card, from the repository root:
 
@@ -11,8 +12,13 @@ Skips without a CUDA device. On a card, from the repository root:
 (`--noconftest`: the repository's conftest imports JAX, which a GPU host
 need not have; this file imports only the port.) Tolerance for upfirdn2d
 atol = rtol = 1e-5: a 16-tap float32 sum in another order, with fused
-multiply-adds; the quantizer's codes are exact; fused_leaky_relu's forward
-1e-6 (the same float32 operations), its gradients exact (autograd's own).
+multiply-adds; in bfloat16 equal with NCSN++'s FIR, whose products with
+bfloat16 values are exact in float32 and summed in the same order, and
+with an asymmetric FIR 1 ulp of each element plus the float32 sum's
+rounding (a fused multiply-add rounds an inexact product once less); the
+quantizer's
+codes are exact; fused_leaky_relu's forward 1e-6 (the same float32
+operations), its gradients exact (autograd's own).
 """
 import threading
 
@@ -23,7 +29,7 @@ import torch
 from storm_tpu_torch.kernels import fused_act as kfa
 from storm_tpu_torch.kernels import quant as kq
 from storm_tpu_torch.kernels import upfirdn as kup
-from storm_tpu_torch.nn.layers import conv1x1, conv3x3
+from storm_tpu_torch.nn.layers import conv1x1, conv3x3, group_norm
 from storm_tpu_torch.models.factory import build_model
 from storm_tpu_torch.nn.qconv import conv2d_int8, scales_attached, weight_columns
 from storm_tpu_torch.utils.inference import BucketedEnhancer
@@ -125,6 +131,87 @@ def test_adjoint_matches_plain_at_tile_edges(cuda, shape, cfg, kernel):
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
 
 
+def _within_one_bf16_ulp(got, want, terms):
+    """Each element of got within 1 bfloat16 ulp of want's, plus the float32
+    rounding of its sum: 2^-18 of `terms`, the sum of its products'
+    magnitudes (an asymmetric FIR's products are not exact in float32, the
+    kernel fuses them into its sum, and where the sum cancels, the two
+    float32 sums' difference can be many ulps of a small result)."""
+    assert got.dtype == want.dtype == torch.bfloat16 and got.shape == want.shape
+    w = want.float().abs().clamp_min(2.0 ** -126)
+    allowed = torch.exp2(torch.floor(torch.log2(w)) - 7) + 2.0 ** -18 * terms.float()
+    assert ((got.float() - want.float()).abs() <= allowed).all()
+
+
+@pytest.mark.parametrize("kernel", [SYM, ASYM], ids=["sym", "asym"])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "odd_offset"])
+@pytest.mark.parametrize("shape,cfg", EDGE_CASES)
+def test_bf16_kernel_matches_plain_at_tile_edges(cuda, shape, cfg, offset, kernel):
+    """bfloat16: offset 1 puts each row on an odd element, W % 4 != 0 off a
+    chunk; both take the element-by-element fill that cp.async cannot do for
+    2-byte elements."""
+    up, down, pad = cfg
+    n = int(np.prod(shape))
+    x = torch.randn(n + offset, generator=torch.Generator().manual_seed(n)).to(cuda)
+    x = x.bfloat16()[offset:].view(shape)
+    assert x.is_contiguous() and x.storage_offset() == offset
+    got = kup.upfirdn2d_cuda(x, kernel, up=up, down=down, pad=pad)
+    want = kup.upfirdn2d_plain(x, kernel, up=up, down=down, pad=pad)
+    _within_one_bf16_ulp(got, want, kup.upfirdn2d_plain(x.abs(), np.abs(kernel), up=up,
+                                                        down=down, pad=pad))
+    if kernel is SYM:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("W", [192, 320, 576])
+@pytest.mark.parametrize("B", [1, 4])
+def test_bf16_kernel_equals_plain_at_serving_shapes(cuda, B, W):
+    gen = torch.Generator(device=cuda).manual_seed(B * W)
+    for (up, down, pad), shape in _serving_calls(B, W):
+        x = torch.randn(shape, device=cuda, generator=gen).bfloat16()
+        got = kup.upfirdn2d_cuda(x, SYM * (4.0 if up == 2 else 1.0), up=up, down=down, pad=pad)
+        want = kup.upfirdn2d_plain(x, SYM * (4.0 if up == 2 else 1.0), up=up, down=down, pad=pad)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kernel", [SYM, ASYM], ids=["sym", "asym"])
+@pytest.mark.parametrize("shape,cfg", [c for c in EDGE_CASES if c[1] in ((1, 2, (1, 1)),
+                                                                         (2, 1, (2, 1)))])
+def test_bf16_adjoint_matches_plain_at_tile_edges(cuda, shape, cfg, kernel):
+    up, down, pad = cfg
+    Ho, Wo = (kup.output_size(n, 4, up, down, pad) for n in shape[2:])
+    g = torch.randn(shape[:2] + (Ho, Wo), generator=torch.Generator().manual_seed(2)).to(cuda)
+    g = g.bfloat16()
+    got = kup.upfirdn2d_bwd_cuda(g, kernel, up, down, pad, shape[2:])
+    want = kup.upfirdn2d_bwd_plain(g, kernel, up, down, pad, shape[2:])
+    assert got.shape == shape
+    _within_one_bf16_ulp(got, want, kup.upfirdn2d_bwd_plain(g.abs(), np.abs(kernel), up, down,
+                                                            pad, shape[2:]))
+    if kernel is SYM:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape", [(1, 128, 256, 576), (4, 32, 33, 65)])
+def test_bf16_group_norm_rounds_float32_group_norm_once(cuda, shape):
+    """PyTorch's CUDA group_norm refuses a bfloat16 input with float32 scale
+    and bias; the port's GroupNorm takes float32 statistics and normalizes in
+    float32: within 1 ulp of the output's scale of float32 GroupNorm rounded
+    once, at a few elements (the two take their moments in other orders)."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    gn = group_norm(shape[1]).to(cuda)
+    with torch.no_grad():
+        gn.weight.copy_(1.0 + 0.1 * torch.randn(shape[1], device=cuda, generator=gen))
+        gn.bias.copy_(0.1 * torch.randn(shape[1], device=cuda, generator=gen))
+        x = (torch.randn(shape, device=cuda, generator=gen) + 0.5).bfloat16()
+        got = gn(x)
+        want = torch.nn.functional.group_norm(x.float(), gn.num_groups, gn.weight, gn.bias,
+                                              gn.eps).bfloat16()
+    scale = want.float().abs().max()
+    ulp = torch.exp2(torch.floor(torch.log2(scale)) - 7)
+    assert (got.float() - want.float()).abs().max().item() <= ulp.item()  # of the output's scale
+    assert (got != want).float().mean().item() < 1e-3
+
+
 def test_kernel_refuses_what_it_was_not_built_for(cuda):
     x = torch.zeros(1, 2, 8, 8, device=cuda)
     with pytest.raises(ValueError, match="float32"):
@@ -194,6 +281,28 @@ def test_quantizer_codes_equal_plain_at_serving_shapes(cuda, shape):
     x = _quant_input(n, 2.0, torch.Generator().manual_seed(n % 1000)).to(cuda).view(shape)
     got = kq.quantize_int8(x, 2.0)
     assert torch.equal(got, kq.quantize_int8_plain(x, 2.0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("inv", [12.7, 1 / 0.0371, 0.5 / 0.0913])
+@pytest.mark.parametrize("n,offset", [(2 * 1024 * 128, 0), (100003, 0), (77, 0), (4099, 1)])
+def test_quantizer_bf16_product_codes_equal_plain(cuda, dtype, inv, n, offset):
+    """The bfloat16-product mode: x and inv rounded to bfloat16, their product
+    rounded to bfloat16; codes equal plain's, on vector, tail, tiny and
+    unaligned inputs, every bfloat16 value below saturation included."""
+    every = (np.arange(1 << 16, dtype=np.uint32) << 16).view(np.float32)
+    every = torch.from_numpy(every[np.isfinite(every) & (np.abs(every) < 140 / inv)])
+    x = torch.cat([every, _quant_input(n + offset, inv, torch.Generator().manual_seed(n))])
+    x = x.to(dtype).to(cuda)[offset:]
+    before = kq.quantize_int8_cuda.launches
+    got = kq.quantize_int8(x, inv, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert kq.quantize_int8_cuda.launches == before + 1
+    want = kq.quantize_int8_plain(x, inv, torch.bfloat16)
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), kq.quantize_int8_plain(x.cpu(), inv, torch.bfloat16))
+    # where the two products round to different sides of a .5, the modes part
+    assert not torch.equal(got, kq.quantize_int8(x, inv))
 
 
 def test_quantizer_refuses_what_it_was_not_built_for(cuda):

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 from torch_parity import ReplayNoise, assert_close_rel, jax_noise_schedule, nhwc, tt
+from torch_parity import random_params as tp_random_params
 
 from storm_tpu.models import quant as jquant
 from storm_tpu.models.factory import build_model as jbuild
@@ -42,25 +43,10 @@ STORM_TINY = {"mode": "regen-joint-training", "nf": 16, "ch_mult": [1, 2, 2],
 
 
 def random_params(jmodel, shape, seed=0):
-    """Weights for the reference model's parameter tree, drawn with numpy:
-    fan-in scaled kernels, the Fourier features' W at scale 16, biases and
-    norm scales near 0 and 1 (jax.eval_shape gives the tree without running
-    the reference's initialisers)."""
-    shapes = jax.eval_shape(lambda: jmodel.init_params(jax.random.PRNGKey(0), shape))
-    rng = np.random.default_rng(seed)
-
-    def draw(name, s):
-        z = rng.standard_normal(s).astype(np.float32)
-        if name == "W" and len(s) == 1:
-            return 16.0 * z
-        if name in ("kernel", "W"):
-            return z / np.sqrt(np.prod(s[:-1]))
-        return (1.0 if name == "scale" else 0.0) + 0.05 * z
-
-    def walk(tree):
-        return {k: walk(v) if isinstance(v, dict) else draw(k, v.shape) for k, v in tree.items()}
-
-    return walk(shapes)
+    """Random weights (torch_parity.random_params) for the reference model's
+    parameter tree at spectrogram `shape`."""
+    return tp_random_params(
+        jax.eval_shape(lambda: jmodel.init_params(jax.random.PRNGKey(0), shape)), seed)
 
 
 def tiny_storm_pair(seed=0):

@@ -417,7 +417,7 @@ def test_http_healthz_stats_and_enhance(tiny_server):
         status, health = _get(conn, "/healthz")
         assert status == 200 and health["status"] == "ok"
         assert health["device"] == "cpu" and health["device_name"] == "cpu"
-        assert health["dtype"] == "float32" and health["row_sizes"] == [1, 2]
+        assert health["dtype"] == "bfloat16" and health["row_sizes"] == [1, 2]
 
         wav = encode_wav_bytes(wave(4000, 1))
         conn.request("POST", "/enhance", body=wav, headers={"Content-Type": "audio/wav"})
@@ -463,7 +463,7 @@ def test_batched_requests_equal_the_enhancer_on_the_same_batch(tiny_ckpt):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--dtype", "bfloat16"], "M9"), (["--sampler", "ode"], "R3"),
+    (["--dtype", "bfloat16", "--sampler", "ode"], "R3"), (["--sampler", "ode"], "R3"),
     (["--deepcache", "3"], "R7"), (["--data_parallel"], "R7"), (["--seq_parallel", "2"], "R7")])
 def test_unported_flags_raise(tiny_ckpt, extra, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -475,7 +475,7 @@ def test_default_device_raises_without_a_card(tiny_ckpt):
         pytest.skip("a CUDA device is present")
     args = serve.build_argparser().parse_args(["--ckpt", tiny_ckpt, "--mode", "storm",
                                                "--port", "0"])
-    assert args.device == "cuda" and args.dtype == "float32"
+    assert args.device == "cuda" and args.dtype == "bfloat16"
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.build_server(args)
 

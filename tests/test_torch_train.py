@@ -19,7 +19,7 @@ import numpy as np
 import optax
 import pytest
 import torch
-from torch_parity import to_numpy_tree, tt
+from torch_parity import random_params, to_numpy_tree, tt
 
 from storm_tpu.data.datamodule import SpecsDataModule as JDataModule
 from storm_tpu.models.base import ema_update as jema_update
@@ -38,25 +38,10 @@ B, F, T = 2, 32, 32
 
 
 def _random_params(jmodel, seed=0):
-    """Weights for the reference model's parameter tree, drawn with numpy:
-    fan-in scaled kernels, the Fourier features' W at scale 16, biases and
-    norm scales near 0 and 1 (jax.eval_shape gives the tree without running
-    the reference's initialisers, which take most of a test's time)."""
-    shapes = jax.eval_shape(lambda: jmodel.init_params(jax.random.PRNGKey(0), (B, F, T)))
-    rng = np.random.default_rng(seed)
-
-    def draw(name, shape):
-        z = rng.standard_normal(shape).astype(np.float32)
-        if name == "W" and len(shape) == 1:
-            return 16.0 * z
-        if name in ("kernel", "W"):
-            return z / np.sqrt(np.prod(shape[:-1]))
-        return (1.0 if name == "scale" else 0.0) + 0.05 * z
-
-    def walk(tree):
-        return {k: walk(v) if isinstance(v, dict) else draw(k, v.shape) for k, v in tree.items()}
-
-    return walk(shapes)
+    """Random weights (torch_parity.random_params) for the reference model's
+    parameter tree at (B, F, T)."""
+    return random_params(
+        jax.eval_shape(lambda: jmodel.init_params(jax.random.PRNGKey(0), (B, F, T))), seed)
 
 
 def _models(cfg, seed=0):
@@ -243,8 +228,10 @@ def test_cli_trains_resumes_and_enhances_on_cpu(tmp_path):
 ])
 def test_cli_refuses_what_is_not_ported(flag, tmp_path):
     args = TRAIN_ARGS + ["--base_dir", str(tmp_path), "--nolog", "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP") as refused:
         train.main(args + flag)
+    if flag[0] == "--dtype":  # bfloat16 serves; bfloat16 training is its own item
+        assert "M9b" in str(refused.value)
 
 
 def test_default_device_raises_without_a_card(tmp_path):

@@ -86,7 +86,7 @@ def test_cpu_dispatch_refuses_what_the_kernel_refuses():
     x = nchw(_x(2, seed=4))
     with pytest.raises(ValueError, match="contiguous"):
         pres.upfirdn2d(x.transpose(2, 3), SYM, down=2, pad=(1, 1))
-    with pytest.raises(ValueError, match="float32"):
+    with pytest.raises(ValueError, match="float32 or bfloat16 only"):
         pres.upfirdn2d(x.double(), SYM, down=2, pad=(1, 1))
     with pytest.raises(ValueError, match="not built"):
         pres.upfirdn2d(x, SYM, up=2, down=2, pad=(1, 1))

@@ -1,9 +1,12 @@
 """Shared helpers for the port's parity tests (tests/test_torch_*.py).
 
 Inputs are made with numpy from a seed and handed to both packages; JAX
-results come back as numpy arrays. Everything runs on the CPU in float32.
+results come back as numpy arrays. Everything runs on the CPU, in float32
+unless a test says bfloat16: then the values handed over are bfloat16 values
+held in float32 arrays, exact in both types.
 """
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
@@ -97,3 +100,44 @@ def assert_close_rel(got, want, rtol, what=""):
     scale = max(np.abs(want).max(), 1e-12)
     err = np.abs(got - want).max()
     assert err <= rtol * scale, f"{what}: max abs err {err:.3e} > {rtol} * {scale:.3e}"
+
+
+def bf16_values(a) -> np.ndarray:
+    """`a` rounded to bfloat16 (to nearest even), as a float32 numpy array."""
+    return np.asarray(jnp.asarray(np.asarray(a, np.float32)).astype(jnp.bfloat16)
+                      .astype(jnp.float32))
+
+
+def bf16_ulp(scale: float) -> float:
+    """One bfloat16 ulp at `scale`: 2^-7 of its leading power of two."""
+    return float(2.0 ** (np.floor(np.log2(scale)) - 7))
+
+
+def ulps_of_scale(got, want) -> float:
+    """max |got - want| in bfloat16 ulps of max |want|."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    return float(np.abs(got - want).max() / bf16_ulp(np.abs(want).max()))
+
+
+def random_params(shapes, seed: int = 0):
+    """Weights for a reference parameter tree of the shapes in `shapes` (from
+    `jax.eval_shape` of an init: the tree without running the reference's
+    initialisers, which take most of a test's time on the CPU), drawn with
+    numpy in the tree's order: fan-in scaled kernels, the Fourier features'
+    W at scale 16, biases and norm scales near 0 and 1."""
+    rng = np.random.default_rng(seed)
+
+    def draw(name, s):
+        z = rng.standard_normal(s).astype(np.float32)
+        if name == "W" and len(s) == 1:
+            return 16.0 * z
+        if name in ("kernel", "W"):
+            return z / np.sqrt(np.prod(s[:-1]))
+        return (1.0 if name == "scale" else 0.0) + 0.05 * z
+
+    def walk(tree):
+        return {k: walk(v) if isinstance(v, dict) else draw(k, v.shape) for k, v in tree.items()}
+
+    return walk(shapes)

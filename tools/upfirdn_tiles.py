@@ -88,10 +88,19 @@ def build_variant(build, rows: int, workdir: str):
                           capture_output=True, text=True)
     if proc.returncode != 0:
         sys.exit(f"FAIL: nvcc on the variant with {rows} rows:\n{proc.stdout}{proc.stderr}")
-    fn = ctypes.CDLL(so).storm_upfirdn2d_f32
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_longlong]
-                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    lib = ctypes.CDLL(so)
+    if hasattr(lib, "storm_upfirdn2d"):  # float32 (dtype 0) or bfloat16
+        entry = lib.storm_upfirdn2d
+        entry.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_longlong]
+                          + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+
+        def fn(*args):
+            return entry(*args[:-1], 0, args[-1])
+    else:  # an older checkout: float32 only, no dtype argument
+        fn = entry = lib.storm_upfirdn2d_f32
+        entry.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_longlong]
+                          + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    entry.restype = ctypes.c_int
     return fn, proc.stdout + proc.stderr
 
 
