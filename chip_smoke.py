@@ -119,6 +119,37 @@ Phases, each of which exits non-zero on failure:
 23. (with `--profile`) one bf16 enhancement of the 4 s file traced: the
    shares of convolutions, layout transforms, GroupNorm statistics,
    elementwise kernels and K1.
+24. bfloat16 training's kernels: upfirdn2d in bf16 at every train-step
+   shape (B=8, 256 x 256) through `UpFirDn2d`, forward and gradient against
+   autograd of the plain version, both FIRs, within 1 ulp of each element
+   plus the float32 sum's rounding (the elements that differ counted with
+   phase 18's); the backward kernel timed (event and L2-cold device time)
+   beside the plain backward, the bf16 adjoint library call and the 2
+   B-per-element bound. One full-width bf16 step's gradients (B=2, cuDNN
+   deterministic): 36 + 33 launches, all bf16; the L2 distance from the
+   plain path's at most 0.1, and from the float32 step's at least 0.5, of
+   the plain path's bf16-against-f32 distance. One B=8 bf16 step timed and
+   its peak memory read with the port's GroupNorm (`LowPrecisionGroupNorm`,
+   which keeps x in bf16 for its backward) and with the same arithmetic
+   left to autograd (which keeps a float32 copy: the bytes counted); the
+   port's must peak lower.
+25. `python -m storm_tpu_torch.train --dtype bfloat16 --num_eval_files 4`
+   on phase 8's corpus, 8 steps at B=8: the checks of phase 8 (exactly 36 +
+   33 upfirdn2d launches per step, all bf16), with the in-training
+   evaluation's launches (18 per forward; the default N=30) in the count;
+   finite ValidationSISDR and ValidationESTOI, ValidationPESQ NaN unless
+   `pesq` imports; `best_pesq.pt` written, its meta naming the metric; the
+   config's dtype bfloat16; that checkpoint enhances one file in bf16
+   through `--dtype checkpoint`. Step period, audio s/s and peak memory
+   beside phase 8's float32 figures.
+26. the float32 trainer with the evaluation (`--num_eval_files 4 --eval_N
+   10`), one epoch of 4 steps: the same checks.
+27. fused_leaky_relu (K2) in bf16 through its op API at phase 12's shapes:
+   forward equal to plain; input gradient within 1 ulp of each element,
+   bias gradient within 1 ulp of its scale, of autograd of plain; timed
+   beside the 4 B-per-element bound.
+28. (with `--profile`) two full-width bf16 train steps traced, with phase
+   23's groups.
 
 A profile's kernel times come from its device events, each counted once;
 shares are of the summed kernel time. The busy time is the union of the
@@ -171,7 +202,7 @@ from storm_tpu_torch.models.storm import StochasticRegenerationModel
 from storm_tpu_torch.nn import qconv, resample
 from storm_tpu_torch.nn.cast import cast_params
 from storm_tpu_torch.nn.init import reset_parameters
-from storm_tpu_torch.nn.layers import group_norm
+from storm_tpu_torch.nn.layers import GroupNorm, group_norm
 from storm_tpu_torch.signal.transforms import pad_spec_amount
 from storm_tpu_torch.utils.inference import BucketedEnhancer
 from storm_tpu_torch.utils.server import decode_wav_bytes, encode_wav_bytes
@@ -227,6 +258,7 @@ OTHER_FRAMES = sorted({padded_frames(s) for s in SECONDS} - {FRAMES})
 TRAIN_B, TRAIN_FRAMES, TRAIN_STEPS = 8, 256, 8
 TRAIN_AUDIO_S = (TRAIN_FRAMES - 1) * 128 / SR
 TRAIN_FILES, VALID_FILES, FILE_S = 32, 4, 2.5  # 4 steps per epoch, 2 epochs
+F32_EVAL_N = 10  # the float32 evaluation's reverse steps (bf16's: the default, 30)
 # upfirdn2d launches per joint-training step: 18 per forward of each net, and
 # a backward for every call whose input needs a gradient, which is all but
 # the denoiser's input pyramid (3 calls on the raw noisy spec)
@@ -714,7 +746,10 @@ def phase_train_gradients(gen: torch.Generator):
 
 
 def write_corpus(root: str):
-    """wsj0 layout: TRAIN_FILES `tr` and VALID_FILES `cv` pairs of FILE_S seconds."""
+    """wsj0 layout: TRAIN_FILES `tr` and VALID_FILES `cv` pairs of FILE_S
+    seconds; a corpus already there is kept."""
+    if os.path.isdir(root):
+        return
     rng = np.random.default_rng(1)
     for sub, n in (("tr", TRAIN_FILES), ("cv", VALID_FILES)):
         for kind in ("clean", "noisy"):
@@ -726,15 +761,35 @@ def write_corpus(root: str):
             save_wav(os.path.join(root, sub, "noisy", f"u{i:03d}.wav"), noisy, SR)
 
 
-def phase_train(workdir: str):
-    """The training path through `python -m storm_tpu_torch.train`."""
-    corpus, logs = os.path.join(workdir, "corpus"), os.path.join(workdir, "logs")
+def eval_forwards(eval_n: int, files: int = VALID_FILES) -> int:
+    """NCSN++ forwards of one in-training evaluation of `files` validation
+    files of FILE_S (one bucket): per chunk of 8 rows the denoiser and N
+    score forwards (no corrector)."""
+    return -(-files // 8) * (1 + eval_n)
+
+
+def pesq_available() -> bool:
+    try:
+        import pesq  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def phase_train(workdir: str, dtype: str = "float32", steps_total: int = TRAIN_STEPS,
+                eval_files: int = 0, eval_n: int = 30):
+    """The training path through `python -m storm_tpu_torch.train` in `dtype`
+    on the corpus in `workdir/corpus` (written once), with an in-training
+    evaluation of `eval_files` validation files at N=`eval_n` after every
+    epoch. Returns a dict of its launch counts and step figures."""
+    corpus, logs = os.path.join(workdir, "corpus"), os.path.join(workdir, f"logs_{dtype}_{eval_files}")
     write_corpus(corpus)
-    steps, first_params = [], {}
-    original = StochasticRegenerationModel.train_step
+    steps, first_params, dtypes = [], {}, set()
+    original, launch = StochasticRegenerationModel.train_step, kup._launch
 
     def timed_step(model, state, batch, generator=None):
-        """train_step between two CUDA events; adds no host sync to the loop."""
+        """train_step between two CUDA events; adds no host sync to the loop.
+        The allocator's peak is read on the host after each step's enqueue."""
         if not first_params:
             first_params.update({k: v.detach().clone() for k, v in model.state_dict().items()})
         before = (kup.upfirdn2d_cuda.launches, kup.upfirdn2d_bwd_cuda.launches)
@@ -743,50 +798,78 @@ def phase_train(workdir: str):
         aux = original(model, state, batch, generator)
         end.record()
         steps.append(dict(start=start, end=end, loss=aux["loss"],
+                          peak=torch.cuda.max_memory_allocated(),
                           launches=(kup.upfirdn2d_cuda.launches - before[0],
                                     kup.upfirdn2d_bwd_cuda.launches - before[1])))
         return aux
+
+    def watched_launch(x, *args):
+        dtypes.add(x.dtype)
+        return launch(x, *args)
 
     # the loss is logged at the last step of each epoch only, where the epoch's
     # mean reads it back anyway: the loop keeps its own host syncs and no more
     epoch_len = TRAIN_FILES // TRAIN_B
     argv = ["--mode", "regen-joint-training", "--base_dir", corpus, "--format", "wsj0",
             "--batch_size", str(TRAIN_B), "--num_frames", str(TRAIN_FRAMES),
-            "--max_steps", str(TRAIN_STEPS), "--num_eval_files", "0", "--log_dir", logs,
-            "--log_every_n_steps", str(epoch_len), "--num_workers", "4", "--seed", "0",
-            "--device", "cuda"]
+            "--max_steps", str(steps_total), "--num_eval_files", str(eval_files),
+            "--eval_N", str(eval_n), "--log_dir", logs, "--log_every_n_steps", str(epoch_len),
+            "--num_workers", "4", "--seed", "0", "--dtype", dtype, "--device", "cuda"]
     torch.cuda.reset_peak_memory_stats()
     kup.upfirdn2d_cuda.launches = kup.upfirdn2d_bwd_cuda.launches = 0
     t0 = time.perf_counter()
-    with mock.patch.object(StochasticRegenerationModel, "train_step", timed_step):
-        train.main(argv)
-    torch.cuda.synchronize()
+    with mock.patch.object(StochasticRegenerationModel, "train_step", timed_step), \
+            mock.patch.object(kup, "_launch", watched_launch):
+        _, text = captured(train.main, argv)
     wall = time.perf_counter() - t0
     launches = (kup.upfirdn2d_cuda.launches, kup.upfirdn2d_bwd_cuda.launches)
     peak = torch.cuda.max_memory_allocated()
+    want_dtype = {"float32": torch.float32, "bfloat16": BF16}[dtype]
+    check(dtypes == {want_dtype}, f"{dtype} training launched upfirdn2d on {dtypes}")
 
     (run,) = os.listdir(logs)
     rows = [json.loads(line) for line in open(os.path.join(logs, run, "metrics.jsonl"))]
     losses = [s["loss"].item() for s in steps]
     logged = [r["step"] for r in rows if "train_loss" in r]
-    valid = [r["valid_loss"] for r in rows if "valid_loss" in r]
-    check(len(steps) == TRAIN_STEPS, f"{len(steps)} steps, expected {TRAIN_STEPS}")
-    check(logged == list(range(epoch_len, TRAIN_STEPS + 1, epoch_len)),
+    epochs = [r for r in rows if "valid_loss" in r]
+    valid = [r["valid_loss"] for r in epochs]
+    check(len(steps) == steps_total, f"{len(steps)} steps, expected {steps_total}")
+    check(logged == list(range(epoch_len, steps_total + 1, epoch_len)),
           f"train losses logged at steps {logged}")
-    check(len(valid) == TRAIN_STEPS // epoch_len, f"{len(valid)} validations")
+    check(len(valid) == steps_total // epoch_len, f"{len(valid)} validations")
+    evaluated = ("ValidationSISDR", "ValidationESTOI")
+    quality = evaluated if eval_files else ()
     check(all(np.isfinite(losses))
-          and all(np.isfinite(v) for r in rows for k, v in r.items() if k != "step"),
+          and all(np.isfinite(v) for r in rows for k, v in r.items()
+                  if k != "step" and not k.startswith("Validation")),
           "a training or validation loss is not finite")
+    check(all(set(r) >= {"ValidationPESQ", *evaluated} for r in epochs),
+          "an epoch's metrics lack the reference's keys")
+    check(all(np.isfinite(r[k]) for r in epochs for k in quality)
+          and "eval failed" not in text,
+          f"the in-training evaluation gave {[{k: r[k] for k in evaluated} for r in epochs]}")
+    if eval_files:
+        check(all(np.isfinite(r["ValidationPESQ"]) == pesq_available() for r in epochs),
+              "ValidationPESQ is finite exactly when the pesq package imports")
     check(all(s["launches"] == (STEP_FWD, STEP_BWD) for s in steps),
           f"launches per step {[s['launches'] for s in steps]}, expected {(STEP_FWD, STEP_BWD)}")
     n_valid_fwd = STEP_FWD * len(valid) * -(-VALID_FILES // TRAIN_B)  # no backward
-    check(launches == (STEP_FWD * TRAIN_STEPS + n_valid_fwd, STEP_BWD * TRAIN_STEPS),
+    n_eval_fwd = 18 * len(valid) * eval_forwards(eval_n, eval_files) if eval_files else 0
+    check(launches == (STEP_FWD * steps_total + n_valid_fwd + n_eval_fwd,
+                       STEP_BWD * steps_total),
           f"training launched {launches}")
     ckpt_dir = os.path.join(logs, run, "checkpoints")
-    check(sorted(os.listdir(ckpt_dir)) == ["best_loss.pt", "last.pt"],
-          f"checkpoints {os.listdir(ckpt_dir)}")
+    want_ckpts = ["best_loss.pt", "best_pesq.pt", "last.pt"] if eval_files else [
+        "best_loss.pt", "last.pt"]
+    check(sorted(os.listdir(ckpt_dir)) == want_ckpts, f"checkpoints {os.listdir(ckpt_dir)}")
     last = load_training_checkpoint(os.path.join(ckpt_dir, "last.pt"))
-    check(last["step"] == TRAIN_STEPS, f"last.pt at step {last['step']}")
+    check(last["step"] == steps_total, f"last.pt at step {last['step']}")
+    check(last["config"]["dtype"] == dtype, f"last.pt's config has dtype {last['config']['dtype']}")
+    if eval_files:
+        metric = "pesq" if pesq_available() else "estoi"
+        meta = load_training_checkpoint(os.path.join(ckpt_dir, "best_pesq.pt"))["meta"]
+        check(meta["quality_metric"] == metric and np.isfinite(meta["best_quality"]),
+              f"best_pesq.pt's meta {meta}")
     moved = [k for k, v in last["params"].items() if not torch.equal(v, first_params[k].cpu())]
     ema_moved = [k for k in moved if not torch.equal(last["ema_params"][k], first_params[k].cpu())]
     check(len(moved) > 0.9 * len(first_params) and len(ema_moved) == len(moved),
@@ -800,29 +883,46 @@ def phase_train(workdir: str):
     calls = [s["start"].elapsed_time(s["end"]) for s in steps[1:]]
     first_s = steps[0]["start"].elapsed_time(steps[0]["end"]) / 1e3
     step_ms = statistics.median(periods)
-    print(f"  trained {TRAIN_STEPS} steps at B={TRAIN_B} x {TRAIN_FRAMES} frames in {wall:.1f} s "
-          f"wall (setup, validation and checkpoints included); losses "
+    step_peak = max(s["peak"] for s in steps)
+    r = dict(launches=launches, step_ms=step_ms, audio_s_per_s=TRAIN_B * TRAIN_AUDIO_S
+             / (step_ms / 1e3), peak_gib=peak / 2**30, step_peak_gib=step_peak / 2**30,
+             eval={k: [r[k] for r in epochs] for k in ("ValidationPESQ", *evaluated)})
+    print(f"  {dtype}: trained {steps_total} steps at B={TRAIN_B} x {TRAIN_FRAMES} frames in "
+          f"{wall:.1f} s wall (setup, validation, evaluation and checkpoints included); losses "
           f"{[round(v, 2) for v in losses]}; valid {[round(v, 2) for v in valid]}", flush=True)
-    print(f"  step: {step_ms:.2f} ms median period {[round(p, 2) for p in periods]} "
+    print(f"  {dtype} step: {step_ms:.2f} ms median period {[round(p, 2) for p in periods]} "
           f"(first step {first_s:.3f} s; train_step alone median {statistics.median(calls):.2f} ms); "
-          f"{TRAIN_B * TRAIN_AUDIO_S / (step_ms / 1e3):.3f} audio s trained per s; "
-          f"peak memory {peak / 2**30:.2f} GiB; launches per step {steps[-1]['launches']}, "
+          f"{r['audio_s_per_s']:.3f} audio s trained per s; "
+          f"peak memory {r['peak_gib']:.2f} GiB (of the training steps {r['step_peak_gib']:.2f} "
+          f"GiB); launches per step {steps[-1]['launches']}, "
           f"in all {launches}; {len(moved)} of {len(first_params)} tensors moved",
           flush=True)
+    if eval_files:
+        print(f"  {dtype} evaluation of {eval_files} files at N={eval_n} per epoch: "
+              + "; ".join(f"{k} {[round(v, 4) for v in vals]}" for k, vals in r["eval"].items())
+              + f"; best_pesq.pt by {meta['quality_metric']} ({meta['best_quality']:.4f})",
+              flush=True)
 
-    # the written checkpoint serves
-    noisy, out = os.path.join(workdir, "noisy_one"), os.path.join(workdir, "enhanced_one")
-    os.makedirs(noisy)
-    x = synth_wav(1.0, 3, np.random.default_rng(2))
-    save_wav(os.path.join(noisy, "one.wav"), x, SR)
-    enhancement.main(["--test_dir", noisy, "--enhanced_dir", out, "--ckpt",
-                      os.path.join(ckpt_dir, "last.pt"), "--mode", "storm", "--N", "2",
-                      "--device", "cuda"])
+    # the written checkpoint serves, in the dtype its config names
+    noisy = os.path.join(workdir, "noisy_one")
+    out = os.path.join(workdir, f"enhanced_one_{dtype}_{eval_files}")
+    if not os.path.isdir(noisy):
+        os.makedirs(noisy)
+        save_wav(os.path.join(noisy, "one.wav"), synth_wav(1.0, 3, np.random.default_rng(2)), SR)
+    x, _ = load_wav(os.path.join(noisy, "one.wav"))
+    dtypes.clear()
+    tag = "best_pesq" if eval_files else "last"
+    with mock.patch.object(kup, "_launch", watched_launch):
+        enhancement.main(["--test_dir", noisy, "--enhanced_dir", out, "--ckpt",
+                          os.path.join(ckpt_dir, f"{tag}.pt"), "--mode", "storm", "--N", "2",
+                          "--dtype", "checkpoint", "--device", "cuda"])
     y, sr = load_wav(os.path.join(out, "one.wav"))
-    check(sr == SR and y.shape == (1, x.shape[-1]) and bool(np.isfinite(y).all()),
+    check(sr == SR and y.shape == x.shape and bool(np.isfinite(y).all()),
           f"enhancing with the trained checkpoint gave {y.shape}")
-    print(f"  the trained checkpoint enhanced a {x.shape[-1] / SR:.1f} s file at N=2", flush=True)
-    return launches
+    check(dtypes == {want_dtype}, f"the {dtype} checkpoint enhanced in {dtypes}")
+    print(f"  the trained checkpoint ({tag}.pt) enhanced a {x.shape[-1] / SR:.1f} s file at N=2 "
+          f"in {dtype} (--dtype checkpoint)", flush=True)
+    return r
 
 
 # profile groups: label -> (kernel-name stems, the launch counter of the
@@ -917,9 +1017,10 @@ def profile_run(what: str, fn, groups=K1_GROUPS):
     print_profile(what, prof, wall_ms, groups, launched)
 
 
-def phase_profile_train():
-    """Trace two full-width train steps (B=8, 256 x 256)."""
-    model = build_model({"mode": "regen-joint-training"}, device="cuda", seed=0).train()
+def phase_profile_train(dtype: str = "float32", groups=K1_GROUPS):
+    """Trace two full-width train steps (B=8, 256 x 256) in `dtype`."""
+    model = build_model({"mode": "regen-joint-training", "dtype": dtype}, device="cuda",
+                        seed=0).train()
     state = init_train_state(model, model.lr)
     gen = torch.Generator(device="cuda").manual_seed(0)
     x = 0.3 * torch.randn(TRAIN_B, FREQS, TRAIN_FRAMES, 2, device="cuda", generator=gen)
@@ -930,7 +1031,8 @@ def phase_profile_train():
         for _ in range(2):
             model.train_step(state, batch, gen)
 
-    profile_run(f"two train steps (B={TRAIN_B}, {FREQS} x {TRAIN_FRAMES})", two_steps)
+    profile_run(f"two {dtype} train steps (B={TRAIN_B}, {FREQS} x {TRAIN_FRAMES})", two_steps,
+                groups)
 
 
 def phase_profile():
@@ -1583,7 +1685,8 @@ BF16 = torch.bfloat16
 GN_SHAPES = [(1, 128, FREQS, FRAMES), (4, 256, FREQS // 2, FRAMES // 2)]
 BF16_GROUPS = {
     **K1_GROUPS,
-    "convolutions (cuDNN)": (("fprop", "implicit_convolve", "conv2d", "convolve"), None),
+    "convolutions (cuDNN)": (("fprop", "dgrad", "wgrad", "implicit_convolve", "conv2d",
+                              "convolve"), None),
     "NCHW/NHWC layout transforms": (("ToNhwc", "ToNchw", "nchwToNhwc", "nhwcToNchw"), None),
     "matrix products (cuBLAS)": (("nvjet", "xmma_gemm", "gemv"), None),
     "GroupNorm statistics (reductions)": (("reduce_kernel",), None),
@@ -1917,12 +2020,255 @@ def phase_profile_bf16():
                 lambda: model.enhance(y, N=N_STEPS, corrector="ald"), BF16_GROUPS)
 
 
+# --- bfloat16 training (phases 24-28)
+
+
+def global_norm(grads) -> float:
+    return torch.sqrt(sum((v.double() ** 2).sum() for v in grads.values())).item()
+
+
+def grad_distance(a, b) -> float:
+    return torch.sqrt(sum(((a[n].double() - b[n].double()) ** 2).sum() for n in b)).item()
+
+
+def phase_bf16_backward(gen: torch.Generator):
+    """Phase 24. K1 in bfloat16 at every train-step shape (B=8, 256 x 256):
+    the forward at every forward shape and, where the step takes one, the
+    gradient through `UpFirDn2d` (the backward kernel) against autograd of
+    the plain version, both FIRs, each element within 1 ulp plus the float32
+    sum's rounding, the elements that differ counted in BF16_FLIPS; the
+    backward kernel timed (event and L2-cold device time) beside the plain
+    backward, the bf16 adjoint library call and the 2 B-per-element bound.
+    Then one full-width bf16 step's gradients (B=2) through the kernels
+    against the plain path and against float32 (cuDNN deterministic), and
+    one B=8 step's time and peak memory with the port's GroupNorm and with
+    its arithmetic left to autograd, beside the bytes of the float32 copies
+    that autograd keeps. Returns (per-shape times, max error)."""
+    bwd_calls = set(k1_bwd_calls())
+    per_shape, launch, max_err = {}, {}, 0.0
+    for cfg, C, H, W in forward_shapes(TRAIN_FRAMES):
+        c = CONFIGS[cfg]
+        args = dict(up=c["up"], down=c["down"], pad=c["pad"])
+        needs_grad = (cfg, C, H, W) in bwd_calls
+        what = f"bf16 {cfg} B={TRAIN_B} C={C} {H}x{W}"
+        x = torch.randn(TRAIN_B, C, H, W, device="cuda", generator=gen).to(BF16)
+        Ho, Wo = (kup.output_size(n, 4, c["up"], c["down"], c["pad"]) for n in (H, W))
+        g = torch.randn(TRAIN_B, C, Ho, Wo, device="cuda", generator=gen).to(BF16)
+        for fir, kern in (("asym", ASYM), ("ncsnpp", c["kernel"])):  # NCSN++'s last
+            xk = x.clone().requires_grad_(needs_grad)
+            xp = x.clone().requires_grad_(needs_grad)
+            out_k, out_p = kup.upfirdn2d(xk, kern, **args), kup.upfirdn2d_plain(xp, kern, **args)
+            terms = kup.upfirdn2d_plain(x.abs(), np.abs(kern), **args)
+            max_err = max(max_err, compare(f"upfirdn2d {what}", out_k.detach(), out_p.detach(),
+                                           terms=terms, fir=fir))
+            if needs_grad:
+                (got,) = torch.autograd.grad(out_k, xk, g)
+                (want,) = torch.autograd.grad(out_p, xp, g)
+                check(got.dtype == BF16, f"upfirdn2d_bwd {what}: gradient in {got.dtype}")
+                terms = kup.upfirdn2d_bwd_plain(g.abs(), np.abs(kern), c["up"], c["down"],
+                                                c["pad"], (H, W))
+                max_err = max(max_err, compare(f"upfirdn2d_bwd {what}", got, want,
+                                               "upfirdn2d_bwd", terms, fir))
+        if not needs_grad:
+            continue
+        lib = library_call(cfg, C, backward=True, dtype=BF16)
+        lib_err = ulps_of_scale(lib(g), want)
+        check(lib_err <= 2.0, f"library yardstick bf16 bwd {cfg} C={C}: {lib_err:.2f} ulps off")
+        bwd = (g, c["kernel"], c["up"], c["down"], c["pad"], (H, W))
+        bytes_ms, ops_ms = bound_ms(g.numel(), x.numel(), 16 // (c["down"] ** 2), elem_bytes=2)
+        per_shape[(cfg, C, H, W)] = dict(
+            ms=time_ms(lambda: kup.upfirdn2d_bwd_cuda(*bwd)),
+            plain_ms=time_ms(lambda: kup.upfirdn2d_bwd_plain(*bwd), reps=5),
+            library_ms=time_ms(lambda: lib(g)), bytes_ms=bytes_ms, ops_ms=ops_ms,
+            lib_err=lib_err, out=f"(g {Ho}x{Wo} -> grad x {H}x{W})")
+        launch[(cfg, C, H, W)] = functools.partial(kup.upfirdn2d_bwd_cuda, *bwd)
+    print_per_shape(f"upfirdn2d_bwd bf16 (B={TRAIN_B}) of", per_shape, launch, "upfirdn2d_")
+    flips = BF16_FLIPS["upfirdn2d_bwd"]
+    print(f"  bf16 forward and gradient at every train-step shape within their allowance of "
+          f"plain, max abs err {max_err:.2e}; adjoint elements that differ (phases 18 and 24): "
+          f"{flips['ncsnpp'][1]} of {flips['ncsnpp'][0]} with NCSN++'s FIR, {flips['asym'][1]} "
+          f"of {flips['asym'][0]} with the asymmetric one (lib_err in ulps)", flush=True)
+    torch.cuda.empty_cache()
+
+    B = 2
+    x = 0.3 * torch.randn(B, FREQS, TRAIN_FRAMES, 2, device="cuda", generator=gen)
+    y = x + 0.2 * torch.randn(B, FREQS, TRAIN_FRAMES, 2, device="cuda", generator=gen)
+    t = torch.tensor([0.3, 0.8], device="cuda")
+    z = torch.randn(B, FREQS, TRAIN_FRAMES, 2, device="cuda", generator=gen) / 2 ** 0.5
+    models = {dtype: build_model(dict(STORM_CONFIG, dtype=dtype), device="cuda", seed=0).train()
+              for dtype in ("float32", "bfloat16")}
+    dtypes, launch_fn = [], kup._launch
+
+    def watched(xx, *a):
+        dtypes.append(xx.dtype)
+        return launch_fn(xx, *a)
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        kup.upfirdn2d_cuda.launches = kup.upfirdn2d_bwd_cuda.launches = 0
+        with mock.patch.object(kup, "_launch", watched):
+            g_k = grads_of(models["bfloat16"], (x, y), t, z)
+            torch.cuda.synchronize()
+        counts = (kup.upfirdn2d_cuda.launches, kup.upfirdn2d_bwd_cuda.launches)
+        with mock.patch.object(resample, "upfirdn2d", kup.upfirdn2d_plain):
+            g_p = grads_of(models["bfloat16"], (x, y), t, z)
+            g_32 = grads_of(models["float32"], (x, y), t, z)
+            torch.cuda.synchronize()
+        check(counts == (kup.upfirdn2d_cuda.launches, kup.upfirdn2d_bwd_cuda.launches),
+              "the plain path launched a kernel")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    check(counts == (STEP_FWD, STEP_BWD) and set(dtypes) == {BF16},
+          f"one bf16 step's gradients launched {counts} on {set(dtypes)}")
+    check(all(bool(torch.isfinite(v).all()) and v.dtype == torch.float32 for v in g_k.values()),
+          "bf16 gradients not finite float32")
+    effect = grad_distance(g_p, g_32)
+    d_plain, d_f32 = grad_distance(g_k, g_p), grad_distance(g_k, g_32)
+    print(f"  B={B} full-width bf16 gradients: launches {counts}, all bf16; |kernel - plain| "
+          f"{d_plain:.4e} = {d_plain / effect:.4f} of |bf16 - f32| {effect:.4e} (both plain; "
+          f"global norm {global_norm(g_32):.4e}); |kernel - f32| = {d_f32 / effect:.4f} of it",
+          flush=True)
+    check(d_plain <= 0.1 * effect, "bf16 gradients through the kernels disagree with the plain path")
+    check(d_f32 >= 0.5 * effect, "the bf16 step's gradients are as close to f32 as f32 itself")
+    del g_k, g_p, g_32, models["float32"]
+    torch.cuda.empty_cache()
+
+    # one B=8 step, timed and its peak memory read, with the port's GroupNorm
+    # (LowPrecisionGroupNorm: it keeps x, in bf16) and with the same
+    # arithmetic left to autograd, which keeps a float32 copy of each bf16
+    # input for var_mean's backward (4 B per element, counted here)
+    model = models["bfloat16"]
+    xb = 0.3 * torch.randn(TRAIN_B, FREQS, TRAIN_FRAMES, 2, device="cuda", generator=gen)
+    batch = (xb, xb + 0.2 * torch.randn(xb.shape, device="cuda", generator=gen))
+    tb, zb = model.draw_tz(xb, gen)
+    copies = [0]
+
+    def count(module, inputs):
+        if inputs[0].dtype == BF16 and torch.is_grad_enabled():
+            copies[0] += 4 * inputs[0].numel()
+
+    def autograd_group_norm(self, x):
+        if x.dtype == self.weight.dtype:
+            return torch.nn.GroupNorm.forward(self, x)
+        B, C = x.shape[:2]
+        G = self.num_groups
+        var, mean = torch.var_mean(x.reshape(B, G, -1).float(), dim=-1, correction=0)
+        mul = (torch.rsqrt(var + self.eps)[:, :, None] * self.weight.view(G, -1)).reshape(B, C)
+        add = self.bias - mean.repeat_interleave(C // G, dim=1) * mul
+        shape = (B, C) + (1,) * (x.dim() - 2)
+        return torch.addcmul(add.view(shape), x, mul.view(shape)).to(x.dtype)
+
+    hooks = [m.register_forward_pre_hook(count) for m in model.modules()
+             if isinstance(m, GroupNorm)]
+    step = {}
+    for label, forward in (("LowPrecisionGroupNorm", GroupNorm.forward),
+                           ("autograd", autograd_group_norm)):
+        with mock.patch.object(GroupNorm, "forward", forward):
+            model.compute_gradients(batch, tb, zb)  # warm-up: the allocator's blocks
+            torch.cuda.synchronize()
+            copies[0] = 0
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            events = []
+            for _ in range(3):
+                events.append([torch.cuda.Event(enable_timing=True) for _ in range(2)])
+                events[-1][0].record()
+                model.compute_gradients(batch, tb, zb)
+                events[-1][1].record()
+            torch.cuda.synchronize()
+            step[label] = dict(peak=torch.cuda.max_memory_allocated(), base=base,
+                               ms=statistics.median(a.elapsed_time(b) for a, b in events),
+                               grads={n: p.grad.clone() for n, p in model.named_parameters()
+                                      if p.requires_grad})
+    for h in hooks:
+        h.remove()
+    kept = copies[0] / 3
+    mine, auto = step["LowPrecisionGroupNorm"], step["autograd"]
+    d_gn = grad_distance(mine["grads"], auto["grads"])
+    print(f"  one bf16 step at B={TRAIN_B} (kernel path), GroupNorm as the port runs it against "
+          f"its arithmetic left to autograd: {mine['ms']:.2f} against {auto['ms']:.2f} ms "
+          f"(compute_gradients, median of 3); peak {mine['peak'] / 2**30:.2f} against "
+          f"{auto['peak'] / 2**30:.2f} GiB ({mine['base'] / 2**30:.2f} GiB held before); the "
+          f"float32 copies autograd keeps for GroupNorm's backward {kept / 2**30:.2f} GiB; "
+          f"gradients {d_gn / global_norm(auto['grads']):.3e} of their norm apart (the float32 "
+          f"sums' order, carried by bf16's rounding)", flush=True)
+    check(mine["peak"] < auto["peak"], "LowPrecisionGroupNorm does not lower the peak")
+    del mine, auto, step
+    del model, models
+    torch.cuda.empty_cache()
+    return per_shape, max_err
+
+
+def phase_fused_act_bf16(gen: torch.Generator):
+    """Phase 27. K2 in bfloat16 through its op API at K2_SHAPES: the forward
+    equal to the plain version, the input gradient within 1 ulp of each
+    element of autograd of the plain version and the bias gradient within 1
+    ulp of its scale; timed against its bound (4 B per element, x in and out;
+    5 with the mask)."""
+    inputs = [tuple((torch.randn(shape if i != 1 else shape[-1:], device="cuda", generator=gen)
+                     * (3.0 if i == 0 else 1.0)).to(BF16) for i in range(3))
+              for shape in K2_SHAPES]
+    kfa.fused_leaky_relu_cuda.launches = 0
+    results = []
+    for x, b, g in inputs:
+        xk, bk = x.clone().requires_grad_(), b.clone().requires_grad_()
+        out = kfa.fused_leaky_relu(xk, bk)
+        results.append((out.detach(), *torch.autograd.grad(out, (xk, bk), g)))
+    torch.cuda.synchronize()
+    launches = kfa.fused_leaky_relu_cuda.launches
+    check(launches == len(K2_SHAPES), f"fused_leaky_relu bf16 launched {launches} times")
+    max_err, grad_ulps = 0.0, [0.0, 0.0]
+    for (x, b, g), (out, gx, gb) in zip(inputs, results):
+        xp, bp = x.clone().requires_grad_(), b.clone().requires_grad_()
+        want = kfa.fused_leaky_relu_plain(xp, bp)
+        hx, hb = torch.autograd.grad(want, (xp, bp), g)
+        what = f"fused_leaky_relu bf16 {tuple(x.shape)}"
+        check(out.dtype == gx.dtype == gb.dtype == BF16, f"{what}: not bf16")
+        fwd_err = (out.float() - want.float()).abs().max().item()
+        check(torch.equal(out, want.detach()), f"{what} forward: max abs err {fwd_err:.3e} "
+                                               f"(must be 0)")
+        ulp = torch.exp2(torch.floor(torch.log2(hx.float().abs().clamp_min(2.0 ** -126))) - 7)
+        gx_ulps = ((gx.float() - hx.float()).abs() / ulp).max().item()
+        gb_ulps = ulps_of_scale(gb, hb)
+        differ = (gx != hx).float().mean().item()
+        check(gx_ulps <= 1.0 and gb_ulps <= 1.0,
+              f"{what}: grad x {gx_ulps:.2f} ulps of an element, grad bias {gb_ulps:.2f} ulps of "
+              f"its scale from autograd of plain")
+        max_err = max(max_err, fwd_err)  # the kernel's own output: the backward is plain
+        grad_ulps = [max(grad_ulps[0], gx_ulps), max(grad_ulps[1], gb_ulps)]
+        print(f"  {what}: forward equal; grad x at most {gx_ulps:.2f} ulp of an element from "
+              f"autograd of plain ({100 * differ:.3f}% of elements differ: the reference's order "
+              f"of the two products), grad bias {gb_ulps:.3f} ulp of its scale", flush=True)
+    x, b, _ = inputs[0]
+    n = x.numel()
+    bytes_ms = (4.0 * n + 2.0 * b.numel()) / PEAK_BYTES_PER_S * 1e3
+    ops_ms = 4.0 * n / PEAK_F32_FLOP_PER_S * 1e3
+    with torch.no_grad():
+        r = dict(ms=time_ms(lambda: kfa.fused_leaky_relu_cuda(x, b)),
+                 device_ms=device_ms([lambda: kfa.fused_leaky_relu_cuda(x, b)],
+                                     "fused_leaky_relu_kernel")[0],
+                 mask_ms=time_ms(lambda: kfa.fused_leaky_relu_cuda(x, b, with_mask=True)),
+                 plain_ms=time_ms(lambda: kfa.fused_leaky_relu_plain(x, b), reps=5),
+                 bytes_ms=bytes_ms, ops_ms=ops_ms, launches=launches, max_abs_err=max_err,
+                 grad_x_ulps_of_element=grad_ulps[0], grad_bias_ulps_of_scale=grad_ulps[1])
+    print(f"  fused_leaky_relu bf16 {tuple(x.shape)}: ms={r['ms']:.5f} "
+          f"device_ms={r['device_ms']:.5f} (with the mask {r['mask_ms']:.5f}) "
+          f"plain_ms={r['plain_ms']:.5f} bound_ms={max(bytes_ms, ops_ms):.5f} (bytes; 5 B per "
+          f"element with the mask: {5.0 * n / PEAK_BYTES_PER_S * 1e3:.5f})", flush=True)
+    return r
+
+
+def phase_profile_train_bf16():
+    """Phase 28: trace two full-width bf16 train steps (B=8, 256 x 256)."""
+    phase_profile_train("bfloat16", BF16_GROUPS)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
                         help="also trace one enhancement, two train steps, one int8 "
-                             "enhancement, one B=4 enhancement and one bf16 enhancement and "
-                             "print the device time by kernel")
+                             "enhancement, one B=4 enhancement, one bf16 enhancement and two "
+                             "bf16 train steps and print the device time by kernel")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         fail("no CUDA device: chip_smoke.py runs on a card only")
@@ -1967,8 +2313,10 @@ def main():
 
         print("== phase 8: training through storm_tpu_torch.train", flush=True)
         phase_train_gradients(gen)
-        with tempfile.TemporaryDirectory() as train_dir:
-            train_launches = phase_train(train_dir)
+        train_dir = os.path.join(workdir, "train")  # the corpus, for phases 25-26 too
+        os.makedirs(train_dir)
+        train_f32 = phase_train(train_dir)
+        train_launches = train_f32["launches"]
 
         if args.profile:
             print("== phase 9: where a train step's device time goes", flush=True)
@@ -2031,6 +2379,33 @@ def main():
             print("== phase 23: where a bfloat16 enhancement's device time goes", flush=True)
             phase_profile_bf16()
 
+        print("== phase 24: bfloat16 training's kernels against plain: upfirdn2d and its "
+              "adjoint at a train step's shapes, one full-width bf16 step's gradients",
+              flush=True)
+        bf16_bwd_shape, bf16_bwd_err = phase_bf16_backward(gen)
+
+        print("== phase 25: bfloat16 training through storm_tpu_torch.train --dtype bfloat16 "
+              f"with the in-training evaluation (--num_eval_files {VALID_FILES})", flush=True)
+        train_bf16 = phase_train(train_dir, "bfloat16", eval_files=VALID_FILES)
+        print(f"  bf16 against f32 (phase 8, this run): step {train_bf16['step_ms']:.2f} ms "
+              f"against {train_f32['step_ms']:.2f} ({train_f32['step_ms'] / train_bf16['step_ms']:.2f}x); "
+              f"{train_bf16['audio_s_per_s']:.3f} audio s per s against "
+              f"{train_f32['audio_s_per_s']:.3f}; peak {train_bf16['peak_gib']:.2f} GiB against "
+              f"{train_f32['peak_gib']:.2f}", flush=True)
+
+        print("== phase 26: float32 training with the in-training evaluation "
+              f"(--num_eval_files {VALID_FILES} --eval_N {F32_EVAL_N}, one epoch)", flush=True)
+        train_f32_eval = phase_train(train_dir, "float32", steps_total=TRAIN_FILES // TRAIN_B,
+                                     eval_files=VALID_FILES, eval_n=F32_EVAL_N)
+
+        print("== phase 27: fused_leaky_relu in bfloat16 through its op API against plain",
+              flush=True)
+        k2_bf16 = phase_fused_act_bf16(gen)
+
+        if args.profile:
+            print("== phase 28: where a bfloat16 train step's device time goes", flush=True)
+            phase_profile_train_bf16()
+
     def entry(name, source, replaces, per_shape_ms, calls, err, launches, work, **extra):
         keys = ("ms", "device_ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms")
         total = {k: sum(per_shape_ms[c][k] for c in calls) if k in per_shape_ms[calls[0]]
@@ -2043,10 +2418,12 @@ def main():
                 "library_ms": total["library_ms"], "work": work, **extra}
 
     k1_by_path = {"enhancement": launches, "train": train_launches[0],
+                  "train_with_evaluation": train_f32_eval["launches"][0],
                   "batched_cli": batch_launches, **serve_launches, **stream_launches}
     k3_by_path = {"enhancement_int8": k3_launches, "server_int8": serve_k3,
                   "streaming_int8": stream_k3}
-    k1_bf16_by_path = {**bf16_k1, **bf16_serve_k1, "streaming_bf16": bf16_stream_k1}
+    k1_bf16_by_path = {**bf16_k1, **bf16_serve_k1, "streaming_bf16": bf16_stream_k1,
+                       "train_bf16": train_bf16["launches"][0]}
     k3_bf16_by_path = {"enhancement_int8_bf16": bf16_k3, "server_int8_bf16": bf16_serve_k3}
     k1_src = "storm_tpu_torch/csrc/upfirdn2d.cu"
     no_library = "no single PyTorch call computes this function"
@@ -2084,6 +2461,24 @@ def main():
                                          for k, v in BF16_FLIPS.items()},
               bf16_elements_compared={k: {f: n[0] for f, n in v.items()}
                                       for k, v in BF16_FLIPS.items()}),
+        entry("upfirdn2d_bwd_bf16", k1_src, "storm_tpu/kernels/upfirdn.py:172-181",
+              bf16_bwd_shape, k1_bwd_calls(), max(bf16_err, bf16_bwd_err),
+              train_bf16["launches"][1],
+              f"the {STEP_BWD} backward calls of one full-width joint-training step, "
+              f"B={TRAIN_B}, 256 x {TRAIN_FRAMES}, bfloat16 in and out",
+              bf16_elements_that_differ={f: n[1] for f, n in BF16_FLIPS["upfirdn2d_bwd"].items()},
+              bf16_elements_compared={f: n[0] for f, n in BF16_FLIPS["upfirdn2d_bwd"].items()}),
+        {"name": "fused_leaky_relu_bf16", "route": "cuda",
+         "source": "storm_tpu_torch/csrc/fused_act.cu",
+         "replaces": "storm_tpu/kernels/fused_act.py:61", "launches": k2_bf16["launches"],
+         "max_abs_err": k2_bf16["max_abs_err"], "ms": k2_bf16["ms"],
+         "device_ms": k2_bf16["device_ms"], "plain_ms": k2_bf16["plain_ms"],
+         "bound_ms": max(k2_bf16["bytes_ms"], k2_bf16["ops_ms"]),
+         "bound_by": "bytes" if k2_bf16["bytes_ms"] >= k2_bf16["ops_ms"] else "operations",
+         "library_ms": None, "work": f"forward at {K2_SHAPES[0]} bfloat16, no mask",
+         "library": no_library,
+         "grad_x_ulps_of_element": k2_bf16["grad_x_ulps_of_element"],
+         "grad_bias_ulps_of_scale": k2_bf16["grad_bias_ulps_of_scale"]},
         entry("quantize_int8_bf16_product", "storm_tpu_torch/csrc/quantize_int8.cu",
               "scripts/perf_fusion_probe.py:88", k3b_shape, k3b_calls,
               max(k3b_err, bf16_serve_k3_err), sum(k3_bf16_by_path.values()),

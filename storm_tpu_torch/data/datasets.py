@@ -50,7 +50,10 @@ def paired_files(data_dir: str, subset: str, format: str) -> Tuple[List[str], Li
 
 class Specs:
     """Paired dataset of fixed-length waveforms: `ds[i]` -> (x, y), float32
-    (spatial_channels, target_len), both divided by max|y| of the whole file."""
+    (spatial_channels, target_len), both divided by max|y| of the whole file.
+    `ds.__getitem__(i, raw=True)` gives the whole pair as read, cut to the
+    shorter file and to `spatial_channels`, not normalised: what the
+    in-training evaluation enhances."""
 
     def __init__(self, data_dir: str, subset: str, dummy: bool = False,
                  shuffle_spec: bool = False, num_frames: int = 256, format: str = "wsj0",
@@ -78,7 +81,7 @@ class Specs:
     def target_len(self) -> int:
         return (self.num_frames - 1) * self.hop_length  # num_frames centred STFT frames
 
-    def __getitem__(self, i: int):
+    def __getitem__(self, i: int, raw: bool = False):
         x, _ = load_wav(self.clean_files[i])
         y, _ = load_wav(self.noisy_files[i])
         n = min(x.shape[-1], y.shape[-1])
@@ -87,6 +90,8 @@ class Specs:
             raise ValueError(f"You asked too many channels ({self.spatial_channels}) "
                              f"for the given dataset ({x.shape[0]})")
         x, y = x[: self.spatial_channels], y[: self.spatial_channels]
+        if raw:
+            return x, y
 
         normfac = np.abs(y).max()
         target_len = self.target_len

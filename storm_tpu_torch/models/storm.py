@@ -6,6 +6,11 @@ clean speech starting from D(Y), with the score net conditioned on [Y, D(Y)].
 Training minimises a*L_denoiser + (1-a)*L_score, with the SDE diffusing the
 clean target towards D(Y); `regen-freeze-denoiser` detaches D(Y), so only the
 score net learns.
+
+The nets compute in their `dtype` (float32 or bfloat16) with float32
+parameters, in training too: their outputs are float32, so the SDE,
+`sigmas * z`, the losses, the gradients of the parameters, Adam and the EMA
+stay float32, as in the reference (storm_tpu/models/storm.py:299-391).
 """
 from __future__ import annotations
 
@@ -72,6 +77,15 @@ class StochasticRegenerationModel(nn.Module):
         self.loss_type_score = loss_type_score
         self.weighting_denoiser_to_score = weighting_denoiser_to_score
         self.mode = mode
+
+    @contextlib.contextmanager
+    def cast_nets(self):
+        """Both nets with their parameters cast to their dtype once for the
+        block (nn/cast.py `cast_params`): for inference and validation, under
+        torch.no_grad() or inference_mode; a forward with gradients raises."""
+        with cast_params(self.denoiser_net, self.denoiser_net.dtype), \
+                cast_params(self.score_net, self.score_net.dtype):
+            yield self
 
     def forward_denoiser(self, Y: torch.Tensor, collect_stats: bool = False):
         """D(Y) for Y (B, F, T, 2) or (B, D, F, T, 2); keeps Y's shape.
@@ -216,8 +230,7 @@ class StochasticRegenerationModel(nn.Module):
         y_n, norm = normalize_wav(y)
         Y, _ = prepare_spec(y_n, self.stft_config, self.transform)
         quant = quant or {}
-        with cast_params(self.denoiser_net, self.denoiser_net.dtype), \
-                cast_params(self.score_net, self.score_net.dtype), \
+        with self.cast_nets(), \
                 scales_attached(self.denoiser_net, quant.get("denoiser") or {}), \
                 scales_attached(self.score_net, quant.get("score") or {}):
             Y_denoised = self.forward_denoiser(Y)

@@ -7,8 +7,13 @@ Dense with `dtype=`, NIN's `W.astype(x.dtype)`) names them in its
 `CAST_PARAMS` and reads them through `param`, in the dtype of its input.
 `cast_params(net, dtype)` makes those copies once, for the length of a
 `with` block, as XLA hoists the reference's casts out of its jitted sampler;
-outside one, `param` casts on every call (calibration, tests). GroupNorm's
-scale and bias are not cast: flax normalizes in float32.
+the copies are detached, so it is for inference only. Outside one, `param`
+casts on every call with `.to(dtype)`, which autograd differentiates: a
+training forward in bfloat16 sends its gradients through the cast to the
+float32 parameters, as flax's cast does. A forward that records gradients
+for a parameter while a `cast_params` copy of it is active raises
+RuntimeError instead of training nothing. GroupNorm's scale and bias are not
+cast: flax normalizes in float32.
 """
 from __future__ import annotations
 
@@ -31,12 +36,17 @@ def scalar(value: float, dtype: torch.dtype) -> float:
 
 def param(module: nn.Module, name: str, dtype: torch.dtype) -> Optional[torch.Tensor]:
     """`module`'s parameter `name` in `dtype`: itself, the copy made by an
-    active `cast_params`, or a cast made now."""
+    active `cast_params` (raises RuntimeError if autograd would need the
+    parameter's gradient), or a cast made now, differentiable."""
     p = getattr(module, name)
     if p is None or p.dtype == dtype:
         return p
     cached = module.__dict__.get("_cast", {}).get(name)
     if cached is not None and cached.dtype == dtype:
+        if p.requires_grad and torch.is_grad_enabled():
+            raise RuntimeError(
+                f"{type(module).__name__}.{name}: a forward with gradients inside cast_params, "
+                "whose copies are detached; train outside it, or run under torch.no_grad()")
         return cached
     return p.to(dtype)
 

@@ -19,6 +19,7 @@ from typing import Callable, Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.autograd.function import once_differentiable
 
 from .cast import param, scalar
 from .init import ddpm_init_, lecun_normal_
@@ -47,26 +48,86 @@ class GroupNorm(nn.GroupNorm):
     """nn.GroupNorm in the dtype of its input, with float32 scale and bias.
 
     A float32 input takes `F.group_norm`. A bfloat16 input gets flax's
-    numerics (storm_tpu/nn/layers.py:63-69, 103-128): the group moments in
-    float32, the normalize step x * mul + add in float32 (the form of the
-    reference's SplitGroupNorm; flax's GroupNorm writes (x - mean) * mul +
-    bias, which differs in float32 rounding only), and one rounding to
-    bfloat16. (PyTorch's CUDA `group_norm` refuses a bfloat16 input with
-    float32 scale and bias, and rounding those to bfloat16 would change the
-    result.) Without autograd the normalize step writes bfloat16 directly."""
+    numerics (storm_tpu/nn/layers.py:63-69, 103-128) through
+    `LowPrecisionGroupNorm`: the group moments in float32, the normalize
+    step x * mul + add in float32 (the form of the reference's
+    SplitGroupNorm; flax's GroupNorm writes (x - mean) * mul + bias, which
+    differs in float32 rounding only), and one rounding to bfloat16.
+    (PyTorch's CUDA `group_norm` refuses a bfloat16 input with float32
+    scale and bias, and rounding those to bfloat16 would change the
+    result.)"""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.dtype == self.weight.dtype:
             return super().forward(x)
+        if torch.is_grad_enabled() and (x.requires_grad or self.weight.requires_grad
+                                        or self.bias.requires_grad):
+            return LowPrecisionGroupNorm.apply(x, self.weight, self.bias, self.num_groups,
+                                               self.eps)
+        return _group_norm_low(x, self.weight, self.bias, self.num_groups, self.eps)[0]
+
+
+def _group_norm_low(x, weight, bias, G: int, eps: float):
+    """(GroupNorm of x in x's dtype, the float32 group means, the float32
+    inverse deviations): moments and normalize in float32, one rounding."""
+    B, C = x.shape[:2]
+    var, mean = torch.var_mean(x.reshape(B, G, -1).float(), dim=-1, correction=0)
+    rstd = torch.rsqrt(var + eps)
+    mul = (rstd[:, :, None] * weight.view(G, -1)).reshape(B, C)
+    add = bias - mean.repeat_interleave(C // G, dim=1) * mul
+    shape = (B, C) + (1,) * (x.dim() - 2)
+    out = torch.addcmul(add.view(shape), x, mul.view(shape), out=torch.empty_like(x))
+    return out, mean, rstd
+
+
+class LowPrecisionGroupNorm(torch.autograd.Function):
+    """GroupNorm of a bfloat16 x with float32 scale and bias, computed in
+    float32 and written in x's dtype, rounded once; under autograd.
+
+    Its backward is autograd's of the same arithmetic (x * mul + add, with
+    mul = rstd * scale and add = bias - mean * mul from `var_mean` of a
+    float32 copy of x), step by step: the gradient through the normalize
+    step and the one through the group statistics are each computed in
+    float32 and rounded to x's dtype, then summed there, as autograd sums
+    them and as JAX's autodiff of flax's GroupNorm does (the two agree but
+    for the order of float32 sums). What changes is what it keeps: x
+    itself and the float32 group means and inverse deviations, where
+    autograd keeps a float32 copy of x for the variance's backward, 4 bytes
+    per element of every GroupNorm input (a third of a full-width bf16
+    step's peak memory: chip_smoke.py phase 24, PERF.md)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, num_groups: int, eps: float):
+        out, mean, rstd = _group_norm_low(x, weight, bias, num_groups, eps)
+        ctx.save_for_backward(x, weight, mean, rstd)
+        ctx.num_groups = num_groups
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, weight, mean, rstd = ctx.saved_tensors
         B, C = x.shape[:2]
-        G = self.num_groups
-        var, mean = torch.var_mean(x.reshape(B, G, -1).float(), dim=-1, correction=0)
-        mul = (torch.rsqrt(var + self.eps)[:, :, None] * self.weight.view(G, -1)).reshape(B, C)
-        add = self.bias - mean.repeat_interleave(C // G, dim=1) * mul
-        shape = (B, C) + (1,) * (x.dim() - 2)
-        if torch.is_grad_enabled() and (x.requires_grad or self.weight.requires_grad):
-            return torch.addcmul(add.view(shape), x, mul.view(shape)).to(x.dtype)
-        return torch.addcmul(add.view(shape), x, mul.view(shape), out=torch.empty_like(x))
+        G = ctx.num_groups
+        xf = x.reshape(B, C, -1).float()
+        gf = g.reshape(B, C, -1).float()
+        mul = (rstd[:, :, None] * weight.view(G, -1)).reshape(B, C)
+        mean_c = mean.repeat_interleave(C // G, dim=1)
+        # y = x * mul + add: the normalize step's gradients
+        g_norm = (gf * mul[:, :, None]).to(x.dtype)
+        d_add = gf.sum(dim=-1)
+        d_mul = (gf * xf).sum(dim=-1) - d_add * mean_c  # add = bias - mean * mul
+        # the statistics' gradients: mul = rstd * scale, rstd = (var + eps)^-1/2
+        d_mean = -(d_add * mul).view(B, G, -1).sum(dim=-1)
+        d_rstd = (d_mul * weight).view(B, G, -1).sum(dim=-1)
+        d_var = -0.5 * d_rstd * rstd ** 3
+        n = xf.shape[-1] * (C // G)  # elements per group
+        xg = xf.reshape(B, G, -1)
+        g_stats = (d_var[:, :, None] * (2.0 / n) * (xg - mean[:, :, None])
+                   + (d_mean / n)[:, :, None]).to(x.dtype)
+        gx = (g_norm.reshape(B, G, -1) + g_stats).reshape(x.shape)
+        g_weight = (d_mul.view(B, G, -1) * rstd[:, :, None]).sum(dim=0).reshape(C)
+        return gx, g_weight, d_add.sum(dim=0), None, None
 
 
 def group_norm(ch: int) -> GroupNorm:

@@ -1,17 +1,26 @@
 """StoRM training on the GPU (counterpart of train.py, single process).
 
     python -m storm_tpu_torch.train --mode regen-joint-training --base_dir corpus/ \\
-        [--batch_size 8 --num_frames 256 --num_eval_files 0 --device cuda]
+        [--batch_size 8 --num_frames 256 --num_eval_files 10 --eval_N 30 \\
+         --dtype float32|bfloat16 --device cuda]
 
 The flags and defaults are the reference CLI's for the two StoRM modes:
 NCSN++ denoiser and score nets, OUVE SDE, spec_factor 0.33, Adam at lr 1e-4,
-an EMA of 0.999 with warmup. Each epoch runs the training batches, a
-validation loss over every validation file with the EMA weights, early
-stopping on it, and a checkpoint (`last.pt`, and `best_loss.pt` when the
-loss improved). Per-step training losses and the epoch's losses go to
-`metrics.jsonl` under the reference's keys. A value this port does not run
-yet raises NotImplementedError naming its ROADMAP item; without a CUDA card
-the default device raises (pass `--device cpu` for the plain versions).
+an EMA of 0.999 with warmup, computing in `--dtype` with float32 parameters
+(the loss, Adam and the EMA in float32). Each epoch runs the training
+batches, a validation loss over every validation file with the EMA weights,
+then, with the EMA weights too, the evaluation: the first `--num_eval_files`
+validation files enhanced whole (`--eval_N` reverse steps, the model's
+default 30 if unset) and scored by PESQ (NaN without the `pesq` package),
+SI-SDR and ESTOI (utils/inference.py `evaluate_model`). Early stopping
+follows the validation loss. Each epoch writes `last.pt`, and `best_loss.pt`
+when the loss improved and `best_pesq.pt` when PESQ, or ESTOI where PESQ is
+NaN, improved. Per-step training losses and the epoch's losses and metrics
+go to `metrics.jsonl` under the reference's keys. An evaluation that fails
+is printed and logged as NaN, and training goes on, as in the reference. A
+value this port does not run yet raises NotImplementedError naming its
+ROADMAP item; without a CUDA card the default device raises (pass `--device
+cpu` for the plain versions).
 """
 from __future__ import annotations
 
@@ -20,6 +29,7 @@ import json
 import math
 import os
 import time
+import traceback
 from typing import Optional, Sequence
 
 import numpy as np
@@ -29,6 +39,7 @@ from .ckpt import CheckpointManager, load_training_checkpoint
 from .data.datamodule import SpecsDataModule
 from .models.base import init_train_state, swapped_in, wav_to_spec
 from .models.factory import STORM_MODES, build_model, resolve_device
+from .utils.inference import evaluate_model
 
 MODES = ("score-only", "denoiser-only", "regen-freeze-denoiser", "regen-joint-training",
          "distill")
@@ -57,8 +68,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--ema_decay", type=float, default=0.999)
     p.add_argument("--t_eps", type=float, default=0.03)
     p.add_argument("--num_eval_files", type=int, default=10,
-                   help="files enhanced per epoch for PESQ/SI-SDR/ESTOI (ROADMAP R5: "
-                        "pass 0 until then)")
+                   help="validation files enhanced per epoch for PESQ/SI-SDR/ESTOI (0: none)")
     p.add_argument("--loss_type", type=str, default="mse", choices=("mse", "mae", "sisdr"))
     p.add_argument("--loss_type_denoiser", type=str, default="mse",
                    choices=("none", "mse", "mae"))
@@ -97,6 +107,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--nf", type=int, default=None, help="override the backbones' base width")
     p.add_argument("--ch_mult", type=str, default=None,
                    help="override the backbones' channel multipliers, e.g. 1,2,2,2")
+    p.add_argument("--eval_N", type=int, default=None,
+                   help="reverse steps of the in-training evaluation (default: the model's, 30)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cpu' runs the kernels' plain versions")
     return p.parse_args(argv)
@@ -114,13 +126,8 @@ def check_supported(args: argparse.Namespace) -> None:
         todo.append(f"--sde {args.sde} (ROADMAP R3)")
     if args.pretrained_denoiser or args.pretrained_score:
         todo.append("--pretrained_denoiser / --pretrained_score (ROADMAP M7)")
-    if args.num_eval_files > 0:
-        todo.append(f"--num_eval_files {args.num_eval_files} > 0: the in-training "
-                    "PESQ/SI-SDR/ESTOI evaluation (ROADMAP R5); pass --num_eval_files 0")
     if args.return_time:
         todo.append("--return_time (ROADMAP R4, time-domain backbones)")
-    if args.dtype != "float32":
-        todo.append(f"--dtype {args.dtype} (ROADMAP M9b, bfloat16 training)")
     if args.spatial_channels != 1:
         todo.append(f"--spatial_channels {args.spatial_channels} (ROADMAP R7)")
     if todo:
@@ -219,33 +226,50 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                     break
             train_loss = float(torch.stack(epoch_losses).mean()) if epoch_losses else math.nan
 
-            # validation over every file with the EMA weights; the short last
-            # batch is padded and masked, and the mean keeps the batch-sum
-            # scale of the training loss
+            # validation over every file with the EMA weights, cast once to the
+            # compute dtype; the short last batch is padded and masked, and the
+            # mean keeps the batch-sum scale of the training loss. Then the
+            # evaluation enhances with them (model.py:605-622); a failure is
+            # printed and logged as NaN, and training goes on
             model.eval()
             gen = seeded_generator(device, args.seed, epoch, 1)
             v_sum, v_count = 0.0, 0
-            with torch.no_grad(), swapped_in(model, state.ema):
-                for bx, by in dm.val_dataloader():
-                    n = bx.shape[0]
-                    if n < args.batch_size:
-                        widths = [(0, args.batch_size - n)] + [(0, 0)] * (bx.ndim - 1)
-                        bx, by = np.pad(bx, widths), np.pad(by, widths)
-                    per_example = model.loss_per_example(prepare((bx, by)), gen)
-                    v_sum += float(per_example[:n].sum())
-                    v_count += n
+            pesq = si_sdr = estoi = math.nan
+            with swapped_in(model, state.ema):
+                with torch.no_grad(), model.cast_nets():
+                    for bx, by in dm.val_dataloader():
+                        n = bx.shape[0]
+                        if n < args.batch_size:
+                            widths = [(0, args.batch_size - n)] + [(0, 0)] * (bx.ndim - 1)
+                            bx, by = np.pad(bx, widths), np.pad(by, widths)
+                        per_example = model.loss_per_example(prepare((bx, by)), gen)
+                        v_sum += float(per_example[:n].sum())
+                        v_count += n
+                if args.num_eval_files:
+                    eval_kwargs = {"N": args.eval_N} if args.eval_N else {}
+                    try:
+                        pesq, si_sdr, estoi, _, _ = evaluate_model(
+                            model, dm.valid_set, args.num_eval_files, **eval_kwargs)
+                        print(f"PESQ at epoch {epoch} : {pesq:.2f}")
+                        print(f"SISDR at epoch {epoch} : {si_sdr:.1f}")
+                        print(f"ESTOI at epoch {epoch} : {estoi:.2f}", flush=True)
+                    except Exception as e:  # the evaluation must not end the training
+                        print(f"eval failed at epoch {epoch}: {e}", flush=True)
+                        traceback.print_exc()
             valid_loss = v_sum / v_count * args.batch_size if v_count else math.nan
 
             print(f"epoch {epoch}: train_loss={train_loss:.4f} valid_loss={valid_loss:.4f} "
                   f"step={state.step} ({time.time() - t_start:.0f}s)", flush=True)
-            log(state.step, train_loss_epoch=train_loss, valid_loss=valid_loss)
+            log(state.step, train_loss_epoch=train_loss, valid_loss=valid_loss,
+                ValidationPESQ=pesq, ValidationSISDR=si_sdr, ValidationESTOI=estoi)
             if valid_loss < best_valid:
                 best_valid, bad_epochs = valid_loss, 0
             else:
                 bad_epochs += 1
             if ckpt_mgr is not None:
                 ckpt_mgr.step(state, valid_loss=valid_loss, epoch=epoch,
-                              bad_epochs=bad_epochs, best_valid=best_valid)
+                              bad_epochs=bad_epochs, best_valid=best_valid, pesq=pesq,
+                              estoi=estoi)
             if bad_epochs >= args.patience:
                 print(f"early stopping at epoch {epoch}")
                 break

@@ -1,5 +1,5 @@
-"""Length-bucketed enhancement (counterpart of `BucketedEnhancer` in
-storm_tpu/utils/inference.py).
+"""Length-bucketed enhancement and the in-training evaluation (counterpart
+of `BucketedEnhancer` and `evaluate_model` in storm_tpu/utils/inference.py).
 
 Every waveform is zero-padded at its tail to a multiple of `bucket_frames`
 hops before it reaches the model, exactly as the reference pads it for its
@@ -20,12 +20,14 @@ noise of a batch depends on its row count in both.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..sampling.samplers import NoiseSource
+from .metrics import pesq_wb, si_sdr
+from .stoi import stoi
 
 
 class BucketedEnhancer:
@@ -119,3 +121,46 @@ class BucketedEnhancer:
             x_hat = torch.cat(chunks)
         x_hat = x_hat[..., :T].cpu().numpy()
         return (x_hat[0] if squeeze else x_hat), int(nfe)
+
+
+def evaluate_model(model, valid_set, num_eval_files: int, noise: Optional[NoiseSource] = None,
+                   sr: int = 16000, minibatch: Optional[int] = 8, **enhance_kwargs):
+    """Enhance the first `num_eval_files` raw validation pairs
+    (`valid_set.__getitem__(i, raw=True)`) with the weights `model` holds
+    and return their mean wide-band PESQ, SI-SDR and ESTOI
+    (sgmse/util/inference.py:20-71), as (pesq, si_sdr, estoi, None, None).
+
+    As in the reference, the files are grouped by their bucket's length
+    (shortest bucket first) and each group goes through one
+    `BucketedEnhancer` call in chunks of `minibatch` rows; the metrics take
+    the first channel. `enhance_kwargs` go to `model.enhance` (its defaults
+    are the reference's: N=30, reverse diffusion, no corrector). Noise comes
+    from `noise` if given (tests replay the reference's), else from a
+    generator seeded with 0 on every call, as the reference takes
+    PRNGKey(0) per call: two calls on the same weights enhance with the same
+    noise.
+
+    The reference's last two results, the spectrogram and audio lists for
+    the logger, wait for the port of graphics.py (ROADMAP R5): both are
+    None here. PESQ is NaN without the `pesq` package (`pesq_wb`)."""
+    generator = torch.Generator(device=next(model.parameters()).device).manual_seed(0)
+    enhancer = BucketedEnhancer(model, minibatch=minibatch, **enhance_kwargs)
+    n = min(num_eval_files, len(valid_set))
+    items = [valid_set.__getitem__(i, raw=True) for i in range(n)]
+    xs = [x[0] for x, _ in items]  # the metrics take the first channel
+    ys = [y[0] for _, y in items]
+    groups: Dict[int, List[int]] = {}
+    for i, y in enumerate(ys):
+        groups.setdefault(enhancer.padded_len(y.shape[-1]), []).append(i)
+    x_hats: List[Optional[np.ndarray]] = [None] * n
+    for L, idxs in sorted(groups.items()):
+        batch = np.stack([np.pad(ys[i], (0, L - ys[i].shape[-1])) for i in idxs])
+        x_hat, _ = enhancer(batch.astype(np.float32), generator=generator, noise=noise)
+        for row, i in enumerate(idxs):
+            x_hats[i] = x_hat[row, : ys[i].shape[-1]]
+    pesq_sum = si_sdr_sum = estoi_sum = 0.0
+    for x, x_hat in zip(xs, x_hats):
+        si_sdr_sum += si_sdr(x, x_hat)
+        pesq_sum += pesq_wb(sr, x, x_hat)
+        estoi_sum += stoi(x, x_hat, sr, extended=True)
+    return pesq_sum / n, si_sdr_sum / n, estoi_sum / n, None, None

@@ -18,15 +18,22 @@ with an asymmetric FIR 1 ulp of each element plus the float32 sum's
 rounding (a fused multiply-add rounds an inexact product once less); the
 quantizer's
 codes are exact; fused_leaky_relu's forward 1e-6 (the same float32
-operations), its gradients exact (autograd's own).
+operations), its gradients exact (autograd's own); in bfloat16 its forward
+equal (the same three roundings), its input gradient within 1 ulp of each
+element of autograd's (the reference's order of the two products) and its
+bias gradient within 1 ulp of its scale. A bfloat16 training step of a tiny
+StoRM through the kernels against the plain path: exact launch counts, and
+gradients within a tenth of the step's bfloat16-against-float32 distance.
 """
 import threading
+from unittest import mock
 
 import numpy as np
 import pytest
 import torch
 
 from storm_tpu_torch.kernels import fused_act as kfa
+from storm_tpu_torch.nn import resample
 from storm_tpu_torch.kernels import quant as kq
 from storm_tpu_torch.kernels import upfirdn as kup
 from storm_tpu_torch.nn.layers import conv1x1, conv3x3, group_norm
@@ -36,6 +43,7 @@ from storm_tpu_torch.utils.inference import BucketedEnhancer
 from storm_tpu_torch.utils.server import DynamicBatcher
 
 pytestmark = pytest.mark.cuda
+launch = kup._launch  # the real one, for tests that watch it
 
 SYM = np.outer([1, 3, 3, 1], [1, 3, 3, 1]).astype(np.float32) / 64.0
 ASYM = np.random.default_rng(7).standard_normal((4, 4)).astype(np.float32)
@@ -212,6 +220,41 @@ def test_bf16_group_norm_rounds_float32_group_norm_once(cuda, shape):
     assert (got != want).float().mean().item() < 1e-3
 
 
+@pytest.mark.parametrize("shape", [(8, 128, 256, 256), (2, 48, 33, 65)])
+def test_bf16_group_norm_backward_on_the_card(cuda, shape):
+    """`LowPrecisionGroupNorm`'s backward against autograd of the same
+    arithmetic (which keeps a float32 copy of x) on the card: the output
+    equal, each gradient within 1 ulp of its scale (the float32 sums run in
+    other orders); it keeps no float32 tensor of x's size."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    gn = group_norm(shape[1]).to(cuda)
+    with torch.no_grad():
+        gn.weight.copy_(1.0 + 0.1 * torch.randn(shape[1], device=cuda, generator=gen))
+        gn.bias.copy_(0.1 * torch.randn(shape[1], device=cuda, generator=gen))
+    x = (torch.randn(shape, device=cuda, generator=gen) + 0.5).bfloat16()
+    g = torch.randn(shape, device=cuda, generator=gen).bfloat16()
+    B, C, G = shape[0], shape[1], gn.num_groups
+    results = []
+    for autograd in (False, True):
+        xt = x.clone().requires_grad_()
+        if autograd:
+            var, mean = torch.var_mean(xt.reshape(B, G, -1).float(), dim=-1, correction=0)
+            mul = (torch.rsqrt(var + gn.eps)[:, :, None] * gn.weight.view(G, -1)).reshape(B, C)
+            add = gn.bias - mean.repeat_interleave(C // G, dim=1) * mul
+            y = torch.addcmul(add.view(B, C, 1, 1), xt, mul.view(B, C, 1, 1)).to(xt.dtype)
+        else:
+            y = gn(xt)
+            big = [t.dtype for t in y.grad_fn.saved_tensors if t.numel() == x.numel()]
+            assert big == [torch.bfloat16]
+        results.append((y.detach(),) + torch.autograd.grad(y, (xt, gn.weight, gn.bias), g))
+    assert torch.equal(results[0][0], results[1][0])
+    for got, want in zip(results[0][1:], results[1][1:]):
+        scale = want.float().abs().max()
+        ulp = torch.exp2(torch.floor(torch.log2(scale)) - (7 if got.dtype == torch.bfloat16
+                                                            else 23))
+        assert (got.float() - want.float()).abs().max() <= max(ulp, 1e-5 * scale)
+
+
 def test_kernel_refuses_what_it_was_not_built_for(cuda):
     x = torch.zeros(1, 2, 8, 8, device=cuda)
     with pytest.raises(ValueError, match="float32"):
@@ -359,12 +402,76 @@ def test_fused_leaky_relu_kernel_matches_plain(cuda, shape):
                                    kfa.fused_leaky_relu_plain(flat, b), atol=1e-6, rtol=1e-6)
 
 
+@pytest.mark.parametrize("shape", [(8, 16, 16, 128), (3, 17, 33, 6), (5, 7), (4, 3, 40)])
+def test_fused_leaky_relu_bf16_kernel_matches_plain(cuda, shape):
+    gen = torch.Generator().manual_seed(10 + len(shape))
+    x = (3 * torch.randn(shape, generator=gen)).bfloat16().to(cuda).requires_grad_()
+    b = torch.randn(shape[-1], generator=gen).bfloat16().to(cuda).requires_grad_()
+    g = torch.randn(shape, generator=gen).bfloat16().to(cuda)
+    before = kfa.fused_leaky_relu_cuda.launches
+    out = kfa.fused_leaky_relu(x, b)
+    gx, gb = torch.autograd.grad(out, (x, b), g)
+    torch.cuda.synchronize()
+    assert kfa.fused_leaky_relu_cuda.launches == before + 1
+    assert out.dtype == gx.dtype == gb.dtype == torch.bfloat16
+    xp, bp = x.detach().clone().requires_grad_(), b.detach().clone().requires_grad_()
+    want = kfa.fused_leaky_relu_plain(xp, bp)
+    hx, hb = torch.autograd.grad(want, (xp, bp), g)
+    assert torch.equal(out, want)
+    ulp = torch.exp2(torch.floor(torch.log2(hx.float().abs().clamp_min(2.0 ** -126))) - 7)
+    assert bool(((gx.float() - hx.float()).abs() <= ulp).all())
+    scale = hb.float().abs().max()
+    assert (gb.float() - hb.float()).abs().max() <= torch.exp2(torch.floor(torch.log2(scale)) - 7)
+    with torch.no_grad():  # an unaligned input takes the kernel's scalar path
+        flat = torch.randn(x.numel() + 1, generator=gen).bfloat16().to(cuda)[1:].view(shape)
+        assert torch.equal(kfa.fused_leaky_relu(flat, b), kfa.fused_leaky_relu_plain(flat, b))
+
+
+def test_bf16_train_step_on_the_card_matches_the_plain_path(cuda):
+    """One bfloat16 step of a tiny StoRM (three levels, 32 x 32, B=2): 24
+    forward and 22 backward K1 launches, all in bfloat16, and gradients
+    through the kernels within a tenth of the bfloat16-against-float32
+    distance of the same step from the plain path's (cuDNN deterministic)."""
+    config = {"mode": "regen-joint-training", "nf": 16, "ch_mult": [1, 2, 2],
+              "init_scale": 1.0, "n_fft": 62, "hop_length": 16}
+    gen = torch.Generator().manual_seed(0)
+    x = (0.3 * torch.randn(2, 32, 32, 2, generator=gen)).to(cuda)
+    batch = (x, x + 0.2 * torch.randn(2, 32, 32, 2, generator=gen).to(cuda))
+    t = torch.tensor([0.3, 0.8], device=cuda)
+    z = torch.randn(2, 32, 32, 2, generator=gen).to(cuda) / 2 ** 0.5
+
+    def grads(dtype):
+        model = build_model(dict(config, dtype=dtype), device=cuda, seed=0).train()
+        model.compute_gradients(batch, t, z)
+        return torch.cat([p.grad.flatten() for p in model.parameters() if p.requires_grad])
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        kup.upfirdn2d_cuda.launches = kup.upfirdn2d_bwd_cuda.launches = 0
+        seen = []
+        with mock.patch.object(kup, "_launch", side_effect=lambda x, *a: (
+                seen.append(x.dtype), launch(x, *a))[1]):
+            g_kernel = grads("bfloat16")
+        counts = (kup.upfirdn2d_cuda.launches, kup.upfirdn2d_bwd_cuda.launches)
+        with mock.patch.object(resample, "upfirdn2d", kup.upfirdn2d_plain):
+            g_plain = grads("bfloat16")
+            g_f32 = grads("float32")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert counts == (24, 22) and seen == [torch.bfloat16] * 46
+    effect = (g_plain - g_f32).norm()
+    assert effect > 0 and (g_kernel - g_plain).norm() <= 0.1 * effect
+
+
 def test_fused_leaky_relu_refuses_what_it_was_not_built_for(cuda):
     with pytest.raises(ValueError, match="float32"):
         kfa.fused_leaky_relu(torch.zeros(4, 8, device=cuda).half(),
                              torch.zeros(8, device=cuda).half())
     with pytest.raises(ValueError, match="contiguous"):
         kfa.fused_leaky_relu(torch.zeros(8, 4, device=cuda).t(), torch.zeros(8, device=cuda))
+    with pytest.raises(ValueError, match="float32 bias"):
+        kfa.fused_leaky_relu(torch.zeros(4, 8, device=cuda).bfloat16(),
+                             torch.zeros(8, device=cuda))
 
 
 def test_pipelined_batcher_on_the_card_equals_the_enhancer(cuda):

@@ -53,5 +53,6 @@ def test_port_imports_no_jax():
                      "storm_tpu_torch.train", "storm_tpu_torch.data.datasets",
                      "storm_tpu_torch.data.loader", "storm_tpu_torch.data.datamodule",
                      "storm_tpu_torch.serve", "storm_tpu_torch.utils.inference",
-                     "storm_tpu_torch.utils.server", "storm_tpu_torch.utils.streaming"):
+                     "storm_tpu_torch.utils.server", "storm_tpu_torch.utils.streaming",
+                     "storm_tpu_torch.utils.metrics", "storm_tpu_torch.utils.stoi"):
         assert expected in names, names

@@ -141,15 +141,18 @@ def test_adam_and_ema_steps_match_optax():
             torch.testing.assert_close(got[name], w, atol=1e-6, rtol=1e-5, msg=name)
 
 
-def _write_corpus(root, n_train=6, n_valid=5, seed=0):
+def _write_corpus(root, n_train=6, n_valid=5, seed=0, valid_len=None):
     """wsj0 layout; lengths on both sides of the 496-sample crop (num_frames 32,
-    hop 16), 5 validation files so batch 2 leaves a short last batch."""
+    hop 16), 5 validation files so batch 2 leaves a short last batch.
+    `valid_len`: a (low, high) range of validation lengths instead; ESTOI
+    needs 30 frames at 10 kHz, about 0.4 s."""
     rng = np.random.default_rng(seed)
     for subset, n_files in (("tr", n_train), ("cv", n_valid)):
         for kind in ("clean", "noisy"):
             os.makedirs(os.path.join(root, subset, kind))
+        low, high = valid_len if subset == "cv" and valid_len else (300, 1500)
         for i in range(n_files):
-            n = int(rng.integers(300, 1500))
+            n = int(rng.integers(low, high))
             x = 0.3 * np.sin(2 * np.pi * 300 * np.arange(n) / 16000)
             save_wav(os.path.join(root, subset, "clean", f"u{i}.wav"), x)
             save_wav(os.path.join(root, subset, "noisy", f"u{i}.wav"),
@@ -222,16 +225,117 @@ def test_cli_trains_resumes_and_enhances_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--num_eval_files", "2"], ["--mode", "score-only"], ["--backbone_score", "ncsnpp_6M"],
+    ["--mode", "score-only"], ["--backbone_score", "ncsnpp_6M"],
     ["--sde", "ouvp"], ["--return_time"], ["--pretrained_denoiser", "ckpt"],
-    ["--dtype", "bfloat16"],
 ])
 def test_cli_refuses_what_is_not_ported(flag, tmp_path):
     args = TRAIN_ARGS + ["--base_dir", str(tmp_path), "--nolog", "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="ROADMAP") as refused:
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         train.main(args + flag)
-    if flag[0] == "--dtype":  # bfloat16 serves; bfloat16 training is its own item
-        assert "M9b" in str(refused.value)
+
+
+# the reference's metrics.jsonl keys (train.py:622-627): per logged step, and per epoch
+STEP_KEYS = {"step", "train_loss", "train_loss_score", "train_loss_denoiser"}
+EPOCH_KEYS = {"step", "train_loss_epoch", "valid_loss", "ValidationPESQ", "ValidationSISDR",
+              "ValidationESTOI"}
+# the evaluation enhances whole validation files (0.41-0.44 s: 512 frames once
+# bucketed); a third level keeps the bottleneck's attention at 8 x 128
+EVAL_ARGS = ["--num_eval_files", "2", "--eval_N", "2", "--ch_mult", "1,2,2"]
+VALID_LEN = (6600, 7100)
+
+
+def _run(logs):
+    (run,) = os.listdir(logs)
+    return logs / run
+
+
+def test_cli_num_eval_files_logs_finite_metrics(tmp_path):
+    """The reference's default, an evaluation every epoch (here of 2 files at
+    N=2, float32): finite SI-SDR and ESTOI, PESQ NaN without the `pesq`
+    package, under the reference's keys; `best_pesq.pt` follows ESTOI, and
+    the meta says so."""
+    root = _write_corpus(tmp_path / "corpus", n_train=4, n_valid=3, valid_len=VALID_LEN)
+    logs = tmp_path / "logs"
+    args = TRAIN_ARGS[:-4] + ["--log_every_n_steps", "1", "--base_dir", root, "--log_dir",
+                              str(logs), "--device", "cpu", "--max_steps", "4"]
+    assert "--num_eval_files" not in args  # the default, 10, covers the 3 files
+    train.main(args + EVAL_ARGS[2:])
+    run = _run(logs)
+    rows = [json.loads(line) for line in open(run / "metrics.jsonl")]
+    epochs = [r for r in rows if "valid_loss" in r]
+    assert len(epochs) == 2 and all(set(r) == EPOCH_KEYS for r in epochs)
+    assert all(set(r) == STEP_KEYS for r in rows if "train_loss" in r)
+    for r in epochs:
+        assert np.isfinite(r["ValidationSISDR"]) and np.isfinite(r["ValidationESTOI"])
+        assert np.isnan(r["ValidationPESQ"])
+    assert sorted(os.listdir(run / "checkpoints")) == ["best_loss.pt", "best_pesq.pt", "last.pt"]
+    meta = load_training_checkpoint(str(run / "checkpoints" / "last.pt"))["meta"]
+    assert meta["quality_metric"] == "estoi"
+    assert meta["best_quality"] == max(r["ValidationESTOI"] for r in epochs)
+
+
+def test_cli_logs_nan_when_the_evaluation_fails_and_trains_on(tmp_path, capsys):
+    """As the reference (train.py:615): an evaluation that raises (ESTOI on
+    validation files under 0.4 s) is printed, its metrics are logged as NaN,
+    no `best_pesq.pt` is written, and training goes on."""
+    root = _write_corpus(tmp_path / "corpus", n_train=4, n_valid=2)
+    logs = tmp_path / "logs"
+    train.main(TRAIN_ARGS[:-4] + ["--log_every_n_steps", "1", "--base_dir", root, "--log_dir",
+                                  str(logs), "--device", "cpu", "--max_steps", "4"] + EVAL_ARGS)
+    assert capsys.readouterr().out.count("eval failed at epoch") == 2
+    run = _run(logs)
+    epochs = [json.loads(line) for line in open(run / "metrics.jsonl") if "valid_loss" in line]
+    assert [r["step"] for r in epochs] == [2, 4]
+    assert all(np.isnan(r[k]) for r in epochs for k in EPOCH_KEYS if k.startswith("Validation"))
+    assert sorted(os.listdir(run / "checkpoints")) == ["best_loss.pt", "last.pt"]
+
+
+def test_cli_trains_in_bf16_resumes_bit_identically_and_enhances(tmp_path):
+    """`--dtype bfloat16` with the evaluation: finite losses and metrics, the
+    three checkpoints, the config's dtype; two steps and a resume to four
+    equal four steps in one run, bit for bit (parameters, EMA, Adam's
+    moments); the checkpoint enhances in bfloat16 through `--dtype
+    checkpoint`."""
+    root = _write_corpus(tmp_path / "corpus", n_train=4, n_valid=2, valid_len=VALID_LEN)
+    base = TRAIN_ARGS[:-4] + ["--log_every_n_steps", "1", "--base_dir", root, "--device", "cpu",
+                              "--dtype", "bfloat16"] + EVAL_ARGS
+    whole, split = tmp_path / "whole", tmp_path / "split"
+    train.main(base + ["--log_dir", str(whole), "--max_steps", "4"])
+    train.main(base + ["--log_dir", str(split), "--max_steps", "2"])
+    ckpts = _run(split) / "checkpoints"
+    train.main(base + ["--log_dir", str(split), "--max_steps", "4", "--resume_from_checkpoint",
+                       str(ckpts / "last.pt")])
+    assert sorted(os.listdir(ckpts)) == ["best_loss.pt", "best_pesq.pt", "last.pt"]
+    rows = [json.loads(line) for line in open(_run(split) / "metrics.jsonl")]
+    assert all(np.isfinite(r[k]) for r in rows for k in r if k != "ValidationPESQ")
+    got = load_training_checkpoint(str(ckpts / "last.pt"))
+    want = load_training_checkpoint(str(_run(whole) / "checkpoints" / "last.pt"))
+    assert got["config"]["dtype"] == "bfloat16" and got["step"] == want["step"] == 4
+    for key in ("params", "ema_params"):
+        for name, w in want[key].items():
+            assert w.dtype == torch.float32 and torch.equal(got[key][name], w), (key, name)
+    for sg, sw in zip(got["optimizer"]["state"].values(), want["optimizer"]["state"].values()):
+        assert all(torch.equal(sg[k], sw[k]) for k in ("exp_avg", "exp_avg_sq"))
+    assert got["meta"] == want["meta"] and got["meta"]["quality_metric"] == "estoi"
+
+    noisy, out = tmp_path / "noisy", tmp_path / "out"
+    noisy.mkdir()
+    save_wav(str(noisy / "a.wav"), 0.1 * np.random.default_rng(0).standard_normal(900))
+    seen = []
+
+    def build(cfg, *a, **k):
+        model = pbuild(cfg, *a, **k)
+        seen.append((model.denoiser_net.dtype, model.score_net.dtype))
+        return model
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(enhancement, "build_model", build)
+        enhancement.main(["--test_dir", str(noisy), "--enhanced_dir", str(out), "--ckpt",
+                          str(ckpts / "best_pesq.pt"), "--mode", "storm", "--N", "2",
+                          "--device", "cpu", "--dtype", "checkpoint"])
+    assert seen == [(torch.bfloat16, torch.bfloat16)]
+    x, sr = load_wav(str(out / "a.wav"))
+    assert sr == 16000 and x.shape == (1, 900) and np.isfinite(x).all()
 
 
 def test_default_device_raises_without_a_card(tmp_path):
