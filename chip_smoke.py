@@ -150,6 +150,38 @@ Phases, each of which exits non-zero on failure:
    beside the 4 B-per-element bound.
 28. (with `--profile`) two full-width bf16 train steps traced, with phase
    23's groups.
+29. deep-feature caching: one full-width score net at the 4 s bucket, in
+   float32 and bf16, each with and without phase 19's int8 scales:
+   forward_shallow(deep_features(x)) against forward(x) (<= 1e-6 of the
+   output's scale: the same operations on the same shapes), the cache in the
+   compute dtype, each pass's upfirdn2d and quantizer launches equal to the
+   counts read from the module list (depth 1: 18 / 17 / 1 and 55 / 49 / 8
+   for the full, deep and shallow passes), and the passes' times.
+30. `python -m storm_tpu_torch.enhancement --deepcache 3` on phase 5's three
+   files at the CLI defaults in float32, bf16 and `--quant int8 --dtype
+   bfloat16` (phase 19's scales, loaded): per file exactly 18 + 17 x 17 +
+   100 x 1 = 407 upfirdn2d launches (1818 exact) and, int8, 55 + 17 x 49 +
+   100 x 8 = 1688 quantizer launches (5555 exact), derived from the module
+   list; every K1 shape and K3 input the runs gave against plain; the RTF
+   and max|dc3 - exact| / max|exact| against the exact runs of phases 5 and
+   19 on the same files and seed.
+31. the HTTP server with `--deepcache 3` on phase 15's burst, bf16 (its
+   default) then int8 + bf16: /healthz reports deepcache and its depth,
+   exact launch counts per warm-up call and batch, both kernels against
+   plain at every shape the servers gave them. Then `python -m
+   storm_tpu_torch.serve_load` against a bf16 dc3 server of --batch 8: 48
+   requests of phase 15's files from 16 closed-loop clients, its report
+   (audio s per wall s, latency p50 and p95, batch fill), no error, exact
+   launch counts, K1 against plain at every shape it gave it (rows up to 8).
+32. `python -m storm_tpu_torch.bench` at bench.py's defaults (B=16, 256
+   frames, N=50 + ald, bf16, int8, dc3; 1 timed rep here), then `--train`:
+   their JSON lines; the serving run's launches held to those of its calls
+   (calibration, the headline, the N=30 and exact extras), the train run's
+   to 36 + 33 per step; K1 and K3 against plain at the shapes they gave,
+   and K1's adjoint at every B=16 shape the train run's backward gave it.
+33. (with `--profile`) one dc3 bf16 enhancement of the 4 s file traced.
+34. (with `--profile`) one call at bench.py's defaults traced (B=16, 256
+   frames, N=50 + ald, bf16, dc3), with int8 and without.
 
 A profile's kernel times come from its device events, each counted once;
 shares are of the summed kernel time. The busy time is the union of the
@@ -202,7 +234,7 @@ from storm_tpu_torch.models.storm import StochasticRegenerationModel
 from storm_tpu_torch.nn import qconv, resample
 from storm_tpu_torch.nn.cast import cast_params
 from storm_tpu_torch.nn.init import reset_parameters
-from storm_tpu_torch.nn.layers import GroupNorm, group_norm
+from storm_tpu_torch.nn.layers import Combine, GroupNorm, ResnetBlockBigGANpp, group_norm
 from storm_tpu_torch.signal.transforms import pad_spec_amount
 from storm_tpu_torch.utils.inference import BucketedEnhancer
 from storm_tpu_torch.utils.server import decode_wav_bytes, encode_wav_bytes
@@ -279,8 +311,8 @@ K3_PER_FILE = N_QUANT + N_QUANT * N_STEPS * 2
 CALIB_N = min(N_STEPS, 10)
 
 
-def calib_forwards(calib_n: int) -> int:
-    return 1 + calib_n + 1 + len(np.unique(np.linspace(0, calib_n - 1, 8).astype(int)))
+def calib_forwards(calib_n: int, probes: int = 8) -> int:
+    return 1 + calib_n + 1 + len(np.unique(np.linspace(0, calib_n - 1, probes).astype(int)))
 
 
 CALIB_FORWARDS = calib_forwards(CALIB_N)
@@ -1374,6 +1406,22 @@ def shapes_recorded():
         yield k1, k3
 
 
+@contextlib.contextmanager
+def adjoint_shapes_recorded():
+    """While active, every backward of `UpFirDn2d` (kernels/upfirdn.py) adds
+    its forward's (config, B, C, H, W, gradient dtype) to the yielded set;
+    the backward runs as before."""
+    shapes, real = set(), kup.UpFirDn2d.backward
+
+    def backward(ctx, g):
+        _, up, _, _, (H, W) = ctx.args
+        shapes.add(("up" if up == 2 else "down", g.shape[0], g.shape[1], H, W, g.dtype))
+        return real(ctx, g)
+
+    with mock.patch.object(kup.UpFirDn2d, "backward", staticmethod(backward)):
+        yield shapes
+
+
 def check_k1_at(what: str, shapes, gen) -> float:
     """upfirdn2d against plain (both FIRs) at every recorded shape, in its
     recorded dtype."""
@@ -1388,6 +1436,28 @@ def check_k1_at(what: str, shapes, gen) -> float:
           + (f"; bfloat16 elements that differ (by 1 ulp): {flips['ncsnpp']} with NCSN++'s "
              f"FIR, {flips['asym']} with the asymmetric one" if "bfloat16" in dtypes else ""),
           flush=True)
+    torch.cuda.empty_cache()
+    return max(errs)
+
+
+def check_k1_bwd_at(what: str, shapes, gen) -> float:
+    """upfirdn2d's adjoint kernel against plain (both FIRs) at every recorded
+    forward shape, in its recorded dtype, with `compare`'s allowance, as
+    phase 24 holds it at a train step's B=8 shapes."""
+    errs = []
+    for cfg, B, C, H, W, dtype in sorted(shapes, key=str):
+        c = CONFIGS[cfg]
+        Ho, Wo = (kup.output_size(n, 4, c["up"], c["down"], c["pad"]) for n in (H, W))
+        g = torch.randn(B, C, Ho, Wo, device="cuda", generator=gen).to(dtype)
+        for fir, kern in (("ncsnpp", c["kernel"]), ("asym", ASYM)):
+            rest = (c["up"], c["down"], c["pad"], (H, W))
+            errs.append(compare(f"upfirdn2d_bwd {cfg} {tuple(g.shape)} -> {H}x{W} {dtype}",
+                                kup.upfirdn2d_bwd_cuda(g, kern, *rest),
+                                kup.upfirdn2d_bwd_plain(g, kern, *rest), "upfirdn2d_bwd",
+                                kup.upfirdn2d_bwd_plain(g.abs(), np.abs(kern), *rest), fir))
+    print(f"  upfirdn2d's adjoint against plain at the {len(shapes)} shapes {what} gave it "
+          f"({sorted({str(s[-1]).split('.')[-1] for s in shapes})}; batch rows "
+          f"{sorted({s[1] for s in shapes})}): max abs err {max(errs):.2e}", flush=True)
     torch.cuda.empty_cache()
     return max(errs)
 
@@ -1579,7 +1649,7 @@ def run_server(what: str, args, waves):
           f"({stats['batched_requests']} requests in {stats['row_slots']} rows), device_s "
           f"{stats['device_s']:.3f}, /stats rtf {stats['rtf']}", flush=True)
     check(health["dtype"] == args.dtype, f"{what}: /healthz reports dtype {health['dtype']}")
-    return dict(stats=stats, warmups=warmups, k1=kup.upfirdn2d_cuda.launches,
+    return dict(stats=stats, health=health, warmups=warmups, k1=kup.upfirdn2d_cuda.launches,
                 k3=kq.quantize_int8_cuda.launches, k1_shapes=k1_shapes, k3_shapes=k3_shapes,
                 build_text=build_text, audio_per_s=audio_s / wall,
                 p50=float(np.percentile(latency, 50)), max=float(latency.max()))
@@ -1820,12 +1890,13 @@ def phase_bf16_cli(workdir: str, f32_outputs, f32_rtf, lengths, batch_dir, batch
     the reference's meta has none); exact launch counts, RTF, max|bf16 -
     f32| / max|f32| against the float32 runs on the same files and seed, K1
     at every shape. Returns ({path: K1 launches}, K3 launches, the K3 input
-    shapes, K1's max error)."""
+    shapes, K1's max error, {"bfloat16" or "int8_bfloat16": ({file: RTF},
+    {file: output})} of the three files)."""
     ckpt = os.path.join(workdir, "storm.pt")
     noisy = os.path.join(workdir, "noisy")
     base = ["--ckpt", ckpt, "--mode", "storm", "--timeit", "--device", "cuda", "--dtype",
             "bfloat16"]
-    k1, shapes, k3_shapes = {}, set(), set()
+    k1, shapes, k3_shapes, exact = {}, set(), set(), {}
     outputs = {}
     kup.upfirdn2d_cuda.launches = kq.quantize_int8_cuda.launches = 0
     with shapes_recorded() as (k1_shapes, _):
@@ -1836,6 +1907,7 @@ def phase_bf16_cli(workdir: str, f32_outputs, f32_rtf, lengths, batch_dir, batch
     k1["enhancement_bf16"] = kup.upfirdn2d_cuda.launches
     want = 18 * NFE * len(SECONDS)
     rtf, rel = rtf_of(text), relative_to(outputs, f32_outputs)
+    exact["bfloat16"] = (rtf, outputs)
     for name in lengths:
         print(f"  {name}: RTF bf16 {rtf[name]:.4f} against f32 {f32_rtf[name]:.4f} (phase 5); "
               f"max|bf16 - f32| / max|f32| = {rel[name]:.4e}", flush=True)
@@ -1878,6 +1950,7 @@ def phase_bf16_cli(workdir: str, f32_outputs, f32_rtf, lengths, batch_dir, batch
     k1["enhancement_int8_bf16"] = kup.upfirdn2d_cuda.launches
     k3 = kq.quantize_int8_cuda.launches
     rtf, rel = rtf_of(text), relative_to(outputs, f32_outputs)
+    exact["int8_bfloat16"] = (rtf, outputs)
     for name in lengths:
         print(f"  {name}: RTF int8 bf16 {rtf[name]:.4f}; max|int8 bf16 - f32| / max|f32| = "
               f"{rel[name]:.4e}", flush=True)
@@ -1890,7 +1963,7 @@ def phase_bf16_cli(workdir: str, f32_outputs, f32_rtf, lengths, batch_dir, batch
     check({s[-1] for s in shapes} == {BF16}, f"a bf16 run gave upfirdn2d {shapes}")
     check({(d, p) for _, d, p in k3_shapes} == {(BF16, BF16)},
           f"the int8 bf16 run's quantizer inputs {k3_shapes}")
-    return k1, k3, k3_shapes, check_k1_at("the bf16 CLI runs", shapes, gen)
+    return k1, k3, k3_shapes, check_k1_at("the bf16 CLI runs", shapes, gen), exact
 
 
 def phase_bf16_quantizer(workdir: str):
@@ -2263,12 +2336,397 @@ def phase_profile_train_bf16():
     phase_profile_train("bfloat16", BF16_GROUPS)
 
 
+# --- deep-feature caching and the bench (phases 29-33)
+
+DC_K, DC_DEPTH = 3, 1  # bench.py's production refresh interval, the default cache depth
+BENCH_REPS = 1  # the bench's timed reps here (its default, 3, in a run of its own)
+
+
+def pass_modules(net: NCSNpp, depth: int = DC_DEPTH):
+    """{pass: the indices of net.all_modules it runs}, read from the module
+    list: the full forward runs them all; the deep pass everything before up
+    level depth - 1; the shallow pass the down trunk before level depth - 1's
+    downsampling resblock (skipped, with the pyramid combine after it) and
+    the up path from level depth - 1 on."""
+    mods = net.all_modules
+    up = net._up_start_idx[depth - 1]
+    downs = [i for i, m in enumerate(mods) if isinstance(m, ResnetBlockBigGANpp) and m.down]
+    return {"full": list(range(len(mods))), "deep": list(range(up)),
+            "shallow": list(range(downs[depth - 1])) + list(range(up, len(mods)))}
+
+
+def k1_of_module(net: NCSNpp, i: int) -> int:
+    """upfirdn2d calls of module i of NCSN++'s list: 2 for a resampling
+    resblock (h and its skip), 1 for a pyramid combine (the input pyramid's
+    downsampling before it), 1 for an up level's pyramid GroupNorm below the
+    top level (the output pyramid's upsampling after it)."""
+    m = net.all_modules[i]
+    if isinstance(m, ResnetBlockBigGANpp):
+        return 2 if (m.up or m.down) else 0
+    if isinstance(m, Combine):
+        return 1
+    if isinstance(m, GroupNorm):  # the up path's pyramid norms; the top level's comes first
+        return int(i > net._up_start_idx[net.num_resolutions - 2])
+    return 0
+
+
+def per_pass(net: NCSNpp, scales=None, depth: int = DC_DEPTH):
+    """({pass: K1 calls}, {pass: K3 calls}) of one pass of `net`, K3 for the
+    convs named in `scales` ({"all_modules.<i>.<conv>": a_scale})."""
+    passes = pass_modules(net, depth)
+    k1 = {p: sum(k1_of_module(net, i) for i in idx) for p, idx in passes.items()}
+    k3 = {p: sum(int(name.split(".")[1]) in set(idx) for name in (scales or {}))
+          for p, idx in passes.items()}
+    return k1, k3
+
+
+def deep_passes(n_steps: int, k: int = DC_K) -> int:
+    """Deep passes of one sampler run: at the prior and at each refresh."""
+    return 1 + sum(1 for i in range(n_steps) if i % k == 0 and i > 0)
+
+
+@functools.lru_cache(maxsize=None)
+def storm_structure():
+    """The full-width (denoiser, score net), for their module lists only."""
+    return NCSNpp(input_channels=2, discriminative=True), NCSNpp(input_channels=6)
+
+
+def dc_call_launches(n_steps: int, evals_per_step: int, scales=None, k: int = DC_K):
+    """(K1, K3) launches of one enhance call with deepcache k: the
+    denoiser's full forward, a deep pass at the prior and at each refresh,
+    a shallow pass per score evaluation. `scales`: {"denoiser", "score"}."""
+    den, score = storm_structure()
+    scales = scales or {}
+    d1, d3 = per_pass(den, scales.get("denoiser"))
+    s1, s3 = per_pass(score, scales.get("score"))
+    deep, evals = deep_passes(n_steps, k), n_steps * evals_per_step
+    return (d1["full"] + deep * s1["deep"] + evals * s1["shallow"],
+            d3["full"] + deep * s3["deep"] + evals * s3["shallow"])
+
+
+def phase_deepcache_forward(workdir: str, gen: torch.Generator):
+    """Phase 29. One full-width score net at the 4 s bucket (B=1, 256 x 576):
+    forward_shallow(deep_features(x)) against forward(x), in float32, in
+    bf16, and with int8 scales attached in both (the scales of phase 19's
+    cache), with each pass's K1 and K3 launches held to the counts read from
+    the module list; the passes' times. Returns ({path: K1 launches},
+    {path: K3 launches}) of the float32 and bf16 runs."""
+    den, score = storm_structure()
+    scales = quant_mod.load_scales(scale_cache_path(os.path.join(workdir, "storm.pt")))
+    k1_want, k3_want = per_pass(score, scales["score"])
+    print(f"  from the module list, depth {DC_DEPTH}: upfirdn2d calls per pass {k1_want}; "
+          f"quantizer calls per pass at --quant_min_channels {QUANT_MIN_CHANNELS} {k3_want}",
+          flush=True)
+    check(k1_want["full"] == K1_PER_FORWARD and k3_want["full"] == N_QUANT
+          and per_pass(den)[0]["full"] == K1_PER_FORWARD,
+          f"a full forward's counts {k1_want['full']}, {k3_want['full']} from the module list")
+    x = 0.5 * torch.randn(1, 3, FREQS, FRAMES, 2, device="cuda", generator=gen)
+    t = torch.full((1,), 0.5, device="cuda")
+    k1_paths, k3_paths = {}, {}
+    for dtype in (torch.float32, BF16):
+        net = NCSNpp(input_channels=6, init_scale=1.0, dtype=dtype)
+        reset_parameters(net, torch.Generator().manual_seed(0))
+        net = net.cuda().eval()
+        name = "float32" if dtype == torch.float32 else "bf16"
+        for quant in (False, True):
+            what = f"{'int8 ' if quant else ''}{name}"
+            ctx = qconv.scales_attached(net, scales["score"]) if quant else contextlib.nullcontext()
+            launched, outs = {}, {}
+            with torch.inference_mode(), cast_params(net, dtype), ctx:
+                kup.upfirdn2d_cuda.launches = kq.quantize_int8_cuda.launches = 0
+                for kind in ("full", "deep", "shallow"):
+                    before = (kup.upfirdn2d_cuda.launches, kq.quantize_int8_cuda.launches)
+                    if kind == "full":
+                        outs[kind] = net(x, t)
+                    elif kind == "deep":
+                        outs[kind] = net.deep_features(x, t, cache_depth=DC_DEPTH)
+                    else:
+                        outs[kind] = net.forward_shallow(x, t, outs["deep"], cache_depth=DC_DEPTH)
+                    torch.cuda.synchronize()
+                    launched[kind] = (kup.upfirdn2d_cuda.launches - before[0],
+                                      kq.quantize_int8_cuda.launches - before[1])
+                path = f"forward_dc_{'int8_' if quant else ''}{name}"
+                k1_paths[path] = kup.upfirdn2d_cuda.launches
+                k3_paths[path] = kq.quantize_int8_cuda.launches
+                cache = outs["deep"]
+                ms = {"full": time_ms(lambda: net(x, t), reps=3, repeats=3),
+                      "deep": time_ms(lambda: net.deep_features(x, t, cache_depth=DC_DEPTH),
+                                      reps=3, repeats=3),
+                      "shallow": time_ms(lambda: net.forward_shallow(
+                          x, t, cache, cache_depth=DC_DEPTH), reps=3, repeats=3)}
+            want = {k: (k1_want[k], k3_want[k] if quant else 0) for k in launched}
+            check(launched == want, f"{what} passes launched {launched}, expected {want}")
+            check(all(c.dtype == dtype for c in cache), f"{what}: the cache is "
+                                                        f"{[c.dtype for c in cache]}")
+            full, shallow = outs["full"], outs["shallow"]
+            check(bool(torch.isfinite(shallow).all()), f"{what}: shallow output not finite")
+            scale = full.abs().max().item()
+            err = (shallow - full).abs().max().item()
+            print(f"  {what}: forward_shallow(deep_features(x)) against forward(x): max abs err "
+                  f"{err:.3e} (scale {scale:.3e}); launches per pass (K1, K3) {launched}; ms "
+                  f"full {ms['full']:.2f}, deep {ms['deep']:.2f} ({ms['deep'] / ms['full']:.3f} "
+                  f"of full), shallow {ms['shallow']:.2f} ({ms['shallow'] / ms['full']:.3f})",
+                  flush=True)
+            # the shallow pass reruns the forward's own operations on the same shapes
+            check(err <= 1e-6 * scale, f"{what}: shallow of deep differs from the forward "
+                                       f"by {err:.3e}")
+        del net, outs, cache
+        torch.cuda.empty_cache()
+    return k1_paths, k3_paths
+
+
+def phase_deepcache_cli(workdir: str, lengths, exact, gen: torch.Generator):
+    """Phase 30. `python -m storm_tpu_torch.enhancement --deepcache 3` on phase
+    5's three files at the CLI defaults (N=50 + ald) in float32, in bf16 and
+    at `--quant int8 --dtype bfloat16` (phase 19's scales, loaded): exact K1
+    and K3 launches per file from the module list, every K1 shape and K3
+    input the runs gave held to plain, the RTF and max|x - exact| /
+    max|exact| against the exact runs of the same files in this script
+    (`exact`: {config: ({file: RTF}, {file: output})}). Returns ({path: K1
+    launches}, {path: K3 launches}, K1's float32 and bf16 errors, K3 error)."""
+    ckpt = os.path.join(workdir, "storm.pt")
+    noisy = os.path.join(workdir, "noisy")
+    scales = quant_mod.load_scales(scale_cache_path(ckpt))
+    original = StochasticRegenerationModel.enhance
+    per_file = []
+
+    def counted(model, *args, **kwargs):
+        before = (kup.upfirdn2d_cuda.launches, kq.quantize_int8_cuda.launches)
+        result = original(model, *args, **kwargs)
+        per_file.append((kup.upfirdn2d_cuda.launches - before[0],
+                         kq.quantize_int8_cuda.launches - before[1]))
+        return result
+
+    k1_paths, k3_paths, k1_shapes, k3_shapes = {}, {}, set(), set()
+    for config, dtype, extra in (
+            ("float32", torch.float32, []),
+            ("bfloat16", BF16, ["--dtype", "bfloat16"]),
+            ("int8_bfloat16", BF16, ["--dtype", "bfloat16", "--quant", "int8",
+                                     "--quant_min_channels", str(QUANT_MIN_CHANNELS)])):
+        out, outputs = os.path.join(workdir, f"enhanced_dc3_{config}"), {}
+        per_file.clear()
+        kup.upfirdn2d_cuda.launches = kq.quantize_int8_cuda.launches = 0
+        with shapes_recorded() as (k1s, k3s), \
+                mock.patch.object(StochasticRegenerationModel, "enhance", counted):
+            text = run_enhancement(["--test_dir", noisy, "--enhanced_dir", out, "--ckpt", ckpt,
+                                    "--mode", "storm", "--timeit", "--device", "cuda",
+                                    "--deepcache", str(DC_K), *extra], outputs)
+        check_outputs(out, lengths)
+        quant = scales if "int8" in config else None
+        check(quant is None or f"int8 scales loaded from {scale_cache_path(ckpt)}" in text,
+              f"{config}: the dc3 run did not load phase 19's scales")
+        want = dc_call_launches(N_STEPS, 2, quant)
+        path = f"enhancement_dc3_{config}"
+        k1_paths[path], k3_paths[path] = (kup.upfirdn2d_cuda.launches,
+                                          kq.quantize_int8_cuda.launches)
+        rtf, (exact_rtf, exact_out) = rtf_of(text), exact[config]
+        rel = relative_to(outputs, exact_out)
+        for name in lengths:
+            print(f"  {config} dc3 {name}: RTF {rtf[name]:.4f} against exact "
+                  f"{exact_rtf[name]:.4f} ({exact_rtf[name] / rtf[name]:.2f}x); "
+                  f"max|dc3 - exact| / max|exact| = {rel[name]:.4e}", flush=True)
+        print(f"  {config} dc3: launches per file (K1, K3) {per_file}, expected {want} (exact: "
+              f"({K1_PER_FORWARD * NFE}, {K3_PER_FILE if quant else 0}))", flush=True)
+        check(per_file == [want] * len(lengths), f"{config} dc3: launches per file {per_file}")
+        check(all(np.isfinite(v).all() for v in outputs.values()), f"{config} dc3: not finite")
+        check({s[-1] for s in k1s} == {dtype}, f"{config} dc3 gave upfirdn2d {k1s}")
+        k1_shapes |= k1s
+        k3_shapes |= k3s
+    check({(d, p) for _, d, p in k3_shapes} == {(BF16, BF16)},
+          f"the int8 bf16 dc3 run's quantizer inputs {k3_shapes}")
+    f32_err, bf16_err = (check_k1_at(f"the {what} dc3 CLI runs",
+                                     {s for s in k1_shapes if s[-1] == dtype}, gen)
+                         for what, dtype in (("float32", torch.float32), ("bf16", BF16)))
+    return (k1_paths, k3_paths, f32_err, bf16_err,
+            check_k3_at("the int8 bf16 dc3 run", k3_shapes, gen))
+
+
+LOAD_REQUESTS, LOAD_CLIENTS, LOAD_BATCH = 48, 16, 8  # `serve_load` against the dc3 bf16 server
+
+
+def run_load(what: str, args, load_dir: str):
+    """Build the server in this process and drive it with `python -m
+    storm_tpu_torch.serve_load` (LOAD_REQUESTS requests of the files in
+    `load_dir` from LOAD_CLIENTS closed-loop clients, after its own warm
+    request); returns (its report, the server's /stats, K1 launches from the
+    build on, the K1 shapes they ran at)."""
+    from storm_tpu_torch import serve_load
+
+    kup.upfirdn2d_cuda.launches = 0
+    with shapes_recorded() as (k1_shapes, _):
+        (httpd, batcher), _ = captured(serve.build_server, args)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        try:
+            host, port = httpd.server_address[:2]
+            report, _ = captured(serve_load.main, [
+                "--url", f"http://{host}:{port}", "--dir", load_dir, "--requests",
+                str(LOAD_REQUESTS), "--concurrency", str(LOAD_CLIENTS)])
+            stats = json.loads(http_call(host, port, "GET", "/stats")[2])
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            batcher.close()
+            thread.join(timeout=60)
+        torch.cuda.synchronize()
+    check(not thread.is_alive(), f"{what}: the server thread did not stop")
+    return report, stats, kup.upfirdn2d_cuda.launches, k1_shapes
+
+
+def phase_deepcache_server(workdir: str, gen: torch.Generator):
+    """Phase 31. The server at --deepcache 3 in its default dtype (bf16) on
+    phase 15's burst, then int8 + bf16 (phase 15's scales, loaded); /healthz
+    reports deepcache and its depth. Then `python -m storm_tpu_torch.serve_load`
+    against a bf16 dc3 server of --batch 8. Returns ({path: K1 launches},
+    {path: K3 launches}, K1 error, K3 error)."""
+    rng = np.random.default_rng(4)
+    waves = [synth_wav(s, i, rng) for i, s in enumerate(SERVE_SECONDS)]
+    dc = ["--deepcache", str(DC_K), "--deepcache_depth", str(DC_DEPTH)]
+    ckpt8 = os.path.join(workdir, "storm_serve.pt")
+    scales = quant_mod.load_scales(scale_cache_path(ckpt8))
+    k1_paths, k3_paths, k1_shapes, k3_shapes = {}, {}, set(), set()
+    for path, args, n, quant in (
+            ("server_dc3_bf16", serve_args(os.path.join(workdir, "storm.pt"), *dc), None, None),
+            ("server_int8_dc3_bf16", serve_args(ckpt8, "--quant", "int8", *dc), INT8_REQUESTS,
+             scales)):
+        r = run_server(path, args, waves[:n])
+        health = r["health"]
+        check(health["deepcache"] == DC_K and health["deepcache_depth"] == DC_DEPTH,
+              f"{path}: /healthz reports deepcache {health.get('deepcache')}, depth "
+              f"{health.get('deepcache_depth')}")
+        check(quant is None or "int8 scales loaded" in r["build_text"],
+              f"{path}: the scales were not loaded")
+        calls = r["warmups"] + r["stats"]["batches"]
+        per_call = dc_call_launches(SERVE_N, 2, quant)
+        want = (per_call[0] * calls, per_call[1] * calls)
+        print(f"  {path}: launches (K1, K3) {(r['k1'], r['k3'])}, expected {per_call} x "
+              f"({r['warmups']} warm-up + {r['stats']['batches']} batches) = {want}", flush=True)
+        check((r["k1"], r["k3"]) == want, f"{path}: launches {(r['k1'], r['k3'])}")
+        check({s[-1] for s in r["k1_shapes"]} == {BF16}, f"{path} ran upfirdn2d in float32")
+        k1_paths[path], k3_paths[path] = r["k1"], r["k3"]
+        k1_shapes |= r["k1_shapes"]
+        k3_shapes |= r["k3_shapes"]
+
+    load_dir = os.path.join(workdir, "load_noisy")
+    write_named_wavs(load_dir, SERVE_SECONDS, "load", seed=4)
+    path = "serve_load_dc3_bf16"
+    report, stats, k1, load_shapes = run_load(path, serve_args(os.path.join(workdir, "storm.pt"), *dc,
+                                                  "--batch", str(LOAD_BATCH)), load_dir)
+    config = report["server_config"]
+    warmups = len(config["warmup_buckets_s"]) * len(config["row_sizes"])
+    want = dc_call_launches(SERVE_N, 2)[0] * (warmups + stats["batches"])
+    print(f"  {path}: {json.dumps(report)}", flush=True)
+    print(f"  {path}: upfirdn2d launches {k1}, expected {dc_call_launches(SERVE_N, 2)[0]} x "
+          f"({warmups} warm-up + {stats['batches']} batches) = {want}", flush=True)
+    check(report["requests"] == LOAD_REQUESTS and report["errors"] == 0
+          and stats["requests"] == LOAD_REQUESTS + 1 and stats["errors"] == 0
+          and config["deepcache"] == DC_K and config["dtype"] == "bfloat16",
+          f"{path}: report {report}, /stats {stats}")
+    check(k1 == want, f"{path}: upfirdn2d launched {k1}, expected {want}")
+    check({s[-1] for s in load_shapes} == {BF16}, f"{path} ran upfirdn2d in float32")
+    k1_paths[path] = k1
+    return (k1_paths, k3_paths,
+            check_k1_at("the dc3 servers and serve_load's", k1_shapes | load_shapes, gen),
+            check_k3_at("the int8 bf16 dc3 server", k3_shapes, gen))
+
+
+def phase_bench(workdir: str, gen: torch.Generator):
+    """Phase 32. `python -m storm_tpu_torch.bench` at bench.py's defaults
+    (B=16, 256 frames, N=50 + ald, bf16, int8, dc3) with BENCH_REPS timed
+    reps, then `--train`: their JSON lines, printed; the serving run's K1
+    and K3 launches held to the counts of its calls (int8 calibration, the
+    headline, the N=30 and exact extras), the train run's to 36 + 33 per
+    step; every K1 shape and K3 input the runs gave against plain, and the
+    adjoint at every shape the train run's backward gave it. Returns
+    ({path: K1 launches}, {path: K3 launches}, the train run's K1-bwd
+    launches, the two lines, K1 error, K3 error, K1-bwd error)."""
+    from storm_tpu_torch import bench
+
+    scales = quant_mod.load_scales(scale_cache_path(os.path.join(workdir, "storm.pt")))
+    lines, k1_paths, k3_paths, k1_shapes, k3_shapes = {}, {}, {}, set(), set()
+    for path, extra in (("bench_serving", []), ("bench_train", ["--train"])):
+        torch.cuda.empty_cache()
+        kup.upfirdn2d_cuda.launches = kq.quantize_int8_cuda.launches = 0
+        kup.upfirdn2d_bwd_cuda.launches = 0
+        t0 = time.perf_counter()
+        with shapes_recorded() as (k1s, k3s), adjoint_shapes_recorded() as bwds:
+            _, text = captured(bench.main, ["--reps", str(BENCH_REPS), *extra])
+        wall = time.perf_counter() - t0
+        line = json.loads(text.strip().splitlines()[-1])
+        lines[path] = line
+        d = line["detail"]
+        calls = 1 + BENCH_REPS  # a warm-up call, then the timed reps
+        if extra:
+            steps = 1 + BENCH_REPS * 5
+            want = (STEP_FWD * steps, 0, STEP_BWD * steps)
+            check(line["metric"] == "train_utt_per_sec_per_chip", f"{path}: {line}")
+        else:
+            check(line["metric"] == "audio_sec_per_sec_per_chip_50step_pc" and d["nfe"] == NFE
+                  and d["exact_nfe101_audio_sec_per_sec"] is not None
+                  and d["storm_default_nfe31_audio_sec_per_sec"] is not None,
+                  f"{path}: {line}")
+            k1_h, k3_h = dc_call_launches(N_STEPS, 2, scales)
+            k1_31, k3_31 = dc_call_launches(30, 1, scales)
+            want = (K1_PER_FORWARD * calib_forwards(CALIB_N, probes=4)
+                    + calls * (k1_h + k1_31 + K1_PER_FORWARD * NFE),
+                    calls * (k3_h + k3_31 + K3_PER_FILE), 0)
+        got = (kup.upfirdn2d_cuda.launches, kq.quantize_int8_cuda.launches,
+               kup.upfirdn2d_bwd_cuda.launches)
+        print(f"  {path}: {wall:.1f} s wall; launches (K1, K3, K1-bwd) {got}, expected {want}",
+              flush=True)
+        check(got == want, f"{path}: launches {got}, expected {want}")
+        check({s[-1] for s in k1s} == {BF16}, f"{path} gave upfirdn2d {k1s}")
+        check({(s[0], *s[2:5]) for s in bwds} == (set(k1_bwd_calls()) if extra else set())
+              and {s[1] for s in bwds} <= {16} and {s[-1] for s in bwds} <= {BF16},
+              f"{path} gave upfirdn2d's adjoint {sorted(bwds, key=str)}")
+        k1_paths[path], k3_paths[path], bwd = got
+        k1_shapes |= k1s
+        k3_shapes |= k3s
+        bwd_shapes = bwds if extra else None
+    print(f"  bench line: {json.dumps(lines['bench_serving'])}", flush=True)
+    print(f"  bench --train line: {json.dumps(lines['bench_train'])}", flush=True)
+    return (k1_paths, k3_paths, bwd, lines, check_k1_at("the bench", k1_shapes, gen),
+            check_k3_at("the bench", k3_shapes, gen),
+            check_k1_bwd_at("the bench --train", bwd_shapes, gen))
+
+
+def phase_profile_dc3_bf16():
+    """Phase 33: trace one dc3 bfloat16 enhancement of the 4 s file (CLI defaults)."""
+    model = build_model(dict(STORM_CONFIG, dtype="bfloat16"), device="cuda", seed=0)
+    y = bucketed(synth_wav(max(SECONDS), 0, np.random.default_rng(0))[None])
+    model.enhance(y, N=4, corrector="ald", deepcache=DC_K)  # warm-up at the same shapes
+    profile_run(f"dc3 bf16 enhance {max(SECONDS)} s file",
+                lambda: model.enhance(y, N=N_STEPS, corrector="ald", deepcache=DC_K),
+                BF16_GROUPS)
+
+
+def phase_profile_bench():
+    """Phase 34: trace one enhance call at bench.py's defaults (B=16 random
+    utterances of 256 frames, N=50 + ald, bf16, dc3), with int8 scales
+    calibrated as the bench calibrates them, then without int8."""
+    model = build_model({"mode": "regen-joint-training", "dtype": "bfloat16"}, device="cuda",
+                        seed=0)
+    y = torch.from_numpy((np.random.default_rng(0).standard_normal((16, 255 * HOP)) * 0.1)
+                         .astype(np.float32)).cuda()
+    quant = quant_mod.calibrate_storm(model, y[:4], N=CALIB_N, num_probe=4,
+                                      generator=torch.Generator(device="cuda").manual_seed(7))
+    for name, q in (("int8 + bf16", quant), ("bf16", None)):
+        model.enhance(y, N=4, corrector="ald", quant=q, deepcache=DC_K)  # warm-up
+        profile_run(f"bench call, {name}, dc3 (B=16, {FREQS} x {TRAIN_FRAMES})",
+                    lambda: model.enhance(y, N=N_STEPS, corrector="ald", quant=q,
+                                          deepcache=DC_K)[0].cpu(),
+                    {**BF16_GROUPS, **INT8_GROUPS,
+                     # the int8 conv's im2col; the skips' cat is the _vectorized kernel
+                     "int8 im2col (torch.stack)": (("CatArrayBatchedCopy<",), None)})
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
                         help="also trace one enhancement, two train steps, one int8 "
-                             "enhancement, one B=4 enhancement, one bf16 enhancement and two "
-                             "bf16 train steps and print the device time by kernel")
+                             "enhancement, one B=4 enhancement, one bf16 enhancement, two "
+                             "bf16 train steps, one dc3 bf16 enhancement and one bench call "
+                             "with and without int8 and print the device time by kernel")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         fail("no CUDA device: chip_smoke.py runs on a card only")
@@ -2359,7 +2817,7 @@ def main():
 
         print("== phase 19: bfloat16 CLI (--dtype bfloat16; --batch 4; --quant int8)",
               flush=True)
-        bf16_k1, bf16_k3, bf16_k3_shapes, bf16_cli_err = phase_bf16_cli(
+        bf16_k1, bf16_k3, bf16_k3_shapes, bf16_cli_err, bf16_exact = phase_bf16_cli(
             workdir, f32_outputs, f32_rtf, lengths, batch_dir, batch_outputs, gen)
 
         print("== phase 20: the quantizer's bfloat16-product mode against plain at the int8 "
@@ -2406,6 +2864,31 @@ def main():
             print("== phase 28: where a bfloat16 train step's device time goes", flush=True)
             phase_profile_train_bf16()
 
+        print("== phase 29: deep-feature caching: full-width deep and shallow passes against "
+              "the forward", flush=True)
+        dc_fwd_k1, dc_fwd_k3 = phase_deepcache_forward(workdir, gen)
+
+        print(f"== phase 30: the CLI with --deepcache {DC_K} (float32, bfloat16, int8 + bf16)",
+              flush=True)
+        dc_cli_k1, dc_cli_k3, dc_cli_err, dc_cli_bf16_err, dc_cli_k3_err = phase_deepcache_cli(
+            workdir, lengths, {"float32": (f32_rtf, f32_outputs), **bf16_exact}, gen)
+
+        print(f"== phase 31: the server with --deepcache {DC_K} (bf16, then int8 + bf16), then "
+              "serve_load against it", flush=True)
+        dc_srv_k1, dc_srv_k3, dc_srv_err, dc_srv_k3_err = phase_deepcache_server(workdir, gen)
+
+        print("== phase 32: python -m storm_tpu_torch.bench at bench.py's defaults, then --train",
+              flush=True)
+        (bench_k1, bench_k3, bench_bwd, _, bench_err, bench_k3_err,
+         bench_bwd_err) = phase_bench(workdir, gen)
+
+        if args.profile:
+            print("== phase 33: where a dc3 bfloat16 enhancement's device time goes", flush=True)
+            phase_profile_dc3_bf16()
+            print("== phase 34: where a bench call's device time goes (B=16, with and without "
+                  "int8)", flush=True)
+            phase_profile_bench()
+
     def entry(name, source, replaces, per_shape_ms, calls, err, launches, work, **extra):
         keys = ("ms", "device_ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms")
         total = {k: sum(per_shape_ms[c][k] for c in calls) if k in per_shape_ms[calls[0]]
@@ -2425,11 +2908,20 @@ def main():
     k1_bf16_by_path = {**bf16_k1, **bf16_serve_k1, "streaming_bf16": bf16_stream_k1,
                        "train_bf16": train_bf16["launches"][0]}
     k3_bf16_by_path = {"enhancement_int8_bf16": bf16_k3, "server_int8_bf16": bf16_serve_k3}
+    # the deepcache paths and the bench (phases 29-32), by the dtype they ran in
+    dc_k1 = {**dc_fwd_k1, **dc_cli_k1, **dc_srv_k1, **bench_k1}
+    dc_k3 = {k: v for k, v in {**dc_fwd_k3, **dc_cli_k3, **dc_srv_k3, **bench_k3}.items() if v}
+    for by_path, launched in ((k1_by_path, dc_k1), (k3_by_path, dc_k3)):
+        by_path.update({k: v for k, v in launched.items() if "float32" in k})
+    for by_path, launched in ((k1_bf16_by_path, dc_k1), (k3_bf16_by_path, dc_k3)):
+        by_path.update({k: v for k, v in launched.items() if "float32" not in k})
+    dc_k1_bf16_err = max(dc_cli_bf16_err, dc_srv_err, bench_err)
+    dc_k3_err = max(dc_cli_k3_err, dc_srv_k3_err, bench_k3_err)
     k1_src = "storm_tpu_torch/csrc/upfirdn2d.cu"
     no_library = "no single PyTorch call computes this function"
     record = {"kernels": [
         entry("upfirdn2d", k1_src, "storm_tpu/kernels/upfirdn.py:139", per_shape, k1_calls(6),
-              max(max_err, train_fwd_err, batch_err, serve_err, stream_err),
+              max(max_err, train_fwd_err, batch_err, serve_err, stream_err, dc_cli_err),
               sum(k1_by_path.values()),
               f"the 18 calls of one full-width score-net forward, B=1, 256 x {FRAMES}",
               launches_by_path=k1_by_path),
@@ -2439,7 +2931,7 @@ def main():
               f"B={TRAIN_B}, 256 x {TRAIN_FRAMES}"),
         entry("quantize_int8", "storm_tpu_torch/csrc/quantize_int8.cu",
               "scripts/perf_fusion_probe.py:88", k3_shape, k3_calls,
-              max(k3_err, serve_k3_err, stream_k3_err),
+              max(k3_err, serve_k3_err, stream_k3_err, dc_k3_err),
               sum(k3_by_path.values()),
               f"the {N_QUANT} quantized-conv inputs of one full-width score-net forward, "
               f"B=1, 256 x {FRAMES}, float32", library=no_library, launches_by_path=k3_by_path,
@@ -2453,7 +2945,8 @@ def main():
          "library_ms": None, "work": f"forward at {K2_SHAPES[0]} float32, no mask",
          "library": no_library},
         entry("upfirdn2d_bf16", k1_src, "storm_tpu/kernels/upfirdn.py:139", bf16_shape,
-              k1_calls(6), max(bf16_err, bf16_cli_err, bf16_serve_err, bf16_stream_err),
+              k1_calls(6), max(bf16_err, bf16_cli_err, bf16_serve_err, bf16_stream_err,
+                                dc_k1_bf16_err),
               sum(k1_bf16_by_path.values()),
               f"the 18 calls of one full-width score-net forward, B=1, 256 x {FRAMES}, "
               f"bfloat16 in and out", launches_by_path=k1_bf16_by_path,
@@ -2462,10 +2955,12 @@ def main():
               bf16_elements_compared={k: {f: n[0] for f, n in v.items()}
                                       for k, v in BF16_FLIPS.items()}),
         entry("upfirdn2d_bwd_bf16", k1_src, "storm_tpu/kernels/upfirdn.py:172-181",
-              bf16_bwd_shape, k1_bwd_calls(), max(bf16_err, bf16_bwd_err),
-              train_bf16["launches"][1],
+              bf16_bwd_shape, k1_bwd_calls(), max(bf16_err, bf16_bwd_err, bench_bwd_err),
+              train_bf16["launches"][1] + bench_bwd,
               f"the {STEP_BWD} backward calls of one full-width joint-training step, "
               f"B={TRAIN_B}, 256 x {TRAIN_FRAMES}, bfloat16 in and out",
+              launches_by_path={"train_bf16": train_bf16["launches"][1],
+                                "bench_train": bench_bwd},
               bf16_elements_that_differ={f: n[1] for f, n in BF16_FLIPS["upfirdn2d_bwd"].items()},
               bf16_elements_compared={f: n[0] for f, n in BF16_FLIPS["upfirdn2d_bwd"].items()}),
         {"name": "fused_leaky_relu_bf16", "route": "cuda",
@@ -2481,7 +2976,7 @@ def main():
          "grad_bias_ulps_of_scale": k2_bf16["grad_bias_ulps_of_scale"]},
         entry("quantize_int8_bf16_product", "storm_tpu_torch/csrc/quantize_int8.cu",
               "scripts/perf_fusion_probe.py:88", k3b_shape, k3b_calls,
-              max(k3b_err, bf16_serve_k3_err), sum(k3_bf16_by_path.values()),
+              max(k3b_err, bf16_serve_k3_err, dc_k3_err), sum(k3_bf16_by_path.values()),
               f"the {N_QUANT} quantized-conv inputs of one full-width score-net forward, "
               f"B=1, 256 x {FRAMES}, bfloat16, the product in bfloat16", library=no_library,
               launches_by_path=k3_bf16_by_path),

@@ -16,11 +16,19 @@ input is cast to it at the pack, the time embedding before its first Dense
 (the Fourier features stay float32), sigma before the division, and the
 output is cast back to float32, so the STFT, the SDE and the sampler around
 the net stay float32.
+
+Deep-feature caching (DeepCache, Ma et al., arXiv:2312.00858; the reference's
+`deep_features` / `forward_shallow`): `deep_features` runs the down trunk,
+the bottleneck and the up levels >= cache_depth and returns (h, pyramid) at
+the entry of up level cache_depth - 1; `forward_shallow` reruns only the
+down levels < cache_depth and resumes the up path from that cache, so
+forward_shallow(x, t, deep_features(x, t)) == forward(x, t). The cache is
+in the compute dtype, as the reference carries it.
 """
 from __future__ import annotations
 
 import inspect
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -42,6 +50,11 @@ from ..nn.layers import (
 
 class NCSNpp(nn.Module):
     """NCSN++; the defaults are the 27.8M-parameter configuration."""
+
+    # the cache split of `deep_features` / `forward_shallow` applies: the
+    # constructor refuses every configuration but output_skip / input_skip /
+    # biggan, the only one the reference caches
+    SUPPORTS_DEEPCACHE = True
 
     def __init__(
         self,
@@ -138,8 +151,11 @@ class NCSNpp(nn.Module):
         in_ch = hs_c[-1]
         modules += [ResBlock(in_ch), Attn(in_ch), ResBlock(in_ch)]
 
-        # --- upsampling trunk
+        # --- upsampling trunk; the module index at the start of each up level
+        # is where `forward_shallow` resumes
+        self._up_start_idx = [0] * self.num_resolutions
         for i_level in reversed(range(self.num_resolutions)):
+            self._up_start_idx[i_level] = len(modules)
             for _ in range(num_res_blocks + 1):
                 out_ch = nf * ch_mult[i_level]
                 modules.append(ResBlock(in_ch + hs_c.pop(), out_ch))
@@ -161,23 +177,59 @@ class NCSNpp(nn.Module):
         names = set(inspect.signature(cls.__init__).parameters) - {"self"}
         return cls(**{k: v for k, v in kwargs.items() if k in names})
 
-    def forward(self, x: torch.Tensor, time_cond: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """(B, Cc, F, T, 2) packed-real -> (B, spatial_channels, F, T, 2)."""
+    def _pack(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, Cc, F, T, 2) packed-real -> (B, 2 Cc, F, T) in the compute dtype."""
         B, Cc, Fdim, Tdim, _ = x.shape
         if 2 * Cc != self.total_channels:
             raise ValueError(f"got {Cc} complex channels, expected {self.total_channels // 2}")
         # contiguous: for Cc=1 the reshape is a strided view, which upfirdn2d refuses
         h_in = x.permute(0, 1, 4, 2, 3).reshape(B, 2 * Cc, Fdim, Tdim)
-        h_in = h_in.to(self.dtype).contiguous()
-        h = self._unet(h_in, time_cond)
+        return h_in.to(self.dtype).contiguous()
+
+    def _unpack(self, h: torch.Tensor, x_shape) -> torch.Tensor:
+        """The trunk's output -> (B, D, F, T, 2) float32 through the 1x1 output conv."""
+        B, _, Fdim, Tdim, _ = x_shape
         h = self.output_layer(h).float()  # (B, 2D, F, T): [re(d)...] + [im(d)...]
         D = self.spatial_channels
         return h.reshape(B, 2, D, Fdim, Tdim).permute(0, 2, 3, 4, 1)
 
-    def _unet(self, h_in: torch.Tensor, time_cond: Optional[torch.Tensor]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, time_cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(B, Cc, F, T, 2) packed-real -> (B, spatial_channels, F, T, 2)."""
+        return self._unpack(self._unet(self._pack(x), time_cond), x.shape)
+
+    def deep_features(self, x: torch.Tensor, time_cond: Optional[torch.Tensor] = None,
+                      cache_depth: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Down trunk, bottleneck and up levels >= cache_depth: the (h, pyramid)
+        cache that `forward_shallow` resumes from."""
+        return self._unet(self._pack(x), time_cond, cache_depth=cache_depth, return_cache=True)
+
+    def forward_shallow(self, x: torch.Tensor, time_cond: Optional[torch.Tensor],
+                        cache: Tuple[torch.Tensor, torch.Tensor],
+                        cache_depth: int = 1) -> torch.Tensor:
+        """`forward` with the top `cache_depth` levels recomputed and the rest
+        taken from a `deep_features` cache (made at the same cache_depth)."""
+        h = self._unet(self._pack(x), time_cond, cache=cache, cache_depth=cache_depth)
+        return self._unpack(h, x.shape)
+
+    def check_cache_depth(self, cache_depth: int) -> None:
+        """Raise ValueError unless 1 <= cache_depth < the number of levels."""
+        if not 1 <= cache_depth < self.num_resolutions:
+            raise ValueError(f"cache_depth must be in [1, {self.num_resolutions - 1}], "
+                             f"got {cache_depth}")
+
+    def _unet(self, h_in: torch.Tensor, time_cond: Optional[torch.Tensor],
+              cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None, cache_depth: int = 0,
+              return_cache: bool = False):
+        """The trunk on (B, total_channels, F, T), scale_by_sigma included,
+        up to the output conv. `return_cache` stops at the entry of up level
+        cache_depth - 1 and returns (h, pyramid); with `cache` it runs the
+        down levels < cache_depth only and resumes the up path there."""
         modules = self.all_modules
         act = self.act
         m_idx = 0
+        shallow = cache is not None
+        if shallow or return_cache:
+            self.check_cache_depth(cache_depth)
 
         # Fourier features of log(t); computed (and unused) when unconditional
         temb = modules[m_idx](torch.log(time_cond)) if time_cond is not None else None
@@ -197,7 +249,7 @@ class NCSNpp(nn.Module):
         input_pyramid = h_in
         hs = [modules[m_idx](h_in)]
         m_idx += 1
-        for i_level in range(self.num_resolutions):
+        for i_level in range(cache_depth if shallow else self.num_resolutions):
             for _ in range(self.num_res_blocks):
                 h = modules[m_idx](hs[-1], temb)
                 m_idx += 1
@@ -205,7 +257,9 @@ class NCSNpp(nn.Module):
                     h = modules[m_idx](h)
                     m_idx += 1
                 hs.append(h)
-            if i_level != self.num_resolutions - 1:
+            # in shallow mode the last level's downsampled h would feed a
+            # skipped up level: it is not computed
+            if i_level != self.num_resolutions - 1 and not (shallow and i_level == cache_depth - 1):
                 h = modules[m_idx](hs[-1], temb)
                 m_idx += 1
                 input_pyramid = self.pyramid_downsample(input_pyramid)
@@ -213,15 +267,23 @@ class NCSNpp(nn.Module):
                 m_idx += 1
                 hs.append(h)
 
-        # --- bottleneck
-        h = modules[m_idx](hs[-1], temb)
-        h = modules[m_idx + 1](h)
-        h = modules[m_idx + 2](h, temb)
-        m_idx += 3
+        if shallow:
+            h, pyramid = (c.to(self.dtype) for c in cache)
+            m_idx = self._up_start_idx[cache_depth - 1]
+            up_levels = range(cache_depth - 1, -1, -1)
+        else:
+            # --- bottleneck
+            h = modules[m_idx](hs[-1], temb)
+            h = modules[m_idx + 1](h)
+            h = modules[m_idx + 2](h, temb)
+            m_idx += 3
+            pyramid = None
+            up_levels = reversed(range(self.num_resolutions))
 
         # --- upsampling
-        pyramid = None
-        for i_level in reversed(range(self.num_resolutions)):
+        for i_level in up_levels:
+            if return_cache and i_level == cache_depth - 1:
+                return h, pyramid
             for _ in range(self.num_res_blocks + 1):
                 h = modules[m_idx](torch.cat([h, hs.pop()], dim=1), temb)
                 m_idx += 1

@@ -26,6 +26,12 @@ own, seeded with 1, so serving draws the same noise as without it) and cached
 beside the checkpoint as `<ckpt>.quant_int8_scales.json`; the convs with at
 least `--quant_min_channels` input and output channels then run on the int8
 path.
+
+`--deepcache K` refreshes the score net's deep U-Net features every K
+sampler steps and recomputes only the top `--deepcache_depth` levels per
+score evaluation (DeepCache-style, arXiv:2312.00858); 0, the default, is the
+exact trajectory. It works with `--batch`, streaming, `--quant int8` and
+`--dtype bfloat16`; int8 calibration runs the exact trajectory either way.
 """
 from __future__ import annotations
 
@@ -91,6 +97,15 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--quant_min_channels", type=int, default=128,
                    help="int8 coverage threshold: convs whose in AND out channel counts are "
                         ">= this run int8; smaller (quality-critical) convs stay float32")
+    p.add_argument("--deepcache", type=int, default=0,
+                   help="deep-feature cache refresh interval for the pc sampler "
+                        "(DeepCache-style, arXiv:2312.00858): refresh the score net's deep "
+                        "U-Net features every K steps and recompute only the top levels per "
+                        "score eval. 0 = off (exact reference trajectory); quality vs K "
+                        "measured in BASELINE.md")
+    p.add_argument("--deepcache_depth", type=int, default=1,
+                   help="number of top U-Net levels recomputed per cached score eval "
+                        "(--deepcache)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cpu' runs the kernels' plain versions")
     return p.parse_args(argv)
@@ -139,7 +154,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         model, minibatch=args.batch if args.batch > 1 else None,
         data_parallel=args.data_parallel, seq_parallel=args.seq_parallel, N=args.N,
         predictor=args.predictor, corrector=args.corrector,
-        corrector_steps=args.corrector_steps, snr=args.snr, quant=quant)
+        corrector_steps=args.corrector_steps, snr=args.snr, quant=quant,
+        deepcache=args.deepcache, deepcache_depth=args.deepcache_depth)
     gen = torch.Generator(device=device).manual_seed(0)
 
     if args.stream_chunk_s > 0:

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import torch
 from torch import nn
@@ -55,6 +55,52 @@ def prepare_spec(y: torch.Tensor, stft_config: STFTConfig, transform: SpecTransf
     """wav (B, T) -> (compressed spec padded to a multiple of 64 frames, frames before padding)."""
     Y = wav_to_spec(y, stft_config, transform)
     return pad_spec(Y, multiple=multiple, axis=-2), Y.shape[-2]
+
+
+def make_deepcache_fns(net: nn.Module, pack_input: Callable, cache_depth: int):
+    """The (deep_fn, cached_score_fn) pair of a sampler's `DeepCache`:
+    the one place that holds the cached score evaluation's contract (the
+    score input's packing, the `-out` sign, the squeeze), so that the
+    cached trajectory cannot drift from the exact one.
+
+    Args:
+        net: an NCSN++ (exposes deep_features / forward_shallow and sets
+            SUPPORTS_DEEPCACHE), with the weights it serves.
+        pack_input: x -> (score-net input, squeezed): x with the model's
+            conditioning concatenated, as `forward_score` packs it.
+    """
+
+    def deep_fn(x: torch.Tensor, t: torch.Tensor):
+        return net.deep_features(pack_input(x)[0], t, cache_depth=cache_depth)
+
+    def cached_score_fn(x: torch.Tensor, t: torch.Tensor, cache) -> torch.Tensor:
+        dnn_input, squeezed = pack_input(x)
+        out = net.forward_shallow(dnn_input, t, cache, cache_depth=cache_depth)
+        return -(out[:, 0] if squeezed else out)
+
+    return deep_fn, cached_score_fn
+
+
+def check_deepcache_config(net: Optional[nn.Module], deepcache: int, sampler_type: str,
+                           cache_depth: Optional[int] = None) -> None:
+    """Refuse a deepcache request the model cannot serve, with the
+    reference's messages; with `cache_depth`, also one the net has no such
+    level for."""
+    if deepcache < 0:
+        raise ValueError(f"deepcache must be >= 0, got {deepcache}")
+    if sampler_type not in ("pc", "ode"):
+        raise ValueError(
+            "deepcache requires the pc or ode sampler (picard folds time "
+            "into the batch axis — an N-point per-step cache would defeat "
+            f"the memory saving); got {sampler_type!r}"
+        )
+    if net is not None and not getattr(net, "SUPPORTS_DEEPCACHE", False):
+        raise ValueError(
+            "deepcache requires an NCSN++-family (2-D U-Net) backbone; "
+            f"{type(net).__name__} does not support the cache split"
+        )
+    if net is not None and cache_depth is not None:
+        net.check_cache_depth(cache_depth)
 
 
 @dataclasses.dataclass

@@ -22,13 +22,14 @@ from torch import nn
 
 from ..nn.cast import cast_params
 from ..nn.qconv import scales_attached, stats_collected
-from ..sampling.samplers import NoiseSource, pc_sample
+from ..sampling.samplers import DeepCache, NoiseSource, pc_sample
 from ..sde.sdes import OUVESDE
 from ..signal import cplx
 from ..signal.stft import STFTConfig
 from ..signal.transforms import SpecTransform
 from ..utils.tensors import right_pad_dims
-from .base import TrainState, ema_update, lift_spec, normalize_wav, prepare_spec, spec_to_wav
+from .base import (TrainState, check_deepcache_config, ema_update, lift_spec,
+                   make_deepcache_fns, normalize_wav, prepare_spec, spec_to_wav)
 
 CONDITION_CHANNELS = {"noisy": 1, "post_denoiser": 1, "both": 2}
 STORM_MODES = ("regen-joint-training", "regen-freeze-denoiser")
@@ -103,14 +104,21 @@ class StochasticRegenerationModel(nn.Module):
         return {"noisy": [Y], "post_denoiser": [Y_denoised],
                 "both": [Y, Y_denoised]}[self.condition]
 
+    @staticmethod
+    def _score_input(x: torch.Tensor,
+                     score_conditioning: List[torch.Tensor]) -> Tuple[torch.Tensor, bool]:
+        """(cat[x, *cond] in the (B, D, F, T, 2) layout, whether x was lifted)."""
+        x5, squeezed = lift_spec(x)
+        cond5 = [lift_spec(c)[0] for c in score_conditioning]
+        return torch.cat([x5] + cond5, dim=1), squeezed
+
     def forward_score(self, x: torch.Tensor, t: torch.Tensor,
                       score_conditioning: List[torch.Tensor], collect_stats: bool = False):
         """score = -score_net(cat[x, *cond], t); keeps x's shape.
         `collect_stats` as in `forward_denoiser`, for the score net."""
-        x5, squeezed = lift_spec(x)
-        cond5 = [lift_spec(c)[0] for c in score_conditioning]
+        dnn_input, squeezed = self._score_input(x, score_conditioning)
         with _stats_if(self.score_net, collect_stats) as stats:
-            out = self.score_net(torch.cat([x5] + cond5, dim=1), t)
+            out = self.score_net(dnn_input, t)
         out = -(out[:, 0] if squeezed else out)
         return (out, stats) if collect_stats else out
 
@@ -213,6 +221,8 @@ class StochasticRegenerationModel(nn.Module):
         generator: Optional[torch.Generator] = None,
         noise: Optional[NoiseSource] = None,
         quant: Optional[Dict[str, Optional[Dict[str, float]]]] = None,
+        deepcache: int = 0,
+        deepcache_depth: int = 1,
     ) -> Tuple[torch.Tensor, int]:
         """Enhance waveforms y (B, T) -> (x_hat (B, T), nfe).
 
@@ -225,7 +235,14 @@ class StochasticRegenerationModel(nn.Module):
         from the float32 weights, once per call). The nets compute in their
         dtype with their parameters cast to it once per call; the
         spectrograms, the SDE and the output stay float32.
+        `deepcache`: if > 0, refresh the score net's deep-feature cache every
+        `deepcache`-th sampler step and recompute only its top
+        `deepcache_depth` levels per score evaluation (DeepCache-style
+        serving, arXiv:2312.00858); nfe counts the score evaluations, not
+        the refreshes, as the reference does.
         """
+        if deepcache:
+            check_deepcache_config(self.score_net, deepcache, "pc", deepcache_depth)
         T_orig = y.shape[-1]
         y_n, norm = normalize_wav(y)
         Y, _ = prepare_spec(y_n, self.stft_config, self.transform)
@@ -239,11 +256,15 @@ class StochasticRegenerationModel(nn.Module):
             def score_fn(x, t, y_sde):
                 return self.forward_score(x, t, cond)
 
+            cache = None
+            if deepcache:
+                cache = DeepCache(deepcache, *make_deepcache_fns(
+                    self.score_net, lambda x: self._score_input(x, cond), deepcache_depth))
             sample, n = pc_sample(
                 self.sde, score_fn, Y_denoised, predictor=predictor, corrector=corrector,
                 N=N, snr=snr, corrector_steps=corrector_steps,
                 probability_flow=probability_flow, denoise=True, eps=self.t_eps,
-                noise=noise, generator=generator,
+                noise=noise, generator=generator, deepcache=cache,
             )
         # the whole padded spec goes through the iSTFT, cut to T_orig samples
         x_hat = spec_to_wav(sample, self.stft_config, self.transform, length=T_orig)

@@ -5,6 +5,14 @@ Python loop over eager PyTorch calls. Noise comes from an injectable source
 `noise(shape) -> tensor of shape + (2,)`, drawn in the reference's order:
 the prior first, then for each step the corrector's draws and then the
 predictor's.
+
+With a `DeepCache` of interval K the score net's deep features are cached
+(DeepCache-style serving, arXiv:2312.00858): made before the loop at the
+prior, refreshed at the top of every K-th step, and every score evaluation
+of the step recomputes only the top levels from the cache. Whether a step
+refreshes is decided on the host from the step's index, so the loop reads
+no device value: `BucketedEnhancer.enhance_async` and the server's
+pipelined finalizer rely on the sampler enqueueing without a sync.
 """
 from __future__ import annotations
 
@@ -26,6 +34,23 @@ def generator_noise(generator: Optional[torch.Generator], device, dtype=torch.fl
     return draw
 
 
+class DeepCache:
+    """Deep-feature caching for one `pc_sample` call: the refresh interval,
+    `deep_fn(x, t) -> cache` and `cached_score_fn(x, t, cache) -> score`
+    (other conditioning closed over), and the cache the step's score
+    evaluations read, which `refresh` replaces."""
+
+    def __init__(self, interval: int, deep_fn: Callable, cached_score_fn: Callable):
+        self.interval, self.deep_fn, self.cached_score_fn = interval, deep_fn, cached_score_fn
+        self.cache = None
+
+    def refresh(self, x: torch.Tensor, t: torch.Tensor) -> None:
+        self.cache = self.deep_fn(x, t)
+
+    def score_fn(self, x: torch.Tensor, t: torch.Tensor, y_sde: torch.Tensor) -> torch.Tensor:
+        return self.cached_score_fn(x, t, self.cache)
+
+
 def pc_sample(
     sde,
     score_fn: Callable,
@@ -41,6 +66,7 @@ def pc_sample(
     noise: Optional[NoiseSource] = None,
     generator: Optional[torch.Generator] = None,
     intermediate: bool = False,
+    deepcache: Optional[DeepCache] = None,
 ):
     """Predictor-corrector sampling of the reverse SDE started at p_T(.|y).
 
@@ -53,6 +79,12 @@ def pc_sample(
         noise: noise source; by default drawn from `generator`.
         intermediate: also return the (N, ...) trajectory of the predictor's
             means, one per step.
+        deepcache: if given, its cache is made at the prior and refreshed
+            at the top of every `deepcache.interval`-th step, and every
+            score evaluation reads it (`score_fn` is not called). With
+            interval 1 and no corrector the trajectory is exact (the cache
+            is made at the very (x, t) the predictor evaluates). Refreshes
+            are not counted in nfe, as in the reference.
 
     Returns:
         (x, nfe), nfe = N * (corrector_steps * (corrector != "none") + 1);
@@ -68,12 +100,22 @@ def pc_sample(
 
     x = sde.prior_sampling(y, noise(y.shape[:-1]))
     x_mean = x
-    rsde = sde.reverse(score_fn, probability_flow=probability_flow)
-    timesteps = torch.linspace(sde.T, eps, n, dtype=torch.float32)
+    timesteps = torch.linspace(sde.T, eps, n, dtype=torch.float32).tolist()
     batch = y.shape[0]
+
+    def vector(t: float) -> torch.Tensor:
+        return torch.full((batch,), t, dtype=torch.float32, device=y.device)
+
+    if deepcache is not None:
+        deepcache.refresh(x, vector(timesteps[0]))
+        score_fn = deepcache.score_fn
+    rsde = sde.reverse(score_fn, probability_flow=probability_flow)
     trajectory = []
-    for t in timesteps.tolist():
-        vec_t = torch.full((batch,), t, dtype=torch.float32, device=y.device)
+    # one step body for both modes: the draws' order cannot part between them
+    for i, t in enumerate(timesteps):
+        vec_t = vector(t)
+        if deepcache is not None and i % deepcache.interval == 0 and i > 0:
+            deepcache.refresh(x, vec_t)
         x, x_mean = corrector_fn(sde, score_fn, x, vec_t, y, noise, snr, corrector_steps)
         x, x_mean = predictor_fn(rsde, x, vec_t, y, noise)
         if intermediate:

@@ -2,7 +2,8 @@
 (counterpart of serve.py).
 
     python -m storm_tpu_torch.serve --ckpt model.pt --mode storm --port 8571 \\
-        [--batch 8] [--warmup_buckets 1,2.5,4] [--quant int8 --calib_dir noisy/]
+        [--batch 8] [--warmup_buckets 1,2.5,4] [--quant int8 --calib_dir noisy/] \\
+        [--deepcache 3]
     curl -s --data-binary @noisy.wav localhost:8571/enhance > clean.wav
 
 Endpoints:
@@ -35,6 +36,7 @@ import torch
 
 from .ckpt import load_checkpoint
 from .data.audio import load_wav
+from .models.base import check_deepcache_config
 from .models.factory import STORM_MODES, build_model
 from .sampling.correctors import CORRECTORS
 from .sampling.predictors import PREDICTORS
@@ -85,7 +87,11 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--calib_dir", default=None,
                    help="representative noisy wavs for int8 calibration (needed with "
                         "--quant int8 unless the scales are cached beside the checkpoint)")
-    p.add_argument("--deepcache", type=int, default=0, help="not ported yet (ROADMAP R7)")
+    p.add_argument("--deepcache", type=int, default=0,
+                   help="deep-feature cache refresh interval (the enhancement CLI's "
+                        "--deepcache); 0 = the exact trajectory")
+    p.add_argument("--deepcache_depth", type=int, default=1,
+                   help="top U-Net levels recomputed per cached score eval")
     p.add_argument("--data_parallel", action="store_true", help="not ported yet (ROADMAP R7)")
     p.add_argument("--seq_parallel", type=int, default=0, help="not ported yet (ROADMAP R7)")
     p.add_argument("--device", default="cuda",
@@ -159,8 +165,6 @@ def make_handler(batcher: DynamicBatcher, info: dict, model_sr: int = MODEL_SR):
 def _refuse_unported(args) -> None:
     if args.sampler != "pc":
         raise NotImplementedError(f"--sampler {args.sampler} is not ported yet (ROADMAP R3)")
-    if args.deepcache:
-        raise NotImplementedError("--deepcache is not ported yet (ROADMAP R7)")
 
 
 def build_server(args):
@@ -177,6 +181,9 @@ def build_server(args):
         config["dtype"] = args.dtype
     model = build_model(config, device=device)
     model.load_state_dict(params if args.no_ema else ema_params, strict=True)
+    if args.deepcache:
+        check_deepcache_config(model.score_net, args.deepcache, args.sampler,
+                               args.deepcache_depth)
 
     quant = None
     if args.quant == "int8":
@@ -196,7 +203,8 @@ def build_server(args):
     enhancer = BucketedEnhancer(
         model, data_parallel=args.data_parallel, seq_parallel=args.seq_parallel,
         N=args.N, predictor=args.predictor, corrector=args.corrector,
-        corrector_steps=args.corrector_steps, snr=args.snr, quant=quant)
+        corrector_steps=args.corrector_steps, snr=args.snr, quant=quant,
+        deepcache=args.deepcache, deepcache_depth=args.deepcache_depth)
     if args.row_sizes:
         row_sizes = sorted({int(r) for r in args.row_sizes.split(",")})
         if row_sizes[0] < 1 or row_sizes[-1] > args.batch:
@@ -223,7 +231,8 @@ def build_server(args):
                              max_wait_ms=args.max_wait_ms, row_sizes=row_sizes)
     info = {
         "mode": args.mode, "sampler": args.sampler, "N": args.N,
-        "quant": args.quant or "none", "batch": args.batch,
+        "quant": args.quant or "none", "deepcache": args.deepcache,
+        "deepcache_depth": args.deepcache_depth, "batch": args.batch,
         "device": str(enhancer.device),
         "device_name": (torch.cuda.get_device_name(enhancer.device)
                         if enhancer.device.type == "cuda" else "cpu"),

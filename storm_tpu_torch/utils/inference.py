@@ -38,7 +38,7 @@ class BucketedEnhancer:
     last one row-padded with zeros to `minibatch`, so every call of a bucket
     has one shape (the reference's sgmse/model.py:210-222 chunking).
     `enhance_kwargs` go to `model.enhance` (N, predictor, corrector,
-    corrector_steps, snr, quant).
+    corrector_steps, snr, quant, deepcache, deepcache_depth).
     """
 
     def __init__(self, model, bucket_frames: int = 64, minibatch: Optional[int] = None,

@@ -3,7 +3,8 @@ in both directions (forward, and the gradient through `UpFirDn2d`), also at
 the serving path's batches and bucket widths, in float32 and bfloat16, the
 int8 quantizer in both product modes (codes identical) and the int8 conv
 built on it, and the fused bias + leaky ReLU (forward and gradient); the
-bfloat16 GroupNorm; and the dynamic batcher's pipelined path on the card.
+bfloat16 GroupNorm; the dynamic batcher's pipelined path on the card; and
+deep-feature caching through the kernels.
 
 Skips without a CUDA device. On a card, from the repository root:
 
@@ -506,3 +507,43 @@ def test_pipelined_batcher_on_the_card_equals_the_enhancer(cuda):
     for (x, n), w, row in zip(outs, waves, want):
         assert n == nfe == 5
         np.testing.assert_array_equal(x, row[: w.shape[0]])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("depth", [1, 2])
+def test_deepcache_on_the_card(cuda, dtype, depth):
+    """Deep-feature caching on the card, tiny StoRM (three levels): the
+    score net's shallow pass on its deep cache equals its forward exactly
+    (the same kernels on the same shapes), the cache is in the compute
+    dtype, and a dc2 + ald enhancement through the kernels equals the same
+    enhancement with plain upfirdn2d (cuDNN deterministic, same noise)."""
+    config = {"mode": "regen-joint-training", "nf": 16, "ch_mult": [1, 2, 2],
+              "init_scale": 1.0, "n_fft": 62, "hop_length": 16, "dtype": dtype}
+    model = build_model(config, device=cuda, seed=0)
+    net = model.score_net
+    gen = torch.Generator().manual_seed(0)
+    x = (0.5 * torch.randn(2, 3, 32, 64, 2, generator=gen)).to(cuda)
+    t = torch.tensor([0.3, 0.8], device=cuda)
+    with torch.no_grad(), model.cast_nets():
+        cache = net.deep_features(x, t, cache_depth=depth)
+        assert all(c.dtype == getattr(torch, dtype) for c in cache)
+        assert torch.equal(net.forward_shallow(x, t, cache, cache_depth=depth), net(x, t))
+
+    y = torch.from_numpy(np.sin(np.arange(2048) / 7.0).astype(np.float32)[None]).to(cuda)
+    torch.backends.cudnn.deterministic = True
+    try:
+        kup.upfirdn2d_cuda.launches = 0
+        got, nfe = model.enhance(y, N=4, corrector="ald", deepcache=2, deepcache_depth=depth,
+                                 generator=torch.Generator(device=cuda).manual_seed(1))
+        launched = kup.upfirdn2d_cuda.launches
+        with mock.patch.object(resample, "upfirdn2d", kup.upfirdn2d_plain):
+            want, _ = model.enhance(y, N=4, corrector="ald", deepcache=2, deepcache_depth=depth,
+                                    generator=torch.Generator(device=cuda).manual_seed(1))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    # 12 K1 calls per forward of a three-level net; depth 1: deep 11, shallow 1;
+    # depth 2: deep 8, shallow 7 (level 0's down resblock and pyramid rerun)
+    deep, shallow = {1: (11, 1), 2: (8, 7)}[depth]
+    assert nfe == 9 and launched == 12 + 2 * deep + 8 * shallow
+    scale = want.abs().max()
+    assert (got - want).abs().max() <= (1e-5 if dtype == "float32" else 1e-2) * scale

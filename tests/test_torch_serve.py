@@ -464,7 +464,7 @@ def test_batched_requests_equal_the_enhancer_on_the_same_batch(tiny_ckpt):
 
 @pytest.mark.parametrize("extra,item", [
     (["--dtype", "bfloat16", "--sampler", "ode"], "R3"), (["--sampler", "ode"], "R3"),
-    (["--deepcache", "3"], "R7"), (["--data_parallel"], "R7"), (["--seq_parallel", "2"], "R7")])
+    (["--data_parallel"], "R7"), (["--seq_parallel", "2"], "R7")])
 def test_unported_flags_raise(tiny_ckpt, extra, item):
     with pytest.raises(NotImplementedError, match=item):
         serve.build_server(_args(tiny_ckpt, *extra))
