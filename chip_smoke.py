@@ -182,6 +182,36 @@ Phases, each of which exits non-zero on failure:
 33. (with `--profile`) one dc3 bf16 enhancement of the 4 s file traced.
 34. (with `--profile`) one call at bench.py's defaults traced (B=16, 256
    frames, N=50 + ald, bf16, dc3), with int8 and without.
+35. `python -m storm_tpu_torch.enhancement --sampler ode` on phase 5's three
+   files at the CLI's defaults for it (etd2, N=50: 1 + 2 x 50 + 1 = 102
+   forwards per file) in float32, bf16 and `--quant int8 --dtype bfloat16`
+   (phase 19's scales, loaded): outputs finite and as long as the inputs,
+   per file exactly 18 x 102 upfirdn2d and, int8, 55 x 102 quantizer
+   launches; the RTF beside pc's (phases 5 and 19); every K1 shape and K3
+   input against plain. Then the 4 s file's float32 trajectory through the
+   kernels against the plain path (same prior, cuDNN deterministic), held to
+   1e-4 of the output's scale.
+36. every sampler at the 4 s bucket in bf16, N=10, through the CLI: euler,
+   heun, rk4, etd1, etd2, etd2-ms, etd2 with --deepcache 3, rk45 at the
+   CLI's tolerances, 1e-5 (its accepted and attempted steps), `--sampler picard
+   --sweeps 4` on the 1 s and 4 s files (its peak memory) and pc with the
+   etd predictor; K1 launches derived from N, the method and the module
+   list (rk45: from its loop's drift evaluations), not from the reported
+   NFE; K1 against plain at every shape (picard's 10-row calls included).
+37. the server with `--sampler ode` (etd2, N=10) at its bf16 default, then
+   with --deepcache 3, on phase 15's burst: replies 200 with X-NFE 22,
+   /healthz's sampler and ode_method, exact K1 launches per warm-up call and
+   batch, K1 against plain at every shape.
+38. streaming with `--sampler ode --N 10` on phase 16's 12 s file: 18 x 22
+   K1 launches per call of 8 chunks.
+39. `python -m storm_tpu_torch.evaluate --mode storm` on a test split of 8
+   pairs of 1-4 s beside phase 8's corpus (`--num_files 8 --batch 4 --N 10
+   --csv`), pc then `--sampler ode`, on phase 5's checkpoint: 8 CSV rows,
+   SI-SDR and ESTOI finite, PESQ NaN unless `pesq` imports, the mean +/- CI
+   lines, 18 x NFE K1 launches per enhancer call, each row's SI-SDR within
+   1e-4 dB of BucketedEnhancer's output for the same file, grouping and
+   seed (cuDNN deterministic); the metrics' host wall beside the
+   enhancement's.
 
 A profile's kernel times come from its device events, each counted once;
 shares are of the summed kernel time. The busy time is the union of the
@@ -201,6 +231,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import contextlib
+import csv
 import functools
 import http.client
 import io
@@ -219,10 +250,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from storm_tpu_torch import enhancement, serve, train
+from storm_tpu_torch import enhancement, evaluate, serve, train
 from storm_tpu_torch.backbones.ncsnpp import NCSNpp, count_parameters
 from storm_tpu_torch.ckpt import load_training_checkpoint, save_checkpoint
 from storm_tpu_torch.data.audio import load_wav, save_wav
+from storm_tpu_torch.data.datasets import Specs
 from storm_tpu_torch.kernels import build
 from storm_tpu_torch.kernels import fused_act as kfa
 from storm_tpu_torch.kernels import quant as kq
@@ -235,8 +267,10 @@ from storm_tpu_torch.nn import qconv, resample
 from storm_tpu_torch.nn.cast import cast_params
 from storm_tpu_torch.nn.init import reset_parameters
 from storm_tpu_torch.nn.layers import Combine, GroupNorm, ResnetBlockBigGANpp, group_norm
+from storm_tpu_torch.sampling import samplers
 from storm_tpu_torch.signal.transforms import pad_spec_amount
 from storm_tpu_torch.utils.inference import BucketedEnhancer
+from storm_tpu_torch.utils.metrics import si_sdr
 from storm_tpu_torch.utils.server import decode_wav_bytes, encode_wav_bytes
 from storm_tpu_torch.utils.serving import n_quantized, scale_cache_path
 
@@ -1594,11 +1628,12 @@ def http_call(host, port, method, path, body=None):
         conn.close()
 
 
-def run_server(what: str, args, waves):
+def run_server(what: str, args, waves, nfe: int = SERVE_NFE):
     """Build the server in this process, send `waves` from SERVE_CLIENTS
-    client threads, read /healthz and /stats, stop it. Returns a dict of what
-    was measured, with the kernels' launches from before the build (warm-up
-    and calibration included) and the shapes the kernels were given."""
+    client threads, read /healthz and /stats, stop it; every reply's X-NFE
+    must be `nfe`. Returns a dict of what was measured, with the kernels'
+    launches from before the build (warm-up and calibration included) and
+    the shapes the kernels were given."""
     kup.upfirdn2d_cuda.launches = kq.quantize_int8_cuda.launches = 0
     with shapes_recorded() as (k1_shapes, k3_shapes):
         t0 = time.perf_counter()
@@ -1628,7 +1663,7 @@ def run_server(what: str, args, waves):
         x, sr = decode_wav_bytes(payload)
         check(sr == SR and x.shape == (1, w.shape[-1]) and bool(np.isfinite(x).all()),
               f"{what}: reply of shape {x.shape} for {w.shape[-1]} samples")
-        check(int(headers["X-NFE"]) == SERVE_NFE, f"{what}: X-NFE {headers['X-NFE']}")
+        check(int(headers["X-NFE"]) == nfe, f"{what}: X-NFE {headers['X-NFE']}")
     n = len(waves)
     check(stats["requests"] == n and stats["errors"] == 0 and stats["batched_requests"] == n,
           f"{what}: /stats {stats}")
@@ -1637,7 +1672,7 @@ def run_server(what: str, args, waves):
     warmups = len(health["warmup_buckets_s"]) * len(health["row_sizes"])
     audio_s = sum(w.shape[-1] for w in waves) / SR
     print(f"  {what} on {health['device_name']} ({health['device']}), N={SERVE_N} "
-          f"({SERVE_NFE} NFE), row sizes {health['row_sizes']}, {warmups} warm-up calls; "
+          f"({nfe} NFE), row sizes {health['row_sizes']}, {warmups} warm-up calls; "
           f"built in {build_s:.2f} s", flush=True)
     print(f"  {what}: {n} requests ({audio_s:.3f} s of audio) from {SERVE_CLIENTS} clients in "
           f"{wall:.3f} s: {audio_s / wall:.4f} audio s served per wall s", flush=True)
@@ -2720,6 +2755,383 @@ def phase_profile_bench():
                      "int8 im2col (torch.stack)": (("CatArrayBatchedCopy<",), None)})
 
 
+# --- the probability-flow samplers and the test-set evaluation (phases 35-39)
+
+ODE_METHOD = "etd2"  # the CLI's default ODE method
+ODE_NFE = 1 + 2 * N_STEPS + 1  # the denoiser, 2 per step, the final denoising step: 102
+ODE_N = SERVE_N  # phases 36-39
+ODE_N_NFE = 1 + 2 * ODE_N + 1  # 22
+PER_STEP = {"euler": 1, "heun": 2, "rk4": 4, "etd1": 1}
+PICARD_SWEEPS = 4
+RK45_TOL = "1e-5"  # the CLI's default tolerances: 59 attempted steps on these weights
+TRAJECTORY_RTOL = 1e-4  # the f32 ODE through the kernels against plain, of the output's scale
+EVAL_BATCH = 4
+EVAL_SI_SDR_ATOL_DB = 1e-4
+
+
+@contextlib.contextmanager
+def calls_counted():
+    """While active, every `StochasticRegenerationModel.enhance` call adds
+    (its K1 launches, its K3 launches, the NFE it reports) to the yielded
+    list."""
+    per_call, original = [], StochasticRegenerationModel.enhance
+
+    def counted(model, *args, **kwargs):
+        before = (kup.upfirdn2d_cuda.launches, kq.quantize_int8_cuda.launches)
+        result = original(model, *args, **kwargs)
+        per_call.append((kup.upfirdn2d_cuda.launches - before[0],
+                         kq.quantize_int8_cuda.launches - before[1], int(result[1])))
+        return result
+
+    with mock.patch.object(StochasticRegenerationModel, "enhance", counted):
+        yield per_call
+
+
+def ode_dc_launches(n_steps: int = ODE_N) -> int:
+    """K1 launches of one B=1 etd2 call with --deepcache DC_K: the
+    denoiser, a deep pass at x(T) and at each refresh, one shallow pass per
+    evaluation (2 per step), and the final denoising step's full forward."""
+    return dc_call_launches(n_steps, 2)[0] + K1_PER_FORWARD
+
+
+def glob_wavs(directory: str):
+    return [os.path.join(directory, f) for f in os.listdir(directory) if f.endswith(".wav")]
+
+
+def phase_ode_cli(workdir: str, lengths, exact, gen: torch.Generator):
+    """Phase 35. `python -m storm_tpu_torch.enhancement --sampler ode` on phase
+    5's three files at the CLI's defaults for it (etd2, N=50: 102 forwards
+    per file) in float32, bf16 and --quant int8 --dtype bfloat16 (phase 19's
+    scales, loaded): outputs finite and of their lengths, per file exactly
+    18 x 102 K1 and, int8, 55 x 102 K3 launches, the RTF beside pc's (phases
+    5 and 19: `exact`), every K1 shape and K3 input against plain. Then the
+    4 s file's f32 trajectory through the kernels against the plain path,
+    same prior, cuDNN deterministic. Returns ({path: K1 launches}, {path: K3
+    launches}, K1's f32 and bf16 errors, K3's error)."""
+    ckpt = os.path.join(workdir, "storm.pt")
+    noisy = os.path.join(workdir, "noisy")
+    k1_paths, k3_paths, k1_shapes, k3_shapes = {}, {}, set(), set()
+    for config, dtype, extra in (
+            ("float32", torch.float32, []),
+            ("bfloat16", BF16, ["--dtype", "bfloat16"]),
+            ("int8_bfloat16", BF16, ["--dtype", "bfloat16", "--quant", "int8",
+                                     "--quant_min_channels", str(QUANT_MIN_CHANNELS)])):
+        out, outputs = os.path.join(workdir, f"enhanced_ode_{config}"), {}
+        kup.upfirdn2d_cuda.launches = kq.quantize_int8_cuda.launches = 0
+        with shapes_recorded() as (k1s, k3s), calls_counted() as per_call:
+            text = run_enhancement(["--test_dir", noisy, "--enhanced_dir", out, "--ckpt", ckpt,
+                                    "--mode", "storm", "--timeit", "--device", "cuda",
+                                    "--sampler", "ode", *extra], outputs)
+        check_outputs(out, lengths)
+        quant = "int8" in config
+        check(not quant or f"int8 scales loaded from {scale_cache_path(ckpt)}" in text,
+              f"{config}: the ODE run did not load phase 19's scales")
+        want = (K1_PER_FORWARD * ODE_NFE, N_QUANT * ODE_NFE if quant else 0, ODE_NFE)
+        path = f"enhancement_ode_{config}"
+        k1_paths[path], k3_paths[path] = (kup.upfirdn2d_cuda.launches,
+                                          kq.quantize_int8_cuda.launches)
+        rtf, (pc_rtf, pc_out) = rtf_of(text), exact[config]
+        rel = relative_to(outputs, pc_out)
+        for name in lengths:
+            print(f"  {config} ode {ODE_METHOD} N={N_STEPS} {name}: RTF {rtf[name]:.4f} against "
+                  f"pc {pc_rtf[name]:.4f} (N={N_STEPS} + ald, {NFE} NFE); max|ode - pc| / "
+                  f"max|pc| = {rel[name]:.4e} (random weights: a reading)", flush=True)
+        print(f"  {config} ode: (K1, K3, NFE) per file {per_call}, expected {want}", flush=True)
+        check(per_call == [want] * len(lengths), f"{config} ode: per file {per_call}")
+        check({s[-1] for s in k1s} == {dtype}, f"{config} ode gave upfirdn2d {k1s}")
+        k1_shapes |= k1s
+        k3_shapes |= k3s
+    check({(d, p) for _, d, p in k3_shapes} == {(BF16, BF16)},
+          f"the int8 bf16 ode run's quantizer inputs {k3_shapes}")
+    f32_err, bf16_err = (check_k1_at(f"the {what} ode CLI runs",
+                                     {s for s in k1_shapes if s[-1] == dtype}, gen)
+                         for what, dtype in (("float32", torch.float32), ("bf16", BF16)))
+    k3_err = check_k3_at("the int8 bf16 ode run", k3_shapes, gen)
+
+    # an ODE is deterministic past its prior draw: one whole trajectory of
+    # 102 forwards through the kernels against the plain path
+    model = build_model(STORM_CONFIG, device="cuda", seed=0)
+    name = max(lengths, key=lengths.get)
+    y = bucketed(load_wav(os.path.join(noisy, name))[0])
+    runs = []
+    torch.backends.cudnn.deterministic = True
+    try:
+        for plain in (False, True):
+            ctx = (mock.patch.object(resample, "upfirdn2d", kup.upfirdn2d_plain) if plain
+                   else contextlib.nullcontext())
+            with ctx:
+                runs.append(model.enhance(y, N=N_STEPS, sampler_type="ode", method=ODE_METHOD,
+                                          generator=torch.Generator(device="cuda").manual_seed(0)))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (got, nfe), (want, _) = runs
+    err, scale = (got - want).abs().max().item(), want.abs().max().item()
+    print(f"  f32 ode {ODE_METHOD} trajectory ({name}, {nfe} forwards) through the kernels "
+          f"against plain: max abs err {err:.3e} (scale {scale:.3e}, "
+          f"{err / scale:.3e} of it)", flush=True)
+    check(nfe == ODE_NFE and err <= TRAJECTORY_RTOL * scale,
+          f"the f32 ODE trajectory through the kernels parts from plain by {err:.3e}")
+    del model
+    torch.cuda.empty_cache()
+    return k1_paths, k3_paths, max(f32_err, err), bf16_err, k3_err
+
+
+def phase_ode_methods(workdir: str, gen: torch.Generator):
+    """Phase 36. Every sampler of the CLI at the 4 s bucket in bf16, N=10, one
+    file a call: the fixed-step ODE methods, etd2 with --deepcache 3, rk45
+    (its accepted and attempted steps counted in the loop), picard
+    (--sweeps 4; the 1 s and 4 s files, its peak memory) and pc with the etd
+    predictor. K1 launches per call derived from N, the method and the
+    module list, or for rk45 from the drift evaluations counted in the
+    loop, not from the NFE the run reports; the reported NFE held to its
+    own count (the forwards, less deepcache's refreshes, which it does not
+    count); K1 against plain at every shape. Returns ({path: K1 launches},
+    K1's error)."""
+    ckpt = os.path.join(workdir, "storm.pt")
+    dirs = {s: os.path.join(workdir, f"ode_{s:.0f}s") for s in (1.0, 4.0)}
+    for s, d in dirs.items():
+        write_named_wavs(d, (s,), "ode", seed=6)
+    base = ["--ckpt", ckpt, "--mode", "storm", "--timeit", "--device", "cuda", "--dtype",
+            "bfloat16", "--N", str(ODE_N)]
+    ode = ["--sampler", "ode", "--ode-method"]
+    def forwards(n):  # (K1 launches, NFE) of n full forwards
+        return K1_PER_FORWARD * n, n
+
+    # (path, seconds, flags, K1 launches, NFE); None: rk45's, from its loop
+    cases = [(f"ode_{m}", 4.0, ode + [m], *forwards(1 + ODE_N * k + 1))
+             for m, k in PER_STEP.items()]
+    cases += [("ode_etd2", 4.0, ode + ["etd2"], *forwards(ODE_N_NFE)),
+              ("ode_etd2-ms", 4.0, ode + ["etd2-ms"], *forwards(1 + ODE_N + 1 + 1)),
+              ("ode_etd2_dc3", 4.0, ode + ["etd2", "--deepcache", str(DC_K)], ode_dc_launches(),
+               ODE_N_NFE),
+              ("ode_rk45", 4.0, ode + ["rk45", "--rtol", RK45_TOL, "--atol", RK45_TOL], None,
+               None),
+              ("pc_etd", 4.0, ["--predictor", "etd"], *forwards(1 + 2 * ODE_N))]
+    # one wide forward per sweep: the NFE counts each sweep's N grid points
+    cases += [(f"picard_{s:.0f}s", s, ["--sampler", "picard", "--sweeps", str(PICARD_SWEEPS)],
+               K1_PER_FORWARD * (PICARD_SWEEPS + 2), 1 + PICARD_SWEEPS * ODE_N + 1)
+              for s in (1.0, 4.0)]
+    real_dopri = samplers.dopri45_integrate
+    loops = []
+
+    def dopri_counted(drift_fn, x0, t0, t1, **kw):
+        evals = [0]
+
+        def drift(x, t):
+            evals[0] += 1
+            return drift_fn(x, t)
+
+        result = real_dopri(drift, x0, t0, t1, **kw)
+        loops.append((evals[0], result[2]))
+        return result
+
+    k1_paths, shapes = {}, set()
+    for path, seconds, flags, want, want_nfe in cases:
+        out = os.path.join(workdir, f"enhanced_{path}")
+        kup.upfirdn2d_cuda.launches = 0
+        loops.clear()
+        torch.cuda.reset_peak_memory_stats()
+        with shapes_recorded() as (k1s, _), calls_counted() as per_call, \
+                mock.patch.object(samplers, "dopri45_integrate", dopri_counted):
+            text = run_enhancement(["--test_dir", dirs[seconds], "--enhanced_dir", out, *base,
+                                    *flags])
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check_outputs(out, {os.path.basename(f): load_wav(f)[0].shape[-1]
+                            for f in sorted(glob_wavs(dirs[seconds]))})
+        extra = ""
+        if want is None:  # rk45: from the drift evaluations counted in its loop
+            (evals, accepted), = loops
+            attempted = (evals - 2) // 6
+            want, want_nfe = forwards(1 + evals + 1)
+            extra = (f"; rtol = atol = {RK45_TOL}: {accepted} accepted of {attempted} attempted "
+                     f"steps, {evals} drift evaluations")
+            check(evals == 2 + 6 * attempted and accepted <= attempted,
+                  f"{path}: {evals} evaluations, {accepted} accepted")
+        (k1, _, nfe), = per_call
+        rtf = list(rtf_of(text).values())[0]
+        print(f"  {path} ({seconds:.0f} s, bf16, N={ODE_N}): RTF {rtf:.4f}, NFE {nfe} "
+              f"(expected {want_nfe}), K1 launches {k1} (expected {want}), peak memory "
+              f"{peak:.2f} GiB{extra}", flush=True)
+        check(k1 == want, f"{path}: K1 launched {k1}, expected {want}")
+        check(nfe == want_nfe, f"{path}: NFE {nfe}, expected {want_nfe}")
+        check({s[-1] for s in k1s} == {BF16}, f"{path} gave upfirdn2d {k1s}")
+        k1_paths[f"{path}_bf16"] = k1
+        shapes |= k1s
+    rows = sorted({s[1] for s in shapes})
+    check(ODE_N in rows, f"picard gave upfirdn2d no {ODE_N}-row call: {rows}")
+    return k1_paths, check_k1_at("the sampler runs", shapes, gen)
+
+
+def phase_ode_server(workdir: str, gen: torch.Generator):
+    """Phase 37. The server with --sampler ode (etd2, N=10) at its default
+    dtype, bf16, then with --deepcache 3, on phase 15's burst: every reply
+    200 with X-NFE 22, /healthz's sampler and ode_method, exact K1 launches
+    per warm-up call and batch, K1 against plain at every shape. Returns
+    ({path: K1 launches}, K1's error)."""
+    rng = np.random.default_rng(4)
+    waves = [synth_wav(s, i, rng) for i, s in enumerate(SERVE_SECONDS)]
+    ckpt = os.path.join(workdir, "storm.pt")
+    k1_paths, shapes = {}, set()
+    for path, extra, per_call in (
+            ("server_ode_bf16", [], K1_PER_FORWARD * ODE_N_NFE),
+            ("server_ode_dc3_bf16", ["--deepcache", str(DC_K)], ode_dc_launches())):
+        r = run_server(path, serve_args(ckpt, "--sampler", "ode", *extra), waves, nfe=ODE_N_NFE)
+        health = r["health"]
+        check((health["sampler"], health["ode_method"]) == ("ode", ODE_METHOD),
+              f"{path}: /healthz reports {health.get('sampler')}, {health.get('ode_method')}")
+        calls = r["warmups"] + r["stats"]["batches"]
+        rows = sorted({s[1] for s in r["k1_shapes"]})
+        want = per_call * calls
+        print(f"  {path}: upfirdn2d launches {r['k1']}, expected {per_call} x ({r['warmups']} "
+              f"warm-up + {r['stats']['batches']} batches) = {want}; batch rows {rows}",
+              flush=True)
+        check(r["k1"] == want and r["k3"] == 0, f"{path}: launches {r['k1']}, {r['k3']}")
+        check({s[-1] for s in r["k1_shapes"]} == {BF16}, f"{path} ran upfirdn2d in float32")
+        k1_paths[path] = r["k1"]
+        shapes |= r["k1_shapes"]
+    return k1_paths, check_k1_at("the ode servers", shapes, gen)
+
+
+def phase_ode_streaming(workdir: str, gen: torch.Generator):
+    """Phase 38. Streaming with --sampler ode --N 10 on phase 16's 12 s file
+    (float32, the checkpoint's): per call of 8 chunks exactly 18 x 22 K1
+    launches. Returns (K1 launches, K1's error)."""
+    ckpt = os.path.join(workdir, "storm.pt")
+    noisy, out = os.path.join(workdir, "stream_noisy"), os.path.join(workdir, "stream_ode")
+    lengths = {os.path.basename(f): load_wav(f)[0].shape[-1] for f in glob_wavs(noisy)}
+    T = next(iter(lengths.values()))
+    chunk = -(-int(STREAM_CHUNK_S * SR) // BUCKET) * BUCKET
+    overlap = int(STREAM_OVERLAP_S * SR)
+    calls = -(-len(range(0, T - overlap, chunk - overlap)) // STREAM_ROWS)
+    kup.upfirdn2d_cuda.launches = 0
+    with shapes_recorded() as (k1s, _), calls_counted() as per_call:
+        text = run_enhancement(["--test_dir", noisy, "--enhanced_dir", out, "--ckpt", ckpt,
+                                "--mode", "storm", "--N", str(ODE_N), "--sampler", "ode",
+                                "--stream_chunk_s", str(STREAM_CHUNK_S), "--stream_overlap_s",
+                                str(STREAM_OVERLAP_S), "--timeit", "--device", "cuda"])
+    launches = kup.upfirdn2d_cuda.launches
+    check_outputs(out, lengths)
+    want = [(K1_PER_FORWARD * ODE_N_NFE, 0, ODE_N_NFE)] * calls
+    print(f"  streaming ode: RTF {list(rtf_of(text).values())}; (K1, K3, NFE) per call of "
+          f"{STREAM_ROWS} chunks {per_call}, expected {want[0]} x {calls}", flush=True)
+    check(per_call == want, f"streaming ode: per call {per_call}")
+    return launches, check_k1_at("streaming ode", k1s, gen)
+
+
+def write_test_split(corpus: str):
+    """`tt` of the wsj0 layout beside phase 8's corpus: pairs at
+    BATCH_SECONDS (two buckets of four), {name: samples}."""
+    rng = np.random.default_rng(7)
+    for kind in ("clean", "noisy"):
+        os.makedirs(os.path.join(corpus, "tt", kind))
+    for i, s in enumerate(BATCH_SECONDS):
+        clean = synth_wav(s, i, rng)
+        noisy = clean + 0.1 * rng.standard_normal(clean.shape[-1]).astype(np.float32)
+        save_wav(os.path.join(corpus, "tt", "clean", f"t{i:02d}.wav"), clean, SR)
+        save_wav(os.path.join(corpus, "tt", "noisy", f"t{i:02d}.wav"), noisy, SR)
+
+
+def served_si_sdr(model, corpus: str, sampler: str):
+    """{file: SI-SDR} of the test split enhanced through BucketedEnhancer as
+    the evaluation CLI groups it: by padded length, shortest bucket first,
+    EVAL_BATCH rows a call, one generator seeded with 0."""
+    test_set = Specs(corpus, "test")
+    kw = dict(sampler_type="ode", method=ODE_METHOD) if sampler == "ode" else {}
+    enh = BucketedEnhancer(model, minibatch=EVAL_BATCH, N=ODE_N, corrector="ald", **kw)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    items = [test_set.__getitem__(i, raw=True) for i in range(len(test_set))]
+    groups = {}
+    for i, (_, y) in enumerate(items):
+        groups.setdefault(enh.padded_len(y.shape[-1]), []).append(i)
+    scores = {}
+    for L, idxs in sorted(groups.items()):
+        for s in range(0, len(idxs), EVAL_BATCH):
+            group = idxs[s: s + EVAL_BATCH]
+            ys = np.stack([np.pad(items[i][1][0], (0, L - items[i][1].shape[-1])) for i in group])
+            x_hats, _ = enh(ys, gen)
+            for j, i in enumerate(group):
+                scores[os.path.basename(test_set.clean_files[i])] = si_sdr(
+                    items[i][0][0], x_hats[j][: items[i][1].shape[-1]])
+    return scores
+
+
+def phase_evaluate(workdir: str):
+    """Phase 39. `python -m storm_tpu_torch.evaluate --mode storm` on a test
+    split of 8 pairs beside phase 8's corpus, --batch 4 --N 10 --csv, with
+    pc and then --sampler ode, on phase 5's checkpoint: 8 CSV rows, SI-SDR
+    and ESTOI finite, PESQ NaN unless `pesq` imports, the mean +/- CI
+    lines; exactly 18 x NFE K1 launches per enhancer call; each row's
+    SI-SDR that of BucketedEnhancer's output for the same file, grouping
+    and seed (cuDNN deterministic); the metrics' wall time beside the
+    enhancement's. Returns {path: K1 launches}."""
+    corpus = os.path.join(workdir, "train", "corpus")
+    write_test_split(corpus)
+    ckpt = os.path.join(workdir, "storm.pt")
+    model = build_model(STORM_CONFIG, device="cuda", seed=0)
+    k1_paths = {}
+    timers = {"enhance": 0.0, "metrics": 0.0}
+
+    def timed(kind, fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                timers[kind] += time.perf_counter() - t0
+        return run
+
+    real_call = BucketedEnhancer.__call__
+    torch.backends.cudnn.deterministic = True
+    try:
+        for sampler, nfe in (("pc", 1 + 2 * ODE_N), ("ode", ODE_N_NFE)):
+            out_csv = os.path.join(workdir, f"evaluate_{sampler}.csv")
+            timers.update(enhance=0.0, metrics=0.0)
+            kup.upfirdn2d_cuda.launches = 0
+            with calls_counted() as per_call, \
+                    mock.patch.object(BucketedEnhancer, "__call__", timed("enhance", real_call)), \
+                    mock.patch.object(evaluate, "pesq_wb", timed("metrics", evaluate.pesq_wb)), \
+                    mock.patch.object(evaluate, "si_sdr", timed("metrics", evaluate.si_sdr)), \
+                    mock.patch.object(evaluate, "stoi", timed("metrics", evaluate.stoi)):
+                t0 = time.perf_counter()
+                text = captured(evaluate.main, [
+                    "--ckpt", ckpt, "--mode", "storm", "--base_dir", corpus, "--num_files",
+                    str(len(BATCH_SECONDS)), "--batch", str(EVAL_BATCH), "--N", str(ODE_N),
+                    "--csv", out_csv, "--sampler", sampler, "--device", "cuda"])[1]
+                wall = time.perf_counter() - t0
+            # read before served_si_sdr's own enhancer calls launch K1 again
+            k1_paths[f"evaluate_{sampler}"] = kup.upfirdn2d_cuda.launches
+            with open(out_csv) as f:
+                rows = list(csv.DictReader(f))
+            check(len(rows) == len(BATCH_SECONDS), f"evaluate {sampler}: {len(rows)} CSV rows")
+            check(all(np.isfinite(float(r["si_sdr"])) and np.isfinite(float(r["estoi"]))
+                      for r in rows), f"evaluate {sampler}: metrics not finite: {rows}")
+            check(all(np.isnan(float(r["pesq"])) != pesq_available() for r in rows),
+                  f"evaluate {sampler}: PESQ {[r['pesq'] for r in rows]}")
+            check("--- mean +/- 95% CI ---" in text and all(
+                re.search(rf"^{m}: \S+ \+/- \S+$", text, re.M) for m in ("pesq", "si_sdr", "estoi")),
+                f"evaluate {sampler}: no mean +/- CI lines")
+            check(len(per_call) == 2 and all(k1 == K1_PER_FORWARD * n and n == nfe
+                                             for k1, _, n in per_call)
+                  and k1_paths[f"evaluate_{sampler}"] == sum(k1 for k1, _, _ in per_call),
+                  f"evaluate {sampler}: (K1, K3, NFE) per call {per_call}, K1 in all "
+                  f"{k1_paths[f'evaluate_{sampler}']}")
+            served = served_si_sdr(model, corpus, sampler)
+            diffs = {r["file"]: abs(float(r["si_sdr"]) - served[r["file"]]) for r in rows}
+            print(f"  evaluate --sampler {sampler}: {len(rows)} rows in {wall:.2f} s wall "
+                  f"(enhancement {timers['enhance']:.2f} s, metrics on the host "
+                  f"{timers['metrics']:.2f} s); (K1, K3, NFE) per call {per_call}; "
+                  f"mean SI-SDR {np.mean([float(r['si_sdr']) for r in rows]):.3f} dB, ESTOI "
+                  f"{np.mean([float(r['estoi']) for r in rows]):.4f}; |CSV SI-SDR - served| "
+                  f"up to {max(diffs.values()):.2e} dB", flush=True)
+            check(max(diffs.values()) <= EVAL_SI_SDR_ATOL_DB,
+                  f"evaluate {sampler}: SI-SDR parts from the enhancer's by {diffs}")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    del model
+    torch.cuda.empty_cache()
+    return k1_paths
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -2889,6 +3301,25 @@ def main():
                   "int8)", flush=True)
             phase_profile_bench()
 
+        print(f"== phase 35: the ODE CLI (--sampler ode: {ODE_METHOD}, N={N_STEPS}) in float32, "
+              "bf16 and int8 + bf16", flush=True)
+        ode_k1, ode_k3, ode_err, ode_bf16_err, ode_k3_err = phase_ode_cli(
+            workdir, lengths, {"float32": (f32_rtf, f32_outputs), **bf16_exact}, gen)
+
+        print(f"== phase 36: every sampler at the 4 s bucket in bf16, N={ODE_N}", flush=True)
+        methods_k1, methods_err = phase_ode_methods(workdir, gen)
+
+        print(f"== phase 37: the server with --sampler ode (bf16, then --deepcache {DC_K})",
+              flush=True)
+        ode_srv_k1, ode_srv_err = phase_ode_server(workdir, gen)
+
+        print(f"== phase 38: streaming with --sampler ode --N {ODE_N}", flush=True)
+        ode_stream_k1, ode_stream_err = phase_ode_streaming(workdir, gen)
+
+        print("== phase 39: python -m storm_tpu_torch.evaluate (pc, then --sampler ode)",
+              flush=True)
+        eval_k1 = phase_evaluate(workdir)
+
     def entry(name, source, replaces, per_shape_ms, calls, err, launches, work, **extra):
         keys = ("ms", "device_ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms")
         total = {k: sum(per_shape_ms[c][k] for c in calls) if k in per_shape_ms[calls[0]]
@@ -2917,11 +3348,20 @@ def main():
         by_path.update({k: v for k, v in launched.items() if "float32" not in k})
     dc_k1_bf16_err = max(dc_cli_bf16_err, dc_srv_err, bench_err)
     dc_k3_err = max(dc_cli_k3_err, dc_srv_k3_err, bench_k3_err)
+    # the probability-flow samplers and the evaluation (phases 35-39)
+    k1_by_path.update({"enhancement_ode_float32": ode_k1["enhancement_ode_float32"],
+                       "streaming_ode": ode_stream_k1, **eval_k1})
+    k1_bf16_by_path.update({k: v for k, v in ode_k1.items() if "float32" not in k})
+    k1_bf16_by_path.update({**methods_k1, **ode_srv_k1})
+    k3_bf16_by_path["enhancement_ode_int8_bfloat16"] = ode_k3["enhancement_ode_int8_bfloat16"]
+    ode_k1_err = max(ode_err, ode_stream_err)
+    ode_k1_bf16_err = max(ode_bf16_err, methods_err, ode_srv_err)
     k1_src = "storm_tpu_torch/csrc/upfirdn2d.cu"
     no_library = "no single PyTorch call computes this function"
     record = {"kernels": [
         entry("upfirdn2d", k1_src, "storm_tpu/kernels/upfirdn.py:139", per_shape, k1_calls(6),
-              max(max_err, train_fwd_err, batch_err, serve_err, stream_err, dc_cli_err),
+              max(max_err, train_fwd_err, batch_err, serve_err, stream_err, dc_cli_err,
+                  ode_k1_err),
               sum(k1_by_path.values()),
               f"the 18 calls of one full-width score-net forward, B=1, 256 x {FRAMES}",
               launches_by_path=k1_by_path),
@@ -2946,7 +3386,7 @@ def main():
          "library": no_library},
         entry("upfirdn2d_bf16", k1_src, "storm_tpu/kernels/upfirdn.py:139", bf16_shape,
               k1_calls(6), max(bf16_err, bf16_cli_err, bf16_serve_err, bf16_stream_err,
-                                dc_k1_bf16_err),
+                                dc_k1_bf16_err, ode_k1_bf16_err),
               sum(k1_bf16_by_path.values()),
               f"the 18 calls of one full-width score-net forward, B=1, 256 x {FRAMES}, "
               f"bfloat16 in and out", launches_by_path=k1_bf16_by_path,
@@ -2976,7 +3416,8 @@ def main():
          "grad_bias_ulps_of_scale": k2_bf16["grad_bias_ulps_of_scale"]},
         entry("quantize_int8_bf16_product", "storm_tpu_torch/csrc/quantize_int8.cu",
               "scripts/perf_fusion_probe.py:88", k3b_shape, k3b_calls,
-              max(k3b_err, bf16_serve_k3_err, dc_k3_err), sum(k3_bf16_by_path.values()),
+              max(k3b_err, bf16_serve_k3_err, dc_k3_err, ode_k3_err),
+              sum(k3_bf16_by_path.values()),
               f"the {N_QUANT} quantized-conv inputs of one full-width score-net forward, "
               f"B=1, 256 x {FRAMES}, bfloat16, the product in bfloat16", library=no_library,
               launches_by_path=k3_bf16_by_path),

@@ -1,7 +1,8 @@
-"""SpecsDataModule, fit stage (counterpart of storm_tpu/data/datamodule.py).
+"""SpecsDataModule (counterpart of storm_tpu/data/datamodule.py).
 
-Owns the data settings, the training and validation datasets and their
-loaders. The test stage (and the test set's metrics) is ROADMAP R5.
+Owns the data settings, the training, validation and test datasets and
+their loaders; `SpecsAndTranscriptionsDataModule` is the TIMIT test set with
+transcripts, for the evaluation's WER.
 """
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ from typing import Optional
 
 import numpy as np
 
-from .datasets import Specs
+from .datasets import Specs, SpecsAndTranscriptions
 from .loader import DataLoader
 
 
@@ -29,17 +30,21 @@ class SpecsDataModule:
     def __post_init__(self):
         self.train_set: Optional[Specs] = None
         self.valid_set: Optional[Specs] = None
+        self.test_set: Optional[Specs] = None
         self._train_loader: Optional[DataLoader] = None
 
-    def setup(self, stage: str = "fit") -> None:
-        if stage != "fit":
-            raise NotImplementedError(f"stage {stage!r}: only 'fit' is ported (ROADMAP R5)")
+    def setup(self, stage: Optional[str] = None) -> None:
+        """"fit": the training and validation sets; "test": the test set;
+        None: all three."""
         kwargs = dict(num_frames=self.num_frames, format=self.format,
                       hop_length=self.hop_length, spatial_channels=self.spatial_channels,
                       dummy=self.dummy)
-        self.train_set = Specs(self.base_dir, "train", shuffle_spec=True,
-                               rng=np.random.default_rng(self.seed), **kwargs)
-        self.valid_set = Specs(self.base_dir, "valid", shuffle_spec=False, **kwargs)
+        if stage in ("fit", None):
+            self.train_set = Specs(self.base_dir, "train", shuffle_spec=True,
+                                   rng=np.random.default_rng(self.seed), **kwargs)
+            self.valid_set = Specs(self.base_dir, "valid", shuffle_spec=False, **kwargs)
+        if stage in ("test", None):
+            self.test_set = Specs(self.base_dir, "test", shuffle_spec=False, **kwargs)
 
     def train_dataloader(self) -> DataLoader:
         """One loader for the run, shuffled by (seed, epoch)."""
@@ -53,3 +58,19 @@ class SpecsDataModule:
         """Every validation file in order; the last batch may be short."""
         return DataLoader(self.valid_set, batch_size=self.batch_size, shuffle=False,
                           drop_last=False, num_workers=self.num_workers)
+
+    def test_dataloader(self) -> DataLoader:
+        """Every test file in order; the last batch may be short."""
+        return DataLoader(self.test_set, batch_size=self.batch_size, shuffle=False,
+                          drop_last=False, num_workers=self.num_workers)
+
+
+@dataclasses.dataclass
+class SpecsAndTranscriptionsDataModule(SpecsDataModule):
+    """The TIMIT test set with its transcripts; test only."""
+
+    def setup(self, stage: Optional[str] = None) -> None:
+        if stage == "fit":
+            raise NotImplementedError("SpecsAndTranscriptionsDataModule has a test set only")
+        self.test_set = SpecsAndTranscriptions(self.base_dir, "test", num_frames=self.num_frames,
+                                               hop_length=self.hop_length, dummy=self.dummy)

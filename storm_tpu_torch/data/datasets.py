@@ -116,3 +116,25 @@ class Specs:
         if self.format == "vctk":
             return len(self.clean_files) // 2
         return len(self.clean_files)
+
+
+class SpecsAndTranscriptions(Specs):
+    """The TIMIT test layout with transcripts: `ds[i]` (and the raw item)
+    is (x, y, transcript), the transcript without its first two tokens (the
+    sample indices TIMIT's .txt files start with)."""
+
+    def __init__(self, data_dir: str, subset: str, **kwargs):
+        super().__init__(data_dir, subset, format="timit", **kwargs)
+        self.transcriptions = sorted(
+            glob(join(data_dir, "transcriptions", _SUBSET_DIRS[subset]) + "/*.txt"))
+
+    def __getitem__(self, i: int, raw: bool = False):
+        x, y = super().__getitem__(i, raw=raw)
+        with open(self.transcriptions[i], "r") as f:
+            transcription = f.read()
+        return x, y, " ".join(transcription.split(" ")[2:])
+
+    def __len__(self) -> int:
+        if self.dummy:
+            return int(len(self.clean_files) / 10)
+        return len(self.clean_files)

@@ -3,9 +3,13 @@
     python -m storm_tpu_torch.enhancement --test_dir noisy/ --enhanced_dir out/ \\
         --ckpt model.pt --mode storm [--batch 4] [--stream_chunk_s 2.0] [--device cuda]
 
-Flags and defaults are those of the reference CLI for `--mode storm
---sampler pc`: reverse diffusion with the ald corrector, one corrector step,
-snr 0.5, N=50, EMA weights unless `--no-ema`. Every file goes through
+Flags and defaults are those of the reference CLI for `--mode storm`:
+`--sampler pc` with reverse diffusion and the ald corrector, one corrector
+step, snr 0.5, N=50, EMA weights unless `--no-ema`. `--sampler ode`
+integrates the probability-flow ODE with `--ode-method` (default etd2, 2N +
+1 score evaluations; rk45 is adaptive under `--rtol` / `--atol` and ignores
+N); `--sampler picard` runs `--sweeps` Picard sweeps of it, each one
+score-net call on N rows per file. Every file goes through
 `BucketedEnhancer`, zero-padded to a multiple of 64 hops as the reference
 pads it, with noise from one torch.Generator seeded with 0.
 
@@ -22,7 +26,8 @@ float32.
 
 `--quant int8` serves W8A8: activation scales are calibrated on the first 4
 files (cut to one chunk in streaming mode; noise from a generator of its
-own, seeded with 1, so serving draws the same noise as without it) and cached
+own, seeded with 1, so serving draws the same noise as without it; always
+on the pc trajectory, whatever the sampler served) and cached
 beside the checkpoint as `<ckpt>.quant_int8_scales.json`; the convs with at
 least `--quant_min_channels` input and output channels then run on the int8
 path.
@@ -30,8 +35,9 @@ path.
 `--deepcache K` refreshes the score net's deep U-Net features every K
 sampler steps and recomputes only the top `--deepcache_depth` levels per
 score evaluation (DeepCache-style, arXiv:2312.00858); 0, the default, is the
-exact trajectory. It works with `--batch`, streaming, `--quant int8` and
-`--dtype bfloat16`; int8 calibration runs the exact trajectory either way.
+exact trajectory. It works with `--sampler pc` and `ode` (not etd2-ms or
+rk45), `--batch`, streaming, `--quant int8` and `--dtype bfloat16`; int8
+calibration runs the exact trajectory either way.
 """
 from __future__ import annotations
 
@@ -46,9 +52,10 @@ import torch
 
 from .ckpt import load_checkpoint
 from .data.audio import load_wav, save_wav, wav_info
-from .models.factory import STORM_MODES, build_model
+from .models.factory import SERVING_MODES, STORM_MODES, build_model, refuse_unported_mode
 from .sampling.correctors import CORRECTORS
 from .sampling.predictors import PREDICTORS
+from .sampling.samplers import ODE_METHODS
 from .utils.inference import BucketedEnhancer
 from .utils.serving import calibrate_or_load_scales
 from .utils.streaming import stream_enhance
@@ -64,14 +71,29 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="Where to write the cleaned files.")
     p.add_argument("--ckpt", type=str, required=True,
                    help="Checkpoint file (.pt, storm_tpu_torch.ckpt).")
-    p.add_argument("--mode", required=True, choices=["storm"])
-    p.add_argument("--sampler", type=str, choices=("pc",), default="pc")
+    p.add_argument("--mode", required=True, choices=SERVING_MODES,
+                   help="storm; the other modes are not ported yet (ROADMAP R3)")
+    p.add_argument("--sampler", type=str, choices=("pc", "ode", "picard"), default="pc",
+                   help="pc: predictor-corrector (the reference's default); ode: the "
+                        "deterministic probability-flow integrator (--ode-method); picard: "
+                        "parallel-in-time probability flow (--sweeps)")
     p.add_argument("--predictor", type=str, default="reverse_diffusion",
-                   choices=tuple(PREDICTORS))
+                   choices=tuple(PREDICTORS),
+                   help="pc sampler predictor; etd integrates the OUVE linear drift exactly")
     p.add_argument("--corrector", type=str, default="ald", choices=tuple(CORRECTORS))
     p.add_argument("--corrector-steps", dest="corrector_steps", type=int, default=1)
     p.add_argument("--snr", type=float, default=0.5)
     p.add_argument("--N", type=int, default=50)
+    p.add_argument("--ode-method", dest="ode_method", type=str, default="etd2",
+                   choices=ODE_METHODS,
+                   help="integrator for --sampler ode; rk45 is the adaptive Dormand-Prince "
+                        "pair (scipy's RK45 controller): it chooses its own steps from "
+                        "--rtol/--atol and ignores --N")
+    p.add_argument("--rtol", type=float, default=1e-5,
+                   help="relative tolerance for --ode-method rk45")
+    p.add_argument("--atol", type=float, default=1e-5,
+                   help="absolute tolerance for --ode-method rk45")
+    p.add_argument("--sweeps", type=int, default=8, help="Picard sweeps for --sampler picard")
     p.add_argument("--no-ema", action="store_true",
                    help="use raw instead of EMA parameters")
     p.add_argument("--dtype", default="checkpoint", choices=("checkpoint", "float32", "bfloat16"),
@@ -98,7 +120,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="int8 coverage threshold: convs whose in AND out channel counts are "
                         ">= this run int8; smaller (quality-critical) convs stay float32")
     p.add_argument("--deepcache", type=int, default=0,
-                   help="deep-feature cache refresh interval for the pc sampler "
+                   help="deep-feature cache refresh interval for the pc/ode samplers "
                         "(DeepCache-style, arXiv:2312.00858): refresh the score net's deep "
                         "U-Net features every K steps and recompute only the top levels per "
                         "score eval. 0 = off (exact reference trajectory); quality vs K "
@@ -113,6 +135,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = parse_args(argv)
+    refuse_unported_mode(args.mode)
     device = torch.device(args.device)
     config, params, ema_params = load_checkpoint(args.ckpt)
     if config.get("mode", "regen-joint-training") not in STORM_MODES:
@@ -153,8 +176,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     enhancer = BucketedEnhancer(
         model, minibatch=args.batch if args.batch > 1 else None,
         data_parallel=args.data_parallel, seq_parallel=args.seq_parallel, N=args.N,
-        predictor=args.predictor, corrector=args.corrector,
-        corrector_steps=args.corrector_steps, snr=args.snr, quant=quant,
+        sampler_type=args.sampler, predictor=args.predictor, corrector=args.corrector,
+        corrector_steps=args.corrector_steps, snr=args.snr, method=args.ode_method,
+        rtol=args.rtol, atol=args.atol, sweeps=args.sweeps, quant=quant,
         deepcache=args.deepcache, deepcache_depth=args.deepcache_depth)
     gen = torch.Generator(device=device).manual_seed(0)
 

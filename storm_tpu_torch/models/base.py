@@ -14,6 +14,7 @@ from typing import Callable, Dict, Iterator, Optional, Tuple
 import torch
 from torch import nn
 
+from ..sampling.samplers import check_deepcache_method
 from ..signal.stft import STFTConfig, istft_real, stft_real
 from ..signal.transforms import SpecTransform, pad_spec
 
@@ -82,10 +83,11 @@ def make_deepcache_fns(net: nn.Module, pack_input: Callable, cache_depth: int):
 
 
 def check_deepcache_config(net: Optional[nn.Module], deepcache: int, sampler_type: str,
-                           cache_depth: Optional[int] = None) -> None:
+                           cache_depth: Optional[int] = None,
+                           method: Optional[str] = None) -> None:
     """Refuse a deepcache request the model cannot serve, with the
     reference's messages; with `cache_depth`, also one the net has no such
-    level for."""
+    level for, and with `method`, an ODE method the cache cannot serve."""
     if deepcache < 0:
         raise ValueError(f"deepcache must be >= 0, got {deepcache}")
     if sampler_type not in ("pc", "ode"):
@@ -99,6 +101,8 @@ def check_deepcache_config(net: Optional[nn.Module], deepcache: int, sampler_typ
             "deepcache requires an NCSN++-family (2-D U-Net) backbone; "
             f"{type(net).__name__} does not support the cache split"
         )
+    if sampler_type == "ode" and method is not None:
+        check_deepcache_method(method)
     if net is not None and cache_depth is not None:
         net.check_cache_depth(cache_depth)
 

@@ -23,6 +23,14 @@ from .storm import CONDITION_CHANNELS, STORM_MODES, StochasticRegenerationModel
 TRAINING_KEYS = ("lr", "ema_decay", "loss_type_denoiser", "loss_type_score",
                  "weighting_denoiser_to_score")
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}  # the config's `dtype`
+# --mode of the serving entry points, as the reference offers it
+SERVING_MODES = ("score-only", "denoiser-only", "storm", "distill")
+
+
+def refuse_unported_mode(mode: str) -> None:
+    """Only `--mode storm` is served; the others raise, naming their item."""
+    if mode != "storm":
+        raise NotImplementedError(f"--mode {mode} is not ported yet (ROADMAP R3)")
 
 
 def resolve_device(device) -> torch.device:

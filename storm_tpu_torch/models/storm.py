@@ -22,7 +22,8 @@ from torch import nn
 
 from ..nn.cast import cast_params
 from ..nn.qconv import scales_attached, stats_collected
-from ..sampling.samplers import DeepCache, NoiseSource, pc_sample
+from ..sampling.samplers import (DeepCache, NoiseSource, ode_sample, pc_sample, picard_sample,
+                                 time_major)
 from ..sde.sdes import OUVESDE
 from ..signal import cplx
 from ..signal.stft import STFTConfig
@@ -213,6 +214,7 @@ class StochasticRegenerationModel(nn.Module):
         self,
         y: torch.Tensor,
         N: int = 30,
+        sampler_type: str = "pc",
         predictor: str = "reverse_diffusion",
         corrector: str = "none",
         corrector_steps: int = 1,
@@ -223,11 +225,22 @@ class StochasticRegenerationModel(nn.Module):
         quant: Optional[Dict[str, Optional[Dict[str, float]]]] = None,
         deepcache: int = 0,
         deepcache_depth: int = 1,
+        method: str = "heun",
+        rtol: float = 1e-5,
+        atol: float = 1e-5,
+        max_steps: int = 1000,
+        sweeps: int = 8,
     ) -> Tuple[torch.Tensor, int]:
         """Enhance waveforms y (B, T) -> (x_hat (B, T), nfe).
 
         Defaults are the reference model's: N=30, reverse diffusion, no
-        corrector. Noise comes from `noise` if given, else from `generator`.
+        corrector. `sampler_type`: "pc" (predictor-corrector: `predictor`,
+        `corrector`, `corrector_steps`, `snr`, `probability_flow`), "ode"
+        (the probability-flow ODE: `method`, and `rtol`, `atol`, `max_steps`
+        for "rk45") or "picard" (`sweeps` Picard sweeps of the ODE, each one
+        score-net call on N x B rows); the options of the other samplers are
+        ignored, as in the reference. Noise comes from `noise` if given,
+        else from `generator`; the ODE samplers draw the prior only.
         `quant`: {"denoiser": scales or None, "score": scales or None}, int8
         activation scales by conv module name from
         `models.quant.calibrate_storm`; the convs they name run on the int8
@@ -238,11 +251,14 @@ class StochasticRegenerationModel(nn.Module):
         `deepcache`: if > 0, refresh the score net's deep-feature cache every
         `deepcache`-th sampler step and recompute only its top
         `deepcache_depth` levels per score evaluation (DeepCache-style
-        serving, arXiv:2312.00858); nfe counts the score evaluations, not
-        the refreshes, as the reference does.
+        serving, arXiv:2312.00858; pc and ode only); nfe counts the score
+        evaluations, not the refreshes, as the reference does.
         """
+        if sampler_type not in ("pc", "ode", "picard"):
+            raise ValueError(f"{sampler_type} is not a valid sampler type!")
         if deepcache:
-            check_deepcache_config(self.score_net, deepcache, "pc", deepcache_depth)
+            check_deepcache_config(self.score_net, deepcache, sampler_type, deepcache_depth,
+                                   method)
         T_orig = y.shape[-1]
         y_n, norm = normalize_wav(y)
         Y, _ = prepare_spec(y_n, self.stft_config, self.transform)
@@ -260,12 +276,21 @@ class StochasticRegenerationModel(nn.Module):
             if deepcache:
                 cache = DeepCache(deepcache, *make_deepcache_fns(
                     self.score_net, lambda x: self._score_input(x, cond), deepcache_depth))
-            sample, n = pc_sample(
-                self.sde, score_fn, Y_denoised, predictor=predictor, corrector=corrector,
-                N=N, snr=snr, corrector_steps=corrector_steps,
-                probability_flow=probability_flow, denoise=True, eps=self.t_eps,
-                noise=noise, generator=generator, deepcache=cache,
-            )
+            common = dict(N=N, denoise=True, eps=self.t_eps, noise=noise, generator=generator)
+            if sampler_type == "pc":
+                sample, n = pc_sample(
+                    self.sde, score_fn, Y_denoised, predictor=predictor, corrector=corrector,
+                    snr=snr, corrector_steps=corrector_steps,
+                    probability_flow=probability_flow, deepcache=cache, **common)
+            elif sampler_type == "ode":
+                sample, n = ode_sample(self.sde, score_fn, Y_denoised, method=method,
+                                       deepcache=cache, rtol=rtol, atol=atol,
+                                       max_steps=max_steps, **common)
+            else:
+                wide = [time_major(c, N) for c in cond]
+                sample, n = picard_sample(
+                    self.sde, score_fn, Y_denoised, sweeps=sweeps,
+                    wide_score_fn=lambda x, t, y_sde: self.forward_score(x, t, wide), **common)
         # the whole padded spec goes through the iSTFT, cut to T_orig samples
         x_hat = spec_to_wav(sample, self.stft_config, self.transform, length=T_orig)
         return x_hat * norm, 1 + n

@@ -11,7 +11,10 @@ Endpoints:
     GET  /healthz   readiness and the serving configuration (torch device, card)
     GET  /stats     request and batch counters, audio seconds served, batch fill
 
-Sampler flags and defaults are the enhancement CLI's. The NCSN++ compute
+Sampler flags and defaults are the enhancement CLI's, with the samplers
+that enqueue without a device sync: `--sampler pc` or `ode` with the six
+fixed-step methods of `--ode-method` (not rk45, nor picard); warm-up runs
+the sampler served. The NCSN++ compute
 dtype defaults to bfloat16, as the reference serves (`--dtype float32`, or
 `checkpoint` for the checkpoint config's); /healthz reports the dtype
 served. Noise comes
@@ -37,9 +40,10 @@ import torch
 from .ckpt import load_checkpoint
 from .data.audio import load_wav
 from .models.base import check_deepcache_config
-from .models.factory import STORM_MODES, build_model
+from .models.factory import SERVING_MODES, STORM_MODES, build_model, refuse_unported_mode
 from .sampling.correctors import CORRECTORS
 from .sampling.predictors import PREDICTORS
+from .sampling.samplers import ODE_METHODS
 from .utils.inference import BucketedEnhancer
 from .utils.server import DynamicBatcher, _default_row_sizes, decode_wav_bytes, encode_wav_bytes
 from .utils.serving import calibrate_or_load_scales
@@ -56,7 +60,8 @@ class _Server(ThreadingHTTPServer):
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--ckpt", required=True, help="Checkpoint file (.pt, storm_tpu_torch.ckpt).")
-    p.add_argument("--mode", required=True, choices=["storm"])
+    p.add_argument("--mode", required=True, choices=SERVING_MODES,
+                   help="storm; the other modes are not ported yet (ROADMAP R3)")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8571)
     p.add_argument("--batch", type=int, default=8, help="largest dynamic batch")
@@ -77,6 +82,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--corrector-steps", dest="corrector_steps", type=int, default=1)
     p.add_argument("--snr", type=float, default=0.5)
     p.add_argument("--N", type=int, default=50)
+    p.add_argument("--ode-method", dest="ode_method", default="etd2",
+                   choices=tuple(m for m in ODE_METHODS if m != "rk45"))
     p.add_argument("--no-ema", action="store_true")
     p.add_argument("--dtype", default="bfloat16", choices=("checkpoint", "float32", "bfloat16"),
                    help="NCSN++ compute dtype; bfloat16 (the default) is the reference's "
@@ -162,15 +169,10 @@ def make_handler(batcher: DynamicBatcher, info: dict, model_sr: int = MODEL_SR):
     return Handler
 
 
-def _refuse_unported(args) -> None:
-    if args.sampler != "pc":
-        raise NotImplementedError(f"--sampler {args.sampler} is not ported yet (ROADMAP R3)")
-
-
 def build_server(args):
     """Load the model, calibrate or load int8 scales, warm the buckets, and
     return (the HTTP server, bound but not serving, and its DynamicBatcher)."""
-    _refuse_unported(args)
+    refuse_unported_mode(args.mode)
     device = torch.device(args.device)
     config, params, ema_params = load_checkpoint(args.ckpt)
     if config.get("mode", "regen-joint-training") not in STORM_MODES:
@@ -183,7 +185,7 @@ def build_server(args):
     model.load_state_dict(params if args.no_ema else ema_params, strict=True)
     if args.deepcache:
         check_deepcache_config(model.score_net, args.deepcache, args.sampler,
-                               args.deepcache_depth)
+                               args.deepcache_depth, args.ode_method)
 
     quant = None
     if args.quant == "int8":
@@ -202,9 +204,10 @@ def build_server(args):
 
     enhancer = BucketedEnhancer(
         model, data_parallel=args.data_parallel, seq_parallel=args.seq_parallel,
-        N=args.N, predictor=args.predictor, corrector=args.corrector,
-        corrector_steps=args.corrector_steps, snr=args.snr, quant=quant,
-        deepcache=args.deepcache, deepcache_depth=args.deepcache_depth)
+        N=args.N, sampler_type=args.sampler, predictor=args.predictor,
+        corrector=args.corrector, corrector_steps=args.corrector_steps, snr=args.snr,
+        method=args.ode_method, quant=quant, deepcache=args.deepcache,
+        deepcache_depth=args.deepcache_depth)
     if args.row_sizes:
         row_sizes = sorted({int(r) for r in args.row_sizes.split(",")})
         if row_sizes[0] < 1 or row_sizes[-1] > args.batch:
@@ -238,6 +241,7 @@ def build_server(args):
                         if enhancer.device.type == "cuda" else "cpu"),
         "predictor": args.predictor, "corrector": args.corrector,
         "corrector_steps": args.corrector_steps, "snr": args.snr,
+        "ode_method": args.ode_method if args.sampler == "ode" else None,
         "row_sizes": row_sizes, "max_wait_ms": args.max_wait_ms,
         "warmup_buckets_s": [T / MODEL_SR for T in lens],
         "backbone": "ncsnpp", "dtype": config.get("dtype", "float32"), "seed": args.seed,

@@ -25,6 +25,7 @@ cpu` for the plain versions).
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import math
 import os
@@ -44,6 +45,7 @@ from .utils.inference import evaluate_model
 MODES = ("score-only", "denoiser-only", "regen-freeze-denoiser", "regen-joint-training",
          "distill")
 FORMATS = ("wsj0", "vctk", "dns", "reverb_wsj0", "timit", "voicebank")
+VIS_EPOCHS = 5  # the evaluation's examples go to TensorBoard every this many epochs
 MODEL_CONFIG_KEYS = [
     "mode", "backbone_denoiser", "backbone_score", "sde", "lr", "ema_decay", "t_eps",
     "loss_type", "loss_type_denoiser", "loss_type_score", "weighting_denoiser_to_score",
@@ -185,14 +187,23 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                 f"_denoiser={args.backbone_denoiser}_condition={args.condition}"
                 f"_data={args.format}_ch={args.spatial_channels}")
     log_dir = os.path.join(args.log_dir, run_name)
-    metrics_file, ckpt_mgr = None, None
+    metrics_file, ckpt_mgr, writer = None, None, None
     if not args.nolog:
         os.makedirs(log_dir, exist_ok=True)
+        try:  # TensorBoard where it is installed, as the reference logs
+            from torch.utils.tensorboard import SummaryWriter
+            writer = SummaryWriter(log_dir)
+        except ImportError:
+            writer = None
         metrics_file = open(os.path.join(log_dir, "metrics.jsonl"), "a")
         ckpt_mgr = CheckpointManager(os.path.join(log_dir, "checkpoints"), config)
         print(f"logging to {log_dir}")
 
     def log(step: int, **metrics) -> None:
+        if writer is not None:
+            for k, v in metrics.items():
+                if np.isfinite(v):
+                    writer.add_scalar(k, v, step)
         if metrics_file is not None:
             metrics_file.write(json.dumps({"step": step, **metrics}) + "\n")
             metrics_file.flush()
@@ -247,12 +258,18 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                         v_count += n
                 if args.num_eval_files:
                     eval_kwargs = {"N": args.eval_N} if args.eval_N else {}
+                    # audio and spectrograms every VIS_EPOCHS epochs, where
+                    # a TensorBoard writer imports (model.py:20, 624-641)
+                    visualize = writer is not None and epoch % VIS_EPOCHS == 0
                     try:
-                        pesq, si_sdr, estoi, _, _ = evaluate_model(
-                            model, dm.valid_set, args.num_eval_files, **eval_kwargs)
+                        pesq, si_sdr, estoi, spec, audio = evaluate_model(
+                            model, dm.valid_set, args.num_eval_files, spec=visualize,
+                            audio=visualize, **eval_kwargs)
                         print(f"PESQ at epoch {epoch} : {pesq:.2f}")
                         print(f"SISDR at epoch {epoch} : {si_sdr:.1f}")
                         print(f"ESTOI at epoch {epoch} : {estoi:.2f}", flush=True)
+                        if visualize:
+                            log_examples(writer, epoch, spec, audio)
                     except Exception as e:  # the evaluation must not end the training
                         print(f"eval failed at epoch {epoch}: {e}", flush=True)
                         traceback.print_exc()
@@ -278,7 +295,31 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     finally:
         if metrics_file is not None:
             metrics_file.close()
+        if writer is not None:
+            writer.close()
     print("training done.")
+
+
+def log_examples(writer, epoch: int, spec, audio, sr: int = 16000) -> None:
+    """The evaluation's examples to TensorBoard, as the reference logs
+    them: the mixture and clean audio at epoch 0, the estimate every time,
+    and, where matplotlib imports, each example's three-panel spectrogram
+    figure."""
+    from .utils.graphics import visualize_example
+
+    for idx, (yv, xh, xv) in enumerate(zip(*audio)):
+        if epoch == 0:
+            writer.add_audio(f"Epoch={epoch} Mix/{idx}", yv / (np.abs(yv).max() + 1e-9),
+                             epoch, sr)
+            writer.add_audio(f"Epoch={epoch} Clean/{idx}", xv / (np.abs(xv).max() + 1e-9),
+                             epoch, sr)
+        writer.add_audio(f"Epoch={epoch} Estimate/{idx}", xh / (np.abs(xh).max() + 1e-9),
+                         epoch, sr)
+    if importlib.util.find_spec("matplotlib") is None:
+        return
+    for idx, (ys, xs, cs) in enumerate(zip(*spec)):
+        writer.add_figure(f"Epoch={epoch}/Spec/{idx}", visualize_example(ys, xs, cs,
+                                                                         return_fig=True))
 
 
 if __name__ == "__main__":

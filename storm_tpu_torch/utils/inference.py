@@ -15,7 +15,7 @@ the pinned upload buffers and the outputs stay float32.
 
 Noise for every call comes from one `torch.Generator` owned by the caller
 (or an injected noise source), drawn in order: chunk after chunk, each chunk
-as `pc_sample` draws it. The reference splits a PRNG key per chunk; the
+as its sampler draws it. The reference splits a PRNG key per chunk; the
 noise of a batch depends on its row count in both.
 """
 from __future__ import annotations
@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..sampling.samplers import NoiseSource
+from ..signal.stft import stft_real
 from .metrics import pesq_wb, si_sdr
 from .stoi import stoi
 
@@ -37,8 +38,9 @@ class BucketedEnhancer:
     `minibatch`: enhance B rows in sequential chunks of this many rows, the
     last one row-padded with zeros to `minibatch`, so every call of a bucket
     has one shape (the reference's sgmse/model.py:210-222 chunking).
-    `enhance_kwargs` go to `model.enhance` (N, predictor, corrector,
-    corrector_steps, snr, quant, deepcache, deepcache_depth).
+    `enhance_kwargs` go to `model.enhance` (N, sampler_type, predictor,
+    corrector, corrector_steps, snr, method, rtol, atol, sweeps, quant,
+    deepcache, deepcache_depth).
     """
 
     def __init__(self, model, bucket_frames: int = 64, minibatch: Optional[int] = None,
@@ -59,8 +61,11 @@ class BucketedEnhancer:
 
     @property
     def supports_async(self) -> bool:
-        """True when `enhance_async` is available (no minibatch chunking)."""
-        return self.minibatch is None
+        """True when `enhance_async` is available: no minibatch chunking, and
+        a sampler that enqueues without a sync (all but the ODE's rk45)."""
+        kw = self.enhance_kwargs
+        rk45 = kw.get("sampler_type", "pc") == "ode" and kw.get("method") == "rk45"
+        return self.minibatch is None and not rk45
 
     def _upload(self, y: np.ndarray) -> torch.Tensor:
         """(B, T) numpy -> tensor on the model's device, tail-padded to its
@@ -92,7 +97,10 @@ class BucketedEnhancer:
         the host) and keeps x_hat alive until then. The host returns once
         it has enqueued every forward of the sampler."""
         if not self.supports_async:
-            raise NotImplementedError("enhance_async requires minibatch=None")
+            raise NotImplementedError(
+                "enhance_async requires minibatch=None and a sampler that enqueues without "
+                "a sync: not the ODE's rk45, whose step controller reads the device after "
+                "every step")
         return self._enhance(self._upload(y), generator, noise)
 
     def __call__(self, y: np.ndarray, generator: Optional[torch.Generator] = None,
@@ -123,12 +131,17 @@ class BucketedEnhancer:
         return (x_hat[0] if squeeze else x_hat), int(nfe)
 
 
+MAX_VIS_SAMPLES = 10
+
+
 def evaluate_model(model, valid_set, num_eval_files: int, noise: Optional[NoiseSource] = None,
-                   sr: int = 16000, minibatch: Optional[int] = 8, **enhance_kwargs):
+                   spec: bool = False, audio: bool = False, sr: int = 16000,
+                   minibatch: Optional[int] = 8, **enhance_kwargs):
     """Enhance the first `num_eval_files` raw validation pairs
     (`valid_set.__getitem__(i, raw=True)`) with the weights `model` holds
     and return their mean wide-band PESQ, SI-SDR and ESTOI
-    (sgmse/util/inference.py:20-71), as (pesq, si_sdr, estoi, None, None).
+    (sgmse/util/inference.py:20-71), as (pesq, si_sdr, estoi, spec lists,
+    audio lists).
 
     As in the reference, the files are grouped by their bucket's length
     (shortest bucket first) and each group goes through one
@@ -140,9 +153,10 @@ def evaluate_model(model, valid_set, num_eval_files: int, noise: Optional[NoiseS
     PRNGKey(0) per call: two calls on the same weights enhance with the same
     noise.
 
-    The reference's last two results, the spectrogram and audio lists for
-    the logger, wait for the port of graphics.py (ROADMAP R5): both are
-    None here. PESQ is NaN without the `pesq` package (`pesq_wb`)."""
+    With `spec`, the spectrogram lists for the logger: ([noisy], [enhanced],
+    [clean]) packed-real STFTs (F, frames, 2) as numpy arrays, of the first
+    MAX_VIS_SAMPLES files; with `audio`, their waveforms in the same order;
+    None otherwise. PESQ is NaN without the `pesq` package (`pesq_wb`)."""
     generator = torch.Generator(device=next(model.parameters()).device).manual_seed(0)
     enhancer = BucketedEnhancer(model, minibatch=minibatch, **enhance_kwargs)
     n = min(num_eval_files, len(valid_set))
@@ -159,8 +173,18 @@ def evaluate_model(model, valid_set, num_eval_files: int, noise: Optional[NoiseS
         for row, i in enumerate(idxs):
             x_hats[i] = x_hat[row, : ys[i].shape[-1]]
     pesq_sum = si_sdr_sum = estoi_sum = 0.0
-    for x, x_hat in zip(xs, x_hats):
+    spec_lists = ([], [], []) if spec else None
+    audio_lists = ([], [], []) if audio else None
+    for i, (x, y, x_hat) in enumerate(zip(xs, ys, x_hats)):
         si_sdr_sum += si_sdr(x, x_hat)
         pesq_sum += pesq_wb(sr, x, x_hat)
         estoi_sum += stoi(x, x_hat, sr, extended=True)
-    return pesq_sum / n, si_sdr_sum / n, estoi_sum / n, None, None
+        if spec and i < MAX_VIS_SAMPLES:
+            for out, w in zip(spec_lists, (y, x_hat, x)):
+                out.append(stft_real(torch.from_numpy(np.asarray(w, np.float32)),
+                                     model.stft_config).numpy())
+        if audio and i < MAX_VIS_SAMPLES:
+            for out, w in zip(audio_lists, (y, x_hat, x)):
+                out.append(w)
+    return (pesq_sum / n, si_sdr_sum / n, estoi_sum / n,
+            list(spec_lists) if spec else None, list(audio_lists) if audio else None)

@@ -3,8 +3,9 @@ in both directions (forward, and the gradient through `UpFirDn2d`), also at
 the serving path's batches and bucket widths, in float32 and bfloat16, the
 int8 quantizer in both product modes (codes identical) and the int8 conv
 built on it, and the fused bias + leaky ReLU (forward and gradient); the
-bfloat16 GroupNorm; the dynamic batcher's pipelined path on the card; and
-deep-feature caching through the kernels.
+bfloat16 GroupNorm; the dynamic batcher's pipelined path on the card;
+deep-feature caching through the kernels; and the ODE, Picard and etd
+samplers through them.
 
 Skips without a CUDA device. On a card, from the repository root:
 
@@ -547,3 +548,47 @@ def test_deepcache_on_the_card(cuda, dtype, depth):
     assert nfe == 9 and launched == 12 + 2 * deep + 8 * shallow
     scale = want.abs().max()
     assert (got - want).abs().max() <= (1e-5 if dtype == "float32" else 1e-2) * scale
+
+
+@pytest.mark.parametrize("kw,forwards", [
+    (dict(sampler_type="ode", method="etd2"), 1 + 2 * 4 + 1),
+    (dict(sampler_type="ode", method="rk45", rtol=1e-3, atol=1e-3), None),
+    (dict(sampler_type="picard", sweeps=2), 1 + 2 * 4 + 1),
+    (dict(sampler_type="pc", predictor="etd", corrector="ald"), 1 + 2 * 4)],
+    ids=["etd2", "rk45", "picard", "pc-etd"])
+def test_probability_flow_samplers_on_the_card(cuda, kw, forwards):
+    """The ODE, Picard and etd samplers of tiny StoRM (three levels: 12 K1
+    calls per forward) on the card: one K1 call per forward's 12 (Picard's
+    N x B rows included), and the enhancement through the kernels equal to
+    the one with plain upfirdn2d (cuDNN deterministic, same noise)."""
+    config = {"mode": "regen-joint-training", "nf": 16, "ch_mult": [1, 2, 2],
+              "init_scale": 1.0, "n_fft": 62, "hop_length": 16}
+    model = build_model(config, device=cuda, seed=0)
+    y = torch.from_numpy(np.sin(np.arange(2048) / 7.0).astype(np.float32)[None]).to(cuda)
+    torch.backends.cudnn.deterministic = True
+    try:
+        kup.upfirdn2d_cuda.launches = 0
+        got, nfe = model.enhance(y, N=4, generator=torch.Generator(device=cuda).manual_seed(1),
+                                 **kw)
+        launched = kup.upfirdn2d_cuda.launches
+        with mock.patch.object(resample, "upfirdn2d", kup.upfirdn2d_plain):
+            want, _ = model.enhance(y, N=4, **kw,
+                                    generator=torch.Generator(device=cuda).manual_seed(1))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    calls = {"picard": 1 + kw.get("sweeps", 0) + 1}.get(kw["sampler_type"], nfe)
+    assert launched == 12 * calls and (forwards is None or nfe == forwards), (launched, nfe)
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+def test_enhance_async_on_the_card_refuses_rk45(cuda):
+    config = {"mode": "regen-joint-training", "nf": 16, "ch_mult": [1, 2, 2],
+              "n_fft": 62, "hop_length": 16}
+    model = build_model(config, device=cuda, seed=0)
+    y = np.sin(np.arange(1500) / 7.0).astype(np.float32)[None]
+    x, nfe = BucketedEnhancer(model, N=2, sampler_type="ode").enhance_async(
+        y, torch.Generator(device=cuda).manual_seed(0))
+    assert x.is_cuda and x.shape == (1, 2048) and nfe == 1 + 4 + 1
+    with pytest.raises(NotImplementedError, match="rk45"):
+        BucketedEnhancer(model, N=2, sampler_type="ode", method="rk45").enhance_async(
+            y, torch.Generator(device=cuda).manual_seed(0))

@@ -55,5 +55,6 @@ def test_port_imports_no_jax():
                      "storm_tpu_torch.serve", "storm_tpu_torch.utils.inference",
                      "storm_tpu_torch.utils.server", "storm_tpu_torch.utils.streaming",
                      "storm_tpu_torch.utils.metrics", "storm_tpu_torch.utils.stoi",
-                     "storm_tpu_torch.bench", "storm_tpu_torch.serve_load"):
+                     "storm_tpu_torch.bench", "storm_tpu_torch.serve_load",
+                     "storm_tpu_torch.evaluate", "storm_tpu_torch.utils.graphics"):
         assert expected in names, names

@@ -58,7 +58,11 @@ def jax_noise_schedule(key, shape, n_steps, predictor="reverse_diffusion",
                        corrector="ald", corrector_steps=1):
     """The standard complex normal draws of the reference `pc_sample`, in the
     order they are consumed: the prior, then per step the corrector's draws
-    and the predictor's (storm_tpu/sampling/samplers.py, correctors.py)."""
+    and the predictor's (storm_tpu/sampling/samplers.py, correctors.py).
+    Every predictor but "none" draws once per step, after its score (etd as
+    reverse_diffusion and euler_maruyama do). With n_steps=0: the prior
+    alone, the one draw of the reference's `ode_sample` and `picard_sample`
+    (their denoising step's key is a fixed PRNGKey(0), its noise unused)."""
     zs = []
     key, kprior = jax.random.split(key)
     zs.append(jcplx.complex_normal(kprior, shape))
