@@ -212,6 +212,34 @@ Phases, each of which exits non-zero on failure:
    1e-4 dB of BucketedEnhancer's output for the same file, grouping and
    seed (cuDNN deterministic); the metrics' host wall beside the
    enhancement's.
+40. the score-only and denoiser-only models and OUVP: one full-width f32
+   score-only step's gradients against the plain path, then `python -m
+   storm_tpu_torch.train` on phase 8's corpus (B=8, 256 frames, one epoch
+   of 4 steps, `--num_eval_files 4 --eval_N 10`) with `--mode score-only`
+   in f32 and bf16, `--mode denoiser-only --loss_type sisdr` in f32 and
+   `--mode regen-joint-training --sde ouvp` in bf16: phase 8's checks, K1
+   launches per step read from the module lists (a single net: 18 forward,
+   15 backward, its input pyramid reading no parameter's output), the step
+   and its peak memory beside StoRM's in the same dtype, K1 and its
+   adjoint against plain at every shape.
+41. `python -m storm_tpu_torch.enhancement` with phase 40's score-only and
+   denoiser-only checkpoints on phase 5's files at the CLI's defaults
+   (score-only: pc, N=50 + ald, 100 forwards; the denoiser: 1) in f32,
+   bf16 and `--quant int8 --dtype bfloat16` twice (calibrates, then loads):
+   exact K1 and K3 launches per file, RTF beside StoRM's (phases 5, 19);
+   every K1 shape (the score net's 4-channel pyramids) and K3 input against
+   plain; the 4 s file's score-only f32 etd2 ODE (N=10) and the denoiser's
+   output through the kernels against plain (1e-4 of the output's scale).
+42. phase 40's OUVP StoRM checkpoint through the CLI (pc N=50 + ald; `--sampler
+   ode --ode-method heun --N 10`): exact launches; `--ode-method etd2`
+   raises the reference's message.
+43. the server with `--mode score-only` (bf16, N=10, then `--deepcache 3`)
+   and `--mode denoiser-only` on phase 15's burst (X-NFE 20, 20, 1;
+   /healthz's mode), and denoiser-only streaming of phase 16's file, with
+   exact launches per call.
+44. `python -m storm_tpu_torch.evaluate --mode score-only` and
+   `--mode denoiser-only` on phase 39's test split: 8 rows, each row's
+   SI-SDR within 1e-4 dB of the enhancer's output.
 
 A profile's kernel times come from its device events, each counted once;
 shares are of the summed kernel time. The busy time is the union of the
@@ -260,8 +288,10 @@ from storm_tpu_torch.kernels import fused_act as kfa
 from storm_tpu_torch.kernels import quant as kq
 from storm_tpu_torch.kernels import upfirdn as kup
 from storm_tpu_torch.models import quant as quant_mod
-from storm_tpu_torch.models.base import init_train_state
+from storm_tpu_torch.models.base import EnhancementModel, init_train_state
+from storm_tpu_torch.models.discriminative import DiscriminativeModel
 from storm_tpu_torch.models.factory import build_model, resolve_device
+from storm_tpu_torch.models.score import ScoreModel
 from storm_tpu_torch.models.storm import StochasticRegenerationModel
 from storm_tpu_torch.nn import qconv, resample
 from storm_tpu_torch.nn.cast import cast_params
@@ -768,9 +798,12 @@ def grads_of(model, batch, t, z):
     return {n: p.grad.detach().clone() for n, p in model.named_parameters() if p.requires_grad}
 
 
-def phase_train_gradients(gen: torch.Generator):
-    """One full-width step's gradients through the kernels against the plain path."""
-    model = build_model(STORM_CONFIG, device="cuda", seed=0).train()
+def phase_train_gradients(gen: torch.Generator, config=STORM_CONFIG):
+    """One full-width step's gradients of the model of `config` through the
+    kernels against the plain path, with exactly the step's launches read
+    from the module list (`step_launches`)."""
+    model = build_model(config, device="cuda", seed=0).train()
+    want_counts = step_launches(config["mode"])
     B = 2
     x = 0.3 * torch.randn(B, FREQS, TRAIN_FRAMES, 2, device="cuda", generator=gen)
     y = x + 0.2 * torch.randn(B, FREQS, TRAIN_FRAMES, 2, device="cuda", generator=gen)
@@ -789,8 +822,8 @@ def phase_train_gradients(gen: torch.Generator):
               "the plain path launched a kernel")
     finally:
         torch.backends.cudnn.deterministic = False
-    check(counts == (STEP_FWD, STEP_BWD),
-          f"one step's gradients launched {counts}, expected {(STEP_FWD, STEP_BWD)}")
+    check(counts == want_counts,
+          f"one step's gradients launched {counts}, expected {want_counts}")
     check(all(bool(torch.isfinite(v).all()) for v in g_k.values()), "gradients not finite")
     g_max = max(v.abs().max().item() for v in g_p.values())
     worst, worst_name = 0.0, None
@@ -801,7 +834,8 @@ def phase_train_gradients(gen: torch.Generator):
             worst, worst_name = ratio, name
     d_norm = torch.sqrt(sum(((g_k[n] - g_p[n]) ** 2).sum() for n in g_p)).item()
     norm = torch.sqrt(sum((v ** 2).sum() for v in g_p.values())).item()
-    print(f"  B={B} full-width gradients, kernel vs plain: {len(g_p)} tensors, launches "
+    print(f"  {config['mode']} B={B} full-width gradients, kernel vs plain: {len(g_p)} "
+          f"tensors, launches "
           f"{counts}; worst tensor at {worst:.3f} of its tolerance ({worst_name}); "
           f"global norm {norm:.6e}, |diff| {d_norm:.3e} ({d_norm / norm:.3e} relative)",
           flush=True)
@@ -827,11 +861,49 @@ def write_corpus(root: str):
             save_wav(os.path.join(root, sub, "noisy", f"u{i:03d}.wav"), noisy, SR)
 
 
-def eval_forwards(eval_n: int, files: int = VALID_FILES) -> int:
+def eval_forwards(eval_n: int, files: int = VALID_FILES,
+                  mode: str = "regen-joint-training") -> int:
     """NCSN++ forwards of one in-training evaluation of `files` validation
-    files of FILE_S (one bucket): per chunk of 8 rows the denoiser and N
-    score forwards (no corrector)."""
-    return -(-files // 8) * (1 + eval_n)
+    files of FILE_S (one bucket), per chunk of 8 rows, at the model's
+    enhance defaults: StoRM's denoiser and N score forwards (no corrector),
+    the score model's N x 2 (ald), the denoiser's one."""
+    per_chunk = {"score-only": 2 * eval_n, "denoiser-only": 1}.get(mode, 1 + eval_n)
+    return -(-files // 8) * per_chunk
+
+
+# the serving --mode of a trainable mode's checkpoint
+SERVING_MODE = {"regen-joint-training": "storm", "regen-freeze-denoiser": "storm",
+                "score-only": "score-only", "denoiser-only": "denoiser-only"}
+
+
+@functools.lru_cache(maxsize=None)
+def single_net_structure(mode: str) -> NCSNpp:
+    """The full-width net of the score-only or denoiser-only model, for its
+    module list only."""
+    return (NCSNpp(input_channels=4) if mode == "score-only"
+            else NCSNpp(input_channels=2, discriminative=True))
+
+
+def step_launches(mode: str):
+    """(forward, backward) upfirdn2d launches of one training step of `mode`,
+    read from the nets' module lists (`k1_of_module`): every call of each
+    net's forward, and a backward for each call whose input needs a
+    gradient, which is every call but the input pyramid's downsamplings
+    (one per Combine module) of a net whose input holds no parameter's
+    output: StoRM's denoiser and the one net of score-only and
+    denoiser-only. StoRM's score net reads D(Y), so all its calls have one."""
+    if mode in SERVING_MODE and SERVING_MODE[mode] != "storm":
+        nets = [(single_net_structure(mode), False)]
+    else:
+        den, score = storm_structure()
+        nets = [(den, False), (score, True)]
+    fwd = bwd = 0
+    for net, input_grad in nets:
+        calls = {i: k1_of_module(net, i) for i in range(len(net.all_modules))}
+        fwd += sum(calls.values())
+        bwd += sum(n for i, n in calls.items()
+                   if input_grad or not isinstance(net.all_modules[i], Combine))
+    return fwd, bwd
 
 
 def pesq_available() -> bool:
@@ -843,15 +915,21 @@ def pesq_available() -> bool:
 
 
 def phase_train(workdir: str, dtype: str = "float32", steps_total: int = TRAIN_STEPS,
-                eval_files: int = 0, eval_n: int = 30):
-    """The training path through `python -m storm_tpu_torch.train` in `dtype`
-    on the corpus in `workdir/corpus` (written once), with an in-training
-    evaluation of `eval_files` validation files at N=`eval_n` after every
-    epoch. Returns a dict of its launch counts and step figures."""
-    corpus, logs = os.path.join(workdir, "corpus"), os.path.join(workdir, f"logs_{dtype}_{eval_files}")
+                eval_files: int = 0, eval_n: int = 30, mode: str = "regen-joint-training",
+                extra=()):
+    """The training path through `python -m storm_tpu_torch.train --mode
+    mode` (and `extra` flags) in `dtype` on the corpus in `workdir/corpus`
+    (written once), with an in-training evaluation of `eval_files`
+    validation files at N=`eval_n` after every epoch. Returns a dict of its
+    launch counts and step figures, and its checkpoint directory."""
+    tag = "_".join([mode] + [e.lstrip("-") for e in extra]) + "_" if (
+        mode != "regen-joint-training" or extra) else ""
+    corpus = os.path.join(workdir, "corpus")
+    logs = os.path.join(workdir, f"logs_{tag}{dtype}_{eval_files}")
     write_corpus(corpus)
+    step_fwd, step_bwd = step_launches(mode)
     steps, first_params, dtypes = [], {}, set()
-    original, launch = StochasticRegenerationModel.train_step, kup._launch
+    original, launch = EnhancementModel.train_step, kup._launch
 
     def timed_step(model, state, batch, generator=None):
         """train_step between two CUDA events; adds no host sync to the loop.
@@ -876,7 +954,7 @@ def phase_train(workdir: str, dtype: str = "float32", steps_total: int = TRAIN_S
     # the loss is logged at the last step of each epoch only, where the epoch's
     # mean reads it back anyway: the loop keeps its own host syncs and no more
     epoch_len = TRAIN_FILES // TRAIN_B
-    argv = ["--mode", "regen-joint-training", "--base_dir", corpus, "--format", "wsj0",
+    argv = ["--mode", mode, *extra, "--base_dir", corpus, "--format", "wsj0",
             "--batch_size", str(TRAIN_B), "--num_frames", str(TRAIN_FRAMES),
             "--max_steps", str(steps_total), "--num_eval_files", str(eval_files),
             "--eval_N", str(eval_n), "--log_dir", logs, "--log_every_n_steps", str(epoch_len),
@@ -884,7 +962,7 @@ def phase_train(workdir: str, dtype: str = "float32", steps_total: int = TRAIN_S
     torch.cuda.reset_peak_memory_stats()
     kup.upfirdn2d_cuda.launches = kup.upfirdn2d_bwd_cuda.launches = 0
     t0 = time.perf_counter()
-    with mock.patch.object(StochasticRegenerationModel, "train_step", timed_step), \
+    with mock.patch.object(EnhancementModel, "train_step", timed_step), \
             mock.patch.object(kup, "_launch", watched_launch):
         _, text = captured(train.main, argv)
     wall = time.perf_counter() - t0
@@ -917,12 +995,13 @@ def phase_train(workdir: str, dtype: str = "float32", steps_total: int = TRAIN_S
     if eval_files:
         check(all(np.isfinite(r["ValidationPESQ"]) == pesq_available() for r in epochs),
               "ValidationPESQ is finite exactly when the pesq package imports")
-    check(all(s["launches"] == (STEP_FWD, STEP_BWD) for s in steps),
-          f"launches per step {[s['launches'] for s in steps]}, expected {(STEP_FWD, STEP_BWD)}")
-    n_valid_fwd = STEP_FWD * len(valid) * -(-VALID_FILES // TRAIN_B)  # no backward
-    n_eval_fwd = 18 * len(valid) * eval_forwards(eval_n, eval_files) if eval_files else 0
-    check(launches == (STEP_FWD * steps_total + n_valid_fwd + n_eval_fwd,
-                       STEP_BWD * steps_total),
+    check(all(s["launches"] == (step_fwd, step_bwd) for s in steps),
+          f"launches per step {[s['launches'] for s in steps]}, expected {(step_fwd, step_bwd)}")
+    n_valid_fwd = step_fwd * len(valid) * -(-VALID_FILES // TRAIN_B)  # no backward
+    n_eval_fwd = (K1_PER_FORWARD * len(valid) * eval_forwards(eval_n, eval_files, mode)
+                  if eval_files else 0)
+    check(launches == (step_fwd * steps_total + n_valid_fwd + n_eval_fwd,
+                       step_bwd * steps_total),
           f"training launched {launches}")
     ckpt_dir = os.path.join(logs, run, "checkpoints")
     want_ckpts = ["best_loss.pt", "best_pesq.pt", "last.pt"] if eval_files else [
@@ -952,11 +1031,12 @@ def phase_train(workdir: str, dtype: str = "float32", steps_total: int = TRAIN_S
     step_peak = max(s["peak"] for s in steps)
     r = dict(launches=launches, step_ms=step_ms, audio_s_per_s=TRAIN_B * TRAIN_AUDIO_S
              / (step_ms / 1e3), peak_gib=peak / 2**30, step_peak_gib=step_peak / 2**30,
-             eval={k: [r[k] for r in epochs] for k in ("ValidationPESQ", *evaluated)})
-    print(f"  {dtype}: trained {steps_total} steps at B={TRAIN_B} x {TRAIN_FRAMES} frames in "
+             eval={k: [r[k] for r in epochs] for k in ("ValidationPESQ", *evaluated)},
+             ckpt_dir=ckpt_dir, run=run, losses=losses)
+    print(f"  {tag}{dtype}: trained {steps_total} steps at B={TRAIN_B} x {TRAIN_FRAMES} frames in "
           f"{wall:.1f} s wall (setup, validation, evaluation and checkpoints included); losses "
           f"{[round(v, 2) for v in losses]}; valid {[round(v, 2) for v in valid]}", flush=True)
-    print(f"  {dtype} step: {step_ms:.2f} ms median period {[round(p, 2) for p in periods]} "
+    print(f"  {tag}{dtype} step: {step_ms:.2f} ms median period {[round(p, 2) for p in periods]} "
           f"(first step {first_s:.3f} s; train_step alone median {statistics.median(calls):.2f} ms); "
           f"{r['audio_s_per_s']:.3f} audio s trained per s; "
           f"peak memory {r['peak_gib']:.2f} GiB (of the training steps {r['step_peak_gib']:.2f} "
@@ -964,30 +1044,30 @@ def phase_train(workdir: str, dtype: str = "float32", steps_total: int = TRAIN_S
           f"in all {launches}; {len(moved)} of {len(first_params)} tensors moved",
           flush=True)
     if eval_files:
-        print(f"  {dtype} evaluation of {eval_files} files at N={eval_n} per epoch: "
+        print(f"  {tag}{dtype} evaluation of {eval_files} files at N={eval_n} per epoch: "
               + "; ".join(f"{k} {[round(v, 4) for v in vals]}" for k, vals in r["eval"].items())
               + f"; best_pesq.pt by {meta['quality_metric']} ({meta['best_quality']:.4f})",
               flush=True)
 
     # the written checkpoint serves, in the dtype its config names
     noisy = os.path.join(workdir, "noisy_one")
-    out = os.path.join(workdir, f"enhanced_one_{dtype}_{eval_files}")
+    out = os.path.join(workdir, f"enhanced_one_{tag}{dtype}_{eval_files}")
     if not os.path.isdir(noisy):
         os.makedirs(noisy)
         save_wav(os.path.join(noisy, "one.wav"), synth_wav(1.0, 3, np.random.default_rng(2)), SR)
     x, _ = load_wav(os.path.join(noisy, "one.wav"))
     dtypes.clear()
-    tag = "best_pesq" if eval_files else "last"
+    best = "best_pesq" if eval_files else "last"
     with mock.patch.object(kup, "_launch", watched_launch):
         enhancement.main(["--test_dir", noisy, "--enhanced_dir", out, "--ckpt",
-                          os.path.join(ckpt_dir, f"{tag}.pt"), "--mode", "storm", "--N", "2",
-                          "--dtype", "checkpoint", "--device", "cuda"])
+                          os.path.join(ckpt_dir, f"{best}.pt"), "--mode", SERVING_MODE[mode],
+                          "--N", "2", "--dtype", "checkpoint", "--device", "cuda"])
     y, sr = load_wav(os.path.join(out, "one.wav"))
     check(sr == SR and y.shape == x.shape and bool(np.isfinite(y).all()),
           f"enhancing with the trained checkpoint gave {y.shape}")
     check(dtypes == {want_dtype}, f"the {dtype} checkpoint enhanced in {dtypes}")
-    print(f"  the trained checkpoint ({tag}.pt) enhanced a {x.shape[-1] / SR:.1f} s file at N=2 "
-          f"in {dtype} (--dtype checkpoint)", flush=True)
+    print(f"  the trained checkpoint ({best}.pt) enhanced a {x.shape[-1] / SR:.1f} s file at "
+          f"N=2 in {dtype} (--dtype checkpoint, --mode {SERVING_MODE[mode]})", flush=True)
     return r
 
 
@@ -2771,19 +2851,22 @@ EVAL_SI_SDR_ATOL_DB = 1e-4
 
 @contextlib.contextmanager
 def calls_counted():
-    """While active, every `StochasticRegenerationModel.enhance` call adds
-    (its K1 launches, its K3 launches, the NFE it reports) to the yielded
-    list."""
-    per_call, original = [], StochasticRegenerationModel.enhance
+    """While active, every `enhance` call of the three models adds (its K1
+    launches, its K3 launches, the NFE it reports) to the yielded list."""
+    per_call = []
 
-    def counted(model, *args, **kwargs):
-        before = (kup.upfirdn2d_cuda.launches, kq.quantize_int8_cuda.launches)
-        result = original(model, *args, **kwargs)
-        per_call.append((kup.upfirdn2d_cuda.launches - before[0],
-                         kq.quantize_int8_cuda.launches - before[1], int(result[1])))
-        return result
+    def counting(original):
+        def counted(model, *args, **kwargs):
+            before = (kup.upfirdn2d_cuda.launches, kq.quantize_int8_cuda.launches)
+            result = original(model, *args, **kwargs)
+            per_call.append((kup.upfirdn2d_cuda.launches - before[0],
+                             kq.quantize_int8_cuda.launches - before[1], int(result[1])))
+            return result
+        return counted
 
-    with mock.patch.object(StochasticRegenerationModel, "enhance", counted):
+    with contextlib.ExitStack() as stack:
+        for cls in (StochasticRegenerationModel, ScoreModel, DiscriminativeModel):
+            stack.enter_context(mock.patch.object(cls, "enhance", counting(cls.enhance)))
         yield per_call
 
 
@@ -3021,6 +3104,8 @@ def phase_ode_streaming(workdir: str, gen: torch.Generator):
 def write_test_split(corpus: str):
     """`tt` of the wsj0 layout beside phase 8's corpus: pairs at
     BATCH_SECONDS (two buckets of four), {name: samples}."""
+    if os.path.isdir(os.path.join(corpus, "tt")):
+        return
     rng = np.random.default_rng(7)
     for kind in ("clean", "noisy"):
         os.makedirs(os.path.join(corpus, "tt", kind))
@@ -3128,6 +3213,321 @@ def phase_evaluate(workdir: str):
     finally:
         torch.backends.cudnn.deterministic = False
     del model
+    torch.cuda.empty_cache()
+    return k1_paths
+
+
+# --- the score-only and denoiser-only models and the OUVP SDE (phases 40-44)
+
+SINGLE_MODES = ("score-only", "denoiser-only")
+# NCSN++ forwards per file at the CLI's defaults (pc, N=50 + ald): the score
+# model's N x 2 (no denoiser), the denoiser's one
+CLI_FORWARDS = {"score-only": 2 * N_STEPS, "denoiser-only": 1}
+OUVP_FLAGS = ("--sde", "ouvp")
+OUVP_ODE_METHOD = "heun"
+ETD_OUVP_REFUSAL = "etd2 requires an SDE with constant linear drift (OUVE); got OUVPSDE"
+INT8_FLAGS = ["--dtype", "bfloat16", "--quant", "int8", "--quant_min_channels",
+              str(QUANT_MIN_CHANNELS)]
+
+
+def link_ckpt(workdir: str, src: str, name: str) -> str:
+    """`src` hard-linked at workdir/name, so that its int8 scale cache is its own."""
+    dst = os.path.join(workdir, name)
+    if not os.path.exists(dst):
+        os.link(src, dst)
+    return dst
+
+
+def served_model(ckpt: str):
+    """The checkpoint's model on the card with its EMA weights, as the CLIs
+    serve it (the config's dtype)."""
+    c = load_training_checkpoint(ckpt)
+    model = build_model(c["config"], device="cuda")
+    model.load_state_dict(c["ema_params"], strict=True)
+    return model
+
+
+def single_dc_launches(mode: str, n_steps: int, evals_per_step: int, k: int = DC_K) -> int:
+    """K1 launches of one score-only call with deepcache k, read from the
+    net's module list: a deep pass at the prior and at each refresh, a
+    shallow pass per score evaluation (no denoiser)."""
+    k1, _ = per_pass(single_net_structure(mode))
+    return deep_passes(n_steps, k) * k1["deep"] + n_steps * evals_per_step * k1["shallow"]
+
+
+def phase_train_new_modes(train_dir: str, gen: torch.Generator, storm_f32, storm_bf16):
+    """Phase 40. One full-width f32 score-only step's gradients against the
+    plain path; then `python -m storm_tpu_torch.train` on phase 8's corpus,
+    B=8, 256 frames, one epoch of 4 steps with the evaluation
+    (--num_eval_files 4 --eval_N 10): --mode score-only in f32 and bf16,
+    --mode denoiser-only --loss_type sisdr in f32, --mode
+    regen-joint-training --sde ouvp in bf16. phase_train's checks hold each
+    (exact K1 launches per step from the module list, finite losses,
+    SI-SDR and ESTOI); the step and its peak memory beside StoRM's (phases 8
+    and 25) in the same dtype; K1 and its adjoint against plain at every
+    shape the runs gave them. Returns ({run: phase_train's dict}, K1's
+    f32 and bf16 errors, the adjoint's f32 and bf16 errors)."""
+    phase_train_gradients(gen, {"mode": "score-only", "init_scale": 1.0})
+    runs = {}
+    with adjoint_shapes_recorded() as bwd_shapes, shapes_recorded() as (k1s, _):
+        for name, mode, dtype, extra in (
+                ("score-only", "score-only", "float32", ()),
+                ("score-only_bf16", "score-only", "bfloat16", ()),
+                ("denoiser-only_sisdr", "denoiser-only", "float32", ("--loss_type", "sisdr")),
+                ("storm_ouvp_bf16", "regen-joint-training", "bfloat16", OUVP_FLAGS)):
+            r = phase_train(train_dir, dtype, steps_total=TRAIN_FILES // TRAIN_B,
+                            eval_files=VALID_FILES, eval_n=F32_EVAL_N, mode=mode, extra=extra)
+            ref, phase = (storm_f32, 8) if dtype == "float32" else (storm_bf16, 25)
+            print(f"  {name}: {step_launches(mode)} K1 launches per step; step "
+                  f"{r['step_ms']:.2f} ms, peak of the steps {r['step_peak_gib']:.2f} GiB, "
+                  f"against StoRM's {ref['step_ms']:.2f} ms and {ref['step_peak_gib']:.2f} GiB "
+                  f"(phase {phase}, {dtype})", flush=True)
+            runs[name] = r
+    errs = []
+    for where, dtype in (("f32", torch.float32), ("bf16", BF16)):
+        errs.append(check_k1_at(f"the new modes' {where} training",
+                                {s for s in k1s if s[-1] == dtype}, gen))
+    for where, dtype in (("f32", torch.float32), ("bf16", BF16)):
+        errs.append(check_k1_bwd_at(f"the new modes' {where} training",
+                                    {s for s in bwd_shapes if s[-1] == dtype}, gen))
+    return (runs, *errs)
+
+
+def phase_new_modes_cli(workdir: str, ckpts, lengths, exact, gen: torch.Generator):
+    """Phase 41. `python -m storm_tpu_torch.enhancement` with phase 40's f32
+    score-only and denoiser-only checkpoints on phase 5's three files at the
+    CLI's defaults (score-only: pc, N=50 + ald, 100 forwards per file; the
+    denoiser one), in f32, bf16 and --quant int8 --dtype bfloat16 twice
+    (calibrates, then loads the cache): per file exactly 18 K1 and, int8,
+    55 K3 launches per forward, calibration's K1 in the first int8 run's
+    total; the RTF beside StoRM's (phases 5 and 19); every K1 shape (the
+    score net's 4-channel pyramid) and K3 input against plain. Then the 4 s
+    file's score-only f32 etd2 ODE (N=10) and the denoiser's output through
+    the kernels against the plain path, same prior, cuDNN deterministic.
+    Returns ({path: K1}, {path: K3}, K1's f32 and bf16 errors, K3's)."""
+    noisy = os.path.join(workdir, "noisy")
+    k1_paths, k3_paths, k1_shapes, k3_shapes = {}, {}, set(), set()
+    for mode in SINGLE_MODES:
+        ckpt = link_ckpt(workdir, ckpts[mode], f"{mode}.pt")
+        fw = CLI_FORWARDS[mode]
+        for config, dtype, extra in (("float32", torch.float32, ["--dtype", "float32"]),
+                                     ("bfloat16", BF16, ["--dtype", "bfloat16"]),
+                                     ("int8_bfloat16", BF16, INT8_FLAGS),
+                                     ("int8_bfloat16_cached", BF16, INT8_FLAGS)):
+            out, outputs = os.path.join(workdir, f"enhanced_{mode}_{config}"), {}
+            kup.upfirdn2d_cuda.launches = kq.quantize_int8_cuda.launches = 0
+            with shapes_recorded() as (k1s, k3s), calls_counted() as per_call:
+                text = run_enhancement(["--test_dir", noisy, "--enhanced_dir", out, "--ckpt",
+                                        ckpt, "--mode", mode, "--timeit", "--device", "cuda",
+                                        *extra], outputs)
+            totals = (kup.upfirdn2d_cuda.launches, kq.quantize_int8_cuda.launches)
+            check_outputs(out, lengths)
+            n_quant, calib = 0, 0
+            if "int8" in config:
+                cache = scale_cache_path(ckpt)
+                n_quant = quant_mod.num_quantized_convs(quant_mod.load_scales(cache, True))
+                check(n_quant == N_QUANT, f"{mode}: {n_quant} quantized convs")
+                if config == "int8_bfloat16":
+                    check(f"int8 calibration done ({N_QUANT} convs quantized" in text,
+                          f"{mode}: the first int8 run did not calibrate")
+                    calib = CALIB_FORWARDS - 1 if mode == "score-only" else 1
+                else:
+                    check(f"int8 scales loaded from {cache} ({N_QUANT} convs" in text,
+                          f"{mode}: the second int8 run did not load the cache")
+            want = (K1_PER_FORWARD * fw, n_quant * fw, fw)
+            check(per_call == [want] * len(lengths),
+                  f"{mode} {config}: (K1, K3, NFE) per file {per_call}, expected {want}")
+            check(totals == (K1_PER_FORWARD * (fw * len(lengths) + calib),
+                             n_quant * fw * len(lengths)), f"{mode} {config}: launches {totals}")
+            check({s[-1] for s in k1s} == {dtype}, f"{mode} {config} gave upfirdn2d {k1s}")
+            path = f"enhancement_{mode}_{config}"
+            k1_paths[path], k3_paths[path] = totals
+            k1_shapes |= k1s
+            k3_shapes |= k3s
+            rtf, storm_rtf = rtf_of(text), exact[config.replace("_cached", "")][0]
+            print(f"  {mode} {config}: (K1, K3, NFE) per file {per_call[0]} x {len(lengths)}, "
+                  f"in all {totals}" + (f" with {calib} calibration forwards" if calib else "")
+                  + "; RTF " + ", ".join(f"{n} {rtf[n]:.4f} (StoRM {storm_rtf[n]:.4f})"
+                                         for n in lengths), flush=True)
+    check({s[2] for s in k1_shapes if s[0] == "down" and s[3] == FREQS} >= {4, NF},
+          "the score net's 4-channel input pyramid gave upfirdn2d no call")
+    f32_err, bf16_err = (check_k1_at(f"the new modes' {what} CLI runs",
+                                     {s for s in k1_shapes if s[-1] == dtype}, gen)
+                         for what, dtype in (("float32", torch.float32), ("bf16", BF16)))
+    k3_err = check_k3_at("the new modes' int8 bf16 runs", k3_shapes, gen)
+
+    name = max(lengths, key=lengths.get)
+    y = bucketed(load_wav(os.path.join(noisy, name))[0])
+    errs = []
+    torch.backends.cudnn.deterministic = True
+    try:
+        for mode, kw, nfe in (("score-only", dict(N=ODE_N, sampler_type="ode",
+                                                  method=ODE_METHOD), 2 * ODE_N + 1),
+                              ("denoiser-only", {}, 1)):
+            model = served_model(os.path.join(workdir, f"{mode}.pt"))
+            runs = []
+            for plain in (False, True):
+                ctx = (mock.patch.object(resample, "upfirdn2d", kup.upfirdn2d_plain) if plain
+                       else contextlib.nullcontext())
+                with ctx:
+                    runs.append(model.enhance(
+                        y, generator=torch.Generator(device="cuda").manual_seed(0), **kw))
+            (got, n), (want_x, _) = runs
+            err, scale = (got - want_x).abs().max().item(), want_x.abs().max().item()
+            print(f"  {mode} f32 {kw.get('method', 'forward')} ({name}, {n} forwards) through "
+                  f"the kernels against plain: max abs err {err:.3e} (scale {scale:.3e}, "
+                  f"{err / scale:.3e} of it)", flush=True)
+            check(n == nfe and err <= TRAJECTORY_RTOL * scale,
+                  f"{mode}: the kernels' output parts from plain by {err:.3e}")
+            errs.append(err)
+            del model
+    finally:
+        torch.backends.cudnn.deterministic = False
+    torch.cuda.empty_cache()
+    return k1_paths, k3_paths, max(f32_err, *errs), bf16_err, k3_err
+
+
+def phase_ouvp_serving(workdir: str, ouvp_ckpt: str, lengths, exact, gen: torch.Generator):
+    """Phase 42. Phase 40's OUVP StoRM checkpoint (bf16) through the CLI on
+    phase 5's files: pc at the defaults (N=50 + ald, 101 forwards per file)
+    and --sampler ode --ode-method heun --N 10 (22), exact K1 launches per
+    file, the RTF beside phase 19's; `--ode-method etd2` raises the
+    reference's ValueError (a process running the CLI exits with status
+    1); K1 against plain at every shape. Returns ({path: K1}, K1's error)."""
+    ckpt = link_ckpt(workdir, ouvp_ckpt, "storm_ouvp.pt")
+    noisy = os.path.join(workdir, "noisy")
+    check(load_training_checkpoint(ckpt)["config"]["sde"] == "ouvp", "not an OUVP checkpoint")
+    base = ["--test_dir", noisy, "--ckpt", ckpt, "--mode", "storm", "--timeit", "--device",
+            "cuda"]
+    k1_paths, shapes = {}, set()
+    for path, extra, nfe in (("enhancement_ouvp_pc_bf16", [], NFE),
+                             ("enhancement_ouvp_ode_heun_bf16",
+                              ["--sampler", "ode", "--ode-method", OUVP_ODE_METHOD, "--N",
+                               str(ODE_N)], ODE_N_NFE)):
+        out = os.path.join(workdir, path)
+        kup.upfirdn2d_cuda.launches = 0
+        with shapes_recorded() as (k1s, _), calls_counted() as per_call:
+            text = run_enhancement([*base, "--enhanced_dir", out, *extra])
+        check_outputs(out, lengths)
+        want = (K1_PER_FORWARD * nfe, 0, nfe)
+        check(per_call == [want] * len(lengths), f"{path}: per file {per_call}")
+        check({s[-1] for s in k1s} == {BF16}, f"{path} gave upfirdn2d {k1s}")
+        k1_paths[path] = kup.upfirdn2d_cuda.launches
+        shapes |= k1s
+        rtf = rtf_of(text)
+        print(f"  {path}: (K1, K3, NFE) per file {per_call[0]} x {len(lengths)}; RTF "
+              + ", ".join(f"{n} {rtf[n]:.4f}" for n in lengths)
+              + (f" (OUVE StoRM bf16, phase 19: "
+                 + ", ".join(f"{exact['bfloat16'][0][n]:.4f}" for n in lengths) + ")"
+                 if not extra else ""), flush=True)
+    try:
+        run_enhancement([*base, "--enhanced_dir", os.path.join(workdir, "ouvp_etd2"),
+                         "--sampler", "ode", "--ode-method", "etd2", "--N", "2"])
+    except ValueError as e:
+        check(str(e) == ETD_OUVP_REFUSAL, f"--ode-method etd2 under OUVP raised {e!r}")
+        print(f"  --ode-method etd2 under OUVP refused: {e}", flush=True)
+    else:
+        fail("--ode-method etd2 under OUVP did not raise")
+    return k1_paths, check_k1_at("the OUVP runs", shapes, gen)
+
+
+def phase_new_modes_server(workdir: str, gen: torch.Generator):
+    """Phase 43. The server with phase 41's checkpoints on phase 15's burst:
+    --mode score-only at its bf16 default (N=10 + ald: X-NFE 20), then with
+    --deepcache 3 (still 20: refreshes are not counted), and --mode
+    denoiser-only (X-NFE 1); /healthz reports the mode; K1 launches per
+    warm-up call and batch from the module list. Then denoiser-only
+    streaming of phase 16's 12 s file (f32, the checkpoint's): 18 K1
+    launches per call of 8 chunks. Returns ({path: K1}, K1's f32 and bf16
+    errors)."""
+    rng = np.random.default_rng(4)
+    waves = [synth_wav(s, i, rng) for i, s in enumerate(SERVE_SECONDS)]
+    k1_paths, shapes = {}, set()
+    for path, mode, extra, per_call, nfe in (
+            ("server_score-only_bf16", "score-only", [], K1_PER_FORWARD * 2 * SERVE_N,
+             2 * SERVE_N),
+            ("server_score-only_dc3_bf16", "score-only", ["--deepcache", str(DC_K)],
+             single_dc_launches("score-only", SERVE_N, 2), 2 * SERVE_N),
+            ("server_denoiser-only_bf16", "denoiser-only", [], K1_PER_FORWARD, 1)):
+        ckpt = os.path.join(workdir, f"{mode}.pt")
+        r = run_server(path, serve_args(ckpt, "--mode", mode, *extra), waves, nfe=nfe)
+        check(r["health"]["mode"] == mode, f"{path}: /healthz reports {r['health'].get('mode')}")
+        calls = r["warmups"] + r["stats"]["batches"]
+        want = per_call * calls
+        print(f"  {path}: upfirdn2d launches {r['k1']}, expected {per_call} x ({r['warmups']} "
+              f"warm-up + {r['stats']['batches']} batches) = {want}", flush=True)
+        check(r["k1"] == want and r["k3"] == 0, f"{path}: launches {r['k1']}, {r['k3']}")
+        check({s[-1] for s in r["k1_shapes"]} == {BF16}, f"{path} ran upfirdn2d in float32")
+        k1_paths[path] = r["k1"]
+        shapes |= r["k1_shapes"]
+
+    noisy = os.path.join(workdir, "stream_noisy")
+    out = os.path.join(workdir, "stream_denoiser")
+    stream_lengths = {os.path.basename(f): load_wav(f)[0].shape[-1] for f in glob_wavs(noisy)}
+    T = next(iter(stream_lengths.values()))
+    chunk = -(-int(STREAM_CHUNK_S * SR) // BUCKET) * BUCKET
+    overlap = int(STREAM_OVERLAP_S * SR)
+    calls = -(-len(range(0, T - overlap, chunk - overlap)) // STREAM_ROWS)
+    kup.upfirdn2d_cuda.launches = 0
+    with shapes_recorded() as (k1s, _), calls_counted() as per_call:
+        text = run_enhancement(["--test_dir", noisy, "--enhanced_dir", out, "--ckpt",
+                                os.path.join(workdir, "denoiser-only.pt"), "--mode",
+                                "denoiser-only", "--stream_chunk_s", str(STREAM_CHUNK_S),
+                                "--stream_overlap_s", str(STREAM_OVERLAP_S), "--timeit",
+                                "--device", "cuda"])
+    check_outputs(out, stream_lengths)
+    want = [(K1_PER_FORWARD, 0, 1)] * calls
+    print(f"  streaming denoiser-only: RTF {list(rtf_of(text).values())}; (K1, K3, NFE) per "
+          f"call of {STREAM_ROWS} chunks {per_call}, expected {want[0]} x {calls}", flush=True)
+    check(per_call == want, f"streaming denoiser-only: per call {per_call}")
+    k1_paths["streaming_denoiser-only"] = kup.upfirdn2d_cuda.launches
+    return (k1_paths, check_k1_at("the new modes' streaming run", k1s, gen),
+            check_k1_at("the new modes' servers", shapes, gen))
+
+
+def phase_new_modes_evaluate(workdir: str):
+    """Phase 44. `python -m storm_tpu_torch.evaluate --mode score-only` and
+    `--mode denoiser-only` on phase 39's test split (8 files, --batch 4 --N
+    10 --csv), phase 41's checkpoints: exit with 8 rows, SI-SDR and ESTOI
+    finite, exactly 18 K1 launches per forward (score-only: 20 per call,
+    the denoiser 1), each row's SI-SDR within 1e-4 dB of BucketedEnhancer's
+    output for the same file, grouping and seed (cuDNN deterministic).
+    Returns {path: K1 launches}."""
+    corpus = os.path.join(workdir, "train", "corpus")
+    write_test_split(corpus)
+    k1_paths = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for mode in SINGLE_MODES:
+            ckpt = os.path.join(workdir, f"{mode}.pt")
+            fw = {"score-only": 2 * ODE_N, "denoiser-only": 1}[mode]
+            out_csv = os.path.join(workdir, f"evaluate_{mode}.csv")
+            kup.upfirdn2d_cuda.launches = 0
+            with calls_counted() as per_call:
+                text = captured(evaluate.main, [
+                    "--ckpt", ckpt, "--mode", mode, "--base_dir", corpus, "--num_files",
+                    str(len(BATCH_SECONDS)), "--batch", str(EVAL_BATCH), "--N", str(ODE_N),
+                    "--csv", out_csv, "--device", "cuda"])[1]
+            k1_paths[f"evaluate_{mode}"] = kup.upfirdn2d_cuda.launches
+            with open(out_csv) as f:
+                rows = list(csv.DictReader(f))
+            check(len(rows) == len(BATCH_SECONDS), f"evaluate {mode}: {len(rows)} CSV rows")
+            check(all(np.isfinite(float(r["si_sdr"])) and np.isfinite(float(r["estoi"]))
+                      for r in rows), f"evaluate {mode}: metrics not finite: {rows}")
+            check("--- mean +/- 95% CI ---" in text, f"evaluate {mode}: no mean +/- CI lines")
+            check(per_call == [(K1_PER_FORWARD * fw, 0, fw)] * 2
+                  and k1_paths[f"evaluate_{mode}"] == 2 * K1_PER_FORWARD * fw,
+                  f"evaluate {mode}: (K1, K3, NFE) per call {per_call}")
+            served = served_si_sdr(served_model(ckpt), corpus, "pc")
+            diffs = {r["file"]: abs(float(r["si_sdr"]) - served[r["file"]]) for r in rows}
+            print(f"  evaluate --mode {mode}: {len(rows)} rows; (K1, K3, NFE) per call "
+                  f"{per_call}; mean SI-SDR {np.mean([float(r['si_sdr']) for r in rows]):.3f} "
+                  f"dB, ESTOI {np.mean([float(r['estoi']) for r in rows]):.4f}; |CSV SI-SDR - "
+                  f"served| up to {max(diffs.values()):.2e} dB", flush=True)
+            check(max(diffs.values()) <= EVAL_SI_SDR_ATOL_DB,
+                  f"evaluate {mode}: SI-SDR parts from the enhancer's by {diffs}")
+    finally:
+        torch.backends.cudnn.deterministic = False
     torch.cuda.empty_cache()
     return k1_paths
 
@@ -3320,6 +3720,31 @@ def main():
               flush=True)
         eval_k1 = phase_evaluate(workdir)
 
+        print("== phase 40: training the score-only and denoiser-only models and OUVP StoRM "
+              "at full width", flush=True)
+        new_train, nt_f32_err, nt_bf16_err, nt_bwd_err, nt_bwd_bf16_err = phase_train_new_modes(
+            train_dir, gen, train_f32, train_bf16)
+        ckpts = {"score-only": new_train["score-only"]["ckpt_dir"],
+                 "denoiser-only": new_train["denoiser-only_sisdr"]["ckpt_dir"],
+                 "ouvp": new_train["storm_ouvp_bf16"]["ckpt_dir"]}
+        ckpts = {k: os.path.join(v, "last.pt") for k, v in ckpts.items()}
+
+        print("== phase 41: the CLI with the score-only and denoiser-only checkpoints (float32, "
+              "bf16, int8 + bf16)", flush=True)
+        nm_k1, nm_k3, nm_err, nm_bf16_err, nm_k3_err = phase_new_modes_cli(
+            workdir, ckpts, lengths, {"float32": (f32_rtf, f32_outputs), **bf16_exact}, gen)
+
+        print("== phase 42: OUVP StoRM serving (pc, ode heun; etd2 refused)", flush=True)
+        ouvp_k1, ouvp_err = phase_ouvp_serving(workdir, ckpts["ouvp"], lengths, bf16_exact, gen)
+
+        print("== phase 43: the server with --mode score-only (and --deepcache 3) and "
+              "denoiser-only; denoiser-only streaming", flush=True)
+        nm_srv_k1, nm_stream_err, nm_srv_err = phase_new_modes_server(workdir, gen)
+
+        print("== phase 44: python -m storm_tpu_torch.evaluate --mode score-only and "
+              "denoiser-only", flush=True)
+        nm_eval_k1 = phase_new_modes_evaluate(workdir)
+
     def entry(name, source, replaces, per_shape_ms, calls, err, launches, work, **extra):
         keys = ("ms", "device_ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms")
         total = {k: sum(per_shape_ms[c][k] for c in calls) if k in per_shape_ms[calls[0]]
@@ -3356,6 +3781,23 @@ def main():
     k3_bf16_by_path["enhancement_ode_int8_bfloat16"] = ode_k3["enhancement_ode_int8_bfloat16"]
     ode_k1_err = max(ode_err, ode_stream_err)
     ode_k1_bf16_err = max(ode_bf16_err, methods_err, ode_srv_err)
+    # the score-only and denoiser-only models and OUVP StoRM (phases 40-44)
+    nm_runs = {f"train_{name}": r for name, r in new_train.items()}
+
+    def is_bf16(path):
+        return "bf16" in path or "bfloat16" in path
+
+    nm_paths = {**{p: r["launches"][0] for p, r in nm_runs.items()}, **nm_k1, **nm_srv_k1,
+                **nm_eval_k1, **ouvp_k1}
+    k1_by_path.update({k: v for k, v in nm_paths.items() if not is_bf16(k)})
+    k1_bf16_by_path.update({k: v for k, v in nm_paths.items() if is_bf16(k)})
+    k3_bf16_by_path.update({k: v for k, v in nm_k3.items() if v})  # the int8 runs are bf16
+    bwd_by_path = {"train": train_launches[1], **{p: r["launches"][1] for p, r in nm_runs.items()
+                                                  if "bf16" not in p}}
+    bwd_bf16_by_path = {"train_bf16": train_bf16["launches"][1], "bench_train": bench_bwd,
+                        **{p: r["launches"][1] for p, r in nm_runs.items() if "bf16" in p}}
+    ode_k1_err = max(ode_k1_err, nt_f32_err, nm_err, nm_stream_err)
+    ode_k1_bf16_err = max(ode_k1_bf16_err, nt_bf16_err, nm_bf16_err, ouvp_err, nm_srv_err)
     k1_src = "storm_tpu_torch/csrc/upfirdn2d.cu"
     no_library = "no single PyTorch call computes this function"
     record = {"kernels": [
@@ -3366,12 +3808,12 @@ def main():
               f"the 18 calls of one full-width score-net forward, B=1, 256 x {FRAMES}",
               launches_by_path=k1_by_path),
         entry("upfirdn2d_bwd", k1_src, "storm_tpu/kernels/upfirdn.py:172-181", bwd_shape,
-              k1_bwd_calls(), bwd_err, train_launches[1],
+              k1_bwd_calls(), max(bwd_err, nt_bwd_err), sum(bwd_by_path.values()),
               f"the {STEP_BWD} backward calls of one full-width joint-training step, "
-              f"B={TRAIN_B}, 256 x {TRAIN_FRAMES}"),
+              f"B={TRAIN_B}, 256 x {TRAIN_FRAMES}", launches_by_path=bwd_by_path),
         entry("quantize_int8", "storm_tpu_torch/csrc/quantize_int8.cu",
               "scripts/perf_fusion_probe.py:88", k3_shape, k3_calls,
-              max(k3_err, serve_k3_err, stream_k3_err, dc_k3_err),
+              max(k3_err, serve_k3_err, stream_k3_err, dc_k3_err),  # f32 products only
               sum(k3_by_path.values()),
               f"the {N_QUANT} quantized-conv inputs of one full-width score-net forward, "
               f"B=1, 256 x {FRAMES}, float32", library=no_library, launches_by_path=k3_by_path,
@@ -3395,12 +3837,12 @@ def main():
               bf16_elements_compared={k: {f: n[0] for f, n in v.items()}
                                       for k, v in BF16_FLIPS.items()}),
         entry("upfirdn2d_bwd_bf16", k1_src, "storm_tpu/kernels/upfirdn.py:172-181",
-              bf16_bwd_shape, k1_bwd_calls(), max(bf16_err, bf16_bwd_err, bench_bwd_err),
-              train_bf16["launches"][1] + bench_bwd,
+              bf16_bwd_shape, k1_bwd_calls(),
+              max(bf16_err, bf16_bwd_err, bench_bwd_err, nt_bwd_bf16_err),
+              sum(bwd_bf16_by_path.values()),
               f"the {STEP_BWD} backward calls of one full-width joint-training step, "
               f"B={TRAIN_B}, 256 x {TRAIN_FRAMES}, bfloat16 in and out",
-              launches_by_path={"train_bf16": train_bf16["launches"][1],
-                                "bench_train": bench_bwd},
+              launches_by_path=bwd_bf16_by_path,
               bf16_elements_that_differ={f: n[1] for f, n in BF16_FLIPS["upfirdn2d_bwd"].items()},
               bf16_elements_compared={f: n[0] for f, n in BF16_FLIPS["upfirdn2d_bwd"].items()}),
         {"name": "fused_leaky_relu_bf16", "route": "cuda",
@@ -3416,7 +3858,7 @@ def main():
          "grad_bias_ulps_of_scale": k2_bf16["grad_bias_ulps_of_scale"]},
         entry("quantize_int8_bf16_product", "storm_tpu_torch/csrc/quantize_int8.cu",
               "scripts/perf_fusion_probe.py:88", k3b_shape, k3b_calls,
-              max(k3b_err, bf16_serve_k3_err, dc_k3_err, ode_k3_err),
+              max(k3b_err, bf16_serve_k3_err, dc_k3_err, ode_k3_err, nm_k3_err),
               sum(k3_bf16_by_path.values()),
               f"the {N_QUANT} quantized-conv inputs of one full-width score-net forward, "
               f"B=1, 256 x {FRAMES}, bfloat16, the product in bfloat16", library=no_library,

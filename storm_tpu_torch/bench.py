@@ -96,7 +96,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                          "0 = exact")
     ap.add_argument("--deepcache_depth", type=int, default=1)
     ap.add_argument("--distill", action="store_true",
-                    help="distilled one-step serving: not ported yet (ROADMAP R3)")
+                    help="distilled one-step serving: not ported yet (ROADMAP R3, distillation)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the kernels' plain versions")
     return ap.parse_args(argv)
@@ -280,7 +280,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     t_start = time.perf_counter()
     if args.distill:
         raise NotImplementedError("--distill: the distilled student (models/distill.py) is not "
-                                  "ported yet (ROADMAP R3)")
+                                  "ported yet (ROADMAP R3, distillation)")
     if args.backbone != "ncsnpp":
         raise NotImplementedError(f"--backbone {args.backbone}: only ncsnpp is ported yet "
                                   "(ROADMAP R4)")

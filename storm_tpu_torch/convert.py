@@ -1,9 +1,11 @@
 """Reference (flax) parameters -> the port's state_dict.
 
 `params_from_jax` takes the reference model's parameter tree as nested dicts
-of numpy arrays, `{"denoiser": ..., "score": ...}`, and returns the state_dict
-of `StochasticRegenerationModel`. Flax module `m{i}` is `all_modules.{i}`;
-layouts change as follows:
+of numpy arrays, `{"denoiser": ..., "score": ...}` for StoRM or one net's
+tree for the score-only and denoiser-only models, and returns the state_dict
+of `StochasticRegenerationModel` (nets `denoiser_net`, `score_net`) or of
+`ScoreModel` / `DiscriminativeModel` (net `dnn`). Flax module `m{i}` is
+`all_modules.{i}`; layouts change as follows:
 
     conv kernel  (H, W, I, O)  -> weight (O, I, H, W)
     Dense kernel (I, O)        -> weight (O, I)
@@ -77,14 +79,19 @@ def module_params_from_jax(tree: Mapping[str, Any], prefix: str = "") -> Dict[st
 
 
 def params_from_jax(tree: Mapping[str, Any], target=None) -> Dict[str, torch.Tensor]:
-    """{"denoiser": flax tree, "score": flax tree} -> StoRM state_dict."""
-    leftover = set(tree) - set(_PREFIXES)
-    if leftover:
-        raise KeyError(f"params_from_jax: unexpected top-level keys {sorted(leftover)}")
-    sd: Dict[str, torch.Tensor] = {}
-    for key, prefix in _PREFIXES.items():
-        if key in tree:
-            sd.update(module_params_from_jax(tree[key], prefix + "."))
+    """{"denoiser": flax tree, "score": flax tree} -> StoRM state_dict; a
+    single net's flax tree (no such top-level keys) -> the state_dict of a
+    model holding it as `dnn`."""
+    if not set(tree) & set(_PREFIXES):
+        sd = module_params_from_jax(tree, "dnn.")
+    else:
+        leftover = set(tree) - set(_PREFIXES)
+        if leftover:
+            raise KeyError(f"params_from_jax: unexpected top-level keys {sorted(leftover)}")
+        sd = {}
+        for key, prefix in _PREFIXES.items():
+            if key in tree:
+                sd.update(module_params_from_jax(tree[key], prefix + "."))
     if target is not None:
         check_state_dict(sd, target)
     return sd

@@ -1,9 +1,14 @@
-"""File-to-file StoRM enhancement on the GPU (counterpart of enhancement.py).
+"""File-to-file enhancement on the GPU (counterpart of enhancement.py).
 
     python -m storm_tpu_torch.enhancement --test_dir noisy/ --enhanced_dir out/ \\
-        --ckpt model.pt --mode storm [--batch 4] [--stream_chunk_s 2.0] [--device cuda]
+        --ckpt model.pt --mode storm|score-only|denoiser-only [--batch 4] \\
+        [--stream_chunk_s 2.0] [--device cuda]
 
-Flags and defaults are those of the reference CLI for `--mode storm`:
+`--mode` names the model the checkpoint holds: storm (either StoRM training
+mode), score-only (SGMSE+: the samplers run around the noisy spec) or
+denoiser-only (one forward; the sampler flags are ignored, NFE 1); another
+checkpoint mode exits with the reference's message. Flags and defaults are
+those of the reference CLI:
 `--sampler pc` with reverse diffusion and the ald corrector, one corrector
 step, snr 0.5, N=50, EMA weights unless `--no-ema`. `--sampler ode`
 integrates the probability-flow ODE with `--ode-method` (default etd2, 2N +
@@ -52,7 +57,8 @@ import torch
 
 from .ckpt import load_checkpoint
 from .data.audio import load_wav, save_wav, wav_info
-from .models.factory import SERVING_MODES, STORM_MODES, build_model, refuse_unported_mode
+from .models.factory import (SERVING_MODES, build_model, check_checkpoint_mode,
+                             refuse_unported_mode)
 from .sampling.correctors import CORRECTORS
 from .sampling.predictors import PREDICTORS
 from .sampling.samplers import ODE_METHODS
@@ -72,7 +78,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--ckpt", type=str, required=True,
                    help="Checkpoint file (.pt, storm_tpu_torch.ckpt).")
     p.add_argument("--mode", required=True, choices=SERVING_MODES,
-                   help="storm; the other modes are not ported yet (ROADMAP R3)")
+                   help="storm, score-only (SGMSE+) or denoiser-only; distill is not ported yet "
+                        "(ROADMAP R3, distillation)")
     p.add_argument("--sampler", type=str, choices=("pc", "ode", "picard"), default="pc",
                    help="pc: predictor-corrector (the reference's default); ode: the "
                         "deterministic probability-flow integrator (--ode-method); picard: "
@@ -138,8 +145,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     refuse_unported_mode(args.mode)
     device = torch.device(args.device)
     config, params, ema_params = load_checkpoint(args.ckpt)
-    if config.get("mode", "regen-joint-training") not in STORM_MODES:
-        raise SystemExit(f"--mode storm incompatible with checkpoint mode {config['mode']}")
+    check_checkpoint_mode(args.mode, config)
     if args.dtype != "checkpoint":
         config = dict(config, dtype=args.dtype)
     model = build_model(config, device=device)

@@ -20,7 +20,8 @@ enhanced file is written to a temporary WAV and transcribed by `--asr_cmd`,
 a shell command whose `{wav}` placeholder is replaced by the file's quoted
 path and whose standard output is the hypothesis (600 s per call).
 
-Only `--mode storm` is ported; the other modes raise (ROADMAP R3).
+`--mode` is storm, score-only (SGMSE+) or denoiser-only, the checkpoint's
+own; distill raises (ROADMAP R3, distillation).
 """
 from __future__ import annotations
 
@@ -38,7 +39,8 @@ import torch
 from .ckpt import load_checkpoint
 from .data.audio import save_wav, wav_info
 from .data.datamodule import SpecsAndTranscriptionsDataModule, SpecsDataModule
-from .models.factory import SERVING_MODES, STORM_MODES, build_model, refuse_unported_mode
+from .models.factory import (SERVING_MODES, build_model, check_checkpoint_mode,
+                             refuse_unported_mode)
 from .sampling.correctors import CORRECTORS
 from .sampling.predictors import PREDICTORS
 from .sampling.samplers import ODE_METHODS
@@ -55,7 +57,8 @@ def build_argparser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ckpt", required=True, help="Checkpoint file (.pt, storm_tpu_torch.ckpt).")
     ap.add_argument("--mode", required=True, choices=SERVING_MODES,
-                    help="storm; the other modes are not ported yet (ROADMAP R3)")
+                    help="storm, score-only (SGMSE+) or denoiser-only; distill is not ported "
+                         "yet (ROADMAP R3, distillation)")
     ap.add_argument("--base_dir", required=True)
     ap.add_argument("--format", default="wsj0",
                     choices=["wsj0", "vctk", "dns", "reverb_wsj0", "timit", "voicebank"])
@@ -113,8 +116,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         raise SystemExit("--wer requires --asr_cmd")
     device = torch.device(args.device)
     config, params, ema_params = load_checkpoint(args.ckpt)
-    if config.get("mode", "regen-joint-training") not in STORM_MODES:
-        raise SystemExit(f"--mode storm incompatible with checkpoint mode {config['mode']}")
+    check_checkpoint_mode(args.mode, config)
     if args.dtype != "checkpoint":
         config = dict(config, dtype=args.dtype)
     model = build_model(config, device=device)

@@ -1,5 +1,6 @@
-"""Train state, EMA, optimizer and wav <-> compressed-spec plumbing
-(counterpart of storm_tpu/models/base.py).
+"""Train state, EMA, optimizer, wav <-> compressed-spec plumbing, and what
+the three models share: their nets' inference cast, one optimizer step and
+the sampler dispatch (counterpart of storm_tpu/models/base.py).
 
 The EMA follows torch-ema with warmup, as the reference does: after every
 optimizer step n (counted from 1), shadow = d*shadow + (1-d)*param with
@@ -14,7 +15,10 @@ from typing import Callable, Dict, Iterator, Optional, Tuple
 import torch
 from torch import nn
 
-from ..sampling.samplers import check_deepcache_method
+from ..nn.cast import cast_params
+from ..sampling.samplers import (DeepCache, check_deepcache_method, ode_sample, pc_sample,
+                                 picard_sample)
+from ..signal import cplx
 from ..signal.stft import STFTConfig, istft_real, stft_real
 from ..signal.transforms import SpecTransform, pad_spec
 
@@ -107,6 +111,53 @@ def check_deepcache_config(net: Optional[nn.Module], deepcache: int, sampler_typ
         net.check_cache_depth(cache_depth)
 
 
+SAMPLER_TYPES = ("pc", "ode", "picard")
+
+
+def check_sampler(net: nn.Module, sampler_type: str, deepcache: int, deepcache_depth: int,
+                  method: str) -> None:
+    """Refuse an unknown sampler, and a deepcache request `net` cannot serve."""
+    if sampler_type not in SAMPLER_TYPES:
+        raise ValueError(f"{sampler_type} is not a valid sampler type!")
+    if deepcache:
+        check_deepcache_config(net, deepcache, sampler_type, deepcache_depth, method)
+
+
+def run_sampler(sde, score_fn: Callable, y: torch.Tensor, sampler_type: str, *, N: int,
+                eps: float, noise, generator, predictor: str, corrector: str,
+                corrector_steps: int, snr: float, probability_flow: bool, method: str,
+                rtol: float, atol: float, max_steps: int, sweeps: int,
+                cache: Optional[DeepCache] = None,
+                wide_score_fn: Optional[Callable] = None) -> Tuple[torch.Tensor, int]:
+    """One call of the sampler `sampler_type` from p_T(.|y), ending with the
+    denoising step: "pc" (the predictor-corrector options and `cache`),
+    "ode" (`method`, `cache`, and `rtol`, `atol`, `max_steps` for rk45) or
+    "picard" (`sweeps` sweeps, each a `wide_score_fn` call on N x B rows);
+    the other samplers' options are ignored. Returns (x, nfe)."""
+    common = dict(N=N, denoise=True, eps=eps, noise=noise, generator=generator)
+    if sampler_type == "pc":
+        return pc_sample(sde, score_fn, y, predictor=predictor, corrector=corrector, snr=snr,
+                         corrector_steps=corrector_steps, probability_flow=probability_flow,
+                         deepcache=cache, **common)
+    if sampler_type == "ode":
+        return ode_sample(sde, score_fn, y, method=method, deepcache=cache, rtol=rtol,
+                          atol=atol, max_steps=max_steps, **common)
+    return picard_sample(sde, score_fn, y, sweeps=sweeps, wide_score_fn=wide_score_fn, **common)
+
+
+def draw_tz(sde, t_eps: float, x: torch.Tensor,
+            generator: Optional[torch.Generator]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """t ~ U(t_eps, T) per example and standard complex normal z like x."""
+    t = torch.rand(x.shape[0], generator=generator, device=x.device)
+    t = t * (sde.T - t_eps) + t_eps
+    return t, cplx.complex_normal(x.shape[:-1], generator=generator, device=x.device)
+
+
+def per_example_sum(v: torch.Tensor) -> torch.Tensor:
+    """0.5 * the sum of each example's elements, (B,)."""
+    return 0.5 * v.reshape(v.shape[0], -1).sum(dim=-1)
+
+
 @dataclasses.dataclass
 class TrainState:
     """What a training step changes: the step count, the model's parameters,
@@ -152,3 +203,61 @@ def swapped_in(model: nn.Module, weights: Dict[str, torch.Tensor]) -> Iterator[n
         yield model
     finally:
         model.load_state_dict(own, strict=True)
+
+
+class EnhancementModel(nn.Module):
+    """What the three models share: the nets named in `NETS`, cast to their
+    dtype for inference, and one optimizer step on `step_loss`.
+
+    A subclass defines `step_loss(batch, *drawn) -> (loss, aux)` and, where
+    a step draws random inputs (the diffusion time and noise), `draw_step`.
+    `batch_reduction` says how the loss combines the examples of a batch,
+    "mean" or "sum"; the trainer's masked validation follows it."""
+
+    NETS: Tuple[str, ...] = ()
+    batch_reduction = "mean"
+
+    @contextlib.contextmanager
+    def cast_nets(self):
+        """The nets with their parameters cast to their dtype once for the
+        block (nn/cast.py `cast_params`): for inference and validation, under
+        torch.no_grad() or inference_mode; a forward with gradients raises."""
+        with contextlib.ExitStack() as stack:
+            for name in self.NETS:
+                net = getattr(self, name)
+                stack.enter_context(cast_params(net, net.dtype))
+            yield self
+
+    def draw_step(self, batch, generator: Optional[torch.Generator]) -> Tuple:
+        """The random inputs of one step's loss (none by default)."""
+        return ()
+
+    def step_loss(self, batch, *drawn) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        raise NotImplementedError
+
+    def compute_gradients(self, batch, *drawn) -> Dict[str, torch.Tensor]:
+        """Set every parameter's .grad to d step_loss / d param (zeros where
+        the loss does not reach, as the reference's gradient tree has them) and
+        return the detached losses."""
+        self.zero_grad(set_to_none=True)
+        loss, aux = self.step_loss(batch, *drawn)
+        loss.backward()
+        for p in self.parameters():
+            if p.requires_grad and p.grad is None:
+                p.grad = torch.zeros_like(p)
+        return {k: v.detach() for k, v in aux.items()}
+
+    def apply_update(self, state: TrainState) -> None:
+        """Adam step on the gradients in .grad, then the EMA update."""
+        state.optimizer.step()
+        state.step += 1
+        ema_update(state.ema, self.state_dict(), self.ema_decay, state.step)
+
+    def train_step(self, state: TrainState, batch,
+                   generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """One optimizer step on `batch` with its random inputs from `generator`."""
+        if state.model is not self:
+            raise ValueError("train_step: the state belongs to another model")
+        aux = self.compute_gradients(batch, *self.draw_step(batch, generator))
+        self.apply_update(state)
+        return aux

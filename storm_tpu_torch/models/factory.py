@@ -2,35 +2,53 @@
 
 Takes the same config dicts as the reference (the JSON a checkpoint carries),
 training keys included (lr, ema_decay, loss types, weighting, mode). This
-slice builds the two StoRM modes with NCSN++ backbones and the OUVE SDE,
+builds the four trainable modes, the two StoRM modes, `score-only` (SGMSE+)
+and `denoiser-only`, with NCSN++ backbones and the OUVE or OUVP SDE,
 computing in the config's `dtype`, "float32" (the default) or "bfloat16",
-with float32 parameters; other choices raise NotImplementedError.
+with float32 parameters; other choices raise NotImplementedError naming
+their ROADMAP item.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict
 
 import torch
 
 from ..backbones.ncsnpp import NCSNpp
 from ..nn.init import reset_parameters
-from ..sde.sdes import OUVESDE
+from ..sde.sdes import SDES
 from ..signal.stft import STFTConfig
 from ..signal.transforms import SpecTransform
+from .base import EnhancementModel
+from .discriminative import DiscriminativeModel
+from .score import ScoreModel
 from .storm import CONDITION_CHANNELS, STORM_MODES, StochasticRegenerationModel
 
-# training keys of the config; their defaults are StochasticRegenerationModel's
+# training keys of the config by mode; their defaults are the model's
 TRAINING_KEYS = ("lr", "ema_decay", "loss_type_denoiser", "loss_type_score",
                  "weighting_denoiser_to_score")
+SINGLE_NET_TRAINING_KEYS = ("lr", "ema_decay", "loss_type")
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}  # the config's `dtype`
-# --mode of the serving entry points, as the reference offers it
-SERVING_MODES = ("score-only", "denoiser-only", "storm", "distill")
+# --mode of the serving entry points -> the checkpoint modes it serves (enhancement.py:143-152)
+MODES = {"score-only": ("score-only",), "denoiser-only": ("denoiser-only",),
+         "storm": STORM_MODES, "distill": ("distill",)}
+SERVING_MODES = tuple(MODES)
 
 
 def refuse_unported_mode(mode: str) -> None:
-    """Only `--mode storm` is served; the others raise, naming their item."""
-    if mode != "storm":
-        raise NotImplementedError(f"--mode {mode} is not ported yet (ROADMAP R3)")
+    """`--mode distill` raises, naming its item; the other modes are served."""
+    if mode == "distill":
+        raise NotImplementedError(
+            "--mode distill is not ported yet (ROADMAP R3, distillation)")
+
+
+def check_checkpoint_mode(mode: str, config: Dict[str, Any]) -> None:
+    """Exit with the reference's message unless the checkpoint's training
+    mode is one that serving `--mode` runs."""
+    ckpt_mode = config.get("mode", "regen-joint-training")
+    if ckpt_mode not in MODES[mode]:
+        raise SystemExit(f"--mode {mode} incompatible with checkpoint mode {ckpt_mode}")
 
 
 def resolve_device(device) -> torch.device:
@@ -48,20 +66,30 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def build_model(config: Dict[str, Any], device="cuda", seed: int = 0) -> StochasticRegenerationModel:
-    """Build the StoRM model of `config` on `device`, in eval mode (the trainer
+def _backbone(name: str, **kwargs) -> NCSNpp:
+    if name != "ncsnpp":
+        raise NotImplementedError(f"backbone {name!r}: only ncsnpp is ported yet (ROADMAP R4)")
+    return NCSNpp.from_kwargs(**kwargs)
+
+
+def _sde(name: str, cfg: Dict[str, Any]):
+    """The SDE `name` from the config's keys that are its fields."""
+    cls = SDES[name]
+    return cls(**{f.name: cfg[f.name] for f in dataclasses.fields(cls) if f.name in cfg})
+
+
+def build_model(config: Dict[str, Any], device="cuda", seed: int = 0) -> EnhancementModel:
+    """Build the model of `config` on `device`, in eval mode (the trainer
     calls .train(); NCSN++'s dropout is 0, so both compute the same), with
-    weights drawn from a generator seeded with `seed`."""
+    weights drawn from a generator seeded with `seed`: a
+    StochasticRegenerationModel for the StoRM modes, a ScoreModel for
+    `score-only`, a DiscriminativeModel for `denoiser-only`."""
     device = resolve_device(device)
     cfg = dict(config)
     mode = cfg.pop("mode", "regen-joint-training")
-    if mode not in STORM_MODES:
-        raise NotImplementedError(f"mode {mode!r} is not ported yet")
-    for key in ("backbone_denoiser", "backbone_score"):
-        if cfg.pop(key, "ncsnpp") != "ncsnpp":
-            raise NotImplementedError(f"{key}: only ncsnpp is ported yet")
-    if cfg.pop("sde", "ouve") != "ouve":
-        raise NotImplementedError("sde: only ouve is ported yet")
+    refuse_unported_mode(mode)
+    if mode not in STORM_MODES + ("score-only", "denoiser-only"):
+        raise ValueError(f"Unknown mode {mode!r}")
     dtype = cfg.pop("dtype", "float32")
     if dtype not in DTYPES:
         raise NotImplementedError(f"dtype {dtype!r}: float32 and bfloat16 are ported")
@@ -80,20 +108,36 @@ def build_model(config: Dict[str, Any], device="cuda", seed: int = 0) -> Stochas
             cfg[k] = tuple(cfg[k])
     if "sde_n" in cfg:
         cfg["N"] = cfg.pop("sde_n")
-    condition = cfg.pop("condition", "both")
-    t_eps = cfg.pop("t_eps", 0.03)
-    training = {k: cfg.pop(k) for k in TRAINING_KEYS if k in cfg}
+    front = dict(stft_config=stft_config, transform=transform)
+    net_kwargs = dict(cfg, dtype=DTYPES[dtype])
 
-    denoiser = NCSNpp.from_kwargs(**{**cfg, "input_channels": 2, "discriminative": True,
-                                     "dtype": DTYPES[dtype]})
-    score = NCSNpp.from_kwargs(**{
-        **cfg, "input_channels": 2 * (1 + CONDITION_CHANNELS[condition]),
-        "discriminative": False, "dtype": DTYPES[dtype],
-    })
-    sde = OUVESDE(**{k: cfg[k] for k in ("theta", "sigma_min", "sigma_max", "N") if k in cfg})
-    model = StochasticRegenerationModel(
-        denoiser, score, sde, stft_config=stft_config, transform=transform,
-        t_eps=t_eps, condition=condition, mode=mode, **training,
-    )
+    if mode == "denoiser-only":
+        cfg.pop("backbone_score", None)
+        backbone = cfg.pop("backbone_denoiser", cfg.pop("backbone", "ncsnpp"))
+        training = {k: cfg.pop(k) for k in SINGLE_NET_TRAINING_KEYS if k in cfg}
+        dnn = _backbone(backbone, **{**net_kwargs, "discriminative": True})
+        model = DiscriminativeModel(dnn, **front, **training)
+    elif mode == "score-only":
+        cfg.pop("backbone_denoiser", None)
+        backbone = cfg.pop("backbone_score", cfg.pop("backbone", "ncsnpp"))
+        training = {k: cfg.pop(k) for k in SINGLE_NET_TRAINING_KEYS if k in cfg}
+        dnn = _backbone(backbone, **{**net_kwargs, "input_channels": 4,
+                                     "discriminative": False})
+        model = ScoreModel(dnn, _sde(cfg.pop("sde", "ouve"), cfg), **front,
+                           t_eps=cfg.pop("t_eps", 0.03), **training)
+    else:
+        condition = cfg.pop("condition", "both")
+        if condition not in CONDITION_CHANNELS:
+            raise NotImplementedError(
+                f"Don't know the conditioning you have wished for: {condition}")
+        training = {k: cfg.pop(k) for k in TRAINING_KEYS if k in cfg}
+        denoiser = _backbone(cfg.pop("backbone_denoiser", "ncsnpp"),
+                             **{**net_kwargs, "input_channels": 2, "discriminative": True})
+        score = _backbone(cfg.pop("backbone_score", "ncsnpp"), **{
+            **net_kwargs, "input_channels": 2 * (1 + CONDITION_CHANNELS[condition]),
+            "discriminative": False})
+        model = StochasticRegenerationModel(
+            denoiser, score, _sde(cfg.pop("sde", "ouve"), cfg), **front,
+            t_eps=cfg.pop("t_eps", 0.03), condition=condition, mode=mode, **training)
     reset_parameters(model, torch.Generator().manual_seed(seed))
     return model.to(device).eval()

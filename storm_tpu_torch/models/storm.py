@@ -1,8 +1,9 @@
 """StoRM: predictive denoiser + score-based regeneration (counterpart of
 storm_tpu/models/storm.py).
 
-A denoiser D(Y) gives a first estimate; the reverse OUVE SDE then regenerates
-clean speech starting from D(Y), with the score net conditioned on [Y, D(Y)].
+A denoiser D(Y) gives a first estimate; the reverse SDE (OUVE or OUVP) then
+regenerates clean speech starting from D(Y), with the score net conditioned
+on [Y, D(Y)].
 Training minimises a*L_denoiser + (1-a)*L_score, with the SDE diffusing the
 clean target towards D(Y); `regen-freeze-denoiser` detaches D(Y), so only the
 score net learns.
@@ -20,17 +21,15 @@ from typing import Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
-from ..nn.cast import cast_params
 from ..nn.qconv import scales_attached, stats_collected
-from ..sampling.samplers import (DeepCache, NoiseSource, ode_sample, pc_sample, picard_sample,
-                                 time_major)
-from ..sde.sdes import OUVESDE
+from ..sampling.samplers import DeepCache, NoiseSource, time_major
+from ..sde.sdes import SDE
 from ..signal import cplx
 from ..signal.stft import STFTConfig
 from ..signal.transforms import SpecTransform
 from ..utils.tensors import right_pad_dims
-from .base import (TrainState, check_deepcache_config, ema_update, lift_spec,
-                   make_deepcache_fns, normalize_wav, prepare_spec, spec_to_wav)
+from .base import (EnhancementModel, check_sampler, draw_tz, lift_spec, make_deepcache_fns,
+                   normalize_wav, per_example_sum, prepare_spec, run_sampler, spec_to_wav)
 
 CONDITION_CHANNELS = {"noisy": 1, "post_denoiser": 1, "both": 2}
 STORM_MODES = ("regen-joint-training", "regen-freeze-denoiser")
@@ -43,12 +42,15 @@ def _stats_if(net: nn.Module, collect_stats: bool):
     return stats_collected(net) if collect_stats else contextlib.nullcontext()
 
 
-class StochasticRegenerationModel(nn.Module):
+class StochasticRegenerationModel(EnhancementModel):
     """Holds `denoiser_net` and `score_net` (NCSN++) with the SDE and the
     spectrogram front end; `enhance` is the whole inference path, `train_step`
     one optimizer step of joint training."""
 
-    def __init__(self, denoiser_net: nn.Module, score_net: nn.Module, sde: OUVESDE,
+    NETS = ("denoiser_net", "score_net")
+    batch_reduction = "sum"  # the losses sum over the batch (storm_tpu/models/storm.py:299)
+
+    def __init__(self, denoiser_net: nn.Module, score_net: nn.Module, sde: SDE,
                  stft_config: STFTConfig = STFTConfig(),
                  transform: SpecTransform = SpecTransform(),
                  t_eps: float = 0.03, condition: str = "both",
@@ -79,15 +81,6 @@ class StochasticRegenerationModel(nn.Module):
         self.loss_type_score = loss_type_score
         self.weighting_denoiser_to_score = weighting_denoiser_to_score
         self.mode = mode
-
-    @contextlib.contextmanager
-    def cast_nets(self):
-        """Both nets with their parameters cast to their dtype once for the
-        block (nn/cast.py `cast_params`): for inference and validation, under
-        torch.no_grad() or inference_mode; a forward with gradients raises."""
-        with cast_params(self.denoiser_net, self.denoiser_net.dtype), \
-                cast_params(self.score_net, self.score_net.dtype):
-            yield self
 
     def forward_denoiser(self, Y: torch.Tensor, collect_stats: bool = False):
         """D(Y) for Y (B, F, T, 2) or (B, D, F, T, 2); keeps Y's shape.
@@ -130,10 +123,6 @@ class StochasticRegenerationModel(nn.Module):
         """0.5 * sum over all elements, the batch included (the reference's)."""
         return 0.5 * v.sum()
 
-    @staticmethod
-    def _reduce_per_example(v: torch.Tensor) -> torch.Tensor:
-        return 0.5 * v.reshape(v.shape[0], -1).sum(dim=-1)
-
     def _losses(self, batch: Batch, t: torch.Tensor, z: torch.Tensor, reduce):
         """(loss, loss_score, loss_denoiser or None) under `reduce`."""
         x, y = batch
@@ -164,12 +153,15 @@ class StochasticRegenerationModel(nn.Module):
             aux["loss_denoiser"] = loss_denoiser
         return loss, aux
 
+    step_loss = loss_given_tz
+
     def draw_tz(self, x: torch.Tensor,
                 generator: Optional[torch.Generator]) -> Tuple[torch.Tensor, torch.Tensor]:
         """t ~ U(t_eps, T) per example and standard complex normal z like x."""
-        t = torch.rand(x.shape[0], generator=generator, device=x.device)
-        t = t * (self.sde.T - self.t_eps) + self.t_eps
-        return t, cplx.complex_normal(x.shape[:-1], generator=generator, device=x.device)
+        return draw_tz(self.sde, self.t_eps, x, generator)
+
+    def draw_step(self, batch: Batch, generator: Optional[torch.Generator]):
+        return self.draw_tz(batch[0], generator)
 
     def loss_fn(self, batch: Batch, generator: Optional[torch.Generator] = None):
         """`loss_given_tz` with t and z drawn from `generator`."""
@@ -179,35 +171,7 @@ class StochasticRegenerationModel(nn.Module):
                          generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Joint loss of each example (B,), for validation over ragged batches."""
         t, z = self.draw_tz(batch[0], generator)
-        return self._losses(batch, t, z, self._reduce_per_example)[0]
-
-    def compute_gradients(self, batch: Batch, t: torch.Tensor,
-                          z: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """Set every parameter's .grad to d loss_given_tz / d param (zeros where
-        the loss does not reach, as the reference's gradient tree has them) and
-        return the detached losses."""
-        self.zero_grad(set_to_none=True)
-        loss, aux = self.loss_given_tz(batch, t, z)
-        loss.backward()
-        for p in self.parameters():
-            if p.requires_grad and p.grad is None:
-                p.grad = torch.zeros_like(p)
-        return {k: v.detach() for k, v in aux.items()}
-
-    def apply_update(self, state: TrainState) -> None:
-        """Adam step on the gradients in .grad, then the EMA update."""
-        state.optimizer.step()
-        state.step += 1
-        ema_update(state.ema, self.state_dict(), self.ema_decay, state.step)
-
-    def train_step(self, state: TrainState, batch: Batch,
-                   generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-        """One optimizer step on `batch` with t and z from `generator`."""
-        if state.model is not self:
-            raise ValueError("train_step: the state belongs to another model")
-        aux = self.compute_gradients(batch, *self.draw_tz(batch[0], generator))
-        self.apply_update(state)
-        return aux
+        return self._losses(batch, t, z, per_example_sum)[0]
 
     @torch.inference_mode()
     def enhance(
@@ -254,11 +218,7 @@ class StochasticRegenerationModel(nn.Module):
         serving, arXiv:2312.00858; pc and ode only); nfe counts the score
         evaluations, not the refreshes, as the reference does.
         """
-        if sampler_type not in ("pc", "ode", "picard"):
-            raise ValueError(f"{sampler_type} is not a valid sampler type!")
-        if deepcache:
-            check_deepcache_config(self.score_net, deepcache, sampler_type, deepcache_depth,
-                                   method)
+        check_sampler(self.score_net, sampler_type, deepcache, deepcache_depth, method)
         T_orig = y.shape[-1]
         y_n, norm = normalize_wav(y)
         Y, _ = prepare_spec(y_n, self.stft_config, self.transform)
@@ -272,25 +232,22 @@ class StochasticRegenerationModel(nn.Module):
             def score_fn(x, t, y_sde):
                 return self.forward_score(x, t, cond)
 
+            wide = [time_major(c, N) for c in cond] if sampler_type == "picard" else None
+
+            def wide_score_fn(x, t, y_sde):
+                return self.forward_score(x, t, wide)
+
             cache = None
             if deepcache:
                 cache = DeepCache(deepcache, *make_deepcache_fns(
                     self.score_net, lambda x: self._score_input(x, cond), deepcache_depth))
-            common = dict(N=N, denoise=True, eps=self.t_eps, noise=noise, generator=generator)
-            if sampler_type == "pc":
-                sample, n = pc_sample(
-                    self.sde, score_fn, Y_denoised, predictor=predictor, corrector=corrector,
-                    snr=snr, corrector_steps=corrector_steps,
-                    probability_flow=probability_flow, deepcache=cache, **common)
-            elif sampler_type == "ode":
-                sample, n = ode_sample(self.sde, score_fn, Y_denoised, method=method,
-                                       deepcache=cache, rtol=rtol, atol=atol,
-                                       max_steps=max_steps, **common)
-            else:
-                wide = [time_major(c, N) for c in cond]
-                sample, n = picard_sample(
-                    self.sde, score_fn, Y_denoised, sweeps=sweeps,
-                    wide_score_fn=lambda x, t, y_sde: self.forward_score(x, t, wide), **common)
+            # the SDE's steady state, and the prior's centre, is D(Y)
+            sample, n = run_sampler(
+                self.sde, score_fn, Y_denoised, sampler_type, N=N, eps=self.t_eps, noise=noise,
+                generator=generator, predictor=predictor, corrector=corrector,
+                corrector_steps=corrector_steps, snr=snr, probability_flow=probability_flow,
+                method=method, rtol=rtol, atol=atol, max_steps=max_steps, sweeps=sweeps,
+                cache=cache, wide_score_fn=wide_score_fn)
         # the whole padded spec goes through the iSTFT, cut to T_orig samples
         x_hat = spec_to_wav(sample, self.stft_config, self.transform, length=T_orig)
         return x_hat * norm, 1 + n

@@ -1,4 +1,5 @@
-"""OUVE SDE and its reverse (counterpart of storm_tpu/sde/sdes.py).
+"""The OUVE and OUVP SDEs and their reverse (counterpart of
+storm_tpu/sde/sdes.py). `SDES` maps the config's `sde` name to its class.
 
 x, y are packed-real tensors (B, ..., 2); t is a per-batch time vector (B,).
 Per-batch scalars (std, diffusion) come back with shape (B,).
@@ -7,7 +8,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable
+from typing import Callable, Union
 
 import torch
 
@@ -74,10 +75,61 @@ class OUVESDE:
 
 
 @dataclasses.dataclass(frozen=True)
+class OUVPSDE:
+    """Ornstein-Uhlenbeck variance-preserving SDE.
+
+        dx = 1/2 beta(t) stiffness (y - x) dt + sqrt(beta(t)) dw,
+        beta(t) = beta_min + t (beta_max - beta_min)
+
+    `beta_min` and `beta_max` have no defaults, as in the reference (its
+    training CLI gives them 0.1 and 1.0). `_std` is the reference's closed
+    form as it stands: (1 - exp(-s t (t (b1 - b0) + 2 b0) / 2)) / s, with no
+    square root; the ald corrector reads it.
+    """
+
+    beta_min: float
+    beta_max: float
+    stiffness: float = 1.0
+    N: int = 1000
+
+    @property
+    def T(self) -> float:
+        return 1.0
+
+    def copy(self, **updates) -> "OUVPSDE":
+        return dataclasses.replace(self, **updates)
+
+    def _beta(self, t):
+        return self.beta_min + t * (self.beta_max - self.beta_min)
+
+    def sde(self, x, t, y):
+        drift = 0.5 * self.stiffness * right_pad_dims(self._beta(t), y) * (y - x)
+        return drift, torch.sqrt(self._beta(t))
+
+    def _mean(self, x0, t, y):
+        b0, b1, s = self.beta_min, self.beta_max, self.stiffness
+        fac = right_pad_dims(torch.exp(-0.25 * s * t * (t * (b1 - b0) + 2 * b0)), x0)
+        return y + fac * (x0 - y)
+
+    def _std(self, t):
+        b0, b1, s = self.beta_min, self.beta_max, self.stiffness
+        return (1.0 - torch.exp(-0.5 * s * t * (t * (b1 - b0) + 2 * b0))) / s
+
+    marginal_prob = OUVESDE.marginal_prob
+    prior_sampling = OUVESDE.prior_sampling
+    discretize = OUVESDE.discretize
+    reverse = OUVESDE.reverse
+
+
+SDE = Union[OUVESDE, OUVPSDE]
+SDES = {"ouve": OUVESDE, "ouvp": OUVPSDE}  # the config's `sde` -> its class
+
+
+@dataclasses.dataclass(frozen=True)
 class ReverseSDE:
     """Reverse-time SDE (or probability-flow ODE) of `forward` with a score."""
 
-    forward: OUVESDE
+    forward: SDE
     score_fn: Callable
     probability_flow: bool = False
 

@@ -1,5 +1,6 @@
-"""Online StoRM enhancement server: HTTP front end over the dynamic batcher
-(counterpart of serve.py).
+"""Online enhancement server: HTTP front end over the dynamic batcher
+(counterpart of serve.py), for `--mode storm`, `score-only` and
+`denoiser-only`.
 
     python -m storm_tpu_torch.serve --ckpt model.pt --mode storm --port 8571 \\
         [--batch 8] [--warmup_buckets 1,2.5,4] [--quant int8 --calib_dir noisy/] \\
@@ -7,14 +8,16 @@
     curl -s --data-binary @noisy.wav localhost:8571/enhance > clean.wav
 
 Endpoints:
-    POST /enhance   16 kHz WAV in, enhanced WAV out (X-NFE and X-RTF headers)
-    GET  /healthz   readiness and the serving configuration (torch device, card)
+    POST /enhance   16 kHz WAV in, enhanced WAV out (X-NFE and X-RTF headers;
+                    X-NFE is 1 for the denoiser-only model's one forward)
+    GET  /healthz   readiness and the serving configuration (mode, torch device, card)
     GET  /stats     request and batch counters, audio seconds served, batch fill
 
 Sampler flags and defaults are the enhancement CLI's, with the samplers
 that enqueue without a device sync: `--sampler pc` or `ode` with the six
 fixed-step methods of `--ode-method` (not rk45, nor picard); warm-up runs
-the sampler served. The NCSN++ compute
+the mode and sampler served. The denoiser-only model ignores the sampler
+flags. The NCSN++ compute
 dtype defaults to bfloat16, as the reference serves (`--dtype float32`, or
 `checkpoint` for the checkpoint config's); /healthz reports the dtype
 served. Noise comes
@@ -40,7 +43,8 @@ import torch
 from .ckpt import load_checkpoint
 from .data.audio import load_wav
 from .models.base import check_deepcache_config
-from .models.factory import SERVING_MODES, STORM_MODES, build_model, refuse_unported_mode
+from .models.factory import (SERVING_MODES, build_model, check_checkpoint_mode,
+                             refuse_unported_mode)
 from .sampling.correctors import CORRECTORS
 from .sampling.predictors import PREDICTORS
 from .sampling.samplers import ODE_METHODS
@@ -61,7 +65,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--ckpt", required=True, help="Checkpoint file (.pt, storm_tpu_torch.ckpt).")
     p.add_argument("--mode", required=True, choices=SERVING_MODES,
-                   help="storm; the other modes are not ported yet (ROADMAP R3)")
+                   help="storm, score-only (SGMSE+) or denoiser-only; distill is not ported yet "
+                        "(ROADMAP R3, distillation)")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8571)
     p.add_argument("--batch", type=int, default=8, help="largest dynamic batch")
@@ -175,17 +180,17 @@ def build_server(args):
     refuse_unported_mode(args.mode)
     device = torch.device(args.device)
     config, params, ema_params = load_checkpoint(args.ckpt)
-    if config.get("mode", "regen-joint-training") not in STORM_MODES:
-        raise SystemExit(f"--mode storm incompatible with checkpoint mode {config['mode']}")
+    check_checkpoint_mode(args.mode, config)
     config = dict(config)
     if args.dtype != "checkpoint":
         # a program property: the parameters stay as stored, float32
         config["dtype"] = args.dtype
     model = build_model(config, device=device)
     model.load_state_dict(params if args.no_ema else ema_params, strict=True)
-    if args.deepcache:
-        check_deepcache_config(model.score_net, args.deepcache, args.sampler,
-                               args.deepcache_depth, args.ode_method)
+    if args.deepcache and args.mode != "denoiser-only":  # one forward: nothing to cache
+        check_deepcache_config(model.score_net if args.mode == "storm" else model.dnn,
+                               args.deepcache, args.sampler, args.deepcache_depth,
+                               args.ode_method)
 
     quant = None
     if args.quant == "int8":

@@ -1,18 +1,26 @@
-"""StoRM training on the GPU (counterpart of train.py, single process).
+"""Training on the GPU (counterpart of train.py, single process).
 
     python -m storm_tpu_torch.train --mode regen-joint-training --base_dir corpus/ \\
         [--batch_size 8 --num_frames 256 --num_eval_files 10 --eval_N 30 \\
-         --dtype float32|bfloat16 --device cuda]
+         --sde ouve|ouvp --dtype float32|bfloat16 --device cuda]
 
-The flags and defaults are the reference CLI's for the two StoRM modes:
-NCSN++ denoiser and score nets, OUVE SDE, spec_factor 0.33, Adam at lr 1e-4,
+The flags and defaults are the reference CLI's for the four trainable
+modes: the two StoRM modes (NCSN++ denoiser and score nets), `score-only`
+(SGMSE+: one score net, denoising score matching, `--loss_type mse|mae`)
+and `denoiser-only` (one predictive net, `--loss_type mse|mae|sisdr`); the
+OUVE SDE or, with `--sde ouvp`, the OUVP SDE of `--beta-min` / `--beta-max`
+/ `--stiffness` (the config keeps only the chosen SDE's keys, as the
+reference's does); spec_factor 0.33, Adam at lr 1e-4,
 an EMA of 0.999 with warmup, computing in `--dtype` with float32 parameters
 (the loss, Adam and the EMA in float32). Each epoch runs the training
-batches, a validation loss over every validation file with the EMA weights,
-then, with the EMA weights too, the evaluation: the first `--num_eval_files`
-validation files enhanced whole (`--eval_N` reverse steps, the model's
-default 30 if unset) and scored by PESQ (NaN without the `pesq` package),
-SI-SDR and ESTOI (utils/inference.py `evaluate_model`). Early stopping
+batches, a validation loss over every validation file with the EMA weights
+(its per-example losses combined as the model's loss combines the batch:
+summed for StoRM, the mean for the other two), then, with the EMA weights
+too, the evaluation: the first `--num_eval_files` validation files enhanced
+whole (`--eval_N` reverse steps; unset, the model's default: StoRM's 30
+without a corrector, the score model's 50 with ald; the denoiser runs one
+forward) and scored by PESQ (NaN without the `pesq` package), SI-SDR and
+ESTOI (utils/inference.py `evaluate_model`). Early stopping
 follows the validation loss. Each epoch writes `last.pt`, and `best_loss.pt`
 when the loss improved and `best_pesq.pt` when PESQ, or ESTOI where PESQ is
 NaN, improved. Per-step training losses and the epoch's losses and metrics
@@ -39,7 +47,7 @@ import torch
 from .ckpt import CheckpointManager, load_training_checkpoint
 from .data.datamodule import SpecsDataModule
 from .models.base import init_train_state, swapped_in, wav_to_spec
-from .models.factory import STORM_MODES, build_model, resolve_device
+from .models.factory import build_model, resolve_device
 from .utils.inference import evaluate_model
 
 MODES = ("score-only", "denoiser-only", "regen-freeze-denoiser", "regen-joint-training",
@@ -50,7 +58,8 @@ MODEL_CONFIG_KEYS = [
     "mode", "backbone_denoiser", "backbone_score", "sde", "lr", "ema_decay", "t_eps",
     "loss_type", "loss_type_denoiser", "loss_type_score", "weighting_denoiser_to_score",
     "condition", "spatial_channels", "sde_n", "theta", "sigma_min", "sigma_max",
-    "n_fft", "hop_length", "window", "spec_factor", "spec_abs_exponent", "dtype",
+    "beta_min", "beta_max", "stiffness", "n_fft", "hop_length", "window", "spec_factor",
+    "spec_abs_exponent", "dtype",
 ]
 
 
@@ -83,6 +92,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--theta", type=float, default=1.5)
     p.add_argument("--sigma-min", dest="sigma_min", type=float, default=0.05)
     p.add_argument("--sigma-max", dest="sigma_max", type=float, default=0.5)
+    p.add_argument("--beta-min", dest="beta_min", type=float, default=0.1)
+    p.add_argument("--beta-max", dest="beta_max", type=float, default=1.0)
+    p.add_argument("--stiffness", type=float, default=1.0)
     # data
     p.add_argument("--format", type=str, default="wsj0", choices=FORMATS)
     p.add_argument("--base_dir", type=str, required=True)
@@ -110,7 +122,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--ch_mult", type=str, default=None,
                    help="override the backbones' channel multipliers, e.g. 1,2,2,2")
     p.add_argument("--eval_N", type=int, default=None,
-                   help="reverse steps of the in-training evaluation (default: the model's, 30)")
+                   help="reverse steps of the in-training evaluation (default: the model's)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cpu' runs the kernels' plain versions")
     return p.parse_args(argv)
@@ -119,13 +131,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 def check_supported(args: argparse.Namespace) -> None:
     """Raise NotImplementedError for a value this slice does not run."""
     todo = []
-    if args.mode not in STORM_MODES:
-        todo.append(f"--mode {args.mode} (ROADMAP R3)")
+    if args.mode == "distill":
+        todo.append("--mode distill (ROADMAP R3, distillation)")
     for flag in ("backbone_denoiser", "backbone_score"):
         if getattr(args, flag) != "ncsnpp":
             todo.append(f"--{flag} {getattr(args, flag)} (ROADMAP R4)")
-    if args.sde != "ouve":
-        todo.append(f"--sde {args.sde} (ROADMAP R3)")
     if args.pretrained_denoiser or args.pretrained_score:
         todo.append("--pretrained_denoiser / --pretrained_score (ROADMAP M7)")
     if args.return_time:
@@ -137,7 +147,13 @@ def check_supported(args: argparse.Namespace) -> None:
 
 
 def model_config(args: argparse.Namespace) -> dict:
+    """The checkpoint's config: the model's flags, without the other SDE's
+    (train.py:308-313)."""
     config = {k: getattr(args, k) for k in MODEL_CONFIG_KEYS}
+    other_sde = {"ouve": ("beta_min", "beta_max", "stiffness"),
+                 "ouvp": ("theta", "sigma_min", "sigma_max")}[args.sde]
+    for k in other_sde:
+        config.pop(k)
     if args.nf is not None:
         config["nf"] = args.nf
     if args.ch_mult is not None:
@@ -183,7 +199,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         print(f"resumed from {args.resume_from_checkpoint} at step {state.step}, "
               f"epoch {start_epoch}")
 
-    run_name = (f"mode={args.mode}_sde=OUVESDE_score={args.backbone_score}"
+    sde_name = {"ouve": "OUVESDE", "ouvp": "OUVPSDE"}[args.sde]
+    run_name = (f"mode={args.mode}_sde={sde_name}_score={args.backbone_score}"
                 f"_denoiser={args.backbone_denoiser}_condition={args.condition}"
                 f"_data={args.format}_ch={args.spatial_channels}")
     log_dir = os.path.join(args.log_dir, run_name)
@@ -239,7 +256,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
             # validation over every file with the EMA weights, cast once to the
             # compute dtype; the short last batch is padded and masked, and the
-            # mean keeps the batch-sum scale of the training loss. Then the
+            # mean keeps the scale of the model's batch reduction (a sum for
+            # StoRM, train.py:570-574). Then the
             # evaluation enhances with them (model.py:605-622); a failure is
             # printed and logged as NaN, and training goes on
             model.eval()
@@ -273,7 +291,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                     except Exception as e:  # the evaluation must not end the training
                         print(f"eval failed at epoch {epoch}: {e}", flush=True)
                         traceback.print_exc()
-            valid_loss = v_sum / v_count * args.batch_size if v_count else math.nan
+            valid_loss = v_sum / v_count if v_count else math.nan
+            if model.batch_reduction == "sum":
+                valid_loss *= args.batch_size
 
             print(f"epoch {epoch}: train_loss={train_loss:.4f} valid_loss={valid_loss:.4f} "
                   f"step={state.step} ({time.time() - t_start:.0f}s)", flush=True)

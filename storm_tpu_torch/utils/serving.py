@@ -25,8 +25,11 @@ from ..models import quant as quant_mod
 
 
 def n_quantized(quant) -> int:
-    """Quantized-conv count over {net: scales or None} (or None)."""
-    return sum(quant_mod.num_quantized_convs(v) for v in (quant or {}).values())
+    """Quantized-conv count over StoRM's {net: scales or None}, or one net's
+    scales, or None."""
+    if quant_mod.per_net(quant):
+        return sum(quant_mod.num_quantized_convs(v) for v in quant.values())
+    return quant_mod.num_quantized_convs(quant)
 
 
 def params_digest(model: torch.nn.Module) -> str:
@@ -55,7 +58,8 @@ def calibrate_or_load_scales(
     params_source: str = "ema",
     model_sr: int = 16000,
 ):
-    """The int8 activation-scale trees for serving `model`.
+    """The int8 activation scales for serving `model` in `mode`: StoRM's
+    {net: scales or None}, or the score-only or denoiser-only net's scales.
 
     The first run calibrates on the waveforms `calib_loader()` returns
     ((T,) float32 arrays), padded to one length that is a multiple of 64
@@ -64,9 +68,13 @@ def calibrate_or_load_scales(
     (parameters used and their digest, channel threshold, mode, streaming
     chunk length, calibration trajectory length) loads it. With
     `stream_chunk_s` > 0 the files are cut to one chunk's length first, so
-    calibration runs at the streaming path's width, not the whole file's."""
-    if mode != "storm":
-        raise NotImplementedError(f"int8 calibration for mode {mode!r} is not ported yet")
+    calibration runs at the streaming path's width, not the whole file's.
+    StoRM and the score model calibrate along a trajectory of min(N, 10)
+    steps, the denoiser on one forward (calib_N 0)."""
+    if mode not in ("storm", "score-only", "denoiser-only"):
+        raise NotImplementedError(f"int8 calibration for mode {mode!r} is not ported yet "
+                                  "(ROADMAP R3, distillation)")
+    single_net = mode != "storm"
     calib_meta = {
         "params": params_source,
         "min_channels": min_channels,
@@ -74,14 +82,17 @@ def calibrate_or_load_scales(
         "stream_chunk_s": stream_chunk_s,
         # trajectory length the scales were integrated over: scales from an
         # --N 2 run must not be reused by an --N 50 run
-        "calib_N": min(N, 10),
+        "calib_N": min(N, 10) if mode in ("storm", "score-only") else 0,
         # the weights themselves: a checkpoint rewritten at the same path
         # must not meet the scales of its predecessor
         "params_sha256": params_digest(model),
     }
     cache = scale_cache_path(ckpt)
     if os.path.exists(cache):
-        quant, meta = quant_mod.load_scales_with_meta(cache)
+        try:
+            quant, meta = quant_mod.load_scales_with_meta(cache, single_net)
+        except ValueError:  # the other layout: scales of another mode's model
+            quant, meta = None, None
         if meta is not None and all(meta.get(k) == v for k, v in calib_meta.items()):
             print(f"int8 scales loaded from {cache} ({n_quantized(quant)} convs quantized; 0 "
                   f"means every conv is below the {min_channels}-channel threshold and "
@@ -99,9 +110,16 @@ def calibrate_or_load_scales(
     y_cal = np.stack([np.pad(y, [(0, 0)] * (y.ndim - 1) + [(0, L - y.shape[-1])])
                       for y in calib]).astype(np.float32)
     device = next(model.parameters()).device
-    quant = quant_mod.calibrate_storm(model, torch.from_numpy(y_cal).to(device), N=min(N, 10),
-                                      min_channels=min_channels, generator=generator)
-    calib_meta = dict(calib_meta, calib_len=int(L), calib_files=int(y_cal.shape[0]))
+    y_cal = torch.from_numpy(y_cal).to(device)
+    if mode == "storm":
+        quant = quant_mod.calibrate_storm(model, y_cal, N=min(N, 10), min_channels=min_channels,
+                                          generator=generator)
+    elif mode == "score-only":
+        quant = quant_mod.calibrate_score_model(model, y_cal, N=min(N, 10),
+                                                min_channels=min_channels, generator=generator)
+    else:
+        quant = quant_mod.calibrate_discriminative(model, y_cal, min_channels=min_channels)
+    calib_meta = dict(calib_meta, calib_len=int(L), calib_files=len(calib))
     try:
         quant_mod.save_scales(cache, quant, meta=calib_meta)
         print(f"int8 calibration done ({n_quantized(quant)} convs quantized; scales saved "

@@ -592,3 +592,63 @@ def test_enhance_async_on_the_card_refuses_rk45(cuda):
     with pytest.raises(NotImplementedError, match="rk45"):
         BucketedEnhancer(model, N=2, sampler_type="ode", method="rk45").enhance_async(
             y, torch.Generator(device=cuda).manual_seed(0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,W", [(1, 576), (8, 256), (4, 192)])
+def test_kernel_matches_plain_at_the_score_models_pyramid_shapes(cuda, dtype, B, W):
+    """The score-only net's 4-channel input and output pyramids (full width,
+    four levels): K1 down at 256 x W, 128 x W/2, 64 x W/4 and up at their
+    halves, in both FIRs; float32 to 1e-5, bfloat16 equal with NCSN++'s FIR
+    and within 1 ulp plus the sum's rounding with the asymmetric one."""
+    g = torch.Generator(device=cuda).manual_seed(B * W)
+    for level in range(3):
+        H, Wl = 256 >> level, W >> level
+        x = torch.randn(B, 4, H, Wl, device=cuda, generator=g).to(dtype)
+        for kern, up, down, pad in ((SYM, 1, 2, (1, 1)), (SYM * 4, 2, 1, (2, 1)),
+                                    (ASYM, 1, 2, (1, 1)), (ASYM, 2, 1, (2, 1))):
+            xin = x if down == 2 else x[:, :, : H // 2, : Wl // 2].contiguous()
+            got = kup.upfirdn2d_cuda(xin, kern, up=up, down=down, pad=pad)
+            want = kup.upfirdn2d_plain(xin, kern, up=up, down=down, pad=pad)
+            assert got.dtype == want.dtype == dtype and got.shape == want.shape
+            if dtype == torch.float32:
+                torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+            elif kern is not ASYM:
+                assert torch.equal(got, want)
+            else:
+                terms = kup.upfirdn2d_plain(xin.abs().float(), np.abs(kern), up=up, down=down,
+                                            pad=pad)
+                w = want.float().abs().clamp_min(2.0 ** -126)
+                allowed = torch.exp2(torch.floor(torch.log2(w)) - 7) + 2.0 ** -18 * terms
+                assert bool(((got.float() - want.float()).abs() <= allowed).all())
+
+
+@pytest.mark.parametrize("mode", ["score-only", "denoiser-only"])
+def test_single_net_models_on_the_card(cuda, mode):
+    """Tiny score-only and denoiser-only models (three levels: 12 K1 calls
+    per forward) on the card: a training step launches 12 K1 and 10 of its
+    adjoint (not the input pyramid's 2), and `enhance` through the kernels
+    equals the one with plain upfirdn2d (cuDNN deterministic, same noise)."""
+    config = {"mode": mode, "nf": 16, "ch_mult": [1, 2, 2], "init_scale": 1.0,
+              "n_fft": 62, "hop_length": 16}
+    model = build_model(config, device=cuda, seed=0).train()
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = 0.3 * torch.randn(2, 32, 32, 2, device=cuda, generator=g)
+    batch = (x, x + 0.1 * torch.randn(2, 32, 32, 2, device=cuda, generator=g))
+    kup.upfirdn2d_cuda.launches = kup.upfirdn2d_bwd_cuda.launches = 0
+    model.compute_gradients(batch, *model.draw_step(batch, g))
+    torch.cuda.synchronize()
+    assert (kup.upfirdn2d_cuda.launches, kup.upfirdn2d_bwd_cuda.launches) == (12, 10)
+    model.eval()
+    y = torch.from_numpy(np.sin(np.arange(2048) / 7.0).astype(np.float32)[None]).to(cuda)
+    torch.backends.cudnn.deterministic = True
+    try:
+        kup.upfirdn2d_cuda.launches = 0
+        got, nfe = model.enhance(y, N=3, generator=torch.Generator(device=cuda).manual_seed(1))
+        launched = kup.upfirdn2d_cuda.launches
+        with mock.patch.object(resample, "upfirdn2d", kup.upfirdn2d_plain):
+            want, _ = model.enhance(y, N=3, generator=torch.Generator(device=cuda).manual_seed(1))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert nfe == {"score-only": 6, "denoiser-only": 1}[mode] and launched == 12 * nfe
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()

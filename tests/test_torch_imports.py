@@ -56,5 +56,6 @@ def test_port_imports_no_jax():
                      "storm_tpu_torch.utils.server", "storm_tpu_torch.utils.streaming",
                      "storm_tpu_torch.utils.metrics", "storm_tpu_torch.utils.stoi",
                      "storm_tpu_torch.bench", "storm_tpu_torch.serve_load",
-                     "storm_tpu_torch.evaluate", "storm_tpu_torch.utils.graphics"):
+                     "storm_tpu_torch.evaluate", "storm_tpu_torch.utils.graphics",
+                     "storm_tpu_torch.models.score", "storm_tpu_torch.models.discriminative"):
         assert expected in names, names

@@ -463,7 +463,7 @@ def test_batched_requests_equal_the_enhancer_on_the_same_batch(tiny_ckpt):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--dtype", "bfloat16", "--mode", "denoiser-only"], "R3"), (["--mode", "distill"], "R3"),
+    (["--dtype", "float32", "--mode", "distill"], "R3"), (["--mode", "distill"], "R3"),
     (["--data_parallel"], "R7"), (["--seq_parallel", "2"], "R7")])
 def test_unported_flags_raise(tiny_ckpt, extra, item):
     with pytest.raises(NotImplementedError, match=item):

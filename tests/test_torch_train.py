@@ -225,8 +225,8 @@ def test_cli_trains_resumes_and_enhances_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--mode", "score-only"], ["--backbone_score", "ncsnpp_6M"],
-    ["--sde", "ouvp"], ["--return_time"], ["--pretrained_denoiser", "ckpt"],
+    ["--mode", "distill"], ["--backbone_score", "ncsnpp_6M"],
+    ["--spatial_channels", "2"], ["--return_time"], ["--pretrained_denoiser", "ckpt"],
 ])
 def test_cli_refuses_what_is_not_ported(flag, tmp_path):
     args = TRAIN_ARGS + ["--base_dir", str(tmp_path), "--nolog", "--device", "cpu"]
