@@ -58,38 +58,38 @@ Phases, each of which exits non-zero on failure:
    inputs; per file exactly 55 + 55 x 100 = 5555 quantizer launches and 18
    upfirdn2d launches per forward (calibration runs with quantization off:
    no quantizer launch, 18 per calibration forward). Then, with cuDNN
-   deterministic and the same noise, the 4 s file's int8 output through the
-   kernel against the same path with the plain quantizer (<= 1e-6 of the
-   output's scale), and each file's int8 output against float32; RTF int8
-   against float32 (phase 5).
+   deterministic and the same noise at N=10, the 4 s
+   file's int8 output through the kernel against the same path with the
+   plain quantizer (<= 1e-6 of the output's scale), and each file's int8
+   output against float32; RTF int8 against float32 (phase 5).
 12. fused_leaky_relu (K2) through its op API at (8, 256, 256, 128) and
    (3, 17, 33, 6): forward against the plain version at atol = rtol = 1e-6,
    and both gradients (torch.autograd.grad) equal to autograd of the plain
    version's, bit for bit; kernel (event and device time) and plain times
    beside the memory bound (8 B per element).
 13. (with `--profile`) one int8 enhancement of the 4 s file traced.
-14. batched CLI: `python -m storm_tpu_torch.enhancement --batch 4 --timeit` at
-   the CLI defaults on 8 files of 1.0-4.0 s, two length buckets of 4: outputs
-   finite and as long as the inputs, exactly 18 x 101 upfirdn2d launches per
+14. batched CLI: `python -m storm_tpu_torch.enhancement --batch 4 --timeit
+   --N 10` on 8 files of 1.0-4.0 s, two length buckets of
+   4: outputs finite and as long as the inputs, exactly 18 x 21 upfirdn2d launches per
    batch call; upfirdn2d against plain at every shape the batches gave it;
    one batch with injected noise against each of its rows enhanced alone with
    that row's noise (N=5, 1e-4 of the row's scale).
 15. HTTP server: `storm_tpu_torch.serve --dtype float32` built in this process
-   (port 0, --batch 4, --N 10, both traffic buckets warmed at every row
+   (port 0, --batch 4, --N 5, both traffic buckets warmed at every row
    size); 12 requests of
    1-4 s from 8 client threads: every reply 200, a finite WAV of the input's
-   length, X-NFE = 21; /stats: 12 requests, 0 errors, a batch of more than one
-   row; exactly 18 x 21 upfirdn2d launches per warm-up call and batch. Then
-   with --quant int8 --calib_dir on 8 requests: 55 x 21 quantizer launches per
+   length, X-NFE = 11; /stats: 12 requests, 0 errors, a batch of more than one
+   row; exactly 18 x 11 upfirdn2d launches per warm-up call and batch. Then
+   with --quant int8 --calib_dir on 8 requests: 55 x 11 quantizer launches per
    warm-up call and batch (calibration launches none). Prints throughput
    (audio s per wall s), latency p50 / p95 / max (over 12 requests the p95
    lies between the two slowest: smoke readings, not a serving baseline),
    batch fill and device_s; both kernels against plain at every shape the
    server gave them.
-16. streaming: `--stream_chunk_s 2.0 --stream_overlap_s 0.5 --N 10` on one 12 s
+16. streaming: `--stream_chunk_s 2.0 --stream_overlap_s 0.5 --N 5` on one 12 s
    file, f32 then int8 (the scale cache records stream_chunk_s 2.0): output
-   finite and as long as the input, 18 x 21 upfirdn2d launches per call of 8
-   chunks (B=8, 256 x 320) and, int8, 55 x 21 quantizer launches per call;
+   finite and as long as the input, 18 x 11 upfirdn2d launches per call of 8
+   chunks (B=8, 256 x 320) and, int8, 55 x 11 quantizer launches per call;
    upfirdn2d against plain at every shape both runs gave it, the quantizer's
    codes at every input shape the int8 run gave it.
 17. (with `--profile`) one B=4 enhancement at the 4 s bucket traced.
@@ -103,8 +103,8 @@ Phases, each of which exits non-zero on failure:
    One full-width NCSN++ forward in bf16 through the kernel and the plain
    version, and its time against float32's.
 19. `python -m storm_tpu_torch.enhancement --dtype bfloat16` at the CLI
-   defaults on phase 5's three files, with `--batch 4` on phase 14's eight,
-   and with `--quant int8`: exact launch counts (18 upfirdn2d and, int8, 55
+   defaults on phase 5's three files, with `--batch 4 --N 10` on phase 14's
+   eight, and with `--quant int8`: exact launch counts (18 upfirdn2d and, int8, 55
    quantizer launches per forward), every launch in bf16, RTF, and
    max|bf16 - f32| / max|f32| against the float32 runs on the same files
    and seed; upfirdn2d against plain at every shape the runs gave it.
@@ -174,9 +174,10 @@ Phases, each of which exits non-zero on failure:
    (audio s per wall s, latency p50 and p95, batch fill), no error, exact
    launch counts, K1 against plain at every shape it gave it (rows up to 8).
 32. `python -m storm_tpu_torch.bench` at bench.py's defaults (B=16, 256
-   frames, N=50 + ald, bf16, int8, dc3; 1 timed rep here), then `--train`:
-   their JSON lines; the serving run's launches held to those of its calls
-   (calibration, the headline, the N=30 and exact extras), the train run's
+   frames, N=50 + ald, bf16, int8, dc3; 1 timed rep here, the extras' budget
+   at 0 s: the headline line alone), then `--train`: their JSON lines; the
+   serving run's launches held to those of its calls (calibration, the
+   headline), the train run's
    to 36 + 33 per step; K1 and K3 against plain at the shapes they gave,
    and K1's adjoint at every B=16 shape the train run's backward gave it.
 33. (with `--profile`) one dc3 bf16 enhancement of the 4 s file traced.
@@ -188,9 +189,9 @@ Phases, each of which exits non-zero on failure:
    (phase 19's scales, loaded): outputs finite and as long as the inputs,
    per file exactly 18 x 102 upfirdn2d and, int8, 55 x 102 quantizer
    launches; the RTF beside pc's (phases 5 and 19); every K1 shape and K3
-   input against plain. Then the 4 s file's float32 trajectory through the
-   kernels against the plain path (same prior, cuDNN deterministic), held to
-   1e-4 of the output's scale.
+   input against plain. Then the 4 s file's float32 trajectory at N=10
+   through the kernels against the plain path (same prior,
+   cuDNN deterministic), held to 1e-4 of the output's scale.
 36. every sampler at the 4 s bucket in bf16, N=10, through the CLI: euler,
    heun, rk4, etd1, etd2, etd2-ms, etd2 with --deepcache 3, rk45 at the
    CLI's tolerances, 1e-5 (its accepted and attempted steps), `--sampler picard
@@ -198,8 +199,8 @@ Phases, each of which exits non-zero on failure:
    etd predictor; K1 launches derived from N, the method and the module
    list (rk45: from its loop's drift evaluations), not from the reported
    NFE; K1 against plain at every shape (picard's 10-row calls included).
-37. the server with `--sampler ode` (etd2, N=10) at its bf16 default, then
-   with --deepcache 3, on phase 15's burst: replies 200 with X-NFE 22,
+37. the server with `--sampler ode` (etd2, N=5) at its bf16 default, then
+   with --deepcache 3, on phase 15's burst: replies 200 with X-NFE 12,
    /healthz's sampler and ode_method, exact K1 launches per warm-up call and
    batch, K1 against plain at every shape.
 38. streaming with `--sampler ode --N 10` on phase 16's 12 s file: 18 x 22
@@ -223,8 +224,8 @@ Phases, each of which exits non-zero on failure:
    and its peak memory beside StoRM's in the same dtype, K1 and its
    adjoint against plain at every shape.
 41. `python -m storm_tpu_torch.enhancement` with phase 40's score-only and
-   denoiser-only checkpoints on phase 5's files at the CLI's defaults
-   (score-only: pc, N=50 + ald, 100 forwards; the denoiser: 1) in f32,
+   denoiser-only checkpoints on phase 5's files at the CLI's pc + ald
+   (score-only at N=10, 20 forwards; the denoiser: 1) in f32,
    bf16 and `--quant int8 --dtype bfloat16` twice (calibrates, then loads):
    exact K1 and K3 launches per file, RTF beside StoRM's (phases 5, 19);
    every K1 shape (the score net's 4-channel pyramids) and K3 input against
@@ -233,13 +234,44 @@ Phases, each of which exits non-zero on failure:
 42. phase 40's OUVP StoRM checkpoint through the CLI (pc N=50 + ald; `--sampler
    ode --ode-method heun --N 10`): exact launches; `--ode-method etd2`
    raises the reference's message.
-43. the server with `--mode score-only` (bf16, N=10, then `--deepcache 3`)
-   and `--mode denoiser-only` on phase 15's burst (X-NFE 20, 20, 1;
+43. the server with `--mode score-only` (bf16, N=5, then `--deepcache 3`)
+   and `--mode denoiser-only` on phase 15's burst (X-NFE 10, 10, 1;
    /healthz's mode), and denoiser-only streaming of phase 16's file, with
    exact launches per call.
 44. `python -m storm_tpu_torch.evaluate --mode score-only` and
    `--mode denoiser-only` on phase 39's test split: 8 rows, each row's
    SI-SDR within 1e-4 dB of the enhancer's output.
+45. the distilled student: one full-width f32 distill step (B=8, 256 x 256,
+   etd2 targets of N=8: 17 teacher forwards) from phase 8's checkpoint
+   through the kernels against the plain path: 18 x (1 + 17 + 1) = 342 K1
+   and 15 adjoint launches, read from the module lists; the score net's
+   gradients within phase 8's tolerances, the denoiser's 0; after Adam's
+   step the denoiser is the teacher's bit for bit; the step's time and
+   peak memory.
+46. `python -m storm_tpu_torch.train --mode distill --teacher_ckpt` phase
+   25's bf16 checkpoint, one epoch of 4 steps with `--num_eval_files 2`:
+   phase 8's checks (launches per step from the module lists, all bf16;
+   the evaluation's 2 forwards per call), the denoiser unmoved; the step
+   and its peak memory beside StoRM's bf16 step.
+47. `python -m storm_tpu_torch.enhancement --mode distill` on phase 5's
+   files in f32, bf16 and int8 + bf16 twice (calibrates: 5 forwards; then
+   loads): per file exactly 36 K1 and, int8, 110 K3 launches; RTF beside
+   StoRM's; every K1 shape and K3 input against plain; `--deepcache 3`
+   refused with the reference's message; the 4 s file's f32 output through
+   the kernels against plain.
+48. `--mode distill` with `--batch 4` on the 4 s file, streaming on phase
+   16's file and the server at its bf16 default on phase 15's burst
+   (X-NFE 2): 36 K1 launches per call.
+49. `python -m storm_tpu_torch.evaluate --mode distill` on phase 39's test
+   split: 8 rows, each row's SI-SDR within 1e-4 dB of the enhancer's.
+50. `python -m storm_tpu_torch.bench --distill` (B=16, 256 frames, bf16,
+   int8; 1 timed rep): its line, 5 calibration forwards + 36 K1 and 110 K3
+   launches per call.
+51. upfirdn2d and its adjoint against plain, f32 and bf16, at every shape
+   an nf=32 StoRM (the quality run's width) gives them in a training step
+   (B=8, 256 x 256) and a 4 s enhancement (B=1, 256 x 576).
+
+Each phase's header line ends with the seconds since the script started.
 
 A profile's kernel times come from its device events, each counted once;
 shares are of the summed kernel time. The busy time is the union of the
@@ -290,6 +322,7 @@ from storm_tpu_torch.kernels import upfirdn as kup
 from storm_tpu_torch.models import quant as quant_mod
 from storm_tpu_torch.models.base import EnhancementModel, init_train_state
 from storm_tpu_torch.models.discriminative import DiscriminativeModel
+from storm_tpu_torch.models.distill import DEEPCACHE_REFUSAL, DistilledModel
 from storm_tpu_torch.models.factory import build_model, resolve_device
 from storm_tpu_torch.models.score import ScoreModel
 from storm_tpu_torch.models.storm import StochasticRegenerationModel
@@ -354,6 +387,9 @@ OTHER_FRAMES = sorted({padded_frames(s) for s in SECONDS} - {FRAMES})
 TRAIN_B, TRAIN_FRAMES, TRAIN_STEPS = 8, 256, 8
 TRAIN_AUDIO_S = (TRAIN_FRAMES - 1) * 128 / SR
 TRAIN_FILES, VALID_FILES, FILE_S = 32, 4, 2.5  # 4 steps per epoch, 2 epochs
+# distillation at the trainer's defaults: etd2 targets of N=8, 2 x 8 + 1 teacher forwards
+DISTILL_N, DISTILL_METHOD = 8, "etd2"
+DISTILL_TEACHER_FORWARDS = 2 * DISTILL_N + 1
 F32_EVAL_N = 10  # the float32 evaluation's reverse steps (bf16's: the default, 30)
 # upfirdn2d launches per joint-training step: 18 per forward of each net, and
 # a backward for every call whose input needs a gradient, which is all but
@@ -382,6 +418,14 @@ def calib_forwards(calib_n: int, probes: int = 8) -> int:
 CALIB_FORWARDS = calib_forwards(CALIB_N)
 PROBE_SHAPE, PROBE_S = (16 * 256 * 256, 128), 12.7  # scripts/perf_fusion_probe.py's qkernel
 K2_SHAPES = [(8, 256, 256, 128), (3, 17, 33, 6)]
+
+
+T_START = time.perf_counter()
+
+
+def phase_header(title: str, **kwargs):
+    """A phase's header line, with the seconds since the script started."""
+    print(f"{title} [{time.perf_counter() - T_START:.1f} s]", **kwargs)
 
 
 def fail(msg: str):
@@ -866,14 +910,16 @@ def eval_forwards(eval_n: int, files: int = VALID_FILES,
     """NCSN++ forwards of one in-training evaluation of `files` validation
     files of FILE_S (one bucket), per chunk of 8 rows, at the model's
     enhance defaults: StoRM's denoiser and N score forwards (no corrector),
-    the score model's N x 2 (ald), the denoiser's one."""
-    per_chunk = {"score-only": 2 * eval_n, "denoiser-only": 1}.get(mode, 1 + eval_n)
+    the score model's N x 2 (ald), the denoiser's one, the distilled
+    student's two (the denoiser and the student)."""
+    per_chunk = {"score-only": 2 * eval_n, "denoiser-only": 1, "distill": 2}.get(mode, 1 + eval_n)
     return -(-files // 8) * per_chunk
 
 
 # the serving --mode of a trainable mode's checkpoint
 SERVING_MODE = {"regen-joint-training": "storm", "regen-freeze-denoiser": "storm",
-                "score-only": "score-only", "denoiser-only": "denoiser-only"}
+                "score-only": "score-only", "denoiser-only": "denoiser-only",
+                "distill": "distill"}
 
 
 @functools.lru_cache(maxsize=None)
@@ -884,14 +930,23 @@ def single_net_structure(mode: str) -> NCSNpp:
             else NCSNpp(input_channels=2, discriminative=True))
 
 
-def step_launches(mode: str):
+def step_launches(mode: str, teacher_forwards: int = 0):
     """(forward, backward) upfirdn2d launches of one training step of `mode`,
     read from the nets' module lists (`k1_of_module`): every call of each
     net's forward, and a backward for each call whose input needs a
     gradient, which is every call but the input pyramid's downsamplings
     (one per Combine module) of a net whose input holds no parameter's
     output: StoRM's denoiser and the one net of score-only and
-    denoiser-only. StoRM's score net reads D(Y), so all its calls have one."""
+    denoiser-only. StoRM's score net reads D(Y), so all its calls have one.
+    A distill step runs the denoiser, the teacher's `teacher_forwards` score
+    forwards and the student, all without a graph but the student, whose
+    input holds no parameter's output (D(Y) is computed without one)."""
+    if mode == "distill":
+        den, score = storm_structure()
+        k1 = [k1_of_module(score, i) for i in range(len(score.all_modules))]
+        fwd = sum(k1_of_module(den, i) for i in range(len(den.all_modules)))
+        bwd = sum(n for i, n in enumerate(k1) if not isinstance(score.all_modules[i], Combine))
+        return fwd + (teacher_forwards + 1) * sum(k1), bwd
     if mode in SERVING_MODE and SERVING_MODE[mode] != "storm":
         nets = [(single_net_structure(mode), False)]
     else:
@@ -916,18 +971,19 @@ def pesq_available() -> bool:
 
 def phase_train(workdir: str, dtype: str = "float32", steps_total: int = TRAIN_STEPS,
                 eval_files: int = 0, eval_n: int = 30, mode: str = "regen-joint-training",
-                extra=()):
+                extra=(), tag=None):
     """The training path through `python -m storm_tpu_torch.train --mode
     mode` (and `extra` flags) in `dtype` on the corpus in `workdir/corpus`
     (written once), with an in-training evaluation of `eval_files`
     validation files at N=`eval_n` after every epoch. Returns a dict of its
     launch counts and step figures, and its checkpoint directory."""
-    tag = "_".join([mode] + [e.lstrip("-") for e in extra]) + "_" if (
-        mode != "regen-joint-training" or extra) else ""
+    if tag is None:
+        tag = "_".join([mode] + [e.lstrip("-") for e in extra]) + "_" if (
+            mode != "regen-joint-training" or extra) else ""
     corpus = os.path.join(workdir, "corpus")
     logs = os.path.join(workdir, f"logs_{tag}{dtype}_{eval_files}")
     write_corpus(corpus)
-    step_fwd, step_bwd = step_launches(mode)
+    step_fwd, step_bwd = step_launches(mode, DISTILL_TEACHER_FORWARDS)
     steps, first_params, dtypes = [], {}, set()
     original, launch = EnhancementModel.train_step, kup._launch
 
@@ -1017,8 +1073,13 @@ def phase_train(workdir: str, dtype: str = "float32", steps_total: int = TRAIN_S
               f"best_pesq.pt's meta {meta}")
     moved = [k for k, v in last["params"].items() if not torch.equal(v, first_params[k].cpu())]
     ema_moved = [k for k in moved if not torch.equal(last["ema_params"][k], first_params[k].cpu())]
-    check(len(moved) > 0.9 * len(first_params) and len(ema_moved) == len(moved),
-          f"{len(moved)} of {len(first_params)} tensors moved, {len(ema_moved)} in the EMA")
+    trained = list(first_params)
+    if mode == "distill":  # the denoiser stays the teacher's, bit for bit
+        trained = [k for k in first_params if not k.startswith("denoiser_net.")]
+        check(not any(k.startswith("denoiser_net.") for k in moved),
+              "the distilled student's denoiser moved")
+    check(len(moved) > 0.9 * len(trained) and len(ema_moved) == len(moved),
+          f"{len(moved)} of {len(trained)} tensors moved, {len(ema_moved)} in the EMA")
 
     # step time on the card's clock: the loop's period between the ends of
     # consecutive steps of one epoch (data loading included), and one
@@ -1401,7 +1462,7 @@ def phase_int8_path(workdir: str, f32_rtf, lengths):
 
             def enhance(**kw):
                 gen = torch.Generator(device="cuda").manual_seed(0)
-                return model.enhance(y, N=N_STEPS, corrector="ald", generator=gen, **kw)[0]
+                return model.enhance(y, N=DEPTH_N, corrector="ald", generator=gen, **kw)[0]
 
             x8, x32 = enhance(quant=quant), enhance()
             check(bool(torch.isfinite(x8).all()), f"{name}: int8 output not finite")
@@ -1409,7 +1470,7 @@ def phase_int8_path(workdir: str, f32_rtf, lengths):
             rel = (x8 - x32).abs().max().item() / scale
             line = (f"  {name}: RTF f32 {f32_rtf[name]:.4f} (phase 5), int8 "
                     f"{runs[0]['rtf'][name]:.4f} / {runs[1]['rtf'][name]:.4f} (runs 1 / 2); "
-                    f"max|int8 - f32| / max|f32| = {rel:.4e}")
+                    f"at N={DEPTH_N}: max|int8 - f32| / max|f32| = {rel:.4e}")
             if name == max(lengths, key=lengths.get):
                 with mock.patch.object(qconv, "quantize_int8", kq.quantize_int8_plain):
                     xp = enhance(quant=quant)
@@ -1489,8 +1550,13 @@ def phase_profile_int8(workdir: str):
 # and 4 s (65536 samples, 576 frames), 19.6 s of audio
 CLI_BATCH, BATCH_SECONDS = 4, (1.0, 1.0, 1.01, 1.02, 3.7, 3.85, 4.0, 4.0)
 INVARIANCE_N = 5
-# the server and streaming runs use N=10 (21 NFE) to stay within time
-SERVE_N = 10
+# reverse steps of the phases cut in depth to keep the script near 600 s:
+# the batched CLI (14, 19), phase 11's direct int8 comparisons, phase 35's
+# trajectory and phase 41's score-only CLI; their launch counts follow N
+DEPTH_N = 10
+DEPTH_NFE = 1 + 2 * DEPTH_N
+# the server and streaming runs use N=5 (11 NFE) to stay within time
+SERVE_N = 5
 SERVE_NFE = 1 + 2 * SERVE_N
 SERVE_BATCH, SERVE_CLIENTS, INT8_REQUESTS = 4, 8, 8
 SERVE_SECONDS = (1.0, 3.6, 1.0, 3.7, 1.01, 3.8, 1.02, 3.9, 1.0, 4.0, 1.015, 4.0)
@@ -1658,21 +1724,21 @@ def phase_batched_cli(workdir: str, gen: torch.Generator):
     outputs = {}
     with shapes_recorded() as (k1_shapes, _):
         text = run_enhancement(["--test_dir", noisy, "--enhanced_dir", out, "--ckpt", ckpt,
-                                "--mode", "storm", "--batch", str(CLI_BATCH), "--timeit",
-                                "--device", "cuda"], outputs)
+                                "--mode", "storm", "--batch", str(CLI_BATCH), "--N", str(DEPTH_N),
+                                "--timeit", "--device", "cuda"], outputs)
     wall = time.perf_counter() - t0
     launches = kup.upfirdn2d_cuda.launches
     check_outputs(out, lengths)
     batches = [(int(k), int(nfe), float(rtf)) for k, nfe, rtf in
                re.findall(r"batch of (\d+): nfe=(\d+) rtf=([0-9.]+)", text)]
-    check(len(batches) == calls and all(nfe == NFE for _, nfe, _ in batches),
-          f"batch lines {batches}, expected {calls} of nfe {NFE}")
-    expected = K1_PER_FORWARD * NFE * calls
+    check(len(batches) == calls and all(nfe == DEPTH_NFE for _, nfe, _ in batches),
+          f"batch lines {batches}, expected {calls} of nfe {DEPTH_NFE}")
+    expected = K1_PER_FORWARD * DEPTH_NFE * calls
     audio_s = sum(lengths.values()) / SR
     print(f"  {len(lengths)} files ({audio_s:.3f} s of audio) in {calls} calls of B={CLI_BATCH} "
           f"(buckets {sorted(b * BUCKET for b in buckets)} samples): {wall:.2f} s wall, "
           f"{audio_s / wall:.4f} audio s per wall s; RTF per batch {[b[2] for b in batches]}; "
-          f"upfirdn2d launches {launches} (expected {K1_PER_FORWARD} x {NFE} x {calls} = "
+          f"upfirdn2d launches {launches} (expected {K1_PER_FORWARD} x {DEPTH_NFE} x {calls} = "
           f"{expected})",
           flush=True)
     check(launches == expected, f"upfirdn2d launched {launches} times, expected {expected}")
@@ -2036,12 +2102,12 @@ def phase_bf16_cli(workdir: str, f32_outputs, f32_rtf, lengths, batch_dir, batch
     t0 = time.perf_counter()
     with shapes_recorded() as (k1_shapes, _):
         text = run_enhancement(["--test_dir", batch_dir, "--enhanced_dir", out, "--batch",
-                                str(CLI_BATCH), *base], outputs)
+                                str(CLI_BATCH), *base, "--N", str(DEPTH_N)], outputs)
     wall = time.perf_counter() - t0
     batches = [float(r) for r in re.findall(r"batch of \d+: nfe=\d+ rtf=([0-9.]+)", text)]
     shapes |= k1_shapes
     k1["batched_cli_bf16"] = kup.upfirdn2d_cuda.launches
-    want = K1_PER_FORWARD * NFE * len(batches)
+    want = K1_PER_FORWARD * DEPTH_NFE * len(batches)
     rel = relative_to(outputs, batch_outputs)
     audio_s = sum(len(v) for v in batch_outputs.values()) / SR
     print(f"  bf16 --batch {CLI_BATCH}: {len(batches)} calls, RTF per batch {batches}; "
@@ -2748,9 +2814,10 @@ def phase_deepcache_server(workdir: str, gen: torch.Generator):
 def phase_bench(workdir: str, gen: torch.Generator):
     """Phase 32. `python -m storm_tpu_torch.bench` at bench.py's defaults
     (B=16, 256 frames, N=50 + ald, bf16, int8, dc3) with BENCH_REPS timed
-    reps, then `--train`: their JSON lines, printed; the serving run's K1
-    and K3 launches held to the counts of its calls (int8 calibration, the
-    headline, the N=30 and exact extras), the train run's to 36 + 33 per
+    reps and its extras' budget at 0 s (the headline line alone: the N=30
+    and exact extras are None), then `--train`: their JSON lines, printed;
+    the serving run's K1 and K3 launches held to the counts of its calls
+    (int8 calibration, the headline), the train run's to 36 + 33 per
     step; every K1 shape and K3 input the runs gave against plain, and the
     adjoint at every shape the train run's backward gave it. Returns
     ({path: K1 launches}, {path: K3 launches}, the train run's K1-bwd
@@ -2764,7 +2831,8 @@ def phase_bench(workdir: str, gen: torch.Generator):
         kup.upfirdn2d_cuda.launches = kq.quantize_int8_cuda.launches = 0
         kup.upfirdn2d_bwd_cuda.launches = 0
         t0 = time.perf_counter()
-        with shapes_recorded() as (k1s, k3s), adjoint_shapes_recorded() as bwds:
+        with shapes_recorded() as (k1s, k3s), adjoint_shapes_recorded() as bwds, \
+                mock.patch.dict(os.environ, {bench.BUDGET_ENV: "0"}):
             _, text = captured(bench.main, ["--reps", str(BENCH_REPS), *extra])
         wall = time.perf_counter() - t0
         line = json.loads(text.strip().splitlines()[-1])
@@ -2777,14 +2845,12 @@ def phase_bench(workdir: str, gen: torch.Generator):
             check(line["metric"] == "train_utt_per_sec_per_chip", f"{path}: {line}")
         else:
             check(line["metric"] == "audio_sec_per_sec_per_chip_50step_pc" and d["nfe"] == NFE
-                  and d["exact_nfe101_audio_sec_per_sec"] is not None
-                  and d["storm_default_nfe31_audio_sec_per_sec"] is not None,
+                  and d["exact_nfe101_audio_sec_per_sec"] is None
+                  and d["storm_default_nfe31_audio_sec_per_sec"] is None,
                   f"{path}: {line}")
             k1_h, k3_h = dc_call_launches(N_STEPS, 2, scales)
-            k1_31, k3_31 = dc_call_launches(30, 1, scales)
-            want = (K1_PER_FORWARD * calib_forwards(CALIB_N, probes=4)
-                    + calls * (k1_h + k1_31 + K1_PER_FORWARD * NFE),
-                    calls * (k3_h + k3_31 + K3_PER_FILE), 0)
+            want = (K1_PER_FORWARD * calib_forwards(CALIB_N, probes=4) + calls * k1_h,
+                    calls * k3_h, 0)
         got = (kup.upfirdn2d_cuda.launches, kq.quantize_int8_cuda.launches,
                kup.upfirdn2d_bwd_cuda.launches)
         print(f"  {path}: {wall:.1f} s wall; launches (K1, K3, K1-bwd) {got}, expected {want}",
@@ -2839,7 +2905,7 @@ def phase_profile_bench():
 
 ODE_METHOD = "etd2"  # the CLI's default ODE method
 ODE_NFE = 1 + 2 * N_STEPS + 1  # the denoiser, 2 per step, the final denoising step: 102
-ODE_N = SERVE_N  # phases 36-39
+ODE_N = 10  # phases 36-39
 ODE_N_NFE = 1 + 2 * ODE_N + 1  # 22
 PER_STEP = {"euler": 1, "heun": 2, "rk4": 4, "etd1": 1}
 PICARD_SWEEPS = 4
@@ -2851,7 +2917,7 @@ EVAL_SI_SDR_ATOL_DB = 1e-4
 
 @contextlib.contextmanager
 def calls_counted():
-    """While active, every `enhance` call of the three models adds (its K1
+    """While active, every `enhance` call of the four models adds (its K1
     launches, its K3 launches, the NFE it reports) to the yielded list."""
     per_call = []
 
@@ -2865,7 +2931,8 @@ def calls_counted():
         return counted
 
     with contextlib.ExitStack() as stack:
-        for cls in (StochasticRegenerationModel, ScoreModel, DiscriminativeModel):
+        for cls in (StochasticRegenerationModel, ScoreModel, DiscriminativeModel,
+                    DistilledModel):
             stack.enter_context(mock.patch.object(cls, "enhance", counting(cls.enhance)))
         yield per_call
 
@@ -2931,8 +2998,8 @@ def phase_ode_cli(workdir: str, lengths, exact, gen: torch.Generator):
                          for what, dtype in (("float32", torch.float32), ("bf16", BF16)))
     k3_err = check_k3_at("the int8 bf16 ode run", k3_shapes, gen)
 
-    # an ODE is deterministic past its prior draw: one whole trajectory of
-    # 102 forwards through the kernels against the plain path
+    # an ODE is deterministic past its prior draw: one whole trajectory (at
+    # N=DEPTH_N: 22 forwards) through the kernels against the plain path
     model = build_model(STORM_CONFIG, device="cuda", seed=0)
     name = max(lengths, key=lengths.get)
     y = bucketed(load_wav(os.path.join(noisy, name))[0])
@@ -2943,7 +3010,7 @@ def phase_ode_cli(workdir: str, lengths, exact, gen: torch.Generator):
             ctx = (mock.patch.object(resample, "upfirdn2d", kup.upfirdn2d_plain) if plain
                    else contextlib.nullcontext())
             with ctx:
-                runs.append(model.enhance(y, N=N_STEPS, sampler_type="ode", method=ODE_METHOD,
+                runs.append(model.enhance(y, N=DEPTH_N, sampler_type="ode", method=ODE_METHOD,
                                           generator=torch.Generator(device="cuda").manual_seed(0)))
     finally:
         torch.backends.cudnn.deterministic = False
@@ -2952,7 +3019,7 @@ def phase_ode_cli(workdir: str, lengths, exact, gen: torch.Generator):
     print(f"  f32 ode {ODE_METHOD} trajectory ({name}, {nfe} forwards) through the kernels "
           f"against plain: max abs err {err:.3e} (scale {scale:.3e}, "
           f"{err / scale:.3e} of it)", flush=True)
-    check(nfe == ODE_NFE and err <= TRAJECTORY_RTOL * scale,
+    check(nfe == 2 * DEPTH_N + 2 and err <= TRAJECTORY_RTOL * scale,
           f"the f32 ODE trajectory through the kernels parts from plain by {err:.3e}")
     del model
     torch.cuda.empty_cache()
@@ -3046,19 +3113,20 @@ def phase_ode_methods(workdir: str, gen: torch.Generator):
 
 
 def phase_ode_server(workdir: str, gen: torch.Generator):
-    """Phase 37. The server with --sampler ode (etd2, N=10) at its default
-    dtype, bf16, then with --deepcache 3, on phase 15's burst: every reply
-    200 with X-NFE 22, /healthz's sampler and ode_method, exact K1 launches
+    """Phase 37. The server with --sampler ode (etd2, N=SERVE_N) at its
+    default dtype, bf16, then with --deepcache 3, on phase 15's burst: every
+    reply 200 with X-NFE 2 N + 2, /healthz's sampler and ode_method, exact K1 launches
     per warm-up call and batch, K1 against plain at every shape. Returns
     ({path: K1 launches}, K1's error)."""
     rng = np.random.default_rng(4)
     waves = [synth_wav(s, i, rng) for i, s in enumerate(SERVE_SECONDS)]
     ckpt = os.path.join(workdir, "storm.pt")
     k1_paths, shapes = {}, set()
+    nfe = 1 + 2 * SERVE_N + 1
     for path, extra, per_call in (
-            ("server_ode_bf16", [], K1_PER_FORWARD * ODE_N_NFE),
-            ("server_ode_dc3_bf16", ["--deepcache", str(DC_K)], ode_dc_launches())):
-        r = run_server(path, serve_args(ckpt, "--sampler", "ode", *extra), waves, nfe=ODE_N_NFE)
+            ("server_ode_bf16", [], K1_PER_FORWARD * nfe),
+            ("server_ode_dc3_bf16", ["--deepcache", str(DC_K)], ode_dc_launches(SERVE_N))):
+        r = run_server(path, serve_args(ckpt, "--sampler", "ode", *extra), waves, nfe=nfe)
         health = r["health"]
         check((health["sampler"], health["ode_method"]) == ("ode", ODE_METHOD),
               f"{path}: /healthz reports {health.get('sampler')}, {health.get('ode_method')}")
@@ -3220,9 +3288,9 @@ def phase_evaluate(workdir: str):
 # --- the score-only and denoiser-only models and the OUVP SDE (phases 40-44)
 
 SINGLE_MODES = ("score-only", "denoiser-only")
-# NCSN++ forwards per file at the CLI's defaults (pc, N=50 + ald): the score
+# NCSN++ forwards per file at the CLI's pc + ald, N=DEPTH_N: the score
 # model's N x 2 (no denoiser), the denoiser's one
-CLI_FORWARDS = {"score-only": 2 * N_STEPS, "denoiser-only": 1}
+CLI_FORWARDS = {"score-only": 2 * DEPTH_N, "denoiser-only": 1}
 OUVP_FLAGS = ("--sde", "ouvp")
 OUVP_ODE_METHOD = "heun"
 ETD_OUVP_REFUSAL = "etd2 requires an SDE with constant linear drift (OUVE); got OUVPSDE"
@@ -3318,8 +3386,8 @@ def phase_new_modes_cli(workdir: str, ckpts, lengths, exact, gen: torch.Generato
             kup.upfirdn2d_cuda.launches = kq.quantize_int8_cuda.launches = 0
             with shapes_recorded() as (k1s, k3s), calls_counted() as per_call:
                 text = run_enhancement(["--test_dir", noisy, "--enhanced_dir", out, "--ckpt",
-                                        ckpt, "--mode", mode, "--timeit", "--device", "cuda",
-                                        *extra], outputs)
+                                        ckpt, "--mode", mode, "--N", str(DEPTH_N), "--timeit",
+                                        "--device", "cuda", *extra], outputs)
             totals = (kup.upfirdn2d_cuda.launches, kq.quantize_int8_cuda.launches)
             check_outputs(out, lengths)
             n_quant, calib = 0, 0
@@ -3347,8 +3415,9 @@ def phase_new_modes_cli(workdir: str, ckpts, lengths, exact, gen: torch.Generato
             rtf, storm_rtf = rtf_of(text), exact[config.replace("_cached", "")][0]
             print(f"  {mode} {config}: (K1, K3, NFE) per file {per_call[0]} x {len(lengths)}, "
                   f"in all {totals}" + (f" with {calib} calibration forwards" if calib else "")
-                  + "; RTF " + ", ".join(f"{n} {rtf[n]:.4f} (StoRM {storm_rtf[n]:.4f})"
-                                         for n in lengths), flush=True)
+                  + f"; RTF at N={DEPTH_N} " + ", ".join(
+                      f"{n} {rtf[n]:.4f} (StoRM at N={N_STEPS}: {storm_rtf[n]:.4f})"
+                      for n in lengths), flush=True)
     check({s[2] for s in k1_shapes if s[0] == "down" and s[3] == FREQS} >= {4, NF},
           "the score net's 4-channel input pyramid gave upfirdn2d no call")
     f32_err, bf16_err = (check_k1_at(f"the new modes' {what} CLI runs",
@@ -3433,7 +3502,7 @@ def phase_ouvp_serving(workdir: str, ouvp_ckpt: str, lengths, exact, gen: torch.
 
 def phase_new_modes_server(workdir: str, gen: torch.Generator):
     """Phase 43. The server with phase 41's checkpoints on phase 15's burst:
-    --mode score-only at its bf16 default (N=10 + ald: X-NFE 20), then with
+    --mode score-only at its bf16 default (N=SERVE_N + ald: X-NFE 2 N), then with
     --deepcache 3 (still 20: refreshes are not counted), and --mode
     denoiser-only (X-NFE 1); /healthz reports the mode; K1 launches per
     warm-up call and batch from the module list. Then denoiser-only
@@ -3532,6 +3601,373 @@ def phase_new_modes_evaluate(workdir: str):
     return k1_paths
 
 
+# --- phases 45-51: the one-step distilled student (`--mode distill`)
+
+DISTILL_FORWARDS = 2  # per enhancement call: the denoiser and the student
+# calibrate_distill: one denoiser forward and the student at 4 prior draws
+DISTILL_CALIB_FORWARDS = 1 + 4
+DISTILL_EVAL_FILES = 2
+NF32 = 32  # the quality run's width (storm_tpu_torch/scripts/quality_run.sh)
+
+
+def distill_model(teacher_ckpt: str, dtype: str):
+    """A full-width student of the checkpoint's StoRM teacher on the card, as
+    `train --mode distill` builds it: the teacher's config in `dtype`, params
+    at its EMA weights, its score weights frozen as the teacher. Returns
+    (the model, the teacher's EMA weights)."""
+    c = load_training_checkpoint(teacher_ckpt)
+    config = dict(c["config"], mode="distill", dtype=dtype, distill_N=DISTILL_N,
+                  distill_method=DISTILL_METHOD)
+    model = build_model(config, device="cuda", seed=0).train()
+    model.load_state_dict(c["ema_params"], strict=True)
+    model.with_teacher({k[len("score_net."):]: v for k, v in c["ema_params"].items()
+                        if k.startswith("score_net.")})
+    return model, c["ema_params"]
+
+
+def phase_distill_step(teacher_ckpt: str, gen: torch.Generator):
+    """Phase 45. One full-width f32 distill step (B=8, 256 x 256, etd2 targets
+    of N=8) from phase 8's checkpoint, through the kernels and through the
+    plain path (the same z, cuDNN deterministic): launches exactly as
+    `step_launches` reads them from the module lists, each score-net gradient
+    within GRAD_RTOL of its scale plus GRAD_FLOOR of the largest element and
+    the global norm within GRAD_NORM_RTOL, the denoiser's gradients 0. Then one
+    `train_step` timed between CUDA events with its peak memory: afterwards
+    the denoiser is the teacher's bit for bit and the score net moved.
+    Returns (the step's launches, its ms, its peak GiB, the gradients' norm
+    error)."""
+    model, teacher = distill_model(teacher_ckpt, "float32")
+    want = step_launches("distill", DISTILL_TEACHER_FORWARDS)
+    x = 0.3 * torch.randn(TRAIN_B, FREQS, TRAIN_FRAMES, 2, device="cuda", generator=gen)
+    batch = (x, x + 0.2 * torch.randn(x.shape, device="cuda", generator=gen))
+    (z,) = model.draw_step(batch, gen)
+
+    def grads():
+        model.compute_gradients(batch, z)
+        g = {n: p.grad.detach().clone() for n, p in model.named_parameters() if p.requires_grad}
+        check(not any(bool(v.any()) for n, v in g.items() if n.startswith("denoiser_net.")),
+              "the distill step gave the denoiser a gradient")
+        return {n: v for n, v in g.items() if n.startswith("score_net.")}
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        kup.upfirdn2d_cuda.launches = kup.upfirdn2d_bwd_cuda.launches = 0
+        g_k = grads()
+        torch.cuda.synchronize()
+        counts = (kup.upfirdn2d_cuda.launches, kup.upfirdn2d_bwd_cuda.launches)
+        with mock.patch.object(resample, "upfirdn2d", kup.upfirdn2d_plain):
+            g_p = grads()
+            torch.cuda.synchronize()
+        check(counts == (kup.upfirdn2d_cuda.launches, kup.upfirdn2d_bwd_cuda.launches),
+              "the plain path launched a kernel")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    check(counts == want, f"one distill step launched {counts}, expected {want}")
+    check(all(bool(torch.isfinite(v).all()) for v in g_k.values()), "gradients not finite")
+    g_max = max(v.abs().max().item() for v in g_p.values())
+    worst = max((g_k[n] - w).abs().max().item()
+                / (GRAD_RTOL * w.abs().max().item() + GRAD_FLOOR * g_max) for n, w in g_p.items())
+    d_norm = torch.sqrt(sum(((g_k[n] - g_p[n]) ** 2).sum() for n in g_p)).item()
+    norm = torch.sqrt(sum((v ** 2).sum() for v in g_p.values())).item()
+    check(worst <= 1.0 and d_norm <= GRAD_NORM_RTOL * norm,
+          f"the distill step's gradients part from plain: worst {worst:.3f}, norm {d_norm:.3e}")
+    del g_k, g_p
+    state = init_train_state(model, model.lr)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    model.train_step(state, batch, gen)
+    end.record()
+    torch.cuda.synchronize()
+    step_ms, peak = start.elapsed_time(end), torch.cuda.max_memory_allocated() / 2**30
+    sd = model.state_dict()
+    check(all(torch.equal(sd[k].cpu(), v) for k, v in teacher.items()
+              if k.startswith("denoiser_net.")), "Adam moved the student's denoiser")
+    check(any(not torch.equal(sd[k].cpu(), v) for k, v in teacher.items()
+              if k.startswith("score_net.")), "the student's score net did not move")
+    print(f"  f32 distill step B={TRAIN_B} x {TRAIN_FRAMES} ({DISTILL_METHOD} N={DISTILL_N}: "
+          f"{DISTILL_TEACHER_FORWARDS} teacher forwards): launches {counts}; gradients kernel vs "
+          f"plain: worst tensor at {worst:.3f} of its tolerance, |diff| {d_norm / norm:.3e} of "
+          f"the norm; after the step the denoiser is the teacher's bit for bit; step "
+          f"{step_ms:.2f} ms, peak {peak:.2f} GiB", flush=True)
+    del model, state
+    torch.cuda.empty_cache()
+    return counts, step_ms, peak, d_norm / norm
+
+
+def phase_distill_train(train_dir: str, teacher_ckpt: str, storm_bf16):
+    """Phase 46. `python -m storm_tpu_torch.train --mode distill --teacher_ckpt`
+    phase 25's bf16 checkpoint, one epoch of 4 steps at B=8 with
+    `--num_eval_files 2`: phase_train's checks (K1 launches per step read from
+    the module lists, all bf16; the evaluation's 2 forwards per call; the
+    denoiser unmoved), the step and its peak memory beside StoRM's bf16 step
+    (phase 25). Returns phase_train's dict."""
+    r = phase_train(train_dir, "bfloat16", steps_total=TRAIN_FILES // TRAIN_B,
+                    eval_files=DISTILL_EVAL_FILES, mode="distill",
+                    extra=("--teacher_ckpt", teacher_ckpt), tag="distill_")
+    print(f"  distill bf16: {step_launches('distill', DISTILL_TEACHER_FORWARDS)} K1 launches "
+          f"per step; step {r['step_ms']:.2f} ms, peak of the steps {r['step_peak_gib']:.2f} "
+          f"GiB, against StoRM's {storm_bf16['step_ms']:.2f} ms and "
+          f"{storm_bf16['step_peak_gib']:.2f} GiB (phase 25, bf16)", flush=True)
+    return r
+
+
+def phase_distill_cli(workdir: str, student_ckpt: str, lengths, exact, gen: torch.Generator):
+    """Phase 47. `python -m storm_tpu_torch.enhancement --mode distill` with
+    phase 46's checkpoint on phase 5's three files in f32, bf16 and --quant
+    int8 --dtype bfloat16 twice (calibrates, then loads): per file exactly 36
+    K1 launches and, int8, 110 K3 (55 per net); calibration's 5 forwards in
+    the first int8 run's K1; the RTF beside StoRM's (phases 5 and 19); every
+    K1 shape and K3 input against plain; `--deepcache 3` refused with the
+    reference's message; the 4 s file's f32 output through the kernels
+    against plain. Returns ({path: K1}, {path: K3}, K1's f32 and bf16
+    errors, K3's error, {config: RTF of the 4 s file})."""
+    ckpt = link_ckpt(workdir, student_ckpt, "distill.pt")
+    noisy = os.path.join(workdir, "noisy")
+    name = max(lengths, key=lengths.get)
+    k1_paths, k3_paths, k1_shapes, k3_shapes, rtfs = {}, {}, set(), set(), {}
+    for config, dtype, extra in (("float32", torch.float32, ["--dtype", "float32"]),
+                                 ("bfloat16", BF16, ["--dtype", "bfloat16"]),
+                                 ("int8_bfloat16", BF16, INT8_FLAGS),
+                                 ("int8_bfloat16_cached", BF16, INT8_FLAGS)):
+        out = os.path.join(workdir, f"enhanced_distill_{config}")
+        kup.upfirdn2d_cuda.launches = kq.quantize_int8_cuda.launches = 0
+        with shapes_recorded() as (k1s, k3s), calls_counted() as per_call:
+            text = run_enhancement(["--test_dir", noisy, "--enhanced_dir", out, "--ckpt", ckpt,
+                                    "--mode", "distill", "--timeit", "--device", "cuda", *extra])
+        totals = (kup.upfirdn2d_cuda.launches, kq.quantize_int8_cuda.launches)
+        check_outputs(out, lengths)
+        n_quant, calib = 0, 0
+        if "int8" in config:
+            cache = scale_cache_path(ckpt)
+            n_quant = n_quantized(quant_mod.load_scales(cache))
+            check(n_quant == 2 * N_QUANT, f"distill: {n_quant} quantized convs")
+            if config == "int8_bfloat16":
+                check(f"int8 calibration done ({n_quant} convs quantized" in text,
+                      "distill: the first int8 run did not calibrate")
+                calib = DISTILL_CALIB_FORWARDS
+            else:
+                check(f"int8 scales loaded from {cache} ({n_quant} convs" in text,
+                      "distill: the second int8 run did not load the cache")
+        want = (K1_PER_FORWARD * DISTILL_FORWARDS, n_quant, DISTILL_FORWARDS)
+        check(per_call == [want] * len(lengths),
+              f"distill {config}: (K1, K3, NFE) per file {per_call}, expected {want}")
+        check(totals == (K1_PER_FORWARD * (DISTILL_FORWARDS * len(lengths) + calib),
+                         n_quant * len(lengths)), f"distill {config}: launches {totals}")
+        check({s[-1] for s in k1s} == {dtype}, f"distill {config} gave upfirdn2d {k1s}")
+        path = f"enhancement_distill_{config}"
+        k1_paths[path], k3_paths[path] = totals
+        k1_shapes |= k1s
+        k3_shapes |= k3s
+        rtf, storm_rtf = rtf_of(text), exact[config.replace("_cached", "")][0]
+        rtfs[config] = rtf[name]
+        print(f"  distill {config}: (K1, K3, NFE) per file {per_call[0]} x {len(lengths)}, in all "
+              f"{totals}" + (f" with {calib} calibration forwards" if calib else "")
+              + "; RTF " + ", ".join(f"{n} {rtf[n]:.4f} (StoRM {storm_rtf[n]:.4f})"
+                                     for n in lengths), flush=True)
+    f32_err, bf16_err = (check_k1_at(f"the distill {what} CLI runs",
+                                     {s for s in k1_shapes if s[-1] == dtype}, gen)
+                         for what, dtype in (("float32", torch.float32), ("bf16", BF16)))
+    k3_err = check_k3_at("the distill int8 bf16 runs", k3_shapes, gen)
+    try:
+        run_enhancement(["--test_dir", noisy, "--enhanced_dir", os.path.join(workdir, "dc"),
+                         "--ckpt", ckpt, "--mode", "distill", "--deepcache", str(DC_K),
+                         "--device", "cuda"])
+    except ValueError as e:
+        check(str(e) == DEEPCACHE_REFUSAL, f"--deepcache with distill raised {e!r}")
+        print(f"  --mode distill --deepcache {DC_K} refused: {e}", flush=True)
+    else:
+        fail("--mode distill --deepcache did not raise")
+
+    c = load_training_checkpoint(ckpt)
+    model = build_model(dict(c["config"], dtype="float32"), device="cuda")
+    model.load_state_dict(c["ema_params"], strict=True)
+    y = bucketed(load_wav(os.path.join(noisy, name))[0])
+    runs = []
+    torch.backends.cudnn.deterministic = True
+    try:
+        for plain in (False, True):
+            ctx = (mock.patch.object(resample, "upfirdn2d", kup.upfirdn2d_plain) if plain
+                   else contextlib.nullcontext())
+            with ctx:
+                gen0 = torch.Generator(device="cuda").manual_seed(0)
+                runs.append(model.enhance(y, generator=gen0))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (got, n), (want_x, _) = runs
+    err, scale = (got - want_x).abs().max().item(), want_x.abs().max().item()
+    print(f"  distill f32 NFE-2 output ({name}) through the kernels against plain: max abs err "
+          f"{err:.3e} ({err / scale:.3e} of its scale)", flush=True)
+    check(n == DISTILL_FORWARDS and err <= TRAJECTORY_RTOL * scale,
+          f"distill: the kernels' output parts from plain by {err:.3e}")
+    del model
+    torch.cuda.empty_cache()
+    return k1_paths, k3_paths, max(f32_err, err), bf16_err, k3_err, rtfs
+
+
+def phase_distill_serving(workdir: str, gen: torch.Generator):
+    """Phase 48. Phase 47's checkpoint (bf16) through `--batch 4` on the 4 s
+    file (one call, row-padded to 4) and streaming on phase 16's 12 s file
+    (8 chunks a call): 36 K1 launches per call; then the server at its bf16
+    default on phase 15's burst: X-NFE 2, /healthz's mode, 36 K1 launches per
+    warm-up call and batch. Returns ({path: K1}, K1's error)."""
+    ckpt = os.path.join(workdir, "distill.pt")
+    k1_paths, shapes = {}, set()
+    one = os.path.join(workdir, "distill_batch_in")
+    os.makedirs(one)
+    src = max(glob_wavs(os.path.join(workdir, "noisy")), key=lambda f: load_wav(f)[0].shape[-1])
+    save_wav(os.path.join(one, os.path.basename(src)), load_wav(src)[0][0], SR)
+    stream = os.path.join(workdir, "stream_noisy")
+    T = load_wav(glob_wavs(stream)[0])[0].shape[-1]
+    chunk = -(-int(STREAM_CHUNK_S * SR) // BUCKET) * BUCKET
+    overlap = int(STREAM_OVERLAP_S * SR)
+    stream_calls = -(-len(range(0, T - overlap, chunk - overlap)) // STREAM_ROWS)
+    per_call = (K1_PER_FORWARD * DISTILL_FORWARDS, 0, DISTILL_FORWARDS)
+    for path, src_dir, extra, calls in (
+            ("batched_cli_distill_bf16", one, ["--batch", str(CLI_BATCH)], 1),
+            ("streaming_distill_bf16", stream, ["--stream_chunk_s", str(STREAM_CHUNK_S),
+                                                "--stream_overlap_s", str(STREAM_OVERLAP_S)],
+             stream_calls)):
+        out = os.path.join(workdir, path)
+        kup.upfirdn2d_cuda.launches = 0
+        with shapes_recorded() as (k1s, _), calls_counted() as counted:
+            text = run_enhancement(["--test_dir", src_dir, "--enhanced_dir", out, "--ckpt", ckpt,
+                                    "--mode", "distill", "--timeit", "--device", "cuda", *extra])
+        check_outputs(out, {os.path.basename(f): load_wav(f)[0].shape[-1]
+                            for f in glob_wavs(src_dir)})
+        check(counted == [per_call] * calls, f"{path}: per call {counted}")
+        check({s[-1] for s in k1s} == {BF16}, f"{path} gave upfirdn2d {k1s}")
+        k1_paths[path] = kup.upfirdn2d_cuda.launches
+        shapes |= k1s
+        print(f"  {path}: (K1, K3, NFE) per call {per_call} x {calls}; rows "
+              f"{sorted({s[1] for s in k1s})}; " + text.strip().splitlines()[-1].strip(),
+              flush=True)
+    rng = np.random.default_rng(4)
+    waves = [synth_wav(s, i, rng) for i, s in enumerate(SERVE_SECONDS)]
+    r = run_server("server_distill_bf16", serve_args(ckpt, "--mode", "distill"), waves,
+                   nfe=DISTILL_FORWARDS)
+    check(r["health"]["mode"] == "distill", f"/healthz reports {r['health'].get('mode')}")
+    calls = r["warmups"] + r["stats"]["batches"]
+    print(f"  server_distill_bf16: upfirdn2d launches {r['k1']}, expected {per_call[0]} x "
+          f"({r['warmups']} warm-up + {r['stats']['batches']} batches) = {per_call[0] * calls}",
+          flush=True)
+    check(r["k1"] == per_call[0] * calls and r["k3"] == 0, f"distill server: {r['k1']}, {r['k3']}")
+    check({s[-1] for s in r["k1_shapes"]} == {BF16}, "the distill server ran upfirdn2d in f32")
+    k1_paths["server_distill_bf16"] = r["k1"]
+    shapes |= r["k1_shapes"]
+    return k1_paths, check_k1_at("the distill batched, streaming and server runs", shapes, gen)
+
+
+def phase_distill_evaluate(workdir: str):
+    """Phase 49. `python -m storm_tpu_torch.evaluate --mode distill` on phase
+    39's test split (8 files, --batch 4 --csv), phase 47's checkpoint: 8
+    rows, SI-SDR and ESTOI finite, 36 K1 launches per call, each row's SI-SDR
+    within 1e-4 dB of BucketedEnhancer's output for the same file, grouping
+    and seed (cuDNN deterministic). Returns {path: K1 launches}."""
+    corpus = os.path.join(workdir, "train", "corpus")
+    write_test_split(corpus)
+    ckpt = os.path.join(workdir, "distill.pt")
+    out_csv = os.path.join(workdir, "evaluate_distill.csv")
+    torch.backends.cudnn.deterministic = True
+    try:
+        kup.upfirdn2d_cuda.launches = 0
+        with calls_counted() as per_call:
+            text = captured(evaluate.main, [
+                "--ckpt", ckpt, "--mode", "distill", "--base_dir", corpus, "--num_files",
+                str(len(BATCH_SECONDS)), "--batch", str(EVAL_BATCH), "--csv", out_csv,
+                "--device", "cuda"])[1]
+        launched = kup.upfirdn2d_cuda.launches
+        with open(out_csv) as f:
+            rows = list(csv.DictReader(f))
+        check(len(rows) == len(BATCH_SECONDS), f"evaluate distill: {len(rows)} CSV rows")
+        check(all(np.isfinite(float(r["si_sdr"])) and np.isfinite(float(r["estoi"]))
+                  for r in rows), f"evaluate distill: metrics not finite: {rows}")
+        check("--- mean +/- 95% CI ---" in text, "evaluate distill: no mean +/- CI lines")
+        want = (K1_PER_FORWARD * DISTILL_FORWARDS, 0, DISTILL_FORWARDS)
+        check(per_call == [want] * 2 and launched == 2 * want[0],
+              f"evaluate distill: (K1, K3, NFE) per call {per_call}")
+        served = served_si_sdr(served_model(ckpt), corpus, "pc")
+        diffs = {r["file"]: abs(float(r["si_sdr"]) - served[r["file"]]) for r in rows}
+        print(f"  evaluate --mode distill: {len(rows)} rows; (K1, K3, NFE) per call {per_call}; "
+              f"mean SI-SDR {np.mean([float(r['si_sdr']) for r in rows]):.3f} dB, ESTOI "
+              f"{np.mean([float(r['estoi']) for r in rows]):.4f}; |CSV SI-SDR - served| up to "
+              f"{max(diffs.values()):.2e} dB", flush=True)
+        check(max(diffs.values()) <= EVAL_SI_SDR_ATOL_DB,
+              f"evaluate distill: SI-SDR parts from the enhancer's by {diffs}")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    torch.cuda.empty_cache()
+    return {"evaluate_distill": launched}
+
+
+def phase_distill_bench(gen: torch.Generator):
+    """Phase 50. `python -m storm_tpu_torch.bench --distill` at bench.py's
+    defaults otherwise (B=16, 256 frames, bf16, int8) with BENCH_REPS timed
+    reps: its JSON line under the reference's metric; K1 launches 5
+    calibration forwards + 36 per call, K3 110 per call; both kernels
+    against plain at the shapes they gave. Returns (K1, K3, the line, K1's
+    error, K3's error)."""
+    from storm_tpu_torch import bench
+
+    torch.cuda.empty_cache()
+    kup.upfirdn2d_cuda.launches = kq.quantize_int8_cuda.launches = 0
+    t0 = time.perf_counter()
+    with shapes_recorded() as (k1s, k3s):
+        _, text = captured(bench.main, ["--distill", "--reps", str(BENCH_REPS)])
+    wall = time.perf_counter() - t0
+    line = json.loads(text.strip().splitlines()[-1])
+    calls = 1 + BENCH_REPS
+    want = (K1_PER_FORWARD * (DISTILL_CALIB_FORWARDS + calls * DISTILL_FORWARDS),
+            calls * 2 * N_QUANT)
+    got = (kup.upfirdn2d_cuda.launches, kq.quantize_int8_cuda.launches)
+    print(f"  bench --distill: {wall:.1f} s wall; launches (K1, K3) {got}, expected {want}; "
+          f"line {json.dumps(line)}", flush=True)
+    check(line["metric"] == "audio_sec_per_sec_per_chip_distill_nfe2"
+          and line["detail"]["nfe"] == DISTILL_FORWARDS and line["value"] > 0,
+          f"bench --distill: {line}")
+    check(got == want, f"bench --distill: launches {got}, expected {want}")
+    check({s[-1] for s in k1s} == {BF16}, f"bench --distill gave upfirdn2d {k1s}")
+    return (*got, line, check_k1_at("bench --distill", k1s, gen),
+            check_k3_at("bench --distill", k3s, gen))
+
+
+def phase_k1_nf32(gen: torch.Generator):
+    """Phase 51. K1 at the quality run's width (nf=32, ch_mult (1,2,2,2)):
+    one StoRM training step (B=8, 256 x 256) and one 4 s enhancement (B=1,
+    256 x 576) of an nf=32 model in f32 and in bf16 record their upfirdn2d
+    shapes; the forward kernel and its adjoint against plain at each, in
+    its dtype. Returns (K1's f32, bf16 errors, the adjoint's f32, bf16
+    errors)."""
+    fwd, bwd = set(), set()
+    y = bucketed(synth_wav(4.0, 0, np.random.default_rng(5))[None])
+    for dtype in ("float32", "bfloat16"):
+        model = build_model(dict(STORM_CONFIG, nf=NF32, dtype=dtype), device="cuda",
+                            seed=0).train()
+        x = 0.3 * torch.randn(TRAIN_B, FREQS, TRAIN_FRAMES, 2, device="cuda", generator=gen)
+        batch = (x, x + 0.2 * torch.randn(x.shape, device="cuda", generator=gen))
+        with shapes_recorded() as (k1s, _), adjoint_shapes_recorded() as bwds:
+            model.compute_gradients(batch, *model.draw_step(batch, gen))
+            model.eval()
+            model.enhance(y, N=1, generator=torch.Generator(device="cuda").manual_seed(0))
+            torch.cuda.synchronize()
+        fwd |= k1s
+        bwd |= bwds
+        del model
+    channels = sorted({s[2] for s in fwd})
+    check({NF32, 2 * NF32} <= set(channels) and not {NF, 2 * NF} & set(channels),
+          f"the nf={NF32} runs gave upfirdn2d channels {channels}")
+    check({s[1] for s in fwd} == {1, TRAIN_B} and {s[1] for s in bwd} == {TRAIN_B},
+          f"the nf={NF32} runs gave batch rows {sorted({s[1] for s in fwd})}")
+    print(f"  nf={NF32}: {len(fwd)} forward and {len(bwd)} adjoint shapes, channels {channels}",
+          flush=True)
+    errs = [check_k1_at(f"the nf={NF32} {what} runs", {s for s in fwd if s[-1] == dt}, gen)
+            for what, dt in (("f32", torch.float32), ("bf16", BF16))]
+    errs += [check_k1_bwd_at(f"the nf={NF32} {what} step", {s for s in bwd if s[-1] == dt}, gen)
+             for what, dt in (("f32", torch.float32), ("bf16", BF16))]
+    return errs
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -3542,9 +3978,10 @@ def main():
     args = parser.parse_args()
     if not torch.cuda.is_available():
         fail("no CUDA device: chip_smoke.py runs on a card only")
-    t_start = time.perf_counter()
+    global T_START
+    t_start = T_START = time.perf_counter()
 
-    print("== phase 1: device", flush=True)
+    phase_header("== phase 1: device", flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
     card = smi.stdout.strip().splitlines()[0]
@@ -3552,7 +3989,7 @@ def main():
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}", flush=True)
 
-    print("== phase 2: build", flush=True)
+    phase_header("== phase 2: build", flush=True)
     t0 = time.perf_counter()
     logs = build.build()
     kup._lib(), kq._lib(), kfa._lib()
@@ -3562,26 +3999,26 @@ def main():
             if "registers" in line or "spill" in line or "error" in line.lower():
                 print(f"  [{name}] {line.strip()}")
 
-    print("== phase 3: upfirdn2d kernel against plain at the main path's shapes", flush=True)
+    phase_header("== phase 3: upfirdn2d kernel against plain at the main path's shapes", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
     per_shape, max_err = phase_kernel_vs_plain(gen)
 
-    print("== phase 4: full-width NCSN++ forward, kernel path against plain path", flush=True)
+    phase_header("== phase 4: full-width NCSN++ forward, kernel path against plain path", flush=True)
     phase_full_width_forward(gen)
 
     with tempfile.TemporaryDirectory() as workdir:  # phase 5's checkpoint and files, for 10-11
-        print("== phase 5: main path through storm_tpu_torch.enhancement", flush=True)
+        phase_header("== phase 5: main path through storm_tpu_torch.enhancement", flush=True)
         launches, f32_rtf, lengths, f32_outputs = phase_main_path(workdir)
 
         if args.profile:
-            print("== phase 6: where the device time goes", flush=True)
+            phase_header("== phase 6: where the device time goes", flush=True)
             phase_profile()
 
-        print("== phase 7: upfirdn2d forward and backward kernels against plain at a train "
+        phase_header("== phase 7: upfirdn2d forward and backward kernels against plain at a train "
               "step's shapes", flush=True)
         bwd_shape, bwd_err, train_fwd_err = phase_backward_vs_plain(gen)
 
-        print("== phase 8: training through storm_tpu_torch.train", flush=True)
+        phase_header("== phase 8: training through storm_tpu_torch.train", flush=True)
         phase_train_gradients(gen)
         train_dir = os.path.join(workdir, "train")  # the corpus, for phases 25-26 too
         os.makedirs(train_dir)
@@ -3589,72 +4026,72 @@ def main():
         train_launches = train_f32["launches"]
 
         if args.profile:
-            print("== phase 9: where a train step's device time goes", flush=True)
+            phase_header("== phase 9: where a train step's device time goes", flush=True)
             phase_profile_train()
 
-        print("== phase 10: int8 quantizer kernel against plain at the int8 path's inputs",
+        phase_header("== phase 10: int8 quantizer kernel against plain at the int8 path's inputs",
               flush=True)
         k3_shape, k3_calls, probe, k3_err = phase_quantizer_vs_plain(workdir, gen)
 
-        print("== phase 11: int8 main path through storm_tpu_torch.enhancement --quant int8",
+        phase_header("== phase 11: int8 main path through storm_tpu_torch.enhancement --quant int8",
               flush=True)
         k3_launches = phase_int8_path(workdir, f32_rtf, lengths)
 
-        print("== phase 12: fused_leaky_relu kernel through its op API against plain",
+        phase_header("== phase 12: fused_leaky_relu kernel through its op API against plain",
               flush=True)
         k2 = phase_fused_act(gen)
 
         if args.profile:
-            print("== phase 13: where an int8 enhancement's device time goes", flush=True)
+            phase_header("== phase 13: where an int8 enhancement's device time goes", flush=True)
             phase_profile_int8(workdir)
 
-        print(f"== phase 14: batched CLI (--batch {CLI_BATCH})", flush=True)
+        phase_header(f"== phase 14: batched CLI (--batch {CLI_BATCH})", flush=True)
         batch_launches, batch_err, batch_dir, batch_outputs = phase_batched_cli(workdir, gen)
 
-        print("== phase 15: HTTP server with dynamic batching (storm_tpu_torch.serve)",
+        phase_header("== phase 15: HTTP server with dynamic batching (storm_tpu_torch.serve)",
               flush=True)
         serve_launches, serve_k3, serve_err, serve_k3_err = phase_server(workdir, batch_dir, gen)
 
-        print(f"== phase 16: streaming (--stream_chunk_s {STREAM_CHUNK_S})", flush=True)
+        phase_header(f"== phase 16: streaming (--stream_chunk_s {STREAM_CHUNK_S})", flush=True)
         stream_launches, stream_k3, stream_err, stream_k3_err = phase_streaming(workdir, gen)
 
         if args.profile:
-            print(f"== phase 17: where a B={CLI_BATCH} enhancement's device time goes", flush=True)
+            phase_header(f"== phase 17: where a B={CLI_BATCH} enhancement's device time goes", flush=True)
             phase_profile_batch()
 
-        print("== phase 18: bfloat16 kernels against plain: upfirdn2d at the main path's "
+        phase_header("== phase 18: bfloat16 kernels against plain: upfirdn2d at the main path's "
               "shapes and the adjoint at a train step's, GroupNorm, one NCSN++ forward",
               flush=True)
         bf16_shape, bf16_err = phase_bf16_kernels(gen)
 
-        print("== phase 19: bfloat16 CLI (--dtype bfloat16; --batch 4; --quant int8)",
+        phase_header("== phase 19: bfloat16 CLI (--dtype bfloat16; --batch 4; --quant int8)",
               flush=True)
         bf16_k1, bf16_k3, bf16_k3_shapes, bf16_cli_err, bf16_exact = phase_bf16_cli(
             workdir, f32_outputs, f32_rtf, lengths, batch_dir, batch_outputs, gen)
 
-        print("== phase 20: the quantizer's bfloat16-product mode against plain at the int8 "
+        phase_header("== phase 20: the quantizer's bfloat16-product mode against plain at the int8 "
               "bf16 path's inputs", flush=True)
         k3b_shape, k3b_calls, k3b_err = phase_bf16_quantizer(workdir)
         k3b_err = max(k3b_err, check_k3_at("the int8 bf16 CLI", bf16_k3_shapes, gen))
 
-        print("== phase 21: HTTP server at its default dtype (bfloat16), then int8 + bf16",
+        phase_header("== phase 21: HTTP server at its default dtype (bfloat16), then int8 + bf16",
               flush=True)
         bf16_serve_k1, bf16_serve_k3, bf16_serve_err, bf16_serve_k3_err = phase_bf16_server(
             workdir, gen)
 
-        print("== phase 22: streaming in bfloat16", flush=True)
+        phase_header("== phase 22: streaming in bfloat16", flush=True)
         bf16_stream_k1, bf16_stream_err = phase_bf16_streaming(workdir, gen)
 
         if args.profile:
-            print("== phase 23: where a bfloat16 enhancement's device time goes", flush=True)
+            phase_header("== phase 23: where a bfloat16 enhancement's device time goes", flush=True)
             phase_profile_bf16()
 
-        print("== phase 24: bfloat16 training's kernels against plain: upfirdn2d and its "
+        phase_header("== phase 24: bfloat16 training's kernels against plain: upfirdn2d and its "
               "adjoint at a train step's shapes, one full-width bf16 step's gradients",
               flush=True)
         bf16_bwd_shape, bf16_bwd_err = phase_bf16_backward(gen)
 
-        print("== phase 25: bfloat16 training through storm_tpu_torch.train --dtype bfloat16 "
+        phase_header("== phase 25: bfloat16 training through storm_tpu_torch.train --dtype bfloat16 "
               f"with the in-training evaluation (--num_eval_files {VALID_FILES})", flush=True)
         train_bf16 = phase_train(train_dir, "bfloat16", eval_files=VALID_FILES)
         print(f"  bf16 against f32 (phase 8, this run): step {train_bf16['step_ms']:.2f} ms "
@@ -3663,64 +4100,64 @@ def main():
               f"{train_f32['audio_s_per_s']:.3f}; peak {train_bf16['peak_gib']:.2f} GiB against "
               f"{train_f32['peak_gib']:.2f}", flush=True)
 
-        print("== phase 26: float32 training with the in-training evaluation "
+        phase_header("== phase 26: float32 training with the in-training evaluation "
               f"(--num_eval_files {VALID_FILES} --eval_N {F32_EVAL_N}, one epoch)", flush=True)
         train_f32_eval = phase_train(train_dir, "float32", steps_total=TRAIN_FILES // TRAIN_B,
                                      eval_files=VALID_FILES, eval_n=F32_EVAL_N)
 
-        print("== phase 27: fused_leaky_relu in bfloat16 through its op API against plain",
+        phase_header("== phase 27: fused_leaky_relu in bfloat16 through its op API against plain",
               flush=True)
         k2_bf16 = phase_fused_act_bf16(gen)
 
         if args.profile:
-            print("== phase 28: where a bfloat16 train step's device time goes", flush=True)
+            phase_header("== phase 28: where a bfloat16 train step's device time goes", flush=True)
             phase_profile_train_bf16()
 
-        print("== phase 29: deep-feature caching: full-width deep and shallow passes against "
+        phase_header("== phase 29: deep-feature caching: full-width deep and shallow passes against "
               "the forward", flush=True)
         dc_fwd_k1, dc_fwd_k3 = phase_deepcache_forward(workdir, gen)
 
-        print(f"== phase 30: the CLI with --deepcache {DC_K} (float32, bfloat16, int8 + bf16)",
+        phase_header(f"== phase 30: the CLI with --deepcache {DC_K} (float32, bfloat16, int8 + bf16)",
               flush=True)
         dc_cli_k1, dc_cli_k3, dc_cli_err, dc_cli_bf16_err, dc_cli_k3_err = phase_deepcache_cli(
             workdir, lengths, {"float32": (f32_rtf, f32_outputs), **bf16_exact}, gen)
 
-        print(f"== phase 31: the server with --deepcache {DC_K} (bf16, then int8 + bf16), then "
+        phase_header(f"== phase 31: the server with --deepcache {DC_K} (bf16, then int8 + bf16), then "
               "serve_load against it", flush=True)
         dc_srv_k1, dc_srv_k3, dc_srv_err, dc_srv_k3_err = phase_deepcache_server(workdir, gen)
 
-        print("== phase 32: python -m storm_tpu_torch.bench at bench.py's defaults, then --train",
+        phase_header("== phase 32: python -m storm_tpu_torch.bench at bench.py's defaults, then --train",
               flush=True)
         (bench_k1, bench_k3, bench_bwd, _, bench_err, bench_k3_err,
          bench_bwd_err) = phase_bench(workdir, gen)
 
         if args.profile:
-            print("== phase 33: where a dc3 bfloat16 enhancement's device time goes", flush=True)
+            phase_header("== phase 33: where a dc3 bfloat16 enhancement's device time goes", flush=True)
             phase_profile_dc3_bf16()
-            print("== phase 34: where a bench call's device time goes (B=16, with and without "
+            phase_header("== phase 34: where a bench call's device time goes (B=16, with and without "
                   "int8)", flush=True)
             phase_profile_bench()
 
-        print(f"== phase 35: the ODE CLI (--sampler ode: {ODE_METHOD}, N={N_STEPS}) in float32, "
+        phase_header(f"== phase 35: the ODE CLI (--sampler ode: {ODE_METHOD}, N={N_STEPS}) in float32, "
               "bf16 and int8 + bf16", flush=True)
         ode_k1, ode_k3, ode_err, ode_bf16_err, ode_k3_err = phase_ode_cli(
             workdir, lengths, {"float32": (f32_rtf, f32_outputs), **bf16_exact}, gen)
 
-        print(f"== phase 36: every sampler at the 4 s bucket in bf16, N={ODE_N}", flush=True)
+        phase_header(f"== phase 36: every sampler at the 4 s bucket in bf16, N={ODE_N}", flush=True)
         methods_k1, methods_err = phase_ode_methods(workdir, gen)
 
-        print(f"== phase 37: the server with --sampler ode (bf16, then --deepcache {DC_K})",
+        phase_header(f"== phase 37: the server with --sampler ode (bf16, then --deepcache {DC_K})",
               flush=True)
         ode_srv_k1, ode_srv_err = phase_ode_server(workdir, gen)
 
-        print(f"== phase 38: streaming with --sampler ode --N {ODE_N}", flush=True)
+        phase_header(f"== phase 38: streaming with --sampler ode --N {ODE_N}", flush=True)
         ode_stream_k1, ode_stream_err = phase_ode_streaming(workdir, gen)
 
-        print("== phase 39: python -m storm_tpu_torch.evaluate (pc, then --sampler ode)",
+        phase_header("== phase 39: python -m storm_tpu_torch.evaluate (pc, then --sampler ode)",
               flush=True)
         eval_k1 = phase_evaluate(workdir)
 
-        print("== phase 40: training the score-only and denoiser-only models and OUVP StoRM "
+        phase_header("== phase 40: training the score-only and denoiser-only models and OUVP StoRM "
               "at full width", flush=True)
         new_train, nt_f32_err, nt_bf16_err, nt_bwd_err, nt_bwd_bf16_err = phase_train_new_modes(
             train_dir, gen, train_f32, train_bf16)
@@ -3729,21 +4166,51 @@ def main():
                  "ouvp": new_train["storm_ouvp_bf16"]["ckpt_dir"]}
         ckpts = {k: os.path.join(v, "last.pt") for k, v in ckpts.items()}
 
-        print("== phase 41: the CLI with the score-only and denoiser-only checkpoints (float32, "
+        phase_header("== phase 41: the CLI with the score-only and denoiser-only checkpoints (float32, "
               "bf16, int8 + bf16)", flush=True)
         nm_k1, nm_k3, nm_err, nm_bf16_err, nm_k3_err = phase_new_modes_cli(
             workdir, ckpts, lengths, {"float32": (f32_rtf, f32_outputs), **bf16_exact}, gen)
 
-        print("== phase 42: OUVP StoRM serving (pc, ode heun; etd2 refused)", flush=True)
+        phase_header("== phase 42: OUVP StoRM serving (pc, ode heun; etd2 refused)", flush=True)
         ouvp_k1, ouvp_err = phase_ouvp_serving(workdir, ckpts["ouvp"], lengths, bf16_exact, gen)
 
-        print("== phase 43: the server with --mode score-only (and --deepcache 3) and "
+        phase_header("== phase 43: the server with --mode score-only (and --deepcache 3) and "
               "denoiser-only; denoiser-only streaming", flush=True)
         nm_srv_k1, nm_stream_err, nm_srv_err = phase_new_modes_server(workdir, gen)
 
-        print("== phase 44: python -m storm_tpu_torch.evaluate --mode score-only and "
+        phase_header("== phase 44: python -m storm_tpu_torch.evaluate --mode score-only and "
               "denoiser-only", flush=True)
         nm_eval_k1 = phase_new_modes_evaluate(workdir)
+
+        phase_header(f"== phase 45: one full-width f32 distill step ({DISTILL_METHOD} N={DISTILL_N} "
+              "targets) through the kernels against the plain path", flush=True)
+        d_step, d_step_ms, d_step_peak, d_grad_err = phase_distill_step(
+            os.path.join(train_f32["ckpt_dir"], "last.pt"), gen)
+
+        phase_header("== phase 46: python -m storm_tpu_torch.train --mode distill --teacher_ckpt "
+              f"(phase 25's bf16 checkpoint; --num_eval_files {DISTILL_EVAL_FILES})", flush=True)
+        d_train = phase_distill_train(train_dir, os.path.join(train_bf16["ckpt_dir"], "last.pt"),
+                                      train_bf16)
+
+        phase_header("== phase 47: the CLI with --mode distill (float32, bf16, int8 + bf16)", flush=True)
+        d_k1, d_k3, d_err, d_bf16_err, d_k3_err, d_rtf = phase_distill_cli(
+            workdir, os.path.join(d_train["ckpt_dir"], "last.pt"), lengths,
+            {"float32": (f32_rtf, f32_outputs), **bf16_exact}, gen)
+
+        phase_header(f"== phase 48: --mode distill with --batch {CLI_BATCH}, streaming and the server",
+              flush=True)
+        d_srv_k1, d_srv_err = phase_distill_serving(workdir, gen)
+
+        phase_header("== phase 49: python -m storm_tpu_torch.evaluate --mode distill", flush=True)
+        d_eval_k1 = phase_distill_evaluate(workdir)
+
+        phase_header("== phase 50: python -m storm_tpu_torch.bench --distill", flush=True)
+        d_bench_k1, d_bench_k3, d_bench_line, d_bench_err, d_bench_k3_err = phase_distill_bench(
+            gen)
+
+    phase_header(f"== phase 51: upfirdn2d and its adjoint at nf={NF32} (the quality run's width)",
+          flush=True)
+    nf32_f32_err, nf32_bf16_err, nf32_bwd_err, nf32_bwd_bf16_err = phase_k1_nf32(gen)
 
     def entry(name, source, replaces, per_shape_ms, calls, err, launches, work, **extra):
         keys = ("ms", "device_ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms")
@@ -3798,6 +4265,25 @@ def main():
                         **{p: r["launches"][1] for p, r in nm_runs.items() if "bf16" in p}}
     ode_k1_err = max(ode_k1_err, nt_f32_err, nm_err, nm_stream_err)
     ode_k1_bf16_err = max(ode_k1_bf16_err, nt_bf16_err, nm_bf16_err, ouvp_err, nm_srv_err)
+    # the distilled student (phases 46-50); phase 45's step and phase 51's
+    # nf=32 calls are comparisons with plain, not counted
+    d_paths = {"train_distill_bf16": d_train["launches"][0], **d_k1, **d_srv_k1, **d_eval_k1,
+               "bench_distill": d_bench_k1}
+    k1_by_path.update({k: v for k, v in d_paths.items() if k.endswith("float32")})
+    k1_bf16_by_path.update({k: v for k, v in d_paths.items() if not k.endswith("float32")})
+    k3_bf16_by_path.update({**{k: v for k, v in d_k3.items() if v},
+                            "bench_distill": d_bench_k3})
+    bwd_bf16_by_path["train_distill_bf16"] = d_train["launches"][1]
+    ode_k1_err = max(ode_k1_err, d_err, nf32_f32_err)
+    ode_k1_bf16_err = max(ode_k1_bf16_err, d_bf16_err, d_srv_err, d_bench_err, nf32_bf16_err)
+    nt_bwd_err = max(nt_bwd_err, nf32_bwd_err)
+    nt_bwd_bf16_err = max(nt_bwd_bf16_err, nf32_bwd_bf16_err)
+    nm_k3_err = max(nm_k3_err, d_k3_err, d_bench_k3_err)
+    print(f"  distill: f32 step {d_step} launches, {d_step_ms:.2f} ms, {d_step_peak:.2f} GiB, "
+          f"gradients {d_grad_err:.3e} of their norm from plain; bf16 trainer step "
+          f"{d_train['step_ms']:.2f} ms, {d_train['step_peak_gib']:.2f} GiB; RTF at 4 s "
+          + ", ".join(f"{k} {v:.4f}" for k, v in d_rtf.items())
+          + f"; bench --distill {d_bench_line['value']} audio s/s", flush=True)
     k1_src = "storm_tpu_torch/csrc/upfirdn2d.cu"
     no_library = "no single PyTorch call computes this function"
     record = {"kernels": [

@@ -40,8 +40,11 @@ the timed region to DIR/bench_trace.json.
 
 `vs_baseline` is the ratio against the north-star of 10x real time per
 chip (BASELINE.json), as in the reference bench; no TPU figure applies to
-the port. `--distill` and backbones other than ncsnpp are not ported and
-raise, naming their ROADMAP items.
+the port. `--distill` measures the distilled one-step program instead (NFE
+2: the denoiser and the student; int8 scales from `calibrate_distill`, no
+deepcache), one warm-up and `--reps` timed calls, under the reference's
+metric name `audio_sec_per_sec_per_chip_distill_nfe2`. Backbones other than
+ncsnpp are not ported and raise, naming their ROADMAP item.
 
 Prints ONE JSON line.
 """
@@ -60,7 +63,8 @@ import torch
 
 from .models.base import init_train_state
 from .models.factory import build_model
-from .models.quant import calibrate_storm, num_quantized_convs
+from .models.distill import DistilledModel
+from .models.quant import calibrate_distill, calibrate_storm, num_quantized_convs
 
 SR = 16000
 TARGET = 10.0  # the north-star: >= 10x real time per chip
@@ -96,7 +100,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                          "0 = exact")
     ap.add_argument("--deepcache_depth", type=int, default=1)
     ap.add_argument("--distill", action="store_true",
-                    help="distilled one-step serving: not ported yet (ROADMAP R3, distillation)")
+                    help="measure distilled one-step serving (NFE 2: the denoiser and the "
+                         "one-shot student, models/distill.py) instead of the N-step sampler; "
+                         "the time does not depend on the weights, so random ones measure the "
+                         "program a trained student serves")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the kernels' plain versions")
     return ap.parse_args(argv)
@@ -182,6 +189,46 @@ def bench_train(args, model, device: torch.device) -> dict:
             "batch": args.batch, "frames": args.frames, "step_ms": round(wall * 1000, 1),
             "dtype": args.dtype, "backend": device.type, "device_name": device_name(device),
             "backbone": args.backbone,
+        },
+    }
+
+
+def bench_distill(args, model, device: torch.device) -> dict:
+    """Distilled one-step serving (NFE 2) at (batch, frames) in --dtype, int8
+    scales from `calibrate_distill` on y[:4] (bench.py:173-200)."""
+    num_samples = (args.frames - 1) * model.stft_config.hop_length
+    audio_sec = args.batch * num_samples / SR
+    y = torch.from_numpy((np.random.default_rng(0).standard_normal((args.batch, num_samples))
+                          * 0.1).astype(np.float32)).to(device)
+    quant = None
+    if args.quant == "int8":
+        quant = calibrate_distill(model, y[:4], generator=generator(device, 7))
+        print("int8-quantized convs (distill): "
+              f"{({k: num_quantized_convs(v) for k, v in quant.items()})}", file=sys.stderr)
+
+    def enhance(seed: int) -> int:
+        x_hat, nfe = model.enhance(y, generator=generator(device, seed), quant=quant)
+        x_hat.cpu()  # the output's copy to the host is the sync
+        return nfe
+
+    enhance(1)  # warm-up
+    times = []
+    with profiled(args.profile, device):
+        for i in range(args.reps):
+            t0 = time.perf_counter()
+            nfe = enhance(i + 2)
+            times.append(time.perf_counter() - t0)
+    wall = min(times)
+    value = audio_sec / wall
+    return {
+        "metric": "audio_sec_per_sec_per_chip_distill_nfe2",
+        "value": round(value, 2),
+        "unit": "audio-sec/s/chip",
+        "vs_baseline": round(value / TARGET, 3),
+        "detail": {
+            "batch": args.batch, "nfe": int(nfe), "wall_s": round(wall, 4),
+            "dtype": args.dtype, "quant": args.quant, "backend": device.type,
+            "device_name": device_name(device),
         },
     }
 
@@ -278,9 +325,6 @@ def bench_serving(args, model, device: torch.device, budget_s: float, t_start: f
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = parse_args(argv)
     t_start = time.perf_counter()
-    if args.distill:
-        raise NotImplementedError("--distill: the distilled student (models/distill.py) is not "
-                                  "ported yet (ROADMAP R3, distillation)")
     if args.backbone != "ncsnpp":
         raise NotImplementedError(f"--backbone {args.backbone}: only ncsnpp is ported yet "
                                   "(ROADMAP R4)")
@@ -292,6 +336,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     device = next(model.parameters()).device
     if args.train:
         line = bench_train(args, model, device)
+    elif args.distill:
+        line = bench_distill(args, DistilledModel(model), device)
     else:
         line = bench_serving(args, model, device, budget_s, t_start)
     print(json.dumps(line))

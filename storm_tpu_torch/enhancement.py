@@ -5,9 +5,11 @@
         [--stream_chunk_s 2.0] [--device cuda]
 
 `--mode` names the model the checkpoint holds: storm (either StoRM training
-mode), score-only (SGMSE+: the samplers run around the noisy spec) or
-denoiser-only (one forward; the sampler flags are ignored, NFE 1); another
-checkpoint mode exits with the reference's message. Flags and defaults are
+mode), score-only (SGMSE+: the samplers run around the noisy spec),
+denoiser-only (one forward; the sampler flags are ignored, NFE 1) or distill
+(the denoiser and the one-step student, NFE 2; the sampler flags are
+ignored and `--deepcache` is refused); another checkpoint mode exits with
+the reference's message. Flags and defaults are
 those of the reference CLI:
 `--sampler pc` with reverse diffusion and the ald corrector, one corrector
 step, snr 0.5, N=50, EMA weights unless `--no-ema`. `--sampler ode`
@@ -57,8 +59,8 @@ import torch
 
 from .ckpt import load_checkpoint
 from .data.audio import load_wav, save_wav, wav_info
-from .models.factory import (SERVING_MODES, build_model, check_checkpoint_mode,
-                             refuse_unported_mode)
+from .models.distill import refuse_deepcache
+from .models.factory import SERVING_MODES, build_model, check_checkpoint_mode
 from .sampling.correctors import CORRECTORS
 from .sampling.predictors import PREDICTORS
 from .sampling.samplers import ODE_METHODS
@@ -78,8 +80,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--ckpt", type=str, required=True,
                    help="Checkpoint file (.pt, storm_tpu_torch.ckpt).")
     p.add_argument("--mode", required=True, choices=SERVING_MODES,
-                   help="storm, score-only (SGMSE+) or denoiser-only; distill is not ported yet "
-                        "(ROADMAP R3, distillation)")
+                   help="storm, score-only (SGMSE+), denoiser-only or distill (the one-step "
+                        "student)")
     p.add_argument("--sampler", type=str, choices=("pc", "ode", "picard"), default="pc",
                    help="pc: predictor-corrector (the reference's default); ode: the "
                         "deterministic probability-flow integrator (--ode-method); picard: "
@@ -142,7 +144,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = parse_args(argv)
-    refuse_unported_mode(args.mode)
+    if args.mode == "distill":  # NFE 2: no trajectory to cache along
+        refuse_deepcache(args.deepcache)
     device = torch.device(args.device)
     config, params, ema_params = load_checkpoint(args.ckpt)
     check_checkpoint_mode(args.mode, config)

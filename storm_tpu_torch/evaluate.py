@@ -20,8 +20,8 @@ enhanced file is written to a temporary WAV and transcribed by `--asr_cmd`,
 a shell command whose `{wav}` placeholder is replaced by the file's quoted
 path and whose standard output is the hypothesis (600 s per call).
 
-`--mode` is storm, score-only (SGMSE+) or denoiser-only, the checkpoint's
-own; distill raises (ROADMAP R3, distillation).
+`--mode` is storm, score-only (SGMSE+), denoiser-only or distill (the
+one-step student, NFE 2), the checkpoint's own.
 """
 from __future__ import annotations
 
@@ -39,8 +39,8 @@ import torch
 from .ckpt import load_checkpoint
 from .data.audio import save_wav, wav_info
 from .data.datamodule import SpecsAndTranscriptionsDataModule, SpecsDataModule
-from .models.factory import (SERVING_MODES, build_model, check_checkpoint_mode,
-                             refuse_unported_mode)
+from .models.distill import refuse_deepcache
+from .models.factory import SERVING_MODES, build_model, check_checkpoint_mode
 from .sampling.correctors import CORRECTORS
 from .sampling.predictors import PREDICTORS
 from .sampling.samplers import ODE_METHODS
@@ -57,8 +57,8 @@ def build_argparser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ckpt", required=True, help="Checkpoint file (.pt, storm_tpu_torch.ckpt).")
     ap.add_argument("--mode", required=True, choices=SERVING_MODES,
-                    help="storm, score-only (SGMSE+) or denoiser-only; distill is not ported "
-                         "yet (ROADMAP R3, distillation)")
+                    help="storm, score-only (SGMSE+), denoiser-only or distill (the one-step "
+                         "student)")
     ap.add_argument("--base_dir", required=True)
     ap.add_argument("--format", default="wsj0",
                     choices=["wsj0", "vctk", "dns", "reverb_wsj0", "timit", "voicebank"])
@@ -111,7 +111,8 @@ def transcribe(asr_cmd: str, x_hat: np.ndarray) -> str:
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = build_argparser().parse_args(argv)
-    refuse_unported_mode(args.mode)
+    if args.mode == "distill":  # NFE 2: no trajectory to cache along
+        refuse_deepcache(args.deepcache)
     if args.wer and not args.asr_cmd:
         raise SystemExit("--wer requires --asr_cmd")
     device = torch.device(args.device)

@@ -2,8 +2,10 @@
 
 Takes the same config dicts as the reference (the JSON a checkpoint carries),
 training keys included (lr, ema_decay, loss types, weighting, mode). This
-builds the four trainable modes, the two StoRM modes, `score-only` (SGMSE+)
-and `denoiser-only`, with NCSN++ backbones and the OUVE or OUVP SDE,
+builds every mode: the two StoRM modes, `score-only` (SGMSE+),
+`denoiser-only` and `distill` (the one-step student on StoRM's nets, its
+architecture the teacher's, with the `distill_*` keys), with NCSN++
+backbones and the OUVE or OUVP SDE,
 computing in the config's `dtype`, "float32" (the default) or "bfloat16",
 with float32 parameters; other choices raise NotImplementedError naming
 their ROADMAP item.
@@ -22,6 +24,7 @@ from ..signal.stft import STFTConfig
 from ..signal.transforms import SpecTransform
 from .base import EnhancementModel
 from .discriminative import DiscriminativeModel
+from .distill import DistilledModel
 from .score import ScoreModel
 from .storm import CONDITION_CHANNELS, STORM_MODES, StochasticRegenerationModel
 
@@ -29,18 +32,12 @@ from .storm import CONDITION_CHANNELS, STORM_MODES, StochasticRegenerationModel
 TRAINING_KEYS = ("lr", "ema_decay", "loss_type_denoiser", "loss_type_score",
                  "weighting_denoiser_to_score")
 SINGLE_NET_TRAINING_KEYS = ("lr", "ema_decay", "loss_type")
+DISTILL_KEYS = ("distill_N", "distill_method", "distill_gt_weight")  # the student's own
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}  # the config's `dtype`
 # --mode of the serving entry points -> the checkpoint modes it serves (enhancement.py:143-152)
 MODES = {"score-only": ("score-only",), "denoiser-only": ("denoiser-only",),
          "storm": STORM_MODES, "distill": ("distill",)}
 SERVING_MODES = tuple(MODES)
-
-
-def refuse_unported_mode(mode: str) -> None:
-    """`--mode distill` raises, naming its item; the other modes are served."""
-    if mode == "distill":
-        raise NotImplementedError(
-            "--mode distill is not ported yet (ROADMAP R3, distillation)")
 
 
 def check_checkpoint_mode(mode: str, config: Dict[str, Any]) -> None:
@@ -83,12 +80,12 @@ def build_model(config: Dict[str, Any], device="cuda", seed: int = 0) -> Enhance
     calls .train(); NCSN++'s dropout is 0, so both compute the same), with
     weights drawn from a generator seeded with `seed`: a
     StochasticRegenerationModel for the StoRM modes, a ScoreModel for
-    `score-only`, a DiscriminativeModel for `denoiser-only`."""
+    `score-only`, a DiscriminativeModel for `denoiser-only`, a DistilledModel
+    for `distill`."""
     device = resolve_device(device)
     cfg = dict(config)
     mode = cfg.pop("mode", "regen-joint-training")
-    refuse_unported_mode(mode)
-    if mode not in STORM_MODES + ("score-only", "denoiser-only"):
+    if mode not in STORM_MODES + ("score-only", "denoiser-only", "distill"):
         raise ValueError(f"Unknown mode {mode!r}")
     dtype = cfg.pop("dtype", "float32")
     if dtype not in DTYPES:
@@ -125,7 +122,8 @@ def build_model(config: Dict[str, Any], device="cuda", seed: int = 0) -> Enhance
                                      "discriminative": False})
         model = ScoreModel(dnn, _sde(cfg.pop("sde", "ouve"), cfg), **front,
                            t_eps=cfg.pop("t_eps", 0.03), **training)
-    else:
+    else:  # StoRM, and the distilled student on StoRM's nets (storm_tpu/models/factory.py:49-64)
+        distill = {k: cfg.pop(k) for k in DISTILL_KEYS if k in cfg}
         condition = cfg.pop("condition", "both")
         if condition not in CONDITION_CHANNELS:
             raise NotImplementedError(
@@ -138,6 +136,9 @@ def build_model(config: Dict[str, Any], device="cuda", seed: int = 0) -> Enhance
             "discriminative": False})
         model = StochasticRegenerationModel(
             denoiser, score, _sde(cfg.pop("sde", "ouve"), cfg), **front,
-            t_eps=cfg.pop("t_eps", 0.03), condition=condition, mode=mode, **training)
+            t_eps=cfg.pop("t_eps", 0.03), condition=condition,
+            mode="regen-joint-training" if mode == "distill" else mode, **training)
+        if mode == "distill":
+            model = DistilledModel(model, lr=model.lr, ema_decay=model.ema_decay, **distill)
     reset_parameters(model, torch.Generator().manual_seed(seed))
     return model.to(device).eval()

@@ -12,17 +12,16 @@ storm_tpu/models/quant.py).
 Inside the port a net's statistics are {module name: 0-d tensor} and its
 scales {module name: float32 value as a Python float}, the names of
 `net.named_modules()`; StoRM's quant is {"denoiser": scales or None,
-"score": scales or None}, the score-only and denoiser-only models' one net's
-scales or None. A scale file keeps the reference's format, keys
-"<net>/<flax module path>/a_scale" ("denoiser/m5/Conv_0/a_scale") for
-StoRM and "<flax module path>/a_scale" for one net, so a file written by
-either package loads in the other; `save_scales` and `load_scales_with_meta`
-are the only places that convert.
+"score": scales or None}, and so is the distilled student's; the score-only
+and denoiser-only models' quant is one net's scales or None. A scale file
+keeps the reference's format, keys "<net>/<flax module path>/a_scale"
+("denoiser/m5/Conv_0/a_scale") for StoRM and the student and "<flax module
+path>/a_scale" for one net, so a file written by either package loads in the
+other; `save_scales` and `load_scales_with_meta` are the only places that
+convert.
 
     quant = calibrate_storm(model, y_batch, N=10, generator=gen)
     x_hat, nfe = model.enhance(y, quant=quant)
-
-`calibrate_distill` waits for the port of the distilled model.
 """
 from __future__ import annotations
 
@@ -218,3 +217,30 @@ def calibrate_discriminative(model, y: torch.Tensor,
     a waveform batch y (B, T) (storm_tpu/models/quant.py:321-332)."""
     _, stats = model(_spec_of(model, y), collect_stats=True)
     return scales_from_stats(stats, model.dnn, min_channels)
+
+
+@torch.inference_mode()
+def calibrate_distill(model, y: torch.Tensor, num_probe: int = 4, min_channels: int = 128,
+                      generator: Optional[torch.Generator] = None,
+                      noise: Optional[NoiseSource] = None) -> Dict[str, Optional[Scales]]:
+    """Int8 activation scales for a DistilledModel from a waveform batch y
+    (B, T) (storm_tpu/models/quant.py:270-314). The student sees one
+    diffusion state per request, the prior x_T = D(Y) + sigma(T) z at t = T,
+    so the denoiser's statistics come from one forward and the student's
+    from `num_probe` prior draws, each a fresh z from `noise` if given, else
+    `generator`. Returns {"denoiser": scales or None, "score": scales or
+    None} for `enhance(quant=...)`."""
+    Y = _spec_of(model, y)
+    Y_denoised, stats_d = model.storm.forward_denoiser(Y, collect_stats=True)
+    cond = model.storm._conditioning(Y, Y_denoised)
+    noise = _noise(noise, generator, Y)
+    t_T = torch.full((Y.shape[0],), model.sde.T, dtype=torch.float32, device=Y.device)
+    stats_s = None
+    for _ in range(max(1, num_probe)):
+        x_T, _ = model.prior(Y, Y_denoised, noise(Y.shape[:-1]))
+        stats_s = merge_stats(stats_s, model.storm.forward_score(x_T, t_T, cond,
+                                                                 collect_stats=True)[1])
+    return {
+        "denoiser": scales_from_stats(stats_d, model.denoiser_net, min_channels),
+        "score": scales_from_stats(stats_s, model.score_net, min_channels),
+    }

@@ -107,12 +107,15 @@ class StochasticRegenerationModel(EnhancementModel):
         return torch.cat([x5] + cond5, dim=1), squeezed
 
     def forward_score(self, x: torch.Tensor, t: torch.Tensor,
-                      score_conditioning: List[torch.Tensor], collect_stats: bool = False):
+                      score_conditioning: List[torch.Tensor], collect_stats: bool = False,
+                      net: Optional[nn.Module] = None):
         """score = -score_net(cat[x, *cond], t); keeps x's shape.
-        `collect_stats` as in `forward_denoiser`, for the score net."""
+        `collect_stats` as in `forward_denoiser`, for the score net. `net`
+        replaces `score_net` (a distillation's frozen teacher)."""
+        net = self.score_net if net is None else net
         dnn_input, squeezed = self._score_input(x, score_conditioning)
-        with _stats_if(self.score_net, collect_stats) as stats:
-            out = self.score_net(dnn_input, t)
+        with _stats_if(net, collect_stats) as stats:
+            out = net(dnn_input, t)
         out = -(out[:, 0] if squeezed else out)
         return (out, stats) if collect_stats else out
 

@@ -1,6 +1,6 @@
 """Online enhancement server: HTTP front end over the dynamic batcher
-(counterpart of serve.py), for `--mode storm`, `score-only` and
-`denoiser-only`.
+(counterpart of serve.py), for `--mode storm`, `score-only`, `denoiser-only`
+and `distill`.
 
     python -m storm_tpu_torch.serve --ckpt model.pt --mode storm --port 8571 \\
         [--batch 8] [--warmup_buckets 1,2.5,4] [--quant int8 --calib_dir noisy/] \\
@@ -9,15 +9,16 @@
 
 Endpoints:
     POST /enhance   16 kHz WAV in, enhanced WAV out (X-NFE and X-RTF headers;
-                    X-NFE is 1 for the denoiser-only model's one forward)
+                    X-NFE is 1 for the denoiser-only model's one forward, 2 for
+                    the distilled student's)
     GET  /healthz   readiness and the serving configuration (mode, torch device, card)
     GET  /stats     request and batch counters, audio seconds served, batch fill
 
 Sampler flags and defaults are the enhancement CLI's, with the samplers
 that enqueue without a device sync: `--sampler pc` or `ode` with the six
 fixed-step methods of `--ode-method` (not rk45, nor picard); warm-up runs
-the mode and sampler served. The denoiser-only model ignores the sampler
-flags. The NCSN++ compute
+the mode and sampler served. The denoiser-only and distilled models ignore
+the sampler flags; the distilled one refuses `--deepcache`. The NCSN++ compute
 dtype defaults to bfloat16, as the reference serves (`--dtype float32`, or
 `checkpoint` for the checkpoint config's); /healthz reports the dtype
 served. Noise comes
@@ -43,8 +44,8 @@ import torch
 from .ckpt import load_checkpoint
 from .data.audio import load_wav
 from .models.base import check_deepcache_config
-from .models.factory import (SERVING_MODES, build_model, check_checkpoint_mode,
-                             refuse_unported_mode)
+from .models.distill import refuse_deepcache
+from .models.factory import SERVING_MODES, build_model, check_checkpoint_mode
 from .sampling.correctors import CORRECTORS
 from .sampling.predictors import PREDICTORS
 from .sampling.samplers import ODE_METHODS
@@ -65,8 +66,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--ckpt", required=True, help="Checkpoint file (.pt, storm_tpu_torch.ckpt).")
     p.add_argument("--mode", required=True, choices=SERVING_MODES,
-                   help="storm, score-only (SGMSE+) or denoiser-only; distill is not ported yet "
-                        "(ROADMAP R3, distillation)")
+                   help="storm, score-only (SGMSE+), denoiser-only or distill (the one-step "
+                        "student)")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8571)
     p.add_argument("--batch", type=int, default=8, help="largest dynamic batch")
@@ -177,7 +178,6 @@ def make_handler(batcher: DynamicBatcher, info: dict, model_sr: int = MODEL_SR):
 def build_server(args):
     """Load the model, calibrate or load int8 scales, warm the buckets, and
     return (the HTTP server, bound but not serving, and its DynamicBatcher)."""
-    refuse_unported_mode(args.mode)
     device = torch.device(args.device)
     config, params, ema_params = load_checkpoint(args.ckpt)
     check_checkpoint_mode(args.mode, config)
@@ -187,7 +187,9 @@ def build_server(args):
         config["dtype"] = args.dtype
     model = build_model(config, device=device)
     model.load_state_dict(params if args.no_ema else ema_params, strict=True)
-    if args.deepcache and args.mode != "denoiser-only":  # one forward: nothing to cache
+    if args.mode == "distill":  # NFE 2: no trajectory to cache along
+        refuse_deepcache(args.deepcache)
+    elif args.deepcache and args.mode != "denoiser-only":  # one forward: nothing to cache
         check_deepcache_config(model.score_net if args.mode == "storm" else model.dnn,
                                args.deepcache, args.sampler, args.deepcache_depth,
                                args.ode_method)

@@ -4,10 +4,15 @@
         [--batch_size 8 --num_frames 256 --num_eval_files 10 --eval_N 30 \\
          --sde ouve|ouvp --dtype float32|bfloat16 --device cuda]
 
-The flags and defaults are the reference CLI's for the four trainable
+The flags and defaults are the reference CLI's for the five trainable
 modes: the two StoRM modes (NCSN++ denoiser and score nets), `score-only`
-(SGMSE+: one score net, denoising score matching, `--loss_type mse|mae`)
-and `denoiser-only` (one predictive net, `--loss_type mse|mae|sisdr`); the
+(SGMSE+: one score net, denoising score matching, `--loss_type mse|mae`),
+`denoiser-only` (one predictive net, `--loss_type mse|mae|sisdr`) and
+`distill` (the one-step student of `--teacher_ckpt`, a StoRM checkpoint,
+matched to `--distill_N` steps of its probability-flow ODE by
+`--distill_method`; every model, signal and dtype field is the teacher's,
+and params and EMA start at its EMA weights; the evaluation runs the
+student at NFE 2); the
 OUVE SDE or, with `--sde ouvp`, the OUVP SDE of `--beta-min` / `--beta-max`
 / `--stiffness` (the config keeps only the chosen SDE's keys, as the
 reference's does); spec_factor 0.33, Adam at lr 1e-4,
@@ -15,8 +20,8 @@ an EMA of 0.999 with warmup, computing in `--dtype` with float32 parameters
 (the loss, Adam and the EMA in float32). Each epoch runs the training
 batches, a validation loss over every validation file with the EMA weights
 (its per-example losses combined as the model's loss combines the batch:
-summed for StoRM, the mean for the other two), then, with the EMA weights
-too, the evaluation: the first `--num_eval_files` validation files enhanced
+summed for StoRM and the student, the mean for the other two), then, with
+the EMA weights too, the evaluation: the first `--num_eval_files` validation files enhanced
 whole (`--eval_N` reverse steps; unset, the model's default: StoRM's 30
 without a corrector, the score model's 50 with ald; the denoiser runs one
 forward) and scored by PESQ (NaN without the `pesq` package), SI-SDR and
@@ -27,7 +32,9 @@ NaN, improved. Per-step training losses and the epoch's losses and metrics
 go to `metrics.jsonl` under the reference's keys. An evaluation that fails
 is printed and logged as NaN, and training goes on, as in the reference. A
 value this port does not run yet raises NotImplementedError naming its
-ROADMAP item; without a CUDA card the default device raises (pass `--device
+ROADMAP item. `--debug_nans` runs the steps under
+`torch.autograd.set_detect_anomaly` and raises on a non-finite loss.
+Without a CUDA card the default device raises (pass `--device
 cpu` for the plain versions).
 """
 from __future__ import annotations
@@ -44,9 +51,10 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from .ckpt import CheckpointManager, load_training_checkpoint
+from .ckpt import CheckpointManager, load_checkpoint, load_training_checkpoint
 from .data.datamodule import SpecsDataModule
 from .models.base import init_train_state, swapped_in, wav_to_spec
+from .models.distill import DISTILL_METHODS
 from .models.factory import build_model, resolve_device
 from .utils.inference import evaluate_model
 
@@ -66,6 +74,18 @@ MODEL_CONFIG_KEYS = [
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--mode", required=True, choices=MODES)
+    # distillation (storm_tpu/models/distill.py)
+    p.add_argument("--teacher_ckpt", default=None,
+                   help="converged storm checkpoint to distill (required with --mode distill); "
+                        "the student inherits its full architecture and initializes from its "
+                        "EMA weights")
+    p.add_argument("--distill_N", type=int, default=8,
+                   help="teacher probability-flow ODE steps per distillation target")
+    p.add_argument("--distill_method", default="etd2", choices=DISTILL_METHODS,
+                   help="teacher ODE integrator for the targets")
+    p.add_argument("--distill_gt_weight", type=float, default=0.0,
+                   help="optional auxiliary clean-target MSE weight on top of the pure "
+                        "teacher-matching loss")
     p.add_argument("--backbone_denoiser", type=str, default="ncsnpp")
     p.add_argument("--pretrained_denoiser", default=None)
     p.add_argument("--backbone_score", type=str, default="ncsnpp")
@@ -123,6 +143,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="override the backbones' channel multipliers, e.g. 1,2,2,2")
     p.add_argument("--eval_N", type=int, default=None,
                    help="reverse steps of the in-training evaluation (default: the model's)")
+    p.add_argument("--debug_nans", action="store_true",
+                   help="enable jax_debug_nans (the reference keeps torch detect_anomaly always "
+                        "on, model.py:22 — here it is opt-in)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cpu' runs the kernels' plain versions")
     return p.parse_args(argv)
@@ -131,8 +154,6 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 def check_supported(args: argparse.Namespace) -> None:
     """Raise NotImplementedError for a value this slice does not run."""
     todo = []
-    if args.mode == "distill":
-        todo.append("--mode distill (ROADMAP R3, distillation)")
     for flag in ("backbone_denoiser", "backbone_score"):
         if getattr(args, flag) != "ncsnpp":
             todo.append(f"--{flag} {getattr(args, flag)} (ROADMAP R4)")
@@ -161,6 +182,27 @@ def model_config(args: argparse.Namespace) -> dict:
     return config
 
 
+def distill_config(args: argparse.Namespace):
+    """(the student's config, the teacher's EMA weights) for `--mode distill`:
+    every model and signal field is the teacher checkpoint's, and the data
+    flags follow them; the optimizer and distillation flags are this run's
+    (train.py:266-298)."""
+    if not args.teacher_ckpt:
+        raise SystemExit("--mode distill requires --teacher_ckpt")
+    t_config, _, t_ema = load_checkpoint(args.teacher_ckpt)
+    if t_config.get("mode") not in ("regen-joint-training", "regen-freeze-denoiser"):
+        raise SystemExit("--teacher_ckpt must be a storm (regen-*) checkpoint, got "
+                         f"mode={t_config.get('mode')!r}")
+    config = dict(t_config, mode="distill", lr=args.lr, ema_decay=args.ema_decay,
+                  distill_N=args.distill_N, distill_method=args.distill_method,
+                  distill_gt_weight=args.distill_gt_weight)
+    for k in ("n_fft", "hop_length", "window", "spec_factor", "spec_abs_exponent",
+              "backbone_denoiser", "backbone_score", "condition", "spatial_channels", "sde"):
+        if k in config:
+            setattr(args, k, config[k])
+    return config, t_ema
+
+
 def seeded_generator(device: torch.device, *entropy: int) -> torch.Generator:
     """A generator that is a pure function of `entropy`: a training step's is
     seeded with (seed, epoch, 0, step) and an epoch's validation with
@@ -171,10 +213,22 @@ def seeded_generator(device: torch.device, *entropy: int) -> torch.Generator:
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = parse_args(argv)
+    teacher = None
+    if args.mode == "distill":
+        config, teacher = distill_config(args)
+    else:
+        config = model_config(args)
     check_supported(args)
     device = resolve_device(args.device)
-    config = model_config(args)
     model = build_model(config, device=device, seed=args.seed).train()
+    if teacher is not None:
+        # the student starts at the teacher: params and EMA are its EMA weights,
+        # and the denoiser rides along frozen, so the checkpoint serves alone
+        model.load_state_dict(teacher, strict=True)
+        model.with_teacher({k[len("score_net."):]: v for k, v in teacher.items()
+                            if k.startswith("score_net.")})
+        print(f"distilling teacher {args.teacher_ckpt} "
+              f"(N={args.distill_N} {args.distill_method} targets)")
     state = init_train_state(model, args.lr)
 
     dm = SpecsDataModule(base_dir=args.base_dir, format=args.format,
@@ -246,7 +300,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             epoch_losses = []
             for batch in loader:
                 gen = seeded_generator(device, args.seed, epoch, 0, state.step)
-                aux = model.train_step(state, prepare(batch), gen)
+                with torch.autograd.set_detect_anomaly(args.debug_nans):
+                    aux = model.train_step(state, prepare(batch), gen)
+                if args.debug_nans and not bool(torch.isfinite(aux["loss"])):
+                    raise FloatingPointError(
+                        f"non-finite loss {float(aux['loss'])} at step {state.step}")
                 if state.step % args.log_every_n_steps == 0:
                     log(state.step, **{f"train_{k}": float(v) for k, v in aux.items()})
                 epoch_losses.append(aux["loss"])

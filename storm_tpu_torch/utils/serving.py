@@ -58,8 +58,9 @@ def calibrate_or_load_scales(
     params_source: str = "ema",
     model_sr: int = 16000,
 ):
-    """The int8 activation scales for serving `model` in `mode`: StoRM's
-    {net: scales or None}, or the score-only or denoiser-only net's scales.
+    """The int8 activation scales for serving `model` in `mode`: StoRM's or
+    the distilled student's {net: scales or None}, or the score-only or
+    denoiser-only net's scales.
 
     The first run calibrates on the waveforms `calib_loader()` returns
     ((T,) float32 arrays), padded to one length that is a multiple of 64
@@ -70,11 +71,11 @@ def calibrate_or_load_scales(
     `stream_chunk_s` > 0 the files are cut to one chunk's length first, so
     calibration runs at the streaming path's width, not the whole file's.
     StoRM and the score model calibrate along a trajectory of min(N, 10)
-    steps, the denoiser on one forward (calib_N 0)."""
-    if mode not in ("storm", "score-only", "denoiser-only"):
-        raise NotImplementedError(f"int8 calibration for mode {mode!r} is not ported yet "
-                                  "(ROADMAP R3, distillation)")
-    single_net = mode != "storm"
+    steps, the denoiser on one forward and the distilled student on the
+    denoiser's forward and 4 prior draws (calib_N 0 for both)."""
+    if mode not in ("storm", "score-only", "denoiser-only", "distill"):
+        raise ValueError(f"int8 calibration: unknown mode {mode!r}")
+    single_net = mode not in ("storm", "distill")
     calib_meta = {
         "params": params_source,
         "min_channels": min_channels,
@@ -117,6 +118,9 @@ def calibrate_or_load_scales(
     elif mode == "score-only":
         quant = quant_mod.calibrate_score_model(model, y_cal, N=min(N, 10),
                                                 min_channels=min_channels, generator=generator)
+    elif mode == "distill":  # the one state the student serves: the prior at t = T
+        quant = quant_mod.calibrate_distill(model, y_cal, min_channels=min_channels,
+                                            generator=generator)
     else:
         quant = quant_mod.calibrate_discriminative(model, y_cal, min_channels=min_channels)
     calib_meta = dict(calib_meta, calib_len=int(L), calib_files=len(calib))

@@ -91,8 +91,19 @@ def test_train_line_has_the_reference_keys(capsys):
     assert line["detail"]["step_ms"] > 0 and line["detail"]["frames"] == 32
 
 
-@pytest.mark.parametrize("argv,item", [(["--distill"], "R3"),
-                                       (["--backbone", "ncsnpp12M"], "R4")])
+def test_distill_line_has_the_reference_keys(capsys):
+    """`--distill`: the one-step program (NFE 2) under the reference's metric
+    and `detail` keys, int8 through `calibrate_distill`."""
+    for extra, quant in (([], "int8"), (["--quant", "none", "--dtype", "float32"], "none")):
+        line = _bench_line(capsys, "--distill", *extra)
+        top, detail = reference_bench_lines()["audio_sec_per_sec_per_chip_distill_nfe2"]
+        assert set(line) == top
+        assert set(line["detail"]) == detail | {"device_name"}
+        d = line["detail"]
+        assert line["value"] > 0 and (d["nfe"], d["batch"], d["quant"]) == (2, 2, quant)
+
+
+@pytest.mark.parametrize("argv,item", [(["--backbone", "ncsnpp12M"], "R4")])
 def test_unported_flags_raise(argv, item):
     with pytest.raises(NotImplementedError, match=item):
         bench.main([*TINY, *argv])

@@ -4,8 +4,8 @@ the serving path's batches and bucket widths, in float32 and bfloat16, the
 int8 quantizer in both product modes (codes identical) and the int8 conv
 built on it, and the fused bias + leaky ReLU (forward and gradient); the
 bfloat16 GroupNorm; the dynamic batcher's pipelined path on the card;
-deep-feature caching through the kernels; and the ODE, Picard and etd
-samplers through them.
+deep-feature caching through the kernels; the ODE, Picard and etd
+samplers through them; and the distilled student's step and NFE-2 output.
 
 Skips without a CUDA device. On a card, from the repository root:
 
@@ -651,4 +651,46 @@ def test_single_net_models_on_the_card(cuda, mode):
     finally:
         torch.backends.cudnn.deterministic = False
     assert nfe == {"score-only": 6, "denoiser-only": 1}[mode] and launched == 12 * nfe
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+def test_distilled_student_on_the_card(cuda):
+    """A tiny distilled student (three levels: 12 K1 calls per forward; an
+    euler teacher at N=2, 3 forwards) on the card: one float32 step launches
+    12 x (1 + 3 + 1) K1 and 10 of its adjoint (the student's; its input
+    pyramid's 2 read data only), with gradients through the kernels within
+    1e-5 of plain's (global norm); `enhance` at NFE 2 launches 24 and equals
+    the one with plain upfirdn2d (cuDNN deterministic, same noise)."""
+    config = {"mode": "distill", "nf": 16, "ch_mult": [1, 2, 2], "init_scale": 1.0,
+              "n_fft": 62, "hop_length": 16, "distill_N": 2, "distill_method": "euler"}
+    model = build_model(config, device=cuda, seed=0).train()
+    model.with_teacher(build_model(config, device=cuda, seed=1).score_net.state_dict())
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = 0.3 * torch.randn(2, 32, 32, 2, device=cuda, generator=g)
+    batch = (x, x + 0.1 * torch.randn(2, 32, 32, 2, device=cuda, generator=g))
+    z = model.draw_step(batch, g)
+
+    def grads():
+        model.compute_gradients(batch, *z)
+        return torch.cat([p.grad.flatten() for p in model.parameters() if p.requires_grad])
+
+    y = torch.from_numpy(np.sin(np.arange(2048) / 7.0).astype(np.float32)[None]).to(cuda)
+    torch.backends.cudnn.deterministic = True
+    try:
+        kup.upfirdn2d_cuda.launches = kup.upfirdn2d_bwd_cuda.launches = 0
+        g_kernel = grads()
+        torch.cuda.synchronize()
+        counts = (kup.upfirdn2d_cuda.launches, kup.upfirdn2d_bwd_cuda.launches)
+        model.eval()
+        kup.upfirdn2d_cuda.launches = 0
+        got, nfe = model.enhance(y, generator=torch.Generator(device=cuda).manual_seed(1))
+        launched = kup.upfirdn2d_cuda.launches
+        with mock.patch.object(resample, "upfirdn2d", kup.upfirdn2d_plain):
+            want, _ = model.enhance(y, generator=torch.Generator(device=cuda).manual_seed(1))
+            model.train()
+            g_plain = grads()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert counts == (60, 10) and nfe == 2 and launched == 24
+    assert (g_kernel - g_plain).norm() <= 1e-5 * g_plain.norm()
     assert (got - want).abs().max() <= 1e-5 * want.abs().max()

@@ -289,11 +289,22 @@ def test_factory_builds_the_references_configs(mode, sde):
                                                            jmodel.ema_decay)
 
 
-def test_factory_and_entry_points_refuse_distill():
-    with pytest.raises(NotImplementedError, match=r"ROADMAP R3, distillation"):
-        pbuild(dict(CONFIG, mode="distill"), device="cpu")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP R3, distillation"):
-        train.check_supported(train.parse_args(["--mode", "distill", "--base_dir", "c"]))
+def test_factory_and_entry_points_refuse_distill(tmp_path):
+    """distill is built from a StoRM config, and the trainer refuses it
+    without a StoRM teacher, with the reference's messages."""
+    from storm_tpu_torch.models.distill import DistilledModel
+
+    storm = dict(CONFIG, mode="distill", ch_mult=[1, 1])
+    assert isinstance(pbuild(storm, device="cpu"), DistilledModel)
+    train.check_supported(train.parse_args(["--mode", "distill", "--base_dir", "c"]))
+    with pytest.raises(SystemExit, match="--mode distill requires --teacher_ckpt"):
+        train.main(["--mode", "distill", "--base_dir", "c", "--device", "cpu"])
+    ckpt = str(tmp_path / "denoiser.pt")
+    save_checkpoint(ckpt, CONFIG, pbuild(dict(CONFIG), device="cpu").state_dict())
+    with pytest.raises(SystemExit, match="--teacher_ckpt must be a storm .* got "
+                                         "mode='denoiser-only'"):
+        train.main(["--mode", "distill", "--base_dir", "c", "--teacher_ckpt", ckpt,
+                    "--device", "cpu"])
 
 
 TRAIN_FLAGS = ["mode", "sde", "loss_type", "beta_min", "beta_max", "stiffness", "theta",
@@ -360,7 +371,8 @@ def test_cli_mode_mismatch_exits_with_the_references_message(tmp_path, tiny_ckpt
                                              "denoiser-only"):
             enhancement.main(["--test_dir", str(noisy), "--enhanced_dir", str(tmp_path / "o"),
                               "--ckpt", tiny_ckpt, "--mode", mode, "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP R3, distillation"):
+    with pytest.raises(SystemExit, match="--mode distill incompatible with checkpoint mode "
+                                         "denoiser-only"):
         enhancement.main(["--test_dir", str(noisy), "--enhanced_dir", str(tmp_path / "o"),
                           "--ckpt", tiny_ckpt, "--mode", "distill", "--device", "cpu"])
 

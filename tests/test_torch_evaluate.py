@@ -326,13 +326,8 @@ def test_cli_wer_with_a_stub_asr(capsys, tmp_path, corpora, tiny_ckpt):
 
 @pytest.mark.parametrize("mode", ["score-only", "denoiser-only", "distill"])
 def test_cli_other_modes_raise(corpora, tiny_ckpt, mode):
-    """score-only and denoiser-only are served, but not from a StoRM
-    checkpoint: the reference's message; distill is not ported."""
-    if mode == "distill":
-        with pytest.raises(NotImplementedError, match="ROADMAP R3, distillation"):
-            evaluate.main(["--ckpt", tiny_ckpt, "--mode", mode, "--base_dir", corpora[0],
-                           "--device", "cpu"])
-        return
+    """score-only, denoiser-only and distill are served, but not from a StoRM
+    checkpoint: the reference's message."""
     with pytest.raises(SystemExit, match=f"--mode {mode} incompatible with checkpoint mode "
                                          "regen-joint-training"):
         evaluate.main(["--ckpt", tiny_ckpt, "--mode", mode, "--base_dir", corpora[0],

@@ -57,5 +57,8 @@ def test_port_imports_no_jax():
                      "storm_tpu_torch.utils.metrics", "storm_tpu_torch.utils.stoi",
                      "storm_tpu_torch.bench", "storm_tpu_torch.serve_load",
                      "storm_tpu_torch.evaluate", "storm_tpu_torch.utils.graphics",
-                     "storm_tpu_torch.models.score", "storm_tpu_torch.models.discriminative"):
+                     "storm_tpu_torch.models.score", "storm_tpu_torch.models.discriminative",
+                     "storm_tpu_torch.models.distill",
+                     "storm_tpu_torch.scripts.make_synth_corpus",
+                     "storm_tpu_torch.scripts.nfe_quality"):
         assert expected in names, names

@@ -225,13 +225,36 @@ def test_cli_trains_resumes_and_enhances_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--mode", "distill"], ["--backbone_score", "ncsnpp_6M"],
+    ["--backbone_score", "ncsnpp_6M"],
     ["--spatial_channels", "2"], ["--return_time"], ["--pretrained_denoiser", "ckpt"],
 ])
 def test_cli_refuses_what_is_not_ported(flag, tmp_path):
     args = TRAIN_ARGS + ["--base_dir", str(tmp_path), "--nolog", "--device", "cpu"]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train.main(args + flag)
+
+
+def test_cli_debug_nans_raises_on_a_non_finite_loss(tmp_path):
+    """`--debug_nans` (the reference's flag, train.py:171-174): the steps run
+    under autograd's anomaly detection, and a non-finite loss raises; without
+    it the same run trains on and logs the NaN."""
+    from storm_tpu_torch.models.storm import StochasticRegenerationModel
+
+    root = _write_corpus(tmp_path / "corpus", n_train=2, n_valid=1)
+    args = TRAIN_ARGS + ["--base_dir", root, "--max_steps", "1", "--device", "cpu"]
+    assert train.parse_args(args + ["--debug_nans"]).debug_nans
+
+    def nan_loss(self, batch, t, z):
+        loss, aux = StochasticRegenerationModel.loss_given_tz(self, batch, t, z)
+        return loss * float("nan"), {**aux, "loss": loss * float("nan")}
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(StochasticRegenerationModel, "step_loss", nan_loss)
+        with pytest.raises((RuntimeError, FloatingPointError), match="nan"):
+            train.main(args + ["--debug_nans", "--log_dir", str(tmp_path / "a")])
+        train.main(args + ["--log_dir", str(tmp_path / "b")])
+    rows = [json.loads(line) for line in open(_run(tmp_path / "b") / "metrics.jsonl")]
+    assert [np.isnan(r["train_loss"]) for r in rows if "train_loss" in r] == [True]
 
 
 # the reference's metrics.jsonl keys (train.py:622-627): per logged step, and per epoch
