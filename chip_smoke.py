@@ -36,7 +36,7 @@ Phases, each of which exits non-zero on failure:
    time), plain backward and library-call times beside the memory bound.
 8. training: (a) one full-width step's gradients (B=2, same weights, t, z
    and batch) through the kernels against the plain path, with cuDNN
-   deterministic; (b) `python -m storm_tpu_torch.train` for 8 steps at B=8
+   deterministic; (b) `python -m storm_tpu_torch.train` for 4 steps at B=8
    on a synthesized wsj0-layout corpus: finite losses, parameters and EMA
    moved, `last.pt` and `best_loss.pt` written, exactly 36 forward and 33
    backward upfirdn2d launches per step; ms per step (CUDA events, no sync
@@ -55,10 +55,10 @@ Phases, each of which exits non-zero on failure:
 11. int8 main path: `python -m storm_tpu_torch.enhancement --quant int8` on
    phase 5's checkpoint and files: the first run calibrates and writes the
    scale cache, the second loads it; outputs finite and as long as the
-   inputs; per file exactly 55 + 55 x 100 = 5555 quantizer launches and 18
+   inputs; per file exactly 55 + 55 x 2N quantizer launches and 18
    upfirdn2d launches per forward (calibration runs with quantization off:
    no quantizer launch, 18 per calibration forward). Then, with cuDNN
-   deterministic and the same noise at N=10, the 4 s
+   deterministic and the same noise at N=4, the 4 s
    file's int8 output through the kernel against the same path with the
    plain quantizer (<= 1e-6 of the output's scale), and each file's int8
    output against float32; RTF int8 against float32 (phase 5).
@@ -69,27 +69,27 @@ Phases, each of which exits non-zero on failure:
    beside the memory bound (8 B per element).
 13. (with `--profile`) one int8 enhancement of the 4 s file traced.
 14. batched CLI: `python -m storm_tpu_torch.enhancement --batch 4 --timeit
-   --N 10` on 8 files of 1.0-4.0 s, two length buckets of
-   4: outputs finite and as long as the inputs, exactly 18 x 21 upfirdn2d launches per
+   --N 4` on 8 files of 1.0-4.0 s, two length buckets of
+   4: outputs finite and as long as the inputs, exactly 18 x 9 upfirdn2d launches per
    batch call; upfirdn2d against plain at every shape the batches gave it;
    one batch with injected noise against each of its rows enhanced alone with
    that row's noise (N=5, 1e-4 of the row's scale).
 15. HTTP server: `storm_tpu_torch.serve --dtype float32` built in this process
-   (port 0, --batch 4, --N 5, both traffic buckets warmed at every row
-   size); 12 requests of
+   (port 0, --batch 4, --N 3, the 4 s bucket warmed at every row size);
+   12 requests of
    1-4 s from 8 client threads: every reply 200, a finite WAV of the input's
-   length, X-NFE = 11; /stats: 12 requests, 0 errors, a batch of more than one
-   row; exactly 18 x 11 upfirdn2d launches per warm-up call and batch. Then
-   with --quant int8 --calib_dir on 8 requests: 55 x 11 quantizer launches per
+   length, X-NFE = 7; /stats: 12 requests, 0 errors, a batch of more than one
+   row; exactly 18 x 7 upfirdn2d launches per warm-up call and batch. Then
+   with --quant int8 --calib_dir on 8 requests: 55 x 7 quantizer launches per
    warm-up call and batch (calibration launches none). Prints throughput
    (audio s per wall s), latency p50 / p95 / max (over 12 requests the p95
    lies between the two slowest: smoke readings, not a serving baseline),
    batch fill and device_s; both kernels against plain at every shape the
    server gave them.
-16. streaming: `--stream_chunk_s 2.0 --stream_overlap_s 0.5 --N 5` on one 12 s
+16. streaming: `--stream_chunk_s 2.0 --stream_overlap_s 0.5 --N 3` on one 12 s
    file, f32 then int8 (the scale cache records stream_chunk_s 2.0): output
-   finite and as long as the input, 18 x 11 upfirdn2d launches per call of 8
-   chunks (B=8, 256 x 320) and, int8, 55 x 11 quantizer launches per call;
+   finite and as long as the input, 18 x 7 upfirdn2d launches per call of 8
+   chunks (B=8, 256 x 320) and, int8, 55 x 7 quantizer launches per call;
    upfirdn2d against plain at every shape both runs gave it, the quantizer's
    codes at every input shape the int8 run gave it.
 17. (with `--profile`) one B=4 enhancement at the 4 s bucket traced.
@@ -103,7 +103,7 @@ Phases, each of which exits non-zero on failure:
    One full-width NCSN++ forward in bf16 through the kernel and the plain
    version, and its time against float32's.
 19. `python -m storm_tpu_torch.enhancement --dtype bfloat16` at the CLI
-   defaults on phase 5's three files, with `--batch 4 --N 10` on phase 14's
+   defaults on phase 5's three files, with `--batch 4 --N 4` on phase 14's
    eight, and with `--quant int8`: exact launch counts (18 upfirdn2d and, int8, 55
    quantizer launches per forward), every launch in bf16, RTF, and
    max|bf16 - f32| / max|f32| against the float32 runs on the same files
@@ -134,16 +134,18 @@ Phases, each of which exits non-zero on failure:
    left to autograd (which keeps a float32 copy: the bytes counted); the
    port's must peak lower.
 25. `python -m storm_tpu_torch.train --dtype bfloat16 --num_eval_files 4`
-   on phase 8's corpus, 8 steps at B=8: the checks of phase 8 (exactly 36 +
-   33 upfirdn2d launches per step, all bf16), with the in-training
-   evaluation's launches (18 per forward; the default N=30) in the count;
+   on phase 8's corpus, 12 steps (three epochs) at B=8, `--eval_N 4`: the
+   checks of phase 8 (exactly 36 + 33 upfirdn2d launches per step, all
+   bf16; the third epoch's evaluation replays the graph the second
+   captured, with that epoch's EMA weights), with the in-training
+   evaluation's launches (18 per forward) in the count;
    finite ValidationSISDR and ValidationESTOI, ValidationPESQ NaN unless
    `pesq` imports; `best_pesq.pt` written, its meta naming the metric; the
    config's dtype bfloat16; that checkpoint enhances one file in bf16
    through `--dtype checkpoint`. Step period, audio s/s and peak memory
    beside phase 8's float32 figures.
 26. the float32 trainer with the evaluation (`--num_eval_files 4 --eval_N
-   10`), one epoch of 4 steps: the same checks.
+   4`), one epoch of 4 steps: the same checks.
 27. fused_leaky_relu (K2) in bf16 through its op API at phase 12's shapes:
    forward equal to plain; input gradient within 1 ulp of each element,
    bias gradient within 1 ulp of its scale, of autograd of plain; timed
@@ -184,29 +186,29 @@ Phases, each of which exits non-zero on failure:
 34. (with `--profile`) one call at bench.py's defaults traced (B=16, 256
    frames, N=50 + ald, bf16, dc3), with int8 and without.
 35. `python -m storm_tpu_torch.enhancement --sampler ode` on phase 5's three
-   files at the CLI's defaults for it (etd2, N=50: 1 + 2 x 50 + 1 = 102
+   files with etd2, the CLI's ODE default, at N=4 (1 + 2 x 4 + 1 = 10
    forwards per file) in float32, bf16 and `--quant int8 --dtype bfloat16`
    (phase 19's scales, loaded): outputs finite and as long as the inputs,
-   per file exactly 18 x 102 upfirdn2d and, int8, 55 x 102 quantizer
+   per file exactly 18 x 10 upfirdn2d and, int8, 55 x 10 quantizer
    launches; the RTF beside pc's (phases 5 and 19); every K1 shape and K3
-   input against plain. Then the 4 s file's float32 trajectory at N=10
+   input against plain. Then the 4 s file's float32 trajectory at N=4
    through the kernels against the plain path (same prior,
    cuDNN deterministic), held to 1e-4 of the output's scale.
-36. every sampler at the 4 s bucket in bf16, N=10, through the CLI: euler,
-   heun, rk4, etd1, etd2, etd2-ms, etd2 with --deepcache 3, rk45 at the
-   CLI's tolerances, 1e-5 (its accepted and attempted steps), `--sampler picard
+36. every sampler at the 4 s bucket in bf16, N=4, through the CLI: euler,
+   heun, rk4, etd1, etd2, etd2-ms, etd2 with --deepcache 3, rk45 at rtol =
+   atol = 1e-3 (its accepted and attempted steps), `--sampler picard
    --sweeps 4` on the 1 s and 4 s files (its peak memory) and pc with the
    etd predictor; K1 launches derived from N, the method and the module
    list (rk45: from its loop's drift evaluations), not from the reported
-   NFE; K1 against plain at every shape (picard's 10-row calls included).
-37. the server with `--sampler ode` (etd2, N=5) at its bf16 default, then
-   with --deepcache 3, on phase 15's burst: replies 200 with X-NFE 12,
+   NFE; K1 against plain at every shape (picard's 4-row calls included).
+37. the server with `--sampler ode` (etd2, N=3) at its bf16 default, then
+   with --deepcache 3, on phase 15's burst: replies 200 with X-NFE 8,
    /healthz's sampler and ode_method, exact K1 launches per warm-up call and
    batch, K1 against plain at every shape.
-38. streaming with `--sampler ode --N 10` on phase 16's 12 s file: 18 x 22
+38. streaming with `--sampler ode --N 4` on phase 16's 12 s file: 18 x 10
    K1 launches per call of 8 chunks.
 39. `python -m storm_tpu_torch.evaluate --mode storm` on a test split of 8
-   pairs of 1-4 s beside phase 8's corpus (`--num_files 8 --batch 4 --N 10
+   pairs of 1-4 s beside phase 8's corpus (`--num_files 8 --batch 4 --N 4
    --csv`), pc then `--sampler ode`, on phase 5's checkpoint: 8 CSV rows,
    SI-SDR and ESTOI finite, PESQ NaN unless `pesq` imports, the mean +/- CI
    lines, 18 x NFE K1 launches per enhancer call, each row's SI-SDR within
@@ -216,7 +218,7 @@ Phases, each of which exits non-zero on failure:
 40. the score-only and denoiser-only models and OUVP: one full-width f32
    score-only step's gradients against the plain path, then `python -m
    storm_tpu_torch.train` on phase 8's corpus (B=8, 256 frames, one epoch
-   of 4 steps, `--num_eval_files 4 --eval_N 10`) with `--mode score-only`
+   of 4 steps, `--num_eval_files 4 --eval_N 4`) with `--mode score-only`
    in f32 and bf16, `--mode denoiser-only --loss_type sisdr` in f32 and
    `--mode regen-joint-training --sde ouvp` in bf16: phase 8's checks, K1
    launches per step read from the module lists (a single net: 18 forward,
@@ -225,17 +227,17 @@ Phases, each of which exits non-zero on failure:
    adjoint against plain at every shape.
 41. `python -m storm_tpu_torch.enhancement` with phase 40's score-only and
    denoiser-only checkpoints on phase 5's files at the CLI's pc + ald
-   (score-only at N=10, 20 forwards; the denoiser: 1) in f32,
+   (score-only at N=4, 8 forwards; the denoiser: 1) in f32,
    bf16 and `--quant int8 --dtype bfloat16` twice (calibrates, then loads):
    exact K1 and K3 launches per file, RTF beside StoRM's (phases 5, 19);
    every K1 shape (the score net's 4-channel pyramids) and K3 input against
-   plain; the 4 s file's score-only f32 etd2 ODE (N=10) and the denoiser's
+   plain; the 4 s file's score-only f32 etd2 ODE (N=4) and the denoiser's
    output through the kernels against plain (1e-4 of the output's scale).
-42. phase 40's OUVP StoRM checkpoint through the CLI (pc N=50 + ald; `--sampler
-   ode --ode-method heun --N 10`): exact launches; `--ode-method etd2`
+42. phase 40's OUVP StoRM checkpoint through the CLI (pc N=4 + ald; `--sampler
+   ode --ode-method heun --N 4`): exact launches; `--ode-method etd2`
    raises the reference's message.
-43. the server with `--mode score-only` (bf16, N=5, then `--deepcache 3`)
-   and `--mode denoiser-only` on phase 15's burst (X-NFE 10, 10, 1;
+43. the server with `--mode score-only` (bf16, N=3, then `--deepcache 3`)
+   and `--mode denoiser-only` on phase 15's burst (X-NFE 6, 6, 1;
    /healthz's mode), and denoiser-only streaming of phase 16's file, with
    exact launches per call.
 44. `python -m storm_tpu_torch.evaluate --mode score-only` and
@@ -270,6 +272,41 @@ Phases, each of which exits non-zero on failure:
 51. upfirdn2d and its adjoint against plain, f32 and bf16, at every shape
    an nf=32 StoRM (the quality run's width) gives them in a training step
    (B=8, 256 x 256) and a 4 s enhancement (B=1, 256 x 576).
+52. captured CUDA graphs (utils/graphs.py), which every serving path
+   above replays from a shape's third call: at the 4 s bucket (B=1) and
+   (pc N=10 bf16) at B=4 on the 2.5 s bucket, the shape's first call runs
+   the eager loop alone (no capture), its second captures, and a replay
+   from the first call's generator state must equal it bit for bit, for
+   StoRM pc N=50 + ald in f32, bf16 and int8 + bf16 (phase 19's scales), dc3
+   bf16, etd2 and picard (4 sweeps) at N=10 in bf16, the score-only model's
+   pc N=10 and the denoiser-only model in bf16, and the distilled NFE-2 path
+   in bf16 and int8 + bf16; a replay from another generator state equals
+   eager from it; weights swapped in place (`swapped_in`) are served by the
+   next replay, bit for bit eager's with them.
+53. one replay each of StoRM pc N=10 + ald in bf16, int8 + bf16 and dc3
+   bf16 under torch.profiler: its K1 and K3 kernel events, by name, equal
+   the derived counts (378; 378 and 1155; dc3's from the module list), and
+   its busy share; 5 replays of the distilled int8 program add 5 times its
+   recorded launches to the counters.
+54. RTF graph against eager at B=1 on the 1 / 2.5 / 4 s files (bf16 pc
+   N=50 + ald, dc3 bf16, distill NFE-2 bf16; f32 and int8 + bf16 at 4 s),
+   each replay equal to eager bit for bit; the second call's seconds; the
+   busy share of phase 53's replays; each capture's seconds, the graph
+   pool's growth and the static buffers' bytes.
+55. the server at its bf16 default with --warmup_buckets 1,2.5,4: the
+   warm-up captures 3 row sizes x 3 buckets and phase 21's burst captures
+   nothing more and replays every batch; audio s/s, p50 and max against the
+   same server with graphs=False; the streaming CLI on three copies of
+   phase 16's 12 s file (the eager loop, the capture, a replay); phase 32's
+   bench line (graphs).
+
+A serving path's first call of a shape runs the eager loop, its second
+also captures the shape's graph, and later calls replay it. To keep the
+script inside its time, the CLI phases 5, 11, 19, 30, 35, 36 and 42 and
+the batched, evaluate and score-only runs (14, 19, 39, 41, 44) run at N=4
+(9 forwards per file, 10 for the ODE), not at the CLI's default N=50, and
+the servers and streaming (15, 16, 21, 22, 31, 37, 43, 48, 55) at N=3. The
+RTF at the defaults, graph and eager, is phase 54's.
 
 Each phase's header line ends with the seconds since the script started.
 
@@ -315,12 +352,13 @@ from storm_tpu_torch.backbones.ncsnpp import NCSNpp, count_parameters
 from storm_tpu_torch.ckpt import load_training_checkpoint, save_checkpoint
 from storm_tpu_torch.data.audio import load_wav, save_wav
 from storm_tpu_torch.data.datasets import Specs
+from storm_tpu_torch.kernels import LAUNCH_COUNTERS as LAUNCH_COUNTERS_ALL
 from storm_tpu_torch.kernels import build
 from storm_tpu_torch.kernels import fused_act as kfa
 from storm_tpu_torch.kernels import quant as kq
 from storm_tpu_torch.kernels import upfirdn as kup
 from storm_tpu_torch.models import quant as quant_mod
-from storm_tpu_torch.models.base import EnhancementModel, init_train_state
+from storm_tpu_torch.models.base import EnhancementModel, init_train_state, swapped_in
 from storm_tpu_torch.models.discriminative import DiscriminativeModel
 from storm_tpu_torch.models.distill import DEEPCACHE_REFUSAL, DistilledModel
 from storm_tpu_torch.models.factory import build_model, resolve_device
@@ -332,6 +370,7 @@ from storm_tpu_torch.nn.init import reset_parameters
 from storm_tpu_torch.nn.layers import Combine, GroupNorm, ResnetBlockBigGANpp, group_norm
 from storm_tpu_torch.sampling import samplers
 from storm_tpu_torch.signal.transforms import pad_spec_amount
+from storm_tpu_torch.utils import graphs
 from storm_tpu_torch.utils.inference import BucketedEnhancer
 from storm_tpu_torch.utils.metrics import si_sdr
 from storm_tpu_torch.utils.server import decode_wav_bytes, encode_wav_bytes
@@ -370,7 +409,11 @@ CONFIGS = {"down": dict(up=1, down=2, pad=(1, 1), kernel=FIR),
            "up": dict(up=2, down=1, pad=(2, 1), kernel=FIR * 4.0)}
 # full-width StoRM; init_scale 1 so that no branch of the random net starts at ~0
 STORM_CONFIG = {"mode": "regen-joint-training", "init_scale": 1.0}
-N_STEPS, NFE = 50, 1 + 50 * 2  # CLI defaults: 1 denoiser + N x (ald + predictor)
+# the CLI's defaults (pc, ald, N=50: 1 denoiser + N x (ald + predictor)), which the bench,
+# the profiles and phase 54 run; the CLI phases run N_STEPS, to keep the script inside its
+# time
+DEFAULT_N, DEFAULT_NFE = 50, 1 + 50 * 2
+N_STEPS, NFE = 4, 1 + 4 * 2
 SECONDS = (1.0, 2.5, 4.0)
 GAP_S = 0.02  # host pause between the runs of `device_ms`
 L2_FLUSH_BYTES = 256 << 20  # read before each call of `device_ms`: 5x the H100's 50 MB L2
@@ -384,13 +427,13 @@ PROFILE_MIN_MATCHED = 0.95
 # checkpoint's 1 s file included): 192 and 384
 OTHER_FRAMES = sorted({padded_frames(s) for s in SECONDS} - {FRAMES})
 # training: the CLI defaults' batch and crop (256 frames = 32640 samples, 2.04 s)
-TRAIN_B, TRAIN_FRAMES, TRAIN_STEPS = 8, 256, 8
+TRAIN_B, TRAIN_FRAMES, TRAIN_STEPS = 8, 256, 4
 TRAIN_AUDIO_S = (TRAIN_FRAMES - 1) * 128 / SR
 TRAIN_FILES, VALID_FILES, FILE_S = 32, 4, 2.5  # 4 steps per epoch, 2 epochs
 # distillation at the trainer's defaults: etd2 targets of N=8, 2 x 8 + 1 teacher forwards
 DISTILL_N, DISTILL_METHOD = 8, "etd2"
 DISTILL_TEACHER_FORWARDS = 2 * DISTILL_N + 1
-F32_EVAL_N = 10  # the float32 evaluation's reverse steps (bf16's: the default, 30)
+F32_EVAL_N = 4  # the float32 evaluation's reverse steps (bf16's: the default, 30)
 # upfirdn2d launches per joint-training step: 18 per forward of each net, and
 # a backward for every call whose input needs a gradient, which is all but
 # the denoiser's input pyramid (3 calls on the raw noisy spec)
@@ -763,7 +806,8 @@ def phase_main_path(workdir: str):
     t0 = time.perf_counter()
     outputs = {}
     text = run_enhancement(["--test_dir", noisy, "--enhanced_dir", out, "--ckpt", ckpt,
-                            "--mode", "storm", "--timeit", "--device", "cuda"], outputs)
+                            "--mode", "storm", "--timeit", "--device", "cuda",
+                            "--N", str(N_STEPS)], outputs)
     wall = time.perf_counter() - t0
     launches = kup.upfirdn2d_cuda.launches
     check_outputs(out, lengths)
@@ -1017,9 +1061,16 @@ def phase_train(workdir: str, dtype: str = "float32", steps_total: int = TRAIN_S
             "--num_workers", "4", "--seed", "0", "--dtype", dtype, "--device", "cuda"]
     torch.cuda.reset_peak_memory_stats()
     kup.upfirdn2d_cuda.launches = kup.upfirdn2d_bwd_cuda.launches = 0
+    replays, real_replay = [], graphs.Program.replay
+
+    def replay(prog):
+        replays.append(prog.key)
+        return real_replay(prog)
+
     t0 = time.perf_counter()
     with mock.patch.object(EnhancementModel, "train_step", timed_step), \
-            mock.patch.object(kup, "_launch", watched_launch):
+            mock.patch.object(kup, "_launch", watched_launch), calls_counted() as eval_calls, \
+            mock.patch.object(graphs.Program, "replay", replay):
         _, text = captured(train.main, argv)
     wall = time.perf_counter() - t0
     launches = (kup.upfirdn2d_cuda.launches, kup.upfirdn2d_bwd_cuda.launches)
@@ -1037,6 +1088,12 @@ def phase_train(workdir: str, dtype: str = "float32", steps_total: int = TRAIN_S
     check(logged == list(range(epoch_len, steps_total + 1, epoch_len)),
           f"train losses logged at steps {logged}")
     check(len(valid) == steps_total // epoch_len, f"{len(valid)} validations")
+    # the evaluation's programs: the eager loop in the first epoch, captured in
+    # the second, replayed after it with that epoch's EMA weights swapped in
+    per_epoch = len(eval_calls) // max(len(valid), 1)
+    check(len(replays) == max(0, len(eval_calls) - 2 * per_epoch),
+          f"the evaluation made {len(eval_calls)} calls over {len(valid)} epochs and "
+          f"{len(replays)} replays")
     evaluated = ("ValidationSISDR", "ValidationESTOI")
     quality = evaluated if eval_files else ()
     check(all(np.isfinite(losses))
@@ -1107,8 +1164,8 @@ def phase_train(workdir: str, dtype: str = "float32", steps_total: int = TRAIN_S
     if eval_files:
         print(f"  {tag}{dtype} evaluation of {eval_files} files at N={eval_n} per epoch: "
               + "; ".join(f"{k} {[round(v, 4) for v in vals]}" for k, vals in r["eval"].items())
-              + f"; best_pesq.pt by {meta['quality_metric']} ({meta['best_quality']:.4f})",
-              flush=True)
+              + f"; best_pesq.pt by {meta['quality_metric']} ({meta['best_quality']:.4f}); "
+              f"{len(eval_calls)} enhancer calls, {len(replays)} graph replays", flush=True)
 
     # the written checkpoint serves, in the dtype its config names
     noisy = os.path.join(workdir, "noisy_one")
@@ -1206,6 +1263,7 @@ def print_profile(what: str, prof, wall_ms: float, groups, launched):
         check(PROFILE_MIN_MATCHED * n <= matched[counter] <= n,
               f"{what}: {counter}'s groups match {matched[counter]} device events for {n} "
               f"counted launches")
+    return dict(busy_ms=busy_ms, wall_ms=wall_ms, kernel_ms=summed_ms, events=matched)
 
 
 def profile_run(what: str, fn, groups=K1_GROUPS):
@@ -1221,7 +1279,7 @@ def profile_run(what: str, fn, groups=K1_GROUPS):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     launched = {k: count() - before[k] for k, count in LAUNCH_COUNTERS.items()}
-    print_profile(what, prof, wall_ms, groups, launched)
+    return print_profile(what, prof, wall_ms, groups, launched)
 
 
 def phase_profile_train(dtype: str = "float32", groups=K1_GROUPS):
@@ -1249,7 +1307,7 @@ def phase_profile():
     y = bucketed(synth_wav(max(SECONDS), 0, np.random.default_rng(0))[None])
     model.enhance(y, N=2, corrector="ald")  # warm-up at the same shapes
     profile_run(f"enhance {max(SECONDS)} s file",
-                lambda: model.enhance(y, N=N_STEPS, corrector="ald"))
+                lambda: model.enhance(y, N=DEFAULT_N, corrector="ald"))
 
 
 # --- int8 serving (phases 10, 11, 13) and fused_leaky_relu (phase 12)
@@ -1410,26 +1468,16 @@ def phase_int8_path(workdir: str, f32_rtf, lengths):
     noisy, out = os.path.join(workdir, "noisy"), os.path.join(workdir, "enhanced_int8")
     cache = scale_cache_path(ckpt)
     argv = ["--test_dir", noisy, "--enhanced_dir", out, "--ckpt", ckpt, "--mode", "storm",
-            "--timeit", "--device", "cuda", "--quant", "int8",
+            "--timeit", "--device", "cuda", "--N", str(N_STEPS), "--quant", "int8",
             "--quant_min_channels", str(QUANT_MIN_CHANNELS)]
-    per_file = []
-    original = StochasticRegenerationModel.enhance
-
-    def counted(model, *args, **kwargs):
-        before = (kq.quantize_int8_cuda.launches, kup.upfirdn2d_cuda.launches)
-        result = original(model, *args, **kwargs)
-        per_file.append((kq.quantize_int8_cuda.launches - before[0],
-                         kup.upfirdn2d_cuda.launches - before[1]))
-        return result
-
     runs = []
     for run in (1, 2):
-        per_file.clear()
         kq.quantize_int8_cuda.launches = kup.upfirdn2d_cuda.launches = 0
         t0 = time.perf_counter()
-        with mock.patch.object(StochasticRegenerationModel, "enhance", counted):
+        with calls_counted() as per_call:
             text = run_enhancement(argv)
         wall = time.perf_counter() - t0
+        per_file = [(k3, k1) for k1, k3, _ in per_call]
         totals = (kq.quantize_int8_cuda.launches, kup.upfirdn2d_cuda.launches)
         check_outputs(out, lengths)
         calibrated = 1 if run == 1 else 0
@@ -1541,7 +1589,7 @@ def phase_profile_int8(workdir: str):
     y = bucketed(synth_wav(max(SECONDS), 0, np.random.default_rng(0))[None])
     model.enhance(y, N=2, corrector="ald", quant=quant)  # warm-up at the same shapes
     profile_run(f"int8 enhance {max(SECONDS)} s file",
-                lambda: model.enhance(y, N=N_STEPS, corrector="ald", quant=quant), INT8_GROUPS)
+                lambda: model.enhance(y, N=DEFAULT_N, corrector="ald", quant=quant), INT8_GROUPS)
 
 
 # --- serving at batch > 1 (phases 14-17)
@@ -1553,14 +1601,16 @@ INVARIANCE_N = 5
 # reverse steps of the phases cut in depth to keep the script near 600 s:
 # the batched CLI (14, 19), phase 11's direct int8 comparisons, phase 35's
 # trajectory and phase 41's score-only CLI; their launch counts follow N
-DEPTH_N = 10
+DEPTH_N = 4
 DEPTH_NFE = 1 + 2 * DEPTH_N
-# the server and streaming runs use N=5 (11 NFE) to stay within time
-SERVE_N = 5
+# the server and streaming runs use N=3 (7 NFE) to stay within time
+SERVE_N = 3
 SERVE_NFE = 1 + 2 * SERVE_N
 SERVE_BATCH, SERVE_CLIENTS, INT8_REQUESTS = 4, 8, 8
 SERVE_SECONDS = (1.0, 3.6, 1.0, 3.7, 1.01, 3.8, 1.02, 3.9, 1.0, 4.0, 1.015, 4.0)
-SERVE_WARMUP = "1.0,4.0"  # the two buckets the requests span
+# the servers warm the 4 s bucket's row sizes only (each capture empties the allocator's
+# cache first): a batch of 1 s requests runs the eager loop at its shape's first call
+SERVE_WARMUP = "4.0"
 STREAM_S, STREAM_CHUNK_S, STREAM_OVERLAP_S, STREAM_ROWS = 12.0, 2.0, 0.5, 8
 K1_PER_FORWARD = len(k1_calls(6))  # 18 upfirdn2d calls per NCSN++ forward
 
@@ -1602,16 +1652,25 @@ def adjoint_shapes_recorded():
         yield shapes
 
 
+# the shapes (and K3 inputs) already held against plain in this run, with their error
+K1_CHECKED, K3_CHECKED = {}, {}
+
+
 def check_k1_at(what: str, shapes, gen) -> float:
     """upfirdn2d against plain (both FIRs) at every recorded shape, in its
-    recorded dtype."""
+    recorded dtype; a shape an earlier phase of this run checked keeps its
+    error and is not checked again."""
     flips = {fir: n[1] for fir, n in BF16_FLIPS["upfirdn2d"].items()}
-    errs = [check_forward(cfg, torch.randn(B, C, H, W, device="cuda", generator=gen).to(dtype))
-            for cfg, B, C, H, W, dtype in sorted(shapes, key=str)]
+    new = [s for s in sorted(shapes, key=str) if s not in K1_CHECKED]
+    for cfg, B, C, H, W, dtype in new:
+        K1_CHECKED[(cfg, B, C, H, W, dtype)] = check_forward(
+            cfg, torch.randn(B, C, H, W, device="cuda", generator=gen).to(dtype))
+    errs = [K1_CHECKED[s] for s in shapes]
     tops = sorted({(B, W) for cfg, B, C, H, W, _ in shapes if cfg == "down" and H == FREQS})
     dtypes = sorted({str(s[-1]).split(".")[-1] for s in shapes})
     flips = {fir: n[1] - flips[fir] for fir, n in BF16_FLIPS["upfirdn2d"].items()}
-    print(f"  upfirdn2d against plain at the {len(shapes)} shapes {what} gave it ({dtypes}; "
+    print(f"  upfirdn2d against plain at the {len(shapes)} shapes {what} gave it ({len(new)} "
+          f"not checked before in this run; {dtypes}; "
           f"(B, W) at the top level: {tops}): max abs err {max(errs):.2e}"
           + (f"; bfloat16 elements that differ (by 1 ulp): {flips['ncsnpp']} with NCSN++'s "
              f"FIR, {flips['asym']} with the asymmetric one" if "bfloat16" in dtypes else ""),
@@ -1645,13 +1704,16 @@ def check_k1_bwd_at(what: str, shapes, gen) -> float:
 def check_k3_at(what: str, shapes, gen) -> int:
     """The quantizer's codes against plain at every recorded (input shape,
     dtype, product), ties of that product's mode and saturating values
-    written in, s = 12.7."""
-    err = 0
+    written in, s = 12.7; an input an earlier phase of this run checked
+    keeps its error."""
     for shape, dtype, product in sorted(shapes, key=str):
+        if (shape, dtype, product) in K3_CHECKED:
+            continue
         x = (10.0 * torch.randn(shape, device="cuda", generator=gen)).to(dtype)
         with_ties(x, PROBE_S, product)
-        err = max(err, check_codes(f"{what} {shape} {dtype} product {product}", x, PROBE_S,
-                                   product))
+        K3_CHECKED[(shape, dtype, product)] = check_codes(
+            f"{what} {shape} {dtype} product {product}", x, PROBE_S, product)
+    err = max([K3_CHECKED[s] for s in shapes], default=0)
     print(f"  quantize_int8 codes identical to plain at the {len(shapes)} input shapes {what} "
           f"gave it (batch rows {sorted({s[0][0] for s in shapes})}; "
           f"{sorted({(str(d), str(p)) for _, d, p in shapes})})", flush=True)
@@ -1924,7 +1986,7 @@ def phase_profile_batch():
     rng = np.random.default_rng(0)
     ys = np.stack([synth_wav(max(SECONDS), i, rng) for i in range(CLI_BATCH)])
     BucketedEnhancer(model, N=2, corrector="ald")(ys)  # warm-up at the same shapes
-    enh = BucketedEnhancer(model, N=N_STEPS, corrector="ald")
+    enh = BucketedEnhancer(model, N=DEFAULT_N, corrector="ald")
     profile_run(f"enhance B={CLI_BATCH} x {max(SECONDS)} s ({FRAMES} frames)", lambda: enh(ys))
 
 
@@ -2078,11 +2140,13 @@ def phase_bf16_cli(workdir: str, f32_outputs, f32_rtf, lengths, batch_dir, batch
     base = ["--ckpt", ckpt, "--mode", "storm", "--timeit", "--device", "cuda", "--dtype",
             "bfloat16"]
     k1, shapes, k3_shapes, exact = {}, set(), set(), {}
+    n_flag = ["--N", str(N_STEPS)]
     outputs = {}
     kup.upfirdn2d_cuda.launches = kq.quantize_int8_cuda.launches = 0
     with shapes_recorded() as (k1_shapes, _):
         text = run_enhancement(["--test_dir", noisy, "--enhanced_dir",
-                                os.path.join(workdir, "enhanced_bf16"), *base], outputs)
+                                os.path.join(workdir, "enhanced_bf16"), *base, *n_flag],
+                               outputs)
     check_outputs(os.path.join(workdir, "enhanced_bf16"), lengths)
     shapes |= k1_shapes
     k1["enhancement_bf16"] = kup.upfirdn2d_cuda.launches
@@ -2121,7 +2185,8 @@ def phase_bf16_cli(workdir: str, f32_outputs, f32_rtf, lengths, batch_dir, batch
     kup.upfirdn2d_cuda.launches = kq.quantize_int8_cuda.launches = 0
     with shapes_recorded() as (k1_shapes, q_shapes):
         text = run_enhancement(["--test_dir", noisy, "--enhanced_dir", out, "--quant", "int8",
-                                "--quant_min_channels", str(QUANT_MIN_CHANNELS), *base], outputs)
+                                "--quant_min_channels", str(QUANT_MIN_CHANNELS), *base,
+                                *n_flag], outputs)
     check_outputs(out, lengths)
     calibrated = "int8 calibration done" in text
     check(calibrated or f"int8 scales loaded from {scale_cache_path(ckpt)}" in text,
@@ -2271,7 +2336,7 @@ def phase_profile_bf16():
     y = bucketed(synth_wav(max(SECONDS), 0, np.random.default_rng(0))[None])
     model.enhance(y, N=2, corrector="ald")  # warm-up at the same shapes
     profile_run(f"bf16 enhance {max(SECONDS)} s file",
-                lambda: model.enhance(y, N=N_STEPS, corrector="ald"), BF16_GROUPS)
+                lambda: model.enhance(y, N=DEFAULT_N, corrector="ald"), BF16_GROUPS)
 
 
 # --- bfloat16 training (phases 24-28)
@@ -2668,16 +2733,6 @@ def phase_deepcache_cli(workdir: str, lengths, exact, gen: torch.Generator):
     ckpt = os.path.join(workdir, "storm.pt")
     noisy = os.path.join(workdir, "noisy")
     scales = quant_mod.load_scales(scale_cache_path(ckpt))
-    original = StochasticRegenerationModel.enhance
-    per_file = []
-
-    def counted(model, *args, **kwargs):
-        before = (kup.upfirdn2d_cuda.launches, kq.quantize_int8_cuda.launches)
-        result = original(model, *args, **kwargs)
-        per_file.append((kup.upfirdn2d_cuda.launches - before[0],
-                         kq.quantize_int8_cuda.launches - before[1]))
-        return result
-
     k1_paths, k3_paths, k1_shapes, k3_shapes = {}, {}, set(), set()
     for config, dtype, extra in (
             ("float32", torch.float32, []),
@@ -2685,13 +2740,13 @@ def phase_deepcache_cli(workdir: str, lengths, exact, gen: torch.Generator):
             ("int8_bfloat16", BF16, ["--dtype", "bfloat16", "--quant", "int8",
                                      "--quant_min_channels", str(QUANT_MIN_CHANNELS)])):
         out, outputs = os.path.join(workdir, f"enhanced_dc3_{config}"), {}
-        per_file.clear()
         kup.upfirdn2d_cuda.launches = kq.quantize_int8_cuda.launches = 0
-        with shapes_recorded() as (k1s, k3s), \
-                mock.patch.object(StochasticRegenerationModel, "enhance", counted):
+        with shapes_recorded() as (k1s, k3s), calls_counted() as per_call:
             text = run_enhancement(["--test_dir", noisy, "--enhanced_dir", out, "--ckpt", ckpt,
                                     "--mode", "storm", "--timeit", "--device", "cuda",
-                                    "--deepcache", str(DC_K), *extra], outputs)
+                                    "--N", str(N_STEPS), "--deepcache", str(DC_K), *extra],
+                                   outputs)
+        per_file = [(k1, k3) for k1, k3, _ in per_call]
         check_outputs(out, lengths)
         quant = scales if "int8" in config else None
         check(quant is None or f"int8 scales loaded from {scale_cache_path(ckpt)}" in text,
@@ -2838,18 +2893,18 @@ def phase_bench(workdir: str, gen: torch.Generator):
         line = json.loads(text.strip().splitlines()[-1])
         lines[path] = line
         d = line["detail"]
-        calls = 1 + BENCH_REPS  # a warm-up call, then the timed reps
+        calls = 1 + BENCH_REPS  # a warm-up call (eager, then the capture), then the timed reps
         if extra:
             steps = 1 + BENCH_REPS * 5
             want = (STEP_FWD * steps, 0, STEP_BWD * steps)
             check(line["metric"] == "train_utt_per_sec_per_chip", f"{path}: {line}")
         else:
-            check(line["metric"] == "audio_sec_per_sec_per_chip_50step_pc" and d["nfe"] == NFE
+            check(line["metric"] == "audio_sec_per_sec_per_chip_50step_pc" and d["nfe"] == DEFAULT_NFE
                   and d["exact_nfe101_audio_sec_per_sec"] is None
                   and d["storm_default_nfe31_audio_sec_per_sec"] is None,
                   f"{path}: {line}")
-            k1_h, k3_h = dc_call_launches(N_STEPS, 2, scales)
-            want = (K1_PER_FORWARD * calib_forwards(CALIB_N, probes=4) + calls * k1_h,
+            k1_h, k3_h = dc_call_launches(DEFAULT_N, 2, scales)
+            want = (K1_PER_FORWARD * calib_forwards(min(DEFAULT_N, 10), probes=4) + calls * k1_h,
                     calls * k3_h, 0)
         got = (kup.upfirdn2d_cuda.launches, kq.quantize_int8_cuda.launches,
                kup.upfirdn2d_bwd_cuda.launches)
@@ -2877,7 +2932,7 @@ def phase_profile_dc3_bf16():
     y = bucketed(synth_wav(max(SECONDS), 0, np.random.default_rng(0))[None])
     model.enhance(y, N=4, corrector="ald", deepcache=DC_K)  # warm-up at the same shapes
     profile_run(f"dc3 bf16 enhance {max(SECONDS)} s file",
-                lambda: model.enhance(y, N=N_STEPS, corrector="ald", deepcache=DC_K),
+                lambda: model.enhance(y, N=DEFAULT_N, corrector="ald", deepcache=DC_K),
                 BF16_GROUPS)
 
 
@@ -2889,12 +2944,12 @@ def phase_profile_bench():
                         seed=0)
     y = torch.from_numpy((np.random.default_rng(0).standard_normal((16, 255 * HOP)) * 0.1)
                          .astype(np.float32)).cuda()
-    quant = quant_mod.calibrate_storm(model, y[:4], N=CALIB_N, num_probe=4,
+    quant = quant_mod.calibrate_storm(model, y[:4], N=min(DEFAULT_N, 10), num_probe=4,
                                       generator=torch.Generator(device="cuda").manual_seed(7))
     for name, q in (("int8 + bf16", quant), ("bf16", None)):
         model.enhance(y, N=4, corrector="ald", quant=q, deepcache=DC_K)  # warm-up
         profile_run(f"bench call, {name}, dc3 (B=16, {FREQS} x {TRAIN_FRAMES})",
-                    lambda: model.enhance(y, N=N_STEPS, corrector="ald", quant=q,
+                    lambda: model.enhance(y, N=DEFAULT_N, corrector="ald", quant=q,
                                           deepcache=DC_K)[0].cpu(),
                     {**BF16_GROUPS, **INT8_GROUPS,
                      # the int8 conv's im2col; the skips' cat is the _vectorized kernel
@@ -2904,12 +2959,14 @@ def phase_profile_bench():
 # --- the probability-flow samplers and the test-set evaluation (phases 35-39)
 
 ODE_METHOD = "etd2"  # the CLI's default ODE method
-ODE_NFE = 1 + 2 * N_STEPS + 1  # the denoiser, 2 per step, the final denoising step: 102
-ODE_N = 10  # phases 36-39
-ODE_N_NFE = 1 + 2 * ODE_N + 1  # 22
+ODE_NFE = 1 + 2 * N_STEPS + 1  # the denoiser, 2 per step, the final denoising step: 10
+ODE_N = 4  # phases 37-44
+ODE_N_NFE = 1 + 2 * ODE_N + 1  # 10
 PER_STEP = {"euler": 1, "heun": 2, "rk4": 4, "etd1": 1}
 PICARD_SWEEPS = 4
-RK45_TOL = "1e-5"  # the CLI's default tolerances: 59 attempted steps on these weights
+RK45_TOL = "1e-3"  # looser than the CLI's default, 1e-5 (59 attempted steps on these weights)
+# phase 36's N: each of its eleven CLI runs enhances one file (the eager loop)
+METHODS_N = 4
 TRAJECTORY_RTOL = 1e-4  # the f32 ODE through the kernels against plain, of the output's scale
 EVAL_BATCH = 4
 EVAL_SI_SDR_ATOL_DB = 1e-4
@@ -2917,23 +2974,21 @@ EVAL_SI_SDR_ATOL_DB = 1e-4
 
 @contextlib.contextmanager
 def calls_counted():
-    """While active, every `enhance` call of the four models adds (its K1
-    launches, its K3 launches, the NFE it reports) to the yielded list."""
+    """While active, every call a `BucketedEnhancer` makes of its model (a
+    shape's first call, the eager loop; its second, which also captures; a
+    replay; or an eager call) adds (its K1 launches, its K3 launches, the
+    NFE it reports) to the yielded list."""
     per_call = []
+    original = BucketedEnhancer._enhance
 
-    def counting(original):
-        def counted(model, *args, **kwargs):
-            before = (kup.upfirdn2d_cuda.launches, kq.quantize_int8_cuda.launches)
-            result = original(model, *args, **kwargs)
-            per_call.append((kup.upfirdn2d_cuda.launches - before[0],
-                             kq.quantize_int8_cuda.launches - before[1], int(result[1])))
-            return result
-        return counted
+    def counted(enhancer, *args, **kwargs):
+        before = (kup.upfirdn2d_cuda.launches, kq.quantize_int8_cuda.launches)
+        result = original(enhancer, *args, **kwargs)
+        per_call.append((kup.upfirdn2d_cuda.launches - before[0],
+                         kq.quantize_int8_cuda.launches - before[1], int(result[1])))
+        return result
 
-    with contextlib.ExitStack() as stack:
-        for cls in (StochasticRegenerationModel, ScoreModel, DiscriminativeModel,
-                    DistilledModel):
-            stack.enter_context(mock.patch.object(cls, "enhance", counting(cls.enhance)))
+    with mock.patch.object(BucketedEnhancer, "_enhance", counted):
         yield per_call
 
 
@@ -2971,7 +3026,7 @@ def phase_ode_cli(workdir: str, lengths, exact, gen: torch.Generator):
         with shapes_recorded() as (k1s, k3s), calls_counted() as per_call:
             text = run_enhancement(["--test_dir", noisy, "--enhanced_dir", out, "--ckpt", ckpt,
                                     "--mode", "storm", "--timeit", "--device", "cuda",
-                                    "--sampler", "ode", *extra], outputs)
+                                    "--N", str(N_STEPS), "--sampler", "ode", *extra], outputs)
         check_outputs(out, lengths)
         quant = "int8" in config
         check(not quant or f"int8 scales loaded from {scale_cache_path(ckpt)}" in text,
@@ -3027,8 +3082,8 @@ def phase_ode_cli(workdir: str, lengths, exact, gen: torch.Generator):
 
 
 def phase_ode_methods(workdir: str, gen: torch.Generator):
-    """Phase 36. Every sampler of the CLI at the 4 s bucket in bf16, N=10, one
-    file a call: the fixed-step ODE methods, etd2 with --deepcache 3, rk45
+    """Phase 36. Every sampler of the CLI at the 4 s bucket in bf16,
+    N=METHODS_N, one file a call: the fixed-step ODE methods, etd2 with --deepcache 3, rk45
     (its accepted and attempted steps counted in the loop), picard
     (--sweeps 4; the 1 s and 4 s files, its peak memory) and pc with the etd
     predictor. K1 launches per call derived from N, the method and the
@@ -3042,24 +3097,25 @@ def phase_ode_methods(workdir: str, gen: torch.Generator):
     for s, d in dirs.items():
         write_named_wavs(d, (s,), "ode", seed=6)
     base = ["--ckpt", ckpt, "--mode", "storm", "--timeit", "--device", "cuda", "--dtype",
-            "bfloat16", "--N", str(ODE_N)]
+            "bfloat16", "--N", str(METHODS_N)]
     ode = ["--sampler", "ode", "--ode-method"]
     def forwards(n):  # (K1 launches, NFE) of n full forwards
         return K1_PER_FORWARD * n, n
 
     # (path, seconds, flags, K1 launches, NFE); None: rk45's, from its loop
-    cases = [(f"ode_{m}", 4.0, ode + [m], *forwards(1 + ODE_N * k + 1))
+    cases = [(f"ode_{m}", 4.0, ode + [m], *forwards(1 + METHODS_N * k + 1))
              for m, k in PER_STEP.items()]
-    cases += [("ode_etd2", 4.0, ode + ["etd2"], *forwards(ODE_N_NFE)),
-              ("ode_etd2-ms", 4.0, ode + ["etd2-ms"], *forwards(1 + ODE_N + 1 + 1)),
-              ("ode_etd2_dc3", 4.0, ode + ["etd2", "--deepcache", str(DC_K)], ode_dc_launches(),
-               ODE_N_NFE),
+    etd2_nfe = 1 + 2 * METHODS_N + 1
+    cases += [("ode_etd2", 4.0, ode + ["etd2"], *forwards(etd2_nfe)),
+              ("ode_etd2-ms", 4.0, ode + ["etd2-ms"], *forwards(1 + METHODS_N + 1 + 1)),
+              ("ode_etd2_dc3", 4.0, ode + ["etd2", "--deepcache", str(DC_K)],
+               ode_dc_launches(METHODS_N), etd2_nfe),
               ("ode_rk45", 4.0, ode + ["rk45", "--rtol", RK45_TOL, "--atol", RK45_TOL], None,
                None),
-              ("pc_etd", 4.0, ["--predictor", "etd"], *forwards(1 + 2 * ODE_N))]
+              ("pc_etd", 4.0, ["--predictor", "etd"], *forwards(1 + 2 * METHODS_N))]
     # one wide forward per sweep: the NFE counts each sweep's N grid points
     cases += [(f"picard_{s:.0f}s", s, ["--sampler", "picard", "--sweeps", str(PICARD_SWEEPS)],
-               K1_PER_FORWARD * (PICARD_SWEEPS + 2), 1 + PICARD_SWEEPS * ODE_N + 1)
+               K1_PER_FORWARD * (PICARD_SWEEPS + 2), 1 + PICARD_SWEEPS * METHODS_N + 1)
               for s in (1.0, 4.0)]
     real_dopri = samplers.dopri45_integrate
     loops = []
@@ -3099,7 +3155,7 @@ def phase_ode_methods(workdir: str, gen: torch.Generator):
                   f"{path}: {evals} evaluations, {accepted} accepted")
         (k1, _, nfe), = per_call
         rtf = list(rtf_of(text).values())[0]
-        print(f"  {path} ({seconds:.0f} s, bf16, N={ODE_N}): RTF {rtf:.4f}, NFE {nfe} "
+        print(f"  {path} ({seconds:.0f} s, bf16, N={METHODS_N}): RTF {rtf:.4f}, NFE {nfe} "
               f"(expected {want_nfe}), K1 launches {k1} (expected {want}), peak memory "
               f"{peak:.2f} GiB{extra}", flush=True)
         check(k1 == want, f"{path}: K1 launched {k1}, expected {want}")
@@ -3108,7 +3164,7 @@ def phase_ode_methods(workdir: str, gen: torch.Generator):
         k1_paths[f"{path}_bf16"] = k1
         shapes |= k1s
     rows = sorted({s[1] for s in shapes})
-    check(ODE_N in rows, f"picard gave upfirdn2d no {ODE_N}-row call: {rows}")
+    check(METHODS_N in rows, f"picard gave upfirdn2d no {METHODS_N}-row call: {rows}")
     return k1_paths, check_k1_at("the sampler runs", shapes, gen)
 
 
@@ -3144,8 +3200,8 @@ def phase_ode_server(workdir: str, gen: torch.Generator):
 
 
 def phase_ode_streaming(workdir: str, gen: torch.Generator):
-    """Phase 38. Streaming with --sampler ode --N 10 on phase 16's 12 s file
-    (float32, the checkpoint's): per call of 8 chunks exactly 18 x 22 K1
+    """Phase 38. Streaming with --sampler ode --N ODE_N on phase 16's 12 s file
+    (float32, the checkpoint's): per call of 8 chunks exactly 18 x ODE_N_NFE K1
     launches. Returns (K1 launches, K1's error)."""
     ckpt = os.path.join(workdir, "storm.pt")
     noisy, out = os.path.join(workdir, "stream_noisy"), os.path.join(workdir, "stream_ode")
@@ -3210,7 +3266,7 @@ def served_si_sdr(model, corpus: str, sampler: str):
 
 def phase_evaluate(workdir: str):
     """Phase 39. `python -m storm_tpu_torch.evaluate --mode storm` on a test
-    split of 8 pairs beside phase 8's corpus, --batch 4 --N 10 --csv, with
+    split of 8 pairs beside phase 8's corpus, --batch 4 --N ODE_N --csv, with
     pc and then --sampler ode, on phase 5's checkpoint: 8 CSV rows, SI-SDR
     and ESTOI finite, PESQ NaN unless `pesq` imports, the mean +/- CI
     lines; exactly 18 x NFE K1 launches per enhancer call; each row's
@@ -3327,7 +3383,7 @@ def phase_train_new_modes(train_dir: str, gen: torch.Generator, storm_f32, storm
     """Phase 40. One full-width f32 score-only step's gradients against the
     plain path; then `python -m storm_tpu_torch.train` on phase 8's corpus,
     B=8, 256 frames, one epoch of 4 steps with the evaluation
-    (--num_eval_files 4 --eval_N 10): --mode score-only in f32 and bf16,
+    (--num_eval_files 4 --eval_N 4): --mode score-only in f32 and bf16,
     --mode denoiser-only --loss_type sisdr in f32, --mode
     regen-joint-training --sde ouvp in bf16. phase_train's checks hold each
     (exact K1 launches per step from the module list, finite losses,
@@ -3370,7 +3426,7 @@ def phase_new_modes_cli(workdir: str, ckpts, lengths, exact, gen: torch.Generato
     55 K3 launches per forward, calibration's K1 in the first int8 run's
     total; the RTF beside StoRM's (phases 5 and 19); every K1 shape (the
     score net's 4-channel pyramid) and K3 input against plain. Then the 4 s
-    file's score-only f32 etd2 ODE (N=10) and the denoiser's output through
+    file's score-only f32 etd2 ODE (N=ODE_N) and the denoiser's output through
     the kernels against the plain path, same prior, cuDNN deterministic.
     Returns ({path: K1}, {path: K3}, K1's f32 and bf16 errors, K3's)."""
     noisy = os.path.join(workdir, "noisy")
@@ -3458,8 +3514,8 @@ def phase_new_modes_cli(workdir: str, ckpts, lengths, exact, gen: torch.Generato
 
 def phase_ouvp_serving(workdir: str, ouvp_ckpt: str, lengths, exact, gen: torch.Generator):
     """Phase 42. Phase 40's OUVP StoRM checkpoint (bf16) through the CLI on
-    phase 5's files: pc at the defaults (N=50 + ald, 101 forwards per file)
-    and --sampler ode --ode-method heun --N 10 (22), exact K1 launches per
+    phase 5's files: pc at N_STEPS + ald (NFE forwards per file)
+    and --sampler ode --ode-method heun --N ODE_N (ODE_N_NFE), exact K1 launches per
     file, the RTF beside phase 19's; `--ode-method etd2` raises the
     reference's ValueError (a process running the CLI exits with status
     1); K1 against plain at every shape. Returns ({path: K1}, K1's error)."""
@@ -3469,7 +3525,7 @@ def phase_ouvp_serving(workdir: str, ouvp_ckpt: str, lengths, exact, gen: torch.
     base = ["--test_dir", noisy, "--ckpt", ckpt, "--mode", "storm", "--timeit", "--device",
             "cuda"]
     k1_paths, shapes = {}, set()
-    for path, extra, nfe in (("enhancement_ouvp_pc_bf16", [], NFE),
+    for path, extra, nfe in (("enhancement_ouvp_pc_bf16", ["--N", str(N_STEPS)], NFE),
                              ("enhancement_ouvp_ode_heun_bf16",
                               ["--sampler", "ode", "--ode-method", OUVP_ODE_METHOD, "--N",
                                str(ODE_N)], ODE_N_NFE)):
@@ -3968,6 +4024,305 @@ def phase_k1_nf32(gen: torch.Generator):
     return errs
 
 
+# --- each serving call as one captured CUDA graph (phases 52-55)
+
+GRAPH_B4_SECONDS = 2.5  # phase 52's B=4 shape: four 2.5 s files, 40960 samples each
+GRAPH_PICARD_SWEEPS = 4
+GRAPH_N = 10  # phases 52-53's N for the ODE, Picard, score-only and profiled programs
+GRAPH_REPLAYS = 5  # phase 53's counted replays
+GRAPH_WARMUP = "1,2.5,4"  # phase 55's server ladder
+
+
+def cuda_gen(seed: int) -> torch.Generator:
+    return torch.Generator(device="cuda").manual_seed(seed)
+
+
+def timed_call(fn):
+    """(fn(), wall s); fn ends with the output's copy to the host."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def graph_against_eager(what: str, model, ys: np.ndarray, audio_s: float, rows, **kw):
+    """One shape and configuration through `BucketedEnhancer`: the shape's
+    first call (the eager loop itself: no capture; its time is the eager
+    RTF), its second (the eager warm-up, then the capture) and a replay
+    from the first call's generator state, which must equal the first call
+    bit for bit. Appends to `rows` and returns (its row, the enhancer, the
+    replay's output)."""
+    progs = graphs.programs_of(model)
+    graphed = BucketedEnhancer(model, **kw)
+    before = dict(progs.stats)
+    launched = (kup.upfirdn2d_cuda.launches, kq.quantize_int8_cuda.launches)
+    (want, nfe), eager_s = timed_call(lambda: graphed(ys, cuda_gen(1)))
+    check(progs.stats["first_calls"] == before["first_calls"] + 1
+          and progs.stats["captures"] == before["captures"],
+          f"{what}: the shape's first call did more than the eager loop")
+    _, second_s = timed_call(lambda: graphed(ys, cuda_gen(0)))
+    check(progs.stats["captures"] == before["captures"] + 1, f"{what}: no capture")
+    (got, gnfe), graph_s = timed_call(lambda: graphed(ys, cuda_gen(1)))
+    err = float(np.abs(got - want).max())
+    row = dict(what=what, nfe=nfe, audio_s=audio_s, eager_rtf=eager_s / audio_s,
+               graph_rtf=graph_s / audio_s, second_s=second_s,
+               capture_s=progs.stats["capture_s"] - before["capture_s"],
+               pool_mib=(progs.stats["pool_bytes"] - before["pool_bytes"]) / 2 ** 20,
+               static_mib=(progs.stats["static_bytes"] - before["static_bytes"]) / 2 ** 20,
+               max_abs=err, f32=getattr(model, model.NETS[0]).dtype == torch.float32,
+               k1=kup.upfirdn2d_cuda.launches - launched[0],
+               k3=kq.quantize_int8_cuda.launches - launched[1])
+    rows.append(row)
+    print(f"  {what}: NFE {nfe}; RTF eager (the shape's first call) {row['eager_rtf']:.4f}, "
+          f"replay {row['graph_rtf']:.4f} ({row['eager_rtf'] / row['graph_rtf']:.2f}x); second "
+          f"call {second_s:.3f} s (capture {row['capture_s']:.3f} s, pool +{row['pool_mib']:.1f} "
+          f"MiB, static buffers {row['static_mib']:.1f} MiB); max|replay - eager| {err:.3e}",
+          flush=True)
+    check(gnfe == nfe and err == 0.0, f"{what}: the replay parts from eager by {err:.3e}")
+    return row, graphed, got
+
+
+def graph_models(workdir: str):
+    """The full-width models of phases 52-54 (seeded random weights; StoRM's
+    are phase 5's checkpoint's) and phase 19's int8 scales."""
+    ckpt = os.path.join(workdir, "storm.pt")
+    bf16 = dict(STORM_CONFIG, dtype="bfloat16")
+    storm_bf16 = build_model(bf16, device="cuda", seed=0)
+    return dict(
+        f32=build_model(STORM_CONFIG, device="cuda", seed=0), bf16=storm_bf16,
+        score=build_model({"mode": "score-only", "init_scale": 1.0, "dtype": "bfloat16"},
+                          device="cuda", seed=0),
+        denoiser=build_model({"mode": "denoiser-only", "init_scale": 1.0, "dtype": "bfloat16"},
+                             device="cuda", seed=0),
+        distill=DistilledModel(storm_bf16), scales=quant_mod.load_scales(scale_cache_path(ckpt)))
+
+
+def phase_graph_equals_eager(workdir: str, models, rows):
+    """Phase 52. At the 4 s bucket (B=1, 576 frames) and, StoRM pc N=10 +
+    ald bf16, at B=4 on the 2.5 s bucket: the shape's first call (the eager
+    loop) and a replay from the same generator state, bit for bit (between
+    them the second call captures), for StoRM pc N=50 + ald in f32, bf16 and
+    int8 + bf16, dc3 bf16, ode etd2 N=10 bf16, picard N=10 bf16, the
+    score-only model's pc N=10 bf16, the denoiser-only model bf16 and the
+    distilled NFE-2 path in bf16 and int8 + bf16. A second replay from
+    another generator state equals eager from that state; weights swapped
+    in place are served by the next replay, bit for bit eager's with them.
+    Returns {config: the 4 s graph enhancer}."""
+    y = load_wav(os.path.join(workdir, "noisy", f"utt2_{SECONDS[2]:.1f}s.wav"))[0][0]
+    audio = y.shape[-1] / SR
+    pc = dict(N=DEFAULT_N, corrector="ald")
+    s = models["scales"]
+    cases = [
+        ("storm pc f32", models["f32"], pc), ("storm pc bf16", models["bf16"], pc),
+        ("storm pc int8+bf16", models["bf16"], dict(pc, quant=s)),
+        ("storm pc dc3 bf16", models["bf16"], dict(pc, deepcache=DC_K)),
+        ("storm ode etd2 N=10 bf16", models["bf16"],
+         dict(N=GRAPH_N, sampler_type="ode", method=ODE_METHOD)),
+        ("storm picard N=10 bf16", models["bf16"],
+         dict(N=GRAPH_N, sampler_type="picard", sweeps=GRAPH_PICARD_SWEEPS)),
+        ("score-only pc N=10 bf16", models["score"], dict(N=GRAPH_N, corrector="ald")),
+        ("denoiser-only bf16", models["denoiser"], {}),
+        ("distill bf16", models["distill"], {}),
+        ("distill int8+bf16", models["distill"], dict(quant=s)),
+    ]
+    enhancers = {}
+    for what, model, kw in cases:
+        _, enhancers[what], _ = graph_against_eager(f"{what}, 4 s", model, y, audio, rows, **kw)
+
+    # another generator state, on the same program
+    enh, eager = enhancers["storm pc bf16"], BucketedEnhancer(models["bf16"], graphs=False, **pc)
+    got, want = enh(y, cuda_gen(2))[0], eager(y, cuda_gen(2))[0]
+    err = float(np.abs(got - want).max())
+    print(f"  storm pc bf16, 4 s, another generator state: max|replay - eager| {err:.3e}",
+          flush=True)
+    check(err == 0.0, f"a replay from another state parts from eager by {err:.3e}")
+
+    # weights swapped in place (the trainer's evaluation does this with the EMA)
+    dist = enhancers["distill bf16"]
+    before, _ = dist(y, cuda_gen(3))
+    other = build_model(dict(STORM_CONFIG, dtype="bfloat16"), device="cuda", seed=1).state_dict()
+    with swapped_in(models["distill"], other):
+        got, _ = dist(y, cuda_gen(3))
+        want, _ = BucketedEnhancer(models["distill"], graphs=False)(y, cuda_gen(3))
+    err = float(np.abs(got - want).max())
+    moved = float(np.abs(got - before).max())
+    print(f"  distill bf16 with other weights swapped in: max|replay - eager| {err:.3e}; "
+          f"max|new - old weights' output| {moved:.3e}", flush=True)
+    check(err == 0.0 and moved > 0.0, "the replay did not serve the swapped-in weights")
+
+    rng = np.random.default_rng(5)
+    ys = np.stack([synth_wav(GRAPH_B4_SECONDS, i, rng) for i in range(CLI_BATCH)])
+    graph_against_eager(f"storm pc N=10 bf16, B={CLI_BATCH} x {GRAPH_B4_SECONDS} s",
+                        models["bf16"], ys, CLI_BATCH * GRAPH_B4_SECONDS, rows,
+                        N=GRAPH_N, corrector="ald")
+    return enhancers
+
+
+def phase_graph_launches(workdir: str, models, enhancers):
+    """Phase 53. One replay under torch.profiler each of a StoRM pc + ald
+    program at N=10 (4 s; fewer events to read than at N=50) in bf16, int8
+    + bf16 and dc3 bf16, captured here: its K1 and K3
+    kernel events by name equal the derived counts (18 K1 per forward, 55
+    K3 per quantized forward, dc3's from the module list), and its busy
+    share; then GRAPH_REPLAYS replays of the distilled int8 program add
+    exactly that many times its recorded launches to the counters. Returns
+    {config: busy share of its replay}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    y = load_wav(os.path.join(workdir, "noisy", f"utt2_{SECONDS[2]:.1f}s.wav"))[0][0]
+    short = dict(N=GRAPH_N, corrector="ald")
+    nfe = 1 + 2 * GRAPH_N
+    cases = [("storm pc N=10 bf16", BucketedEnhancer(models["bf16"], **short),
+              K1_PER_FORWARD * nfe, 0),
+             ("storm pc N=10 int8+bf16",
+              BucketedEnhancer(models["bf16"], quant=models["scales"], **short),
+              K1_PER_FORWARD * nfe, N_QUANT * nfe),
+             ("storm pc N=10 dc3 bf16", BucketedEnhancer(models["bf16"], deepcache=DC_K, **short),
+              dc_call_launches(GRAPH_N, 2)[0], 0)]
+    busy = {}
+    for what, enh, want_k1, want_k3 in cases:
+        enh.warm_up(y, cuda_gen(5))  # makes the program
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            enh(y, cuda_gen(4))
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = kernel_events(prof)
+        k1 = sum(1 for e in events if "upfirdn2d_down" in e[2] or "upfirdn2d_up" in e[2])
+        k3 = sum(1 for e in events if "quantize_int8_kernel" in e[2])
+        busy_ms, end = 0.0, -float("inf")
+        for start, stop, _, _ in events:
+            busy_ms += max(0.0, stop - max(start, end)) / 1e3
+            end = max(end, stop)
+        busy[what] = busy_ms / wall_ms
+        print(f"  {what}: one replay under the profiler: wall {wall_ms:.1f} ms, {len(events)} "
+              f"kernel events, busy {busy_ms:.1f} ms ({100 * busy[what]:.1f}% of wall); K1 "
+              f"events {k1} (derived {want_k1}), K3 {k3} (derived {want_k3})", flush=True)
+        check((k1, k3) == (want_k1, want_k3), f"{what}: a replay ran K1 {k1}, K3 {k3} times")
+
+    dist = BucketedEnhancer(models["distill"], quant=models["scales"])
+    prog = next(p for p in graphs.programs_of(models["distill"]).programs.values()
+                if dict(p.key[-1]).get("quant"))
+    before = [f.launches for f in LAUNCH_COUNTERS_ALL]
+    for i in range(GRAPH_REPLAYS):
+        dist(y, cuda_gen(10 + i))
+    added = tuple(f.launches - b for f, b in zip(LAUNCH_COUNTERS_ALL, before))
+    want = tuple(GRAPH_REPLAYS * n for n in prog.launches)
+    print(f"  distill int8+bf16: {GRAPH_REPLAYS} replays added {added} to the counters (K1, "
+          f"K1-bwd, K3, K2); recorded per replay {prog.launches}", flush=True)
+    check(added == want and prog.launches[0] == K1_PER_FORWARD * DISTILL_FORWARDS
+          and prog.launches[2] == 2 * N_QUANT, f"distill replays added {added}, expected {want}")
+    return busy
+
+
+def phase_graph_time(workdir: str, models, rows, busy):
+    """Phase 54. RTF graph against eager at B=1 on phase 5's 1 and 2.5 s
+    files (the 4 s rows are phase 52's) for StoRM pc N=50 + ald in bf16, dc3
+    bf16 and the distilled NFE-2 path in bf16 (int8 + bf16 at 4 s only:
+    phase 52's row), each replay
+    equal to eager bit for bit; then every row of phases 52 and 54: RTF both
+    ways, the capture's seconds and the pool's growth, the busy share of
+    phase 53's replays."""
+    pc = dict(N=DEFAULT_N, corrector="ald")
+    for seconds in SECONDS[:2]:
+        y = load_wav(os.path.join(workdir, "noisy", f"utt{SECONDS.index(seconds)}_"
+                                                    f"{seconds:.1f}s.wav"))[0][0]
+        audio = y.shape[-1] / SR
+        for what, model, kw in (
+                ("storm pc bf16", models["bf16"], pc),
+                ("storm pc dc3 bf16", models["bf16"], dict(pc, deepcache=DC_K)),
+                ("distill bf16", models["distill"], {})):
+            graph_against_eager(f"{what}, {seconds:g} s", model, y, audio, rows, **kw)
+    print("  | configuration | NFE | RTF eager (first call) | RTF replay | eager / replay | "
+          "second call s | capture s | pool MiB | static MiB |", flush=True)
+    for r in rows:
+        print(f"  | {r['what']} | {r['nfe']} | {r['eager_rtf']:.4f} | {r['graph_rtf']:.4f} | "
+              f"{r['eager_rtf'] / r['graph_rtf']:.2f} | {r['second_s']:.3f} | "
+              f"{r['capture_s']:.3f} | {r['pool_mib']:.1f} | {r['static_mib']:.1f} |", flush=True)
+    for what, share in busy.items():
+        print(f"  busy share of one {what} replay (4 s, phase 53): {100 * share:.1f}%",
+              flush=True)
+    for what, model in (("StoRM f32", models["f32"]), ("StoRM bf16", models["bf16"]),
+                        ("distill", models["distill"])):
+        st = graphs.programs_of(model).stats
+        print(f"  {what}'s programs: {st['captures']} captures in {st['capture_s']:.2f} s, "
+              f"{st['replays']} replays, one pool of {st['pool_bytes'] / 2 ** 30:.2f} GiB and "
+              f"static buffers of {st['static_bytes'] / 2 ** 30:.2f} GiB: "
+              f"{(st['pool_bytes'] + st['static_bytes']) / 2 ** 30:.2f} GiB held", flush=True)
+
+
+def phase_graph_serving(workdir: str, bench_line, gen: torch.Generator):
+    """Phase 55. The server at its bf16 default (N=SERVE_N) with
+    --warmup_buckets 1,2.5,4: the warm-up captures 3 row sizes x 3 buckets,
+    phase 21's burst then captures nothing and replays every batch; its
+    audio s/s, p50 and max against the same server with graphs=False. The
+    streaming CLI (bf16) on two copies of phase 16's 12 s file: the first
+    call captures, the second replays. Phase 32's bench line with graphs.
+    Returns ({path: K1 launches}, K1 error)."""
+    rng = np.random.default_rng(4)
+    waves = [synth_wav(s, i, rng) for i, s in enumerate(SERVE_SECONDS)]
+    ckpt = os.path.join(workdir, "storm.pt")
+    args = serve_args(ckpt, "--warmup_buckets", GRAPH_WARMUP)
+    runs, k1_paths, shapes = {}, {}, set()
+    for path, ctx in (("server_bf16_eager", mock.patch.object(
+            serve, "BucketedEnhancer", functools.partial(BucketedEnhancer, graphs=False))),
+                      ("server_bf16_graphs", contextlib.nullcontext())):
+        with ctx:
+            r = run_server(path, args, waves)
+        want = K1_PER_FORWARD * SERVE_NFE * (r["warmups"] + r["stats"]["batches"])
+        check(r["k1"] == want, f"{path}: K1 {r['k1']}, expected {want}")
+        runs[path], k1_paths[path] = r, r["k1"]
+        shapes |= r["k1_shapes"]
+    g = runs["server_bf16_graphs"]
+    st, rows, buckets = g["stats"]["graphs"], len(g["health"]["row_sizes"]), len(
+        g["health"]["warmup_buckets_s"])
+    print(f"  graphs: /healthz execution {g['health']['execution']!r}; /stats graphs {st}; "
+          f"burst audio s/s {g['audio_per_s']:.4f} against eager "
+          f"{runs['server_bf16_eager']['audio_per_s']:.4f}, p50 {g['p50']:.3f} s against "
+          f"{runs['server_bf16_eager']['p50']:.3f}, max {g['max']:.3f} s against "
+          f"{runs['server_bf16_eager']['max']:.3f}; the warmed ladder's pool "
+          f"{st['pool_bytes'] / 2 ** 30:.2f} GiB and static buffers "
+          f"{st['static_bytes'] / 2 ** 30:.2f} GiB in {st['capture_s']:.2f} s of captures",
+          flush=True)
+    check(g["health"]["execution"] == "graph"
+          and runs["server_bf16_eager"]["health"]["execution"] == "eager",
+          "/healthz execution")
+    check(st["captures"] == rows * buckets == 9 and st["replays"] == g["stats"]["batches"]
+          and st["first_calls"] == 0, f"the burst captured after warm-up or did not replay: {st}")
+
+    src = os.path.join(workdir, "stream_noisy")
+    thrice = os.path.join(workdir, "stream_thrice")
+    os.makedirs(thrice)
+    name = sorted(os.listdir(src))[0]
+    for copy in ("a_" + name, "b_" + name, "c_" + name):
+        os.link(os.path.join(src, name), os.path.join(thrice, copy))
+    replays = []
+    real_replay = graphs.Program.replay
+
+    def replay(prog):
+        replays.append(prog.launches)
+        return real_replay(prog)
+
+    kup.upfirdn2d_cuda.launches = 0
+    with calls_counted() as per_call, mock.patch.object(graphs.Program, "replay", replay), \
+            shapes_recorded() as (k1s, _):
+        text = run_enhancement(["--test_dir", thrice, "--enhanced_dir",
+                                os.path.join(workdir, "stream_thrice_out"), "--ckpt", ckpt,
+                                "--mode", "storm", "--N", str(SERVE_N), "--stream_chunk_s",
+                                str(STREAM_CHUNK_S), "--stream_overlap_s", str(STREAM_OVERLAP_S),
+                                "--timeit", "--device", "cuda", "--dtype", "bfloat16"])
+    want = (K1_PER_FORWARD * SERVE_NFE, 0, SERVE_NFE)
+    print(f"  streaming bf16, the 12 s file thrice: RTF {list(rtf_of(text).values())} (the "
+          f"eager loop, the capture, the replay); (K1, K3, NFE) per call {per_call}, {len(replays)} "
+          f"replay(s)", flush=True)
+    check(per_call == [want] * 3 and len(replays) == 1, f"streaming thrice: {per_call}, {replays}")
+    k1_paths["streaming_bf16_thrice"] = kup.upfirdn2d_cuda.launches
+    shapes |= k1s
+    print(f"  bench (phase 32, graphs): {bench_line['value']} audio s/s, a replay "
+          f"{bench_line['detail']['wall_s']} s per call", flush=True)
+    return k1_paths, check_k1_at("the graph servers and streaming", shapes, gen)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -4093,7 +4448,9 @@ def main():
 
         phase_header("== phase 25: bfloat16 training through storm_tpu_torch.train --dtype bfloat16 "
               f"with the in-training evaluation (--num_eval_files {VALID_FILES})", flush=True)
-        train_bf16 = phase_train(train_dir, "bfloat16", eval_files=VALID_FILES)
+        # three epochs: the third evaluation replays the graph the second captured
+        train_bf16 = phase_train(train_dir, "bfloat16", steps_total=3 * (TRAIN_FILES // TRAIN_B),
+                                 eval_files=VALID_FILES, eval_n=F32_EVAL_N)
         print(f"  bf16 against f32 (phase 8, this run): step {train_bf16['step_ms']:.2f} ms "
               f"against {train_f32['step_ms']:.2f} ({train_f32['step_ms'] / train_bf16['step_ms']:.2f}x); "
               f"{train_bf16['audio_s_per_s']:.3f} audio s per s against "
@@ -4128,7 +4485,7 @@ def main():
 
         phase_header("== phase 32: python -m storm_tpu_torch.bench at bench.py's defaults, then --train",
               flush=True)
-        (bench_k1, bench_k3, bench_bwd, _, bench_err, bench_k3_err,
+        (bench_k1, bench_k3, bench_bwd, bench_lines, bench_err, bench_k3_err,
          bench_bwd_err) = phase_bench(workdir, gen)
 
         if args.profile:
@@ -4143,7 +4500,8 @@ def main():
         ode_k1, ode_k3, ode_err, ode_bf16_err, ode_k3_err = phase_ode_cli(
             workdir, lengths, {"float32": (f32_rtf, f32_outputs), **bf16_exact}, gen)
 
-        phase_header(f"== phase 36: every sampler at the 4 s bucket in bf16, N={ODE_N}", flush=True)
+        phase_header(f"== phase 36: every sampler at the 4 s bucket in bf16, N={METHODS_N}",
+                     flush=True)
         methods_k1, methods_err = phase_ode_methods(workdir, gen)
 
         phase_header(f"== phase 37: the server with --sampler ode (bf16, then --deepcache {DC_K})",
@@ -4208,9 +4566,31 @@ def main():
         d_bench_k1, d_bench_k3, d_bench_line, d_bench_err, d_bench_k3_err = phase_distill_bench(
             gen)
 
-    phase_header(f"== phase 51: upfirdn2d and its adjoint at nf={NF32} (the quality run's width)",
-          flush=True)
-    nf32_f32_err, nf32_bf16_err, nf32_bwd_err, nf32_bwd_bf16_err = phase_k1_nf32(gen)
+        phase_header(f"== phase 51: upfirdn2d and its adjoint at nf={NF32} (the quality run's "
+                     "width)", flush=True)
+        nf32_f32_err, nf32_bf16_err, nf32_bwd_err, nf32_bwd_bf16_err = phase_k1_nf32(gen)
+
+        phase_header("== phase 52: each serving path's captured CUDA graph against the eager loop, "
+                     "bit for bit", flush=True)
+        g_models, g_rows = graph_models(workdir), []
+        g_before = (kup.upfirdn2d_cuda.launches, kq.quantize_int8_cuda.launches)
+        g_enhancers = phase_graph_equals_eager(workdir, g_models, g_rows)
+
+        phase_header("== phase 53: K1 and K3 launches in a replay, from the profiler", flush=True)
+        g_busy = phase_graph_launches(workdir, g_models, g_enhancers)
+
+        phase_header("== phase 54: what the graph does to the time (RTF graph against eager, busy "
+                     "share, capture s, pool bytes)", flush=True)
+        phase_graph_time(workdir, g_models, g_rows, g_busy)
+        g_k1 = kup.upfirdn2d_cuda.launches - g_before[0]
+        g_k3 = kq.quantize_int8_cuda.launches - g_before[1]
+        g_k1_f32 = sum(r["k1"] for r in g_rows if r["f32"])
+        del g_models, g_enhancers
+        torch.cuda.empty_cache()
+
+        phase_header("== phase 55: the server's warmed graphs, streaming's replay, the bench line",
+                     flush=True)
+        g_srv_k1, g_srv_err = phase_graph_serving(workdir, bench_lines["bench_serving"], gen)
 
     def entry(name, source, replaces, per_shape_ms, calls, err, launches, work, **extra):
         keys = ("ms", "device_ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms")
@@ -4276,6 +4656,12 @@ def main():
     bwd_bf16_by_path["train_distill_bf16"] = d_train["launches"][1]
     ode_k1_err = max(ode_k1_err, d_err, nf32_f32_err)
     ode_k1_bf16_err = max(ode_k1_bf16_err, d_bf16_err, d_srv_err, d_bench_err, nf32_bf16_err)
+    # the captured graphs (phases 52-55): their replays' launches, and the
+    # eager calls they were compared with
+    k1_by_path["graphs_against_eager_float32"] = g_k1_f32
+    k1_bf16_by_path.update({"graphs_against_eager_bf16": g_k1 - g_k1_f32, **g_srv_k1})
+    k3_bf16_by_path["graphs_against_eager_int8_bf16"] = g_k3
+    ode_k1_bf16_err = max(ode_k1_bf16_err, g_srv_err)
     nt_bwd_err = max(nt_bwd_err, nf32_bwd_err)
     nt_bwd_bf16_err = max(nt_bwd_bf16_err, nf32_bwd_bf16_err)
     nm_k3_err = max(nm_k3_err, d_k3_err, d_bench_k3_err)

@@ -14,6 +14,10 @@ program, not its weights, sets the time. y is 0.1 x standard normal from
 N = min(N, 10) and 4 probes, as the reference bench does. One warm-up call,
 then `--reps` timed calls, each with its own seeded generator and ending
 with the output's copy to the host (the sync); the wall is the fastest rep.
+On a card every call is the replay of its captured CUDA graph
+(`utils/graphs.graphed_enhance`), as the reference times its jitted
+program: the warm-up call makes it (`warm_up`: the eager loop, then the
+capture).
 
 Extras in `detail`, run while the wall clock since the start is under
 STORM_TPU_BENCH_BUDGET_S (default 1800 s; a malformed value falls back to
@@ -23,7 +27,8 @@ The variable and its fallback are bench.py's, so that a caller that runs
 either bench under a wall-clock limit sets one budget for both.
 
 `program_tflops` is counted once, on the warm-up call, outside the timed
-region: 2 x the multiply-adds of every convolution and matrix product the
+region (on a card the warm-up runs the body twice, eagerly and then under
+capture, and the count is halved): 2 x the multiply-adds of every convolution and matrix product the
 call runs (NCSN++'s convolutions, its attention and dense layers, the
 STFT's DFT), from their shapes, whatever computes them: float32, bfloat16
 or the int8 product (`torch._int_mm`), cuDNN or the port's own kernels.
@@ -65,6 +70,7 @@ from .models.base import init_train_state
 from .models.factory import build_model
 from .models.distill import DistilledModel
 from .models.quant import calibrate_distill, calibrate_storm, num_quantized_convs
+from .utils.graphs import graphed_enhance, programs_of
 
 SR = 16000
 TARGET = 10.0  # the north-star: >= 10x real time per chip
@@ -206,12 +212,13 @@ def bench_distill(args, model, device: torch.device) -> dict:
         print("int8-quantized convs (distill): "
               f"{({k: num_quantized_convs(v) for k, v in quant.items()})}", file=sys.stderr)
 
-    def enhance(seed: int) -> int:
-        x_hat, nfe = model.enhance(y, generator=generator(device, seed), quant=quant)
+    def enhance(seed: int, warm_up: bool = False) -> int:
+        x_hat, nfe = graphed_enhance(model, y, generator(device, seed), warm_up=warm_up,
+                                     quant=quant)
         x_hat.cpu()  # the output's copy to the host is the sync
         return nfe
 
-    enhance(1)  # warm-up
+    enhance(1, warm_up=True)
     times = []
     with profiled(args.profile, device):
         for i in range(args.reps):
@@ -251,20 +258,21 @@ def bench_serving(args, model, device: torch.device, budget_s: float, t_start: f
         print(f"int8-quantized convs: {({k: num_quantized_convs(v) for k, v in quant.items()})}",
               file=sys.stderr)
 
-    def enhance(seed: int, **overrides):
+    def enhance(seed: int, warm_up: bool = False, **overrides):
         kw = dict(N=args.N, corrector=args.corrector, corrector_steps=args.corrector_steps,
                   quant=quant, deepcache=args.deepcache, deepcache_depth=args.deepcache_depth)
         kw.update(overrides)
-        x_hat, nfe = model.enhance(y, generator=generator(device, seed), **kw)
+        x_hat, nfe = graphed_enhance(model, y, generator(device, seed), warm_up=warm_up, **kw)
         x_hat.cpu()  # the output's copy to the host is the sync
         return nfe
 
     def timed(first_seed: int, warmup_ctx=contextlib.nullcontext(),
               timed_ctx=contextlib.nullcontext(), **overrides):
         """(the fastest of --reps calls after a warm-up call, nfe); the
-        warm-up runs inside `warmup_ctx`, the timed calls inside `timed_ctx`."""
+        warm-up (which captures the program) runs inside `warmup_ctx`, the
+        timed calls inside `timed_ctx`."""
         with warmup_ctx:
-            enhance(first_seed - 1, **overrides)
+            enhance(first_seed - 1, warm_up=True, **overrides)
         times = []
         with timed_ctx:
             for i in range(args.reps):
@@ -273,9 +281,13 @@ def bench_serving(args, model, device: torch.device, budget_s: float, t_start: f
                 times.append(time.perf_counter() - t0)
         return min(times), nfe
 
+    # the warm-up runs the program's body once eagerly and, on a card, once
+    # more to capture it: the same operators twice
+    progs = programs_of(model)
+    captures = progs.stats["captures"]
     counter = program_flops()
     wall, nfe = timed(2, warmup_ctx=counter, timed_ctx=profiled(args.profile, device))
-    flops = counter.get_total_flops()
+    flops = counter.get_total_flops() // (1 + progs.stats["captures"] - captures)
 
     # the model's own serving schedule (N=30, no corrector, NFE 31)
     nfe31 = None

@@ -7,7 +7,9 @@ Dense with `dtype=`, NIN's `W.astype(x.dtype)`) names them in its
 `CAST_PARAMS` and reads them through `param`, in the dtype of its input.
 `cast_params(net, dtype)` makes those copies once, for the length of a
 `with` block, as XLA hoists the reference's casts out of its jitted sampler;
-the copies are detached, so it is for inference only. Outside one, `param`
+the copies are detached, so it is for inference only. A captured
+enhancement (`utils/graphs.py`) makes them inside its graph, so every replay
+recasts the parameters as they are then. Outside one, `param`
 casts on every call with `.to(dtype)`, which autograd differentiates: a
 training forward in bfloat16 sends its gradients through the cast to the
 float32 parameters, as flax's cast does. A forward that records gradients

@@ -26,8 +26,10 @@ either way). Two modes are switched on per module, for the duration of a
   rounded to bfloat16, each step rounded.
 
 The scales become float32 values, and the weight codes and dequantizing
-scales (float32 and bfloat16) tensors, once when they are attached: a conv
-call then syncs nothing with the host. The int8 product is an im2col of the int8 codes (a quarter of
+scales (float32 and bfloat16) tensors, once when they are attached, from
+the weights as they are then and with no upload: a conv call then syncs
+nothing with the host, and a captured enhancement, which attaches them
+inside the graph, requantizes the live weights on every replay. The int8 product is an im2col of the int8 codes (a quarter of
 the bytes of a float32 im2col) followed by `torch._int_mm`; the reference
 leaves the same integer product to XLA's `conv_general_dilated` outside any
 Pallas kernel. A float32 conv of the codes would not be exact: 3*3*512
@@ -139,7 +141,7 @@ class QuantizableConv(nn.Conv2d):
         self._check_int8_geometry()
         a = np.float32(a_scale)
         codes, w_scale = quantize_weight(self.weight)
-        dequant = torch.tensor(a, device=w_scale.device) * w_scale  # float32 (qconv.py:158)
+        dequant = w_scale * float(a)  # float32 (qconv.py:158); no upload, so a graph captures it
         self.a_scale = float(a)
         self._int8 = (activation_inverse(a), weight_columns(codes),
                       {torch.float32: dequant, torch.bfloat16: dequant.to(torch.bfloat16)})

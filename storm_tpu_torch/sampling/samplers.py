@@ -14,8 +14,10 @@ With a `DeepCache` of interval K the score net's deep features are cached
 prior, refreshed at the top of every K-th step, and every score evaluation
 of the step recomputes only the top levels from the cache. Whether a step
 refreshes is decided on the host from the step's index, so the loop reads
-no device value: `BucketedEnhancer.enhance_async` and the server's
-pipelined finalizer rely on the sampler enqueueing without a sync.
+no device value and uploads nothing (Picard's grid is a cached device
+constant): every sampler but rk45 is captured whole in a CUDA graph
+(`utils/graphs.py`), and `BucketedEnhancer.enhance_async` and the server's
+pipelined finalizer rely on it enqueueing without a sync.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ import numpy as np
 import torch
 
 from ..signal import cplx
-from ..utils.tensors import right_pad_dims
+from ..utils.tensors import host_constant, right_pad_dims
 from .correctors import CORRECTORS
 from .predictors import PREDICTORS
 
@@ -398,6 +400,17 @@ def time_major(v: torch.Tensor, n: int) -> torch.Tensor:
     return v.repeat((n,) + (1,) * (v.ndim - 1))
 
 
+def _picard_steps(T: float, eps: float, n: int) -> np.ndarray:
+    """The n float32 steps of the grid linspace(T, eps, n + 1)."""
+    ts = np.linspace(T, eps, n + 1, dtype=np.float32)
+    return ts[1:] - ts[:-1]
+
+
+def _picard_times(T: float, eps: float, n: int, B: int) -> np.ndarray:
+    """The grid's first n times, each repeated for the B rows of its block."""
+    return np.repeat(np.linspace(T, eps, n + 1, dtype=np.float32)[:n], B)
+
+
 def picard_sample(
     sde,
     score_fn: Callable,
@@ -432,9 +445,9 @@ def picard_sample(
     if noise is None:
         noise = generator_noise(generator, y.device, y.dtype)
     x0 = sde.prior_sampling(y, noise(y.shape[:-1]))
-    ts = np.linspace(sde.T, eps, n + 1, dtype=np.float32)
-    dts = torch.from_numpy(ts[1:] - ts[:-1]).to(y.device).reshape((n,) + (1,) * x0.ndim)
-    t_all = torch.from_numpy(np.repeat(ts[:n], B)).to(y.device)  # (n B,), time-major
+    grid = (float(sde.T), float(eps), n)
+    dts = host_constant(_picard_steps, grid, y.device).reshape((n,) + (1,) * x0.ndim)
+    t_all = host_constant(_picard_times, grid + (B,), y.device)  # (n B,), time-major
     y_all = time_major(y, n)
     rsde = sde.reverse(wide_score_fn or score_fn, probability_flow=True)
 

@@ -12,7 +12,8 @@ Endpoints:
                     X-NFE is 1 for the denoiser-only model's one forward, 2 for
                     the distilled student's)
     GET  /healthz   readiness and the serving configuration (mode, torch device, card)
-    GET  /stats     request and batch counters, audio seconds served, batch fill
+    GET  /stats     request and batch counters, audio seconds served, batch fill,
+                    and under "graphs" the captured programs' counters
 
 Sampler flags and defaults are the enhancement CLI's, with the samplers
 that enqueue without a device sync: `--sampler pc` or `ode` with the six
@@ -25,6 +26,14 @@ served. Noise comes
 from one torch.Generator seeded with `--seed`, owned by the batcher's
 dispatcher thread; int8 calibration draws from its own, seeded `--seed` + 1.
 SIGTERM stops accepting requests and drains the queue.
+
+On a card every batch is the replay of the captured CUDA graph of its row
+count and bucket (`utils/graphs.py`): `--warmup_s` / `--warmup_buckets`
+capture every row size at every warmed bucket before the server accepts
+requests, as the reference compiles them; a shape not warmed runs the
+eager loop at its first batch and is captured at its second. /stats
+"graphs": first calls, captures, replays, eager calls, capture seconds, the
+graph pool's bytes and the static buffers'; /healthz "execution": "graph".
 """
 from __future__ import annotations
 
@@ -138,6 +147,7 @@ def make_handler(batcher: DynamicBatcher, info: dict, model_sr: int = MODEL_SR):
                 s["rtf"] = round(s["device_s"] / audio_s, 4) if audio_s else None
                 s["batch_fill"] = (round(s["batched_requests"] / s["row_slots"], 4)
                                    if s["row_slots"] else None)
+                s["graphs"] = getattr(batcher.enhancer, "graph_stats", None)
                 self._json(200, s)
             else:
                 self._json(404, {"error": f"unknown path {self.path}"})
@@ -229,12 +239,12 @@ def build_server(args):
     if args.warmup_buckets:
         warmup_s += [float(s) for s in args.warmup_buckets.split(",")]
     # every row size at every warmed bucket, so that traffic there meets no
-    # first-call cost (cuDNN's plan for a new shape, the allocator's growth);
-    # the kernels build here too
+    # first-call cost: each warm-up call runs the eager loop and captures its
+    # graph (the kernels build here too)
     lens = sorted({enhancer.padded_len(int(s * MODEL_SR)) for s in warmup_s})
     shapes = [(rows, T) for T in lens for rows in row_sizes]
     for done, (rows, T) in enumerate(shapes, 1):
-        enhancer(np.zeros((rows, T), np.float32), generator)
+        enhancer.warm_up(np.zeros((rows, T), np.float32), generator)
         print(f"warmup {done}/{len(shapes)}: rows={rows} bucket={T / MODEL_SR:.3f}s", flush=True)
 
     batcher = DynamicBatcher(enhancer, generator, max_batch=args.batch,
@@ -252,6 +262,7 @@ def build_server(args):
         "row_sizes": row_sizes, "max_wait_ms": args.max_wait_ms,
         "warmup_buckets_s": [T / MODEL_SR for T in lens],
         "backbone": "ncsnpp", "dtype": config.get("dtype", "float32"), "seed": args.seed,
+        "execution": enhancer.execution,
         "ckpt": os.path.abspath(args.ckpt),
     }
     try:

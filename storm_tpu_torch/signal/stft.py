@@ -7,7 +7,9 @@ envelope. Both match `torch.stft` / `torch.istft` (center=True) and the
 reference package, with spectrograms packed-real (..., F, n_frames, 2).
 
 Matmuls run in float32; on the card the caller keeps TF32 off
-(`torch.backends.cuda.matmul.allow_tf32 = False`).
+(`torch.backends.cuda.matmul.allow_tf32 = False`). The DFT matrices and the
+overlap-add envelope are uploaded once per device and dtype
+(`utils/tensors.host_constant`), so a captured graph finds them made.
 """
 from __future__ import annotations
 
@@ -18,6 +20,8 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..utils.tensors import host_constant
 
 
 def _window_np(window_type: str, n: int) -> np.ndarray:
@@ -80,8 +84,16 @@ def _ola_envelope(n_frames: int, n_fft: int, hop: int, window: str) -> np.ndarra
     return inv.astype(np.float32)
 
 
-def _const(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    return torch.from_numpy(a).to(device=like.device, dtype=like.dtype)
+def _dft_matrix(n_fft: int, window: str, part: int) -> np.ndarray:
+    return _dft_matrices(n_fft, window)[part]
+
+
+def _idft_matrix(n_fft: int, window: str, part: int) -> np.ndarray:
+    return _idft_matrices(n_fft, window)[part]
+
+
+def _const(make, args: tuple, like: torch.Tensor) -> torch.Tensor:
+    return host_constant(make, args, like.device, like.dtype)
 
 
 def stft_real(x: torch.Tensor, config: STFTConfig = STFTConfig()) -> torch.Tensor:
@@ -92,9 +104,8 @@ def stft_real(x: torch.Tensor, config: STFTConfig = STFTConfig()) -> torch.Tenso
     pad = n_fft // 2
     x = F.pad(x, (pad, pad), mode="reflect")
     frames = x[:, 0].unfold(-1, n_fft, hop)  # (N, n_frames, n_fft)
-    C, S = _dft_matrices(n_fft, config.window)
-    re = frames @ _const(C, frames)
-    im = frames @ _const(S, frames)
+    re = frames @ _const(_dft_matrix, (n_fft, config.window, 0), frames)
+    im = frames @ _const(_dft_matrix, (n_fft, config.window, 1), frames)
     spec = torch.stack([re, im], dim=-1).transpose(-2, -3)  # (N, F, n_frames, 2)
     return spec.reshape(batch_shape + spec.shape[1:])
 
@@ -105,13 +116,13 @@ def istft_real(spec: torch.Tensor, config: STFTConfig = STFTConfig(),
     n_fft, hop = config.n_fft, config.hop_length
     batch_shape = spec.shape[:-3]
     spec = spec.reshape((-1,) + spec.shape[-3:]).transpose(-2, -3)  # (N, n_frames, F, 2)
-    Ci, Si = _idft_matrices(n_fft, config.window)
-    frames = spec[..., 0] @ _const(Ci, spec) + spec[..., 1] @ _const(Si, spec)
+    frames = (spec[..., 0] @ _const(_idft_matrix, (n_fft, config.window, 0), spec)
+              + spec[..., 1] @ _const(_idft_matrix, (n_fft, config.window, 1), spec))
     n_frames = frames.shape[-2]
     total = n_fft + hop * (n_frames - 1)
     y = F.fold(frames.transpose(1, 2), output_size=(1, total),
                kernel_size=(1, n_fft), stride=(1, hop))[:, 0, 0]  # (N, total)
-    y = y * _const(_ola_envelope(n_frames, n_fft, hop, config.window), y)
+    y = y * _const(_ola_envelope, (n_frames, n_fft, hop, config.window), y)
 
     pad = n_fft // 2
     if length is not None:

@@ -6,9 +6,14 @@ hops before it reaches the model, exactly as the reference pads it for its
 compile cache; the model then pads the spectrogram's frame axis to a
 multiple of 64 as well. So a file of T samples meets NCSN++ at the width the
 reference computes (a 4 s file at hop 128: 65536 samples, 576 frames), and
-its output, cut back to T samples, is the reference's. There is no compile
-cache here: the bucket fixes the shapes, and with them the cuDNN plans and
-allocator blocks that later calls of the same bucket reuse.
+its output, cut back to T samples, is the reference's.
+
+The reference compiles one program per bucket and row count; here, on a
+CUDA device, each call is the replay of one captured CUDA graph per bucket,
+row count and configuration (`utils/graphs.graphed_enhance`), bit for bit
+the eager call's. A shape's first call runs the eager loop, its second
+warms up and captures, later calls replay (`warm_up` captures at once);
+`graphs=False` runs the eager loop, to compare.
 
 The model computes in its own dtype (`model.enhance` casts); the waveforms,
 the pinned upload buffers and the outputs stay float32.
@@ -27,6 +32,7 @@ import torch
 
 from ..sampling.samplers import NoiseSource
 from ..signal.stft import stft_real
+from .graphs import eager_reason, graphed_enhance, programs_of
 from .metrics import pesq_wb, si_sdr
 from .stoi import stoi
 
@@ -41,10 +47,15 @@ class BucketedEnhancer:
     `enhance_kwargs` go to `model.enhance` (N, sampler_type, predictor,
     corrector, corrector_steps, snr, method, rtol, atol, sweeps, quant,
     deepcache, deepcache_depth).
+    `graphs`: every call replays its shape's captured program (on a CPU
+    device: runs its body on the program's static buffers), except rk45,
+    which runs eagerly; False calls `model.enhance` directly, the eager
+    loop the programs are compared with.
     """
 
     def __init__(self, model, bucket_frames: int = 64, minibatch: Optional[int] = None,
-                 data_parallel: bool = False, seq_parallel: int = 0, **enhance_kwargs):
+                 data_parallel: bool = False, seq_parallel: int = 0, graphs: bool = True,
+                 **enhance_kwargs):
         if data_parallel or (seq_parallel and seq_parallel > 1):
             raise NotImplementedError(
                 "data_parallel / seq_parallel serving over several GPUs is not ported yet "
@@ -54,6 +65,21 @@ class BucketedEnhancer:
         self.enhance_kwargs = enhance_kwargs
         self.bucket_samples = bucket_frames * model.stft_config.hop_length
         self.minibatch = minibatch
+        self.graphs = graphs
+
+    @property
+    def execution(self) -> str:
+        """How calls run: "graph" (CPU: the programs' bodies, eagerly),
+        "eager: rk45" where a graph cannot serve, or "eager"."""
+        if not self.graphs:
+            return "eager"
+        reason = eager_reason(self.enhance_kwargs)
+        return f"eager: {reason}" if reason else "graph"
+
+    @property
+    def graph_stats(self) -> dict:
+        """The model's captured programs' counters (`utils/graphs.Programs.stats`)."""
+        return dict(programs_of(self.model).stats)
 
     def padded_len(self, T: int) -> int:
         """The bucketed input length of a T-sample waveform."""
@@ -83,8 +109,23 @@ class BucketedEnhancer:
             return t.pin_memory().to(self.device, non_blocking=True)
         return t.to(self.device)
 
-    def _enhance(self, y: torch.Tensor, generator, noise) -> Tuple[torch.Tensor, int]:
+    def _enhance(self, y: torch.Tensor, generator, noise,
+                 warm_up: bool = False) -> Tuple[torch.Tensor, int]:
+        if self.graphs:
+            return graphed_enhance(self.model, y, generator, noise, warm_up=warm_up,
+                                   **self.enhance_kwargs)
         return self.model.enhance(y, generator=generator, noise=noise, **self.enhance_kwargs)
+
+    def warm_up(self, y: np.ndarray, generator: Optional[torch.Generator] = None) -> None:
+        """One call on (T,) or (B, T) float32 waveforms that also makes their
+        shape's program (on a card: the eager loop, then the capture), so
+        that the shape's next call replays; a server warms its row ladder so
+        before traffic. B: the rows of one call (with `minibatch`, B =
+        minibatch)."""
+        y = np.atleast_2d(np.asarray(y, np.float32))
+        x_hat, _ = self._enhance(self._upload(y), generator, None, warm_up=True)
+        if x_hat.is_cuda:
+            torch.cuda.current_stream(x_hat.device).synchronize()
 
     def enhance_async(self, y: np.ndarray, generator: Optional[torch.Generator] = None,
                       noise: Optional[NoiseSource] = None) -> Tuple[torch.Tensor, int]:
@@ -94,8 +135,10 @@ class BucketedEnhancer:
         computed. Returns (x_hat, nfe): x_hat (B, padded T) on the model's
         device, still being computed on its current stream; the caller
         finalizes on that stream (an event recorded after it, or a copy to
-        the host) and keeps x_hat alive until then. The host returns once
-        it has enqueued every forward of the sampler."""
+        the host) and keeps x_hat alive until then. x_hat is the caller's
+        own: a later call of the same shape does not overwrite it. The host
+        returns once it has enqueued one graph replay (the eager loop:
+        every forward of the sampler)."""
         if not self.supports_async:
             raise NotImplementedError(
                 "enhance_async requires minibatch=None and a sampler that enqueues without "
@@ -151,7 +194,8 @@ def evaluate_model(model, valid_set, num_eval_files: int, noise: Optional[NoiseS
     from `noise` if given (tests replay the reference's), else from a
     generator seeded with 0 on every call, as the reference takes
     PRNGKey(0) per call: two calls on the same weights enhance with the same
-    noise.
+    noise. The model's captured programs outlive the call: the trainer's
+    next evaluation replays them with the weights swapped in then.
 
     With `spec`, the spectrogram lists for the logger: ([noisy], [enhanced],
     [clean]) packed-real STFTs (F, frames, 2) as numpy arrays, of the first

@@ -15,10 +15,13 @@ depends only on the sequence of batches. When the enhancer supports
 `enhance_async`, the dispatcher enqueues a batch's work and the copy of its
 output to pinned host memory, records an event after them, and goes on to
 form the next batch; a finalizer thread waits on each event in order and
-delivers the responses. In eager PyTorch the host returns from
-`enhance_async` only after enqueueing every forward of the sampler (the
-launch queue throttles it to about the device's pace), so this overlaps each
-batch's tail and its delivery with the next batch, not whole batches.
+delivers the responses. On a card `enhance_async` returns once it has
+enqueued one replay of the batch's captured graph, so up to
+`pipeline_depth` whole batches are queued on the device while the next
+forms; each batch's output is a tensor of its own (the enhancer copies the
+graph's static output, which the next replay of that shape overwrites). In
+the eager loop the host returns only after enqueueing every forward of the
+sampler, so that overlaps each batch's tail and its delivery with the next.
 """
 from __future__ import annotations
 

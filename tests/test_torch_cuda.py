@@ -694,3 +694,145 @@ def test_distilled_student_on_the_card(cuda):
     assert counts == (60, 10) and nfe == 2 and launched == 24
     assert (g_kernel - g_plain).norm() <= 1e-5 * g_plain.norm()
     assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+GRAPH_TINY = {"mode": "regen-joint-training", "nf": 16, "ch_mult": [1, 2, 2],
+              "init_scale": 1.0, "n_fft": 62, "hop_length": 16}
+
+
+def _graph_waves(rows=2, T=1500):
+    return np.stack([np.sin(np.arange(T) / (5.0 + i)).astype(np.float32) for i in range(rows)])
+
+
+def _all_int8(model):
+    """A scale of 0.5 on every conv of 16 or more input and output channels."""
+    from storm_tpu_torch.nn.qconv import quantizable_convs
+    return {k: {n: 0.5 for n, m in quantizable_convs(getattr(model, net)).items()
+                if m.in_channels >= 16 and m.out_channels >= 16}
+            for k, net in (("denoiser", "denoiser_net"), ("score", "score_net"))}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kw", [
+    dict(N=3, corrector="ald"), dict(N=3, sampler_type="ode", method="etd2"),
+    dict(N=3, sampler_type="picard", sweeps=2), dict(N=4, corrector="ald", deepcache=2),
+    dict(N=2, corrector="ald", quant="int8")],
+    ids=["pc-ald", "etd2", "picard", "dc2", "int8"])
+def test_graph_replay_equals_eager_on_the_card(cuda, dtype, kw):
+    """Tiny StoRM: the first call (the eager loop), the second (eager
+    warm-up, then the capture) and two replays, each from its own generator
+    state, equal the eager loop's calls from the same states bit for bit."""
+    from storm_tpu_torch.utils import graphs
+    model = build_model(dict(GRAPH_TINY, dtype=dtype), device=cuda, seed=0)
+    if kw.get("quant") == "int8":
+        kw = dict(kw, quant=_all_int8(model))
+    eager = BucketedEnhancer(model, graphs=False, **kw)
+    graphed = BucketedEnhancer(model, **kw)
+    y = _graph_waves()
+    for seed in (0, 1, 2, 3):
+        want, nfe = eager(y, torch.Generator(device=cuda).manual_seed(seed))
+        got, gnfe = graphed(y, torch.Generator(device=cuda).manual_seed(seed))
+        assert gnfe == nfe
+        np.testing.assert_array_equal(got, want)
+    stats = graphs.programs_of(model).stats
+    assert (stats["first_calls"], stats["captures"], stats["replays"]) == (1, 1, 2)
+    assert stats["pool_bytes"] > 0 and stats["static_bytes"] > 0
+
+
+def test_graph_replays_add_their_launches_to_the_counters(cuda):
+    """A replay adds to the K1 and K3 counters what the eager call launches."""
+    model = build_model(GRAPH_TINY, device=cuda, seed=0)
+    kw = dict(N=2, corrector="ald", quant=_all_int8(model))
+    y = _graph_waves(1)
+    per_call = []
+    for graphs_on in (False, True, True, True, True):
+        enh = BucketedEnhancer(model, graphs=graphs_on, **kw)
+        before = (kup.upfirdn2d_cuda.launches, kq.quantize_int8_cuda.launches)
+        enh(y, torch.Generator(device=cuda).manual_seed(0))
+        per_call.append((kup.upfirdn2d_cuda.launches - before[0],
+                         kq.quantize_int8_cuda.launches - before[1]))
+    n_fwd = 1 + 2 * 2
+    assert per_call[0][0] == 12 * n_fwd and per_call[0][1] > 0
+    # eager, the first call (eager), warm-up + capture, two replays
+    assert per_call == [per_call[0]] * 5
+
+
+@pytest.mark.parametrize("what", ["sync", "upload"])
+def test_a_capture_that_syncs_or_uploads_raises(cuda, what):
+    """The body reads the device (or uploads from pageable memory) after
+    its work: the first call (the eager loop) and the warm-up run, the
+    capture raises naming it, and no program is kept: no eager fallback."""
+    from storm_tpu_torch.utils import graphs
+    model = build_model(GRAPH_TINY, device=cuda, seed=0)
+    real = model.enhance
+
+    def broken(y, **kw):
+        x, nfe = real(y, **kw)
+        if what == "sync":
+            x = x * float(x.abs().max())
+        else:
+            x = x + torch.ones(x.shape[-1]).to(x.device)
+        return x, nfe
+
+    y = torch.from_numpy(_graph_waves(1)).to(cuda)
+    with mock.patch.object(model, "enhance", broken):
+        graphs.graphed_enhance(model, y, torch.Generator(device=cuda).manual_seed(0), N=2)
+        with pytest.raises(RuntimeError, match="no eager fallback"):
+            graphs.graphed_enhance(model, y, torch.Generator(device=cuda).manual_seed(0), N=2)
+    assert not graphs.programs_of(model).programs
+    x, _ = graphs.graphed_enhance(model, y, torch.Generator(device=cuda).manual_seed(0), N=2)
+    assert torch.isfinite(x).all()
+
+
+def test_moved_parameters_capture_anew_on_the_card(cuda):
+    """Parameters moved to new storage drop the model's programs (their
+    graphs release the pool); the next call captures into a new pool and
+    its replays equal the eager loop with the moved weights."""
+    from storm_tpu_torch.utils import graphs
+    model = build_model(GRAPH_TINY, device=cuda, seed=0)
+    y = torch.from_numpy(_graph_waves(1)).to(cuda)
+
+    def gen(seed):
+        return torch.Generator(device=cuda).manual_seed(seed)
+
+    graphs.graphed_enhance(model, y, gen(0), N=2, warm_up=True)
+    graphs.graphed_enhance(model, y, gen(1), N=2)
+    p = next(model.parameters())
+    p.data = p.data * 1.5  # new storage
+    for seed in (2, 3):  # the capture anew, then a replay
+        got, _ = graphs.graphed_enhance(model, y, gen(seed), N=2)
+        want, _ = model.enhance(y, N=2, generator=gen(seed))
+        assert torch.equal(got, want)
+    stats = graphs.programs_of(model).stats
+    assert (stats["invalidated"], stats["captures"], stats["replays"]) == (1, 2, 2)
+
+
+def test_queued_batches_of_one_shape_stay_distinct(cuda):
+    """The pipelined server keeps two batches of one shape in flight; each
+    reply is its own batch's output (the denoiser-only model draws no
+    noise, so each equals the eager loop on its input)."""
+    model = build_model(dict(GRAPH_TINY, mode="denoiser-only"), device=cuda, seed=0)
+    enh = BucketedEnhancer(model)
+    waves = [np.sin(np.arange(1500) / (3.0 + i)).astype(np.float32) for i in range(6)]
+    enh.warm_up(np.zeros((1, 2048), np.float32))  # captured before traffic
+    batcher = DynamicBatcher(enh, None, max_batch=1, max_wait_ms=0.0, pipeline_depth=2)
+    outs = [None] * len(waves)
+    try:
+        assert batcher._async
+
+        def work(i):
+            outs[i] = batcher.submit(waves[i], timeout=120)
+
+        threads = [threading.Thread(target=work, args=(i,)) for i in range(len(waves))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+            assert not t.is_alive()
+    finally:
+        batcher.close()
+    assert batcher.stats["batches"] == len(waves) and batcher.stats["errors"] == 0
+    eager = BucketedEnhancer(model, graphs=False)
+    for (x, _), w in zip(outs, waves):
+        np.testing.assert_array_equal(x, eager(w)[0])
+    assert len({x.tobytes() for x, _ in outs}) == len(waves)

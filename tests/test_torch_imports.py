@@ -60,5 +60,5 @@ def test_port_imports_no_jax():
                      "storm_tpu_torch.models.score", "storm_tpu_torch.models.discriminative",
                      "storm_tpu_torch.models.distill",
                      "storm_tpu_torch.scripts.make_synth_corpus",
-                     "storm_tpu_torch.scripts.nfe_quality"):
+                     "storm_tpu_torch.scripts.nfe_quality", "storm_tpu_torch.utils.graphs"):
         assert expected in names, names
