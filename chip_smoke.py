@@ -14,7 +14,8 @@ Phases, each of which exits non-zero on failure:
    PyTorch version; kernel, plain and library-call times (CUDA events, back to
    back: a small call shows the host's enqueue cost) and the kernel's device
    time (`device_ms`, from profiler kernel events, each call after a read
-   that clears the L2) beside the memory bound.
+   that clears the L2) beside the memory bound, and one line of their sums
+   over the 18 calls of a score forward (the kernel's row per forward).
    The same check, untimed, at the widths of the shorter files (192 and 384
    frames).
 4. full-width NCSN++: one 27.8M score-net forward through the kernel and
@@ -97,8 +98,9 @@ Phases, each of which exits non-zero on failure:
    against plain, within 1 ulp of each element (NCSN++'s FIR: equal; an
    asymmetric FIR's inexact products add their float32 rounding), the
    elements that differ counted; kernel (event and L2-cold device time),
-   plain and bf16 library-call times beside the 2 B-per-element bound. The
-   adjoint's bf16 instance at every train-step backward shape. GroupNorm on
+   plain and bf16 library-call times beside the 2 B-per-element bound, and
+   their sums per score forward on one line. The adjoint's bf16 instance at
+   every train-step backward shape. GroupNorm on
    bf16 with float32 scale and bias against float32 GroupNorm rounded once.
    One full-width NCSN++ forward in bf16 through the kernel and the plain
    version, and its time against float32's.
@@ -125,7 +127,8 @@ Phases, each of which exits non-zero on failure:
    plus the float32 sum's rounding (the elements that differ counted with
    phase 18's); the backward kernel timed (event and L2-cold device time)
    beside the plain backward, the bf16 adjoint library call and the 2
-   B-per-element bound. One full-width bf16 step's gradients (B=2, cuDNN
+   B-per-element bound, and their sums per step (33 calls) on one line. One
+   full-width bf16 step's gradients (B=2, cuDNN
    deterministic): 36 + 33 launches, all bf16; the L2 distance from the
    plain path's at most 0.1, and from the float32 step's at least 0.5, of
    the plain path's bf16-against-f32 distance. One B=8 bf16 step timed and
@@ -685,14 +688,25 @@ def phase_kernel_vs_plain(gen: torch.Generator):
                                          bytes_ms=bound_bytes_ms, ops_ms=bound_ops_ms,
                                          lib_err=lib_err, out=f"{Ho}x{Wo}")
         launch[(cfg, C, H, W)] = functools.partial(kup.upfirdn2d_cuda, x, c["kernel"], **args)
-    print_per_shape("upfirdn2d", per_shape, launch, "upfirdn2d_")
+    print_per_shape("upfirdn2d", per_shape, launch, "upfirdn2d_", k1_calls(6), "score forward")
     return per_shape, max_err
 
 
-def print_per_shape(what: str, per_shape, launch, stem: str):
-    """Add each shape's device time to its times and print one line per shape."""
+def print_per_shape(what: str, per_shape, launch, stem: str, calls=None, per: str = ""):
+    """Add each shape's device time to its times and print one line per shape;
+    with `calls` (shapes, repeated as the path runs them), then one line of
+    their sums: the kernel's row per forward or per step."""
     for key, dev in zip(launch, device_ms(list(launch.values()), stem)):
         per_shape[key]["device_ms"] = dev
+    if calls is not None:
+        total = {k: sum(per_shape[c][k] for c in calls)
+                 for k in ("ms", "device_ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms")}
+        bound = max(total["bytes_ms"], total["ops_ms"])
+        by = "bytes" if total["bytes_ms"] >= total["ops_ms"] else "operations"
+        print(f"  {what} per {per} ({len(calls)} calls): device_ms={total['device_ms']:.5f} "
+              f"bound_ms={bound:.5f} ({by}) device/bound={total['device_ms'] / bound:.3f} "
+              f"ms={total['ms']:.5f} plain_ms={total['plain_ms']:.5f} "
+              f"library_ms={total['library_ms']:.5f}", flush=True)
     for (cfg, C, H, W), r in per_shape.items():
         by = "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations"
         print(f"  {what} {cfg:4s} C={C:3d} {H:3d}x{W:3d} -> {r['out']}: ms={r['ms']:.5f} "
@@ -875,7 +889,8 @@ def phase_backward_vs_plain(gen: torch.Generator):
                                          bytes_ms=bytes_ms, ops_ms=ops_ms, lib_err=lib_err,
                                          out=f"(g {Ho}x{Wo} -> grad x {H}x{W})")
         launch[(cfg, C, H, W)] = functools.partial(kup.upfirdn2d_bwd_cuda, *bwd)
-    print_per_shape(f"upfirdn2d_bwd (B={TRAIN_B}) of", per_shape, launch, "upfirdn2d_")
+    print_per_shape(f"upfirdn2d_bwd (B={TRAIN_B}) of", per_shape, launch, "upfirdn2d_",
+                    k1_bwd_calls(), "joint-training step")
     print(f"  forward at every train-step shape: max abs err {fwd_err:.2e}; backward: "
           f"max abs err {max_err:.2e}", flush=True)
     return per_shape, max_err, fwd_err
@@ -2034,7 +2049,8 @@ def phase_bf16_kernels(gen: torch.Generator):
             library_ms=time_ms(lambda: lib(x)), bytes_ms=bytes_ms, ops_ms=ops_ms,
             lib_err=lib_err, out=f"{Ho}x{Wo}", flips=flips)
         launch[(cfg, C, H, W)] = functools.partial(kup.upfirdn2d_cuda, x, c["kernel"], **args)
-    print_per_shape("upfirdn2d bf16", per_shape, launch, "upfirdn2d_")
+    print_per_shape("upfirdn2d bf16", per_shape, launch, "upfirdn2d_", k1_calls(6),
+                    "score forward")
     print("  (bf16 lib_err in ulps of the output's scale; flips: elements that differ from "
           "plain, NCSN++'s FIR / the asymmetric one)", flush=True)
 
@@ -2401,7 +2417,8 @@ def phase_bf16_backward(gen: torch.Generator):
             library_ms=time_ms(lambda: lib(g)), bytes_ms=bytes_ms, ops_ms=ops_ms,
             lib_err=lib_err, out=f"(g {Ho}x{Wo} -> grad x {H}x{W})")
         launch[(cfg, C, H, W)] = functools.partial(kup.upfirdn2d_bwd_cuda, *bwd)
-    print_per_shape(f"upfirdn2d_bwd bf16 (B={TRAIN_B}) of", per_shape, launch, "upfirdn2d_")
+    print_per_shape(f"upfirdn2d_bwd bf16 (B={TRAIN_B}) of", per_shape, launch, "upfirdn2d_",
+                    k1_bwd_calls(), "joint-training step")
     flips = BF16_FLIPS["upfirdn2d_bwd"]
     print(f"  bf16 forward and gradient at every train-step shape within their allowance of "
           f"plain, max abs err {max_err:.2e}; adjoint elements that differ (phases 18 and 24): "

@@ -21,130 +21,156 @@
 // 3.35 TB/s, E = 4 bytes per element for float32 and 2 for bfloat16: every
 // input read once, every output written once.
 //
-// Design. A block of 256 threads owns one output tile of one plane at a
-// time (down: 16 x 64 outputs, up: 32 x 128) and loops over tiles with two
-// shared-memory buffers: while it computes one tile, `cp.async` fills the
-// other with the next tile's input window and halo (down: 2*TH+2 rows x
-// 2*TW+2 columns; up: TH/2+2 x TW/2+2). The fill writes the zeros of the pad,
-// of a negative pad's crop and of the ragged edges (`cp.async` with a source
-// size of 0), so the inner loops have no bounds tests. Shared memory holds
-// the input's own type, in chunks of 4 elements (16 bytes of float32, 8 of
-// bfloat16). Where every input row starts on a chunk (W % 4 == 0 and an
-// aligned base) the fill copies a chunk at a time (`cp.async` of 16 or 8
-// bytes); otherwise one element at a time: `cp.async` of 4 bytes for
-// float32, and for bfloat16, whose 2-byte elements `cp.async` cannot copy, a
-// plain load and shared-memory store (the main path's widths are all
-// multiples of 8 and never take it). The window's first column is a multiple
-// of 4 in the input, so the offset of a thread's columns within its chunks
-// depends on pad0 modulo 4 or 8 alone; it is the template argument S, and
-// every register index is a compile-time constant.
-// The tile's origin absorbs pad0: for up=2 a tile starts on an even
-// zero-inserted coordinate, so it may begin one output row or column before
-// the image (those outputs are not stored), and each 2 x 2 output quad reads
-// a 3 x 3 input neighbourhood with its taps known at compile time.
-// Several outputs per thread, read from shared memory a chunk at a time and
-// summed in float32 (fused multiply-adds):
-//   down: a thread computes 2 rows x 2 neighbouring columns (stores of 2
-//         elements); the 6 input columns they share are loaded once per
-//         input row.
-//   up:   a thread computes two quad rows x two quads, 4 x 4 outputs
-//         (stores of 4 elements), from 4 x 4 input values.
-// A bfloat16 output is rounded once, to nearest even. A warp stores whole
-// contiguous output row segments. Stores fall back to scalars at the ragged
-// edge or where the output row is not aligned; nothing else depends on the
-// shape, so any H, W >= 1, any plane count (the grid is one-dimensional over
-// tiles) and any element-aligned pointers work. The taps travel as a
-// by-value kernel argument (constant bank), in float32 for both types: the
-// NCSN++ FIR, outer([1,3,3,1]) / 64 (times 4 for up), is exact in bfloat16,
-// so they are the taps the reference casts to x's type, and a bfloat16 input
-// times a tap is exact in float32.
+// Design. The wrapper (kernels/upfirdn.py `tile_plan`) cuts the output into
+// tiles of th x tw of one plane and hands the kernel the plan: tiles per
+// axis, the output origin of tile (0, 0) (the up config's lead: a tile starts
+// on an even zero-inserted coordinate, so it may begin one output row or
+// column before the image), the input origin of its box and the step per
+// tile, the box size, the window's shift in the box, the ring's depth and
+// the grid. The column tile divides the bucket widths (64 k frames) wherever
+// a width allows it, and the row tile is sized in bytes, so a bfloat16 box
+// holds as many bytes as a float32 one. A persistent block of 8 consumer
+// warps and one producer warp walks the tiles blockIdx.x, + gridDim.x, ...:
+// the producer's elected thread keeps the next stages of a ring in shared
+// memory loading (full / empty mbarriers) while the consumers compute the
+// current one. Each stage is one TMA tiled copy (`cp.async.bulk.tensor.3d`,
+// tensor map over (W, H, planes), encoded per call by cuTensorMapEncodeTiled,
+// looked up through the runtime, and passed as a __grid_constant__
+// parameter, which a captured graph keeps by value): its out-of-bounds zero
+// fill writes the pad, the negative pad's crop and the ragged edges, so the
+// inner loops have no bounds tests.
+// A box's first column is a multiple of 16 bytes (a copy whose innermost
+// start coordinate is not has faulted with an illegal instruction on an
+// H100), so the tile's window starts S columns into it, S = 0 .. n-1 (n =
+// 16 / sizeof(T)): one instance per S keeps every register index a
+// compile-time constant. Rows TMA cannot take (W * E not a multiple of 16
+// bytes, or a base off 16 bytes) are filled by the producer warp's 32
+// threads element by element into the same layout; the main path never
+// takes that fill.
+// Consumers read shared memory and write device memory 16 bytes at a time:
+// a work item is two output rows of one tile by one 16-byte chunk of n
+// outputs, so a warp's lanes store consecutive chunks of a row (down: rows
+// 2j .. 2j+5 of the window and columns 2i .. 2i+2n+1; up: one quad row, each
+// 2 x 2 output quad reading a 3 x 3 input neighbourhood with its taps known
+// at compile time). Each output is summed in float32 from +0 with fused
+// multiply-adds, ky outer and kx inner (the plain version's order; the zero
+// taps of the zero-insertion are skipped), and a bfloat16 output is rounded
+// once, to nearest even: with NCSN++'s FIR, outer([1,3,3,1]) / 64 (times 4
+// for up), whose taps are exact in bfloat16 and whose products with
+// bfloat16 values are exact in float32, the output equals the plain version
+// bit for bit. Stores fall back to elements at the ragged edge, for a lead
+// column or an unaligned output; any H, W >= 1 and any plane count below
+// 2^31 work. The taps travel as a by-value kernel argument (constant bank),
+// in float32. The 18 calls of a full-width score forward take 1.53x their
+// bound in bfloat16 and 1.33x in float32 on an NVIDIA H100 80GB HBM3 at
+// 700 W (chip_smoke.py; PERF.md §6).
 //
 // C interface for ctypes: the function returns cudaGetLastError() after the
 // launch (0 on success); `taps` is a host pointer to K*K floats, used flipped
 // in both axes when `flip` is set (the adjoint's taps); dtype 0 is float32,
-// 1 bfloat16.
+// 1 bfloat16; `plan` points to kPlanLen ints laid out as PlanField.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+#include <utility>
+
 namespace {
 
-// Tile heights: output rows per thread (down) and quad rows per thread (up).
-// Of 1, 2 and 4, timed on an H100 at the largest calls of a score forward
-// and of a train step's backward (tools/upfirdn_tiles.py), 2 was within 4%
-// of the fastest at each, the fastest at the forward's up call, and needs
-// fewer registers than 4 (PERF.md).
-constexpr int kDownRows = 2;
-constexpr int kUpQuadRows = 2;
 constexpr int kTaps = 4;
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxDevices = 64;
+constexpr int kConsumerWarps = 8;
+constexpr int kConsumers = 32 * kConsumerWarps;
+constexpr int kThreads = kConsumers + 32;  // and one producer warp
+constexpr int kMinBlocks = 2;              // resident blocks per SM the registers must allow
+constexpr int kMaxStages = 8;
+constexpr int kMaxDynSmem = 112 * 1024;    // two blocks' rings fit in an SM's 228 KB
+
+// The plan's fields, in the order kernels/upfirdn.py writes them.
+enum PlanField {
+  kTh, kTw, kTilesY, kTilesX, kOy0, kOx0, kIy0, kIx0, kIyStep, kIxStep, kBoxH, kBoxW, kGrid,
+  kStages, kTma, kVecOut, kSx, kPlanLen
+};
 
 struct Taps {
   float w[kTaps * kTaps];
 };
 
-// Where a tile lies: its plane, its first output row and column, and the
-// input coordinates of its shared-memory window's first row and column.
-struct Tile {
-  long long plane;
-  int oy0, ox0, iy0, ix0;
+struct Plan {
+  long long tiles;
+  int th, tw, tiles_y, tiles_x, oy0, ox0, iy0, ix0, iy_step, ix_step, box_h, box_w, stages;
+  int stage_elems;  // elements between two stages' first elements (128-byte multiples)
+  bool tma, vec_out;
 };
 
 using bf16 = __nv_bfloat16;
 
-// One chunk of 4 elements, global -> shared, or zeros when !copy: 16 bytes
-// of float32, 8 of bfloat16.
-__device__ __forceinline__ void cp_async_chunk(float* dst, const float* src, bool copy) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(d), "l"(src), "r"(copy ? 16 : 0) : "memory");
+// Elements of T in 16 bytes: a chunk.
+template <class T>
+__host__ __device__ constexpr int chunk() {
+  return 16 / sizeof(T);
 }
 
-__device__ __forceinline__ void cp_async_chunk(bf16* dst, const bf16* src, bool copy) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
-               :: "r"(d), "l"(src), "r"(copy ? 8 : 0) : "memory");
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// One element, global -> shared, or a zero when !copy.
-__device__ __forceinline__ void copy_element(float* dst, const float* src, bool copy) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(d), "l"(src), "r"(copy ? 4 : 0) : "memory");
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
 }
 
-__device__ __forceinline__ void copy_element(bf16* dst, const bf16* src, bool copy) {
-  *reinterpret_cast<uint16_t*>(dst) = copy ? *reinterpret_cast<const uint16_t*>(src) : 0;
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
 }
 
-// A chunk of shared memory as 4 floats (a bfloat16's float is its bits
-// shifted left by 16, exactly; the lower address holds the lower half).
-__device__ __forceinline__ float4 load_chunk(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
 }
 
-__device__ __forceinline__ float4 load_chunk(const bf16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+// Wait until the barrier's phase with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile("{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 " selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  }
 }
 
-// Stores of 1, 2 and 4 outputs; bfloat16 rounds to nearest even.
-__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store1(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
-
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+// One box of the tensor map at (column, row, plane) into shared memory,
+// completing `bytes` of the barrier's transaction count.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int x, int y, int plane) {
+  asm volatile("cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+               " [%0], [%1, {%3, %4, %5}], [%2];\n"
+               :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(x), "r"(y),
+                  "r"(plane)
+               : "memory");
 }
 
-__device__ __forceinline__ void store2(bf16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+// 16 bytes of shared memory as floats: 4 of float32, 8 of bfloat16 (a
+// bfloat16's float is its bits shifted left by 16, exactly; the lower address
+// holds the lower half).
+__device__ __forceinline__ void load16(const float* p, float* v) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
 }
 
-__device__ __forceinline__ void store4(float* p, const float* v) {
+__device__ __forceinline__ void load16(const bf16* p, float* v) {
+  const uint4 q = *reinterpret_cast<const uint4*>(p);
+  const uint32_t u[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(u[i] << 16);
+    v[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+  }
+}
+
+// 16 bytes of outputs to device memory; bfloat16 rounds to nearest even.
+__device__ __forceinline__ void store16(float* p, const float* v) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
 
@@ -153,305 +179,386 @@ __device__ __forceinline__ uint32_t bf16_pair(float a, float b) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-__device__ __forceinline__ void store4(bf16* p, const float* v) {
-  *reinterpret_cast<uint2*>(p) = make_uint2(bf16_pair(v[0], v[1]), bf16_pair(v[2], v[3]));
+__device__ __forceinline__ void store16(bf16* p, const float* v) {
+  *reinterpret_cast<uint4*>(p) = make_uint4(bf16_pair(v[0], v[1]), bf16_pair(v[2], v[3]),
+                                            bf16_pair(v[4], v[5]), bf16_pair(v[6], v[7]));
+}
+
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store1(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+// One output row's chunk of n = 16 / sizeof(T) values at column ox: a 16-byte
+// store, or element stores where the chunk leaves [0, Wo) or `vec` is off.
+template <class T>
+__device__ __forceinline__ void store_chunk(T* row, const float* v, int ox, int Wo, bool vec) {
+  constexpr int n = chunk<T>();
+  if (vec && ox + n <= Wo) {
+    store16(row + ox, v);
+  } else {
+#pragma unroll
+    for (int e = 0; e < n; ++e)
+      if (ox + e >= 0 && ox + e < Wo) store1(row + ox + e, v[e]);
+  }
 }
 
 __device__ __forceinline__ float tap(const Taps& t, int ky, int kx) {
   return t.w[(kTaps - 1 - ky) * kTaps + (kTaps - 1 - kx)];  // the flip
 }
 
-// Elements of one shared-memory buffer of `rows` x `pitch`, rounded up so
-// that the second buffer starts on 16 bytes in either type.
-constexpr int buffer_elems(int rows, int pitch) { return (rows * pitch + 7) & ~7; }
+// Chunks an item row reads from its first chunk: `cols` columns that start
+// `s` columns into it.
+__host__ __device__ constexpr int chunks_read(int s, int cols, int e) {
+  return (s + cols + e - 1) / e;
+}
 
-// up=1, down=2. A warp owns kRows output rows of the tile, lane t the
-// columns 2t and 2t+1. Output (j, i) of the tile reads window rows 2j + ky
-// and columns S + 2i + kx.
+// up=1, down=2. An item is output rows 2r, 2r+1 of the tile by the n outputs
+// of chunk c (n = chunk<T>()): output (j, i) reads window rows 2j + ky and
+// columns 2i + kx, so the item reads box rows 4r .. 4r+5 and, from box column
+// 2nc on, columns S .. S+2n+1 (S: the window's first column in the box,
+// which starts on 16 bytes, as TMA needs).
 struct Down {
-  static constexpr int kRows = kDownRows;
-  static constexpr int TH = kRows * kWarps;
-  static constexpr int TW = 64;
-  static constexpr int ROWS = 2 * TH + 2;
-  static constexpr int PITCH = 4 * (TW / 2 + 2);  // >= 3 + 2*TW + 2 columns
-  static constexpr int ELEMS = buffer_elems(ROWS, PITCH);  // one buffer
-
-  static __host__ __device__ int shift(int pad0) { return -pad0 & 3; }
-  static __host__ int tiles_y(int Ho, int) { return (Ho + TH - 1) / TH; }
-  static __host__ int tiles_x(int Wo, int) { return (Wo + TW - 1) / TW; }
-
-  template <int S>
-  static __device__ __forceinline__ Tile locate(long long plane, int ty, int tx, int pad0) {
-    const int oy0 = ty * TH, ox0 = tx * TW;
-    return {plane, oy0, ox0, 2 * oy0 - pad0, 2 * ox0 - pad0 - S};
+  template <class T>  // a tile's width is a multiple of this
+  __host__ __device__ static constexpr int tw_unit() { return chunk<T>(); }
+  // box columns the items of a tile read
+  __host__ __device__ static constexpr int need_w(int tw, int s, int e) {
+    return 2 * tw + (s + 2 + e - 1) / e * e;
+  }
+  __host__ __device__ static constexpr int need_h(int th) { return 2 * th + 2; }
+  __device__ static int box_offset(int r, int c, int box_w, int n) {
+    return 4 * r * box_w + 2 * n * c;
   }
 
   template <int S, class T>
-  static __device__ __forceinline__ void compute(const T* buf, T* __restrict__ out,
-                                                 const Taps& taps, int Ho, int Wo, int oy0,
-                                                 int ox0) {
-    constexpr int NCH = S == 3 ? 3 : 2;  // chunks of 4 that hold columns S .. S+5
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const T* base = buf + 2 * kRows * warp * PITCH + 4 * lane;
-    float acc[kRows][2] = {};
+  static __device__ __forceinline__ void item(const T* box, int box_w, T* __restrict__ out,
+                                              const Taps& taps, int Ho, int Wo, int oy, int ox,
+                                              bool vec, int) {
+    constexpr int n = chunk<T>(), nch = chunks_read(S, 2 * n + 2, n);
+    float acc[2][n];
 #pragma unroll
-    for (int rr = 0; rr < 2 * kRows + 2; ++rr) {
-      float v[4 * NCH];
+    for (int j = 0; j < 2; ++j)
 #pragma unroll
-      for (int c = 0; c < NCH; ++c) {
-        const float4 q = load_chunk(base + rr * PITCH + 4 * c);
-        v[4 * c] = q.x, v[4 * c + 1] = q.y, v[4 * c + 2] = q.z, v[4 * c + 3] = q.w;
-      }
+      for (int i = 0; i < n; ++i) acc[j][i] = 0.0f;
 #pragma unroll
-      for (int j = 0; j < kRows; ++j) {
+    for (int rr = 0; rr < 6; ++rr) {
+      float v[nch * n];
+#pragma unroll
+      for (int c = 0; c < nch; ++c) load16(box + rr * box_w + c * n, v + c * n);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
         const int ky = rr - 2 * j;
         if (ky < 0 || ky >= kTaps) continue;
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
+        for (int i = 0; i < n; ++i)
 #pragma unroll
           for (int kx = 0; kx < kTaps; ++kx)
             acc[j][i] = fmaf(v[S + 2 * i + kx], tap(taps, ky, kx), acc[j][i]);
       }
     }
-    const int ox = ox0 + 2 * lane;
 #pragma unroll
-    for (int j = 0; j < kRows; ++j) {
-      const int oy = oy0 + kRows * warp + j;
-      if (oy >= Ho || ox >= Wo) continue;
-      T* p = out + (long long)oy * Wo + ox;
-      if (ox + 1 < Wo && (reinterpret_cast<uintptr_t>(p) % (2 * sizeof(T))) == 0) {
-        store2(p, acc[j][0], acc[j][1]);
-      } else {
-        store1(p, acc[j][0]);
-        if (ox + 1 < Wo) store1(p + 1, acc[j][1]);
-      }
-    }
+    for (int j = 0; j < 2; ++j)
+      if (oy + j >= 0 && oy + j < Ho)
+        store_chunk(out + (long long)(oy + j) * Wo, acc[j], ox, Wo, vec);
   }
 };
 
-// up=2, down=1. The tile starts on an even coordinate of the zero-inserted,
-// padded input, so its origin is output (-(pad0 & 1) + TH*ty, ...). A warp
-// owns kQuadRows quad rows (2 output rows each), lane t the quads 2t and 2t+1
-// (output columns 4t .. 4t+3). Output quad (a, b) reads window rows a .. a+2
-// and columns S + b .. S + b + 2: output row 2a + dy takes window row a + aa
-// with tap ky = 2aa - dy, and the same for columns.
+// up=2, down=1. An item is one quad row r (output rows 2r, 2r+1) by the n
+// outputs of one chunk c (h = n/2 quads): quad (a, b) reads window rows
+// a .. a+2 and columns b .. b+2; output row 2a + dy takes window row a + aa
+// with tap ky = 2aa - dy, and the same for columns. The item reads box rows
+// r .. r+2 and, from box column n*(c/2) on, columns S + h*(c%2) .. + h+1:
+// two neighbouring items read the same chunks (a broadcast) and pick their
+// half, so a warp's lanes store consecutive chunks of a row. A tile's width
+// is a multiple of 2n, so the last pair's reads stay in the box.
 struct Up {
-  static constexpr int kQuadRows = kUpQuadRows;
-  static constexpr int TH = 2 * kQuadRows * kWarps;
-  static constexpr int TW = 128;
-  static constexpr int ROWS = TH / 2 + 2;
-  static constexpr int PITCH = 4 * (TW / 8 + 2);  // >= 3 + TW/2 + 2 columns
-  static constexpr int ELEMS = buffer_elems(ROWS, PITCH);
-
-  // first even coordinate at or before output 0, halved
-  static __host__ __device__ int first_half(int pad0) { return (-pad0 & ~1) >> 1; }
-  static __host__ __device__ int shift(int pad0) { return first_half(pad0) & 3; }
-  static __host__ int tiles_y(int Ho, int pad0) { return (Ho + (pad0 & 1) + TH - 1) / TH; }
-  static __host__ int tiles_x(int Wo, int pad0) { return (Wo + (pad0 & 1) + TW - 1) / TW; }
-
-  template <int S>
-  static __device__ __forceinline__ Tile locate(long long plane, int ty, int tx, int pad0) {
-    const int h = first_half(pad0), lead = -(pad0 & 1);
-    return {plane, lead + ty * TH, lead + tx * TW, h + ty * (TH / 2), h + tx * (TW / 2) - S};
+  template <class T>
+  __host__ __device__ static constexpr int tw_unit() { return 2 * chunk<T>(); }
+  __host__ __device__ static constexpr int need_w(int tw, int s, int e) {
+    return tw / 2 + (s + 2 + e - 1) / e * e;
+  }
+  __host__ __device__ static constexpr int need_h(int th) { return th / 2 + 2; }
+  __device__ static int box_offset(int r, int c, int box_w, int n) {
+    return r * box_w + n * (c >> 1);
   }
 
   template <int S, class T>
-  static __device__ __forceinline__ void compute(const T* buf, T* __restrict__ out,
-                                                 const Taps& taps, int Ho, int Wo, int oy0,
-                                                 int ox0) {
-    constexpr int B = S & 1;
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    // the thread's 4 window columns start at S + 2*lane: in the chunk
-    // (S + 2*lane) / 4, at offset B or B + 2 by the lane's parity
-    const bool odd = (((S >> 1) + lane) & 1) != 0;
-    const T* base = buf + kQuadRows * warp * PITCH + 4 * ((S + 2 * lane) >> 2);
-    float acc[2 * kQuadRows][4] = {};
+  static __device__ __forceinline__ void item(const T* box, int box_w, T* __restrict__ out,
+                                              const Taps& taps, int Ho, int Wo, int oy, int ox,
+                                              bool vec, int c) {
+    constexpr int n = chunk<T>(), h = n / 2, nch = chunks_read(S, n + 2, n);
+    const bool odd = (c & 1) != 0;
+    float acc[2][n];
 #pragma unroll
-    for (int rr = 0; rr < kQuadRows + 2; ++rr) {
-      const float4 q0 = load_chunk(base + rr * PITCH), q1 = load_chunk(base + rr * PITCH + 4);
-      const float f[8] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w};
-      float v[4];
+    for (int dy = 0; dy < 2; ++dy)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) v[i] = odd ? f[B + 2 + i] : f[B + i];
+      for (int i = 0; i < n; ++i) acc[dy][i] = 0.0f;
 #pragma unroll
-      for (int a = 0; a < kQuadRows; ++a) {
-        const int aa = rr - a;
-        if (aa < 0 || aa > 2) continue;
+    for (int aa = 0; aa < 3; ++aa) {
+      float f[nch * n], v[h + 2];
 #pragma unroll
-        for (int dy = 0; dy < 2; ++dy) {
-          const int ky = 2 * aa - dy;
-          if (ky < 0 || ky >= kTaps) continue;
+      for (int k = 0; k < nch; ++k) load16(box + aa * box_w + k * n, f + k * n);
 #pragma unroll
-          for (int b = 0; b < 2; ++b)
+      for (int j = 0; j < h + 2; ++j) v[j] = odd ? f[S + h + j] : f[S + j];
 #pragma unroll
-            for (int dx = 0; dx < 2; ++dx)
+      for (int dy = 0; dy < 2; ++dy) {
+        const int ky = 2 * aa - dy;
+        if (ky < 0 || ky >= kTaps) continue;
 #pragma unroll
-              for (int bb = 0; bb < 3; ++bb) {
-                const int kx = 2 * bb - dx;
-                if (kx < 0 || kx >= kTaps) continue;
-                acc[2 * a + dy][2 * b + dx] =
-                    fmaf(v[b + bb], tap(taps, ky, kx), acc[2 * a + dy][2 * b + dx]);
-              }
-        }
+        for (int b = 0; b < h; ++b)
+#pragma unroll
+          for (int dx = 0; dx < 2; ++dx)
+#pragma unroll
+            for (int bb = 0; bb < 3; ++bb) {
+              const int kx = 2 * bb - dx;
+              if (kx < 0 || kx >= kTaps) continue;
+              acc[dy][2 * b + dx] = fmaf(v[b + bb], tap(taps, ky, kx), acc[dy][2 * b + dx]);
+            }
       }
     }
-    const int ox = ox0 + 4 * lane;
 #pragma unroll
-    for (int r = 0; r < 2 * kQuadRows; ++r) {
-      const int oy = oy0 + 2 * kQuadRows * warp + r;
-      if (oy < 0 || oy >= Ho) continue;
-      T* p = out + (long long)oy * Wo + ox;
-      if (ox >= 0 && ox + 3 < Wo && (reinterpret_cast<uintptr_t>(p) % (4 * sizeof(T))) == 0) {
-        store4(p, acc[r]);
-      } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (ox + e >= 0 && ox + e < Wo) store1(p + e, acc[r][e]);
-      }
-    }
+    for (int dy = 0; dy < 2; ++dy)
+      if (oy + dy >= 0 && oy + dy < Ho)
+        store_chunk(out + (long long)(oy + dy) * Wo, acc[dy], ox, Wo, vec);
   }
 };
 
-// Start the copies of one tile's window into `buf`: zeros where the window
-// leaves the input. vec: every row starts on a chunk (W % 4 == 0, aligned
-// base), so a chunk (its first column a multiple of 4) is wholly inside or
-// wholly outside.
-template <class Cfg, class T>
-__device__ __forceinline__ void fill(T* buf, const T* __restrict__ x, const Tile& t, int H, int W,
-                                     bool vec) {
-  const T* xs = x + t.plane * H * W;
-  if (vec) {
-    constexpr int CH = Cfg::PITCH / 4;
-    for (int i = threadIdx.x; i < Cfg::ROWS * CH; i += kThreads) {
-      const int r = i / CH, c = i - r * CH;
-      const int gy = t.iy0 + r, gx = t.ix0 + 4 * c;
-      const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
-      cp_async_chunk(buf + r * Cfg::PITCH + 4 * c, in ? xs + (long long)gy * W + gx : x, in);
+struct TileAt {
+  long long plane;
+  int oy, ox, iy, ix;
+};
+
+__device__ __forceinline__ TileAt locate(const Plan& p, long long tile) {
+  const long long per_plane = (long long)p.tiles_y * p.tiles_x;
+  const long long plane = tile / per_plane;
+  const int rem = (int)(tile - plane * per_plane);
+  const int ty = rem / p.tiles_x, tx = rem - ty * p.tiles_x;
+  return {plane, p.oy0 + ty * p.th, p.ox0 + tx * p.tw, p.iy0 + ty * p.iy_step,
+          p.ix0 + tx * p.ix_step};
+}
+
+// The producer warp: the loads of the block's tiles, in order, into the ring.
+// TMA: one elected thread waits for a stage to empty and starts its box's
+// copy. Otherwise the warp's 32 threads copy the box element by element,
+// zeros outside the input, and each arrives on the stage's full barrier.
+template <class T>
+__device__ __forceinline__ void produce(const CUtensorMap* map, const T* __restrict__ x,
+                                        const Plan& p, T* ring, const uint64_t* full,
+                                        const uint64_t* empty, int H, int W) {
+  const int lane = threadIdx.x & 31;
+  if (p.tma && lane != 0) return;
+  const uint32_t box_bytes = (uint32_t)(p.box_h * p.box_w * sizeof(T));
+  int s = 0;
+  uint32_t phase = 0;
+  for (long long tile = blockIdx.x, i = 0; tile < p.tiles; tile += gridDim.x, ++i) {
+    if (i >= p.stages) mbar_wait(smem_addr(&empty[s]), phase ^ 1);
+    const TileAt t = locate(p, tile);
+    T* box = ring + (long long)s * p.stage_elems;
+    if (p.tma) {
+      mbar_expect_tx(smem_addr(&full[s]), box_bytes);
+      tma_load(smem_addr(box), map, smem_addr(&full[s]), t.ix, t.iy, (int)t.plane);
+    } else {
+      const T* xs = x + t.plane * H * W;
+      for (int r = 0; r < p.box_h; ++r) {
+        const int gy = t.iy + r;
+        for (int c = lane; c < p.box_w; c += 32) {
+          const int gx = t.ix + c;
+          const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
+          box[r * p.box_w + c] = in ? xs[(long long)gy * W + gx] : T(0.0f);
+        }
+      }
+      mbar_arrive(smem_addr(&full[s]));
     }
-  } else {
-    for (int i = threadIdx.x; i < Cfg::ROWS * Cfg::PITCH; i += kThreads) {
-      const int r = i / Cfg::PITCH, c = i - r * Cfg::PITCH;
-      const int gy = t.iy0 + r, gx = t.ix0 + c;
-      const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
-      copy_element(buf + i, in ? xs + (long long)gy * W + gx : x, in);
-    }
+    if (++s == p.stages) s = 0, phase ^= 1;
   }
 }
 
-// The block's loop over tiles blockIdx.x, + gridDim.x, ...: the copy of the
-// next tile is in flight while this one is computed and stored (for
-// bfloat16 rows that are not chunk-aligned, the fill's plain stores land
-// before the barrier that precedes the tile's compute).
+// The consumer warps: each tile's items, as its stage fills; each warp
+// releases the stage when its items are stored.
 template <class Cfg, int S, class T>
-__device__ __forceinline__ void run(const T* __restrict__ x, T* __restrict__ out,
-                                    const Taps& taps, long long tiles, int tiles_y, int tiles_x,
-                                    int H, int W, int Ho, int Wo, int pad0, bool vec) {
-  extern __shared__ float4 smem[];
-  T* const bufs[2] = {reinterpret_cast<T*>(smem), reinterpret_cast<T*>(smem) + Cfg::ELEMS};
-  const long long per_plane = (long long)tiles_y * tiles_x;
-  auto locate = [&](long long tile) {
-    const long long plane = tile / per_plane;
-    const int rem = (int)(tile - plane * per_plane);
-    const int ty = rem / tiles_x;
-    return Cfg::template locate<S>(plane, ty, rem - ty * tiles_x, pad0);
-  };
-  auto prefetch = [&](long long tile, T* buf) {
-    if (tile < tiles) fill<Cfg>(buf, x, locate(tile), H, W, vec);
-    asm volatile("cp.async.commit_group;\n" ::: "memory");  // empty past the end
-  };
-  int k = 0;
-  prefetch(blockIdx.x, bufs[0]);
-  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x, k ^= 1) {
-    prefetch(tile + gridDim.x, bufs[k ^ 1]);
-    asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // this tile's copies landed
-    __syncthreads();
-    const Tile t = locate(tile);
-    Cfg::template compute<S>(bufs[k], out + t.plane * Ho * Wo, taps, Ho, Wo, t.oy0, t.ox0);
-    __syncthreads();  // the buffer is refilled next iteration
+__device__ __forceinline__ void consume(T* __restrict__ out, const Taps& taps, const Plan& p,
+                                        const T* ring, const uint64_t* full,
+                                        const uint64_t* empty, int Ho, int Wo) {
+  constexpr int n = chunk<T>();  // an item's outputs per row
+  const int cols = p.tw / n;
+  const int items = (p.th / 2) * cols;
+  int s = 0;
+  uint32_t phase = 0;
+  for (long long tile = blockIdx.x; tile < p.tiles; tile += gridDim.x) {
+    mbar_wait(smem_addr(&full[s]), phase);
+    const TileAt t = locate(p, tile);
+    const T* box = ring + (long long)s * p.stage_elems;
+    T* plane = out + t.plane * Ho * Wo;
+    for (int it = threadIdx.x; it < items; it += kConsumers) {
+      const int r = it / cols, c = it - r * cols;
+      Cfg::template item<S>(box + Cfg::box_offset(r, c, p.box_w, n), p.box_w, plane, taps, Ho,
+                            Wo, t.oy + 2 * r, t.ox + n * c, p.vec_out, c);
+    }
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) mbar_arrive(smem_addr(&empty[s]));
+    if (++s == p.stages) s = 0, phase ^= 1;
   }
 }
 
+template <class Cfg, int S, class T>
+__device__ __forceinline__ void run(const CUtensorMap* map, const T* __restrict__ x,
+                                    T* __restrict__ out, const Taps& taps, const Plan& p, int H,
+                                    int W, int Ho, int Wo) {
+  __shared__ __align__(8) uint64_t full[kMaxStages], empty[kMaxStages];
+  extern __shared__ __align__(128) unsigned char dyn[];
+  // the ring starts on 128 bytes (TMA's alignment for a box in shared memory)
+  T* ring = reinterpret_cast<T*>(dyn + ((128 - (smem_addr(dyn) & 127)) & 127));
+  if (threadIdx.x == kConsumers) {  // the producer's elected thread
+    if (p.tma) {
+      asm volatile("prefetch.tensormap [%0];\n" :: "l"(reinterpret_cast<uint64_t>(map)) : "memory");
+    }
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(smem_addr(&full[s]), p.tma ? 1 : 32);
+      mbar_init(smem_addr(&empty[s]), kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x >= kConsumers) {
+    produce(map, x, p, ring, full, empty, H, W);
+  } else {
+    consume<Cfg, S>(out, taps, p, ring, full, empty, Ho, Wo);
+  }
+}
+
+// One instance per configuration, window shift S (0 .. chunk - 1) and type.
 template <int S, class T>
-__global__ void __launch_bounds__(kThreads)
-upfirdn2d_down2(const T* __restrict__ x, T* __restrict__ out, Taps taps, long long tiles,
-                int tiles_y, int tiles_x, int H, int W, int Ho, int Wo, int pad0, int vec) {
-  run<Down, S>(x, out, taps, tiles, tiles_y, tiles_x, H, W, Ho, Wo, pad0, vec != 0);
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+upfirdn2d_down2(const __grid_constant__ CUtensorMap map, const T* __restrict__ x,
+                T* __restrict__ out, Taps taps, Plan p, int H, int W, int Ho, int Wo) {
+  run<Down, S>(&map, x, out, taps, p, H, W, Ho, Wo);
 }
 
 template <int S, class T>
-__global__ void __launch_bounds__(kThreads)
-upfirdn2d_up2(const T* __restrict__ x, T* __restrict__ out, Taps taps, long long tiles,
-              int tiles_y, int tiles_x, int H, int W, int Ho, int Wo, int pad0, int vec) {
-  run<Up, S>(x, out, taps, tiles, tiles_y, tiles_x, H, W, Ho, Wo, pad0, vec != 0);
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+upfirdn2d_up2(const __grid_constant__ CUtensorMap map, const T* __restrict__ x,
+              T* __restrict__ out, Taps taps, Plan p, int H, int W, int Ho, int Wo) {
+  run<Up, S>(&map, x, out, taps, p, H, W, Ho, Wo);
 }
 
 template <class T>
-using KernelFn = void (*)(const T*, T*, Taps, long long, int, int, int, int, int, int, int, int);
+using KernelFn = void (*)(const CUtensorMap, const T*, T*, Taps, Plan, int, int, int, int);
 
-// One instance per (configuration, S, type). Its dynamic shared-memory limit
-// is raised (where the two buffers exceed 48 KB) and its resident blocks per
-// SM are looked up once per device.
+template <class Cfg, int S, class T>
+constexpr KernelFn<T> kernel_of() {
+  if constexpr (std::is_same<Cfg, Down>::value) {
+    return upfirdn2d_down2<S, T>;
+  } else {
+    return upfirdn2d_up2<S, T>;
+  }
+}
+
+// The instance for shift s.
+template <class Cfg, class T, int... S>
+KernelFn<T> instance(int s, std::integer_sequence<int, S...>) {
+  constexpr KernelFn<T> fns[] = {kernel_of<Cfg, S, T>()...};
+  return fns[s];
+}
+
+// cuTensorMapEncodeTiled, found once through the runtime (no -lcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+template <class T>
+constexpr CUtensorMapDataType tensor_type() {
+  return sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+}
+
+// Check a plan against what the kernel reads and TMA takes, and unpack it.
 template <class Cfg, class T>
-struct Instance {
-  KernelFn<T> fn;
-  int per_sm[kMaxDevices];
-};
+cudaError_t unpack(const int* f, const void* x, const void* out, long long planes, int W,
+                   int Wo, Plan* p, int* sx) {
+  constexpr int e = chunk<T>();
+  *p = Plan{};
+  p->th = f[kTh], p->tw = f[kTw], p->tiles_y = f[kTilesY], p->tiles_x = f[kTilesX];
+  p->oy0 = f[kOy0], p->ox0 = f[kOx0], p->iy0 = f[kIy0], p->ix0 = f[kIx0];
+  p->iy_step = f[kIyStep], p->ix_step = f[kIxStep], p->box_h = f[kBoxH], p->box_w = f[kBoxW];
+  p->stages = f[kStages], p->tma = f[kTma] != 0, p->vec_out = f[kVecOut] != 0;
+  p->tiles = planes * p->tiles_y * p->tiles_x;
+  p->stage_elems = (p->box_h * p->box_w * (int)sizeof(T) + 127) / 128 * 128 / (int)sizeof(T);
+  *sx = f[kSx];
+  const bool ok =
+      p->th > 0 && p->th % 2 == 0 && p->tw > 0 && p->tw % Cfg::template tw_unit<T>() == 0 &&
+      p->tiles_y > 0 && p->tiles_x > 0 && f[kGrid] > 0 && p->stages >= 1 &&
+      p->stages <= kMaxStages && *sx >= 0 && *sx < e && p->box_h >= Cfg::need_h(p->th) &&
+      p->box_w >= Cfg::need_w(p->tw, *sx, e) && p->box_w % e == 0 && p->box_h <= 256 &&
+      p->box_w <= 256 && planes < (1LL << 31) &&
+      (long long)p->stages * p->stage_elems * sizeof(T) + 128 <= kMaxDynSmem &&
+      // TMA: rows and the base on 16 bytes, each box's first column too
+      (!p->tma || (W % e == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   ((p->ix0 % e) + e) % e == 0 && p->ix_step % e == 0)) &&
+      (!p->vec_out || (Wo % e == 0 && p->ox0 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0));
+  return ok ? cudaSuccess : cudaErrorInvalidValue;
+}
 
 template <class Cfg, class T>
-cudaError_t launch(Instance<Cfg, T>& inst, int device, const T* x, T* out, const Taps& taps,
-                   long long planes, int H, int W, int Ho, int Wo, int pad0, cudaStream_t s) {
-  constexpr size_t smem = 2 * sizeof(T) * Cfg::ELEMS;
-  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
-  static int sms[kMaxDevices] = {};
-  cudaError_t err;
-  if (inst.per_sm[device] == 0) {
-    if (smem > 48 * 1024) {
-      err = cudaFuncSetAttribute(inst.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (err != cudaSuccess) return err;
+cudaError_t launch(const T* x, T* out, const Taps& taps, const int* fields,
+                   long long planes, int H, int W, int Ho, int Wo, cudaStream_t s) {
+  constexpr int e = chunk<T>();
+  Plan p;
+  int sx;
+  cudaError_t err = unpack<Cfg, T>(fields, x, out, planes, W, Wo, &p, &sx);
+  if (err != cudaSuccess) return err;
+  const KernelFn<T> fn = instance<Cfg, T>(sx, std::make_integer_sequence<int, e>{});
+  const size_t smem = (size_t)p.stages * p.stage_elems * sizeof(T) + 128;
+  // above 48 KB at every launch: an attribute set once was seen refused from
+  // another thread after a profiler trace had run
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  CUtensorMap map = {};
+  if (p.tma) {
+    const EncodeTiled encode = encode_tiled();
+    if (encode == nullptr) return cudaErrorNotSupported;
+    const cuuint64_t dims[3] = {(cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)planes};
+    const cuuint64_t strides[2] = {(cuuint64_t)W * sizeof(T), (cuuint64_t)H * W * sizeof(T)};
+    const cuuint32_t box[3] = {(cuuint32_t)p.box_w, (cuuint32_t)p.box_h, 1};
+    const cuuint32_t unit[3] = {1, 1, 1};
+    if (encode(&map, tensor_type<T>(), 3, const_cast<T*>(x), dims, strides, box, unit,
+               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) !=
+        CUDA_SUCCESS) {
+      return cudaErrorInvalidValue;
     }
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&inst.per_sm[device], inst.fn, kThreads,
-                                                        smem);
-    if (err != cudaSuccess) return err;
-    if (inst.per_sm[device] < 1) return cudaErrorInvalidConfiguration;
   }
-  if (sms[device] == 0) {
-    err = cudaDeviceGetAttribute(&sms[device], cudaDevAttrMultiProcessorCount, device);
-    if (err != cudaSuccess) return err;
-  }
-  const int tiles_y = Cfg::tiles_y(Ho, pad0), tiles_x = Cfg::tiles_x(Wo, pad0);
-  const long long tiles = planes * tiles_y * tiles_x;
-  const long long resident = (long long)inst.per_sm[device] * sms[device];
-  const int blocks = (int)(tiles < resident ? tiles : resident);
-  const int vec = W % 4 == 0 && (reinterpret_cast<uintptr_t>(x) % (4 * sizeof(T))) == 0;
-  inst.fn<<<blocks, kThreads, smem, s>>>(x, out, taps, tiles, tiles_y, tiles_x, H, W, Ho, Wo,
-                                         pad0, vec);
+  fn<<<fields[kGrid], kThreads, smem, s>>>(map, x, out, taps, p, H, W, Ho, Wo);
   return cudaGetLastError();
 }
 
-// The four instances (S = 0 .. 3) of each configuration for type T.
 template <class T>
-struct Instances {
-  Instance<Down, T> down[4] = {{upfirdn2d_down2<0, T>, {}}, {upfirdn2d_down2<1, T>, {}},
-                               {upfirdn2d_down2<2, T>, {}}, {upfirdn2d_down2<3, T>, {}}};
-  Instance<Up, T> up[4] = {{upfirdn2d_up2<0, T>, {}}, {upfirdn2d_up2<1, T>, {}},
-                           {upfirdn2d_up2<2, T>, {}}, {upfirdn2d_up2<3, T>, {}}};
-};
-
-Instances<float> f32_instances;
-Instances<bf16> bf16_instances;
-
-template <class T>
-cudaError_t dispatch(Instances<T>& inst, int device, const void* x, void* out, const Taps& taps,
-                     long long planes, int H, int W, int Ho, int Wo, int up, int down, int pad0,
+cudaError_t dispatch(const void* x, void* out, const Taps& taps, const int* plan,
+                     long long planes, int H, int W, int Ho, int Wo, int up, int down,
                      cudaStream_t s) {
   const T* xi = static_cast<const T*>(x);
   T* o = static_cast<T*>(out);
   if (up == 1 && down == 2) {
-    return launch(inst.down[Down::shift(pad0)], device, xi, o, taps, planes, H, W, Ho, Wo, pad0,
-                  s);
+    return launch<Down, T>(xi, o, taps, plan, planes, H, W, Ho, Wo, s);
   }
   if (up == 2 && down == 1) {
-    return launch(inst.up[Up::shift(pad0)], device, xi, o, taps, planes, H, W, Ho, Wo, pad0, s);
+    return launch<Up, T>(xi, o, taps, plan, planes, H, W, Ho, Wo, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -460,7 +567,9 @@ cudaError_t dispatch(Instances<T>& inst, int device, const void* x, void* out, c
 
 extern "C" int storm_upfirdn2d(const void* x, void* out, const void* taps_host, int flip,
                                int device, long long planes, int H, int W, int Ho, int Wo,
-                               int up, int down, int pad0, int dtype, void* stream) {
+                               int up, int down, int pad0, int dtype, void* stream,
+                               const int* plan) {
+  (void)pad0;  // the plan's origins carry it
   int current = -1;
   cudaError_t err = cudaGetDevice(&current);
   if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
@@ -472,12 +581,15 @@ extern "C" int storm_upfirdn2d(const void* x, void* out, const void* taps_host, 
   for (int i = 0; i < kTaps * kTaps; ++i) taps.w[i] = t[flip ? kTaps * kTaps - 1 - i : i];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    err = dispatch(f32_instances, device, x, out, taps, planes, H, W, Ho, Wo, up, down, pad0, s);
+    err = dispatch<float>(x, out, taps, plan, planes, H, W, Ho, Wo, up, down, s);
   } else {
-    err = dispatch(bf16_instances, device, x, out, taps, planes, H, W, Ho, Wo, up, down, pad0, s);
+    err = dispatch<bf16>(x, out, taps, plan, planes, H, W, Ho, Wo, up, down, s);
   }
   return (int)err;
 }
+
+// The plan's length, its field order's version for callers that build plans.
+extern "C" int storm_upfirdn2d_plan_len() { return kPlanLen; }
 
 extern "C" const char* storm_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -10,14 +10,21 @@ two configurations: up=1, down=2, pad=(1, 1) and up=2, down=1, pad=(2, 1).
 Bound on the card: memory. The op does at most 16 multiply-adds per output
 and reads each input once from device memory, so the least time is
 (input bytes + output bytes) / 3.35 TB/s: 4 bytes per element in float32, 2
-in bfloat16. The kernel stages each output
-tile's input window in shared memory with asynchronous copies (the pad and
-the zero-insertion become zeros written there and taps skipped at compile
-time) and computes several outputs per thread, so it moves only those bytes:
-the Pallas kernel instead wrote the zero-inserted, padded input to memory
-first. Per call the launch path reads the taps' address; their conversion
-to float32 is a no-op for the read-only float32 FIR that `nn/resample.py`
-makes once, and the adjoint's flip happens where the C entry copies them.
+in bfloat16. The kernel moves only those bytes: each output tile's input box
+arrives in shared memory by one TMA copy, whose zero fill writes the pad and
+the crop (the zero-insertion becomes taps skipped at compile time), through
+a ring of stages that persistent blocks keep loading while they compute, and
+outputs leave 16 bytes per thread; the Pallas kernel instead wrote the
+zero-inserted, padded input to memory first. On an NVIDIA H100 80GB HBM3 at
+700 W the 18 calls of a full-width score forward take 1.53x that bound in
+bfloat16 and 1.33x in float32 (chip_smoke.py; PERF.md §6).
+`tile_plan` computes each launch's tiles, boxes and grid here, on the host
+(cached per shape), so the CPU tests hold it: every output in exactly one
+tile, every tile's window where the plain version's starts, every box within
+TMA's limits (a box's first column on 16 bytes among them). Per call
+the launch path reads the taps' address; their conversion to float32 is a
+no-op for the read-only float32 FIR that `nn/resample.py` makes once, and
+the adjoint's flip happens where the C entry copies them.
 
 The gradient replaces the reference's custom VJP (`_ufd_bwd`, same file): the
 adjoint of upfirdn2d is upfirdn2d again with the taps flipped, up and down
@@ -36,7 +43,8 @@ the NCSN++ FIR (outer([1,3,3,1]) / 64, times 4 for up) exact in bfloat16.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+import functools
+from typing import Iterator, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -48,6 +56,137 @@ from . import build
 _CONFIGS = {(1, 2), (2, 1)}  # (up, down) pairs the kernel is built for
 _TAPS = 4
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the kernel's dtype codes
+
+# The launch plan's defaults and the kernel's limits (csrc/upfirdn2d.cu).
+STAGES = 4  # boxes in each block's ring
+STAGE_BYTES = 24 << 10  # a box's budget: its rows follow from its columns
+MAX_TW = 144  # widest column tile asked for (the boxes cap it further)
+MIN_TH = 8  # narrowest row tile that spreading a small call goes down to
+BOX_LIMIT = 256  # TMA: elements per box dimension
+SMEM_LIMIT = 112 << 10  # a block's ring: two blocks on an SM
+BLOCKS_PER_SM = 2  # resident blocks (__launch_bounds__ and SMEM_LIMIT hold two)
+
+
+class TilePlan(NamedTuple):
+    """One launch's plan, in the order of the kernel's `PlanField`. Tile
+    (ty, tx) of a plane holds outputs [oy0 + ty*th, + th) x [ox0 + tx*tw, + tw)
+    (those outside the image are not stored) and reads the box of box_h x
+    box_w inputs at (iy0 + ty*iy_step, ix0 + tx*ix_step), zeros outside; its
+    window (the first input its outputs read) is the box's column sx: a box
+    starts on 16 bytes, as a TMA copy must."""
+    th: int
+    tw: int
+    tiles_y: int
+    tiles_x: int
+    oy0: int
+    ox0: int
+    iy0: int
+    ix0: int
+    iy_step: int
+    ix_step: int
+    box_h: int
+    box_w: int
+    grid: int
+    stages: int
+    tma: int  # boxes by TMA; 0: the producer warp copies them element by element
+    vec_out: int  # 16-byte stores where a chunk lies in the row
+    sx: int
+
+    def tiles(self) -> Iterator[Tuple[int, int, int, int]]:
+        """(output row, output column, box row, box column) of each tile of a plane."""
+        for ty in range(self.tiles_y):
+            for tx in range(self.tiles_x):
+                yield (self.oy0 + ty * self.th, self.ox0 + tx * self.tw,
+                       self.iy0 + ty * self.iy_step, self.ix0 + tx * self.ix_step)
+
+
+def _best_tile(span: int, unit: int, limit: int, box_of, whole: bool = False) -> int:
+    """The tile (a multiple of `unit`, at most `limit`) whose boxes, one per
+    tile over `span` outputs, read the fewest inputs (`box_of(tile)` each:
+    the overshoot past the image and the halo both cost); on a tie the one
+    that overshoots least, then the larger. `whole`: among the tiles that
+    divide `span` where there are any."""
+    tiles = range(unit, max(unit, limit) + 1, unit)
+    if whole and any(span % t == 0 for t in tiles):
+        tiles = [t for t in tiles if span % t == 0]
+    return min(tiles, key=lambda t: (-(-span // t) * box_of(t), -(-span // t) * t, -t))
+
+
+@functools.lru_cache(maxsize=4096)
+def tile_plan(up: int, down: int, pad0: int, H: int, W: int, Ho: int, Wo: int, planes: int,
+              elem_bytes: int, x_aligned: bool = True, out_aligned: bool = True, sms: int = 132,
+              stages: int = STAGES, stage_bytes: int = STAGE_BYTES,
+              max_tw: int = MAX_TW) -> TilePlan:
+    """The kernel's tiles, boxes and grid for one call (`x_aligned` /
+    `out_aligned`: the tensor's address is a multiple of 16 bytes; `sms`:
+    the card's multiprocessors).
+
+    An item of the kernel is one 16-byte chunk of outputs (e = 16 /
+    elem_bytes) in two rows; the up config's items read in pairs, so its
+    column tile is a multiple of 2e, the down config's of e. A box starts on
+    16 bytes (a TMA copy faults otherwise), sx columns before its window, and
+    spans the columns the items read (2*tw, or tw/2, and the sx + 2 more
+    rounded up to 16 bytes): at most 256. Each tile is the one whose boxes
+    read the fewest inputs over the row or column, the column tile among those
+    that divide the row where any do (so the 64 k-frame bucket widths split
+    into whole tiles), the row tile within the box's byte budget, its limit
+    halved while the call has fewer tiles than resident blocks (down to
+    MIN_TH rows), so a small call spreads its copies over the card."""
+    if (up, down) not in _CONFIGS:
+        raise ValueError(f"upfirdn2d: (up, down)={(up, down)} not built")
+    e = 16 // elem_bytes
+    if up == 1:  # output o reads inputs down*o - pad0 .. + 3
+        oy0 = ox0 = 0
+        wy0, wx0 = -pad0, -pad0  # tile 0's window
+        unit_w, span_of, of_span = e, (lambda tw: 2 * tw), (lambda cols: cols // 2)
+        box_h_of, th_of_rows = (lambda th: 2 * th + 2), (lambda rows: (rows - 2) // 2)
+    else:  # a tile starts on an even zero-inserted coordinate: the lead
+        oy0 = ox0 = -(pad0 & 1)
+        wy0 = wx0 = (ox0 - pad0) // 2  # (o - pad0) is even at a tile's first output
+        unit_w, span_of, of_span = 2 * e, (lambda tw: tw // 2), (lambda cols: 2 * cols)
+        box_h_of, th_of_rows = (lambda th: th // 2 + 2), (lambda rows: 2 * (rows - 2))
+    sx = wx0 % e  # the box starts on 16 bytes, sx columns before the window
+    tail = -(-(sx + 2) // e) * e  # the box's columns past the tile's span
+    box_w_of = lambda tw: span_of(tw) + tail  # noqa: E731
+    tw_limit = max(unit_w, min(of_span(BOX_LIMIT - tail), max_tw) // unit_w * unit_w)
+    tw = _best_tile(Wo - ox0, unit_w, tw_limit, box_w_of, whole=True)
+    box_w = box_w_of(tw)
+    rows = min(BOX_LIMIT, stage_bytes // (box_w * elem_bytes))
+    th_limit = th_of_rows(rows) // 2 * 2
+    if th_limit < 2:
+        raise ValueError(f"upfirdn2d: a stage of {stage_bytes} bytes holds no tile")
+    if stages * (-(-box_h_of(th_limit) * box_w * elem_bytes // 128) * 128) + 128 > SMEM_LIMIT:
+        raise ValueError(f"upfirdn2d: {stages} stages of {stage_bytes} bytes exceed the ring's "
+                         f"{SMEM_LIMIT} bytes")
+    tiles_x = -(-(Wo - ox0) // tw)
+    resident = BLOCKS_PER_SM * sms
+    while True:
+        th = _best_tile(Ho - oy0, 2, th_limit, box_h_of)
+        tiles_y = -(-(Ho - oy0) // th)
+        if planes * tiles_y * tiles_x >= resident or th_limit <= MIN_TH:
+            break
+        th_limit = max(MIN_TH, th_limit // 2 // 2 * 2)
+    iy_step, ix_step = span_of(th), span_of(tw)
+    return TilePlan(th=th, tw=tw, tiles_y=tiles_y, tiles_x=tiles_x, oy0=oy0, ox0=ox0, iy0=wy0,
+                    ix0=wx0 - sx, iy_step=iy_step, ix_step=ix_step, box_h=box_h_of(th),
+                    box_w=box_w, grid=min(planes * tiles_y * tiles_x, resident), stages=stages,
+                    tma=int(x_aligned and W % e == 0),
+                    vec_out=int(out_aligned and Wo % e == 0 and ox0 == 0), sx=sx)
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan_args(*key) -> ctypes.Array:
+    """`tile_plan(*key)` as the C entry's int array (kept alive by the cache)."""
+    return (ctypes.c_int * len(TilePlan._fields))(*tile_plan(*key))
+
+
+_SMS = {}  # multiprocessors per device index
+
+
+def _sms(device: int) -> int:
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _SMS[device]
 
 
 def _host_taps(kernel) -> np.ndarray:
@@ -123,7 +262,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.storm_upfirdn2d
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_longlong]
-                       + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2)
         fn.restype = ctypes.c_int
     return lib
 
@@ -156,10 +295,15 @@ def _launch(x: torch.Tensor, kernel, flip: bool, up: int, down: int, pad0: int,
     out = torch.empty((B, C, Ho, Wo), dtype=x.dtype, device=x.device)
     device = x.get_device()
     lib = _lib()
-    err = lib.storm_upfirdn2d(x.data_ptr(), out.data_ptr(), k.ctypes.data, flip, device,
-                              B * C, H, W, Ho, Wo, up, down, pad0, _DTYPES[x.dtype],
-                              torch._C._cuda_getCurrentRawStream(device))
-    build.check_launch(lib, err, "upfirdn2d_cuda")
+    x_ptr, out_ptr = x.data_ptr(), out.data_ptr()
+    plan = _plan_args(up, down, pad0, H, W, Ho, Wo, B * C, x.element_size(), x_ptr % 16 == 0,
+                      out_ptr % 16 == 0, _sms(device))
+    err = lib.storm_upfirdn2d(x_ptr, out_ptr, k.ctypes.data, flip, device, B * C, H, W, Ho, Wo,
+                              up, down, pad0, _DTYPES[x.dtype],
+                              torch._C._cuda_getCurrentRawStream(device), plan)
+    if err:
+        build.check_launch(lib, err, f"upfirdn2d_cuda {tuple(x.shape)} {x.dtype} -> {Ho}x{Wo}, "
+                                     f"plan {TilePlan(*plan)}")
     return out
 
 

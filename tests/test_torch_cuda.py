@@ -72,12 +72,17 @@ def test_kernel_matches_plain(cuda, shape, up, down, pad, kernel):
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
 
 
-# shapes that cross the kernel's tile and vector boundaries (output tiles of
-# 16 x 64 for down, 32 x 128 for up; 16-byte chunks): H and W that are not
-# multiples of the tile or of 4, H = 1, W = 1, one past a tile, whole aligned
-# tiles, and more planes than one grid dimension holds
-EDGE_SHAPES = [(1, 2, 17, 131), (2, 3, 1, 70), (2, 3, 45, 1), (1, 1, 33, 129),
-               (2, 4, 128, 256), (1, 65537, 2, 3)]
+# shapes that cross the kernel's tile and box boundaries (`tile_plan`: column
+# tiles of at most 120 outputs down and 288 up, boxes of at most 256 elements
+# a row, the row tile from a box's byte budget) and its copy paths: one
+# column past the down config's widest tile (W 242 -> Wo 121) and past a
+# 256-element row (264, 257), the up config past its widest tile (145 ->
+# Wo 290), widths that are not a multiple of 8 (the producer warp's element
+# fill instead of TMA), H = 1, W = 1, whole tiles, and more planes than one
+# grid dimension holds (65537, with TMA at W = 8 and without at W = 3)
+EDGE_SHAPES = [(1, 2, 17, 242), (1, 2, 33, 264), (1, 1, 9, 257), (1, 1, 5, 145),
+               (2, 3, 1, 70), (2, 3, 45, 1), (2, 4, 128, 256), (1, 65537, 2, 3),
+               (1, 65537, 2, 8)]
 EDGE_CONFIGS = [(1, 2, (1, 1)), (1, 2, (2, 2)), (2, 1, (2, 1)), (2, 1, (1, 2))]
 EDGE_CASES = [(shape, cfg) for shape in EDGE_SHAPES for cfg in EDGE_CONFIGS
               if min(kup.output_size(n, 4, *cfg) for n in shape[2:]) >= 1]
@@ -87,8 +92,8 @@ EDGE_CASES = [(shape, cfg) for shape in EDGE_SHAPES for cfg in EDGE_CONFIGS
 @pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "odd_offset"])
 @pytest.mark.parametrize("shape,cfg", EDGE_CASES)
 def test_kernel_matches_plain_at_tile_edges(cuda, shape, cfg, offset, kernel):
-    """offset 1: a contiguous view one float into its storage, which the
-    kernel fills through its 4-byte copies."""
+    """offset 1: a contiguous view one float into its storage, off the 16
+    bytes TMA needs: the producer warp fills its boxes element by element."""
     up, down, pad = cfg
     n = int(np.prod(shape))
     x = torch.randn(n + offset, generator=torch.Generator().manual_seed(n)).to(cuda)
@@ -157,9 +162,9 @@ def _within_one_bf16_ulp(got, want, terms):
 @pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "odd_offset"])
 @pytest.mark.parametrize("shape,cfg", EDGE_CASES)
 def test_bf16_kernel_matches_plain_at_tile_edges(cuda, shape, cfg, offset, kernel):
-    """bfloat16: offset 1 puts each row on an odd element, W % 4 != 0 off a
-    chunk; both take the element-by-element fill that cp.async cannot do for
-    2-byte elements."""
+    """bfloat16: offset 1 puts the base off 16 bytes, W % 8 != 0 a row off
+    them; both take the producer warp's element-by-element fill, TMA the
+    others."""
     up, down, pad = cfg
     n = int(np.prod(shape))
     x = torch.randn(n + offset, generator=torch.Generator().manual_seed(n)).to(cuda)
@@ -199,6 +204,56 @@ def test_bf16_adjoint_matches_plain_at_tile_edges(cuda, shape, cfg, kernel):
                                                             pad, shape[2:]))
     if kernel is SYM:
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_kernel_at_every_bucket_width(cuda, dtype):
+    """Every bucket's level widths (64 k frames, k = 1..9: the column tiles
+    `tile_plan` picks for them) in both configurations and through the
+    adjoint, with NCSN++'s FIR: bfloat16 equal to plain bit for bit, float32
+    to 1e-5."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+
+    def same(got, want):
+        if dtype == torch.bfloat16:
+            assert torch.equal(got, want)
+        else:
+            torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+    for k in range(1, 10):
+        for (up, down, pad), (B, C, H, W) in _serving_calls(1, 64 * k):
+            if C > 6:
+                C = 8  # the resblocks' widths and heights at a few planes
+            fir = SYM * (4.0 if up == 2 else 1.0)
+            x = torch.randn((B, C, H, W), device=cuda, generator=gen).to(dtype)
+            got = kup.upfirdn2d_cuda(x, fir, up=up, down=down, pad=pad)
+            same(got, kup.upfirdn2d_plain(x, fir, up=up, down=down, pad=pad))
+            g = torch.randn(got.shape, device=cuda, generator=gen).to(dtype)
+            same(kup.upfirdn2d_bwd_cuda(g, fir, up, down, pad, (H, W)),
+                 kup.upfirdn2d_bwd_plain(g, fir, up, down, pad, (H, W)))
+
+
+def test_bf16_kernel_replays_in_a_captured_graph(cuda):
+    """A bfloat16 launch captured in a CUDA graph (its tensor map and plan are
+    kernel arguments the graph keeps) replays on new input in the same
+    buffer and equals plain bit for bit, and counts one launch at capture."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    fir = SYM * 4.0
+    x = torch.randn((1, 256, 64, 144), device=cuda, generator=gen).bfloat16()
+    kup.upfirdn2d_cuda(x, fir, up=2, down=1, pad=(2, 1))  # the instance is set up eagerly
+    torch.cuda.synchronize()
+    graph, before = torch.cuda.CUDAGraph(), kup.upfirdn2d_cuda.launches
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream), torch.cuda.graph(graph, stream=stream):
+        out = kup.upfirdn2d_cuda(x, fir, up=2, down=1, pad=(2, 1))
+    torch.cuda.current_stream().wait_stream(stream)
+    assert kup.upfirdn2d_cuda.launches == before + 1
+    for _ in range(2):
+        x.copy_(torch.randn(x.shape, device=cuda, generator=gen))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, kup.upfirdn2d_plain(x, fir, up=2, down=1, pad=(2, 1)))
 
 
 @pytest.mark.parametrize("shape", [(1, 128, 256, 576), (4, 32, 33, 65)])

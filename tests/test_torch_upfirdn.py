@@ -7,6 +7,9 @@ The CUDA kernel itself runs only on a card (tests/test_torch_cuda.py and
 chip_smoke.py hold it against this plain version there). Tolerance 1e-5
 absolute and relative, as tests/test_kernels.py uses: a 16-tap float32 sum.
 """
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -203,3 +206,156 @@ def test_launch_taps_are_converted_once(kname):
     np.testing.assert_array_equal(k.ravel()[::-1].reshape(4, 4), k[::-1, ::-1])
     assert kup._adjoint(1, 2, (1, 1)) == (2, 1, 2)
     assert kup._adjoint(2, 1, (2, 1)) == (1, 2, 1)
+
+
+# The launch plan (`tile_plan`), which the wrapper computes on the host and
+# the kernel follows: NCSN++'s pads and the others the kernel takes, at the
+# bucket widths (64 k frames, k = 1..9) of every level, in both storage types.
+PLAN_PADS = [-1, 0, 1, 2]
+BUCKET_WIDTHS = [64 * k for k in range(1, 10)]
+
+
+def _level_calls(W, H=256):
+    """(up, down, H, W) of the forward calls at one bucket width: down out of
+    each of the three upper levels, up into them."""
+    return ([(1, 2, H >> i, W >> i) for i in range(3)]
+            + [(2, 1, H >> i, W >> i) for i in range(1, 4)])
+
+
+def _read_span(o0, n, up, down, pad0):
+    """First and last input index that outputs o0 .. o0+n-1 read with a
+    nonzero tap in the plain version: inputs i with up*i = down*o + k - pad0."""
+    lo = -(-(down * o0 - pad0) // up)
+    hi = (down * (o0 + n - 1) + 3 - pad0) // up
+    return lo, hi
+
+
+def _check_plan(plan, up, down, pad0, H, W, Ho, Wo, planes, es, sms=132):
+    e = 16 // es
+    for n_out, start, t, tiles, step, i0, box in (
+            (Ho, plan.oy0, plan.th, plan.tiles_y, plan.iy_step, plan.iy0, plan.box_h),
+            (Wo, plan.ox0, plan.tw, plan.tiles_x, plan.ix_step, plan.ix0, plan.box_w)):
+        # the tiles cover [start, start + tiles*t) without overlap: every
+        # output once, and no tile lies wholly outside the image
+        assert -t < start <= 0 and start + tiles * t >= n_out and start + (tiles - 1) * t < n_out
+        shift = plan.sx if box == plan.box_w else 0  # columns of the box before the window
+        for j in range(tiles):
+            lo, hi = _read_span(start + j * t, t, up, down, pad0)
+            assert i0 + j * step + shift == lo  # the window starts where the plain one does
+            assert hi < i0 + j * step + box  # and the box holds every input the tile reads
+        assert 1 <= box <= kup.BOX_LIMIT  # TMA: at most 256 elements per dimension
+    assert plan.th % 2 == 0 and plan.tw % (e if up == 1 else 2 * e) == 0
+    # TMA: a box's first column on 16 bytes (it faults otherwise), its width too
+    assert 0 <= plan.sx < e and plan.ix0 % e == 0 and plan.ix_step % e == 0
+    assert (plan.box_w * es) % 16 == 0
+    # the kernel's items read 2*tw (down) or tw/2 (up) columns past sx, and 2
+    # more, in whole chunks
+    tail = -(-(plan.sx + 2) // e) * e
+    assert plan.box_w == (2 * plan.tw if up == 1 else plan.tw // 2) + tail
+    assert plan.tma == (W % e == 0)  # TMA: the row stride a multiple of 16 bytes
+    stage = -(-plan.box_h * plan.box_w * es // 128) * 128  # each box on 128 bytes
+    assert plan.stages * stage + 128 <= kup.SMEM_LIMIT
+    tiles = planes * plan.tiles_y * plan.tiles_x
+    assert plan.grid == min(tiles, kup.BLOCKS_PER_SM * sms)
+
+
+@pytest.mark.parametrize("es", [2, 4], ids=["bf16", "f32"])
+@pytest.mark.parametrize("pad0", PLAN_PADS)
+@pytest.mark.parametrize("up,down", [(1, 2), (2, 1)])
+def test_plan_covers_every_output_once_from_the_plain_window(up, down, pad0, es):
+    """At every bucket width and level, for NCSN++'s 128 / 256 channels and
+    the pyramids' 6, and for 1 row or column: each output lies in exactly
+    one tile, each box starts where the plain version's window for its tile
+    starts, holds all of it, and is within TMA's limits."""
+    shapes = [c[2:] for W in BUCKET_WIDTHS for c in _level_calls(W) if c[:2] == (up, down)]
+    for H, W in shapes + [(1, 1), (1, 70), (45, 1), (17, 131)]:
+        Ho, Wo = (kup.output_size(n, 4, up, down, (pad0, 1)) for n in (H, W))
+        if min(Ho, Wo) < 1:
+            continue
+        for planes in (6, 256, 65537):
+            plan = kup.tile_plan(up, down, pad0, H, W, Ho, Wo, planes, es)
+            _check_plan(plan, up, down, pad0, H, W, Ho, Wo, planes, es)
+
+
+@pytest.mark.parametrize("es", [2, 4], ids=["bf16", "f32"])
+def test_plan_splits_the_bucket_widths_into_whole_tiles(es):
+    """NCSN++'s calls (pad0 1 down, 2 up: an adjoint is the other config's
+    call at the same sizes) at every bucket width: whole column tiles,
+    16-byte stores, TMA boxes, and a
+    ring of STAGES boxes of at most STAGE_BYTES, at least half of it full on
+    the wide calls (a bfloat16 box holds as many bytes as a float32 one)."""
+    for W in BUCKET_WIDTHS:
+        for up, down, H, Wi in _level_calls(W):
+            pad0 = 1 if up == 1 else 2
+            Ho, Wo = (kup.output_size(n, 4, up, down, (pad0, 1)) for n in (H, Wi))
+            plan = kup.tile_plan(up, down, pad0, H, Wi, Ho, Wo, 256, es)
+            assert Wo % plan.tw == 0 and plan.tma and plan.vec_out
+            assert plan.stages == kup.STAGES
+            box = plan.box_h * plan.box_w * es
+            assert box <= kup.STAGE_BYTES
+            if H >= 128 and Wi >= 256:
+                assert box >= kup.STAGE_BYTES // 2
+
+
+def _emulate(x, k, up, down, pad0, Ho, Wo, plan):
+    """The kernel's tiling on the CPU: each tile's outputs from its box alone
+    (zeros outside x: TMA's fill), stored where they fall in the image.
+    Returns (output, how many tiles stored each output)."""
+    B, C, H, W = x.shape
+    out = torch.zeros(B, C, Ho, Wo)
+    cover = torch.zeros(Ho, Wo, dtype=torch.int64)
+    for oy, ox, iy, ix in plan.tiles():
+        box = torch.zeros(B, C, plan.box_h, plan.box_w)
+        ys = range(max(iy, 0), min(iy + plan.box_h, H))
+        xs = range(max(ix, 0), min(ix + plan.box_w, W))
+        if len(ys) and len(xs):
+            box[:, :, ys.start - iy:ys.stop - iy, xs.start - ix:xs.stop - ix] = \
+                x[:, :, ys.start:ys.stop, xs.start:xs.stop]
+        # the window starts sx columns into the box: pad 0 from there
+        tile = kup.upfirdn2d_plain(box[..., plan.sx:].contiguous(), k, up=up, down=down,
+                                   pad=(0, 0))
+        assert tile.shape[-2] >= plan.th and tile.shape[-1] >= plan.tw
+        r0, r1 = max(oy, 0), min(oy + plan.th, Ho)
+        c0, c1 = max(ox, 0), min(ox + plan.tw, Wo)
+        out[:, :, r0:r1, c0:c1] = tile[:, :, r0 - oy:r1 - oy, c0 - ox:c1 - ox]
+        cover[r0:r1, c0:c1] += 1
+    return out, cover
+
+
+# small shapes whose output is not empty; a small stage budget and column
+# tile, so that each shape takes several tiles in both axes
+EMULATED = [(H, W, up, down, pad0) for H, W in [(17, 40), (41, 131), (2, 9)]
+            for up, down in [(1, 2), (2, 1)] for pad0 in PLAN_PADS
+            if min(kup.output_size(n, 4, up, down, (pad0, 1)) for n in (H, W)) >= 1]
+
+
+@pytest.mark.parametrize("es", [2, 4], ids=["bf16", "f32"])
+@pytest.mark.parametrize("H,W,up,down,pad0", EMULATED)
+def test_plan_tiles_reassemble_the_plain_output(H, W, up, down, pad0, es):
+    """The tiles computed from their boxes alone, as the kernel computes them,
+    give the plain version's output bit for bit, each output once."""
+    rng = np.random.default_rng(H * W + pad0)
+    x = torch.from_numpy(rng.standard_normal((1, 2, H, W)).astype(np.float32))
+    k = ASYM * (4.0 if up == 2 else 1.0)
+    pad = (pad0, 1)
+    Ho, Wo = (kup.output_size(n, 4, up, down, pad) for n in (H, W))
+    plan = kup.tile_plan(up, down, pad0, H, W, Ho, Wo, 2, es, sms=1, stage_bytes=1024,
+                         max_tw=16)
+    out, cover = _emulate(x, k, up, down, pad0, Ho, Wo, plan)
+    assert (cover == 1).all()
+    assert torch.equal(out, kup.upfirdn2d_plain(x, k, up=up, down=down, pad=pad))
+
+
+def test_plan_args_are_the_plan_in_the_kernels_order():
+    """The C entry's int array holds the plan's fields in `PlanField`'s order
+    (csrc/upfirdn2d.cu), and one array serves every call of a shape."""
+    key = (2, 1, 2, 128, 288, 256, 576, 256, 2, True, True, 132)
+    args = kup._plan_args(*key)
+    assert list(args) == list(kup.tile_plan(*key))
+    assert kup._plan_args(*key) is args
+    src = (Path(kup.__file__).parent.parent / "csrc" / "upfirdn2d.cu").read_text()
+    fields = re.search(r"enum PlanField \{([^}]*)\}", src).group(1)
+    names = [f.strip() for f in fields.split(",") if f.strip()]
+    assert names[-1] == "kPlanLen" and len(names) - 1 == len(kup.TilePlan._fields)
+    assert names[:-1] == ["k" + "".join(w.capitalize() for w in f.split("_"))
+                          for f in kup.TilePlan._fields]

@@ -1,22 +1,28 @@
-"""Host enqueue cost and tile heights of the upfirdn2d kernel (K1), on one CUDA card.
+"""Host cost, launch-plan knobs and old against new of the upfirdn2d kernel (K1), on a card.
 
-    python3 tools/upfirdn_tiles.py [--repo DIR] [--host-only]
+    python3 tools/upfirdn_tiles.py [--repo DIR] [--host-only] [--against FILE] [--no-sweep]
 
 1. host: microseconds of host time per call over 1000 calls at a small shape,
    (1, 6, 32, 64), with no sync inside the loop (median of 5 such loops):
-   `upfirdn2d_cuda` in both configurations, and `downsample_2d` /
-   `upsample_2d` under inference mode, as the model calls them (autograd
-   Function and FIR set-up included). The package is imported from DIR
-   (default: this checkout), so a parent checkout is measured by the same
-   script on the same card.
-2. tiles (unless --host-only): copies of csrc/upfirdn2d.cu with both tile
-   heights (`kDownRows`, output rows per thread of the down configuration,
-   and `kUpQuadRows`, quad rows per thread of the up configuration) set to
-   1, 2 and 4, compiled with the package's nvcc flags into a temporary
-   directory and called through their C entry; each is held to the plain
-   version and timed (CUDA events, 20 back-to-back calls, median of 5) at
-   the largest calls of a full-width score forward (B=1) and of a train
-   step's backward (B=8), beside the bytes bound.
+   `upfirdn2d_cuda` in both configurations and both storage types, and
+   `downsample_2d` / `upsample_2d` under inference mode, as the model calls
+   them (autograd Function, FIR set-up, launch plan and tensor map included).
+   The package is imported from DIR (default: this checkout).
+2. against (with --against FILE): FILE, another `csrc/upfirdn2d.cu` (a parent's,
+   unpacked with `git archive` into the git-ignored `_checkout/`), compiled
+   with the package's nvcc flags into a temporary directory, and this
+   checkout's kernel, each held to the plain version (bfloat16 equal with
+   NCSN++'s FIR) and timed in turns (old, new, new, old) in bfloat16 and
+   float32 at the 18 calls of a full-width score forward (B=1, 256 x 576) and
+   the 33 adjoint calls of a joint-training step (B=8, 256 x 256): device ms
+   per call from profiler kernel events, each call after a 256 MB read that
+   clears the L2, summed per forward and per step beside the bytes bound.
+   FILE's host cost per call comes from this script run with --repo on
+   FILE's checkout, in a process of its own.
+3. sweep (unless --no-sweep or --host-only): the launch plan's knobs (ring
+   stages, the widest column tile, a box's byte budget; `tile_plan`'s
+   defaults first) at the 18 forward calls and the 33 adjoint calls in
+   bfloat16, per forward and per step, with each call's device us.
 
 Prints the card's name and power limit first.
 """
@@ -30,18 +36,39 @@ import subprocess
 import sys
 import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import torch
 
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-# (configuration, B, C, H, W) of the largest calls: the score forward's
-# down and up resblock calls, and the step's backward of each (the other
-# configuration at B=8 with the adjoint's pad)
-SHAPES = [("down", 1, 128, 256, 512), ("up", 1, 256, 128, 256),
-          ("down", 8, 256, 256, 256), ("up", 8, 128, 128, 128)]
+L2_FLUSH_BYTES = 256 << 20  # 5x the H100's 50 MB L2
+GAP_S = 0.02  # host pause between two functions' runs in a trace
+REPS = 20
+NF, CH_MULT, FREQS = 128, (1, 2, 2, 2), 256
 PADS = {"down": (1, 2, (1, 1)), "up": (2, 1, (2, 1))}
-HEIGHTS = (1, 2, 4)  # rows per thread (down) = quad rows per thread (up)
+# (stages, widest column tile, box bytes) swept after the defaults
+KNOBS = [(2, 144, 24 << 10), (3, 144, 24 << 10), (6, 144, 16 << 10), (4, 288, 24 << 10),
+         (4, 96, 24 << 10), (4, 144, 12 << 10)]
+
+
+def forward_calls(pyramid_ch: int, frames: int):
+    """(config, C, H, W) of the 18 upfirdn2d calls of one NCSN++ forward."""
+    calls, L = [], len(CH_MULT)
+    for i in range(L - 1):  # down resblocks (h and x), then the input pyramid
+        H, W = FREQS >> i, frames >> i
+        calls += [("down", NF * CH_MULT[i], H, W)] * 2 + [("down", pyramid_ch, H, W)]
+    for i in range(L - 1, 0, -1):  # output pyramid, then up resblocks (h and x)
+        H, W = FREQS >> i, frames >> i
+        calls += [("up", pyramid_ch, H, W)] + [("up", NF * CH_MULT[i], H, W)] * 2
+    return calls
+
+
+def step_adjoint_calls(frames: int = 256):
+    """(forward config, C, H, W) of the 33 backward calls of one joint step:
+    every call of the score net, every call of the denoiser but its input
+    pyramid's."""
+    return ([c for c in forward_calls(2, frames) if c[:2] != ("down", 2)]
+            + forward_calls(6, frames))
 
 
 def host_us(fn, calls: int = 1000, loops: int = 5) -> float:
@@ -58,111 +85,205 @@ def host_us(fn, calls: int = 1000, loops: int = 5) -> float:
     return statistics.median(times)
 
 
-def event_ms(fn, reps: int = 20, repeats: int = 5) -> float:
-    fn()
+def device_ms(fns, reps: int = REPS):
+    """Mean device time per call (ms) of each function in `fns`, each of which
+    launches one upfirdn2d kernel: its events in a profiler trace of `reps`
+    calls, each after an L2-clearing read; a pause after each function's
+    calls splits the trace into runs (a first, dropped run starts the tracer)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.zeros(L2_FLUSH_BYTES // 4, device="cuda")
+    for fn in fns:
+        fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(repeats):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    return statistics.median(times)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for fn in [fns[0], *fns]:
+            for _ in range(reps):
+                flush.sum()
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(GAP_S)
+    events = sorted({(e.time_range.start, e.time_range.end) for e in prof.events()
+                     if e.device_type == DeviceType.CUDA and "upfirdn2d_" in e.name})
+    runs, last_end = [], -float("inf")
+    for start, end in events:
+        if start - last_end > GAP_S * 1e6 / 2:
+            runs.append([])
+        runs[-1].append(end - start)
+        last_end = end
+    runs = runs[-len(fns):]
+    if len(runs) != len(fns) or any(len(r) < reps // 2 for r in runs):
+        sys.exit(f"FAIL: upfirdn2d device events: runs of {[len(r) for r in runs]}, expected "
+                 f"{len(fns)} runs of {reps}")
+    return [statistics.mean(r) / 1e3 for r in runs]
 
 
-def build_variant(build, rows: int, workdir: str):
-    """The C entry of csrc/upfirdn2d.cu compiled with both tile heights set to `rows`."""
-    src = (build.CSRC / "upfirdn2d.cu").read_text()
-    for name in ("kDownRows", "kUpQuadRows"):
-        line = f"constexpr int {name} = 2;"
-        if line not in src:
-            sys.exit(f"FAIL: {line!r} is not in csrc/upfirdn2d.cu")
-        src = src.replace(line, f"constexpr int {name} = {rows};")
-    cu, so = (os.path.join(workdir, f"upfirdn2d_{rows}.{ext}") for ext in ("cu", "so"))
-    with open(cu, "w") as f:
-        f.write(src)
-    proc = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", so, cu],
+def compile_source(build, src: Path, workdir: str, name: str):
+    so = os.path.join(workdir, f"lib{name}.so")
+    proc = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", so, str(src)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
-        sys.exit(f"FAIL: nvcc on the variant with {rows} rows:\n{proc.stdout}{proc.stderr}")
-    lib = ctypes.CDLL(so)
-    if hasattr(lib, "storm_upfirdn2d"):  # float32 (dtype 0) or bfloat16
-        entry = lib.storm_upfirdn2d
-        entry.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_longlong]
-                          + [ctypes.c_int] * 8 + [ctypes.c_void_p])
-
-        def fn(*args):
-            return entry(*args[:-1], 0, args[-1])
-    else:  # an older checkout: float32 only, no dtype argument
-        fn = entry = lib.storm_upfirdn2d_f32
-        entry.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_longlong]
-                          + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-    entry.restype = ctypes.c_int
-    return fn, proc.stdout + proc.stderr
+        sys.exit(f"FAIL: nvcc on {src}:\n{proc.stdout}{proc.stderr}")
+    return ctypes.CDLL(so), proc.stdout + proc.stderr
 
 
-def phase_tiles(kup, build, resample):
-    fir = resample.setup_kernel((1, 3, 3, 1))
+class Entry:
+    """One build's C entry. A build with a launch plan (`storm_upfirdn2d_plan_len`)
+    takes `tile_plan`'s array as its last argument, computed here with `knobs`."""
+
+    def __init__(self, lib, kup, knobs=None):
+        self.fn, self.kup, self.knobs = lib.storm_upfirdn2d, kup, knobs or {}
+        self.planned = hasattr(lib, "storm_upfirdn2d_plan_len")
+        args = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_longlong]
+        args += [ctypes.c_int] * 8 + [ctypes.c_void_p] * (2 if self.planned else 1)
+        self.fn.argtypes, self.fn.restype = args, ctypes.c_int
+
+    def call(self, x, out, taps, flip, up, down, pad0):
+        B, C, H, W = x.shape
+        Ho, Wo = out.shape[-2:]
+        device = x.get_device()
+        args = [x.data_ptr(), out.data_ptr(), taps.ctypes.data, flip, device, B * C, H, W, Ho,
+                Wo, up, down, pad0, self.kup._DTYPES[x.dtype],
+                torch.cuda.current_stream().cuda_stream]
+        if self.planned:
+            plan = self.kup.tile_plan(up, down, pad0, H, W, Ho, Wo, B * C, x.element_size(),
+                                      x.data_ptr() % 16 == 0, out.data_ptr() % 16 == 0,
+                                      self.kup._sms(device), **self.knobs)
+            args.append((ctypes.c_int * len(plan))(*plan))
+        err = self.fn(*args)
+        if err:
+            sys.exit(f"FAIL: upfirdn2d launch error {err} at {tuple(x.shape)} -> {Ho}x{Wo}")
+
+
+def call_cases(kup, fir, dtype, gen):
+    """{"forward" / "step": [(name, launch args, plain output)]}: the forward calls
+    at 576 frames (B=1) and the adjoint calls of a step (B=8, 256 x 256)."""
+    cases = {"forward": [], "step": []}
+    for cfg, C, H, W in forward_calls(6, 576):
+        up, down, pad = PADS[cfg]
+        k = fir * (4.0 if up == 2 else 1.0)
+        x = torch.randn(1, C, H, W, device="cuda", generator=gen).to(dtype)
+        want = kup.upfirdn2d_plain(x, k, up=up, down=down, pad=pad)
+        cases["forward"].append((f"{cfg} C={C} {H}x{W}", (x, k, 0, up, down, pad[0]), want))
+    for cfg, C, H, W in step_adjoint_calls():
+        up, down, pad = PADS[cfg]
+        k = fir * (4.0 if up == 2 else 1.0)
+        Ho, Wo = (kup.output_size(n, 4, up, down, pad) for n in (H, W))
+        g = torch.randn(8, C, Ho, Wo, device="cuda", generator=gen).to(dtype)
+        want = kup.upfirdn2d_bwd_plain(g, k, up, down, pad, (H, W))
+        g_up, g_down, g_pad0 = kup._adjoint(up, down, pad)
+        cases["step"].append((f"bwd of {cfg} C={C} {H}x{W}", (g, k, 1, g_up, g_down, g_pad0),
+                              want))
+    return cases
+
+
+def timed(entries, cases, kup):
+    """Check each entry against plain at every case, then time them in the
+    order given; returns {entry index: [ms per case]}."""
+    fns, owners = [], []
+    for idx, entry in enumerate(entries):
+        for name, (x, k, flip, up, down, pad0), want in cases:
+            out = torch.empty_like(want)
+            entry.call(x, out, k, flip, up, down, pad0)
+            torch.cuda.synchronize()
+            if want.dtype == torch.bfloat16:
+                if not torch.equal(out, want):
+                    sys.exit(f"FAIL: entry {idx} differs from plain at {name} bf16")
+            elif not torch.allclose(out, want, atol=1e-5, rtol=1e-5):
+                sys.exit(f"FAIL: entry {idx} disagrees with plain at {name}")
+            fns.append(lambda e=entry, a=(x, out, k, flip, up, down, pad0): e.call(*a))
+            owners.append(idx)
+    times = device_ms(fns)
+    per = {}
+    for idx, ms in zip(owners, times):
+        per.setdefault(idx, []).append(ms)
+    return per
+
+
+def bound_ms(cases):
+    return sum((x.numel() + want.numel()) * x.element_size() for _, (x, *_), want in cases) \
+        / PEAK_BYTES_PER_S * 1e3
+
+
+def phase_against(kup, build, resample, against: Path):
     with tempfile.TemporaryDirectory() as workdir:
-        t0 = time.perf_counter()
-        with ThreadPoolExecutor(len(HEIGHTS)) as pool:  # one nvcc each, side by side
-            variants = list(pool.map(lambda n: build_variant(build, n, workdir), HEIGHTS))
-        print(f"  built {len(HEIGHTS)} variants in {time.perf_counter() - t0:.1f} s", flush=True)
-        for rows, (_, log) in zip(HEIGHTS, variants):
-            for line in log.splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"  [{rows}] {line.strip()}")
+        old_lib, _ = compile_source(build, against, workdir, "upfirdn2d_old")
+        new_lib, log = compile_source(build, build.CSRC / "upfirdn2d.cu", workdir,
+                                      "upfirdn2d_new")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  [new] {line.strip()}")
+        old, new = Entry(old_lib, kup), Entry(new_lib, kup)
+        fir = resample.setup_kernel((1, 3, 3, 1))
         gen = torch.Generator(device="cuda").manual_seed(0)
-        inputs = {s: torch.randn(s[1:], device="cuda", generator=gen) for s in SHAPES}
-        for rows, (fn, _) in zip(HEIGHTS, variants):
-            for s, x in inputs.items():
-                up, down, pad = PADS[s[0]]
-                k = fir * (4.0 if up == 2 else 1.0)
-                want = kup.upfirdn2d_plain(x, k, up=up, down=down, pad=pad)
-                got = torch.empty_like(want)
-                B, C, H, W = x.shape
+        for dtype in (torch.bfloat16, torch.float32):
+            cases = call_cases(kup, fir, dtype, gen)
+            for what, cs in cases.items():
+                per = timed([old, new, new, old], cs, kup)
+                olds = [(a + b) / 2 for a, b in zip(per[0], per[3])]
+                news = [(a + b) / 2 for a, b in zip(per[1], per[2])]
+                for (name, (x, *_), want), o, n in zip(cs, olds, news):
+                    b = (x.numel() + want.numel()) * x.element_size() / PEAK_BYTES_PER_S * 1e3
+                    print(f"  {str(dtype)[6:]:8s} {name:26s} old {o:.5f} new {n:.5f} ms "
+                          f"bound {b:.5f} (old {o / b:.2f}x, new {n / b:.2f}x)", flush=True)
+                bound = bound_ms(cs)
+                print(f"  {str(dtype)[6:]} per {what} ({len(cs)} calls): old "
+                      f"{sum(per[0]):.4f} / {sum(per[3]):.4f} ms, new {sum(per[1]):.4f} / "
+                      f"{sum(per[2]):.4f} ms (runs 1 / 2 of each), bound {bound:.4f} ms",
+                      flush=True)
+            del cases
+            torch.cuda.empty_cache()
 
-                def launch():
-                    err = fn(x.data_ptr(), got.data_ptr(), k.ctypes.data, 0, x.get_device(),
-                             B * C, H, W, *got.shape[-2:], up, down, pad[0],
-                             torch.cuda.current_stream().cuda_stream)
-                    if err:
-                        sys.exit(f"FAIL: variant {rows} launch error {err}")
 
-                launch()
-                err = (got - want).abs().max().item()
-                if not torch.allclose(got, want, atol=1e-5, rtol=1e-5):
-                    sys.exit(f"FAIL: variant {rows} disagrees with plain at {s} (max {err:.3e})")
-                ms = event_ms(launch)
-                bound = 4.0 * (x.numel() + got.numel()) / PEAK_BYTES_PER_S * 1e3
-                print(f"  rows/thread {rows} {s[0]:4s} B={s[1]} C={s[2]} {s[3]}x{s[4]}: "
-                      f"ms={ms:.5f} bound_ms={bound:.5f} ratio={ms / bound:.2f} "
-                      f"err={err:.2e}", flush=True)
+def phase_sweep(kup, build, resample):
+    lib = build.load("upfirdn2d")
+    fir = resample.setup_kernel((1, 3, 3, 1))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    cases = call_cases(kup, fir, torch.bfloat16, gen)
+    knobs = [dict(stages=kup.STAGES, max_tw=kup.MAX_TW, stage_bytes=kup.STAGE_BYTES)]
+    knobs += [dict(stages=s, max_tw=t, stage_bytes=b) for s, t, b in KNOBS]
+    entries = [Entry(lib, kup, k) for k in knobs]
+    for what, cs in cases.items():
+        per = timed(entries, cs, kup)
+        for idx, k in enumerate(knobs):
+            print(f"  bfloat16 per {what}: stages {k['stages']} max_tw {k['max_tw']} box bytes "
+                  f"{k['stage_bytes']}: {sum(per[idx]):.4f} ms (bound "
+                  f"{bound_ms(cs):.4f}); per call " + " ".join(f"{ms * 1e3:.2f}" for ms in per[idx])
+                  + " us", flush=True)
 
 
 def phase_host(kup, resample):
     fir = resample.setup_kernel((1, 3, 3, 1))
     fir4 = fir * 4.0
     x = torch.randn(1, 6, 32, 64, device="cuda")
-    rows = {
-        "upfirdn2d_cuda down": lambda: kup.upfirdn2d_cuda(x, fir, up=1, down=2, pad=(1, 1)),
-        "upfirdn2d_cuda up": lambda: kup.upfirdn2d_cuda(x, fir4, up=2, down=1, pad=(2, 1)),
-        "downsample_2d": lambda: resample.downsample_2d(x, (1, 3, 3, 1)),
-        "upsample_2d": lambda: resample.upsample_2d(x, (1, 3, 3, 1)),
-    }
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        xd = x.to(dtype)
+        rows[f"upfirdn2d_cuda down {str(dtype)[6:]}"] = \
+            lambda xd=xd: kup.upfirdn2d_cuda(xd, fir, up=1, down=2, pad=(1, 1))
+        rows[f"upfirdn2d_cuda up {str(dtype)[6:]}"] = \
+            lambda xd=xd: kup.upfirdn2d_cuda(xd, fir4, up=2, down=1, pad=(2, 1))
+    rows["downsample_2d"] = lambda: resample.downsample_2d(x, (1, 3, 3, 1))
+    rows["upsample_2d"] = lambda: resample.upsample_2d(x, (1, 3, 3, 1))
     with torch.inference_mode():
         for name, fn in rows.items():
-            print(f"  host us per call, {name} (1, 6, 32, 64): {host_us(fn):.3f}", flush=True)
+            try:
+                us = f"{host_us(fn):.3f}"
+            except (ValueError, RuntimeError) as err:  # an older checkout without bf16
+                us = f"not run ({err})"
+            print(f"  host us per call, {name} (1, 6, 32, 64): {us}", flush=True)
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--repo", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    here = Path(__file__).resolve().parent.parent
+    parser.add_argument("--repo", default=str(here),
                         help="checkout whose storm_tpu_torch is measured")
-    parser.add_argument("--host-only", action="store_true", help="skip the tile comparison")
+    parser.add_argument("--host-only", action="store_true", help="the host phase alone")
+    parser.add_argument("--against", type=Path,
+                        help="another csrc/upfirdn2d.cu to compare with, in turns")
+    parser.add_argument("--no-sweep", action="store_true", help="skip the knob sweep")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("FAIL: no CUDA device")
@@ -176,9 +297,19 @@ def main():
     print(smi.stdout.strip().splitlines()[0])
     print(f"== host enqueue cost, package from {kup.__file__}", flush=True)
     phase_host(kup, resample)
-    if not args.host_only:
-        print("== tile heights", flush=True)
-        phase_tiles(kup, build, resample)
+    if args.host_only:
+        return
+    if args.against:
+        root = args.against.resolve().parent.parent.parent  # <root>/storm_tpu_torch/csrc/
+        print(f"== host enqueue cost, package from {root}", flush=True)
+        proc = subprocess.run([sys.executable, __file__, "--repo", str(root), "--host-only"],
+                              capture_output=True, text=True)
+        print("\n".join(proc.stdout.splitlines()[2:]) or proc.stderr, flush=True)
+        print(f"== {args.against} (old) against {build.CSRC / 'upfirdn2d.cu'} (new)", flush=True)
+        phase_against(kup, build, resample, args.against)
+    if not args.no_sweep:
+        print("== launch-plan knobs", flush=True)
+        phase_sweep(kup, build, resample)
 
 
 if __name__ == "__main__":
