@@ -40,9 +40,14 @@ Phases, each of which exits non-zero on failure:
    deterministic; (b) `python -m storm_tpu_torch.train` for 4 steps at B=8
    on a synthesized wsj0-layout corpus: finite losses, parameters and EMA
    moved, `last.pt` and `best_loss.pt` written, exactly 36 forward and 33
-   backward upfirdn2d launches per step; ms per step (CUDA events, no sync
-   added to the trainer's loop), audio seconds trained per second and peak
-   memory; (c) the written checkpoint enhances one file
+   backward upfirdn2d launches per step; the trainer's step runs as the
+   replay of its captured program from the third step (utils/
+   train_graphs.py; the first eager, the second the warm-up and capture),
+   the validation batch's from the third epoch; ms per step (CUDA events
+   around `TrainPrograms.step`, no sync added to the trainer's loop: the
+   median period of the replayed steps), audio seconds trained per second,
+   peak allocated and reserved memory (the program's pool included), the
+   capture's seconds; (c) the written checkpoint enhances one file
    through `python -m storm_tpu_torch.enhancement` at N=2.
 9. (with `--profile`) two full-width train steps traced with torch.profiler.
 10. int8 quantizer (K3) against plain: activation scales calibrated on the
@@ -180,9 +185,10 @@ Phases, each of which exits non-zero on failure:
    launch counts, K1 against plain at every shape it gave it (rows up to 8).
 32. `python -m storm_tpu_torch.bench` at bench.py's defaults (B=16, 256
    frames, N=50 + ald, bf16, int8, dc3; 1 timed rep here, the extras' budget
-   at 0 s: the headline line alone), then `--train`: their JSON lines; the
-   serving run's launches held to those of its calls (calibration, the
-   headline), the train run's
+   at 0 s: the headline line alone), then `--train` (the eager step, then
+   the replayed one: its line's value and `step_ms`, beside
+   `eager_step_ms`): their JSON lines; the serving run's launches held to
+   those of its calls (calibration, the headline), the train run's
    to 36 + 33 per step; K1 and K3 against plain at the shapes they gave,
    and K1's adjoint at every B=16 shape the train run's backward gave it.
 33. (with `--profile`) one dc3 bf16 enhancement of the 4 s file traced.
@@ -302,6 +308,28 @@ Phases, each of which exits non-zero on failure:
    same server with graphs=False; the streaming CLI on three copies of
    phase 16's 12 s file (the eager loop, the capture, a replay); phase 32's
    bench line (graphs).
+Phases 56-58 run after phase 26, beside the other training phases, while
+the process holds the least memory:
+56. the trainer's programs (utils/train_graphs.py) at full width, B=8 x 256
+   frames, cuDNN deterministic: StoRM joint in f32 and bf16, score-only
+   bf16, denoiser-only sisdr f32 and the distilled student in bf16 (phase
+   45's teacher, etd2 N=8): 4 eager steps and 4 through the program (the
+   eager first call, the warm-up and capture, two replays) from the same
+   model, batches and generator states: losses, parameters, EMA, Adam's
+   state and the step counts equal after every step (max abs 0); each
+   step timed (CUDA events), the peak allocated and reserved memory of
+   each run, the capture's seconds and the pool's bytes; then a replay (two
+   of the bf16 StoRM step) under torch.profiler: the counters grew by `step_launches` per replay
+   (36 + 33 for StoRM), K1's kernel events equal them, and the replays'
+   busy share; beside them the trainer's replayed periods (phases 8, 25).
+57. `python -m storm_tpu_torch.train --dtype bfloat16` through its programs
+   on phase 8's corpus, cuDNN deterministic: two epochs in one run, and a
+   run resumed for the second epoch from the first's epoch-0 `last.pt`:
+   the final `last.pt` equal bit for bit.
+58. the asynchronous checkpoint (`ckpt.AsyncCheckpointManager`) of a
+   full-width f32 StoRM state against the synchronous one, 3 saves each:
+   the wall the loop waits, the async save's wall to its end, the files
+   equal bit for bit.
 
 A serving path's first call of a shape runs the eager loop, its second
 also captures the shape's graph, and later calls replay it. To keep the
@@ -336,8 +364,10 @@ import functools
 import http.client
 import io
 import json
+import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -346,13 +376,18 @@ import threading
 import time
 from unittest import mock
 
+# before torch allocates on the card: the allocator the training CLI runs
+# with (storm_tpu_torch/utils/train_graphs.py `use_expandable_segments`)
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from storm_tpu_torch import enhancement, evaluate, serve, train
 from storm_tpu_torch.backbones.ncsnpp import NCSNpp, count_parameters
-from storm_tpu_torch.ckpt import load_training_checkpoint, save_checkpoint
+from storm_tpu_torch.ckpt import (AsyncCheckpointManager, CheckpointManager,
+                                  load_training_checkpoint, save_checkpoint)
 from storm_tpu_torch.data.audio import load_wav, save_wav
 from storm_tpu_torch.data.datasets import Specs
 from storm_tpu_torch.kernels import LAUNCH_COUNTERS as LAUNCH_COUNTERS_ALL
@@ -361,7 +396,7 @@ from storm_tpu_torch.kernels import fused_act as kfa
 from storm_tpu_torch.kernels import quant as kq
 from storm_tpu_torch.kernels import upfirdn as kup
 from storm_tpu_torch.models import quant as quant_mod
-from storm_tpu_torch.models.base import EnhancementModel, init_train_state, swapped_in
+from storm_tpu_torch.models.base import init_train_state, swapped_in
 from storm_tpu_torch.models.discriminative import DiscriminativeModel
 from storm_tpu_torch.models.distill import DEEPCACHE_REFUSAL, DistilledModel
 from storm_tpu_torch.models.factory import build_model, resolve_device
@@ -373,7 +408,7 @@ from storm_tpu_torch.nn.init import reset_parameters
 from storm_tpu_torch.nn.layers import Combine, GroupNorm, ResnetBlockBigGANpp, group_norm
 from storm_tpu_torch.sampling import samplers
 from storm_tpu_torch.signal.transforms import pad_spec_amount
-from storm_tpu_torch.utils import graphs
+from storm_tpu_torch.utils import graphs, train_graphs
 from storm_tpu_torch.utils.inference import BucketedEnhancer
 from storm_tpu_torch.utils.metrics import si_sdr
 from storm_tpu_torch.utils.server import decode_wav_bytes, encode_wav_bytes
@@ -1043,20 +1078,25 @@ def phase_train(workdir: str, dtype: str = "float32", steps_total: int = TRAIN_S
     logs = os.path.join(workdir, f"logs_{tag}{dtype}_{eval_files}")
     write_corpus(corpus)
     step_fwd, step_bwd = step_launches(mode, DISTILL_TEACHER_FORWARDS)
-    steps, first_params, dtypes = [], {}, set()
-    original, launch = EnhancementModel.train_step, kup._launch
+    steps, first_params, dtypes, runs = [], {}, set(), []
+    original, launch = train_graphs.TrainPrograms.step, kup._launch
 
-    def timed_step(model, state, batch, generator=None):
-        """train_step between two CUDA events; adds no host sync to the loop.
-        The allocator's peak is read on the host after each step's enqueue."""
+    def timed_step(programs, arrays, generator):
+        """The loop's step (`TrainPrograms.step`: the eager first call, the
+        warm-up and capture, then replays) between two CUDA events; adds no
+        host sync to the loop. The allocator's peak is read on the host after
+        each step's enqueue; the loss is kept as a copy (a replay's output is
+        overwritten by the next)."""
         if not first_params:
-            first_params.update({k: v.detach().clone() for k, v in model.state_dict().items()})
+            runs.append(programs)
+            first_params.update({k: v.detach().clone()
+                                 for k, v in programs.model.state_dict().items()})
         before = (kup.upfirdn2d_cuda.launches, kup.upfirdn2d_bwd_cuda.launches)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        aux = original(model, state, batch, generator)
+        aux = original(programs, arrays, generator)
         end.record()
-        steps.append(dict(start=start, end=end, loss=aux["loss"],
+        steps.append(dict(start=start, end=end, loss=aux["loss"].clone(),
                           peak=torch.cuda.max_memory_allocated(),
                           launches=(kup.upfirdn2d_cuda.launches - before[0],
                                     kup.upfirdn2d_bwd_cuda.launches - before[1])))
@@ -1083,13 +1123,13 @@ def phase_train(workdir: str, dtype: str = "float32", steps_total: int = TRAIN_S
         return real_replay(prog)
 
     t0 = time.perf_counter()
-    with mock.patch.object(EnhancementModel, "train_step", timed_step), \
+    with mock.patch.object(train_graphs.TrainPrograms, "step", timed_step), \
             mock.patch.object(kup, "_launch", watched_launch), calls_counted() as eval_calls, \
             mock.patch.object(graphs.Program, "replay", replay):
         _, text = captured(train.main, argv)
     wall = time.perf_counter() - t0
     launches = (kup.upfirdn2d_cuda.launches, kup.upfirdn2d_bwd_cuda.launches)
-    peak = torch.cuda.max_memory_allocated()
+    peak, reserved = torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
     want_dtype = {"float32": torch.float32, "bfloat16": BF16}[dtype]
     check(dtypes == {want_dtype}, f"{dtype} training launched upfirdn2d on {dtypes}")
 
@@ -1109,6 +1149,14 @@ def phase_train(workdir: str, dtype: str = "float32", steps_total: int = TRAIN_S
     check(len(replays) == max(0, len(eval_calls) - 2 * per_epoch),
           f"the evaluation made {len(eval_calls)} calls over {len(valid)} epochs and "
           f"{len(replays)} replays")
+    # the trainer's programs: the step's from its third call, the validation
+    # batch's (one per epoch here) from the third epoch
+    (programs,) = runs
+    st = programs.stats
+    check("training steps and validation: graph" in text
+          and st["captures"] == 1 + (len(valid) >= 2)
+          and st["replays"] == steps_total - 2 + max(0, len(valid) - 2),
+          f"the trainer's programs: {st}")
     evaluated = ("ValidationSISDR", "ValidationESTOI")
     quality = evaluated if eval_files else ()
     check(all(np.isfinite(losses))
@@ -1155,27 +1203,36 @@ def phase_train(workdir: str, dtype: str = "float32", steps_total: int = TRAIN_S
 
     # step time on the card's clock: the loop's period between the ends of
     # consecutive steps of one epoch (data loading included), and one
-    # train_step call from its first launch to its last kernel's end
+    # step's call from its first launch to its last kernel's end; from the
+    # third step on, each is a replay of the step's program
     periods = [steps[i - 1]["end"].elapsed_time(steps[i]["end"])
-               for i in range(1, len(steps)) if i % epoch_len]
-    calls = [s["start"].elapsed_time(s["end"]) for s in steps[1:]]
+               for i in range(2, len(steps)) if i % epoch_len]
+    calls = [s["start"].elapsed_time(s["end"]) for s in steps[2:]]
     first_s = steps[0]["start"].elapsed_time(steps[0]["end"]) / 1e3
+    second_s = steps[1]["start"].elapsed_time(steps[1]["end"]) / 1e3
     step_ms = statistics.median(periods)
     step_peak = max(s["peak"] for s in steps)
     r = dict(launches=launches, step_ms=step_ms, audio_s_per_s=TRAIN_B * TRAIN_AUDIO_S
              / (step_ms / 1e3), peak_gib=peak / 2**30, step_peak_gib=step_peak / 2**30,
+             reserved_gib=reserved / 2**30, capture_s=st["capture_s"],
+             pool_gib=st["pool_bytes"] / 2**30,
              eval={k: [r[k] for r in epochs] for k in ("ValidationPESQ", *evaluated)},
              ckpt_dir=ckpt_dir, run=run, losses=losses)
     print(f"  {tag}{dtype}: trained {steps_total} steps at B={TRAIN_B} x {TRAIN_FRAMES} frames in "
           f"{wall:.1f} s wall (setup, validation, evaluation and checkpoints included); losses "
           f"{[round(v, 2) for v in losses]}; valid {[round(v, 2) for v in valid]}", flush=True)
-    print(f"  {tag}{dtype} step: {step_ms:.2f} ms median period {[round(p, 2) for p in periods]} "
-          f"(first step {first_s:.3f} s; train_step alone median {statistics.median(calls):.2f} ms); "
-          f"{r['audio_s_per_s']:.3f} audio s trained per s; "
-          f"peak memory {r['peak_gib']:.2f} GiB (of the training steps {r['step_peak_gib']:.2f} "
-          f"GiB); launches per step {steps[-1]['launches']}, "
-          f"in all {launches}; {len(moved)} of {len(first_params)} tensors moved",
-          flush=True)
+    print(f"  {tag}{dtype} step (a replay of its program): {step_ms:.2f} ms median period "
+          f"{[round(p, 2) for p in periods]} (first step, eager, {first_s:.3f} s; second, the "
+          f"warm-up and capture, {second_s:.3f} s; a replayed step's call alone median "
+          f"{statistics.median(calls):.2f} ms); {r['audio_s_per_s']:.3f} audio s trained per s; "
+          f"peak memory {r['peak_gib']:.2f} GiB allocated (of the training steps "
+          f"{r['step_peak_gib']:.2f} GiB), {r['reserved_gib']:.2f} GiB reserved; the trainer's "
+          f"programs: {st['captures']} captures in {st['capture_s']:.2f} s, {st['replays']} "
+          f"replays, a pool of {r['pool_gib']:.2f} GiB (reserved before the last warm-up "
+          f"{st['reserved_before_warm_up'] / 2**30:.2f} GiB, before the last capture "
+          f"{st['reserved_before_capture'] / 2**30:.2f} GiB); launches per step "
+          f"{steps[-1]['launches']}, in all {launches}; {len(moved)} of {len(first_params)} "
+          f"tensors moved", flush=True)
     if eval_files:
         print(f"  {tag}{dtype} evaluation of {eval_files} files at N={eval_n} per epoch: "
               + "; ".join(f"{k} {[round(v, 4) for v in vals]}" for k, vals in r["eval"].items())
@@ -2911,8 +2968,8 @@ def phase_bench(workdir: str, gen: torch.Generator):
         lines[path] = line
         d = line["detail"]
         calls = 1 + BENCH_REPS  # a warm-up call (eager, then the capture), then the timed reps
-        if extra:
-            steps = 1 + BENCH_REPS * 5
+        if extra:  # the eager steps (one untimed), then the program's (two untimed)
+            steps = 1 + BENCH_REPS * 5 + 2 + BENCH_REPS * 5
             want = (STEP_FWD * steps, 0, STEP_BWD * steps)
             check(line["metric"] == "train_utt_per_sec_per_chip", f"{path}: {line}")
         else:
@@ -2937,7 +2994,10 @@ def phase_bench(workdir: str, gen: torch.Generator):
         k3_shapes |= k3s
         bwd_shapes = bwds if extra else None
     print(f"  bench line: {json.dumps(lines['bench_serving'])}", flush=True)
-    print(f"  bench --train line: {json.dumps(lines['bench_train'])}", flush=True)
+    d = lines["bench_train"]["detail"]
+    print(f"  bench --train line: {json.dumps(lines['bench_train'])}; the replayed step "
+          f"{d['step_ms']} ms ({lines['bench_train']['value']} utt/s) against the eager "
+          f"{d['eager_step_ms']} ms ({d['eager_utt_per_sec']} utt/s)", flush=True)
     return (k1_paths, k3_paths, bwd, lines, check_k1_at("the bench", k1_shapes, gen),
             check_k3_at("the bench", k3_shapes, gen),
             check_k1_bwd_at("the bench --train", bwd_shapes, gen))
@@ -4340,6 +4400,288 @@ def phase_graph_serving(workdir: str, bench_line, gen: torch.Generator):
     return k1_paths, check_k1_at("the graph servers and streaming", shapes, gen)
 
 
+# --- the trainer's programs as captured graphs (phases 56-58)
+
+TRAIN_GRAPH_STEPS = 4  # phase 56's steps per mode: eager, warm-up and capture, two replays
+# phase 56's replays under the profiler: two of the bf16 StoRM step (phase
+# 28's bf16 profile traces two eager steps), one of the others
+TRAIN_GRAPH_PROFILED = {"storm joint bf16": 2}
+SAVE_REPS = 3  # phase 58's saves per manager
+
+
+def train_waves(seed: int):
+    """(clean, noisy) wav batch at the trainer's defaults: B=8 crops of 256
+    frames (32640 samples), float32."""
+    rng = np.random.default_rng(seed)
+    n = (TRAIN_FRAMES - 1) * HOP
+    x = np.stack([synth_wav(n / SR, i + seed, rng) for i in range(TRAIN_B)])
+    return x, (x + 0.1 * rng.standard_normal(x.shape)).astype(np.float32)
+
+
+def train_state_tensors(state):
+    """Everything a step changes, by name: parameters, EMA, Adam's state, the
+    device step count."""
+    out = {f"param {k}": v for k, v in state.model.state_dict().items()}
+    out.update({f"ema {k}": v for k, v in state.ema.items()})
+    for i, st in enumerate(state.optimizer.state.values()):
+        out.update({f"adam {i} {k}": v for k, v in st.items()})
+    out["device_step"] = state.device_step
+    return out
+
+
+def max_abs_diff(got, want) -> float:
+    """max |got - want| over dicts of tensors with the same keys (NaN if
+    either holds one), read with one sync."""
+    check(got.keys() == want.keys(), f"keys differ: {set(got) ^ set(want)}")
+    return float(torch.stack([(got[k].float() - want[k].float()).abs().max()
+                              for k in want]).max())
+
+
+def timed_event(fn):
+    """(fn(), ms) between two CUDA events after a sync: the host's enqueue
+    and the device's work, whichever is longer."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def phase_train_graphs(teacher_ckpt: str, trainers):
+    """Phase 56. Each mode's training step as a captured graph against the
+    eager step at full width, B=8 x 256 frames, cuDNN deterministic: StoRM
+    joint in f32 and bf16, score-only bf16, denoiser-only sisdr f32 and the
+    distilled student in bf16 (phase 45's f32 checkpoint as the teacher,
+    etd2 N=8). From one initial model, TRAIN_GRAPH_STEPS eager steps
+    (`TrainPrograms(graphs=False)`) and as many through the programs (the
+    eager first call, the warm-up and capture, then replays), on the same
+    wav batches and generator states: after every step the losses,
+    parameters, EMA, Adam's moments and step counts and the device step
+    count must be equal (max abs 0). Each step is timed between CUDA events
+    (after a sync): the eager steps after the first against the replays;
+    the peak allocated and reserved memory of each run (with the program's
+    pool) and the capture's seconds. Then TRAIN_GRAPH_PROFILED replays
+    (one, two of the bf16 StoRM step) under torch.profiler: the counters grew by exactly `step_launches` per
+    replay, K1's kernel events (forward and adjoint share the kernels' names)
+    equal them, and the replay's busy share of its wall. Beside them, the
+    trainer's replayed periods of phases 8 and 25 (`trainers`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cases = [("storm joint f32", "regen-joint-training", dict(STORM_CONFIG)),
+             ("storm joint bf16", "regen-joint-training", dict(STORM_CONFIG, dtype="bfloat16")),
+             ("score-only bf16", "score-only",
+              {"mode": "score-only", "init_scale": 1.0, "dtype": "bfloat16"}),
+             ("denoiser-only sisdr f32", "denoiser-only",
+              {"mode": "denoiser-only", "init_scale": 1.0, "loss_type": "sisdr"}),
+             ("distill bf16", "distill", None)]
+    batches = [train_waves(i) for i in range(TRAIN_GRAPH_STEPS)]
+    rows = []
+    print(f"  at the start: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved", flush=True)
+    for what, mode, cfg in cases:
+        def make():
+            model = (distill_model(teacher_ckpt, "bfloat16")[0] if cfg is None
+                     else build_model(cfg, device="cuda", seed=0).train())
+            state = init_train_state(model, model.lr)
+            return state
+
+        runs, launched = {}, (kup.upfirdn2d_cuda.launches, kup.upfirdn2d_bwd_cuda.launches)
+        torch.backends.cudnn.deterministic = True
+        try:
+            for graphed in (False, True):
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                state = make()
+                programs = train_graphs.TrainPrograms(state, graphs=graphed)
+                if not graphed:  # before any step: copies made later would hold its blocks
+                    saved = [{k: torch.empty_like(v) for k, v in train_state_tensors(state).items()}
+                             for _ in batches]
+                out, ms = [], []
+                for i, batch in enumerate(batches):
+                    aux, t = timed_event(lambda: programs.step(batch, cuda_gen(100 + i)))
+                    ms.append(t)
+                    if graphed:
+                        got = dict(train_state_tensors(state), **{f"aux {k}": v
+                                                                  for k, v in aux.items()})
+                        out.append(max_abs_diff(got, saved[i]))
+                    else:
+                        for k, v in train_state_tensors(state).items():
+                            saved[i][k].copy_(v)
+                        saved[i].update({f"aux {k}": v.clone() for k, v in aux.items()})
+                runs[graphed] = dict(out=out, ms=ms, peak=torch.cuda.max_memory_allocated() / 2**30,
+                                     reserved=torch.cuda.max_memory_reserved() / 2**30)
+                if not graphed:
+                    del state, programs
+            errs = runs[True]["out"]
+            st = programs.stats
+            check(st["captures"] == 1 and st["replays"] == TRAIN_GRAPH_STEPS - 2,
+                  f"{what}: the program's counters {st}")
+
+            # the same program (its key holds cuDNN's flags)
+            fwd, bwd = step_launches(mode, DISTILL_TEACHER_FORWARDS)
+            n = TRAIN_GRAPH_PROFILED.get(what, 1)
+            before = (kup.upfirdn2d_cuda.launches, kup.upfirdn2d_bwd_cuda.launches)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for i in range(n):
+                    programs.step(batches[i], cuda_gen(200 + i))
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            check(programs.stats["replays"] == TRAIN_GRAPH_STEPS - 2 + n,
+                  f"{what}: the profiled steps did not replay: {programs.stats}")
+        finally:
+            torch.backends.cudnn.deterministic = False
+        added = (kup.upfirdn2d_cuda.launches - before[0], kup.upfirdn2d_bwd_cuda.launches - before[1])
+        events = kernel_events(prof)
+        k1 = sum(1 for e in events if "upfirdn2d_down" in e[2] or "upfirdn2d_up" in e[2])
+        busy_ms, end = 0.0, -float("inf")
+        for start, stop, _, _ in events:
+            busy_ms += max(0.0, stop - max(start, end)) / 1e3
+            end = max(end, stop)
+        counted = n * (fwd + bwd)
+        row = dict(what=what, err=max(errs), eager_ms=statistics.median(runs[False]["ms"][1:]),
+                   replay_ms=statistics.median(runs[True]["ms"][2:]),
+                   second_s=runs[True]["ms"][1] / 1e3, capture_s=st["capture_s"],
+                   pool_gib=st["pool_bytes"] / 2**30, eager_peak=runs[False]["peak"],
+                   eager_reserved=runs[False]["reserved"], peak=runs[True]["peak"],
+                   reserved=runs[True]["reserved"], busy=busy_ms / wall_ms, k1=k1,
+                   launches=(fwd, bwd), bf16="bf16" in what,
+                   k1_launched=(kup.upfirdn2d_cuda.launches - launched[0],
+                                kup.upfirdn2d_bwd_cuda.launches - launched[1]))
+        rows.append(row)
+        print(f"  {what}: max|replay - eager| per step {errs} (losses, parameters, EMA, Adam, "
+              f"step counts); step ms eager {[round(t, 2) for t in runs[False]['ms']]}, through "
+              f"the program {[round(t, 2) for t in runs[True]['ms']]} (the eager first call, the "
+              f"warm-up and capture, replays); capture {st['capture_s']:.3f} s, pool "
+              f"{row['pool_gib']:.2f} GiB (reserved before the warm-up "
+              f"{st['reserved_before_warm_up'] / 2**30:.2f} GiB, before the capture "
+              f"{st['reserved_before_capture'] / 2**30:.2f} GiB); peak allocated / reserved eager "
+              f"{row['eager_peak']:.2f} / {row['eager_reserved']:.2f} GiB, with the program "
+              f"{row['peak']:.2f} / {row['reserved']:.2f} GiB", flush=True)
+        print(f"  {what}: {n} replays under the profiler: wall {wall_ms:.1f} ms, {len(events)} "
+              f"kernel events, busy {busy_ms:.1f} ms ({100 * row['busy']:.1f}% of wall); K1 "
+              f"events {k1} of {counted} counted, counters added {added}, derived {n} x "
+              f"{(fwd, bwd)}", flush=True)
+        check(all(e == 0.0 for e in errs), f"{what}: a replayed step parts from eager: {errs}")
+        # the profile rule (PROFILE_MIN_MATCHED): the profiler may drop a few
+        # of a long trace's events (the distill step's 40k), never add one
+        check(added == (n * fwd, n * bwd) and PROFILE_MIN_MATCHED * counted <= k1 <= counted,
+              f"{what}: {n} replays launched {added} ({k1} K1 events), expected {n} x "
+              f"{(fwd, bwd)}")
+        del state, programs, runs, saved
+        torch.cuda.empty_cache()
+    print("  | mode | eager step ms | replayed step ms | eager / replay | busy (replays) | "
+          "capture s | pool GiB | peak alloc / reserved GiB, eager | with the program |",
+          flush=True)
+    for r in rows:
+        print(f"  | {r['what']} | {r['eager_ms']:.2f} | {r['replay_ms']:.2f} | "
+              f"{r['eager_ms'] / r['replay_ms']:.2f} | {100 * r['busy']:.1f}% | "
+              f"{r['capture_s']:.3f} | {r['pool_gib']:.2f} | {r['eager_peak']:.2f} / "
+              f"{r['eager_reserved']:.2f} | {r['peak']:.2f} / {r['reserved']:.2f} |", flush=True)
+    for what, t in trainers.items():
+        print(f"  the trainer's {what} (phase {t['phase']}): replayed step period "
+              f"{t['step_ms']:.2f} ms median, peak {t['peak_gib']:.2f} GiB allocated, "
+              f"{t['reserved_gib']:.2f} GiB reserved, capture {t['capture_s']:.3f} s, pool "
+              f"{t['pool_gib']:.2f} GiB", flush=True)
+    return rows
+
+
+def phase_train_resume(train_dir: str):
+    """Phase 57. `python -m storm_tpu_torch.train --dtype bfloat16` through its
+    programs on phase 8's corpus, cuDNN deterministic, no evaluation: two
+    epochs in one run (its epoch-0 `last.pt` kept), and a run resumed from
+    that file for the second epoch (its own eager first step and capture):
+    the two runs' final `last.pt` equal bit for bit (parameters, EMA, Adam's
+    moments and step counts, meta)."""
+    corpus = os.path.join(train_dir, "corpus")
+    epoch_len = TRAIN_FILES // TRAIN_B
+    argv = ["--mode", "regen-joint-training", "--base_dir", corpus, "--format", "wsj0",
+            "--batch_size", str(TRAIN_B), "--num_frames", str(TRAIN_FRAMES), "--max_epochs", "2",
+            "--num_eval_files", "0", "--log_every_n_steps", str(epoch_len), "--num_workers", "4",
+            "--seed", "0", "--dtype", "bfloat16", "--device", "cuda"]
+    whole, split = os.path.join(train_dir, "resume_whole"), os.path.join(train_dir, "resume_split")
+    kept = os.path.join(train_dir, "resume_epoch0.pt")
+    real_write = CheckpointManager.write
+
+    def keep_epoch0(mgr, payload, **kw):
+        real_write(mgr, payload, **kw)
+        if kw["epoch"] == 0:
+            shutil.copyfile(mgr.path("last"), kept)
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        with mock.patch.object(CheckpointManager, "write", keep_epoch0):
+            captured(train.main, argv + ["--log_dir", whole])
+        _, text = captured(train.main, argv + ["--log_dir", split, "--resume_from_checkpoint",
+                                               kept])
+    finally:
+        torch.backends.cudnn.deterministic = False
+    check(f"at step {epoch_len}, epoch 1" in text, "the run did not resume at epoch 1")
+    ends = [load_training_checkpoint(os.path.join(d, os.listdir(d)[0], "checkpoints", "last.pt"))
+            for d in (whole, split)]
+    got, want = ends[1], ends[0]
+    check(got["step"] == want["step"] == 2 * epoch_len and got["meta"] == want["meta"],
+          f"resumed run at step {got['step']}, meta {got['meta']}; continuous {want['step']}")
+    errs = [max_abs_diff(got[k], want[k]) for k in ("params", "ema_params")]
+    errs += [max_abs_diff(got["optimizer"]["state"][i], s)
+             for i, s in want["optimizer"]["state"].items()]
+    print(f"  bf16, {2 * epoch_len} steps: two epochs in one run against one epoch and a resume "
+          f"from its last.pt: max abs difference of the parameters {errs[0]:.3e}, the EMA "
+          f"{errs[1]:.3e}, Adam's state {max(errs[2:]):.3e}", flush=True)
+    check(max(errs) == 0.0, f"the resumed run parts from the continuous one: {max(errs)}")
+
+
+def phase_async_save(workdir: str):
+    """Phase 58. A full-width f32 StoRM train state (one update on zero
+    gradients makes Adam's moments) saved SAVE_REPS times in turns by
+    `CheckpointManager.step` and by `AsyncCheckpointManager.step`: the wall
+    the training loop waits per epoch (the synchronous save's whole wall;
+    the async manager's `step`: the device snapshot's enqueue, with no save
+    in flight) against the async save's wall to its end (`wait`); the two
+    managers' `last.pt` equal bit for bit."""
+    model = build_model(STORM_CONFIG, device="cuda", seed=0).train()
+    state = init_train_state(model, model.lr)
+    for p in model.parameters():
+        if p.requires_grad:
+            p.grad = torch.zeros_like(p)
+    model.apply_update(state)
+    kw = dict(valid_loss=1.0, epoch=0, bad_epochs=0, best_valid=1.0, pesq=math.nan, estoi=0.5)
+    sync = CheckpointManager(os.path.join(workdir, "save_sync"), STORM_CONFIG)
+    asyn = AsyncCheckpointManager(CheckpointManager(os.path.join(workdir, "save_async"),
+                                                    STORM_CONFIG))
+    walls = {"sync": [], "async_step": [], "async_wait": []}
+    for _ in range(SAVE_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sync.step(state, **kw)
+        walls["sync"].append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        asyn.step(state, **kw)
+        walls["async_step"].append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        asyn.wait()
+        walls["async_wait"].append(time.perf_counter() - t0)
+    got, want = (load_training_checkpoint(m.path("last")) for m in (asyn, sync))
+    errs = [max_abs_diff(got[k], want[k]) for k in ("params", "ema_params")]
+    errs += [max_abs_diff(got["optimizer"]["state"][i], st)
+             for i, st in want["optimizer"]["state"].items()]
+    size = os.path.getsize(sync.path("last")) / 2**20
+    print(f"  f32 StoRM state, last.pt of {size:.1f} MiB: the loop waits "
+          f"{[round(w, 4) for w in walls['async_step']]} s for the async save against "
+          f"{[round(w, 3) for w in walls['sync']]} s for the synchronous one; the async save "
+          f"ends {[round(w, 3) for w in walls['async_wait']]} s later, in its thread; the "
+          f"files' max abs difference {max(errs):.3e}", flush=True)
+    check(max(errs) == 0.0 and got["step"] == want["step"] and got["meta"] == want["meta"],
+          "the async save wrote another checkpoint than the synchronous one")
+    del model, state
+    torch.cuda.empty_cache()
+    return walls
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -4478,6 +4820,26 @@ def main():
               f"(--num_eval_files {VALID_FILES} --eval_N {F32_EVAL_N}, one epoch)", flush=True)
         train_f32_eval = phase_train(train_dir, "float32", steps_total=TRAIN_FILES // TRAIN_B,
                                      eval_files=VALID_FILES, eval_n=F32_EVAL_N)
+
+        # the trainer's programs (56-58) beside the other training phases, while
+        # the process holds the least memory (a full-width f32 step's pool is
+        # 42.5 GiB)
+        torch.cuda.empty_cache()
+        phase_header("== phase 56: each training program's replay against the eager step, bit for "
+                     "bit; its launches from the profiler", flush=True)
+        tg_rows = phase_train_graphs(os.path.join(train_f32["ckpt_dir"], "last.pt"), {
+            "f32 step": dict(train_f32, phase=8), "bf16 step": dict(train_bf16, phase=25)})
+
+        phase_header("== phase 57: a resume from last.pt through the programs against the "
+                     "continuous run", flush=True)
+        resume_before = (kup.upfirdn2d_cuda.launches, kup.upfirdn2d_bwd_cuda.launches)
+        phase_train_resume(train_dir)
+        resume_launched = (kup.upfirdn2d_cuda.launches - resume_before[0],
+                           kup.upfirdn2d_bwd_cuda.launches - resume_before[1])
+
+        phase_header("== phase 58: the asynchronous checkpoint against the synchronous one",
+                     flush=True)
+        phase_async_save(workdir)
 
         phase_header("== phase 27: fused_leaky_relu in bfloat16 through its op API against plain",
               flush=True)
@@ -4679,6 +5041,13 @@ def main():
     k1_bf16_by_path.update({"graphs_against_eager_bf16": g_k1 - g_k1_f32, **g_srv_k1})
     k3_bf16_by_path["graphs_against_eager_int8_bf16"] = g_k3
     ode_k1_bf16_err = max(ode_k1_bf16_err, g_srv_err)
+    # the trainer's programs (phases 56-57): each mode's eager steps, its
+    # program's steps and the profiled replays; the resumed trainer runs
+    for r in tg_rows:
+        path = "train_graphs_" + r["what"].replace(" ", "_").replace("-", "_")
+        (k1_bf16_by_path if r["bf16"] else k1_by_path)[path] = r["k1_launched"][0]
+        (bwd_bf16_by_path if r["bf16"] else bwd_by_path)[path] = r["k1_launched"][1]
+    k1_bf16_by_path["train_resume_bf16"], bwd_bf16_by_path["train_resume_bf16"] = resume_launched
     nt_bwd_err = max(nt_bwd_err, nf32_bwd_err)
     nt_bwd_bf16_err = max(nt_bwd_bf16_err, nf32_bwd_bf16_err)
     nm_k3_err = max(nm_k3_err, d_k3_err, d_bench_k3_err)

@@ -39,8 +39,10 @@ and elementwise work (GroupNorm, activations, the quantizer).
 `achieved_tflops_per_s` is that count over the wall.
 
 `--train` measures the joint training step at B = `--batch`, `--frames`
-frames and `--dtype` instead: the fastest of `--reps` runs of 5 steps, each
-synced by reading the loss. `--profile DIR` writes a torch.profiler trace of
+frames and `--dtype` instead, on a wav batch through the trainer's
+programs: the fastest of `--reps` runs of 5 steps, each synced by reading
+the loss, replayed from the step's captured graph (the value, `step_ms`)
+and eager (`eager_step_ms`, `eager_utt_per_sec`). `--profile DIR` writes a torch.profiler trace of
 the timed region to DIR/bench_trace.json.
 
 `vs_baseline` is the ratio against the north-star of 10x real time per
@@ -71,6 +73,7 @@ from .models.factory import build_model
 from .models.distill import DistilledModel
 from .models.quant import calibrate_distill, calibrate_storm, num_quantized_convs
 from .utils.graphs import graphed_enhance, programs_of
+from .utils.train_graphs import TrainPrograms, use_expandable_segments
 
 SR = 16000
 TARGET = 10.0  # the north-star: >= 10x real time per chip
@@ -167,25 +170,42 @@ def generator(device: torch.device, seed: int) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed)
 
 
-def bench_train(args, model, device: torch.device) -> dict:
-    """The joint training step's throughput at (batch, frames) in --dtype."""
-    model.train()
+def train_step_s(args, model, device: torch.device, graphs: bool, profile=None) -> float:
+    """Seconds per joint training step at (batch, frames) on a fixed wav
+    batch, through the trainer's programs (utils/train_graphs.py: from the
+    third call a replay; `graphs=False`: the eager step), from a fresh train
+    state: the fastest of --reps runs of TRAIN_STEPS_PER_REP steps, each
+    synced by reading the loss, after the untimed calls that make the
+    program (one eager, and with graphs the warm-up and capture)."""
     state = init_train_state(model, model.lr)
+    programs = TrainPrograms(state, graphs=graphs)
     gen = generator(device, 1)
-    shape = (args.batch, model.stft_config.n_fft // 2 + 1, args.frames, 2)
-    batch = (0.1 * torch.randn(shape, generator=gen, device=device),
-             0.1 * torch.randn(shape, generator=gen, device=device))
-    aux = model.train_step(state, batch, gen)  # warm-up at the same shapes
+    rng = np.random.default_rng(0)
+    samples = (args.frames - 1) * model.stft_config.hop_length
+    batch = tuple((0.1 * rng.standard_normal((args.batch, samples))).astype(np.float32)
+                  for _ in range(2))
+    for _ in range(2 if graphs else 1):
+        aux = programs.step(batch, gen)
     float(aux["loss"])
     times = []
-    with profiled(args.profile, device):
+    with profiled(profile, device):
         for _ in range(args.reps):
             t0 = time.perf_counter()
             for _ in range(TRAIN_STEPS_PER_REP):
-                aux = model.train_step(state, batch, gen)
+                aux = programs.step(batch, gen)
             float(aux["loss"])  # the sync
             times.append((time.perf_counter() - t0) / TRAIN_STEPS_PER_REP)
-    wall = min(times)
+    return min(times)
+
+
+def bench_train(args, model, device: torch.device) -> dict:
+    """The joint training step's throughput at (batch, frames) in --dtype,
+    replayed (the value) and eager (beside it), each from its own train
+    state; the eager step runs first, so that its memory is free before the
+    capture."""
+    model.train()
+    eager = train_step_s(args, model, device, graphs=False)
+    wall = train_step_s(args, model, device, graphs=True, profile=args.profile)
     return {
         "metric": "train_utt_per_sec_per_chip",
         "value": round(args.batch / wall, 2),
@@ -194,7 +214,8 @@ def bench_train(args, model, device: torch.device) -> dict:
         "detail": {
             "batch": args.batch, "frames": args.frames, "step_ms": round(wall * 1000, 1),
             "dtype": args.dtype, "backend": device.type, "device_name": device_name(device),
-            "backbone": args.backbone,
+            "backbone": args.backbone, "eager_step_ms": round(eager * 1000, 1),
+            "eager_utt_per_sec": round(args.batch / eager, 2),
         },
     }
 
@@ -356,4 +377,5 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
 
 if __name__ == "__main__":
+    use_expandable_segments()
     main()

@@ -12,7 +12,8 @@ three keys, so a trainer's checkpoint enhances as it is.
 
 `CheckpointManager` keeps `last.pt`, `best_loss.pt` (lowest validation
 loss) and `best_pesq.pt` (best in-training evaluation) in one directory, as
-the reference's manager keeps `last`, `best_loss` and `best_pesq`.
+the reference's manager keeps `last`, `best_loss` and `best_pesq`;
+`AsyncCheckpointManager` writes the same files from a thread.
 """
 from __future__ import annotations
 
@@ -20,19 +21,26 @@ import json
 import math
 import os
 import shutil
-from typing import Any, Dict, Mapping, Optional, Tuple
+import threading
+import traceback
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 
 
-def _to_host(tree):
+def _map_tensors(tree, fn: Callable[[torch.Tensor], Any]):
+    """`tree` (dicts, lists and tuples) with `fn` applied to every tensor."""
     if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu()
+        return fn(tree)
     if isinstance(tree, dict):
-        return {k: _to_host(v) for k, v in tree.items()}
+        return {k: _map_tensors(v, fn) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_to_host(v) for v in tree)
+        return type(tree)(_map_tensors(v, fn) for v in tree)
     return tree
+
+
+def _to_host(tree):
+    return _map_tensors(tree, lambda t: t.detach().cpu())
 
 
 def save_checkpoint(path: str, config: Mapping[str, Any],
@@ -120,6 +128,13 @@ class CheckpointManager:
              estoi: Optional[float] = None) -> None:
         """Save `state` (a models.base.TrainState) after `epoch`, with the
         epoch's evaluation (NaN or None where it did not run)."""
+        self.write(training_payload(state), valid_loss=valid_loss, epoch=epoch,
+                   bad_epochs=bad_epochs, best_valid=best_valid, pesq=pesq, estoi=estoi)
+
+    def write(self, payload: Mapping[str, Any], valid_loss: float, epoch: int,
+              bad_epochs: int, best_valid: float, pesq: Optional[float] = None,
+              estoi: Optional[float] = None) -> None:
+        """`step` for a `training_payload`: the policy, then the files."""
         if pesq is not None and math.isfinite(pesq):
             quality, metric = float(pesq), "pesq"
         elif estoi is not None and math.isfinite(estoi):
@@ -143,10 +158,110 @@ class CheckpointManager:
                 "best_quality": _finite_or_none(self.best_quality),
                 "quality_metric": self.quality_metric}
         last = self.path("last")
-        save_checkpoint(last, self.config, state.model.state_dict(), state.ema,
-                        optimizer=state.optimizer.state_dict(), step=state.step, meta=meta)
+        save_checkpoint(last, self.config, payload["params"], payload["ema"],
+                        optimizer=payload["optimizer"], step=payload["step"], meta=meta)
         for tag, improved in (("best_loss", loss_improved), ("best_pesq", quality_improved)):
             if improved:
                 tmp = self.path(tag) + ".tmp"
                 shutil.copyfile(last, tmp)
                 os.replace(tmp, self.path(tag))
+
+
+def training_payload(state) -> Dict[str, Any]:
+    """What a checkpoint holds of a TrainState, by reference: params, EMA,
+    optimizer state_dict, the host's step count."""
+    return {"params": state.model.state_dict(), "ema": state.ema,
+            "optimizer": state.optimizer.state_dict(), "step": state.step}
+
+
+class AsyncCheckpointManager:
+    """`CheckpointManager`'s saves, written while training goes on (the
+    counterpart of storm_tpu/ckpt.py:271-326).
+
+    `step` snapshots the state on the device, on the training stream
+    (params, EMA, optimizer state and both step counts: a device-to-device
+    copy, queued before the next step can change them), then returns; a
+    thread copies the snapshot to pinned host memory on a side stream that
+    waits on the snapshot's event, checks that the two step counts agree,
+    and writes the files a synchronous save writes (`CheckpointManager.write`:
+    the policy, `last.pt` and the tag copies). At most one save is in
+    flight: `step` first waits for the previous one. A save's exception is
+    re-raised by the next `step` or `wait`. Call `wait()` before reading the
+    files or exiting; `close()` joins a save without raising (after an
+    error elsewhere, which its exception must not mask)."""
+
+    def __init__(self, mgr: CheckpointManager):
+        self.mgr = mgr
+        self._thread: Optional[threading.Thread] = None
+        self._err: Optional[BaseException] = None
+        self._stream = None
+
+    @property
+    def best_loss(self) -> float:
+        return self.mgr.best_loss
+
+    @property
+    def quality_metric(self) -> Optional[str]:
+        return self.mgr.quality_metric
+
+    def path(self, tag: str) -> str:
+        return self.mgr.path(tag)
+
+    def restore_from_meta(self, meta: Mapping[str, Any]) -> None:
+        self.mgr.restore_from_meta(meta)
+
+    def step(self, state, **kwargs) -> None:
+        """Snapshot `state` and save it from a thread, with `CheckpointManager.step`'s
+        keywords."""
+        self.wait()
+        snapshot = dict(_map_tensors(training_payload(state), lambda t: t.detach().clone()),
+                        device_step=state.device_step.clone())
+        event = None
+        if state.device_step.is_cuda:
+            event = torch.cuda.Event()
+            event.record()
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(state.device_step.device)
+
+        def run():
+            try:
+                host = snapshot
+                if event is not None:
+                    with torch.cuda.stream(self._stream):
+                        self._stream.wait_event(event)
+                        host = _map_tensors(snapshot, _pinned_copy)
+                        self._stream.synchronize()  # after which the snapshot may go
+                counted = int(host.pop("device_step"))
+                if counted != host["step"]:
+                    raise RuntimeError(f"the device counted {counted} steps, the host "
+                                       f"{host['step']}")
+                self.mgr.write(host, **kwargs)
+            except BaseException as e:  # re-raised by the next step or wait
+                self._err = e
+
+        self._thread = threading.Thread(target=run, name="checkpoint-save")
+        self._thread.start()
+
+    def wait(self) -> None:
+        """Join the save in flight; raise its exception, if it had one."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._err is not None:
+            err, self._err = self._err, None
+            raise err
+
+    def close(self) -> None:
+        """Join the save in flight; print its exception instead of raising it."""
+        try:
+            self.wait()
+        except Exception:  # a failure elsewhere is already propagating
+            traceback.print_exc()
+
+
+def _pinned_copy(t: torch.Tensor) -> torch.Tensor:
+    """A copy of the device tensor `t` into new pinned host memory, queued on
+    the current stream."""
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    return host

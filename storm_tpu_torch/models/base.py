@@ -161,37 +161,87 @@ def per_example_sum(v: torch.Tensor) -> torch.Tensor:
 @dataclasses.dataclass
 class TrainState:
     """What a training step changes: the step count, the model's parameters,
-    the EMA shadow (a state_dict of `model`) and the optimizer's moments."""
+    the EMA shadow (a state_dict of `model`) and the optimizer's moments.
+    `step` is the host's count, which the loop, the logs and the checkpoints
+    read; `device_step` is its copy on the model's device, which the EMA's
+    decay reads, so that a step reads no host value (utils/train_graphs.py)."""
 
     step: int
     model: nn.Module
     ema: Dict[str, torch.Tensor]
     optimizer: torch.optim.Optimizer
+    device_step: Optional[torch.Tensor] = None
+
+    def __post_init__(self):
+        if self.device_step is None:
+            device = next(self.model.parameters()).device
+            self.device_step = torch.full((), self.step, dtype=torch.int32, device=device)
+
+    def set_step(self, step: int) -> None:
+        """Both counts to `step` (a resumed run's)."""
+        self.step = step
+        self.device_step.fill_(step)
 
 
 def make_optimizer(model: nn.Module, lr: float) -> torch.optim.Adam:
     """Adam over the trainable parameters with the defaults of `optax.adam`:
     b1 0.9, b2 0.999, eps 1e-8 added outside the square root. Frozen
     parameters (the Fourier features' W) are left out; the reference stops
-    their gradient, so Adam leaves them unchanged there too."""
-    return torch.optim.Adam([p for p in model.parameters() if p.requires_grad],
-                            lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    their gradient, so Adam leaves them unchanged there too. On a card Adam
+    is capturable: its bias correction runs on the device from its device
+    step counts, in the eager step as in a captured one, so both run the
+    same arithmetic (PyTorch refuses a capturable Adam on the CPU)."""
+    params = [p for p in model.parameters() if p.requires_grad]
+    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                            capturable=params[0].is_cuda)
 
 
 def init_train_state(model: nn.Module, lr: float) -> TrainState:
+    """Step 0: the EMA at the parameters, Adam's state made now (`adam_state_now`)."""
+    optimizer = make_optimizer(model, lr)
+    adam_state_now(optimizer)
     return TrainState(step=0, model=model,
                       ema={k: v.detach().clone() for k, v in model.state_dict().items()},
-                      optimizer=make_optimizer(model, lr))
+                      optimizer=optimizer)
+
+
+def adam_state_now(optimizer: torch.optim.Adam) -> None:
+    """Make Adam's state as its first step would (moments and step counts at
+    zero; the counts on the device when capturable), so that the state is
+    allocated before a step's activations: made lazily after the first
+    backward, its tensors would be carved out of the allocator's freed
+    activation blocks and hold those segments, which a captured step's pool
+    could then not reuse (utils/train_graphs.py)."""
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            state = optimizer.state[p]
+            if not state:
+                state["step"] = (torch.zeros((), dtype=torch.float32, device=p.device)
+                                 if group["capturable"] else torch.tensor(0.0))
+                state["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                state["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
 
 
 @torch.no_grad()
 def ema_update(ema: Dict[str, torch.Tensor], params: Dict[str, torch.Tensor],
-               decay: float, step: int) -> None:
-    """In place: ema = d*ema + (1-d)*params, d = min(decay, (1+step)/(10+step)),
-    `step` being the count of optimizer steps taken, this one included."""
-    d = min(decay, (1.0 + step) / (10.0 + step))
-    for k, e in ema.items():
-        e.mul_(d).add_(params[k], alpha=1.0 - d)
+               decay: float, step: torch.Tensor) -> None:
+    """In place: ema = d*ema + (1-d)*params, d = min(decay, (1+n)/(10+n)), n
+    the count of optimizer steps taken, this one included, a tensor on the
+    device; in float32 as the reference's `ema_update` (storm_tpu/models/
+    base.py:37-43), which XLA compiles into one fused multiply-add per
+    element: fma(d, ema, (1-d)*params). On a card `addcmul` is that fused
+    multiply-add. On the CPU, whose `addcmul` fuses only its vectorized
+    part, the exact product is summed in float64 and rounded to float32:
+    the fused result except where the float64 sum falls on a float32
+    midpoint (terms whose exponents differ by more than 5, about 2^-29 of
+    those elements)."""
+    num = step.to(torch.float32)
+    d = torch.clamp((1.0 + num) / (10.0 + num), max=decay)
+    for e, q in zip(ema.values(), torch._foreach_mul([params[k] for k in ema], 1.0 - d)):
+        if e.is_cuda:
+            torch.addcmul(q, e, d, out=e)
+        else:
+            e.copy_(torch.addcmul(q.double(), e.double(), d.double()))
 
 
 @contextlib.contextmanager
@@ -235,29 +285,61 @@ class EnhancementModel(nn.Module):
     def step_loss(self, batch, *drawn) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         raise NotImplementedError
 
+    def per_example_given(self, batch, *drawn) -> torch.Tensor:
+        """Each example's loss (B,) for the random inputs `drawn`."""
+        raise NotImplementedError
+
+    def loss_per_example(self, batch, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Each example's loss (B,), its random inputs drawn from `generator`
+        (validation over ragged batches)."""
+        return self.per_example_given(batch, *self.draw_step(batch, generator))
+
     def compute_gradients(self, batch, *drawn) -> Dict[str, torch.Tensor]:
-        """Set every parameter's .grad to d step_loss / d param (zeros where
-        the loss does not reach, as the reference's gradient tree has them) and
-        return the detached losses."""
+        """Set every parameter's .grad to d step_loss / d param and return the
+        detached losses. A parameter the loss does not reach gets zeros, as
+        the reference's gradient tree has them: a view of one zero buffer per
+        dtype and device, made once and only read (Adam does not write its
+        gradients), which a captured step reads as a static tensor."""
         self.zero_grad(set_to_none=True)
         loss, aux = self.step_loss(batch, *drawn)
         loss.backward()
+        zeros = self.__dict__.setdefault("_zero_grads", {})
         for p in self.parameters():
             if p.requires_grad and p.grad is None:
-                p.grad = torch.zeros_like(p)
+                z = zeros.get((p.dtype, p.device))
+                if z is None:  # as long as the largest parameter
+                    z = zeros[(p.dtype, p.device)] = torch.zeros(
+                        max(q.numel() for q in self.parameters()), dtype=p.dtype,
+                        device=p.device)
+                p.grad = z[:p.numel()].view_as(p)
         return {k: v.detach() for k, v in aux.items()}
 
-    def apply_update(self, state: TrainState) -> None:
-        """Adam step on the gradients in .grad, then the EMA update."""
+    def update(self, state: TrainState) -> None:
+        """Adam's step on the gradients in .grad, the device step count, then
+        the EMA: device work only."""
         state.optimizer.step()
+        state.device_step.add_(1)
+        ema_update(state.ema, self.state_dict(), self.ema_decay, state.device_step)
+
+    def apply_update(self, state: TrainState) -> None:
+        """`update`, and the host's step count."""
+        self.update(state)
         state.step += 1
-        ema_update(state.ema, self.state_dict(), self.ema_decay, state.step)
+
+    def step_on_device(self, state: TrainState, batch, *drawn) -> Dict[str, torch.Tensor]:
+        """One optimizer step on `batch` with the random inputs `drawn`: the
+        gradients, Adam and the EMA, with no read of a device value (the body
+        of a captured step); the host's count is the caller's. Returns the
+        detached losses."""
+        if state.model is not self:
+            raise ValueError("train_step: the state belongs to another model")
+        aux = self.compute_gradients(batch, *drawn)
+        self.update(state)
+        return aux
 
     def train_step(self, state: TrainState, batch,
                    generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         """One optimizer step on `batch` with its random inputs from `generator`."""
-        if state.model is not self:
-            raise ValueError("train_step: the state belongs to another model")
-        aux = self.compute_gradients(batch, *self.draw_step(batch, generator))
-        self.apply_update(state)
+        aux = self.step_on_device(state, batch, *self.draw_step(batch, generator))
+        state.step += 1
         return aux

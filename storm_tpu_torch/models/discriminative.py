@@ -74,12 +74,11 @@ class DiscriminativeModel(EnhancementModel):
 
     # --- loss / training (storm_tpu/models/discriminative.py:149-191) ---------
 
-    def loss_per_example(self, batch: Batch,
-                         generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def per_example_given(self, batch: Batch) -> torch.Tensor:
         """Each example's loss (B,): 0.5 * sum |x - x_hat|^2 (mse), 0.5 * sum
         |x - x_hat| (mae), or -SI-SDR of the flattened packed-real specs
-        (sisdr). Draws nothing: `generator` is accepted for the trainer's
-        validation, which passes one to every model."""
+        (sisdr). A step draws nothing, so `loss_per_example` ignores its
+        generator."""
         x, y = batch
         x_hat = self(y)
         if self.loss_type == "sisdr":

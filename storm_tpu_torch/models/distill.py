@@ -179,6 +179,8 @@ class DistilledModel(EnhancementModel):
                 x0_hat - x).reshape(B, -1).sum(dim=-1)
         return per_ex
 
+    per_example_given = per_example_given_z
+
     def step_loss(self, batch: Batch, z: torch.Tensor):
         """The batch's summed loss for the prior draw z: (loss, {"loss"})."""
         loss = self.per_example_given_z(batch, z).sum()
@@ -187,11 +189,6 @@ class DistilledModel(EnhancementModel):
     def loss_fn(self, batch: Batch, generator: Optional[torch.Generator] = None):
         """`step_loss` with z drawn from `generator`."""
         return self.step_loss(batch, *self.draw_step(batch, generator))
-
-    def loss_per_example(self, batch: Batch,
-                         generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """Each example's loss (B,), for validation over ragged batches."""
-        return self.per_example_given_z(batch, *self.draw_step(batch, generator))
 
     # --- serving (storm_tpu/models/distill.py:237-283) --------------------------
 

@@ -82,6 +82,8 @@ class ScoreModel(EnhancementModel):
         err = self.score_apply(mean + sigmas * z, t, y) * sigmas + z
         return per_example_sum(torch.square(err) if self.loss_type == "mse" else cplx.cabs(err))
 
+    per_example_given = _per_example
+
     def loss_given_tz(self, batch: Batch, t: torch.Tensor,
                       z: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """DSM loss with given diffusion times t (B,) and noise z (x-shaped,
@@ -98,11 +100,6 @@ class ScoreModel(EnhancementModel):
     def loss_fn(self, batch: Batch, generator: Optional[torch.Generator] = None):
         """`loss_given_tz` with t and z drawn from `generator`."""
         return self.loss_given_tz(batch, *self.draw_step(batch, generator))
-
-    def loss_per_example(self, batch: Batch,
-                         generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """DSM loss of each example (B,), for validation over ragged batches."""
-        return self._per_example(batch, *self.draw_step(batch, generator))
 
     # --- enhancement (storm_tpu/models/score.py:190-343) ----------------------
 

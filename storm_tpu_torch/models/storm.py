@@ -170,10 +170,8 @@ class StochasticRegenerationModel(EnhancementModel):
         """`loss_given_tz` with t and z drawn from `generator`."""
         return self.loss_given_tz(batch, *self.draw_tz(batch[0], generator))
 
-    def loss_per_example(self, batch: Batch,
-                         generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """Joint loss of each example (B,), for validation over ragged batches."""
-        t, z = self.draw_tz(batch[0], generator)
+    def per_example_given(self, batch: Batch, t: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+        """Joint loss of each example (B,) for the diffusion times t and noise z."""
         return self._losses(batch, t, z, per_example_sum)[0]
 
     @torch.inference_mode()

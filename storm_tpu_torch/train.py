@@ -32,10 +32,23 @@ NaN, improved. Per-step training losses and the epoch's losses and metrics
 go to `metrics.jsonl` under the reference's keys. An evaluation that fails
 is printed and logged as NaN, and training goes on, as in the reference. A
 value this port does not run yet raises NotImplementedError naming its
-ROADMAP item. `--debug_nans` runs the steps under
-`torch.autograd.set_detect_anomaly` and raises on a non-finite loss.
-Without a CUDA card the default device raises (pass `--device
-cpu` for the plain versions).
+ROADMAP item.
+
+Each training step and each validation batch runs as the replay of a
+captured CUDA graph from its program's third call, the first running
+eagerly and the second warming up and capturing (utils/train_graphs.py,
+the counterpart of the reference's jitted programs); a step reads the
+device only where the log reads its losses, every `--log_every_n_steps`
+steps, and the validation loss is summed on the device and read once per
+epoch. `--debug_nans` runs the steps eagerly under
+`torch.autograd.set_detect_anomaly`, which reads the device inside
+backward, and raises on a non-finite loss. Checkpoints are written by
+`ckpt.AsyncCheckpointManager`: a snapshot on the device, then the copy to
+the host and the write in a thread while the next epoch trains.
+`--pretrained_denoiser` / `--pretrained_score` graft a net's parameters
+and EMA from a StoRM checkpoint or a one-net (denoiser-only, score-only)
+one into a StoRM model (train.py:396-419). Without a CUDA card the default
+device raises (pass `--device cpu` for the plain versions).
 """
 from __future__ import annotations
 
@@ -51,12 +64,15 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from .ckpt import CheckpointManager, load_checkpoint, load_training_checkpoint
+from .ckpt import (AsyncCheckpointManager, CheckpointManager, load_checkpoint,
+                   load_training_checkpoint)
 from .data.datamodule import SpecsDataModule
-from .models.base import init_train_state, swapped_in, wav_to_spec
+from .models.base import TrainState, init_train_state, swapped_in
 from .models.distill import DISTILL_METHODS
 from .models.factory import build_model, resolve_device
+from .models.storm import StochasticRegenerationModel
 from .utils.inference import evaluate_model
+from .utils.train_graphs import TrainPrograms, use_expandable_segments
 
 MODES = ("score-only", "denoiser-only", "regen-freeze-denoiser", "regen-joint-training",
          "distill")
@@ -145,7 +161,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="reverse steps of the in-training evaluation (default: the model's)")
     p.add_argument("--debug_nans", action="store_true",
                    help="enable jax_debug_nans (the reference keeps torch detect_anomaly always "
-                        "on, model.py:22 — here it is opt-in)")
+                        "on, model.py:22 — here it is opt-in); the steps run eagerly")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cpu' runs the kernels' plain versions")
     return p.parse_args(argv)
@@ -157,8 +173,6 @@ def check_supported(args: argparse.Namespace) -> None:
     for flag in ("backbone_denoiser", "backbone_score"):
         if getattr(args, flag) != "ncsnpp":
             todo.append(f"--{flag} {getattr(args, flag)} (ROADMAP R4)")
-    if args.pretrained_denoiser or args.pretrained_score:
-        todo.append("--pretrained_denoiser / --pretrained_score (ROADMAP M7)")
     if args.return_time:
         todo.append("--return_time (ROADMAP R4, time-domain backbones)")
     if args.spatial_channels != 1:
@@ -211,6 +225,26 @@ def seeded_generator(device: torch.device, *entropy: int) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(s)
 
 
+def graft_pretrained(state: TrainState, path: str, net: str) -> None:
+    """Set StoRM's `net` ("denoiser_net" or "score_net") and its EMA to the
+    parameters of the checkpoint `path`: its `net` if it is a StoRM
+    checkpoint, else the one net (`dnn`) of a denoiser-only or score-only
+    one (train.py:396-419, which grafts the source's parameters, not its
+    EMA). Raises ValueError for a model that is not StoRM, as the reference
+    asserts."""
+    model = state.model
+    if not isinstance(model, StochasticRegenerationModel):
+        raise ValueError(f"grafting a pretrained {net} needs a StoRM model (regen-*), "
+                         f"not {type(model).__name__}")
+    params = load_checkpoint(path)[1]
+    prefix = f"{net}." if any(k.startswith(f"{net}.") for k in params) else "dnn."
+    target = getattr(model, net)
+    target.load_state_dict({k[len(prefix):]: v for k, v in params.items()
+                            if k.startswith(prefix)}, strict=True)
+    for k, v in target.state_dict().items():
+        state.ema[f"{net}.{k}"].copy_(v)
+
+
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = parse_args(argv)
     teacher = None
@@ -244,14 +278,23 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         if ckpt["optimizer"] is None or ckpt["step"] is None:
             raise SystemExit(f"{args.resume_from_checkpoint}: no optimizer state to resume from")
         model.load_state_dict(ckpt["params"], strict=True)
-        state.ema = {k: v.to(device) for k, v in ckpt["ema_params"].items()}
+        for k, v in ckpt["ema_params"].items():  # in place: the programs read the EMA there
+            state.ema[k].copy_(v)
         state.optimizer.load_state_dict(ckpt["optimizer"])
-        state.step = ckpt["step"]
+        state.set_step(ckpt["step"])
         meta = ckpt["meta"] or {}
         if meta.get("epoch") is not None:
             start_epoch = int(meta["epoch"]) + 1
         print(f"resumed from {args.resume_from_checkpoint} at step {state.step}, "
               f"epoch {start_epoch}")
+    # component grafting, after a resume as in the reference (train.py:396-419)
+    for path, net, what in ((args.pretrained_denoiser, "denoiser_net", "denoiser"),
+                            (args.pretrained_score, "score_net", "score model")):
+        if path:
+            graft_pretrained(state, path, net)
+            print(f"grafted pretrained {what} from {path}")
+    programs = TrainPrograms(state, debug_nans=args.debug_nans)
+    print(f"training steps and validation: {programs.execution}")
 
     sde_name = {"ouve": "OUVESDE", "ouvp": "OUVPSDE"}[args.sde]
     run_name = (f"mode={args.mode}_sde={sde_name}_score={args.backbone_score}"
@@ -267,7 +310,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         except ImportError:
             writer = None
         metrics_file = open(os.path.join(log_dir, "metrics.jsonl"), "a")
-        ckpt_mgr = CheckpointManager(os.path.join(log_dir, "checkpoints"), config)
+        ckpt_mgr = AsyncCheckpointManager(
+            CheckpointManager(os.path.join(log_dir, "checkpoints"), config))
         print(f"logging to {log_dir}")
 
     def log(step: int, **metrics) -> None:
@@ -278,12 +322,6 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         if metrics_file is not None:
             metrics_file.write(json.dumps({"step": step, **metrics}) + "\n")
             metrics_file.flush()
-
-    def prepare(batch):
-        """(x, y) waveforms (B, T) -> compressed specs (B, F, T', 2) on the device."""
-        with torch.no_grad():
-            return tuple(wav_to_spec(torch.from_numpy(np.asarray(b)).to(device),
-                                     model.stft_config, model.transform) for b in batch)
 
     best_valid, bad_epochs = math.inf, 0
     if meta:
@@ -300,38 +338,39 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             epoch_losses = []
             for batch in loader:
                 gen = seeded_generator(device, args.seed, epoch, 0, state.step)
-                with torch.autograd.set_detect_anomaly(args.debug_nans):
-                    aux = model.train_step(state, prepare(batch), gen)
+                aux = programs.step(batch, gen)
                 if args.debug_nans and not bool(torch.isfinite(aux["loss"])):
                     raise FloatingPointError(
                         f"non-finite loss {float(aux['loss'])} at step {state.step}")
                 if state.step % args.log_every_n_steps == 0:
                     log(state.step, **{f"train_{k}": float(v) for k, v in aux.items()})
-                epoch_losses.append(aux["loss"])
+                # a copy: the program's next replay overwrites its output
+                epoch_losses.append(aux["loss"].clone())
                 if args.max_steps and state.step >= args.max_steps:
                     break
             train_loss = float(torch.stack(epoch_losses).mean()) if epoch_losses else math.nan
 
-            # validation over every file with the EMA weights, cast once to the
-            # compute dtype; the short last batch is padded and masked, and the
+            # validation over every file with the EMA weights, cast once per
+            # batch to the compute dtype; the short last batch is padded and
+            # masked, the sum is taken on the device and read once, and the
             # mean keeps the scale of the model's batch reduction (a sum for
-            # StoRM, train.py:570-574). Then the
-            # evaluation enhances with them (model.py:605-622); a failure is
-            # printed and logged as NaN, and training goes on
+            # StoRM, train.py:548-574). Then the evaluation enhances with
+            # them (model.py:605-622); a failure is printed and logged as
+            # NaN, and training goes on
             model.eval()
             gen = seeded_generator(device, args.seed, epoch, 1)
-            v_sum, v_count = 0.0, 0
+            v_sum, v_count = torch.zeros((), device=device), 0
             pesq = si_sdr = estoi = math.nan
             with swapped_in(model, state.ema):
-                with torch.no_grad(), model.cast_nets():
-                    for bx, by in dm.val_dataloader():
-                        n = bx.shape[0]
-                        if n < args.batch_size:
-                            widths = [(0, args.batch_size - n)] + [(0, 0)] * (bx.ndim - 1)
-                            bx, by = np.pad(bx, widths), np.pad(by, widths)
-                        per_example = model.loss_per_example(prepare((bx, by)), gen)
-                        v_sum += float(per_example[:n].sum())
-                        v_count += n
+                for bx, by in dm.val_dataloader():
+                    n = bx.shape[0]
+                    if n < args.batch_size:
+                        widths = [(0, args.batch_size - n)] + [(0, 0)] * (bx.ndim - 1)
+                        bx, by = np.pad(bx, widths), np.pad(by, widths)
+                    # a new tensor: the program's next replay overwrites its output
+                    v_sum = v_sum + programs.validate((bx, by, np.arange(args.batch_size) < n),
+                                                      gen)
+                    v_count += n
                 if args.num_eval_files:
                     eval_kwargs = {"N": args.eval_N} if args.eval_N else {}
                     # audio and spectrograms every VIS_EPOCHS epochs, where
@@ -349,7 +388,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                     except Exception as e:  # the evaluation must not end the training
                         print(f"eval failed at epoch {epoch}: {e}", flush=True)
                         traceback.print_exc()
-            valid_loss = v_sum / v_count if v_count else math.nan
+            valid_loss = float(v_sum) / v_count if v_count else math.nan
             if model.batch_reduction == "sum":
                 valid_loss *= args.batch_size
 
@@ -370,7 +409,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                 break
             if args.max_steps and state.step >= args.max_steps:
                 break
+        if ckpt_mgr is not None:
+            ckpt_mgr.wait()  # the last save lands before the run ends
     finally:
+        if ckpt_mgr is not None:
+            ckpt_mgr.close()
         if metrics_file is not None:
             metrics_file.close()
         if writer is not None:
@@ -401,4 +444,5 @@ def log_examples(writer, epoch: int, spec, audio, sr: int = 16000) -> None:
 
 
 if __name__ == "__main__":
+    use_expandable_segments()
     main()

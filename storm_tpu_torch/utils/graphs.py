@@ -57,7 +57,7 @@ import gc
 import itertools
 import time
 import weakref
-from typing import Callable, Dict, List, Optional, Set, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Set, Tuple
 
 import torch
 
@@ -217,53 +217,82 @@ class Programs:
         """Capture the body on the side stream into the shared pool (the
         pool's growth is read from the reserved bytes)."""
         device = prog.y.device
-        torch.cuda.synchronize(device)
-        # the capture can allocate new device memory but cannot free the
-        # allocator's cached blocks: free them first (with the pools of
-        # programs whose models are gone, which go with the model's last
-        # reference)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(device)
-        before = _launch_counts()
-        graph = torch.cuda.CUDAGraph()
-        t0 = time.perf_counter()
-        failure: Optional[BaseException] = None
-        collecting = gc.isenabled()
-        gc.disable()  # the body's tensors go by reference count; a collection only stalls it
         try:
-            with torch.cuda.stream(self.stream):
-                graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
-                try:
-                    prog.out, _ = prog.body(model, kw)
-                except BaseException as e:
-                    failure = e
-                finally:
-                    try:
-                        graph.capture_end()
-                    except BaseException as e:
-                        failure = failure or e
-        finally:
-            if collecting:
-                gc.enable()
-            after = _launch_counts()
-            for f, n in zip(LAUNCH_COUNTERS, before):  # the capture launched nothing
-                f.launches = n
-        if failure is not None:
-            # the failed graph is kept, never released: if its capture did not
-            # end, the allocators may still count it as recording into its
-            # pool; if it ended, releasing it could leave the pool released by
-            # all its graphs, which the allocators refuse to capture into.
-            # The next capture takes a new pool either way.
-            self.failed.append(graph)
-            self.pool = None
-            raise RuntimeError(
-                f"CUDA graph capture of enhance{describe(prog.key)} failed, with no eager "
-                f"fallback: {type(failure).__name__}: {failure}") from failure
-        prog.launches = tuple(a - b for a, b in zip(after, before))
-        prog.graph = graph
+            cap = capture(lambda: prog.body(model, kw), self.stream, self.pool,
+                          f"enhance{describe(prog.key)}", self.failed)
+        except RuntimeError:
+            self.pool = None  # the next capture takes a new pool
+            raise
+        prog.graph, (prog.out, _), prog.launches = cap.graph, cap.result, cap.launches
         self.stats["captures"] += 1
-        self.stats["capture_s"] += time.perf_counter() - t0
-        self.stats["pool_bytes"] += torch.cuda.memory_reserved(device) - reserved
+        self.stats["capture_s"] += cap.seconds
+        self.stats["pool_bytes"] += torch.cuda.memory_reserved(device) - cap.reserved
+
+
+class Capture(NamedTuple):
+    """A finished capture: the graph, the body's result (static tensors of
+    the graph's pool), the launches the capture recorded, its seconds and
+    the device's reserved bytes before it."""
+    graph: torch.cuda.CUDAGraph
+    result: Any
+    launches: Tuple[int, ...]
+    seconds: float
+    reserved: int
+
+
+def capture(body: Callable[[], Any], stream: torch.cuda.Stream, pool, what: str,
+            failed: List[torch.cuda.CUDAGraph]) -> Capture:
+    """Capture `body()` on `stream` into the graph memory pool `pool`, in
+    thread-local mode (a CUDA call of another thread, as the data loader's
+    or a checkpoint's copy thread, does not break it). The capture executes
+    nothing and launches nothing: the kernels' counters are set back, and
+    the launches it recorded are returned for the replays to add. A body
+    that reads the device or uploads from pageable memory breaks the
+    capture: the graph is appended to `failed` and RuntimeError raised,
+    naming `what`, with no eager fallback; the caller then takes a new pool."""
+    device = stream.device
+    torch.cuda.synchronize(device)
+    # the capture can allocate new device memory but cannot free the
+    # allocator's cached blocks: free them first (with the pools of programs
+    # whose owners are gone, which go with their last reference)
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved(device)
+    before = _launch_counts()
+    graph = torch.cuda.CUDAGraph()
+    t0 = time.perf_counter()
+    failure: Optional[BaseException] = None
+    result = None
+    collecting = gc.isenabled()
+    gc.disable()  # the body's tensors go by reference count; a collection only stalls it
+    try:
+        with torch.cuda.stream(stream):
+            graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+            try:
+                result = body()
+            except BaseException as e:
+                failure = e
+            finally:
+                try:
+                    graph.capture_end()
+                except BaseException as e:
+                    failure = failure or e
+    finally:
+        if collecting:
+            gc.enable()
+        after = _launch_counts()
+        for f, n in zip(LAUNCH_COUNTERS, before):  # the capture launched nothing
+            f.launches = n
+    if failure is not None:
+        # the failed graph is kept, never released: if its capture did not
+        # end, the allocators may still count it as recording into its pool;
+        # if it ended, releasing it could leave the pool released by all its
+        # graphs, which the allocators refuse to capture into
+        failed.append(graph)
+        raise RuntimeError(
+            f"CUDA graph capture of {what} failed, with no eager fallback: "
+            f"{type(failure).__name__}: {failure}") from failure
+    return Capture(graph, result, tuple(a - b for a, b in zip(after, before)),
+                   time.perf_counter() - t0, reserved)
 
 
 def describe(key: Tuple) -> str:

@@ -83,12 +83,14 @@ def test_exact_float32_line_has_no_exact_extra(capsys):
 
 
 def test_train_line_has_the_reference_keys(capsys):
+    """The reference's keys, and beside the replayed step the eager one's."""
     line = _bench_line(capsys, "--train")
     top, detail = reference_bench_lines()["train_utt_per_sec_per_chip"]
     assert set(line) == top
-    assert set(line["detail"]) == detail | {"device_name"}
+    assert set(line["detail"]) == detail | {"device_name", "eager_step_ms", "eager_utt_per_sec"}
     assert line["vs_baseline"] is None and line["value"] > 0
     assert line["detail"]["step_ms"] > 0 and line["detail"]["frames"] == 32
+    assert line["detail"]["eager_step_ms"] > 0 and line["detail"]["eager_utt_per_sec"] > 0
 
 
 def test_distill_line_has_the_reference_keys(capsys):

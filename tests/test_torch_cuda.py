@@ -891,3 +891,72 @@ def test_queued_batches_of_one_shape_stay_distinct(cuda):
     for (x, _), w in zip(outs, waves):
         np.testing.assert_array_equal(x, eager(w)[0])
     assert len({x.tobytes() for x, _ in outs}) == len(waves)
+
+
+def _train_waves(seed, rows=2, samples=31 * 16):
+    rng = np.random.default_rng(seed)
+    x = 0.3 * np.sin(np.arange(samples) / rng.uniform(3.0, 9.0, (rows, 1)))
+    return (x.astype(np.float32),
+            (x + 0.05 * rng.standard_normal((rows, samples))).astype(np.float32))
+
+
+@pytest.mark.parametrize("mode", ["regen-joint-training", "denoiser-only"])
+def test_replayed_train_step_equals_eager_on_the_card(cuda, mode):
+    """A tiny bf16 model trained through the programs (the eager first call,
+    the warm-up and capture, then replays) and a twin trained eagerly
+    (graphs=False), from the same generator states, cuDNN deterministic:
+    losses, parameters, EMA and Adam's state equal bit for bit after every
+    step; each replay adds the launches the eager step makes; after a
+    replay Adam's step counts and the EMA's count are on the card and
+    equal the host's count."""
+    from storm_tpu_torch.models.base import init_train_state
+    from storm_tpu_torch.utils.train_graphs import TrainPrograms
+    cfg = dict(GRAPH_TINY, mode=mode, dtype="bfloat16")
+    runs = []
+    for graphs_on in (True, False):
+        model = build_model(cfg, device=cuda, seed=0).train()
+        state = init_train_state(model, model.lr)
+        runs.append((state, TrainPrograms(state, graphs=graphs_on)))
+    torch.backends.cudnn.deterministic = True
+    try:
+        for i in range(5):
+            out, launched = [], []
+            for state, programs in runs:
+                before = (kup.upfirdn2d_cuda.launches, kup.upfirdn2d_bwd_cuda.launches)
+                aux = programs.step(_train_waves(i), torch.Generator(device=cuda).manual_seed(i))
+                out.append({k: v.clone() for k, v in aux.items()})
+                launched.append((kup.upfirdn2d_cuda.launches - before[0],
+                                 kup.upfirdn2d_bwd_cuda.launches - before[1]))
+            assert launched[0] == launched[1] and launched[0][0] > 0, (i, launched)
+            assert all(torch.equal(out[0][k], out[1][k]) for k in out[1]), i
+            (a, _), (b, _) = runs
+            for k, v in b.model.state_dict().items():
+                assert torch.equal(a.model.state_dict()[k], v) and torch.equal(a.ema[k], b.ema[k])
+            for sa, sb in zip(a.optimizer.state.values(), b.optimizer.state.values()):
+                assert all(torch.equal(sa[k], sb[k]) for k in sb)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    state, programs = runs[0]
+    assert (programs.stats["captures"], programs.stats["replays"]) == (1, 3)
+    assert state.device_step.is_cuda and int(state.device_step) == state.step == 5
+    steps = [s["step"] for s in state.optimizer.state.values()]
+    assert all(s.is_cuda and float(s) == 5 for s in steps)
+
+
+def test_ema_update_on_the_card_is_a_fused_multiply_add(cuda):
+    """The EMA on the card rounds d*e inside a fused multiply-add, as the
+    reference's compiled update does: against fma emulated in float64 on
+    the host (the exact product, the sum's float64 rounding then float32's:
+    equal unless the float64 sum falls on a float32 midpoint), at step 1
+    (d = 2/11) where the two terms are of one size."""
+    from storm_tpu_torch.models.base import ema_update
+    rng = np.random.default_rng(0)
+    e = rng.standard_normal(1 << 20).astype(np.float32)
+    p = (e + 0.1 * rng.standard_normal(e.shape)).astype(np.float32)
+    ema = {"w": torch.from_numpy(e).to(cuda)}
+    ema_update(ema, {"w": torch.from_numpy(p).to(cuda)}, 0.999,
+               torch.ones((), dtype=torch.int32, device=cuda))
+    d = np.float32(2) / np.float32(11)
+    q = ((np.float32(1) - d) * p).astype(np.float32)
+    want = (np.float64(d) * e.astype(np.float64) + q.astype(np.float64)).astype(np.float32)
+    np.testing.assert_array_equal(ema["w"].cpu().numpy(), want)
