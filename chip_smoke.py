@@ -227,9 +227,10 @@ Phases, each of which exits non-zero on failure:
 40. the score-only and denoiser-only models and OUVP: one full-width f32
    score-only step's gradients against the plain path, then `python -m
    storm_tpu_torch.train` on phase 8's corpus (B=8, 256 frames, one epoch
-   of 4 steps, `--num_eval_files 4 --eval_N 4`) with `--mode score-only`
-   in f32 and bf16, `--mode denoiser-only --loss_type sisdr` in f32 and
-   `--mode regen-joint-training --sde ouvp` in bf16: phase 8's checks, K1
+   of 4 steps) with `--mode score-only` and `--mode denoiser-only
+   --loss_type sisdr` in f32 (`--num_eval_files 4 --eval_N 4`), `--mode
+   score-only` and `--mode regen-joint-training --sde ouvp` in bf16 (no
+   evaluation): phase 8's checks, K1
    launches per step read from the module lists (a single net: 18 forward,
    15 backward, its input pyramid reading no parameter's output), the step
    and its peak memory beside StoRM's in the same dtype, K1 and its
@@ -242,7 +243,7 @@ Phases, each of which exits non-zero on failure:
    every K1 shape (the score net's 4-channel pyramids) and K3 input against
    plain; the 4 s file's score-only f32 etd2 ODE (N=4) and the denoiser's
    output through the kernels against plain (1e-4 of the output's scale).
-42. phase 40's OUVP StoRM checkpoint through the CLI (pc N=4 + ald; `--sampler
+42. phase 40's OUVP StoRM bf16 checkpoint through the CLI (pc N=4 + ald; `--sampler
    ode --ode-method heun --N 4`): exact launches; `--ode-method etd2`
    raises the reference's message.
 43. the server with `--mode score-only` (bf16, N=3, then `--deepcache 3`)
@@ -286,8 +287,8 @@ Phases, each of which exits non-zero on failure:
    (pc N=10 bf16) at B=4 on the 2.5 s bucket, the shape's first call runs
    the eager loop alone (no capture), its second captures, and a replay
    from the first call's generator state must equal it bit for bit, for
-   StoRM pc N=50 + ald in f32, bf16 and int8 + bf16 (phase 19's scales), dc3
-   bf16, etd2 and picard (4 sweeps) at N=10 in bf16, the score-only model's
+   StoRM pc N=10 + ald in f32, N=50 + ald in bf16 and int8 + bf16 (phase
+   19's scales), dc3 bf16, etd2 and picard (4 sweeps) at N=10 in bf16, the score-only model's
    pc N=10 and the denoiser-only model in bf16, and the distilled NFE-2 path
    in bf16 and int8 + bf16; a replay from another generator state equals
    eager from it; weights swapped in place (`swapped_in`) are served by the
@@ -298,7 +299,8 @@ Phases, each of which exits non-zero on failure:
    its busy share; 5 replays of the distilled int8 program add 5 times its
    recorded launches to the counters.
 54. RTF graph against eager at B=1 on the 1 / 2.5 / 4 s files (bf16 pc
-   N=50 + ald, dc3 bf16, distill NFE-2 bf16; f32 and int8 + bf16 at 4 s),
+   + ald at N=50 at 4 s and N=10 at 1 and 2.5 s, dc3 bf16 N=50, distill
+   NFE-2 bf16; f32 at N=10 and int8 + bf16 at 4 s),
    each replay equal to eager bit for bit; the second call's seconds; the
    busy share of phase 53's replays; each capture's seconds, the graph
    pool's growth and the static buffers' bytes.
@@ -330,6 +332,35 @@ the process holds the least memory:
    full-width f32 StoRM state against the synchronous one, 3 saves each:
    the wall the loop waits, the async save's wall to its end, the files
    equal bit for bit.
+Phases 59-64 (the NCSN++ family's other sizes and options, the time-domain
+denoisers) run last:
+59. a full-width DDPM + residual NCSN++ score net (every resampler a FIR
+   with a 3x3 conv: upfirdn2d's stride-1 instance), f32 and bf16, cuDNN
+   deterministic: one forward (B=1, 256 x 576) and one gradient (B=8, 256 x
+   256) through the kernels against the plain path (1e-4 of the scale in
+   f32, 1e-2 in bf16), with the module list's 12 launches per forward and 12
+   adjoints per backward; a DDPM denoiser-only checkpoint through the
+   enhancement CLI in f32 and bf16 (12 launches per file).
+60. the stride-1 instance and its adjoint against plain at every shape of
+   phase 59 (f32 atol = rtol = 1e-5; bf16 `compare`'s allowance), each
+   timed beside the plain version, the depthwise `conv2d` computing the same
+   function and the bound, and the sums per forward and per backward.
+61. ncsnpplarge (65.6M parameters): a forward at 192 and 576 frames (its
+   deepest level 3 and 9 frames wide) with the module list's 36 launches,
+   K1 and its adjoint against plain at those shapes in f32 and bf16; StoRM
+   with it as score net through the CLI on phase 5's files (N=4 + ald: 18 +
+   36 x 8 launches per file) and its captured program against the eager
+   loop at 4 s, bit for bit.
+62. `python -m storm_tpu_torch.train --backbone_score ncsnpplarge --dtype
+   bfloat16`, 4 steps at B=8 x 256 (54 + 51 launches per step), its step
+   and peak memory; one eager f32 step's peak at B=8 (or the largest of 4
+   and 2 that fits).
+63. `python -m storm_tpu_torch.train --mode denoiser-only --backbone_denoiser
+   convtasnet --return_time --loss_type sisdr`, 4 steps at B=8 in f32: no
+   K1 launch, its step and memory; its checkpoint through the CLI.
+64. StoRM with a ConvTasNet and with an ae-ncsnpp denoiser through the CLI
+   on phase 5's files (N=4 + ald; per file 144 and 162 launches), and the
+   ConvTasNet StoRM server at its bf16 default on phase 15's burst.
 
 A serving path's first call of a shape runs the eager loop, its second
 also captures the shape's graph, and later calls replay it. To keep the
@@ -384,7 +415,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from storm_tpu_torch import enhancement, evaluate, serve, train
+from storm_tpu_torch import backbones, enhancement, evaluate, serve, train
 from storm_tpu_torch.backbones.ncsnpp import NCSNpp, count_parameters
 from storm_tpu_torch.ckpt import (AsyncCheckpointManager, CheckpointManager,
                                   load_training_checkpoint, save_checkpoint)
@@ -405,7 +436,8 @@ from storm_tpu_torch.models.storm import StochasticRegenerationModel
 from storm_tpu_torch.nn import qconv, resample
 from storm_tpu_torch.nn.cast import cast_params
 from storm_tpu_torch.nn.init import reset_parameters
-from storm_tpu_torch.nn.layers import Combine, GroupNorm, ResnetBlockBigGANpp, group_norm
+from storm_tpu_torch.nn.layers import (Combine, Downsample, GroupNorm, ResnetBlockBigGANpp,
+                                       Upsample, group_norm)
 from storm_tpu_torch.sampling import samplers
 from storm_tpu_torch.signal.transforms import pad_spec_amount
 from storm_tpu_torch.utils import graphs, train_graphs
@@ -444,7 +476,18 @@ def bucketed(y: np.ndarray) -> torch.Tensor:
 FREQS, FRAMES = 256, padded_frames(4.0)  # a 4 s request: 65536 samples, 513 frames -> 576
 FIR = resample.setup_kernel((1, 3, 3, 1))
 CONFIGS = {"down": dict(up=1, down=2, pad=(1, 1), kernel=FIR),
-           "up": dict(up=2, down=1, pad=(2, 1), kernel=FIR * 4.0)}
+           "up": dict(up=2, down=1, pad=(2, 1), kernel=FIR * 4.0),
+           # the stride-1 instance: after upsample_conv_2d's transposed conv
+           # (its FIR times 4), before conv_downsample_2d's strided one
+           "same1": dict(up=1, down=1, pad=(1, 1), kernel=FIR * 4.0),
+           "same2": dict(up=1, down=1, pad=(2, 2), kernel=FIR)}
+
+
+def config_of(up: int, down: int, pad) -> str:
+    """The CONFIGS name of an upfirdn2d call."""
+    if up == 2:
+        return "up"
+    return "down" if down == 2 else f"same{int(pad[0])}"
 # full-width StoRM; init_scale 1 so that no branch of the random net starts at ~0
 STORM_CONFIG = {"mode": "regen-joint-training", "init_scale": 1.0}
 # the CLI's defaults (pc, ald, N=50: 1 denoiser + N x (ald + predictor)), which the bench,
@@ -617,6 +660,14 @@ def library_call(cfg: str, C: int, backward: bool = False, dtype=torch.float32):
     call with the same weight. In bfloat16 the weight is the FIR cast to it,
     which is exact."""
     k = torch.as_tensor(CONFIGS[cfg]["kernel"], device="cuda").to(dtype)
+    if cfg.startswith("same"):  # a depthwise correlation with the flipped FIR, padded pad0;
+        # the adjoint: with the FIR as is, padded 3 - pad0
+        pad0 = CONFIGS[cfg]["pad"][0]
+        if backward:
+            w = k.expand(C, 1, 4, 4).contiguous()
+            return lambda g: F.conv2d(g, w, padding=3 - pad0, groups=C)
+        w = k.flip(0, 1).expand(C, 1, 4, 4).contiguous()
+        return lambda x: F.conv2d(x, w, padding=pad0, groups=C)
     if cfg == "down":  # correlation with the flipped FIR on the 1-padded input
         w = k.flip(0, 1).expand(C, 1, 4, 4).contiguous()
         if backward:
@@ -1024,7 +1075,7 @@ def single_net_structure(mode: str) -> NCSNpp:
             else NCSNpp(input_channels=2, discriminative=True))
 
 
-def step_launches(mode: str, teacher_forwards: int = 0):
+def step_launches(mode: str, teacher_forwards: int = 0, structure=None):
     """(forward, backward) upfirdn2d launches of one training step of `mode`,
     read from the nets' module lists (`k1_of_module`): every call of each
     net's forward, and a backward for each call whose input needs a
@@ -1034,21 +1085,25 @@ def step_launches(mode: str, teacher_forwards: int = 0):
     denoiser-only. StoRM's score net reads D(Y), so all its calls have one.
     A distill step runs the denoiser, the teacher's `teacher_forwards` score
     forwards and the student, all without a graph but the student, whose
-    input holds no parameter's output (D(Y) is computed without one)."""
+    input holds no parameter's output (D(Y) is computed without one).
+    `structure`: the nets, (denoiser, score net) or (net,), where they are
+    not the default NCSN++ (an ncsnpplarge score net, ConvTasNet)."""
     if mode == "distill":
         den, score = storm_structure()
         k1 = [k1_of_module(score, i) for i in range(len(score.all_modules))]
         fwd = sum(k1_of_module(den, i) for i in range(len(den.all_modules)))
         bwd = sum(n for i, n in enumerate(k1) if not isinstance(score.all_modules[i], Combine))
         return fwd + (teacher_forwards + 1) * sum(k1), bwd
-    if mode in SERVING_MODE and SERVING_MODE[mode] != "storm":
+    if structure is not None:
+        nets = list(zip(structure, (False, True)))
+    elif mode in SERVING_MODE and SERVING_MODE[mode] != "storm":
         nets = [(single_net_structure(mode), False)]
     else:
         den, score = storm_structure()
         nets = [(den, False), (score, True)]
     fwd = bwd = 0
     for net, input_grad in nets:
-        calls = {i: k1_of_module(net, i) for i in range(len(net.all_modules))}
+        calls = {i: k1_of_module(net, i) for i in range(len(getattr(net, "all_modules", ())))}
         fwd += sum(calls.values())
         bwd += sum(n for i, n in calls.items()
                    if input_grad or not isinstance(net.all_modules[i], Combine))
@@ -1065,19 +1120,21 @@ def pesq_available() -> bool:
 
 def phase_train(workdir: str, dtype: str = "float32", steps_total: int = TRAIN_STEPS,
                 eval_files: int = 0, eval_n: int = 30, mode: str = "regen-joint-training",
-                extra=(), tag=None):
+                extra=(), tag=None, structure=None):
     """The training path through `python -m storm_tpu_torch.train --mode
     mode` (and `extra` flags) in `dtype` on the corpus in `workdir/corpus`
     (written once), with an in-training evaluation of `eval_files`
-    validation files at N=`eval_n` after every epoch. Returns a dict of its
-    launch counts and step figures, and its checkpoint directory."""
+    validation files at N=`eval_n` after every epoch. `structure`: the
+    nets where they are not the default NCSN++ (`step_launches`). Returns a
+    dict of its launch counts and step figures, and its checkpoint
+    directory."""
     if tag is None:
         tag = "_".join([mode] + [e.lstrip("-") for e in extra]) + "_" if (
             mode != "regen-joint-training" or extra) else ""
     corpus = os.path.join(workdir, "corpus")
     logs = os.path.join(workdir, f"logs_{tag}{dtype}_{eval_files}")
     write_corpus(corpus)
-    step_fwd, step_bwd = step_launches(mode, DISTILL_TEACHER_FORWARDS)
+    step_fwd, step_bwd = step_launches(mode, DISTILL_TEACHER_FORWARDS, structure)
     steps, first_params, dtypes, runs = [], {}, set(), []
     original, launch = train_graphs.TrainPrograms.step, kup._launch
 
@@ -1131,7 +1188,8 @@ def phase_train(workdir: str, dtype: str = "float32", steps_total: int = TRAIN_S
     launches = (kup.upfirdn2d_cuda.launches, kup.upfirdn2d_bwd_cuda.launches)
     peak, reserved = torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
     want_dtype = {"float32": torch.float32, "bfloat16": BF16}[dtype]
-    check(dtypes == {want_dtype}, f"{dtype} training launched upfirdn2d on {dtypes}")
+    want_dtypes = {want_dtype} if step_fwd else set()  # a time-domain net calls no K1
+    check(dtypes == want_dtypes, f"{dtype} training launched upfirdn2d on {dtypes}")
 
     (run,) = os.listdir(logs)
     rows = [json.loads(line) for line in open(os.path.join(logs, run, "metrics.jsonl"))]
@@ -1255,7 +1313,7 @@ def phase_train(workdir: str, dtype: str = "float32", steps_total: int = TRAIN_S
     y, sr = load_wav(os.path.join(out, "one.wav"))
     check(sr == SR and y.shape == x.shape and bool(np.isfinite(y).all()),
           f"enhancing with the trained checkpoint gave {y.shape}")
-    check(dtypes == {want_dtype}, f"the {dtype} checkpoint enhanced in {dtypes}")
+    check(dtypes == want_dtypes, f"the {dtype} checkpoint enhanced in {dtypes}")
     print(f"  the trained checkpoint ({best}.pt) enhanced a {x.shape[-1] / SR:.1f} s file at "
           f"N=2 in {dtype} (--dtype checkpoint, --mode {SERVING_MODE[mode]})", flush=True)
     return r
@@ -1696,7 +1754,7 @@ def shapes_recorded():
     k1, k3 = set(), set()
 
     def upfirdn2d(x, kernel, up=1, down=1, pad=(0, 0)):
-        k1.add(("up" if up == 2 else "down", *x.shape, x.dtype))
+        k1.add((config_of(up, down, pad), *x.shape, x.dtype))
         return kup.upfirdn2d(x, kernel, up=up, down=down, pad=pad)
 
     def quantize_int8(x, inv, product=torch.float32):
@@ -1716,8 +1774,8 @@ def adjoint_shapes_recorded():
     shapes, real = set(), kup.UpFirDn2d.backward
 
     def backward(ctx, g):
-        _, up, _, _, (H, W) = ctx.args
-        shapes.add(("up" if up == 2 else "down", g.shape[0], g.shape[1], H, W, g.dtype))
+        _, up, down, pad, (H, W) = ctx.args
+        shapes.add((config_of(up, down, pad), g.shape[0], g.shape[1], H, W, g.dtype))
         return real(ctx, g)
 
     with mock.patch.object(kup.UpFirDn2d, "backward", staticmethod(backward)):
@@ -2676,18 +2734,30 @@ def pass_modules(net: NCSNpp, depth: int = DC_DEPTH):
 
 
 def k1_of_module(net: NCSNpp, i: int) -> int:
-    """upfirdn2d calls of module i of NCSN++'s list: 2 for a resampling
-    resblock (h and its skip), 1 for a pyramid combine (the input pyramid's
-    downsampling before it), 1 for an up level's pyramid GroupNorm below the
-    top level (the output pyramid's upsampling after it)."""
+    """upfirdn2d calls of module i of NCSN++'s list: 2 for a FIR-resampling
+    BigGAN resblock (h and its skip), 1 for a FIR resampler with a conv (the
+    DDPM resblock's levels, the residual pyramids: the stride-1 call), 1 for
+    an input_skip pyramid's combine (the pyramid's downsampling before it),
+    1 for an output_skip up level's pyramid GroupNorm below the top level
+    (the pyramid's upsampling after it)."""
     m = net.all_modules[i]
     if isinstance(m, ResnetBlockBigGANpp):
-        return 2 if (m.up or m.down) else 0
+        return 2 if (m.up or m.down) and m.fir else 0
+    if isinstance(m, (Upsample, Downsample)):
+        return int(m.fir)
     if isinstance(m, Combine):
-        return 1
-    if isinstance(m, GroupNorm):  # the up path's pyramid norms; the top level's comes first
-        return int(i > net._up_start_idx[net.num_resolutions - 2])
+        return int(net.pyramid_downsample.fir)
+    if isinstance(m, GroupNorm) and net.progressive == "output_skip":
+        # the up path's pyramid norms; the top level's comes first
+        return int(net.pyramid_upsample.fir and i > net._up_start_idx[net.num_resolutions - 2])
     return 0
+
+
+def k1_per_forward(net) -> int:
+    """upfirdn2d calls of one forward of `net`, from its module list (none
+    for a net without one, as ConvTasNet)."""
+    mods = getattr(net, "all_modules", ())
+    return sum(k1_of_module(net, i) for i in range(len(mods)))
 
 
 def per_pass(net: NCSNpp, scales=None, depth: int = DC_DEPTH):
@@ -3459,25 +3529,27 @@ def single_dc_launches(mode: str, n_steps: int, evals_per_step: int, k: int = DC
 def phase_train_new_modes(train_dir: str, gen: torch.Generator, storm_f32, storm_bf16):
     """Phase 40. One full-width f32 score-only step's gradients against the
     plain path; then `python -m storm_tpu_torch.train` on phase 8's corpus,
-    B=8, 256 frames, one epoch of 4 steps with the evaluation
-    (--num_eval_files 4 --eval_N 4): --mode score-only in f32 and bf16,
-    --mode denoiser-only --loss_type sisdr in f32, --mode
-    regen-joint-training --sde ouvp in bf16. phase_train's checks hold each
-    (exact K1 launches per step from the module list, finite losses,
-    SI-SDR and ESTOI); the step and its peak memory beside StoRM's (phases 8
-    and 25) in the same dtype; K1 and its adjoint against plain at every
-    shape the runs gave them. Returns ({run: phase_train's dict}, K1's
-    f32 and bf16 errors, the adjoint's f32 and bf16 errors)."""
+    B=8, 256 frames, one epoch of 4 steps: --mode score-only and --mode
+    denoiser-only --loss_type sisdr in f32 with the evaluation
+    (--num_eval_files 4 --eval_N 4), --mode score-only and --mode
+    regen-joint-training --sde ouvp in bf16 without it. phase_train's
+    checks hold each (exact K1 launches per step from the module list,
+    finite losses, SI-SDR and ESTOI where evaluated); the step and its peak
+    memory beside StoRM's (phases 8 and 25) in the same dtype; K1 and its
+    adjoint against plain at every shape the runs gave them. Returns
+    ({run: phase_train's dict}, K1's f32 and bf16 errors, the adjoint's f32
+    and bf16 errors)."""
     phase_train_gradients(gen, {"mode": "score-only", "init_scale": 1.0})
     runs = {}
     with adjoint_shapes_recorded() as bwd_shapes, shapes_recorded() as (k1s, _):
-        for name, mode, dtype, extra in (
-                ("score-only", "score-only", "float32", ()),
-                ("score-only_bf16", "score-only", "bfloat16", ()),
-                ("denoiser-only_sisdr", "denoiser-only", "float32", ("--loss_type", "sisdr")),
-                ("storm_ouvp_bf16", "regen-joint-training", "bfloat16", OUVP_FLAGS)):
+        for name, mode, dtype, extra, eval_files in (
+                ("score-only", "score-only", "float32", (), VALID_FILES),
+                ("score-only_bf16", "score-only", "bfloat16", (), 0),
+                ("denoiser-only_sisdr", "denoiser-only", "float32", ("--loss_type", "sisdr"),
+                 VALID_FILES),
+                ("storm_ouvp_bf16", "regen-joint-training", "bfloat16", OUVP_FLAGS, 0)):
             r = phase_train(train_dir, dtype, steps_total=TRAIN_FILES // TRAIN_B,
-                            eval_files=VALID_FILES, eval_n=F32_EVAL_N, mode=mode, extra=extra)
+                            eval_files=eval_files, eval_n=F32_EVAL_N, mode=mode, extra=extra)
             ref, phase = (storm_f32, 8) if dtype == "float32" else (storm_bf16, 25)
             print(f"  {name}: {step_launches(mode)} K1 launches per step; step "
                   f"{r['step_ms']:.2f} ms, peak of the steps {r['step_peak_gib']:.2f} GiB, "
@@ -4178,8 +4250,8 @@ def phase_graph_equals_eager(workdir: str, models, rows):
     """Phase 52. At the 4 s bucket (B=1, 576 frames) and, StoRM pc N=10 +
     ald bf16, at B=4 on the 2.5 s bucket: the shape's first call (the eager
     loop) and a replay from the same generator state, bit for bit (between
-    them the second call captures), for StoRM pc N=50 + ald in f32, bf16 and
-    int8 + bf16, dc3 bf16, ode etd2 N=10 bf16, picard N=10 bf16, the
+    them the second call captures), for StoRM pc N=10 + ald in f32, N=50 +
+    ald in bf16 and int8 + bf16, dc3 bf16, ode etd2 N=10 bf16, picard N=10 bf16, the
     score-only model's pc N=10 bf16, the denoiser-only model bf16 and the
     distilled NFE-2 path in bf16 and int8 + bf16. A second replay from
     another generator state equals eager from that state; weights swapped
@@ -4190,7 +4262,8 @@ def phase_graph_equals_eager(workdir: str, models, rows):
     pc = dict(N=DEFAULT_N, corrector="ald")
     s = models["scales"]
     cases = [
-        ("storm pc f32", models["f32"], pc), ("storm pc bf16", models["bf16"], pc),
+        ("storm pc N=10 f32", models["f32"], dict(N=GRAPH_N, corrector="ald")),
+        ("storm pc bf16", models["bf16"], pc),
         ("storm pc int8+bf16", models["bf16"], dict(pc, quant=s)),
         ("storm pc dc3 bf16", models["bf16"], dict(pc, deepcache=DC_K)),
         ("storm ode etd2 N=10 bf16", models["bf16"],
@@ -4294,9 +4367,9 @@ def phase_graph_launches(workdir: str, models, enhancers):
 
 def phase_graph_time(workdir: str, models, rows, busy):
     """Phase 54. RTF graph against eager at B=1 on phase 5's 1 and 2.5 s
-    files (the 4 s rows are phase 52's) for StoRM pc N=50 + ald in bf16, dc3
-    bf16 and the distilled NFE-2 path in bf16 (int8 + bf16 at 4 s only:
-    phase 52's row), each replay
+    files (the 4 s rows are phase 52's, StoRM pc at N=50) for StoRM pc N=10
+    + ald in bf16, dc3 N=50 bf16 and the distilled NFE-2 path in bf16 (int8
+    + bf16 at 4 s only: phase 52's row), each replay
     equal to eager bit for bit; then every row of phases 52 and 54: RTF both
     ways, the capture's seconds and the pool's growth, the busy share of
     phase 53's replays."""
@@ -4306,7 +4379,7 @@ def phase_graph_time(workdir: str, models, rows, busy):
                                                     f"{seconds:.1f}s.wav"))[0][0]
         audio = y.shape[-1] / SR
         for what, model, kw in (
-                ("storm pc bf16", models["bf16"], pc),
+                ("storm pc N=10 bf16", models["bf16"], dict(N=GRAPH_N, corrector="ald")),
                 ("storm pc dc3 bf16", models["bf16"], dict(pc, deepcache=DC_K)),
                 ("distill bf16", models["distill"], {})):
             graph_against_eager(f"{what}, {seconds:g} s", model, y, audio, rows, **kw)
@@ -4682,6 +4755,380 @@ def phase_async_save(workdir: str):
     return walls
 
 
+
+# --- the NCSN++ family's other configurations and the time-domain denoisers
+# (phases 59-64)
+
+# a full-width NCSN++ with DDPM resblocks and residual pyramids: every
+# resampler convolves, so every upfirdn2d call is the stride-1 instance
+DDPM_KW = dict(resblock_type="ddpm", progressive="residual", progressive_input="residual",
+               init_scale=1.0)
+DDPM_DENOISER = {"mode": "denoiser-only", **DDPM_KW}
+S1_PER_FORWARD = 12  # 3 down levels x (trunk + input pyramid) + 3 up x (trunk + output pyramid)
+LARGE_STORM = {**STORM_CONFIG, "backbone_score": "ncsnpplarge"}
+LARGE_PER_FORWARD = 36  # 6 levels x (a resampling resblock's 2 + a pyramid's 1), each way
+TIME_DOMAIN = ("convtasnet", "ae-ncsnpp")
+
+
+@contextlib.contextmanager
+def k1_calls_recorded():
+    """While active, every upfirdn2d call of the nets (nn/resample.py) adds its
+    (config, B, C, H, W, dtype) to the first yielded list, in order, and
+    every backward of `UpFirDn2d` its forward's to the second; the calls run
+    as before."""
+    fwd, bwd = [], []
+    real = kup.UpFirDn2d.backward
+
+    def upfirdn2d(x, kernel, up=1, down=1, pad=(0, 0)):
+        fwd.append((config_of(up, down, pad), *x.shape, x.dtype))
+        return kup.upfirdn2d(x, kernel, up=up, down=down, pad=pad)
+
+    def backward(ctx, g):
+        _, up, down, pad, (H, W) = ctx.args
+        bwd.append((config_of(up, down, pad), g.shape[0], g.shape[1], H, W, g.dtype))
+        return real(ctx, g)
+
+    with mock.patch.object(resample, "upfirdn2d", upfirdn2d), \
+            mock.patch.object(kup.UpFirDn2d, "backward", staticmethod(backward)):
+        yield fwd, bwd
+
+
+def ddpm_net(dtype=torch.float32) -> NCSNpp:
+    net = NCSNpp(input_channels=6, dtype=dtype, **DDPM_KW)
+    reset_parameters(net, torch.Generator().manual_seed(0))
+    return net.cuda()
+
+
+def phase_ddpm(workdir: str, lengths, gen: torch.Generator):
+    """Phase 59. A full-width DDPM + residual NCSN++ score net (nf 128, ch_mult
+    1,2,2,2; every resampler a FIR with a 3x3 conv: the stride-1 instance),
+    in f32 and bf16, cuDNN deterministic: one forward at the 4 s bucket (B=1,
+    256 x 576) and one gradient of a B=8 x 256 x 256 batch (input and
+    parameters) through the kernels against the plain path, with exactly the
+    module list's launches (12 per forward, 12 adjoints per backward); then
+    a DDPM denoiser-only checkpoint through `python -m
+    storm_tpu_torch.enhancement` on phase 5's files in f32 and bf16 (12
+    launches per file). Returns ({dtype: [forward calls]}, {dtype: [adjoint
+    calls]}, {(dtype, direction): {path: launches}})."""
+    fwd_calls, bwd_calls, launched = {}, {}, {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for dtype in (torch.float32, BF16):
+            name = str(dtype).split(".")[-1]
+            net = ddpm_net(dtype)
+            check(k1_per_forward(net) == S1_PER_FORWARD,
+                  f"the DDPM net's module list gives {k1_per_forward(net)} calls")
+            x = 0.5 * torch.randn(1, 3, FREQS, FRAMES, 2, device="cuda", generator=gen)
+            t = torch.full((1,), 0.5, device="cuda")
+            xb = 0.5 * torch.randn(TRAIN_B, 3, FREQS, TRAIN_FRAMES, 2, device="cuda",
+                                   generator=gen)
+            tb = torch.rand(TRAIN_B, device="cuda", generator=gen) * 0.9 + 0.05
+            runs = []
+            for plain in (False, True):
+                ctx = (mock.patch.object(resample, "upfirdn2d", kup.upfirdn2d_plain) if plain
+                       else k1_calls_recorded())
+                before = (kup.upfirdn2d_cuda.launches, kup.upfirdn2d_bwd_cuda.launches)
+                with ctx as rec:
+                    with torch.inference_mode():
+                        out = net(x, t)
+                    xg = xb.clone().requires_grad_()
+                    params = [p for p in net.parameters() if p.requires_grad]
+                    grads = torch.autograd.grad(net(xg, tb).square().sum(), [xg] + params)
+                    torch.cuda.synchronize()
+                counts = (kup.upfirdn2d_cuda.launches - before[0],
+                          kup.upfirdn2d_bwd_cuda.launches - before[1])
+                if plain:
+                    check(counts == (0, 0), f"the plain DDPM path launched {counts}")
+                else:
+                    fwd_calls[name], bwd_calls[name] = list(rec[0][:S1_PER_FORWARD]), rec[1]
+                    check(counts == (2 * S1_PER_FORWARD, S1_PER_FORWARD)
+                          and {c[0] for c in rec[0] + rec[1]} <= {"same1", "same2"}
+                          and {c[-1] for c in rec[0] + rec[1]} == {dtype},
+                          f"{name} DDPM forward + gradient launched {counts}: "
+                          f"{sorted({c[0] for c in rec[0] + rec[1]})}")
+                    launched[(name, "fwd")] = {f"ddpm_forward_and_gradient_{name}": counts[0]}
+                    launched[(name, "bwd")] = {f"ddpm_forward_and_gradient_{name}": counts[1]}
+                runs.append((out.float(), [g.float() for g in grads]))
+            (out_k, g_k), (out_p, g_p) = runs
+            err = (out_k - out_p).abs().max().item()
+            scale = out_p.abs().max().item()
+            d_norm = torch.sqrt(sum(((a - b) ** 2).sum() for a, b in zip(g_k, g_p))).item()
+            norm = torch.sqrt(sum((b ** 2).sum() for b in g_p)).item()
+            tol = 1e-4 if dtype == torch.float32 else 1e-2
+            print(f"  DDPM + residual NCSN++ {count_parameters(net)} params, {name}: forward "
+                  f"(B=1, 256 x {FRAMES}) kernel vs plain max abs err {err:.3e} (scale "
+                  f"{scale:.3e}); gradient (B={TRAIN_B}, 256 x {TRAIN_FRAMES}, input and "
+                  f"{len(g_p) - 1} parameters) |diff| {d_norm:.3e} of norm {norm:.6e} "
+                  f"({d_norm / norm:.3e}); launches per forward {S1_PER_FORWARD}, per backward "
+                  f"{S1_PER_FORWARD} (module list)", flush=True)
+            check(err <= tol * scale and d_norm <= tol * norm and bool(torch.isfinite(out_k).all()),
+                  f"the {name} DDPM net through the kernels disagrees with plain")
+            del net, runs, g_k, g_p
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+    # the option through the entry points: a DDPM denoiser-only checkpoint, 1 forward per file
+    ckpt = os.path.join(workdir, "ddpm_denoiser.pt")
+    save_checkpoint(ckpt, DDPM_DENOISER, build_model(DDPM_DENOISER, device="cpu",
+                                                     seed=0).state_dict())
+    noisy = os.path.join(workdir, "noisy")
+    for dtype in ("float32", "bfloat16"):
+        out = os.path.join(workdir, f"enhanced_ddpm_{dtype}")
+        with k1_calls_recorded() as (rec, _), calls_counted() as per_call:
+            run_enhancement(["--test_dir", noisy, "--enhanced_dir", out, "--ckpt", ckpt,
+                             "--mode", "denoiser-only", "--dtype", dtype, "--device", "cuda"])
+        seen = {c[-1] for c in rec}
+        check_outputs(out, lengths)
+        check(per_call == [(S1_PER_FORWARD, 0, 1)] * len(lengths)
+              and seen == {torch.float32 if dtype == "float32" else BF16},
+              f"the DDPM denoiser CLI in {dtype}: per file {per_call}, dtypes {seen}")
+        launched[(dtype, "fwd")][f"enhancement_ddpm_denoiser_{dtype}"] = len(rec)
+        print(f"  DDPM + residual denoiser-only checkpoint through the CLI in {dtype}: "
+              f"{len(lengths)} files, (K1, K3, NFE) per file {per_call[0]}, outputs finite and "
+              f"as long as the inputs", flush=True)
+    return fwd_calls, bwd_calls, launched
+
+
+def phase_stride1_kernel(fwd_calls, bwd_calls, gen: torch.Generator):
+    """Phase 60. The stride-1 instance and its adjoint against plain at every
+    shape phase 59's forward (B=1, 256 x 576) and backward (B=8, 256 x 256)
+    gave them, in f32 (atol = rtol = 1e-5) and bf16 (`compare`'s allowance;
+    equal with NCSN++'s FIR), NCSN++'s and an asymmetric FIR; each shape
+    timed (CUDA events back to back, the profiler's device time after an
+    L2-clearing read) beside the plain version, the depthwise `conv2d` that
+    computes the same function and the bound (bytes once at 3.35 TB/s, 4 B
+    per f32 element, 2 per bf16), and their sums per forward and per
+    backward. Returns {(dtype, direction): (per-shape times, the calls as
+    keys, max error)}."""
+    out = {}
+    for name, dtype in (("float32", torch.float32), ("bfloat16", BF16)):
+        for direction, calls in (("fwd", fwd_calls[name]), ("bwd", bwd_calls[name])):
+            per_shape, launch = {}, {}
+            keys = [(cfg, C, H, W) for cfg, _, C, H, W, _ in calls]
+            B = calls[0][1]
+            if direction == "fwd":
+                err = check_k1_at(f"the DDPM forward ({name})", set(calls), gen)
+            else:
+                err = check_k1_bwd_at(f"the DDPM backward ({name})", set(calls), gen)
+            for cfg, C, H, W in dict.fromkeys(keys):
+                c = CONFIGS[cfg]
+                args = dict(up=1, down=1, pad=c["pad"])
+                Ho, Wo = (kup.output_size(n, 4, 1, 1, c["pad"]) for n in (H, W))
+                x = torch.randn(B, C, H, W, device="cuda", generator=gen).to(dtype)
+                if direction == "fwd":
+                    inp, run = x, functools.partial(kup.upfirdn2d_cuda, x, c["kernel"], **args)
+                    plain = functools.partial(kup.upfirdn2d_plain, x, c["kernel"], **args)
+                    lib = library_call(cfg, C, dtype=dtype)
+                    n_out = C * Ho * Wo * B
+                else:
+                    g = torch.randn(B, C, Ho, Wo, device="cuda", generator=gen).to(dtype)
+                    bwd = (g, c["kernel"], 1, 1, c["pad"], (H, W))
+                    inp, run = g, functools.partial(kup.upfirdn2d_bwd_cuda, *bwd)
+                    plain = functools.partial(kup.upfirdn2d_bwd_plain, *bwd)
+                    lib = library_call(cfg, C, backward=True, dtype=dtype)
+                    n_out = x.numel()
+                want = plain()
+                lib_err = (lib(inp) - want).abs().max().item()
+                check(lib(inp).shape == want.shape
+                      and lib_err <= (1e-5 if dtype == torch.float32 else 1e-2)
+                      * (1 + want.float().abs().max().item()),
+                      f"the depthwise conv2d yardstick {cfg} C={C}: not the same function "
+                      f"({lib_err:.3e})")
+                bytes_ms, ops_ms = bound_ms(inp.numel(), n_out, 16, inp.element_size())
+                per_shape[(cfg, C, H, W)] = dict(
+                    ms=time_ms(run), plain_ms=time_ms(plain, reps=5),
+                    library_ms=time_ms(lambda: lib(inp)), bytes_ms=bytes_ms, ops_ms=ops_ms,
+                    lib_err=lib_err, out=f"{tuple(want.shape[-2:])}")
+                launch[(cfg, C, H, W)] = run
+            what = f"upfirdn2d stride 1{' adjoint' if direction == 'bwd' else ''} {name}"
+            print_per_shape(f"{what} (B={B})", per_shape, launch, "upfirdn2d_same1", keys,
+                            "DDPM score " + ("forward" if direction == "fwd" else "backward"))
+            out[(name, direction)] = (per_shape, keys, err)
+            torch.cuda.empty_cache()
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def large_structure():
+    """StoRM's denoiser and an ncsnpplarge score net, for their module lists."""
+    return (NCSNpp(input_channels=2, discriminative=True),
+            backbones.get_by_name("ncsnpplarge")(input_channels=6))
+
+
+def phase_ncsnpplarge(workdir: str, lengths, gen: torch.Generator):
+    """Phase 61. A full-width ncsnpplarge score net (65.6M parameters, seven
+    levels, two resblocks a level, attention at 16): one forward on the 1 s
+    and 4 s buckets (192 and 576 frames: its deepest level 3 and 9 frames
+    wide, rows the producer warp copies, not TMA) through the kernels, with
+    the module list's 36 launches each, and K1 and its adjoint against
+    plain at every shape, f32 and bf16. Then StoRM with it as score net
+    (phase 5's denoiser) through `python -m storm_tpu_torch.enhancement` on
+    phase 5's files, N=4 + ald (18 + 36 x 8 launches per file), and its
+    captured program at the 4 s bucket against the eager loop, bit for bit.
+    Returns ({path: K1 launches}, K1's max error in f32, in bf16)."""
+    net = large_structure()[1]
+    reset_parameters(net, torch.Generator().manual_seed(0))
+    net = net.cuda().eval()
+    check(k1_per_forward(net) == LARGE_PER_FORWARD,
+          f"ncsnpplarge's module list gives {k1_per_forward(net)} calls")
+    shapes = set()
+    for frames in (padded_frames(1.0), FRAMES):
+        x = 0.5 * torch.randn(1, 3, FREQS, frames, 2, device="cuda", generator=gen)
+        before = kup.upfirdn2d_cuda.launches
+        with torch.inference_mode(), k1_calls_recorded() as (rec, _):
+            out = net(x, torch.full((1,), 0.5, device="cuda"))
+        torch.cuda.synchronize()
+        check(kup.upfirdn2d_cuda.launches - before == LARGE_PER_FORWARD
+              and bool(torch.isfinite(out).all()),
+              f"an ncsnpplarge forward at {frames} frames launched "
+              f"{kup.upfirdn2d_cuda.launches - before}")
+        widths = sorted({c[4] for c in rec})
+        print(f"  ncsnpplarge {count_parameters(net)} params, 256 x {frames}: "
+              f"{LARGE_PER_FORWARD} upfirdn2d launches (module list {k1_per_forward(net)}); "
+              f"input widths {widths}", flush=True)
+        shapes |= {c[:-1] for c in rec}
+    errs = {}
+    for dt in (torch.float32, BF16):
+        at = {(*c, dt) for c in shapes}
+        what = f"ncsnpplarge's forwards ({str(dt).split('.')[-1]})"
+        errs[dt] = max(check_k1_at(what, at, gen), check_k1_bwd_at(what, at, gen))
+    del net
+    torch.cuda.empty_cache()
+
+    ckpt = os.path.join(workdir, "storm_large.pt")
+    model = build_model(LARGE_STORM, device="cuda", seed=0)
+    save_checkpoint(ckpt, LARGE_STORM, model.state_dict())
+    noisy, out = os.path.join(workdir, "noisy"), os.path.join(workdir, "enhanced_large")
+    kup.upfirdn2d_cuda.launches = 0
+    with shapes_recorded() as (k1s, _), calls_counted() as per_call:
+        text = run_enhancement(["--test_dir", noisy, "--enhanced_dir", out, "--ckpt", ckpt,
+                                "--mode", "storm", "--timeit", "--device", "cuda",
+                                "--N", str(N_STEPS)])
+    check_outputs(out, lengths)
+    want = (K1_PER_FORWARD + LARGE_PER_FORWARD * (NFE - 1), 0, NFE)
+    check(per_call == [want] * len(lengths), f"the ncsnpplarge StoRM CLI: per file {per_call}")
+    paths = {"enhancement_ncsnpplarge_float32": kup.upfirdn2d_cuda.launches}
+    errs[torch.float32] = max(errs[torch.float32], check_k1_at("the ncsnpplarge StoRM CLI",
+                                                               k1s, gen))
+    rtf = rtf_of(text)
+    print(f"  StoRM with an ncsnpplarge score net through the CLI (f32, N={N_STEPS} + ald): "
+          f"(K1, K3, NFE) per file {per_call[0]}; RTF "
+          + ", ".join(f"{n} {rtf[n]:.4f}" for n in lengths), flush=True)
+    y = load_wav(os.path.join(noisy, f"utt2_{SECONDS[2]:.1f}s.wav"))[0][0]
+    row, _, _ = graph_against_eager(f"storm ncsnpplarge pc N={N_STEPS} f32, 4 s", model, y,
+                                    y.shape[-1] / SR, [], N=N_STEPS, corrector="ald")
+    paths["graph_against_eager_ncsnpplarge_float32"] = row["k1"]
+    del model
+    torch.cuda.empty_cache()
+    return paths, errs[torch.float32], errs[BF16]
+
+
+def phase_ncsnpplarge_train(train_dir: str, gen: torch.Generator):
+    """Phase 62. `python -m storm_tpu_torch.train --backbone_score
+    ncsnpplarge --dtype bfloat16` on phase 8's corpus, one epoch of 4 steps
+    at B=8 x 256 frames, through its programs: phase_train's checks (18 + 36
+    forward and 15 + 36 backward launches per step, from the module lists),
+    its step and peak memory. Then one eager float32 step of the same model
+    at B=8, or, if it runs out of memory, at the largest of 4 and 2 that
+    fits: its peak memory. Returns phase_train's dict and the f32 row."""
+    r = phase_train(train_dir, "bfloat16", steps_total=TRAIN_FILES // TRAIN_B,
+                    extra=("--backbone_score", "ncsnpplarge"), structure=large_structure())
+    print(f"  bf16 StoRM with an ncsnpplarge score net at B={TRAIN_B}: step {r['step_ms']:.2f} "
+          f"ms, peak of the steps {r['step_peak_gib']:.2f} GiB allocated, "
+          f"{r['reserved_gib']:.2f} GiB reserved", flush=True)
+    torch.cuda.empty_cache()
+    f32 = None
+    for B in (TRAIN_B, 4, 2):
+        model = state = None
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            model = build_model(LARGE_STORM, device="cuda", seed=0).train()
+            state = init_train_state(model, model.lr)
+            x = 0.3 * torch.randn(B, FREQS, TRAIN_FRAMES, 2, device="cuda", generator=gen)
+            y = x + 0.2 * torch.randn(B, FREQS, TRAIN_FRAMES, 2, device="cuda", generator=gen)
+            t0 = time.perf_counter()
+            aux = model.train_step(state, (x, y), gen)
+            loss = float(aux["loss"])
+            f32 = dict(B=B, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                       s=time.perf_counter() - t0, loss=loss)
+        except torch.cuda.OutOfMemoryError:
+            print(f"  one f32 step at B={B} ran out of memory", flush=True)
+        finally:
+            del model, state
+            torch.cuda.empty_cache()
+        if f32 is not None:
+            break
+    check(f32 is not None and np.isfinite(f32["loss"]), "no f32 ncsnpplarge step fits")
+    print(f"  one eager f32 step of StoRM with an ncsnpplarge score net at B={f32['B']}: "
+          f"{f32['s']:.3f} s (its first: kernels and cuDNN plans included), peak "
+          f"{f32['peak_gib']:.2f} GiB allocated", flush=True)
+    return r, f32
+
+
+def phase_convtasnet_train(train_dir: str):
+    """Phase 63. `python -m storm_tpu_torch.train --mode denoiser-only
+    --backbone_denoiser convtasnet --return_time --loss_type sisdr` (the
+    reference's width: 256 filters, 8 x 3 blocks) on phase 8's corpus, one
+    epoch of 4 steps at B=8 of 32640 samples, in f32, through its programs:
+    finite losses, every tensor moved, no upfirdn2d launch; its checkpoint
+    enhances a file through the CLI."""
+    r = phase_train(train_dir, "float32", steps_total=TRAIN_FILES // TRAIN_B, mode="denoiser-only",
+                    extra=("--backbone_denoiser", "convtasnet", "--return_time", "--loss_type",
+                           "sisdr"), structure=(backbones.get_by_name("convtasnet")(),))
+    check(r["launches"] == (0, 0), f"ConvTasNet's training launched upfirdn2d {r['launches']}")
+    return r
+
+
+def phase_time_domain_storm(workdir: str, lengths, gen: torch.Generator):
+    """Phase 64. StoRM with a ConvTasNet and with an ae-ncsnpp denoiser (the
+    reference's widths, seeded random weights; the score net phase 5's
+    NCSN++) through `python -m storm_tpu_torch.enhancement` on phase 5's
+    files at N=4 + ald: outputs finite and as long as the inputs, per file
+    the score net's 18 launches per forward and the denoiser's (ConvTasNet
+    none, ae-ncsnpp's trunk 18, from the module lists); then the ConvTasNet
+    StoRM through the server at its bf16 default on phase 15's burst, with
+    exact launches per call. Returns ({path: K1 launches} in f32, in bf16,
+    K1's max error in f32, in bf16)."""
+    noisy = os.path.join(workdir, "noisy")
+    f32_paths, shapes = {}, set()
+    for denoiser in TIME_DOMAIN:
+        config = {**STORM_CONFIG, "backbone_denoiser": denoiser}
+        model = build_model(config, device="cpu", seed=0)
+        ckpt = os.path.join(workdir, f"storm_{denoiser}.pt")
+        save_checkpoint(ckpt, config, model.state_dict())
+        den = k1_per_forward(model.denoiser_net)
+        check(den == (18 if denoiser == "ae-ncsnpp" else 0),
+              f"the {denoiser} denoiser's module list gives {den} calls")
+        out = os.path.join(workdir, f"enhanced_{denoiser}")
+        kup.upfirdn2d_cuda.launches = 0
+        with shapes_recorded() as (k1s, _), calls_counted() as per_call:
+            text = run_enhancement(["--test_dir", noisy, "--enhanced_dir", out, "--ckpt", ckpt,
+                                    "--mode", "storm", "--timeit", "--device", "cuda",
+                                    "--N", str(N_STEPS)])
+        check_outputs(out, lengths)
+        want = (den + K1_PER_FORWARD * (NFE - 1), 0, NFE)
+        check(per_call == [want] * len(lengths), f"StoRM with {denoiser}: per file {per_call}")
+        f32_paths[f"enhancement_{denoiser}_float32"] = kup.upfirdn2d_cuda.launches
+        shapes |= k1s
+        rtf = rtf_of(text)
+        print(f"  StoRM with a {denoiser} denoiser ({count_parameters(model.denoiser_net)} "
+              f"params) through the CLI (f32, N={N_STEPS} + ald): (K1, K3, NFE) per file "
+              f"{per_call[0]}; RTF " + ", ".join(f"{n} {rtf[n]:.4f}" for n in lengths),
+              flush=True)
+    err = check_k1_at("the time-domain StoRM CLI runs", shapes, gen)
+    rng = np.random.default_rng(4)
+    waves = [synth_wav(s, i, rng) for i, s in enumerate(SERVE_SECONDS)]
+    srv = run_server("ConvTasNet StoRM server (bf16)",
+                     serve_args(os.path.join(workdir, "storm_convtasnet.pt")), waves)
+    want = K1_PER_FORWARD * (SERVE_NFE - 1) * (srv["warmups"] + srv["stats"]["batches"])
+    check(srv["k1"] == want, f"the ConvTasNet StoRM server launched {srv['k1']}, expected {want}")
+    print(f"  ConvTasNet StoRM server: upfirdn2d launches {srv['k1']} (the score net's "
+          f"{K1_PER_FORWARD} x {SERVE_NFE - 1} per warm-up call and batch)", flush=True)
+    err_bf16 = check_k1_at("the ConvTasNet StoRM server", srv["k1_shapes"], gen)
+    return f32_paths, {"server_convtasnet_bf16": srv["k1"]}, err, err_bf16
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -4896,8 +5343,8 @@ def main():
 
         phase_header("== phase 40: training the score-only and denoiser-only models and OUVP StoRM "
               "at full width", flush=True)
-        new_train, nt_f32_err, nt_bf16_err, nt_bwd_err, nt_bwd_bf16_err = phase_train_new_modes(
-            train_dir, gen, train_f32, train_bf16)
+        (new_train, nt_f32_err, nt_bf16_err, nt_bwd_err,
+         nt_bwd_bf16_err) = phase_train_new_modes(train_dir, gen, train_f32, train_bf16)
         ckpts = {"score-only": new_train["score-only"]["ckpt_dir"],
                  "denoiser-only": new_train["denoiser-only_sisdr"]["ckpt_dir"],
                  "ouvp": new_train["storm_ouvp_bf16"]["ckpt_dir"]}
@@ -4970,6 +5417,31 @@ def main():
         phase_header("== phase 55: the server's warmed graphs, streaming's replay, the bench line",
                      flush=True)
         g_srv_k1, g_srv_err = phase_graph_serving(workdir, bench_lines["bench_serving"], gen)
+
+        torch.cuda.empty_cache()
+        phase_header("== phase 59: a full-width DDPM + residual NCSN++ (the stride-1 instance) "
+                     "through the kernels against plain; its denoiser through the CLI", flush=True)
+        s1_fwd, s1_bwd, s1_launched = phase_ddpm(workdir, lengths, gen)
+
+        phase_header("== phase 60: the stride-1 instance and its adjoint against plain at the "
+                     "DDPM net's shapes, timed", flush=True)
+        s1_rows = phase_stride1_kernel(s1_fwd, s1_bwd, gen)
+
+        phase_header("== phase 61: ncsnpplarge: its forwards at 192 and 576 frames, StoRM with it "
+                     "through the CLI and its captured program", flush=True)
+        large_k1, large_err, large_bf16_err = phase_ncsnpplarge(workdir, lengths, gen)
+
+        phase_header("== phase 62: python -m storm_tpu_torch.train --backbone_score ncsnpplarge "
+                     "--dtype bfloat16; one f32 step's memory", flush=True)
+        large_train, large_f32 = phase_ncsnpplarge_train(train_dir, gen)
+
+        phase_header("== phase 63: python -m storm_tpu_torch.train --mode denoiser-only "
+                     "--backbone_denoiser convtasnet --return_time", flush=True)
+        ctn_train = phase_convtasnet_train(train_dir)
+
+        phase_header("== phase 64: StoRM with ConvTasNet and ae-ncsnpp denoisers through the CLI; "
+                     "the ConvTasNet StoRM server", flush=True)
+        td_k1, td_k1_bf16, td_err, td_bf16_err = phase_time_domain_storm(workdir, lengths, gen)
 
     def entry(name, source, replaces, per_shape_ms, calls, err, launches, work, **extra):
         keys = ("ms", "device_ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms")
@@ -5048,6 +5520,17 @@ def main():
         (k1_bf16_by_path if r["bf16"] else k1_by_path)[path] = r["k1_launched"][0]
         (bwd_bf16_by_path if r["bf16"] else bwd_by_path)[path] = r["k1_launched"][1]
     k1_bf16_by_path["train_resume_bf16"], bwd_bf16_by_path["train_resume_bf16"] = resume_launched
+    # the NCSN++ family's other sizes and the time-domain denoisers (phases 61-64):
+    # the standard instances' launches; the stride-1 instance's are its own rows
+    k1_by_path.update({**large_k1, **td_k1})
+    k1_bf16_by_path.update({"train_ncsnpplarge_bf16": large_train["launches"][0], **td_k1_bf16})
+    bwd_bf16_by_path["train_ncsnpplarge_bf16"] = large_train["launches"][1]
+    ode_k1_err = max(ode_k1_err, large_err, td_err)
+    ode_k1_bf16_err = max(ode_k1_bf16_err, large_bf16_err, td_bf16_err)
+    print(f"  ncsnpplarge StoRM: bf16 trainer step {large_train['step_ms']:.2f} ms at B={TRAIN_B}, "
+          f"peak {large_train['step_peak_gib']:.2f} GiB; one f32 step fits at B={large_f32['B']} "
+          f"(peak {large_f32['peak_gib']:.2f} GiB); ConvTasNet return_time trainer step "
+          f"{ctn_train['step_ms']:.2f} ms, peak {ctn_train['step_peak_gib']:.2f} GiB", flush=True)
     nt_bwd_err = max(nt_bwd_err, nf32_bwd_err)
     nt_bwd_bf16_err = max(nt_bwd_bf16_err, nf32_bwd_bf16_err)
     nm_k3_err = max(nm_k3_err, d_k3_err, d_bench_k3_err)
@@ -5122,6 +5605,22 @@ def main():
               f"B=1, 256 x {FRAMES}, bfloat16, the product in bfloat16", library=no_library,
               launches_by_path=k3_bf16_by_path),
     ]}
+    depthwise = "F.conv2d(groups=C) with the flipped FIR (the adjoint: the FIR as is)"
+    for name, dtype_name, direction in (("upfirdn2d_s1", "float32", "fwd"),
+                                        ("upfirdn2d_s1_bwd", "float32", "bwd"),
+                                        ("upfirdn2d_s1_bf16", "bfloat16", "fwd"),
+                                        ("upfirdn2d_s1_bwd_bf16", "bfloat16", "bwd")):
+        per_shape, keys, err = s1_rows[(dtype_name, direction)]
+        paths = s1_launched[(dtype_name, direction)]
+        record["kernels"].append(entry(
+            name, k1_src, "storm_tpu/kernels/upfirdn.py:139" if direction == "fwd"
+            else "storm_tpu/kernels/upfirdn.py:172-181", per_shape, keys, err,
+            sum(paths.values()),
+            (f"the {S1_PER_FORWARD} stride-1 calls of one full-width DDPM + residual NCSN++ "
+             f"forward, B=1, 256 x {FRAMES}" if direction == "fwd" else
+             f"the {S1_PER_FORWARD} stride-1 adjoint calls of its backward, B={TRAIN_B}, "
+             f"256 x {TRAIN_FRAMES}") + f", {dtype_name}",
+            launches_by_path=paths, library=depthwise))
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)
     print(json.dumps(record))

@@ -1,1 +1,51 @@
-"""Score / denoiser backbones."""
+"""Score / denoiser backbones and their registry (counterpart of
+storm_tpu/backbones/__init__.py and storm_tpu/utils/registry.py).
+
+`get_by_name` resolves the reference's names for the model factory, the
+trainer's `--backbone_denoiser` / `--backbone_score` and the bench's
+`--backbone`: `ncsnpp`, `ncsnpplarge`, `ncsnpp12M`, `ncsnpp6M`,
+`ae-ncsnpp`, `convtasnet`. `gagnet` is registered and raises
+NotImplementedError naming its ROADMAP item.
+"""
+from __future__ import annotations
+
+from typing import Dict, List
+
+from .convtasnet import ConvTasNet
+from .ncsnpp import AutoEncodeNCSNpp, NCSNpp, NCSNpp6M, NCSNpp12M, NCSNppLarge
+
+
+class GaGNet:
+    """Not ported yet: constructing it raises."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            "backbone 'gagnet' is not ported yet (ROADMAP Queue 1 item 4, R4: GaGNet with its "
+            "batch statistics)")
+
+    @classmethod
+    def from_kwargs(cls, **kwargs):
+        return cls(**kwargs)
+
+
+BACKBONES: Dict[str, type] = {
+    "ncsnpp": NCSNpp,
+    "ncsnpplarge": NCSNppLarge,
+    "ncsnpp12M": NCSNpp12M,
+    "ncsnpp6M": NCSNpp6M,
+    "ae-ncsnpp": AutoEncodeNCSNpp,
+    "convtasnet": ConvTasNet,
+    "gagnet": GaGNet,
+}
+
+
+def get_by_name(name: str) -> type:
+    """The backbone class registered as `name`; ValueError (with the names)
+    for an unknown one."""
+    if name in BACKBONES:
+        return BACKBONES[name]
+    raise ValueError(f"Backbone with name '{name}' unknown! Available: {sorted(BACKBONES)}")
+
+
+def get_all_names() -> List[str]:
+    return list(BACKBONES)

@@ -1,10 +1,15 @@
 """NCSN++ on NCHW tensors (counterpart of storm_tpu/backbones/ncsnpp.py).
 
 Modules are built in the reference's order in `all_modules` (flax `m{i}` is
-`all_modules.{i}` here), so parameters convert by position. This slice covers
-the configuration StoRM runs: BigGAN resblocks, FIR resampling, output_skip /
-input_skip pyramids combined by sum, Fourier time embedding, and the
-discriminative (denoiser) variant. Other options raise NotImplementedError.
+`all_modules.{i}` here), so parameters convert by position. Every option of
+the reference runs: BigGAN or DDPM resblocks, FIR or plain resampling (with
+a 3x3 conv where `resamp_with_conv`), output and input pyramids that are
+`output_skip` / `input_skip`, `residual` or `none`, combined by `sum` or
+`cat`, the Fourier or the positional (sinusoidal) time embedding, and the
+discriminative (denoiser) variant; `ncsnpplarge`, `ncsnpp12M` and
+`ncsnpp6M` are its published sizes, `ae-ncsnpp` the trunk on a learned
+filterbank of the waveform (the counterparts of the reference's registry
+names, backbones/__init__.py).
 
 The public interface keeps the reference's packed-real layout: input
 (B, Cc, F, T, 2) with complex channel c at real channels [2c, 2c+1], output
@@ -23,16 +28,22 @@ the bottleneck and the up levels >= cache_depth and returns (h, pyramid) at
 the entry of up level cache_depth - 1; `forward_shallow` reruns only the
 down levels < cache_depth and resumes the up path from that cache, so
 forward_shallow(x, t, deep_features(x, t)) == forward(x, t). The cache is
-in the compute dtype, as the reference carries it.
+in the compute dtype, as the reference carries it. It splits the default
+pyramids and BigGAN resblocks only; any other configuration refuses it with
+the reference's message.
 """
 from __future__ import annotations
 
 import inspect
+import math
 from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from ..nn.cast import param, scalar
+from ..nn.init import ddpm_init_
 from ..nn.layers import (
     AttnBlockpp,
     Combine,
@@ -41,20 +52,38 @@ from ..nn.layers import (
     GaussianFourierProjection,
     OutputConv,
     ResnetBlockBigGANpp,
+    ResnetBlockDDPMpp,
     Upsample,
     conv3x3,
     get_act,
     group_norm,
 )
+from ..nn.resample import conv_transpose
+
+
+DEEPCACHE_REFUSED = "deep-feature caching supports the default NCSN++ config only"
+
+
+def timestep_embedding(timesteps: torch.Tensor, embedding_dim: int) -> torch.Tensor:
+    """Sinusoidal (DDPM) embedding of (B,) times in float32: [sin, cos] of
+    t * 10000^(-i / (half - 1)), zero-padded to an odd width (the reference's
+    `_timestep_embedding`)."""
+    half_dim = embedding_dim // 2
+    emb = math.log(10000.0) / (half_dim - 1)
+    emb = torch.exp(torch.arange(half_dim, dtype=torch.float32, device=timesteps.device) * -emb)
+    emb = timesteps[:, None].float() * emb[None, :]
+    emb = torch.cat([torch.sin(emb), torch.cos(emb)], dim=-1)
+    return F.pad(emb, (0, 1)) if embedding_dim % 2 == 1 else emb
 
 
 class NCSNpp(nn.Module):
     """NCSN++; the defaults are the 27.8M-parameter configuration."""
 
-    # the cache split of `deep_features` / `forward_shallow` applies: the
-    # constructor refuses every configuration but output_skip / input_skip /
-    # biggan, the only one the reference caches
+    # the cache split of `deep_features` / `forward_shallow` applies to the
+    # output_skip / input_skip / biggan configuration; the others refuse it
+    # when it is asked for (`check_cache_depth`), as the reference does
     SUPPORTS_DEEPCACHE = True
+    FORCE_STFT_OUT = False  # a spectrogram net
 
     def __init__(
         self,
@@ -87,24 +116,28 @@ class NCSNpp(nn.Module):
         super().__init__()
         if dtype not in (torch.float32, torch.bfloat16):
             raise NotImplementedError(f"NCSNpp: dtype {dtype} is not ported")
+        if progressive not in ("none", "output_skip", "residual"):
+            raise ValueError(f"NCSNpp: progressive {progressive!r}")
+        if progressive_input not in ("none", "input_skip", "residual"):
+            raise ValueError(f"NCSNpp: progressive_input {progressive_input!r}")
+        if embedding_type not in ("fourier", "positional"):
+            raise ValueError(f"NCSNpp: embedding_type {embedding_type!r}")
+        resblock_type = resblock_type.lower()
+        if resblock_type not in ("ddpm", "biggan"):
+            raise ValueError(f"resblock type {resblock_type} unrecognized.")
+        combine = progressive_combine.lower()
         self.dtype = dtype
-        unsupported = {
-            "resblock_type": (resblock_type, "biggan"),
-            "progressive": (progressive, "output_skip"),
-            "progressive_input": (progressive_input, "input_skip"),
-            "progressive_combine": (progressive_combine, "sum"),
-            "embedding_type": (embedding_type, "fourier"),
-            "fir": (fir, True),
-        }
-        for name, (got, want) in unsupported.items():
-            if got != want:
-                raise NotImplementedError(f"NCSNpp: {name}={got!r} is not ported yet")
-        del resamp_with_conv  # only read by the ddpm resblock type
+        self.nf = nf
+        self.resblock_type = resblock_type
+        self.progressive, self.progressive_input = progressive, progressive_input
+        self.embedding_type = embedding_type
+        self.skip_rescale = skip_rescale
 
         # the discriminative variant is unconditional, unscaled, 2 channels
         self.conditional = False if discriminative else conditional
         self.scale_by_sigma = False if discriminative else scale_by_sigma
-        self.total_channels = (2 if discriminative else input_channels) * spatial_channels
+        self.total_channels = self._input_channels(input_channels, discriminative) \
+            * spatial_channels
         self.spatial_channels = spatial_channels
         self.num_res_blocks = num_res_blocks
         self.num_resolutions = len(ch_mult)
@@ -112,27 +145,38 @@ class NCSNpp(nn.Module):
         self.attn_resolutions = tuple(attn_resolutions)
         self.centered = centered
         self.act = act = get_act(nonlinearity)
+        temb_dim = nf * 4 if self.conditional else None
 
         def ResBlock(in_ch, out_ch=None, **kw):
-            return ResnetBlockBigGANpp(
-                act=act, in_ch=in_ch, out_ch=out_ch,
-                temb_dim=nf * 4 if self.conditional else None,
-                dropout=dropout, fir=fir, fir_kernel=fir_kernel,
-                skip_rescale=skip_rescale, init_scale=init_scale, **kw)
+            common = dict(act=act, in_ch=in_ch, out_ch=out_ch, temb_dim=temb_dim,
+                          dropout=dropout, skip_rescale=skip_rescale, init_scale=init_scale)
+            if resblock_type == "ddpm":
+                return ResnetBlockDDPMpp(**common)
+            return ResnetBlockBigGANpp(fir=fir, fir_kernel=fir_kernel, **common, **kw)
 
         def Attn(ch):
             return AttnBlockpp(ch, skip_rescale=skip_rescale, init_scale=init_scale)
 
-        self.pyramid_upsample = Upsample(fir_kernel)
-        self.pyramid_downsample = Downsample(fir_kernel)
+        def Resample(cls, in_ch, out_ch=None, with_conv=True):
+            return cls(in_ch, out_ch, with_conv=with_conv, fir=fir, fir_kernel=fir_kernel)
 
-        modules = [GaussianFourierProjection(embedding_size=nf, scale=fourier_scale)]
+        # the pyramids' resamplers without a conv hold no parameters
+        if progressive == "output_skip":
+            self.pyramid_upsample = Upsample(fir=fir, fir_kernel=fir_kernel)
+        if progressive_input == "input_skip":
+            self.pyramid_downsample = Downsample(fir=fir, fir_kernel=fir_kernel)
+
+        modules = []
+        if embedding_type == "fourier":
+            modules.append(GaussianFourierProjection(embedding_size=nf, scale=fourier_scale))
         if self.conditional:
-            modules += [Dense(2 * nf, nf * 4), Dense(nf * 4, nf * 4)]
+            embed_dim = 2 * nf if embedding_type == "fourier" else nf
+            modules += [Dense(embed_dim, nf * 4), Dense(nf * 4, nf * 4)]
 
         # --- downsampling trunk
         modules.append(conv3x3(self.total_channels, nf))
         hs_c = [nf]
+        input_pyramid_ch = self.total_channels
         in_ch = nf
         for i_level in range(self.num_resolutions):
             for _ in range(num_res_blocks):
@@ -143,8 +187,17 @@ class NCSNpp(nn.Module):
                     modules.append(Attn(in_ch))
                 hs_c.append(in_ch)
             if i_level != self.num_resolutions - 1:
-                modules.append(ResBlock(in_ch, down=True))
-                modules.append(Combine(self.total_channels, in_ch, method="sum"))
+                if resblock_type == "ddpm":
+                    modules.append(Resample(Downsample, in_ch, with_conv=resamp_with_conv))
+                else:
+                    modules.append(ResBlock(in_ch, down=True))
+                if progressive_input == "input_skip":
+                    modules.append(Combine(input_pyramid_ch, in_ch, method=combine))
+                    if combine == "cat":
+                        in_ch *= 2
+                elif progressive_input == "residual":
+                    modules.append(Resample(Downsample, input_pyramid_ch, in_ch))
+                    input_pyramid_ch = in_ch
                 hs_c.append(in_ch)
 
         # --- bottleneck
@@ -154,6 +207,7 @@ class NCSNpp(nn.Module):
         # --- upsampling trunk; the module index at the start of each up level
         # is where `forward_shallow` resumes
         self._up_start_idx = [0] * self.num_resolutions
+        pyramid_ch = 0
         for i_level in reversed(range(self.num_resolutions)):
             self._up_start_idx[i_level] = len(modules)
             for _ in range(num_res_blocks + 1):
@@ -162,19 +216,53 @@ class NCSNpp(nn.Module):
                 in_ch = out_ch
             if self.all_resolutions[i_level] in self.attn_resolutions:
                 modules.append(Attn(in_ch))
+            if progressive != "none":
+                if i_level == self.num_resolutions - 1:
+                    modules.append(group_norm(in_ch))
+                    if progressive == "output_skip":
+                        modules.append(conv3x3(in_ch, self.total_channels,
+                                               init_scale=init_scale))
+                        pyramid_ch = self.total_channels
+                    else:
+                        modules.append(conv3x3(in_ch, in_ch))
+                        pyramid_ch = in_ch
+                elif progressive == "output_skip":
+                    modules.append(group_norm(in_ch))
+                    modules.append(conv3x3(in_ch, self.total_channels, init_scale=init_scale))
+                    pyramid_ch = self.total_channels
+                else:  # residual
+                    modules.append(Resample(Upsample, pyramid_ch, in_ch))
+                    pyramid_ch = in_ch
+            if i_level != 0:
+                if resblock_type == "ddpm":
+                    modules.append(Resample(Upsample, in_ch, with_conv=resamp_with_conv))
+                else:
+                    modules.append(ResBlock(in_ch, up=True))
+        assert not hs_c
+        if progressive != "output_skip":
             modules.append(group_norm(in_ch))
             modules.append(conv3x3(in_ch, self.total_channels, init_scale=init_scale))
-            if i_level != 0:
-                modules.append(ResBlock(in_ch, up=True))
-        assert not hs_c
 
         self.all_modules = nn.ModuleList(modules)
-        self.output_layer = OutputConv(self.total_channels, 2 * spatial_channels)
+        self._make_output_layer()
+
+    @staticmethod
+    def _input_channels(input_channels: int, discriminative: bool) -> int:
+        """Real input channels per spatial channel: 2 for the denoiser."""
+        return 2 if discriminative else input_channels
+
+    def _make_output_layer(self) -> None:
+        # the 1x1 conv to 2 x spatial_channels real output channels
+        self.output_layer = OutputConv(self.total_channels, 2 * self.spatial_channels)
 
     @classmethod
     def from_kwargs(cls, **kwargs) -> "NCSNpp":
-        """Construct, ignoring keyword arguments that are not fields."""
-        names = set(inspect.signature(cls.__init__).parameters) - {"self"}
+        """Construct, ignoring keyword arguments that are not fields (the
+        subclasses' defaults stand for what is not given)."""
+        names = set()
+        for c in cls.__mro__:
+            if "__init__" in vars(c):
+                names |= set(inspect.signature(c.__init__).parameters) - {"self", "kwargs"}
         return cls(**{k: v for k, v in kwargs.items() if k in names})
 
     def _pack(self, x: torch.Tensor) -> torch.Tensor:
@@ -212,10 +300,14 @@ class NCSNpp(nn.Module):
         return self._unpack(h, x.shape)
 
     def check_cache_depth(self, cache_depth: int) -> None:
-        """Raise ValueError unless 1 <= cache_depth < the number of levels."""
+        """Raise ValueError unless 1 <= cache_depth < the number of levels and
+        the net is in the configuration the cache splits."""
         if not 1 <= cache_depth < self.num_resolutions:
             raise ValueError(f"cache_depth must be in [1, {self.num_resolutions - 1}], "
                              f"got {cache_depth}")
+        if (self.progressive, self.progressive_input, self.resblock_type) != (
+                "output_skip", "input_skip", "biggan"):
+            raise ValueError(DEEPCACHE_REFUSED)
 
     def _unet(self, h_in: torch.Tensor, time_cond: Optional[torch.Tensor],
               cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None, cache_depth: int = 0,
@@ -230,10 +322,14 @@ class NCSNpp(nn.Module):
         shallow = cache is not None
         if shallow or return_cache:
             self.check_cache_depth(cache_depth)
+        sqrt2 = scalar(math.sqrt(2.0), self.dtype)
 
-        # Fourier features of log(t); computed (and unused) when unconditional
-        temb = modules[m_idx](torch.log(time_cond)) if time_cond is not None else None
-        m_idx += 1
+        if self.embedding_type == "fourier":
+            # Fourier features of log(t); computed (and unused) when unconditional
+            temb = modules[m_idx](torch.log(time_cond)) if time_cond is not None else None
+            m_idx += 1
+        else:
+            temb = timestep_embedding(time_cond, self.nf) if time_cond is not None else None
         if self.conditional:
             temb = modules[m_idx](temb.to(self.dtype))
             m_idx += 1
@@ -246,7 +342,7 @@ class NCSNpp(nn.Module):
             h_in = 2.0 * h_in - 1.0
 
         # --- downsampling
-        input_pyramid = h_in
+        input_pyramid = h_in if self.progressive_input != "none" else None
         hs = [modules[m_idx](h_in)]
         m_idx += 1
         for i_level in range(cache_depth if shallow else self.num_resolutions):
@@ -260,11 +356,21 @@ class NCSNpp(nn.Module):
             # in shallow mode the last level's downsampled h would feed a
             # skipped up level: it is not computed
             if i_level != self.num_resolutions - 1 and not (shallow and i_level == cache_depth - 1):
-                h = modules[m_idx](hs[-1], temb)
+                if self.resblock_type == "ddpm":
+                    h = modules[m_idx](hs[-1])
+                else:
+                    h = modules[m_idx](hs[-1], temb)
                 m_idx += 1
-                input_pyramid = self.pyramid_downsample(input_pyramid)
-                h = modules[m_idx](input_pyramid, h)
-                m_idx += 1
+                if self.progressive_input == "input_skip":
+                    input_pyramid = self.pyramid_downsample(input_pyramid)
+                    h = modules[m_idx](input_pyramid, h)
+                    m_idx += 1
+                elif self.progressive_input == "residual":
+                    input_pyramid = modules[m_idx](input_pyramid)
+                    m_idx += 1
+                    input_pyramid = ((input_pyramid + h) / sqrt2 if self.skip_rescale
+                                     else input_pyramid + h)
+                    h = input_pyramid
                 hs.append(h)
 
         if shallow:
@@ -290,22 +396,120 @@ class NCSNpp(nn.Module):
             if self.all_resolutions[i_level] in self.attn_resolutions:
                 h = modules[m_idx](h)
                 m_idx += 1
-            pyramid_h = modules[m_idx + 1](act(modules[m_idx](h)))
-            m_idx += 2
-            if pyramid is None:
-                pyramid = pyramid_h
-            else:
-                pyramid = self.pyramid_upsample(pyramid) + pyramid_h
+            if self.progressive != "none":
+                if i_level == self.num_resolutions - 1:
+                    pyramid = modules[m_idx + 1](act(modules[m_idx](h)))
+                    m_idx += 2
+                elif self.progressive == "output_skip":
+                    pyramid_h = modules[m_idx + 1](act(modules[m_idx](h)))
+                    m_idx += 2
+                    pyramid = self.pyramid_upsample(pyramid) + pyramid_h
+                else:  # residual
+                    pyramid = modules[m_idx](pyramid)
+                    m_idx += 1
+                    pyramid = (pyramid + h) / sqrt2 if self.skip_rescale else pyramid + h
+                    h = pyramid
             if i_level != 0:
-                h = modules[m_idx](h, temb)
+                if self.resblock_type == "ddpm":
+                    h = modules[m_idx](h)
+                else:
+                    h = modules[m_idx](h, temb)
                 m_idx += 1
-        assert not hs and m_idx == len(modules)
+        assert not hs
 
-        h = pyramid
+        if self.progressive == "output_skip":
+            h = pyramid
+        else:
+            h = modules[m_idx + 1](act(modules[m_idx](h)))
+            m_idx += 2
+        assert m_idx == len(modules)
         if self.scale_by_sigma:
             # divides by t itself, cast to h's dtype, as the reference does
             h = h / time_cond.to(h.dtype)[:, None, None, None]
         return h
+
+
+class AutoEncodeNCSNpp(NCSNpp):
+    """NCSN++ on a learned filterbank of the waveform (the reference's
+    `ae-ncsnpp`, storm_tpu/backbones/ncsnpp.py:630-700): a Conv1d encoder
+    (512 taps, stride 128, pad 256, no bias) to `image_size` channels, read
+    as a 1-channel image of image_size x frames padded to 64 frames, the
+    trunk (total_channels 1, no output conv), and a ConvTranspose1d decoder
+    back to the waveform, cropped to the input's length. A time-domain
+    backbone (`FORCE_STFT_OUT`). `encoder_w` is a conv1d weight (image_size,
+    1, 512); `decoder_w` a conv_transpose1d weight (image_size, 1, 512), the
+    reference's taps flipped (it writes the decoder as an lhs-dilated
+    correlation with pad 255; convert.py flips them)."""
+
+    SUPPORTS_DEEPCACHE = False  # the filterbank around the trunk is not split
+    FORCE_STFT_OUT = True
+
+    def __init__(self, input_channels: int = 1, discriminative: bool = True, **kwargs):
+        super().__init__(input_channels=input_channels, discriminative=discriminative, **kwargs)
+        C = self.all_resolutions[0]  # image_size
+        self.encoder_w = nn.Parameter(torch.empty(C, 1, 512))
+        self.decoder_w = nn.Parameter(torch.empty(C, 1, 512))
+        self.init_from(None)
+
+    CAST_PARAMS = ("encoder_w", "decoder_w")
+
+    @staticmethod
+    def _input_channels(input_channels: int, discriminative: bool) -> int:
+        return 1 if discriminative else input_channels
+
+    def _make_output_layer(self) -> None:
+        pass  # the decoder takes the trunk's image: no 1x1 output conv
+
+    def init_from(self, generator=None):
+        # flax's fan_avg of a (512, 1, C) / (512, C, 1) kernel: 512 x (1 + C) / 2
+        C = self.encoder_w.shape[0]
+        for w in (self.encoder_w, self.decoder_w):
+            ddpm_init_(w, 512, 512 * C, 1.0, generator)
+
+    def forward(self, x_time: torch.Tensor,
+                time_cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Waveforms (B, T) or (B, 1, T) -> the same shape, float32."""
+        squeeze = x_time.dim() == 2
+        if not squeeze:
+            if x_time.shape[1] != 1:
+                raise ValueError("ae-ncsnpp assumes D=1")
+            x_time = x_time[:, 0]
+        T_orig = x_time.shape[-1]
+        h = x_time[:, None, :].to(self.dtype)  # (B, 1, T)
+        enc = F.conv1d(h, param(self, "encoder_w", h.dtype), stride=128, padding=256)
+        img = enc[:, None]  # (B, 1, C, L): one channel, image_size x frames
+        img = F.pad(img, (0, (-img.shape[-1]) % 64)).contiguous()
+        h = self._unet(img, time_cond)[:, 0]  # (B, C, Lpad)
+        out = conv_transpose(h, param(self, "decoder_w", h.dtype), stride=128, padding=256)
+        out = out[:, 0, :T_orig].float()
+        return out if squeeze else out[:, None, :]
+
+
+class NCSNppLarge(NCSNpp):
+    """~65M parameters (the reference's `ncsnpplarge`)."""
+
+    def __init__(self, nf: int = 128, ch_mult: Sequence[int] = (1, 1, 2, 2, 2, 2, 2),
+                 num_res_blocks: int = 2, attn_resolutions: Sequence[int] = (16,), **kwargs):
+        super().__init__(nf=nf, ch_mult=ch_mult, num_res_blocks=num_res_blocks,
+                         attn_resolutions=attn_resolutions, **kwargs)
+
+
+class NCSNpp12M(NCSNpp):
+    """~12M parameters (the reference's `ncsnpp12M`)."""
+
+    def __init__(self, nf: int = 96, ch_mult: Sequence[int] = (1, 2, 2, 1),
+                 num_res_blocks: int = 1, attn_resolutions: Sequence[int] = (0,), **kwargs):
+        super().__init__(nf=nf, ch_mult=ch_mult, num_res_blocks=num_res_blocks,
+                         attn_resolutions=attn_resolutions, **kwargs)
+
+
+class NCSNpp6M(NCSNpp):
+    """~6M parameters (the reference's `ncsnpp6M`)."""
+
+    def __init__(self, nf: int = 96, ch_mult: Sequence[int] = (1, 1, 1, 1),
+                 num_res_blocks: int = 1, attn_resolutions: Sequence[int] = (0,), **kwargs):
+        super().__init__(nf=nf, ch_mult=ch_mult, num_res_blocks=num_res_blocks,
+                         attn_resolutions=attn_resolutions, **kwargs)
 
 
 def count_parameters(module: nn.Module) -> int:

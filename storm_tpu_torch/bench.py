@@ -99,7 +99,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--nf", type=int, default=None,
                     help="override backbone width (default: full 27.8M)")
     ap.add_argument("--backbone", default="ncsnpp",
-                    help="backbone of both nets; only ncsnpp is ported (ROADMAP R4)")
+                    help="registered backbone name for both the denoiser and the score net")
     ap.add_argument("--quant", default="int8", choices=["none", "int8"],
                     help="serving quantization (default int8 W8A8; 'none' serves the nets in "
                          "--dtype)")
@@ -358,11 +358,9 @@ def bench_serving(args, model, device: torch.device, budget_s: float, t_start: f
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = parse_args(argv)
     t_start = time.perf_counter()
-    if args.backbone != "ncsnpp":
-        raise NotImplementedError(f"--backbone {args.backbone}: only ncsnpp is ported yet "
-                                  "(ROADMAP R4)")
     budget_s = extras_budget_s()
-    config = {"mode": "regen-joint-training", "dtype": args.dtype}
+    config = {"mode": "regen-joint-training", "dtype": args.dtype,
+              "backbone_denoiser": args.backbone, "backbone_score": args.backbone}
     if args.nf:
         config["nf"] = args.nf
     model = build_model(config, device=args.device, seed=0)

@@ -11,6 +11,13 @@ of `StochasticRegenerationModel` (nets `denoiser_net`, `score_net`) or of
     Dense kernel (I, O)        -> weight (O, I)
     GroupNorm scale / bias     -> weight / bias
     NIN W / b, Fourier W       -> unchanged
+    Conv2d_0_weight (H, W, I, O) -> Conv2d_0_weight (O, I, H, W)  (FIR resamplers' convs)
+    1-D conv kernels `*_w` (K, I, O) -> conv1d weight (O, I, K)   (ConvTasNet, encoder_w)
+    decoder_w    (K, I, O)     -> conv_transpose1d weight (I, O, K), taps flipped
+    `*_b`, Conv2d_0_bias, PReLU alpha, layer-norm gain -> unchanged
+
+The decoders (ConvTasNet's, ae-ncsnpp's) are lhs-dilated correlations in
+the reference and transposed convolutions here, hence the flip.
 
 Conversion is strict: a leaf it cannot map raises, and with `target` (a
 module or state_dict) a missing, leftover or misshapen key raises too.
@@ -57,7 +64,14 @@ def _leaf(path, v: np.ndarray):
         name, v = "weight", v.T
     elif name == "scale" and v.ndim == 1:
         name = "weight"
-    elif name not in ("bias", "W", "b"):
+    elif name == "Conv2d_0_weight" and v.ndim == 4:
+        v = np.transpose(v, (3, 2, 0, 1))
+    elif name == "decoder_w" and v.ndim == 3:
+        v = np.transpose(v, (1, 2, 0))[:, :, ::-1]
+    elif name.endswith("_w") and v.ndim == 3:
+        v = np.transpose(v, (2, 1, 0))
+    elif not (name in ("bias", "W", "b", "Conv2d_0_bias", "alpha", "gain")
+              or (name.endswith("_b") and v.ndim == 1)):
         raise KeyError(f"params_from_jax: no mapping for {'/'.join(path)} {v.shape}")
     return ".".join(mods + [name]), v
 

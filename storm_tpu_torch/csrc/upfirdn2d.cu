@@ -14,9 +14,12 @@
 //   xp[j]  = xu[j - pad0]  (zero outside [0, H*up); negative pads crop)
 //   out[o] = sum_k xp[o*down + k] * kernel[K-1-k]      (the kernel is flipped)
 // in both spatial axes; the caller gives the output size (Ho, Wo), which
-// carries pad1. K = 4; (up, down) is (1, 2) or (2, 1).
+// carries pad1. K = 4; (up, down) is (1, 2), (2, 1) or (1, 1): the last is
+// the FIR between a transposed and a strided 3x3 conv (pad0 1 after
+// `upsample_conv_2d`'s, 2 before `conv_downsample_2d`'s), whose adjoint is
+// itself at pad0' = 3 - pad0.
 //
-// Bound: memory. An output costs 16/up^2 multiply-adds, far below the card's
+// Bound: memory. An output costs at most 16 multiply-adds, far below the card's
 // float32 rate, so the least time is (E * (planes*H*W + planes*Ho*Wo)) /
 // 3.35 TB/s, E = 4 bytes per element for float32 and 2 for bfloat16: every
 // input read once, every output written once.
@@ -45,16 +48,18 @@
 // 16 / sizeof(T)): one instance per S keeps every register index a
 // compile-time constant. Rows TMA cannot take (W * E not a multiple of 16
 // bytes, or a base off 16 bytes) are filled by the producer warp's 32
-// threads element by element into the same layout; the main path never
-// takes that fill.
+// threads element by element into the same layout. The default NCSN++ never
+// takes that fill; the stride-1 calls on a transposed conv's output (2n + 1
+// wide) and the adjoints of those before a strided conv (n + 1 wide) do.
 // Consumers read shared memory and write device memory 16 bytes at a time:
 // a work item is two output rows of one tile by one 16-byte chunk of n
 // outputs, so a warp's lanes store consecutive chunks of a row (down: rows
 // 2j .. 2j+5 of the window and columns 2i .. 2i+2n+1; up: one quad row, each
 // 2 x 2 output quad reading a 3 x 3 input neighbourhood with its taps known
-// at compile time). Each output is summed in float32 from +0 with fused
-// multiply-adds, ky outer and kx inner (the plain version's order; the zero
-// taps of the zero-insertion are skipped), and a bfloat16 output is rounded
+// at compile time; stride 1: rows 2j .. 2j+4 and columns i .. i+n+2). Each
+// output is summed in float32 from +0 with fused multiply-adds, ky outer
+// and kx inner (the plain version's order; the zero taps of the
+// zero-insertion are skipped), and a bfloat16 output is rounded
 // once, to nearest even: with NCSN++'s FIR, outer([1,3,3,1]) / 64 (times 4
 // for up), whose taps are exact in bfloat16 and whose products with
 // bfloat16 values are exact in float32, the output equals the plain version
@@ -321,6 +326,54 @@ struct Up {
   }
 };
 
+// up=1, down=1. An item is output rows 2r, 2r+1 of the tile by the n outputs
+// of chunk c: output (j, i) reads window rows j + ky and columns i + kx, so
+// the item reads box rows 2r .. 2r+4 and, from box column nc on, columns
+// S .. S+n+2 (S as in Down).
+struct Same {
+  template <class T>
+  __host__ __device__ static constexpr int tw_unit() { return chunk<T>(); }
+  __host__ __device__ static constexpr int need_w(int tw, int s, int e) {
+    return tw + (s + 3 + e - 1) / e * e;
+  }
+  __host__ __device__ static constexpr int need_h(int th) { return th + 3; }
+  __device__ static int box_offset(int r, int c, int box_w, int n) {
+    return 2 * r * box_w + n * c;
+  }
+
+  template <int S, class T>
+  static __device__ __forceinline__ void item(const T* box, int box_w, T* __restrict__ out,
+                                              const Taps& taps, int Ho, int Wo, int oy, int ox,
+                                              bool vec, int) {
+    constexpr int n = chunk<T>(), nch = chunks_read(S, n + 3, n);
+    float acc[2][n];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int i = 0; i < n; ++i) acc[j][i] = 0.0f;
+#pragma unroll
+    for (int rr = 0; rr < 5; ++rr) {
+      float v[nch * n];
+#pragma unroll
+      for (int c = 0; c < nch; ++c) load16(box + rr * box_w + c * n, v + c * n);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int ky = rr - j;
+        if (ky < 0 || ky >= kTaps) continue;
+#pragma unroll
+        for (int i = 0; i < n; ++i)
+#pragma unroll
+          for (int kx = 0; kx < kTaps; ++kx)
+            acc[j][i] = fmaf(v[S + i + kx], tap(taps, ky, kx), acc[j][i]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      if (oy + j >= 0 && oy + j < Ho)
+        store_chunk(out + (long long)(oy + j) * Wo, acc[j], ox, Wo, vec);
+  }
+};
+
 struct TileAt {
   long long plane;
   int oy, ox, iy, ix;
@@ -439,6 +492,13 @@ upfirdn2d_up2(const __grid_constant__ CUtensorMap map, const T* __restrict__ x,
   run<Up, S>(&map, x, out, taps, p, H, W, Ho, Wo);
 }
 
+template <int S, class T>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+upfirdn2d_same1(const __grid_constant__ CUtensorMap map, const T* __restrict__ x,
+                T* __restrict__ out, Taps taps, Plan p, int H, int W, int Ho, int Wo) {
+  run<Same, S>(&map, x, out, taps, p, H, W, Ho, Wo);
+}
+
 template <class T>
 using KernelFn = void (*)(const CUtensorMap, const T*, T*, Taps, Plan, int, int, int, int);
 
@@ -446,8 +506,10 @@ template <class Cfg, int S, class T>
 constexpr KernelFn<T> kernel_of() {
   if constexpr (std::is_same<Cfg, Down>::value) {
     return upfirdn2d_down2<S, T>;
-  } else {
+  } else if constexpr (std::is_same<Cfg, Up>::value) {
     return upfirdn2d_up2<S, T>;
+  } else {
+    return upfirdn2d_same1<S, T>;
   }
 }
 
@@ -559,6 +621,9 @@ cudaError_t dispatch(const void* x, void* out, const Taps& taps, const int* plan
   }
   if (up == 2 && down == 1) {
     return launch<Up, T>(xi, o, taps, plan, planes, H, W, Ho, Wo, s);
+  }
+  if (up == 1 && down == 1) {
+    return launch<Same, T>(xi, o, taps, plan, planes, H, W, Ho, Wo, s);
   }
   return cudaErrorInvalidValue;
 }

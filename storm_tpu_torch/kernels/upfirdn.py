@@ -4,8 +4,12 @@ of float32 or bfloat16 (the sum in float32, the output in the input's type).
 Replaces the Pallas TPU kernel `upfirdn2d_pallas` (storm_tpu/kernels/upfirdn.py,
 `pl.pallas_call` in its body) with a CUDA kernel written for sm_90a
 (`csrc/upfirdn2d.cu`). NCSN++ calls it 18 times per forward (down and up
-BigGAN resblocks, input and output pyramids), always with a 4x4 FIR in one of
-two configurations: up=1, down=2, pad=(1, 1) and up=2, down=1, pad=(2, 1).
+BigGAN resblocks, input and output pyramids), always with a 4x4 FIR, in the
+configurations up=1, down=2, pad=(1, 1) and up=2, down=1, pad=(2, 1); its
+options with convolving resamplers (the DDPM resblock's levels, the
+`residual` pyramids) call it at up=1, down=1 between a transposed 3x3 conv and
+the bias (pad (1, 1)) or before a strided one (pad (2, 2)). The reference's
+(2, 2) has no caller in either package and is not built.
 
 Bound on the card: memory. The op does at most 16 multiply-adds per output
 and reads each input once from device memory, so the least time is
@@ -30,7 +34,8 @@ The gradient replaces the reference's custom VJP (`_ufd_bwd`, same file): the
 adjoint of upfirdn2d is upfirdn2d again with the taps flipped, up and down
 swapped and pad0' = K - pad0 - 1, cut to the input's size. At NCSN++'s
 configurations the backward of the down config is the up config (pad0 2)
-and vice versa (pad0 1), so the same kernel serves both directions.
+and vice versa (pad0 1), and the adjoint of the stride-1 call at pad0 is
+the stride-1 call at 3 - pad0, so the same kernel serves both directions.
 
 `upfirdn2d` goes through the autograd Function `UpFirDn2d` on every device
 and dispatches on the tensor's device in both directions: a CUDA tensor
@@ -53,7 +58,7 @@ from torch.autograd.function import once_differentiable
 
 from . import build
 
-_CONFIGS = {(1, 2), (2, 1)}  # (up, down) pairs the kernel is built for
+_CONFIGS = {(1, 2), (2, 1), (1, 1)}  # (up, down) pairs the kernel is built for
 _TAPS = 4
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the kernel's dtype codes
 
@@ -123,10 +128,11 @@ def tile_plan(up: int, down: int, pad0: int, H: int, W: int, Ho: int, Wo: int, p
 
     An item of the kernel is one 16-byte chunk of outputs (e = 16 /
     elem_bytes) in two rows; the up config's items read in pairs, so its
-    column tile is a multiple of 2e, the down config's of e. A box starts on
-    16 bytes (a TMA copy faults otherwise), sx columns before its window, and
-    spans the columns the items read (2*tw, or tw/2, and the sx + 2 more
-    rounded up to 16 bytes): at most 256. Each tile is the one whose boxes
+    column tile is a multiple of 2e, the down and stride-1 configs' of e. A
+    box starts on 16 bytes (a TMA copy faults otherwise), sx columns before
+    its window, and spans the columns the items read (2*tw, tw/2 or tw, and
+    the sx + 2 more, sx + 3 at stride 1, rounded up to 16 bytes): at most
+    256. Each tile is the one whose boxes
     read the fewest inputs over the row or column, the column tile among those
     that divide the row where any do (so the 64 k-frame bucket widths split
     into whole tiles), the row tile within the box's byte budget, its limit
@@ -135,18 +141,24 @@ def tile_plan(up: int, down: int, pad0: int, H: int, W: int, Ho: int, Wo: int, p
     if (up, down) not in _CONFIGS:
         raise ValueError(f"upfirdn2d: (up, down)={(up, down)} not built")
     e = 16 // elem_bytes
+    reach = 2  # the window's columns past the tile's span, less one
     if up == 1:  # output o reads inputs down*o - pad0 .. + 3
         oy0 = ox0 = 0
         wy0, wx0 = -pad0, -pad0  # tile 0's window
-        unit_w, span_of, of_span = e, (lambda tw: 2 * tw), (lambda cols: cols // 2)
-        box_h_of, th_of_rows = (lambda th: 2 * th + 2), (lambda rows: (rows - 2) // 2)
+        if down == 2:
+            unit_w, span_of, of_span = e, (lambda tw: 2 * tw), (lambda cols: cols // 2)
+            box_h_of, th_of_rows = (lambda th: 2 * th + 2), (lambda rows: (rows - 2) // 2)
+        else:
+            reach = 3
+            unit_w, span_of, of_span = e, (lambda tw: tw), (lambda cols: cols)
+            box_h_of, th_of_rows = (lambda th: th + 3), (lambda rows: rows - 3)
     else:  # a tile starts on an even zero-inserted coordinate: the lead
         oy0 = ox0 = -(pad0 & 1)
         wy0 = wx0 = (ox0 - pad0) // 2  # (o - pad0) is even at a tile's first output
         unit_w, span_of, of_span = 2 * e, (lambda tw: tw // 2), (lambda cols: 2 * cols)
         box_h_of, th_of_rows = (lambda th: th // 2 + 2), (lambda rows: 2 * (rows - 2))
     sx = wx0 % e  # the box starts on 16 bytes, sx columns before the window
-    tail = -(-(sx + 2) // e) * e  # the box's columns past the tile's span
+    tail = -(-(sx + reach) // e) * e  # the box's columns past the tile's span
     box_w_of = lambda tw: span_of(tw) + tail  # noqa: E731
     tw_limit = max(unit_w, min(of_span(BOX_LIMIT - tail), max_tw) // unit_w * unit_w)
     tw = _best_tile(Wo - ox0, unit_w, tw_limit, box_w_of, whole=True)

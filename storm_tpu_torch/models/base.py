@@ -62,6 +62,22 @@ def prepare_spec(y: torch.Tensor, stft_config: STFTConfig, transform: SpecTransf
     return pad_spec(Y, multiple=multiple, axis=-2), Y.shape[-2]
 
 
+def is_time_domain(net: nn.Module) -> bool:
+    """A `FORCE_STFT_OUT` backbone (ConvTasNet, ae-ncsnpp): it maps waveforms
+    to waveforms."""
+    return bool(getattr(net, "FORCE_STFT_OUT", False))
+
+
+def time_domain_denoise(net: nn.Module, Y: torch.Tensor, stft_config: STFTConfig,
+                        transform: SpecTransform) -> torch.Tensor:
+    """A time-domain net on a compressed spec (B, F, T, 2): spec -> wav of
+    (T - 1) * hop samples -> net -> wav -> spec, keeping Y's T frames (the
+    reference's `time_domain_denoise`, storm_tpu/models/base.py:198-214)."""
+    t_frames = Y.shape[-2]
+    y_time = spec_to_wav(Y, stft_config, transform, length=(t_frames - 1) * stft_config.hop_length)
+    return wav_to_spec(net(y_time), stft_config, transform)[..., :t_frames, :]
+
+
 def make_deepcache_fns(net: nn.Module, pack_input: Callable, cache_depth: int):
     """The (deep_fn, cached_score_fn) pair of a sampler's `DeepCache`:
     the one place that holds the cached score evaluation's contract (the

@@ -4,8 +4,11 @@ storm_tpu/models/discriminative.py).
 One discriminative NCSN++ maps the noisy spec to the clean one in a single
 forward, x_hat = dnn(Y, t=1), trained with mse, mae or negative SI-SDR.
 Its trained weights are the first stage that StoRM's `--pretrained_denoiser`
-grafts. Time-domain backbones (ConvTasNet's `FORCE_STFT_OUT`) wait for
-ROADMAP R4.
+grafts. A time-domain backbone (ConvTasNet, ae-ncsnpp: `FORCE_STFT_OUT`)
+takes and returns waveforms: a spec batch is turned into waveforms first and
+its target compared in the time domain, a `return_time` batch (B, T) goes in
+as it is, and `enhance` feeds it the normalized waveform
+(storm_tpu/models/discriminative.py:78-220).
 
 The net computes in its `dtype` with float32 parameters; its output, the
 losses, Adam and the EMA are float32.
@@ -22,12 +25,12 @@ from ..nn.qconv import scales_attached, stats_collected
 from ..signal import cplx
 from ..signal.stft import STFTConfig
 from ..signal.transforms import SpecTransform
-from .base import (EnhancementModel, lift_spec, normalize_wav, per_example_sum, prepare_spec,
-                   spec_to_wav)
+from .base import (EnhancementModel, is_time_domain, lift_spec, normalize_wav, per_example_sum,
+                   prepare_spec, spec_to_wav)
 
 LOSS_TYPES = ("mse", "mae", "sisdr")
 
-Batch = Tuple[torch.Tensor, torch.Tensor]  # (clean X, noisy Y) specs (B, F, T, 2)
+Batch = Tuple[torch.Tensor, torch.Tensor]  # (clean X, noisy Y): specs (B, F, T, 2) or wavs (B, T)
 
 
 def si_sdr(s: torch.Tensor, s_hat: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
@@ -60,11 +63,26 @@ class DiscriminativeModel(EnhancementModel):
         self.ema_decay = ema_decay
         self.loss_type = loss_type
 
+    @property
+    def force_stft_out(self) -> bool:
+        return is_time_domain(self.dnn)
+
+    def _spec_to_time(self, X: torch.Tensor) -> torch.Tensor:
+        """A spec batch's waveforms of (frames - 1) * hop samples."""
+        length = (X.shape[-2] - 1) * self.stft_config.hop_length
+        return spec_to_wav(X, self.stft_config, self.transform, length=length)
+
     def forward(self, Y: torch.Tensor, collect_stats: bool = False):
         """x_hat = dnn(Y, t=1) for Y (B, F, T, 2) or (B, D, F, T, 2); keeps Y's
-        shape (the reference's `apply`). `collect_stats=True` returns (x_hat,
-        {conv module name: max|input|}), the calibration statistics of
-        models/quant.py."""
+        shape (the reference's `apply`). A time-domain dnn gets Y's waveforms
+        (a (B, T) Y is one already) and returns the time-domain estimate.
+        `collect_stats=True` returns (x_hat, {conv module name: max|input|}),
+        the calibration statistics of models/quant.py (none for a
+        time-domain dnn)."""
+        if self.force_stft_out:
+            y_time = Y if Y.dim() == 2 else self._spec_to_time(Y)
+            out = self.dnn(y_time, torch.ones(Y.shape[0], dtype=torch.float32, device=Y.device))
+            return (out, {}) if collect_stats else out
         Y5, squeezed = lift_spec(Y)
         t = torch.ones(Y5.shape[0], dtype=torch.float32, device=Y5.device)
         with stats_collected(self.dnn) if collect_stats else contextlib.nullcontext() as stats:
@@ -81,11 +99,15 @@ class DiscriminativeModel(EnhancementModel):
         generator."""
         x, y = batch
         x_hat = self(y)
+        if self.force_stft_out and x.dim() > 2:
+            x = self._spec_to_time(x)  # a spec batch: compared in the time domain
         if self.loss_type == "sisdr":
             B = x.shape[0]
             return -si_sdr(x.reshape(B, -1), x_hat.reshape(B, -1))
         diff = x - x_hat
-        return per_example_sum(torch.square(diff) if self.loss_type == "mse" else cplx.cabs(diff))
+        if self.loss_type == "mse":
+            return per_example_sum(torch.square(diff))
+        return per_example_sum(torch.abs(diff) if self.force_stft_out else cplx.cabs(diff))
 
     def loss_fn(self, batch: Batch,
                 generator: Optional[torch.Generator] = None
@@ -110,6 +132,10 @@ class DiscriminativeModel(EnhancementModel):
         ignored, as the reference's `**ignored_kwargs` are."""
         T_orig = y.shape[-1]
         y_n, norm = normalize_wav(y)
+        if self.force_stft_out:  # the waveform straight in
+            with self.cast_nets():
+                x_hat = self(y_n)
+            return x_hat[..., :T_orig] * norm, 1
         Y, _ = prepare_spec(y_n, self.stft_config, self.transform)
         with self.cast_nets(), scales_attached(self.dnn, quant or {}):
             X_hat = self(Y)

@@ -4,8 +4,9 @@ Takes the same config dicts as the reference (the JSON a checkpoint carries),
 training keys included (lr, ema_decay, loss types, weighting, mode). This
 builds every mode: the two StoRM modes, `score-only` (SGMSE+),
 `denoiser-only` and `distill` (the one-step student on StoRM's nets, its
-architecture the teacher's, with the `distill_*` keys), with NCSN++
-backbones and the OUVE or OUVP SDE,
+architecture the teacher's, with the `distill_*` keys), with the backbones
+of the registry (backbones/__init__.py; the time-domain ones as denoisers)
+and the OUVE or OUVP SDE,
 computing in the config's `dtype`, "float32" (the default) or "bfloat16",
 with float32 parameters; other choices raise NotImplementedError naming
 their ROADMAP item.
@@ -16,13 +17,14 @@ import dataclasses
 from typing import Any, Dict
 
 import torch
+from torch import nn
 
-from ..backbones.ncsnpp import NCSNpp
+from ..backbones import get_by_name
 from ..nn.init import reset_parameters
 from ..sde.sdes import SDES
 from ..signal.stft import STFTConfig
 from ..signal.transforms import SpecTransform
-from .base import EnhancementModel
+from .base import EnhancementModel, is_time_domain
 from .discriminative import DiscriminativeModel
 from .distill import DistilledModel
 from .score import ScoreModel
@@ -63,16 +65,32 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def _backbone(name: str, **kwargs) -> NCSNpp:
-    if name != "ncsnpp":
-        raise NotImplementedError(f"backbone {name!r}: only ncsnpp is ported yet (ROADMAP R4)")
-    return NCSNpp.from_kwargs(**kwargs)
+def _backbone(name: str, time_domain_what: str = "", **kwargs) -> nn.Module:
+    """The registered backbone `name` built from the config's keys that are
+    its fields. A time-domain (`FORCE_STFT_OUT`) net takes one channel:
+    other `spatial_channels` raise with the reference's message, which names
+    `time_domain_what`."""
+    net = get_by_name(name).from_kwargs(**kwargs)
+    if is_time_domain(net) and int(kwargs.get("spatial_channels", 1)) != 1:
+        raise NotImplementedError(f"time-domain {time_domain_what} support spatial_channels=1 only")
+    return net
 
 
 def _sde(name: str, cfg: Dict[str, Any]):
     """The SDE `name` from the config's keys that are its fields."""
     cls = SDES[name]
     return cls(**{f.name: cfg[f.name] for f in dataclasses.fields(cls) if f.name in cfg})
+
+
+def backbones_of(config: Dict[str, Any]) -> Dict[str, str]:
+    """The backbone of each net of the config's model, under its config key,
+    as `build_model` resolves it (a one-net model falls back on the older
+    `backbone` key)."""
+    mode = config.get("mode", "regen-joint-training")
+    one = {"denoiser-only": "backbone_denoiser", "score-only": "backbone_score"}.get(mode)
+    if one is not None:
+        return {one: config.get(one, config.get("backbone", "ncsnpp"))}
+    return {k: config.get(k, "ncsnpp") for k in ("backbone_denoiser", "backbone_score")}
 
 
 def build_model(config: Dict[str, Any], device="cuda", seed: int = 0) -> EnhancementModel:
@@ -112,7 +130,7 @@ def build_model(config: Dict[str, Any], device="cuda", seed: int = 0) -> Enhance
         cfg.pop("backbone_score", None)
         backbone = cfg.pop("backbone_denoiser", cfg.pop("backbone", "ncsnpp"))
         training = {k: cfg.pop(k) for k in SINGLE_NET_TRAINING_KEYS if k in cfg}
-        dnn = _backbone(backbone, **{**net_kwargs, "discriminative": True})
+        dnn = _backbone(backbone, "backbones", **{**net_kwargs, "discriminative": True})
         model = DiscriminativeModel(dnn, **front, **training)
     elif mode == "score-only":
         cfg.pop("backbone_denoiser", None)
@@ -129,7 +147,7 @@ def build_model(config: Dict[str, Any], device="cuda", seed: int = 0) -> Enhance
             raise NotImplementedError(
                 f"Don't know the conditioning you have wished for: {condition}")
         training = {k: cfg.pop(k) for k in TRAINING_KEYS if k in cfg}
-        denoiser = _backbone(cfg.pop("backbone_denoiser", "ncsnpp"),
+        denoiser = _backbone(cfg.pop("backbone_denoiser", "ncsnpp"), "denoisers",
                              **{**net_kwargs, "input_channels": 2, "discriminative": True})
         score = _backbone(cfg.pop("backbone_score", "ncsnpp"), **{
             **net_kwargs, "input_channels": 2 * (1 + CONDITION_CHANNELS[condition]),

@@ -12,6 +12,10 @@ The nets compute in their `dtype` (float32 or bfloat16) with float32
 parameters, in training too: their outputs are float32, so the SDE,
 `sigmas * z`, the losses, the gradients of the parameters, Adam and the EMA
 stay float32, as in the reference (storm_tpu/models/storm.py:299-391).
+
+A time-domain denoiser (ConvTasNet, ae-ncsnpp: `FORCE_STFT_OUT`) runs
+through `time_domain_denoise`, so that the SDE, the conditioning and the
+losses stay spectral (storm_tpu/models/storm.py:160-180).
 """
 from __future__ import annotations
 
@@ -28,8 +32,9 @@ from ..signal import cplx
 from ..signal.stft import STFTConfig
 from ..signal.transforms import SpecTransform
 from ..utils.tensors import right_pad_dims
-from .base import (EnhancementModel, check_sampler, draw_tz, lift_spec, make_deepcache_fns,
-                   normalize_wav, per_example_sum, prepare_spec, run_sampler, spec_to_wav)
+from .base import (EnhancementModel, check_sampler, draw_tz, is_time_domain, lift_spec,
+                   make_deepcache_fns, normalize_wav, per_example_sum, prepare_spec, run_sampler,
+                   spec_to_wav, time_domain_denoise)
 
 CONDITION_CHANNELS = {"noisy": 1, "post_denoiser": 1, "both": 2}
 STORM_MODES = ("regen-joint-training", "regen-freeze-denoiser")
@@ -86,7 +91,11 @@ class StochasticRegenerationModel(EnhancementModel):
         """D(Y) for Y (B, F, T, 2) or (B, D, F, T, 2); keeps Y's shape.
 
         `collect_stats=True` returns (D(Y), {conv module name: max|input|, a
-        0-d tensor}), the calibration statistics of models/quant.py."""
+        0-d tensor}), the calibration statistics of models/quant.py: none
+        for a time-domain denoiser, whose int8 path the reference leaves off."""
+        if is_time_domain(self.denoiser_net):
+            out = time_domain_denoise(self.denoiser_net, Y, self.stft_config, self.transform)
+            return (out, {}) if collect_stats else out
         Y5, squeezed = lift_spec(Y)
         t = torch.ones(Y5.shape[0], dtype=torch.float32, device=Y5.device)
         with _stats_if(self.denoiser_net, collect_stats) as stats:

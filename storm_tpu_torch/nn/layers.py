@@ -25,10 +25,12 @@ from .cast import param, scalar
 from .init import ddpm_init_, lecun_normal_
 from .qconv import QuantizableConv, conv_forward
 from .resample import (
+    conv_downsample_2d,
     downsample_2d,
     naive_downsample_2d,
     naive_upsample_2d,
     upsample_2d,
+    upsample_conv_2d,
 )
 
 
@@ -282,26 +284,133 @@ class AttnBlockpp(nn.Module):
         return (x + h) / scalar(math.sqrt(2.0), x.dtype) if self.skip_rescale else x + h
 
 
-class Upsample(nn.Module):
-    """2x FIR upsample without a conv (the NCSN++ output pyramid)."""
+class StridedConv(nn.Conv2d):
+    """nn.Conv2d with DDPM init and zero bias, in the dtype of its input:
+    flax's plain Conv (not a QuantizableConv: the int8 path leaves it
+    alone, as the reference's calibration does)."""
 
-    def __init__(self, fir_kernel: Sequence[int] = (1, 3, 3, 1)):
-        super().__init__()
-        self.fir_kernel = tuple(fir_kernel)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return upsample_2d(x, self.fir_kernel, factor=2)
-
-
-class Downsample(nn.Module):
-    """2x FIR downsample without a conv (the NCSN++ input pyramid)."""
-
-    def __init__(self, fir_kernel: Sequence[int] = (1, 3, 3, 1)):
-        super().__init__()
-        self.fir_kernel = tuple(fir_kernel)
+    CAST_PARAMS = ("weight", "bias")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return downsample_2d(x, self.fir_kernel, factor=2)
+        return conv_forward(self, x)
+
+    def init_from(self, generator=None):
+        rf = self.kernel_size[0] * self.kernel_size[1]
+        ddpm_init_(self.weight, self.in_channels * rf, self.out_channels * rf, 1.0, generator)
+        nn.init.zeros_(self.bias)
+
+    def reset_parameters(self):
+        self.init_from(None)
+
+
+class _Resample(nn.Module):
+    """A 2x resampler, FIR or plain, with a 3x3 conv or none. With `fir` and
+    `with_conv` the conv's weight and bias are its own parameters,
+    `Conv2d_0_weight` (OIHW) and `Conv2d_0_bias`, read in the input's dtype;
+    without `fir` the conv is the module `Conv_0` (`_plain_conv`)."""
+
+    CAST_PARAMS = ()  # the weight and bias, where they exist
+
+    def __init__(self, in_ch: Optional[int] = None, out_ch: Optional[int] = None,
+                 with_conv: bool = False, fir: bool = False,
+                 fir_kernel: Sequence[int] = (1, 3, 3, 1)):
+        super().__init__()
+        out_ch = out_ch if out_ch is not None else in_ch
+        self.fir, self.with_conv = fir, with_conv
+        self.fir_kernel = tuple(fir_kernel)
+        if with_conv and fir:
+            self.CAST_PARAMS = ("Conv2d_0_weight", "Conv2d_0_bias")
+            self.Conv2d_0_weight = nn.Parameter(torch.empty(out_ch, in_ch, 3, 3))
+            self.Conv2d_0_bias = nn.Parameter(torch.zeros(out_ch))
+            self.init_from(None)
+        elif with_conv:
+            self.Conv_0 = self._plain_conv(in_ch, out_ch)
+
+    def init_from(self, generator=None):
+        if self.CAST_PARAMS:
+            o, i = self.Conv2d_0_weight.shape[:2]
+            ddpm_init_(self.Conv2d_0_weight, 9 * i, 9 * o, 1.0, generator)
+            nn.init.zeros_(self.Conv2d_0_bias)
+
+    def _fir_conv(self, resample: Callable, x: torch.Tensor) -> torch.Tensor:
+        w = param(self, "Conv2d_0_weight", x.dtype)
+        return resample(x, w, k=self.fir_kernel) + param(self, "Conv2d_0_bias",
+                                                           x.dtype)[:, None, None]
+
+
+class Upsample(_Resample):
+    """2x upsample: FIR or nearest, with a 3x3 conv or none (layerspp.py:94-126);
+    without a conv it is the NCSN++ output pyramid's."""
+
+    @staticmethod
+    def _plain_conv(in_ch: int, out_ch: int) -> nn.Module:
+        return conv3x3(in_ch, out_ch)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.fir:
+            h = naive_upsample_2d(x, factor=2)
+            return self.Conv_0(h) if self.with_conv else h
+        if not self.with_conv:
+            return upsample_2d(x, self.fir_kernel, factor=2)
+        return self._fir_conv(upsample_conv_2d, x)
+
+
+class Downsample(_Resample):
+    """2x downsample: FIR or mean pool, with a 3x3 conv or none
+    (layerspp.py:129-163); without a conv it is the NCSN++ input pyramid's."""
+
+    @staticmethod
+    def _plain_conv(in_ch: int, out_ch: int) -> nn.Module:
+        return StridedConv(in_ch, out_ch, 3, stride=2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.fir:
+            if not self.with_conv:
+                return naive_downsample_2d(x, factor=2)
+            # an asymmetric (0, 1) pad, then the stride-2 conv unpadded
+            return self.Conv_0(F.pad(x, (0, 1, 0, 1)))
+        if not self.with_conv:
+            return downsample_2d(x, self.fir_kernel, factor=2)
+        return self._fir_conv(conv_downsample_2d, x)
+
+
+class ResnetBlockDDPMpp(nn.Module):
+    """DDPM resblock (layerspp.py:166-209): no resampling; a NIN shortcut (or
+    with `conv_shortcut` a 3x3 conv) where the channel count changes.
+    `temb_dim=None` builds no Dense_0."""
+
+    def __init__(self, act: Callable, in_ch: int, out_ch: Optional[int] = None,
+                 temb_dim: Optional[int] = None, conv_shortcut: bool = False,
+                 dropout: float = 0.1, skip_rescale: bool = False, init_scale: float = 0.0):
+        super().__init__()
+        out_ch = out_ch if out_ch is not None else in_ch
+        self.act = act
+        self.skip_rescale = skip_rescale
+        self.GroupNorm_0 = group_norm(in_ch)
+        self.Conv_0 = conv3x3(in_ch, out_ch)
+        if temb_dim is not None:
+            self.Dense_0 = Dense(temb_dim, out_ch)
+        self.GroupNorm_1 = group_norm(out_ch)
+        self.Dropout_0 = nn.Dropout(dropout)
+        self.Conv_1 = conv3x3(out_ch, out_ch, init_scale=init_scale)
+        if in_ch != out_ch:
+            if conv_shortcut:
+                self.Conv_2 = conv3x3(in_ch, out_ch)
+            else:
+                self.NIN_0 = NIN(in_ch, out_ch)
+
+    def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor] = None) -> torch.Tensor:
+        h = self.Conv_0(self.act(self.GroupNorm_0(x)))
+        if temb is not None:
+            h = h + self.Dense_0(self.act(temb))[:, :, None, None]
+        h = self.Conv_1(self.Dropout_0(self.act(self.GroupNorm_1(h))))
+        if hasattr(self, "Conv_2"):
+            x = self.Conv_2(x)
+        elif hasattr(self, "NIN_0"):
+            # the einsum's output is a permuted view, whose layout the sum
+            # would pass on to the next convs and the FIR, which takes NCHW
+            x = self.NIN_0(x).contiguous()
+        return (x + h) / scalar(math.sqrt(2.0), x.dtype) if self.skip_rescale else x + h
 
 
 class ResnetBlockBigGANpp(nn.Module):

@@ -54,7 +54,7 @@ from .ckpt import load_checkpoint
 from .data.audio import load_wav
 from .models.base import check_deepcache_config
 from .models.distill import refuse_deepcache
-from .models.factory import SERVING_MODES, build_model, check_checkpoint_mode
+from .models.factory import SERVING_MODES, backbones_of, build_model, check_checkpoint_mode
 from .sampling.correctors import CORRECTORS
 from .sampling.predictors import PREDICTORS
 from .sampling.samplers import ODE_METHODS
@@ -261,7 +261,7 @@ def build_server(args):
         "ode_method": args.ode_method if args.sampler == "ode" else None,
         "row_sizes": row_sizes, "max_wait_ms": args.max_wait_ms,
         "warmup_buckets_s": [T / MODEL_SR for T in lens],
-        "backbone": "ncsnpp", "dtype": config.get("dtype", "float32"), "seed": args.seed,
+        **backbones_of(config), "dtype": config.get("dtype", "float32"), "seed": args.seed,
         "execution": enhancer.execution,
         "ckpt": os.path.abspath(args.ckpt),
     }

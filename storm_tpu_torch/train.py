@@ -5,7 +5,11 @@
          --sde ouve|ouvp --dtype float32|bfloat16 --device cuda]
 
 The flags and defaults are the reference CLI's for the five trainable
-modes: the two StoRM modes (NCSN++ denoiser and score nets), `score-only`
+modes: the two StoRM modes (a denoiser and a score net of the backbone
+registry, `--backbone_denoiser` / `--backbone_score`: ncsnpp, ncsnpplarge,
+ncsnpp12M, ncsnpp6M, and for the denoiser the time-domain convtasnet and
+ae-ncsnpp; the chosen backbones add their own flags, as ConvTasNet's
+`--causal`), `score-only`
 (SGMSE+: one score net, denoising score matching, `--loss_type mse|mae`),
 `denoiser-only` (one predictive net, `--loss_type mse|mae|sisdr`) and
 `distill` (the one-step student of `--teacher_ckpt`, a StoRM checkpoint,
@@ -45,6 +49,8 @@ epoch. `--debug_nans` runs the steps eagerly under
 backward, and raises on a non-finite loss. Checkpoints are written by
 `ckpt.AsyncCheckpointManager`: a snapshot on the device, then the copy to
 the host and the write in a thread while the next epoch trains.
+`--return_time` (denoiser-only with a time-domain backbone) trains on the
+waveforms themselves, with no STFT on the loss path.
 `--pretrained_denoiser` / `--pretrained_score` graft a net's parameters
 and EMA from a StoRM checkpoint or a one-net (denoiser-only, score-only)
 one into a StoRM model (train.py:396-419). Without a CUDA card the default
@@ -57,17 +63,19 @@ import importlib.util
 import json
 import math
 import os
+import sys
 import time
 import traceback
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from . import backbones
 from .ckpt import (AsyncCheckpointManager, CheckpointManager, load_checkpoint,
                    load_training_checkpoint)
 from .data.datamodule import SpecsDataModule
-from .models.base import TrainState, init_train_state, swapped_in
+from .models.base import TrainState, init_train_state, is_time_domain, swapped_in
 from .models.distill import DISTILL_METHODS
 from .models.factory import build_model, resolve_device
 from .models.storm import StochasticRegenerationModel
@@ -87,7 +95,58 @@ MODEL_CONFIG_KEYS = [
 ]
 
 
+class DedupGroup:
+    """An argument group that skips an option string already registered, as
+    when two chosen backbones contribute the same flag (`--causal`): the
+    first registration wins and its value reaches both nets. A duplicate
+    registered with another arity or type is reported on stderr
+    (train.py `_DedupGroup`)."""
+
+    def __init__(self, group):
+        self._group = group
+
+    def add_argument(self, *a, **kw):
+        try:
+            return self._group.add_argument(*a, **kw)
+        except argparse.ArgumentError:
+            existing = getattr(self._group, "_option_string_actions", {})
+            want_nargs = 0 if kw.get("action") in ("store_true", "store_false") else kw.get("nargs")
+            for opt in a:
+                act = existing.get(opt)
+                if act is not None and (act.nargs != want_nargs
+                                        or getattr(act.type, "__name__", None)
+                                        != getattr(kw.get("type"), "__name__", None)):
+                    print(f"warning: duplicate flag {opt} skipped with a different arity/type "
+                          "than its first registration", file=sys.stderr)
+            return None
+
+
+def add_backbone_groups(parser: argparse.ArgumentParser, names: Sequence[str]) -> List[str]:
+    """Attach the argparse group of each chosen backbone class (once per
+    class; an unknown name adds nothing, and the model factory reports it)
+    and return the dests they added (train.py:176-196)."""
+    keys, seen = [], set()
+    for name in names:
+        try:
+            cls = backbones.get_by_name(name)
+        except ValueError:
+            continue
+        add = getattr(cls, "add_argparse_args", None)
+        if add is None or cls in seen:
+            continue
+        seen.add(cls)
+        before = {a.dest for a in parser._actions}
+        add(DedupGroup(parser.add_argument_group(f"{name} backbone")))
+        keys += [a.dest for a in parser._actions if a.dest not in before]
+    return keys
+
+
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    # a pre-parse picks the backbones, whose groups then join the parser
+    pre = argparse.ArgumentParser(add_help=False)
+    pre.add_argument("--backbone_denoiser", type=str, default="ncsnpp")
+    pre.add_argument("--backbone_score", type=str, default="ncsnpp")
+    pre_args, _ = pre.parse_known_args(argv)
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--mode", required=True, choices=MODES)
     # distillation (storm_tpu/models/distill.py)
@@ -164,17 +223,28 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         "on, model.py:22 — here it is opt-in); the steps run eagerly")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cpu' runs the kernels' plain versions")
-    return p.parse_args(argv)
+    keys = add_backbone_groups(p, (pre_args.backbone_denoiser, pre_args.backbone_score))
+    args = p.parse_args(argv)
+    args.backbone_config_keys = keys
+    return args
+
+
+RETURN_TIME_REFUSED = ("--return_time requires --mode denoiser-only with a mono time-domain "
+                       "backbone (convtasnet)")
+
+
+def check_return_time(args: argparse.Namespace, model) -> None:
+    """Exit with the reference's message unless `--return_time` has a
+    denoiser-only model on a one-channel time-domain net."""
+    if args.return_time and (args.mode != "denoiser-only"
+                             or not is_time_domain(getattr(model, "dnn", None))
+                             or args.spatial_channels != 1):
+        raise SystemExit(RETURN_TIME_REFUSED)
 
 
 def check_supported(args: argparse.Namespace) -> None:
     """Raise NotImplementedError for a value this slice does not run."""
     todo = []
-    for flag in ("backbone_denoiser", "backbone_score"):
-        if getattr(args, flag) != "ncsnpp":
-            todo.append(f"--{flag} {getattr(args, flag)} (ROADMAP R4)")
-    if args.return_time:
-        todo.append("--return_time (ROADMAP R4, time-domain backbones)")
     if args.spatial_channels != 1:
         todo.append(f"--spatial_channels {args.spatial_channels} (ROADMAP R7)")
     if todo:
@@ -185,6 +255,8 @@ def model_config(args: argparse.Namespace) -> dict:
     """The checkpoint's config: the model's flags, without the other SDE's
     (train.py:308-313)."""
     config = {k: getattr(args, k) for k in MODEL_CONFIG_KEYS}
+    # the flags of the chosen backbones' groups
+    config.update({k: getattr(args, k) for k in getattr(args, "backbone_config_keys", [])})
     other_sde = {"ouve": ("beta_min", "beta_max", "stiffness"),
                  "ouvp": ("theta", "sigma_min", "sigma_max")}[args.sde]
     for k in other_sde:
@@ -255,6 +327,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     check_supported(args)
     device = resolve_device(args.device)
     model = build_model(config, device=device, seed=args.seed).train()
+    check_return_time(args, model)
     if teacher is not None:
         # the student starts at the teacher: params and EMA are its EMA weights,
         # and the denoiser rides along frozen, so the checkpoint serves alone
@@ -293,7 +366,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         if path:
             graft_pretrained(state, path, net)
             print(f"grafted pretrained {what} from {path}")
-    programs = TrainPrograms(state, debug_nans=args.debug_nans)
+    programs = TrainPrograms(state, debug_nans=args.debug_nans, return_time=args.return_time)
     print(f"training steps and validation: {programs.execution}")
 
     sde_name = {"ouve": "OUVESDE", "ouvp": "OUVPSDE"}[args.sde]

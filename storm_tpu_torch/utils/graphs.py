@@ -252,10 +252,6 @@ def capture(body: Callable[[], Any], stream: torch.cuda.Stream, pool, what: str,
     naming `what`, with no eager fallback; the caller then takes a new pool."""
     device = stream.device
     torch.cuda.synchronize(device)
-    # the capture can allocate new device memory but cannot free the
-    # allocator's cached blocks: free them first (with the pools of programs
-    # whose owners are gone, which go with their last reference)
-    torch.cuda.empty_cache()
     reserved = torch.cuda.memory_reserved(device)
     before = _launch_counts()
     graph = torch.cuda.CUDAGraph()

@@ -3,7 +3,8 @@ masked validation batch (the counterparts of train.py's jitted `prepare`,
 `train_step` and `valid_masked_fn`, train.py:428-464, with the step of
 storm_tpu/models/storm.py:364-389).
 
-A step's body: the STFT of the wav batch (`models/base.wav_to_spec`), the
+A step's body: the STFT of the wav batch (`models/base.wav_to_spec`; with
+`return_time` the waveforms themselves, for a time-domain net), the
 loss on the step's random inputs, its gradients, Adam's step and the EMA
 (`EnhancementModel.step_on_device`), with no read of a device value and no
 upload. A validation batch's: the STFT, each example's loss with the nets'
@@ -136,8 +137,10 @@ class TrainPrograms:
     was emptied before the last warm-up and before the last capture (what
     the allocator could not give back)."""
 
-    def __init__(self, state: TrainState, graphs: bool = True, debug_nans: bool = False):
+    def __init__(self, state: TrainState, graphs: bool = True, debug_nans: bool = False,
+                 return_time: bool = False):
         self.state, self.model = state, state.model
+        self.return_time = return_time
         self.device = next(self.model.parameters()).device
         self.debug_nans = debug_nans
         self.graphs = graphs and not debug_nans
@@ -189,6 +192,8 @@ class TrainPrograms:
     # --- the bodies: (inputs, draw) -> (outputs, spec batch) -------------------
 
     def _specs(self, wavs: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+        if self.return_time:  # (B, T) waveforms, as train.py's return_time `prepare`
+            return tuple(w.reshape(w.shape[0], -1) for w in wavs)
         with torch.no_grad():
             return tuple(wav_to_spec(w, self.model.stft_config, self.model.transform)
                          for w in wavs)
@@ -220,7 +225,7 @@ class TrainPrograms:
                 tuple(g["lr"] for g in self.state.optimizer.param_groups),
                 (torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32,
                  torch.backends.cuda.matmul.allow_tf32),
-                settings(m), settings(sde) if sde is not None else ())
+                settings(m), settings(sde) if sde is not None else (), self.return_time)
 
     def _check_storage(self) -> None:
         """Drop every program when a tensor the programs read in place has moved."""
@@ -308,6 +313,11 @@ class TrainPrograms:
 
     def _capture(self, prog: Program, body: Body) -> None:
         self._drop_gradients(prog.key)
+        # the capture can allocate new device memory but cannot free the
+        # allocator's cached blocks (a step's pool holds tens of GiB): free
+        # them first, with the pools of programs whose owners are gone
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
         kind, model, _, dtypes, shapes = prog.key[:5]

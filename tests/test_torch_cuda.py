@@ -27,6 +27,7 @@ bias gradient within 1 ulp of its scale. A bfloat16 training step of a tiny
 StoRM through the kernels against the plain path: exact launch counts, and
 gradients within a tenth of the step's bfloat16-against-float32 distance.
 """
+import contextlib
 import threading
 from unittest import mock
 
@@ -960,3 +961,150 @@ def test_ema_update_on_the_card_is_a_fused_multiply_add(cuda):
     q = ((np.float32(1) - d) * p).astype(np.float32)
     want = (np.float64(d) * e.astype(np.float64) + q.astype(np.float64)).astype(np.float32)
     np.testing.assert_array_equal(ema["w"].cpu().numpy(), want)
+
+
+# the stride-1 configuration (up = down = 1): pad 1 after upsample_conv_2d's
+# transposed conv (odd sizes 2n + 1 in), pad 2 before conv_downsample_2d's
+# strided one (odd sizes n + 1 out); the adjoint of pad p is the call at 3 - p
+S1_SHAPES = [(1, 4, 17, 33), (2, 3, 33, 257), (1, 2, 9, 3), (1, 2, 5, 9), (2, 8, 64, 144),
+             (1, 2, 45, 1), (1, 65537, 2, 3), (1, 65537, 3, 8)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "odd_offset"])
+@pytest.mark.parametrize("pad0", [1, 2])
+@pytest.mark.parametrize("shape", S1_SHAPES)
+def test_stride1_kernel_and_adjoint_match_plain(cuda, shape, pad0, offset, dtype):
+    """The stride-1 instance in both directions, both FIRs: float32 to 1e-5,
+    bfloat16 within 1 ulp (equal with NCSN++'s FIR); odd widths, an odd
+    base and 65537 planes take the producer warp's fill, the rest TMA."""
+    pad = (pad0, pad0)
+    Ho, Wo = (kup.output_size(n, 4, 1, 1, pad) for n in shape[2:])
+    if min(Ho, Wo) < 1:
+        pytest.skip("empty output")
+    n = int(np.prod(shape))
+    gen = torch.Generator().manual_seed(n + pad0)
+    x = torch.randn(n + offset, generator=gen).to(cuda).to(dtype)[offset:].view(shape)
+    g = torch.randn(shape[:2] + (Ho, Wo), generator=gen).to(cuda).to(dtype)
+    fwd, bwd = kup.upfirdn2d_cuda.launches, kup.upfirdn2d_bwd_cuda.launches
+    for kernel in (SYM, ASYM):
+        for got, want, terms in (
+                (kup.upfirdn2d_cuda(x, kernel, pad=pad), kup.upfirdn2d_plain(x, kernel, pad=pad),
+                 kup.upfirdn2d_plain(x.abs(), np.abs(kernel), pad=pad)),
+                (kup.upfirdn2d_bwd_cuda(g, kernel, 1, 1, pad, shape[2:]),
+                 kup.upfirdn2d_bwd_plain(g, kernel, 1, 1, pad, shape[2:]),
+                 kup.upfirdn2d_bwd_plain(g.abs(), np.abs(kernel), 1, 1, pad, shape[2:]))):
+            if dtype == torch.float32:
+                torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+            else:
+                _within_one_bf16_ulp(got, want, terms)
+                if kernel is SYM:
+                    assert torch.equal(got, want)
+    torch.cuda.synchronize()
+    assert (kup.upfirdn2d_cuda.launches, kup.upfirdn2d_bwd_cuda.launches) == (fwd + 2, bwd + 2)
+
+
+def _ncsnpplarge_calls(B, W):
+    """(config, shape) of the distinct upfirdn2d calls of a full-width
+    ncsnpplarge forward (nf 128, ch_mult 1,1,2,2,2,2,2, 256 bins) on B rows
+    of width W: down into each of the six lower levels, up out of them, at
+    the resblocks' channels and the pyramids' 6 and 2; the deepest level is
+    4 x W/64 (3 frames at the 1 s bucket, 9 at 4 s)."""
+    chans = [128 * m for m in (1, 1, 2, 2, 2, 2, 2)]
+    calls = set()
+    for level in range(6):
+        H, Wl = 256 >> level, W >> level
+        calls |= {((1, 2, (1, 1)), (B, c, H, Wl)) for c in (chans[level], 6, 2)}
+        calls |= {((2, 1, (2, 1)), (B, c, H // 2, Wl // 2)) for c in (chans[level + 1], 6, 2)}
+    return sorted(calls)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("W", [192, 576])
+def test_kernel_at_ncsnpplarges_deepest_widths(cuda, W, dtype):
+    """ncsnpplarge's calls down to W/64 frames (rows of 3 and 9 elements:
+    not multiples of 16 bytes, so the producer warp's fill, not TMA), both
+    directions, NCSN++'s FIR: bfloat16 equal to plain, float32 to 1e-5."""
+    gen = torch.Generator(device=cuda).manual_seed(W)
+    for (up, down, pad), (B, C, H, Wl) in _ncsnpplarge_calls(1, W):
+        fir = SYM * (4.0 if up == 2 else 1.0)
+        x = torch.randn((B, C, H, Wl), device=cuda, generator=gen).to(dtype)
+        got = kup.upfirdn2d_cuda(x, fir, up=up, down=down, pad=pad)
+        g = torch.randn(got.shape, device=cuda, generator=gen).to(dtype)
+        for a, b in ((got, kup.upfirdn2d_plain(x, fir, up=up, down=down, pad=pad)),
+                     (kup.upfirdn2d_bwd_cuda(g, fir, up, down, pad, (H, Wl)),
+                      kup.upfirdn2d_bwd_plain(g, fir, up, down, pad, (H, Wl)))):
+            if dtype == torch.bfloat16:
+                assert torch.equal(a, b)
+            else:
+                torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_ddpm_resamplers_launch_the_stride1_kernel(cuda, dtype):
+    """A tiny DDPM + residual NCSN++ on the card: 12 stride-1 launches per
+    forward and 12 adjoints per backward (read from its module list: one per
+    convolving resampler), the output and the input gradient against the
+    same net on the plain path (1e-4 of their scale in float32, 2e-2 in
+    bfloat16: the convolutions' own rounding)."""
+    from storm_tpu_torch.backbones.ncsnpp import NCSNpp
+    from storm_tpu_torch.nn.init import reset_parameters
+    from storm_tpu_torch.nn.layers import Downsample, Upsample
+
+    net = NCSNpp(input_channels=4, nf=16, ch_mult=(1, 2, 2, 2), image_size=64, init_scale=1.0,
+                 resblock_type="ddpm", progressive="residual", progressive_input="residual",
+                 dtype=dtype)
+    reset_parameters(net, torch.Generator().manual_seed(0))
+    net = net.to(cuda)
+    n_calls = sum(isinstance(m, (Upsample, Downsample)) and m.fir for m in net.all_modules)
+    assert n_calls == 12
+    gen = torch.Generator().manual_seed(1)
+    x = (0.5 * torch.randn(2, 2, 64, 64, 2, generator=gen)).to(cuda)
+    t = torch.tensor([0.3, 0.8], device=cuda)
+    outs = []
+    for plain in (False, True):
+        xg = x.clone().requires_grad_()
+        with mock.patch.object(resample, "upfirdn2d", kup.upfirdn2d_plain) if plain \
+                else contextlib.nullcontext():
+            fwd, bwd = kup.upfirdn2d_cuda.launches, kup.upfirdn2d_bwd_cuda.launches
+            out = net(xg, t)
+            (grad,) = torch.autograd.grad(out.square().sum(), xg)
+            torch.cuda.synchronize()
+            launched = (kup.upfirdn2d_cuda.launches - fwd, kup.upfirdn2d_bwd_cuda.launches - bwd)
+        assert launched == ((0, 0) if plain else (n_calls, n_calls))
+        outs.append((out.detach(), grad))
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for got, want in zip(*outs):
+        assert (got - want).abs().max() <= tol * want.abs().max()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("extra", [
+    {"backbone_denoiser": "convtasnet"}, {"backbone_denoiser": "ae-ncsnpp", "image_size": 64},
+    {"backbone_score": "ncsnpplarge", "ch_mult": [1, 1, 2, 2], "num_res_blocks": 2,
+     "attn_resolutions": [16], "image_size": 32},
+    {"resblock_type": "ddpm", "progressive": "residual", "progressive_input": "residual"}],
+    ids=["convtasnet", "ae-ncsnpp", "ncsnpplarge", "ddpm"])
+def test_graph_replay_of_the_new_nets_equals_eager_on_the_card(cuda, dtype, extra):
+    """StoRM with a time-domain denoiser (the iSTFT, the net and the STFT
+    inside the captured program), an ncsnpplarge-layout score net, and
+    DDPM + residual nets (the stride-1 instance): the eager call, the
+    capture and two replays equal the eager loop bit for bit, at cuDNN's
+    default flags, as the CLIs and the server run them: the transposed
+    convolutions (ae-ncsnpp's decoder, ConvTasNet's, the DDPM upsampler's)
+    hold cuDNN to deterministic algorithms themselves and leave the flag as
+    it was."""
+    from storm_tpu_torch.utils import graphs
+    model = build_model(dict(GRAPH_TINY, dtype=dtype, **extra), device=cuda, seed=0)
+    eager = BucketedEnhancer(model, graphs=False, N=2, corrector="ald")
+    graphed = BucketedEnhancer(model, N=2, corrector="ald")
+    y = _graph_waves()
+    assert not torch.backends.cudnn.deterministic
+    for seed in (0, 1, 2, 3):
+        want, nfe = eager(y, torch.Generator(device=cuda).manual_seed(seed))
+        got, gnfe = graphed(y, torch.Generator(device=cuda).manual_seed(seed))
+        assert gnfe == nfe and np.isfinite(got).all()
+        np.testing.assert_array_equal(got, want)
+    assert not torch.backends.cudnn.deterministic
+    stats = graphs.programs_of(model).stats
+    assert (stats["first_calls"], stats["captures"], stats["replays"]) == (1, 1, 2)

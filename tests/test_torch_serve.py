@@ -418,6 +418,7 @@ def test_http_healthz_stats_and_enhance(tiny_server):
         assert status == 200 and health["status"] == "ok"
         assert health["device"] == "cpu" and health["device_name"] == "cpu"
         assert health["dtype"] == "bfloat16" and health["row_sizes"] == [1, 2]
+        assert (health["backbone_denoiser"], health["backbone_score"]) == ("ncsnpp", "ncsnpp")
 
         wav = encode_wav_bytes(wave(4000, 1))
         conn.request("POST", "/enhance", body=wav, headers={"Content-Type": "audio/wav"})

@@ -225,8 +225,9 @@ def test_cli_trains_resumes_and_enhances_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--backbone_score", "ncsnpp_6M"],
-    ["--spatial_channels", "2"], ["--return_time"], ["--backbone_denoiser", "ncsnpp_6M"],
+    ["--backbone_score", "gagnet"],
+    ["--spatial_channels", "2"], ["--backbone_denoiser", "gagnet", "--backbone_score", "gagnet"],
+    ["--backbone_denoiser", "gagnet"],
 ])
 def test_cli_refuses_what_is_not_ported(flag, tmp_path):
     args = TRAIN_ARGS + ["--base_dir", str(tmp_path), "--nolog", "--device", "cpu"]
