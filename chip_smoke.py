@@ -800,7 +800,8 @@ def print_per_shape(what: str, per_shape, launch, stem: str, calls=None, per: st
               f"library_ms={r['library_ms']:.5f} bound_ms={max(r['bytes_ms'], r['ops_ms']):.5f} "
               f"({by}) device/bound={r['device_ms'] / max(r['bytes_ms'], r['ops_ms']):.2f} "
               f"lib_err={r['lib_err']:.2e}"
-              + (f" flips={r['flips']}" if "flips" in r else ""), flush=True)
+              + (f" flips={r['flips']}" if "flips" in r else "")
+              + (f" path={r['path']}" if "path" in r else ""), flush=True)
 
 
 def phase_full_width_forward(gen: torch.Generator):
@@ -4251,7 +4252,7 @@ def phase_graph_equals_eager(workdir: str, models, rows):
     ald bf16, at B=4 on the 2.5 s bucket: the shape's first call (the eager
     loop) and a replay from the same generator state, bit for bit (between
     them the second call captures), for StoRM pc N=10 + ald in f32, N=50 +
-    ald in bf16 and int8 + bf16, dc3 bf16, ode etd2 N=10 bf16, picard N=10 bf16, the
+    ald in bf16, N=10 + ald in int8 + bf16, dc3 bf16, ode etd2 N=10 bf16, picard N=10 bf16, the
     score-only model's pc N=10 bf16, the denoiser-only model bf16 and the
     distilled NFE-2 path in bf16 and int8 + bf16. A second replay from
     another generator state equals eager from that state; weights swapped
@@ -4264,7 +4265,8 @@ def phase_graph_equals_eager(workdir: str, models, rows):
     cases = [
         ("storm pc N=10 f32", models["f32"], dict(N=GRAPH_N, corrector="ald")),
         ("storm pc bf16", models["bf16"], pc),
-        ("storm pc int8+bf16", models["bf16"], dict(pc, quant=s)),
+        ("storm pc N=10 int8+bf16", models["bf16"],
+         dict(N=GRAPH_N, corrector="ald", quant=s)),
         ("storm pc dc3 bf16", models["bf16"], dict(pc, deepcache=DC_K)),
         ("storm ode etd2 N=10 bf16", models["bf16"],
          dict(N=GRAPH_N, sampler_type="ode", method=ODE_METHOD)),
@@ -4369,7 +4371,7 @@ def phase_graph_time(workdir: str, models, rows, busy):
     """Phase 54. RTF graph against eager at B=1 on phase 5's 1 and 2.5 s
     files (the 4 s rows are phase 52's, StoRM pc at N=50) for StoRM pc N=10
     + ald in bf16, dc3 N=50 bf16 and the distilled NFE-2 path in bf16 (int8
-    + bf16 at 4 s only: phase 52's row), each replay
+    + bf16 at 4 s only: phase 52's N=10 row), each replay
     equal to eager bit for bit; then every row of phases 52 and 54: RTF both
     ways, the capture's seconds and the pool's growth, the busy share of
     phase 53's replays."""
@@ -4899,12 +4901,16 @@ def phase_stride1_kernel(fwd_calls, bwd_calls, gen: torch.Generator):
     L2-clearing read) beside the plain version, the depthwise `conv2d` that
     computes the same function and the bound (bytes once at 3.35 TB/s, 4 B
     per f32 element, 2 per bf16), and their sums per forward and per
-    backward. Returns {(dtype, direction): (per-shape times, the calls as
-    keys, max error)}."""
+    backward. Each shape's line names the paths its launch took
+    (`kup.launch_plan`: the box by TMA or by row copies; the stride-1
+    instance stores warp rows, never lane-strided elements); the phase fails
+    if one of them loads element by element. Returns {(dtype, direction):
+    (per-shape times, the calls as keys, max error, {load / store path:
+    calls})}."""
     out = {}
     for name, dtype in (("float32", torch.float32), ("bfloat16", BF16)):
         for direction, calls in (("fwd", fwd_calls[name]), ("bwd", bwd_calls[name])):
-            per_shape, launch = {}, {}
+            per_shape, launch, by_path = {}, {}, {}
             keys = [(cfg, C, H, W) for cfg, _, C, H, W, _ in calls]
             B = calls[0][1]
             if direction == "fwd":
@@ -4929,6 +4935,12 @@ def phase_stride1_kernel(fwd_calls, bwd_calls, gen: torch.Generator):
                     lib = library_call(cfg, C, backward=True, dtype=dtype)
                     n_out = x.numel()
                 want = plain()
+                plan = kup.launch_plan(
+                    inp, want, 1, 1, c["pad"][0] if direction == "fwd" else 3 - c["pad"][0])
+                path = " / ".join(kup.paths(plan, 1, 1))
+                check(plan.tma or plan.rows,
+                      f"upfirdn2d stride 1 {direction} {cfg} C={C} {H}x{W} {name}: {path}")
+                by_path[path] = by_path.get(path, 0) + keys.count((cfg, C, H, W))
                 lib_err = (lib(inp) - want).abs().max().item()
                 check(lib(inp).shape == want.shape
                       and lib_err <= (1e-5 if dtype == torch.float32 else 1e-2)
@@ -4939,12 +4951,13 @@ def phase_stride1_kernel(fwd_calls, bwd_calls, gen: torch.Generator):
                 per_shape[(cfg, C, H, W)] = dict(
                     ms=time_ms(run), plain_ms=time_ms(plain, reps=5),
                     library_ms=time_ms(lambda: lib(inp)), bytes_ms=bytes_ms, ops_ms=ops_ms,
-                    lib_err=lib_err, out=f"{tuple(want.shape[-2:])}")
+                    lib_err=lib_err, out=f"{tuple(want.shape[-2:])}", path=path)
                 launch[(cfg, C, H, W)] = run
             what = f"upfirdn2d stride 1{' adjoint' if direction == 'bwd' else ''} {name}"
             print_per_shape(f"{what} (B={B})", per_shape, launch, "upfirdn2d_same1", keys,
                             "DDPM score " + ("forward" if direction == "fwd" else "backward"))
-            out[(name, direction)] = (per_shape, keys, err)
+            print(f"  {what}: calls by path (load / store) {by_path}", flush=True)
+            out[(name, direction)] = (per_shape, keys, err, by_path)
             torch.cuda.empty_cache()
     return out
 
@@ -5610,7 +5623,7 @@ def main():
                                         ("upfirdn2d_s1_bwd", "float32", "bwd"),
                                         ("upfirdn2d_s1_bf16", "bfloat16", "fwd"),
                                         ("upfirdn2d_s1_bwd_bf16", "bfloat16", "bwd")):
-        per_shape, keys, err = s1_rows[(dtype_name, direction)]
+        per_shape, keys, err, by_path = s1_rows[(dtype_name, direction)]
         paths = s1_launched[(dtype_name, direction)]
         record["kernels"].append(entry(
             name, k1_src, "storm_tpu/kernels/upfirdn.py:139" if direction == "fwd"
@@ -5620,7 +5633,7 @@ def main():
              f"forward, B=1, 256 x {FRAMES}" if direction == "fwd" else
              f"the {S1_PER_FORWARD} stride-1 adjoint calls of its backward, B={TRAIN_B}, "
              f"256 x {TRAIN_FRAMES}") + f", {dtype_name}",
-            launches_by_path=paths, library=depthwise))
+            launches_by_path=paths, library=depthwise, calls_by_load_and_store=by_path))
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)
     print(json.dumps(record))

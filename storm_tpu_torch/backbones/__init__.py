@@ -20,7 +20,7 @@ class GaGNet:
 
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
-            "backbone 'gagnet' is not ported yet (ROADMAP Queue 1 item 4, R4: GaGNet with its "
+            "backbone 'gagnet' is not ported yet (ROADMAP Queue 1 item 1, R4: GaGNet with its "
             "batch statistics)")
 
     @classmethod

@@ -21,7 +21,12 @@ a ring of stages that persistent blocks keep loading while they compute, and
 outputs leave 16 bytes per thread; the Pallas kernel instead wrote the
 zero-inserted, padded input to memory first. On an NVIDIA H100 80GB HBM3 at
 700 W the 18 calls of a full-width score forward take 1.53x that bound in
-bfloat16 and 1.33x in float32 (chip_smoke.py; PERF.md §6).
+bfloat16 and 1.33x in float32 (chip_smoke.py; PERF.md §6). The stride-1
+calls read or write rows that are not whole 16 bytes (2n + 1 or n + 1
+wide): their boxes arrive by TMA where the input allows it and otherwise
+row by row through the copy engine's 1-D bulk copies (`rows`), and their
+outputs leave a row at a time, 32 neighbouring ones per warp store
+(`paths` names a plan's load and store paths).
 `tile_plan` computes each launch's tiles, boxes and grid here, on the host
 (cached per shape), so the CPU tests hold it: every output in exactly one
 tile, every tile's window where the plain version's starts, every box within
@@ -66,6 +71,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the kernel's dtype codes
 STAGES = 4  # boxes in each block's ring
 STAGE_BYTES = 24 << 10  # a box's budget: its rows follow from its columns
 MAX_TW = 144  # widest column tile asked for (the boxes cap it further)
+STRIP_ROWS = 8  # the stride-1 instance's output rows per consumer item (kStripRows)
+WARP_COLS = 32 * 4  # the columns of its consumer warp's item: 32 lanes of 4 (kLaneCols)
+STAGING_BYTES = 8 * WARP_COLS * 4  # its consumer warps' staging rows (kStagingBytes)
 MIN_TH = 8  # narrowest row tile that spreading a small call goes down to
 BOX_LIMIT = 256  # TMA: elements per box dimension
 SMEM_LIMIT = 112 << 10  # a block's ring: two blocks on an SM
@@ -78,7 +86,10 @@ class TilePlan(NamedTuple):
     (those outside the image are not stored) and reads the box of box_h x
     box_w inputs at (iy0 + ty*iy_step, ix0 + tx*ix_step), zeros outside; its
     window (the first input its outputs read) is the box's column sx: a box
-    starts on 16 bytes, as a TMA copy must."""
+    starts on 16 bytes, as a TMA copy must. With `rows`, box_w is the pitch
+    of a stage's rows, each copied from the 16-byte boundary before its
+    window column 0, which then sits (its address mod 16) / elem_bytes
+    columns in, not sx."""
     th: int
     tw: int
     tiles_y: int
@@ -93,9 +104,10 @@ class TilePlan(NamedTuple):
     box_w: int
     grid: int
     stages: int
-    tma: int  # boxes by TMA; 0: the producer warp copies them element by element
-    vec_out: int  # 16-byte stores where a chunk lies in the row
+    tma: int  # boxes by TMA; 0: row copies (`rows`) or the producer warp's element copy
+    vec_out: int  # 16-byte stores where a chunk lies in the row (not the stride-1 instance)
     sx: int
+    rows: int  # each box row by a 1-D bulk copy at its own shift (the stride-1 instance)
 
     def tiles(self) -> Iterator[Tuple[int, int, int, int]]:
         """(output row, output column, box row, box column) of each tile of a plane."""
@@ -120,28 +132,40 @@ def _best_tile(span: int, unit: int, limit: int, box_of, whole: bool = False) ->
 @functools.lru_cache(maxsize=4096)
 def tile_plan(up: int, down: int, pad0: int, H: int, W: int, Ho: int, Wo: int, planes: int,
               elem_bytes: int, x_aligned: bool = True, out_aligned: bool = True, sms: int = 132,
-              stages: int = STAGES, stage_bytes: int = STAGE_BYTES,
-              max_tw: int = MAX_TW) -> TilePlan:
+              stages: int = STAGES, stage_bytes: int = STAGE_BYTES, max_tw: int = None) -> TilePlan:
     """The kernel's tiles, boxes and grid for one call (`x_aligned` /
     `out_aligned`: the tensor's address is a multiple of 16 bytes; `sms`:
-    the card's multiprocessors).
+    the card's multiprocessors; `max_tw`: the widest column tile, by default
+    MAX_TW, at stride 1 only the box's limit).
 
     An item of the kernel is one 16-byte chunk of outputs (e = 16 /
     elem_bytes) in two rows; the up config's items read in pairs, so its
-    column tile is a multiple of 2e, the down and stride-1 configs' of e. A
-    box starts on 16 bytes (a TMA copy faults otherwise), sx columns before
-    its window, and spans the columns the items read (2*tw, tw/2 or tw, and
-    the sx + 2 more, sx + 3 at stride 1, rounded up to 16 bytes): at most
-    256. Each tile is the one whose boxes
-    read the fewest inputs over the row or column, the column tile among those
-    that divide the row where any do (so the 64 k-frame bucket widths split
-    into whole tiles), the row tile within the box's byte budget, its limit
-    halved while the call has fewer tiles than resident blocks (down to
-    MIN_TH rows), so a small call spreads its copies over the card."""
+    column tile is a multiple of 2e, the down config's of e. The stride-1
+    instance's item is a warp's: STRIP_ROWS output rows by up to WARP_COLS
+    columns, 4 a lane; its tiles are multiples of e columns and STRIP_ROWS
+    rows, and its column tile the one that leaves the fewest lanes idle (its
+    warps compute ceil(tw / WARP_COLS) x WARP_COLS columns), then reads the
+    fewest inputs. A box starts on 16 bytes (a TMA copy faults otherwise),
+    sx columns before its window, and spans the columns the items read
+    (2*tw or tw/2, and the sx + 2 more, rounded up to 16 bytes): at most
+    256. At stride 1 the window starts up to e - 1 columns into a box row,
+    in a TMA box and a row copy alike, and a lane reads three aligned
+    groups of four from its columns, so the box spans tw + 2e columns.
+    Where TMA cannot load the box (a row pitch or base off 16 bytes), the
+    stride-1 instance copies each box row from the 16-byte boundary before
+    its window; the other configurations take the producer warp's element
+    copy. Each tile is the one whose boxes read the fewest inputs over the
+    row or column, the column tile among those that divide the row where
+    any do (so the 64 k-frame bucket widths split into whole tiles), the
+    row tile within the box's byte budget, its limit halved while the call
+    has fewer tiles than resident blocks (down to MIN_TH rows), so a small
+    call spreads its copies over the card."""
     if (up, down) not in _CONFIGS:
         raise ValueError(f"upfirdn2d: (up, down)={(up, down)} not built")
+    stride1 = up == down == 1
     e = 16 // elem_bytes
     reach = 2  # the window's columns past the tile's span, less one
+    unit_h = 2
     if up == 1:  # output o reads inputs down*o - pad0 .. + 3
         oy0 = ox0 = 0
         wy0, wx0 = -pad0, -pad0  # tile 0's window
@@ -149,7 +173,7 @@ def tile_plan(up: int, down: int, pad0: int, H: int, W: int, Ho: int, Wo: int, p
             unit_w, span_of, of_span = e, (lambda tw: 2 * tw), (lambda cols: cols // 2)
             box_h_of, th_of_rows = (lambda th: 2 * th + 2), (lambda rows: (rows - 2) // 2)
         else:
-            reach = 3
+            reach, unit_h = 3, STRIP_ROWS
             unit_w, span_of, of_span = e, (lambda tw: tw), (lambda cols: cols)
             box_h_of, th_of_rows = (lambda th: th + 3), (lambda rows: rows - 3)
     else:  # a tile starts on an even zero-inserted coordinate: the lead
@@ -158,32 +182,57 @@ def tile_plan(up: int, down: int, pad0: int, H: int, W: int, Ho: int, Wo: int, p
         unit_w, span_of, of_span = 2 * e, (lambda tw: tw // 2), (lambda cols: 2 * cols)
         box_h_of, th_of_rows = (lambda th: th // 2 + 2), (lambda rows: 2 * (rows - 2))
     sx = wx0 % e  # the box starts on 16 bytes, sx columns before the window
-    tail = -(-(sx + reach) // e) * e  # the box's columns past the tile's span
+    tma = x_aligned and W % e == 0
+    rows = stride1 and not tma
+    tail = -(-((e - 1 if stride1 else sx) + reach) // e) * e  # the box's columns past the tile
     box_w_of = lambda tw: span_of(tw) + tail  # noqa: E731
+    if max_tw is None:
+        max_tw = BOX_LIMIT if stride1 else MAX_TW
     tw_limit = max(unit_w, min(of_span(BOX_LIMIT - tail), max_tw) // unit_w * unit_w)
-    tw = _best_tile(Wo - ox0, unit_w, tw_limit, box_w_of, whole=True)
+    if stride1:
+        lane_cols = lambda tw: -(-tw // WARP_COLS) * WARP_COLS  # noqa: E731
+        tw = min(range(unit_w, tw_limit + 1, unit_w),
+                 key=lambda t: (-(-Wo // t) * lane_cols(t), -(-Wo // t) * box_w_of(t), -t))
+    else:
+        tw = _best_tile(Wo - ox0, unit_w, tw_limit, box_w_of, whole=True)
     box_w = box_w_of(tw)
-    rows = min(BOX_LIMIT, stage_bytes // (box_w * elem_bytes))
-    th_limit = th_of_rows(rows) // 2 * 2
-    if th_limit < 2:
+    n_rows = min(BOX_LIMIT, stage_bytes // (box_w * elem_bytes))
+    th_limit = th_of_rows(n_rows) // unit_h * unit_h
+    if th_limit < unit_h:
         raise ValueError(f"upfirdn2d: a stage of {stage_bytes} bytes holds no tile")
-    if stages * (-(-box_h_of(th_limit) * box_w * elem_bytes // 128) * 128) + 128 > SMEM_LIMIT:
+    staging = STAGING_BYTES if stride1 else 0
+    if stages * (-(-box_h_of(th_limit) * box_w * elem_bytes // 128) * 128) + 128 + staging \
+            > SMEM_LIMIT:
         raise ValueError(f"upfirdn2d: {stages} stages of {stage_bytes} bytes exceed the ring's "
                          f"{SMEM_LIMIT} bytes")
     tiles_x = -(-(Wo - ox0) // tw)
     resident = BLOCKS_PER_SM * sms
     while True:
-        th = _best_tile(Ho - oy0, 2, th_limit, box_h_of)
+        th = _best_tile(Ho - oy0, unit_h, th_limit, box_h_of)
         tiles_y = -(-(Ho - oy0) // th)
         if planes * tiles_y * tiles_x >= resident or th_limit <= MIN_TH:
             break
-        th_limit = max(MIN_TH, th_limit // 2 // 2 * 2)
+        th_limit = max(MIN_TH, th_limit // 2 // unit_h * unit_h)
     iy_step, ix_step = span_of(th), span_of(tw)
     return TilePlan(th=th, tw=tw, tiles_y=tiles_y, tiles_x=tiles_x, oy0=oy0, ox0=ox0, iy0=wy0,
                     ix0=wx0 - sx, iy_step=iy_step, ix_step=ix_step, box_h=box_h_of(th),
                     box_w=box_w, grid=min(planes * tiles_y * tiles_x, resident), stages=stages,
-                    tma=int(x_aligned and W % e == 0),
-                    vec_out=int(out_aligned and Wo % e == 0 and ox0 == 0), sx=sx)
+                    tma=int(tma), vec_out=int(not stride1 and out_aligned and Wo % e == 0
+                                              and ox0 == 0),
+                    sx=sx, rows=int(rows))
+
+
+def paths(plan: TilePlan, up: int, down: int) -> Tuple[str, str]:
+    """Display names of the (load path, store path) of a launch with this
+    plan, for printing (callers check the plan's fields): "TMA box", "row
+    copy" or "element copy" in; "16-byte chunks", "lane-strided elements"
+    (the chunked configurations' element stores: a warp's lanes 16 bytes
+    apart) or "warp rows" (the stride-1 instance: 32 neighbouring outputs
+    of a row per warp store) out."""
+    load = "TMA box" if plan.tma else "row copy" if plan.rows else "element copy"
+    if up == down == 1:
+        return load, "warp rows"
+    return load, "16-byte chunks" if plan.vec_out else "lane-strided elements"
 
 
 @functools.lru_cache(maxsize=4096)
@@ -292,6 +341,18 @@ def _check_kernel_contract(x: torch.Tensor, k: np.ndarray, up: int, down: int) -
         raise ValueError(f"upfirdn2d: (up, down)={(up, down)} not built")
 
 
+def _plan_key(x: torch.Tensor, out: torch.Tensor, up: int, down: int, pad0: int) -> tuple:
+    """`tile_plan`'s arguments for a launch from x into out."""
+    B, C, H, W = x.shape
+    return (up, down, pad0, H, W, *out.shape[-2:], B * C, x.element_size(),
+            x.data_ptr() % 16 == 0, out.data_ptr() % 16 == 0, _sms(x.get_device()))
+
+
+def launch_plan(x: torch.Tensor, out: torch.Tensor, up: int, down: int, pad0: int) -> TilePlan:
+    """The plan a launch from the CUDA tensor x into out takes."""
+    return tile_plan(*_plan_key(x, out, up, down, pad0))
+
+
 def _launch(x: torch.Tensor, kernel, flip: bool, up: int, down: int, pad0: int,
             Ho: int, Wo: int) -> torch.Tensor:
     """Run the kernel on a CUDA tensor into a new (B, C, Ho, Wo) tensor, with
@@ -308,8 +369,7 @@ def _launch(x: torch.Tensor, kernel, flip: bool, up: int, down: int, pad0: int,
     device = x.get_device()
     lib = _lib()
     x_ptr, out_ptr = x.data_ptr(), out.data_ptr()
-    plan = _plan_args(up, down, pad0, H, W, Ho, Wo, B * C, x.element_size(), x_ptr % 16 == 0,
-                      out_ptr % 16 == 0, _sms(device))
+    plan = _plan_args(*_plan_key(x, out, up, down, pad0))
     err = lib.storm_upfirdn2d(x_ptr, out_ptr, k.ctypes.data, flip, device, B * C, H, W, Ho, Wo,
                               up, down, pad0, _DTYPES[x.dtype],
                               torch._C._cuda_getCurrentRawStream(device), plan)

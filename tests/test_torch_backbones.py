@@ -134,6 +134,22 @@ def test_deepcache_refuses_other_configurations_with_the_reference_message(kw):
         pnet.deep_features(torch.zeros(1, 2, 64, 32, 2), torch.ones(1), cache_depth=1)
 
 
+def test_the_gagnet_refusal_names_its_roadmap_item():
+    """The refusal's "ROADMAP Queue 1 item N" is the item of ROADMAP.md's
+    Queue 1 whose heading names GaGNet and R4."""
+    from pathlib import Path
+
+    with pytest.raises(NotImplementedError) as err:
+        backbones.get_by_name("gagnet")()
+    found = re.search(r"ROADMAP Queue 1 item (\d+), (R\d+)", str(err.value))
+    assert found, str(err.value)
+    roadmap = (Path(__file__).resolve().parent.parent / "ROADMAP.md").read_text()
+    queue = roadmap.split("### Queue 1", 1)[1].split("\n### ", 1)[0]
+    heading = re.search(rf"^{found.group(1)}\. \*\*(.*?)\*\*", queue, re.M | re.S)
+    assert heading, f"ROADMAP Queue 1 has no item {found.group(1)}"
+    assert "GaGNet" in heading.group(1) and found.group(2) in heading.group(1)
+
+
 def test_registry_names_and_the_gagnet_refusal():
     assert set(backbones.get_all_names()) == set(BackboneRegistry.get_all_names())
     with pytest.raises(NotImplementedError, match="ROADMAP"):

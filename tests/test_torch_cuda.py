@@ -976,8 +976,9 @@ S1_SHAPES = [(1, 4, 17, 33), (2, 3, 33, 257), (1, 2, 9, 3), (1, 2, 5, 9), (2, 8,
 @pytest.mark.parametrize("shape", S1_SHAPES)
 def test_stride1_kernel_and_adjoint_match_plain(cuda, shape, pad0, offset, dtype):
     """The stride-1 instance in both directions, both FIRs: float32 to 1e-5,
-    bfloat16 within 1 ulp (equal with NCSN++'s FIR); odd widths, an odd
-    base and 65537 planes take the producer warp's fill, the rest TMA."""
+    bfloat16 within 1 ulp (equal with NCSN++'s FIR); odd widths and an odd
+    base take row copies (tensors whose bytes neither start nor end on 16
+    bytes among them), the rest TMA; none the element copy."""
     pad = (pad0, pad0)
     Ho, Wo = (kup.output_size(n, 4, 1, 1, pad) for n in shape[2:])
     if min(Ho, Wo) < 1:
@@ -1002,6 +1003,11 @@ def test_stride1_kernel_and_adjoint_match_plain(cuda, shape, pad0, offset, dtype
                     assert torch.equal(got, want)
     torch.cuda.synchronize()
     assert (kup.upfirdn2d_cuda.launches, kup.upfirdn2d_bwd_cuda.launches) == (fwd + 2, bwd + 2)
+    for inp, p, out_hw in ((x, pad0, (Ho, Wo)), (g, 3 - pad0, shape[2:])):
+        out = torch.empty(shape[:2] + tuple(out_hw), device=cuda, dtype=dtype)
+        plan = kup.launch_plan(inp, out, 1, 1, p)
+        pitched = inp.data_ptr() % 16 == 0 and inp.shape[-1] * inp.element_size() % 16 == 0
+        assert (plan.tma, plan.rows) == (pitched, not pitched)
 
 
 def _ncsnpplarge_calls(B, W):
@@ -1046,7 +1052,18 @@ def test_ddpm_resamplers_launch_the_stride1_kernel(cuda, dtype):
     forward and 12 adjoints per backward (read from its module list: one per
     convolving resampler), the output and the input gradient against the
     same net on the plain path (1e-4 of their scale in float32, 2e-2 in
-    bfloat16: the convolutions' own rounding)."""
+    bfloat16: the convolutions' own rounding). The convolutions run without
+    TF32, as `models/factory.py` sets it for a model it builds, and the flags
+    are set back after the test."""
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        _check_ddpm_resamplers(cuda, dtype)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+
+
+def _check_ddpm_resamplers(cuda, dtype):
     from storm_tpu_torch.backbones.ncsnpp import NCSNpp
     from storm_tpu_torch.nn.init import reset_parameters
     from storm_tpu_torch.nn.layers import Downsample, Upsample

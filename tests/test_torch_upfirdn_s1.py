@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
-from test_torch_upfirdn import _emulate, _read_span
+from test_torch_upfirdn import _read_span
 from torch_parity import nchw, nhwc
 
 from storm_tpu.kernels import upfirdn as jup
@@ -89,7 +89,7 @@ def ddpm_calls(B, T, F=256, nf=128, ch_mult=(1, 2, 2, 2), pyramid=6):
     return [(B * C, H, W, p) for C, H, W, p in calls]
 
 
-def _check_s1_plan(plan, pad0, H, W, Ho, Wo, planes, es, sms=132):
+def _check_s1_plan(plan, pad0, H, W, Ho, Wo, planes, es, sms=132, x_aligned=True):
     e = 16 // es
     for n_out, start, t, tiles, step, i0, box in (
             (Ho, plan.oy0, plan.th, plan.tiles_y, plan.iy_step, plan.iy0, plan.box_h),
@@ -101,14 +101,36 @@ def _check_s1_plan(plan, pad0, H, W, Ho, Wo, planes, es, sms=132):
             assert i0 + j * step + shift == lo
             assert hi < i0 + j * step + box
         assert 1 <= box <= kup.BOX_LIMIT
-    assert plan.th % 2 == 0 and plan.tw % e == 0
+    # strips of STRIP_ROWS rows, columns in whole 16 bytes
+    assert plan.th % kup.STRIP_ROWS == 0 and plan.tw % e == 0
     assert 0 <= plan.sx < e and plan.ix0 % e == 0 and plan.ix_step % e == 0
-    assert plan.box_w == plan.tw + -(-(plan.sx + 3) // e) * e  # tw + 3 columns past sx
+    # TMA where the rows allow it, else each row by a bulk copy at its own shift (< e); a
+    # lane reads three aligned groups from its columns wherever the window starts: tw + 2e
+    assert plan.tma == (x_aligned and W % e == 0) and plan.rows == 1 - plan.tma
+    assert plan.box_w == plan.tw + 2 * e
     assert plan.box_h == plan.th + 3
-    assert plan.tma == (W % e == 0)
+    assert plan.vec_out == 0
     stage = -(-plan.box_h * plan.box_w * es // 128) * 128
-    assert plan.stages * stage + 128 <= kup.SMEM_LIMIT
+    assert plan.stages * stage + 128 + kup.STAGING_BYTES <= kup.SMEM_LIMIT
     assert plan.grid == min(planes * plan.tiles_y * plan.tiles_x, kup.BLOCKS_PER_SM * sms)
+
+
+def _full_width_shapes():
+    """(planes, H, W, pad0) of every stride-1 call of a full-width DDPM + residual NCSN++
+    (B=1 at 256 x 576, B=8 at 256 x 256), and of the first four at widths 3 and 9
+    (ncsnpplarge's deepest level at the 1 s and 4 s buckets)."""
+    shapes = ddpm_calls(1, 576) + ddpm_calls(8, 256)
+    return shapes + [(planes, H, W, p) for planes, H, W, _ in shapes[:4] for p in (1, 2)
+                     for W in (3, 9)]
+
+
+def _calls_and_adjoints(shapes):
+    """(planes, H, W, pad0, Ho, Wo) of each call and of its adjoint: the output's size in,
+    pad 3 - pad0, the input's size out."""
+    for planes, H, W, pad0 in shapes:
+        Ho, Wo = (kup.output_size(n, 4, 1, 1, (pad0, pad0)) for n in (H, W))
+        yield planes, H, W, pad0, Ho, Wo
+        yield planes, Ho, Wo, 3 - pad0, H, W
 
 
 @pytest.mark.parametrize("es", [2, 4], ids=["bf16", "f32"])
@@ -116,34 +138,178 @@ def test_plan_covers_every_output_once_at_the_full_width_ddpm_shapes(es):
     """The third branch of `tile_plan` at every stride-1 call and adjoint of a
     full-width DDPM + residual NCSN++ (B=1 at 256 x 576, B=8 at 256 x 256),
     and at widths 3 and 9 (ncsnpplarge's deepest level at the 1 s and 4 s
-    buckets, whose rows take the producer's copy, not TMA): each output in
-    exactly one tile, each box where the plain window starts, holding it,
-    within TMA's limits, its first column on 16 bytes."""
-    shapes = ddpm_calls(1, 576) + ddpm_calls(8, 256)
-    shapes += [(planes, H, W, p) for planes, H, W, _ in shapes[:4] for p in (1, 2)
-               for W in (3, 9)]
-    for planes, H, W, pad0 in shapes:
-        Ho, Wo = (kup.output_size(n, 4, 1, 1, (pad0, pad0)) for n in (H, W))
-        # the call, and its adjoint: the output's size in, pad 3 - pad0, the input's size out
-        for h, w, p, ho, wo in ((H, W, pad0, Ho, Wo), (Ho, Wo, 3 - pad0, H, W)):
-            plan = kup.tile_plan(1, 1, p, h, w, ho, wo, planes, es)
-            _check_s1_plan(plan, p, h, w, ho, wo, planes, es)
+    buckets): each output in exactly one tile, each box where the plain
+    window starts, holding it, within TMA's limits, its first column on 16
+    bytes; every call's box by TMA or by row copies, none element by element."""
+    for planes, h, w, p, ho, wo in _calls_and_adjoints(_full_width_shapes()):
+        _check_s1_plan(kup.tile_plan(1, 1, p, h, w, ho, wo, planes, es), p, h, w, ho, wo,
+                       planes, es)
+    # an input whose address is off 16 bytes: row copies whatever the width
+    plan = kup.tile_plan(1, 1, 2, 64, 64, 65, 65, 8, es, x_aligned=False)
+    _check_s1_plan(plan, 2, 64, 64, 65, 65, 8, es, x_aligned=False)
+
+
+def _floor16(a):
+    return a // 16 * 16
+
+
+def _emulate_s1(x, k, pad0, Ho, Wo, plan, es, base=0):
+    """The stride-1 kernel on the CPU as it loads and reads its stages, for an
+    input of `es`-byte elements whose first element lies at byte address
+    `base` (a multiple of es). A TMA box: zeros outside x. Row copies
+    (`copy_rows`): each box row inside [0, H) from the 16-byte floor of its
+    first window column inside the row to the ceiling of its last, clamped
+    to the 16-byte boundaries inside the tensor, the left-out elements one
+    by one; every copy's source 16-byte aligned, whole 16 bytes, inside the
+    tensor and its stage row. Every other stage element starts as NaN. The
+    consumers (`strip`) read each stage row at its shift, sx or (the
+    window's address mod 16) / es, and select zero for columns and rows
+    outside x. Returns (output, how many tiles stored each output, the
+    bytes read, as (start, end) ranges)."""
+    B, C, H, W = x.shape
+    flat = x.reshape(-1)
+    n = flat.numel()
+    lo16, hi16 = _floor16(base + 15), _floor16(base + n * es)
+    e = 16 // es
+    out = torch.zeros(B * C, Ho, Wo)
+    cover = torch.zeros(Ho, Wo, dtype=torch.int64)
+    reads = []
+    h, w = plan.th + 3, plan.tw + 3  # the window of a tile
+    for oy, ox, iy, ix in plan.tiles():
+        wx = ix + plan.sx
+        windows = torch.zeros(B * C, h, w)
+        for plane in range(B * C):
+            stage = torch.full((plan.box_h, plan.box_w), float("nan"))
+            shifts = [plan.sx] * plan.box_h
+            for r in range(plan.box_h):
+                gy = iy + r
+                if not 0 <= gy < H:
+                    if plan.tma:
+                        stage[r] = 0.0
+                    continue
+                row = (plane * H + gy) * W
+                if plan.tma:  # the box from its 16-byte first column, zero fill outside
+                    assert (base + (row + ix) * es) % 16 == 0 or ix < 0
+                    cols = torch.arange(ix, ix + plan.box_w)
+                    inside = (cols >= 0) & (cols < W)
+                    stage[r] = torch.where(inside, flat[row + cols.clamp(0, W - 1)], 0.0)
+                    reads.append((base + (row + max(ix, 0)) * es,
+                                  base + (row + min(ix + plan.box_w, W)) * es))
+                    continue
+                c_lo, c_hi = max(wx, 0), min(wx + plan.tw + 3, W)
+                if c_lo >= c_hi:
+                    continue
+                row_a = _floor16(base + (row + wx) * es)
+                shifts[r] = (base + (row + wx) * es - row_a) // es
+                a_lo, a_hi = base + (row + c_lo) * es, base + (row + c_hi) * es
+                c0 = max(_floor16(a_lo), lo16)
+                c1 = min(_floor16(a_hi + 15), hi16)
+                pieces = []
+                if c1 > c0:
+                    assert c0 % 16 == 0 and (c1 - c0) % 16 == 0 and (c0 - row_a) % 16 == 0
+                    pieces.append((c0, c1))
+                else:
+                    c0 = c1 = a_hi
+                pieces += [(a, a + es) for a in range(a_lo, min(c0, a_hi), es)]
+                pieces += [(a, a + es) for a in range(max(c1, a_lo), a_hi, es)]
+                for a0, a1 in pieces:
+                    assert 0 <= a0 - row_a and a1 - row_a <= plan.box_w * es
+                    i0 = (a0 - base) // es
+                    stage[r, (a0 - row_a) // es:(a1 - row_a) // es] = flat[i0:i0 + (a1 - a0) // es]
+                    reads.append((a0, a1))
+            for r in range(h):
+                gy = iy + r
+                cols = torch.arange(wx, wx + w)
+                vals = stage[r, shifts[r]:shifts[r] + w]
+                inside = (cols >= 0) & (cols < W) & (0 <= gy < H)
+                windows[plane, r] = torch.where(inside, vals, 0.0)
+        assert not torch.isnan(windows).any()
+        tile = kup.upfirdn2d_plain(windows[None], k, pad=(0, 0))[0]
+        assert tile.shape[-2:] == (plan.th, plan.tw)
+        r0, r1 = max(oy, 0), min(oy + plan.th, Ho)
+        c0, c1 = max(ox, 0), min(ox + plan.tw, Wo)
+        out[:, r0:r1, c0:c1] = tile[:, r0 - oy:r1 - oy, c0 - ox:c1 - ox]
+        cover[r0:r1, c0:c1] += 1
+    return out.reshape(B, C, Ho, Wo), cover, reads
+
+
+def _check_emulated(x, pad0, plan, es, base=0):
+    H, W = x.shape[-2:]
+    Ho, Wo = (kup.output_size(n, 4, 1, 1, (pad0, pad0)) for n in (H, W))
+    out, cover, reads = _emulate_s1(x, ASYM, pad0, Ho, Wo, plan, es, base)
+    assert (cover == 1).all()
+    assert torch.equal(out, kup.upfirdn2d_plain(x, ASYM, pad=(pad0, pad0)))
+    return reads
 
 
 @pytest.mark.parametrize("es", [2, 4], ids=["bf16", "f32"])
 @pytest.mark.parametrize("H,W,pad0", [(17, 40, 1), (17, 40, 2), (41, 131, 1), (9, 3, 2),
                                       (33, 9, 1)])
 def test_plan_tiles_reassemble_the_plain_output(H, W, pad0, es):
-    """The tiles computed from their boxes alone, as the kernel computes
-    them, give the plain version's output bit for bit, each output once."""
+    """The tiles computed from their stages alone, loaded and read as the
+    kernel loads and reads them, give the plain version's output bit for
+    bit, each output once (a small stage budget, so that each shape takes
+    several tiles in both axes)."""
     x = torch.from_numpy(np.random.default_rng(H * W).standard_normal((1, 2, H, W))
                          .astype(np.float32))
-    pad = (pad0, pad0)
-    Ho, Wo = (kup.output_size(n, 4, 1, 1, pad) for n in (H, W))
-    plan = kup.tile_plan(1, 1, pad0, H, W, Ho, Wo, 2, es, sms=1, stage_bytes=1024, max_tw=16)
-    out, cover = _emulate(x, ASYM, 1, 1, pad0, Ho, Wo, plan)
-    assert (cover == 1).all()
-    assert torch.equal(out, kup.upfirdn2d_plain(x, ASYM, pad=pad))
+    Ho, Wo = (kup.output_size(n, 4, 1, 1, (pad0, pad0)) for n in (H, W))
+    for x_aligned in (True, False):
+        plan = kup.tile_plan(1, 1, pad0, H, W, Ho, Wo, 2, es, x_aligned, sms=1,
+                             stage_bytes=2048, max_tw=16)
+        assert plan.rows == (not x_aligned or W % (16 // es) != 0)
+        _check_emulated(x, pad0, plan, es)
+
+
+@pytest.mark.parametrize("es", [2, 4], ids=["bf16", "f32"])
+def test_full_width_ddpm_tiles_reassemble_the_plain_output(es):
+    """Every stride-1 call and adjoint of a full-width DDPM + residual NCSN++
+    (B=1 at 256 x 576, B=8 at 256 x 256) and the calls at widths 3 and 9,
+    with the plan of the call's own plane count, emulated on two of its
+    planes (the tensor then ends after the second): each output once, bit
+    for bit the plain version with the asymmetric FIR, no byte read outside
+    the tensor."""
+    rng = np.random.default_rng(es)
+    for planes, h, w, p, ho, wo in _calls_and_adjoints(_full_width_shapes()):
+        plan = kup.tile_plan(1, 1, p, h, w, ho, wo, planes, es)
+        x = torch.from_numpy(rng.standard_normal((1, 2, h, w)).astype(np.float32))
+        reads = _check_emulated(x, p, plan, es)
+        assert min(a for a, _ in reads) >= 0 and max(b for _, b in reads) <= x.numel() * es
+
+
+@pytest.mark.parametrize("es", [2, 4], ids=["bf16", "f32"])
+@pytest.mark.parametrize("H,W,base", [(5, 3, 1), (7, 9, 3), (6, 131, 1), (4, 2, 5)])
+def test_row_copies_never_read_outside_the_tensor(H, W, base, es):
+    """Rounding a row's span to 16 bytes never reaches past the tensor, also
+    where the tensor neither starts nor ends on 16 bytes (its first element
+    `base` elements past a boundary, a byte count off 16) and rows hold
+    fewer than 16 bytes: the ends go element by element, and every output
+    still equals the plain version's once."""
+    x = torch.from_numpy(np.random.default_rng(W + base).standard_normal((1, 3, H, W))
+                         .astype(np.float32))
+    start, end = base * es, (base + x.numel()) * es
+    for pad0 in (1, 2):
+        Ho, Wo = (kup.output_size(n, 4, 1, 1, (pad0, pad0)) for n in (H, W))
+        plan = kup.tile_plan(1, 1, pad0, H, W, Ho, Wo, 3, es, x_aligned=False, sms=1,
+                             stage_bytes=2048, max_tw=32)
+        assert plan.rows and not plan.tma
+        reads = _check_emulated(x, pad0, plan, es, base=start)
+        assert all(start <= a < b <= end for a, b in reads)
+        assert any(b - a == es for a, b in reads)  # some ends went by element
+
+
+def test_row_copies_serve_the_stride_1_instance_only():
+    """The chunked configurations keep the element copy where TMA cannot
+    load a box, and 16-byte stores where the output's rows allow them; the
+    stride-1 instance copies such rows; `paths` names each for printing."""
+    plan = kup.tile_plan(1, 2, 1, 9, 9, 5, 5, 4, 4)
+    assert not plan.tma and not plan.rows and not plan.vec_out
+    assert kup.paths(plan, 1, 2) == ("element copy", "lane-strided elements")
+    plan = kup.tile_plan(2, 1, 2, 8, 8, 16, 16, 4, 4)
+    assert plan.tma and not plan.rows and plan.vec_out
+    assert kup.paths(plan, 2, 1) == ("TMA box", "16-byte chunks")
+    plan = kup.tile_plan(1, 1, 1, 9, 9, 8, 8, 4, 4)
+    assert not plan.tma and plan.rows and not plan.vec_out
+    assert kup.paths(plan, 1, 1) == ("row copy", "warp rows")
 
 
 @pytest.mark.parametrize("C_in,C_out", [(4, 4), (6, 8)])

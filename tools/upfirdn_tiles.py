@@ -10,19 +10,24 @@
    The package is imported from DIR (default: this checkout).
 2. against (with --against FILE): FILE, another `csrc/upfirdn2d.cu` (a parent's,
    unpacked with `git archive` into the git-ignored `_checkout/`), compiled
-   with the package's nvcc flags into a temporary directory, and this
+   with the package's nvcc flags into a temporary directory and launched
+   with the launch plans of its own checkout's `kernels/upfirdn.py`, and this
    checkout's kernel, each held to the plain version (bfloat16 equal with
    NCSN++'s FIR) and timed in turns (old, new, new, old) in bfloat16 and
-   float32 at the 18 calls of a full-width score forward (B=1, 256 x 576) and
-   the 33 adjoint calls of a joint-training step (B=8, 256 x 256): device ms
-   per call from profiler kernel events, each call after a 256 MB read that
-   clears the L2, summed per forward and per step beside the bytes bound.
-   FILE's host cost per call comes from this script run with --repo on
-   FILE's checkout, in a process of its own.
+   float32 at the 18 calls of a full-width score forward (B=1, 256 x 576),
+   the 33 adjoint calls of a joint-training step (B=8, 256 x 256), the 12
+   stride-1 calls of a full-width DDPM + residual NCSN++ forward (B=1, 256 x
+   576) and their 12 adjoints (B=8, 256 x 256): device ms per call from
+   profiler kernel events, each call after a 256 MB read that clears the
+   L2, summed per forward and per step beside the bytes bound. FILE's host
+   cost per call comes from this script run with --repo on FILE's
+   checkout, in a process of its own.
 3. sweep (unless --no-sweep or --host-only): the launch plan's knobs (ring
    stages, the widest column tile, a box's byte budget; `tile_plan`'s
    defaults first) at the 18 forward calls and the 33 adjoint calls in
-   bfloat16, per forward and per step, with each call's device us.
+   bfloat16, per forward and per step, with each call's device us; then at
+   the stride-1 calls and adjoints in both types, with row copies also
+   where TMA could load the box.
 
 Prints the card's name and power limit first.
 """
@@ -42,13 +47,17 @@ import torch
 
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 L2_FLUSH_BYTES = 256 << 20  # 5x the H100's 50 MB L2
-GAP_S = 0.02  # host pause between two functions' runs in a trace
+GAP_S = 0.1  # host pause between two functions' runs in a trace (half of it splits runs)
 REPS = 20
 NF, CH_MULT, FREQS = 128, (1, 2, 2, 2), 256
 PADS = {"down": (1, 2, (1, 1)), "up": (2, 1, (2, 1))}
 # (stages, widest column tile, box bytes) swept after the defaults
 KNOBS = [(2, 144, 24 << 10), (3, 144, 24 << 10), (6, 144, 16 << 10), (4, 288, 24 << 10),
          (4, 96, 24 << 10), (4, 144, 12 << 10)]
+# the same at stride 1 (None: the instance's default width); then the defaults with row
+# copies for every box (each input planned as if off 16 bytes)
+S1_KNOBS = [(4, 128, 24 << 10), (4, 96, 24 << 10), (4, None, 16 << 10), (3, None, 32 << 10),
+            (6, None, 16 << 10)]
 
 
 def forward_calls(pyramid_ch: int, frames: int):
@@ -69,6 +78,43 @@ def step_adjoint_calls(frames: int = 256):
     pyramid's."""
     return ([c for c in forward_calls(2, frames) if c[:2] != ("down", 2)]
             + forward_calls(6, frames))
+
+
+def stride1_calls(frames: int, pyramid_ch: int = 6):
+    """(pad0, C, H, W) of the 12 stride-1 calls of one DDPM + residual NCSN++
+    forward: per down level the trunk's and the input pyramid's
+    conv_downsample_2d (pad 2 on the level's size), per up level the output
+    pyramid's and the trunk's upsample_conv_2d (pad 1 on the transposed
+    conv's 2n + 1). A backward's adjoints are the same calls' (all of them:
+    the input pyramid's first call has a gradient when the input has one)."""
+    chans, L, calls = [NF * m for m in CH_MULT], len(CH_MULT), []
+    for i in range(L - 1):
+        H, W = FREQS >> i, frames >> i
+        calls += [(2, chans[i], H, W), (2, pyramid_ch if i == 0 else chans[i - 1], H, W)]
+    for i in range(L - 1, -1, -1):
+        if i < L - 1:
+            calls.append((1, chans[i], 2 * (FREQS >> (i + 1)) + 1, 2 * (frames >> (i + 1)) + 1))
+        if i > 0:
+            calls.append((1, chans[i], 2 * (FREQS >> i) + 1, 2 * (frames >> i) + 1))
+    return calls
+
+
+def parent_upfirdn(root: Path):
+    """`storm_tpu_torch/kernels/upfirdn.py` of the checkout at root, imported
+    as a module of its own (with its `build` beside it, not its package), so
+    that its kernel source is launched with the plans it was written for."""
+    import importlib.util
+    import types
+
+    name = "_against_kernels"
+    pkg = types.ModuleType(name)
+    pkg.__path__ = [str(root / "storm_tpu_torch" / "kernels")]
+    sys.modules[name] = pkg
+    spec = importlib.util.spec_from_file_location(f"{name}.upfirdn", pkg.__path__[0] + "/upfirdn.py")
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def host_us(fn, calls: int = 1000, loops: int = 5) -> float:
@@ -139,6 +185,23 @@ class Entry:
         args += [ctypes.c_int] * 8 + [ctypes.c_void_p] * (2 if self.planned else 1)
         self.fn.argtypes, self.fn.restype = args, ctypes.c_int
 
+    def plan(self, x, out, up, down, pad0):
+        """The launch's plan; a knob `x_aligned` overrides the input's own alignment."""
+        B, C, H, W = x.shape
+        knobs = {"x_aligned": x.data_ptr() % 16 == 0, **self.knobs}
+        return self.kup.tile_plan(up, down, pad0, H, W, *out.shape[-2:], B * C,
+                                  x.element_size(), out_aligned=out.data_ptr() % 16 == 0,
+                                  sms=self.kup._sms(x.get_device()), **knobs)
+
+    def paths(self, kup, x, out, up, down, pad0):
+        """(load, store) of the launch, named by `kup.paths` (a field that
+        the plan's own checkout lacks taken as 0)."""
+        if not self.planned:
+            return "element copy", "elements"
+        plan = self.plan(x, out, up, down, pad0)._asdict()
+        return kup.paths(kup.TilePlan(**{f: plan.get(f, 0) for f in kup.TilePlan._fields}),
+                         up, down)
+
     def call(self, x, out, taps, flip, up, down, pad0):
         B, C, H, W = x.shape
         Ho, Wo = out.shape[-2:]
@@ -147,18 +210,18 @@ class Entry:
                 Wo, up, down, pad0, self.kup._DTYPES[x.dtype],
                 torch.cuda.current_stream().cuda_stream]
         if self.planned:
-            plan = self.kup.tile_plan(up, down, pad0, H, W, Ho, Wo, B * C, x.element_size(),
-                                      x.data_ptr() % 16 == 0, out.data_ptr() % 16 == 0,
-                                      self.kup._sms(device), **self.knobs)
+            plan = self.plan(x, out, up, down, pad0)
             args.append((ctypes.c_int * len(plan))(*plan))
         err = self.fn(*args)
         if err:
             sys.exit(f"FAIL: upfirdn2d launch error {err} at {tuple(x.shape)} -> {Ho}x{Wo}")
 
 
-def call_cases(kup, fir, dtype, gen):
-    """{"forward" / "step": [(name, launch args, plain output)]}: the forward calls
-    at 576 frames (B=1) and the adjoint calls of a step (B=8, 256 x 256)."""
+def call_cases(kup, fir, dtype, gen, stride1: bool = True):
+    """{"forward" / "step" / "s1 forward" / "s1 step": [(name, launch args, plain
+    output)]}: the forward calls at 576 frames (B=1) and the adjoint calls of
+    a step (B=8, 256 x 256); with `stride1`, the DDPM net's stride-1 calls at
+    576 frames (B=1) and their adjoints at B=8, 256 x 256."""
     cases = {"forward": [], "step": []}
     for cfg, C, H, W in forward_calls(6, 576):
         up, down, pad = PADS[cfg]
@@ -175,6 +238,23 @@ def call_cases(kup, fir, dtype, gen):
         g_up, g_down, g_pad0 = kup._adjoint(up, down, pad)
         cases["step"].append((f"bwd of {cfg} C={C} {H}x{W}", (g, k, 1, g_up, g_down, g_pad0),
                               want))
+    if not stride1:
+        return cases
+    cases["s1 forward"], cases["s1 step"] = [], []
+    for what, B, frames in (("s1 forward", 1, 576), ("s1 step", 8, 256)):
+        for pad0, C, H, W in stride1_calls(frames):
+            k = fir * (4.0 if pad0 == 1 else 1.0)  # upsample_conv_2d's FIR carries the gain
+            pad = (pad0, pad0)
+            if what == "s1 forward":
+                x = torch.randn(B, C, H, W, device="cuda", generator=gen).to(dtype)
+                want = kup.upfirdn2d_plain(x, k, pad=pad)
+                cases[what].append((f"same{pad0} C={C} {H}x{W}", (x, k, 0, 1, 1, pad0), want))
+                continue
+            Ho, Wo = (kup.output_size(n, 4, 1, 1, pad) for n in (H, W))
+            g = torch.randn(B, C, Ho, Wo, device="cuda", generator=gen).to(dtype)
+            want = kup.upfirdn2d_bwd_plain(g, k, 1, 1, pad, (H, W))
+            cases[what].append((f"bwd of same{pad0} C={C} {H}x{W}", (g, k, 1, 1, 1, 3 - pad0),
+                                want))
     return cases
 
 
@@ -214,7 +294,8 @@ def phase_against(kup, build, resample, against: Path):
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  [new] {line.strip()}")
-        old, new = Entry(old_lib, kup), Entry(new_lib, kup)
+        old_kup = parent_upfirdn(against.resolve().parent.parent.parent)
+        old, new = Entry(old_lib, old_kup), Entry(new_lib, kup)
         fir = resample.setup_kernel((1, 3, 3, 1))
         gen = torch.Generator(device="cuda").manual_seed(0)
         for dtype in (torch.bfloat16, torch.float32):
@@ -223,10 +304,13 @@ def phase_against(kup, build, resample, against: Path):
                 per = timed([old, new, new, old], cs, kup)
                 olds = [(a + b) / 2 for a, b in zip(per[0], per[3])]
                 news = [(a + b) / 2 for a, b in zip(per[1], per[2])]
-                for (name, (x, *_), want), o, n in zip(cs, olds, news):
+                for (name, (x, k, flip, up, down, pad0), want), o, n in zip(cs, olds, news):
                     b = (x.numel() + want.numel()) * x.element_size() / PEAK_BYTES_PER_S * 1e3
+                    paths = [" / ".join(e.paths(kup, x, want, up, down, pad0))
+                             for e in (old, new)]
                     print(f"  {str(dtype)[6:]:8s} {name:26s} old {o:.5f} new {n:.5f} ms "
-                          f"bound {b:.5f} (old {o / b:.2f}x, new {n / b:.2f}x)", flush=True)
+                          f"bound {b:.5f} (old {o / b:.2f}x, new {n / b:.2f}x) paths old "
+                          f"{paths[0]}, new {paths[1]}", flush=True)
                 bound = bound_ms(cs)
                 print(f"  {str(dtype)[6:]} per {what} ({len(cs)} calls): old "
                       f"{sum(per[0]):.4f} / {sum(per[3]):.4f} ms, new {sum(per[1]):.4f} / "
@@ -240,17 +324,25 @@ def phase_sweep(kup, build, resample):
     lib = build.load("upfirdn2d")
     fir = resample.setup_kernel((1, 3, 3, 1))
     gen = torch.Generator(device="cuda").manual_seed(1)
-    cases = call_cases(kup, fir, torch.bfloat16, gen)
-    knobs = [dict(stages=kup.STAGES, max_tw=kup.MAX_TW, stage_bytes=kup.STAGE_BYTES)]
-    knobs += [dict(stages=s, max_tw=t, stage_bytes=b) for s, t, b in KNOBS]
-    entries = [Entry(lib, kup, k) for k in knobs]
-    for what, cs in cases.items():
-        per = timed(entries, cs, kup)
-        for idx, k in enumerate(knobs):
-            print(f"  bfloat16 per {what}: stages {k['stages']} max_tw {k['max_tw']} box bytes "
-                  f"{k['stage_bytes']}: {sum(per[idx]):.4f} ms (bound "
-                  f"{bound_ms(cs):.4f}); per call " + " ".join(f"{ms * 1e3:.2f}" for ms in per[idx])
-                  + " us", flush=True)
+    default = dict(stages=kup.STAGES, max_tw=None, stage_bytes=kup.STAGE_BYTES)
+    knobs = [default] + [dict(stages=s, max_tw=t, stage_bytes=b) for s, t, b in KNOBS]
+    s1_knobs = ([default] + [dict(stages=s, max_tw=t, stage_bytes=b) for s, t, b in S1_KNOBS]
+                + [dict(default, x_aligned=False)])
+    for dtype in (torch.bfloat16, torch.float32):
+        cases = call_cases(kup, fir, dtype, gen)
+        for what, cs in cases.items():
+            stride1 = what.startswith("s1")
+            if dtype == torch.float32 and not stride1:
+                continue
+            ks = s1_knobs if stride1 else knobs
+            per = timed([Entry(lib, kup, k) for k in ks], cs, kup)
+            for idx, k in enumerate(ks):
+                print(f"  {str(dtype)[6:]} per {what}: "
+                      + " ".join(f"{n} {v}" for n, v in k.items())
+                      + f": {sum(per[idx]):.4f} ms (bound {bound_ms(cs):.4f}); per call "
+                      + " ".join(f"{ms * 1e3:.2f}" for ms in per[idx]) + " us", flush=True)
+        del cases
+        torch.cuda.empty_cache()
 
 
 def phase_host(kup, resample):
