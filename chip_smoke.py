@@ -315,8 +315,8 @@ the process holds the least memory:
 56. the trainer's programs (utils/train_graphs.py) at full width, B=8 x 256
    frames, cuDNN deterministic: StoRM joint in f32 and bf16, score-only
    bf16, denoiser-only sisdr f32 and the distilled student in bf16 (phase
-   45's teacher, etd2 N=8): 4 eager steps and 4 through the program (the
-   eager first call, the warm-up and capture, two replays) from the same
+   45's teacher, etd2 N=8): 3 eager steps and 3 through the program (the
+   eager first call, the warm-up and capture, a replay) from the same
    model, batches and generator states: losses, parameters, EMA, Adam's
    state and the step counts equal after every step (max abs 0); each
    step timed (CUDA events), the peak allocated and reserved memory of
@@ -361,6 +361,30 @@ denoisers) run last:
 64. StoRM with a ConvTasNet and with an ae-ncsnpp denoiser through the CLI
    on phase 5's files (N=4 + ald; per file 144 and 162 launches), and the
    ConvTasNet StoRM server at its bf16 default on phase 15's burst.
+65. GaGNet at the reference CLI's width (c 64, d_feat 448, p 2, q 3,
+   dilations 1, 2, 5, 9, U^2 encoder, concatenated skips, IN; 256 bins
+   padded to 257), seeded weights, on the 1, 2.5 and 4 s buckets: its
+   parameter count, forward ms in f32 and bf16 (no K1 launch), bf16
+   against its own f32 output (at most 0.5 in L2: the reference's own
+   bf16 GaGNet parts by 0.46 at 16 frames on the CPU), and one captured
+   replay at 4 s equal to the eager forward bit for bit.
+66. StoRM with that GaGNet denoiser and the 27.8M NCSN++ score net through
+   the CLI on phase 5's files in f32, bf16 and int8 + bf16 (N=4 + ald: per
+   file the score net's 18 x 8 K1 launches and, int8, 55 x 8 K3; GaGNet
+   adds none and has no quantizable conv), RTF per file; its captured
+   program at the CLI's default N=50 + ald at 4 s in bf16 against the eager
+   loop; the server at its bf16 default on phase 15's burst.
+67. `python -m storm_tpu_torch.train` with GaGNet, 4 steps at B=8 x 256
+   each, through its programs: StoRM with a GaGNet denoiser in bf16 (the
+   score net's 18 forward and 18 backward launches per step), and
+   `--mode denoiser-only --backbone_denoiser gagnet` in f32 with IN and
+   with BN (batch statistics; no K1 launch): step ms and peak memory.
+68. A reference Lightning `.ckpt` of a GaGNet-BN denoiser, synthesized from
+   seeded tensors with torch-ema `shadow_params` and positive
+   `running_var`, through `python -m storm_tpu_torch.compat.convert`; the
+   converted `.pt` through the enhancement CLI, which must load the side
+   file and give what the model's `enhance` gives with those statistics
+   (and not what it gives with the batch's); `evaluate` on the `tt` split.
 
 A serving path's first call of a shape runs the eager loop, its second
 also captures the shape's graph, and later calls replay it. To keep the
@@ -419,6 +443,8 @@ from storm_tpu_torch import backbones, enhancement, evaluate, serve, train
 from storm_tpu_torch.backbones.ncsnpp import NCSNpp, count_parameters
 from storm_tpu_torch.ckpt import (AsyncCheckpointManager, CheckpointManager,
                                   load_training_checkpoint, save_checkpoint)
+from storm_tpu_torch.compat import convert as ref_convert
+from storm_tpu_torch.compat.torch_ckpt import BN_BUFFERS
 from storm_tpu_torch.data.audio import load_wav, save_wav
 from storm_tpu_torch.data.datasets import Specs
 from storm_tpu_torch.kernels import LAUNCH_COUNTERS as LAUNCH_COUNTERS_ALL
@@ -444,7 +470,8 @@ from storm_tpu_torch.utils import graphs, train_graphs
 from storm_tpu_torch.utils.inference import BucketedEnhancer
 from storm_tpu_torch.utils.metrics import si_sdr
 from storm_tpu_torch.utils.server import decode_wav_bytes, encode_wav_bytes
-from storm_tpu_torch.utils.serving import n_quantized, scale_cache_path
+from storm_tpu_torch.utils.serving import (batch_stats_path, load_gagnet_batch_stats,
+                                           n_quantized, scale_cache_path)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, float32 outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -4477,7 +4504,7 @@ def phase_graph_serving(workdir: str, bench_line, gen: torch.Generator):
 
 # --- the trainer's programs as captured graphs (phases 56-58)
 
-TRAIN_GRAPH_STEPS = 4  # phase 56's steps per mode: eager, warm-up and capture, two replays
+TRAIN_GRAPH_STEPS = 3  # phase 56's steps per mode: eager, warm-up and capture, a replay
 # phase 56's replays under the profiler: two of the bf16 StoRM step (phase
 # 28's bf16 profile traces two eager steps), one of the others
 TRAIN_GRAPH_PROFILED = {"storm joint bf16": 2}
@@ -5142,6 +5169,233 @@ def phase_time_domain_storm(workdir: str, lengths, gen: torch.Generator):
     return f32_paths, {"server_convtasnet_bf16": srv["k1"]}, err, err_bf16
 
 
+# --- phases 65-68: GaGNet and the reference-checkpoint converters
+
+GAGNET_STORM = {**STORM_CONFIG, "backbone_denoiser": "gagnet"}
+
+
+@functools.lru_cache(maxsize=None)
+def gagnet_structure():
+    """GaGNet at the reference CLI's defaults, for `step_launches` (it calls
+    no K1)."""
+    return backbones.get_by_name("gagnet")()
+
+
+def phase_gagnet(gen: torch.Generator):
+    """Phase 65. Returns the rows {bucket s: figures}."""
+    net = backbones.get_by_name("gagnet")()
+    reset_parameters(net, torch.Generator().manual_seed(0))
+    net = net.cuda().eval()
+    rows = {}
+    for s in SECONDS:
+        frames = padded_frames(s)
+        x = 0.3 * torch.randn(1, 1, FREQS, frames, 2, device="cuda", generator=gen)
+        before = kup.upfirdn2d_cuda.launches
+        with torch.inference_mode():
+            out = net(x)
+            f32_ms = time_ms(lambda: net(x), reps=5, repeats=3)
+            net.dtype = BF16
+            with cast_params(net, BF16):
+                out_bf16 = net(x)
+                bf16_ms = time_ms(lambda: net(x), reps=5, repeats=3)
+            net.dtype = torch.float32
+        torch.cuda.synchronize()
+        scale = out.abs().max().item()
+        rel = (out_bf16 - out).abs().max().item() / scale
+        rel_l2 = ((out_bf16 - out).norm() / out.norm()).item()
+        check(kup.upfirdn2d_cuda.launches == before, "GaGNet launched upfirdn2d")
+        check(out.shape == x.shape and out_bf16.dtype == torch.float32
+              and bool(torch.isfinite(out).all()) and bool(torch.isfinite(out_bf16).all()),
+              f"GaGNet at {frames} frames gave {tuple(out.shape)}")
+        # the reference's own bf16 GaGNet at this width parts from its f32 output by
+        # 0.46 in L2 at 16 frames (tests/test_torch_gagnet.py::test_bf16_at_the_reference_
+        # width_parts_from_f32_as_the_reference_does): a bound on the port's, not parity
+        check(0.0 < rel_l2 <= 0.5, f"GaGNet bf16 parts from its f32 output by {rel_l2:.3e} "
+              "in L2")
+        rows[s] = dict(frames=frames, f32_ms=f32_ms, bf16_ms=bf16_ms, bf16_rel=rel,
+                       bf16_rel_l2=rel_l2)
+        print(f"  GaGNet ({count_parameters(net)} params) on the {s} s bucket (256 x {frames}): "
+              f"forward {f32_ms:.3f} ms f32, {bf16_ms:.3f} ms bf16; bf16 against f32: "
+              f"{rel_l2:.3e} in L2, {rel:.3e} of scale {scale:.3e} at the worst element; no "
+              "upfirdn2d launch", flush=True)
+    # one captured replay at the 4 s bucket against the eager forward
+    x = 0.3 * torch.randn(1, 1, FREQS, FRAMES, 2, device="cuda", generator=gen)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.inference_mode():
+        with torch.cuda.stream(side):
+            net(x)  # cuDNN's plans and workspaces, off the capture
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            static = net(x)
+        graph.replay()
+        eager = net(x)
+    torch.cuda.synchronize()
+    err = (static - eager).abs().max().item()
+    print(f"  GaGNet's captured forward at 256 x {FRAMES}: max|replay - eager| {err:.3e}",
+          flush=True)
+    check(err == 0.0, f"GaGNet's replay parts from its eager forward by {err:.3e}")
+    del net, graph, static
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_gagnet_storm(workdir: str, lengths, gen: torch.Generator):
+    """Phase 66. Returns ({path: K1 launches} f32, bf16, {path: K3 launches}
+    bf16, K1's max error f32, bf16, K3's, and the RTF rows)."""
+    noisy = os.path.join(workdir, "noisy")
+    model = build_model(GAGNET_STORM, device="cpu", seed=0)
+    ckpt = os.path.join(workdir, "storm_gagnet.pt")
+    save_checkpoint(ckpt, GAGNET_STORM, model.state_dict())
+    del model
+    k1, k3, shapes, k3_shapes, rtfs = {}, {}, {}, set(), {}
+    for tag, extra in (("float32", ()), ("bfloat16", ("--dtype", "bfloat16")),
+                       ("int8_bfloat16", ("--dtype", "bfloat16", "--quant", "int8"))):
+        out = os.path.join(workdir, f"enhanced_gagnet_{tag}")
+        kup.upfirdn2d_cuda.launches = kq.quantize_int8_cuda.launches = 0
+        with shapes_recorded() as (k1s, k3s), calls_counted() as per_call:
+            text = run_enhancement(["--test_dir", noisy, "--enhanced_dir", out, "--ckpt", ckpt,
+                                    "--mode", "storm", "--timeit", "--device", "cuda",
+                                    "--N", str(N_STEPS), *extra])
+        check_outputs(out, lengths)
+        int8 = "int8" in tag
+        want = (K1_PER_FORWARD * (NFE - 1), N_QUANT * (NFE - 1) if int8 else 0, NFE)
+        check(per_call == [want] * len(lengths),
+              f"StoRM with GaGNet ({tag}): (K1, K3, NFE) per file {per_call}, expected {want}")
+        if int8:
+            check(f"int8 calibration done ({N_QUANT} convs quantized" in text,
+                  "the GaGNet StoRM calibration did not quantize the score net's convs alone")
+            k3[f"enhancement_gagnet_{tag}"] = kq.quantize_int8_cuda.launches
+            k3_shapes |= k3s
+        k1[f"enhancement_gagnet_{tag}"] = kup.upfirdn2d_cuda.launches
+        shapes.setdefault(tag == "float32", set()).update(k1s)
+        rtfs[tag] = rtf_of(text)
+        print(f"  StoRM with a GaGNet denoiser through the CLI ({tag}, N={N_STEPS} + ald): "
+              f"(K1, K3, NFE) per file {per_call[0]}; RTF "
+              + ", ".join(f"{n} {rtfs[tag][n]:.4f}" for n in lengths), flush=True)
+    err = check_k1_at("the GaGNet StoRM CLI (f32)", shapes[True], gen)
+    err_bf16 = check_k1_at("the GaGNet StoRM CLI (bf16)", shapes[False], gen)
+    k3_err = check_k3_at("the GaGNet StoRM CLI (int8 + bf16)", k3_shapes, gen)
+    # the CLI's defaults, N=50 + ald, at 4 s in bf16: the captured program against eager
+    model = build_model(dict(GAGNET_STORM, dtype="bfloat16"), device="cuda", seed=0)
+    y = load_wav(os.path.join(noisy, f"utt2_{SECONDS[2]:.1f}s.wav"))[0][0]
+    row, _, _ = graph_against_eager(f"storm gagnet pc N={DEFAULT_N} bf16, 4 s", model, y,
+                                    y.shape[-1] / SR, [], N=DEFAULT_N, corrector="ald")
+    k1["graph_against_eager_gagnet_bfloat16"] = row["k1"]
+    rtfs["graph_n50_bfloat16"] = row
+    del model
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(4)
+    waves = [synth_wav(s, i, rng) for i, s in enumerate(SERVE_SECONDS)]
+    srv = run_server("GaGNet StoRM server (bf16)", serve_args(ckpt), waves)
+    want = K1_PER_FORWARD * (SERVE_NFE - 1) * (srv["warmups"] + srv["stats"]["batches"])
+    check(srv["k1"] == want, f"the GaGNet StoRM server launched {srv['k1']}, expected {want}")
+    k1["server_gagnet_bfloat16"] = srv["k1"]
+    err_bf16 = max(err_bf16, check_k1_at("the GaGNet StoRM server", srv["k1_shapes"], gen))
+    f32 = {k: v for k, v in k1.items() if k.endswith("float32")}
+    bf16 = {k: v for k, v in k1.items() if not k.endswith("float32")}
+    return f32, bf16, k3, err, err_bf16, k3_err, rtfs
+
+
+def phase_gagnet_train(train_dir: str):
+    """Phase 67. Returns {run: phase_train's dict}."""
+    steps = TRAIN_FILES // TRAIN_B
+    runs = {"train_storm_gagnet_bf16": phase_train(
+        train_dir, "bfloat16", steps_total=steps, extra=("--backbone_denoiser", "gagnet"),
+        structure=(gagnet_structure(), storm_structure()[1]))}
+    for norm in ("IN", "BN"):
+        r = phase_train(train_dir, "float32", steps_total=steps, mode="denoiser-only",
+                        extra=("--backbone_denoiser", "gagnet", "--norm_type", norm),
+                        structure=(gagnet_structure(),))
+        check(r["launches"] == (0, 0), f"GaGNet's training launched upfirdn2d {r['launches']}")
+        runs[f"train_denoiser_gagnet_{norm}"] = r
+    print(f"  GaGNet trainers at B={TRAIN_B} x {TRAIN_FRAMES}: " + "; ".join(
+        f"{k} step {r['step_ms']:.2f} ms, peak of the steps {r['step_peak_gib']:.2f} GiB, "
+        f"upfirdn2d launches (fwd, bwd) in all {r['launches']}" for k, r in runs.items()),
+        flush=True)
+    return runs
+
+
+def phase_gagnet_bn_checkpoint(workdir: str, lengths):
+    """Phase 68. Returns the rows of the check."""
+    config = {"mode": "denoiser-only", "backbone_denoiser": "gagnet", "norm_type": "BN"}
+    model = build_model(config, device="cpu", seed=0)
+    rng = np.random.default_rng(5)
+    sd = {}
+    for k, v in model.dnn.state_dict().items():
+        sd["dnn." + k] = v
+        if k.endswith(".norm.bias"):  # torch BatchNorm's buffers, after its affine
+            stem = "dnn." + k[: -len("bias")]
+            sd[stem + "running_mean"] = torch.from_numpy(
+                (0.1 * rng.standard_normal(v.shape)).astype(np.float32))
+            sd[stem + "running_var"] = torch.from_numpy(
+                (0.5 + rng.random(v.shape)).astype(np.float32))
+            sd[stem + "num_batches_tracked"] = torch.tensor(100)
+    trainable = [k for k in sd if k.split(".")[-1] not in BN_BUFFERS]
+    shadow = [sd[k] + torch.from_numpy((0.01 * rng.standard_normal(tuple(sd[k].shape))).astype(
+        np.float32)) for k in trainable]
+    hparams = {"backbone": "gagnet", "norm_type": "BN", "n_fft": 510, "hop_length": 128,
+               "window": "hann", "spec_factor": 0.15, "spec_abs_exponent": 0.5,
+               "loss_type": "mse"}
+    ref_ckpt = os.path.join(workdir, "gagnet_bn.ckpt")
+    torch.save({"state_dict": sd, "ema": {"shadow_params": shadow},
+                "hyper_parameters": hparams}, ref_ckpt)
+    del model
+    pt = os.path.join(workdir, "gagnet_bn.pt")
+    text = captured(ref_convert.main, ["--ckpt", ref_ckpt, "--out", pt,
+                                       "--mode", "denoiser-only"])[1]
+    check(f"BatchNorm running stats saved to {batch_stats_path(pt)}" in text,
+          "the converter wrote no side file")
+    noisy, out = os.path.join(workdir, "noisy"), os.path.join(workdir, "enhanced_gagnet_bn")
+    outputs = {}
+    kup.upfirdn2d_cuda.launches = 0
+    text = run_enhancement(["--test_dir", noisy, "--enhanced_dir", out, "--ckpt", pt,
+                            "--mode", "denoiser-only", "--timeit", "--device", "cuda"], outputs)
+    check(f"BatchNorm running stats loaded from {batch_stats_path(pt)}" in text,
+          "the enhancement CLI did not load the side file")
+    check_outputs(out, lengths)
+    check(kup.upfirdn2d_cuda.launches == 0, "the GaGNet denoiser launched upfirdn2d")
+    served = served_model(pt)
+    stats = captured(load_gagnet_batch_stats, pt, served)[0]
+    check(torch.equal(served.dnn.en.last_conv[2].weight.cpu(),
+                      shadow[trainable.index("dnn.en.last_conv.2.weight")]),
+          "the converted checkpoint does not serve the EMA weights")
+    rows = {}
+    for name, n in lengths.items():
+        y = bucketed(load_wav(os.path.join(noisy, name))[0])
+        want = served.enhance(y, batch_stats=stats)[0][..., :n].cpu().numpy()
+        plain = served.enhance(y)[0][..., :n].cpu().numpy()
+        scale = float(np.abs(want).max())
+        err = float(np.abs(outputs[name] - want[0]).max())
+        moved = float(np.abs(plain - want).max())
+        rows[name] = dict(err=err, scale=scale, batch_stats_moved=moved)
+        check(err <= 1e-5 * scale, f"{name}: the CLI parts from enhance with the stats by {err:.3e}")
+        check(moved > 1e-3 * scale, f"{name}: the running statistics changed nothing ({moved:.3e})")
+    print("  the converted GaGNet-BN checkpoint through the CLI against the model's enhance "
+          "with its running statistics: " + "; ".join(
+              f"{k} max|diff| {r['err']:.3e} (scale {r['scale']:.3e}; the batch's statistics "
+              f"move it by {r['batch_stats_moved']:.3e})" for k, r in rows.items()), flush=True)
+    corpus = os.path.join(workdir, "train", "corpus")
+    write_test_split(corpus)
+    out_csv = os.path.join(workdir, "evaluate_gagnet_bn.csv")
+    text = captured(evaluate.main, [
+        "--ckpt", pt, "--mode", "denoiser-only", "--base_dir", corpus, "--num_files",
+        str(len(BATCH_SECONDS)), "--batch", str(EVAL_BATCH), "--csv", out_csv,
+        "--device", "cuda"])[1]
+    with open(out_csv) as f:
+        csv_rows = list(csv.DictReader(f))
+    check("BatchNorm running stats loaded from" in text and len(csv_rows) == len(BATCH_SECONDS)
+          and all(np.isfinite(float(r["si_sdr"])) and np.isfinite(float(r["estoi"]))
+                  for r in csv_rows), f"evaluate with the GaGNet-BN checkpoint: {csv_rows}")
+    print(f"  evaluate --mode denoiser-only with it: {len(csv_rows)} rows, mean SI-SDR "
+          f"{np.mean([float(r['si_sdr']) for r in csv_rows]):.3f} dB, ESTOI "
+          f"{np.mean([float(r['estoi']) for r in csv_rows]):.4f}", flush=True)
+    del served
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -5456,6 +5710,24 @@ def main():
                      "the ConvTasNet StoRM server", flush=True)
         td_k1, td_k1_bf16, td_err, td_bf16_err = phase_time_domain_storm(workdir, lengths, gen)
 
+        phase_header("== phase 65: GaGNet at the reference CLI's width: forwards at 1, 2.5 and 4 "
+                     "s in f32 and bf16, its captured replay", flush=True)
+        phase_gagnet(gen)
+
+        phase_header("== phase 66: StoRM with a GaGNet denoiser through the CLI (f32, bf16, int8 "
+                     f"+ bf16), its program at N={DEFAULT_N} + ald, the server", flush=True)
+        gs_k1, gs_k1_bf16, gs_k3, gs_err, gs_bf16_err, gs_k3_err, _ = phase_gagnet_storm(
+            workdir, lengths, gen)
+
+        phase_header("== phase 67: python -m storm_tpu_torch.train with GaGNet (StoRM bf16; "
+                     "denoiser-only f32, IN and BN)", flush=True)
+        gag_train = phase_gagnet_train(train_dir)
+
+        phase_header("== phase 68: a reference Lightning GaGNet-BN checkpoint through python -m "
+                     "storm_tpu_torch.compat.convert, the CLI with its side file, evaluate",
+                     flush=True)
+        phase_gagnet_bn_checkpoint(workdir, lengths)
+
     def entry(name, source, replaces, per_shape_ms, calls, err, launches, work, **extra):
         keys = ("ms", "device_ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms")
         total = {k: sum(per_shape_ms[c][k] for c in calls) if k in per_shape_ms[calls[0]]
@@ -5540,13 +5812,22 @@ def main():
     bwd_bf16_by_path["train_ncsnpplarge_bf16"] = large_train["launches"][1]
     ode_k1_err = max(ode_k1_err, large_err, td_err)
     ode_k1_bf16_err = max(ode_k1_bf16_err, large_bf16_err, td_bf16_err)
+    # GaGNet (phases 66-67): the score net's launches beside it
+    k1_by_path.update(gs_k1)
+    k1_bf16_by_path.update(gs_k1_bf16)
+    k3_bf16_by_path.update(gs_k3)
+    gs_train = gag_train["train_storm_gagnet_bf16"]["launches"]
+    k1_bf16_by_path["train_storm_gagnet_bf16"], bwd_bf16_by_path["train_storm_gagnet_bf16"] = (
+        gs_train)
+    ode_k1_err = max(ode_k1_err, gs_err)
+    ode_k1_bf16_err = max(ode_k1_bf16_err, gs_bf16_err)
     print(f"  ncsnpplarge StoRM: bf16 trainer step {large_train['step_ms']:.2f} ms at B={TRAIN_B}, "
           f"peak {large_train['step_peak_gib']:.2f} GiB; one f32 step fits at B={large_f32['B']} "
           f"(peak {large_f32['peak_gib']:.2f} GiB); ConvTasNet return_time trainer step "
           f"{ctn_train['step_ms']:.2f} ms, peak {ctn_train['step_peak_gib']:.2f} GiB", flush=True)
     nt_bwd_err = max(nt_bwd_err, nf32_bwd_err)
     nt_bwd_bf16_err = max(nt_bwd_bf16_err, nf32_bwd_bf16_err)
-    nm_k3_err = max(nm_k3_err, d_k3_err, d_bench_k3_err)
+    nm_k3_err = max(nm_k3_err, d_k3_err, d_bench_k3_err, gs_k3_err)
     print(f"  distill: f32 step {d_step} launches, {d_step_ms:.2f} ms, {d_step_peak:.2f} GiB, "
           f"gradients {d_grad_err:.3e} of their norm from plain; bf16 trainer step "
           f"{d_train['step_ms']:.2f} ms, {d_train['step_peak_gib']:.2f} GiB; RTF at 4 s "

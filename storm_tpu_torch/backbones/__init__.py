@@ -4,28 +4,15 @@ storm_tpu/backbones/__init__.py and storm_tpu/utils/registry.py).
 `get_by_name` resolves the reference's names for the model factory, the
 trainer's `--backbone_denoiser` / `--backbone_score` and the bench's
 `--backbone`: `ncsnpp`, `ncsnpplarge`, `ncsnpp12M`, `ncsnpp6M`,
-`ae-ncsnpp`, `convtasnet`. `gagnet` is registered and raises
-NotImplementedError naming its ROADMAP item.
+`ae-ncsnpp`, `convtasnet`, `gagnet`.
 """
 from __future__ import annotations
 
 from typing import Dict, List
 
 from .convtasnet import ConvTasNet
+from .gagnet import GaGNet
 from .ncsnpp import AutoEncodeNCSNpp, NCSNpp, NCSNpp6M, NCSNpp12M, NCSNppLarge
-
-
-class GaGNet:
-    """Not ported yet: constructing it raises."""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "backbone 'gagnet' is not ported yet (ROADMAP Queue 1 item 1, R4: GaGNet with its "
-            "batch statistics)")
-
-    @classmethod
-    def from_kwargs(cls, **kwargs):
-        return cls(**kwargs)
 
 
 BACKBONES: Dict[str, type] = {

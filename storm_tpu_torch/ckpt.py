@@ -23,6 +23,7 @@ import os
 import shutil
 import threading
 import traceback
+import warnings
 from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import torch
@@ -74,12 +75,33 @@ def load_checkpoint(path: str) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor],
     return ckpt["config"], ckpt["params"], ckpt["ema_params"]
 
 
+SIGNAL_KEYS = ("n_fft", "hop_length", "window", "spec_factor", "spec_abs_exponent")
+
+
+def check_config(path: str, config: Mapping[str, Any]) -> None:
+    """Warn when the config lacks a signal-processing field: the model would
+    be rebuilt with the constructor's default for it (spec_factor 0.15
+    where the trainer's default is 0.33) and serve wrong output without an
+    error (storm_tpu/ckpt.py:125-145). The trainer writes them all; a
+    hand-written or converted config may not."""
+    missing = [k for k in SIGNAL_KEYS if k not in config]
+    if missing:
+        warnings.warn(
+            f"checkpoint config {path} lacks {missing}; the model will be rebuilt with "
+            "constructor defaults for these — if training used different values (train.py "
+            "defaults differ: e.g. spec_factor 0.33 vs ctor 0.15), enhancement output will be "
+            "silently wrong", stacklevel=3)
+
+
 def load_training_checkpoint(path: str) -> Dict[str, Any]:
     """Every key of a checkpoint, config and meta decoded; `optimizer`,
-    `step` and `meta` are None where the checkpoint has none."""
+    `step` and `meta` are None where the checkpoint has none. Warns
+    (`check_config`) when the config lacks a signal-processing field."""
     payload = torch.load(path, map_location="cpu", weights_only=True)
+    config = json.loads(payload["config"])
+    check_config(path, config)
     return {
-        "config": json.loads(payload["config"]),
+        "config": config,
         "params": payload["params"],
         "ema_params": payload["ema_params"],
         "optimizer": payload.get("optimizer"),

@@ -19,6 +19,16 @@ of `StochasticRegenerationModel` (nets `denoiser_net`, `score_net`) or of
 The decoders (ConvTasNet's, ae-ncsnpp's) are lhs-dilated correlations in
 the reference and transposed convolutions here, hence the flip.
 
+A GaGNet tree (top-level `en` and `gag_{i}`) maps by `GAGNET_RULES` onto the
+reference's torch names, which the port's GaGNet carries: the gate convs'
+`w`/`b` (H, W, I, O) -> `...conv[.1].weight` (O, I, H, W) (`.1` after the
+causal pad when the kernel spans more than one frame), flax ConvTranspose
+`kernel` (H, W, I, O) -> ConvTranspose2d weight (I, O, H, W) with the taps
+flipped (flax correlates the dilated input, PyTorch convolves it), PReLU
+`alpha` -> `weight`, norm `scale`/`bias` -> `...norm.weight`/`bias`, 1-D
+kernels (K, I, O) -> (O, I, K). `batch_stats_from_jax` maps a flax
+`batch_stats` tree ({norm path: {mean, var}}) onto the port's norm names.
+
 Conversion is strict: a leaf it cannot map raises, and with `target` (a
 module or state_dict) a missing, leftover or misshapen key raises too.
 
@@ -30,6 +40,8 @@ scales by flax path.
 from __future__ import annotations
 
 from typing import Any, Dict, Mapping, Sequence, Tuple
+
+import re
 
 import numpy as np
 import torch
@@ -76,19 +88,129 @@ def _leaf(path, v: np.ndarray):
     return ".".join(mods + [name]), v
 
 
+_NORM = {"scale": "weight", "bias": "bias"}
+_WB = {"w": "weight", "b": "bias"}
+_TCM = {"in_conv_w": "in_conv.weight", "d_conv_w": "d_conv.3.weight",
+        "out_conv_w": "out_conv.2.weight"}
+_UNIT = r"(?:prelu/alpha|norm/(?:scale|bias))"
+
+# (flax path regex, port name for the match): GaGNet's modules, the
+# reference's torch names (storm_tpu/compat/torch_ckpt.py
+# convert_gagnet_state_dict); `{gate}` is the gate conv's "conv" or "conv.1"
+GAGNET_RULES = [(re.compile(rx), fn) for rx, fn in [
+    (r"^(en)/(?:meta_unet_(\d+)/in_conv_|last_|unet_(\d+)_)gate/(w|b)$",
+     lambda m: f"{_en_unit(m)}.0.{{gate}}.{_WB[m[4]]}"),
+    (r"^(en)/(?:meta_unet_(\d+)/in_conv_|last_|unet_(\d+)_)(norm|prelu)/(scale|bias|alpha)$",
+     lambda m: f"{_en_unit(m)}." + ("2.weight" if m[4] == "prelu" else f"1.norm.{_NORM[m[5]]}")),
+    (r"^en/meta_unet_(\d+)/enco_(\d+)/(w|b)$",
+     lambda m: f"en.meta_unet_list.{m[1]}.enco.{m[2]}.conv.0.{_WB[m[3]]}"),
+    (r"^en/meta_unet_(\d+)/deco_(\d+)/deconv/(kernel|bias)$",
+     lambda m: f"en.meta_unet_list.{m[1]}.deco.{m[2]}.deconv.0."
+               + ("weight" if m[3] == "kernel" else "bias")),
+    (rf"^en/meta_unet_(\d+)/(enco|deco)_(\d+)/{_UNIT}$",
+     lambda m: f"en.meta_unet_list.{m[1]}.{m[2]}.{m[3]}."
+               + ("conv" if m[2] == "enco" else "deconv") + "." + _norm_or_prelu(m[0])),
+    (r"^gag_(\d+)/(glance_block|gaze_block)/in_gated/(main|gate)_(w|b)$",
+     lambda m: f"gags.{m[1]}.{m[2]}.in_conv_{m[3]}" + (".0." if m[3] == "gate" else ".")
+               + _WB[m[4]]),
+    (r"^gag_(\d+)/(glance_block|gaze_block)/linear_(g|r|i)_(w|b)$",
+     lambda m: f"gags.{m[1]}.{m[2]}.linear_{m[3]}" + (".0." if m[3] == "g" else ".")
+               + _WB[m[4]]),
+    (r"^gag_(\d+)/(glance_block|gaze_block)/(tcn_g|tcm_r|tcm_i|tcm_ri)_(\d+)/tcm_(\d+)/"
+     r"(in_conv_w|d_conv_w|out_conv_w)$",
+     lambda m: f"gags.{m[1]}.{m[2]}.{m[3]}.{m[4]}.tcns.{m[5]}.{_TCM[m[6]]}"),
+    (r"^gag_(\d+)/(glance_block|gaze_block)/(tcn_g|tcm_r|tcm_i|tcm_ri)_(\d+)/tcm_(\d+)/"
+     r"(d|out)_(prelu/alpha|norm/scale|norm/bias)$",
+     lambda m: f"gags.{m[1]}.{m[2]}.{m[3]}.{m[4]}.tcns.{m[5]}.{m[6]}_conv."
+               + _norm_or_prelu(m[7], 0)),
+]]
+
+
+def _en_unit(m) -> str:
+    """The encoder's Sequential(gate conv, norm, PReLU) a rule matched."""
+    if m[2] is not None:
+        return f"en.meta_unet_list.{m[2]}.in_conv"
+    return "en.last_conv" if m[3] is None else f"en.unet_list.{m[3]}"
+
+
+def _norm_or_prelu(tail: str, prelu_index: int = 2) -> str:
+    """"prelu/alpha" -> "{i}.weight", "norm/scale" -> "1.norm.weight"."""
+    if tail.endswith("alpha"):
+        return f"{prelu_index}.weight"
+    return f"1.norm.{_NORM[tail.rsplit('/', 1)[1]]}"
+
+
+def is_gagnet_tree(tree: Mapping[str, Any]) -> bool:
+    """True for a flax GaGNet parameter (or batch_stats) tree."""
+    return "en" in tree and any(k.startswith("gag_") for k in tree)
+
+
+def gagnet_name(path: Sequence[str], gate_frames: int = 2) -> str:
+    """A GaGNet flax parameter path -> the port's (the reference's torch)
+    name; `gate_frames`: the kernel's frames of a gate conv's `w`/`b` (the
+    causal pad shifts its conv to index 1 when > 1). KeyError if unknown."""
+    key = "/".join(path)
+    for rx, fn in GAGNET_RULES:
+        m = rx.match(key)
+        if m:
+            return fn(m).replace("{gate}", "conv.1" if gate_frames > 1 else "conv")
+    raise KeyError(f"params_from_jax: no GaGNet mapping for {key}")
+
+
+def _gagnet_leaf(path, v: np.ndarray, gate_frames: int):
+    """(flax path, array) -> (port name, array) in the port's layout."""
+    name = gagnet_name(path, gate_frames)
+    if path[-1] == "kernel":  # ConvTranspose (H, W, I, O) -> (I, O, H, W), taps flipped
+        v = np.transpose(v[::-1, ::-1], (2, 3, 0, 1))
+    elif v.ndim == 4:
+        v = np.transpose(v, (3, 2, 0, 1))
+    elif v.ndim == 3:
+        v = np.transpose(v, (2, 1, 0))
+    return name, v
+
+
+def _flat(tree: Mapping[str, Any], path=()) -> Dict[Tuple[str, ...], Any]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_flat(v, path + (k,)))
+        else:
+            out[path + (k,)] = v
+    return out
+
+
 def module_params_from_jax(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, torch.Tensor]:
     """Convert one flax module's parameter tree (no top-level split)."""
     out: Dict[str, torch.Tensor] = {}
+    flat = _flat(tree)
+    gagnet = is_gagnet_tree(tree)
+    for path, v in flat.items():
+        v = np.asarray(v, dtype=np.float32)
+        if gagnet:
+            w = flat.get(path[:-1] + ("w",))
+            name, arr = _gagnet_leaf(path, v, 1 if w is None else np.shape(w)[0])
+        else:
+            name, arr = _leaf(path, v)
+        out[prefix + name] = torch.from_numpy(np.array(arr, dtype=np.float32, order="C"))
+    return out
 
-    def walk(node, path):
-        for k, v in node.items():
-            if isinstance(v, Mapping):
-                walk(v, path + (k,))
-            else:
-                name, arr = _leaf(path + (k,), np.asarray(v, dtype=np.float32))
-                out[prefix + name] = torch.from_numpy(np.array(arr, dtype=np.float32, order="C"))
 
-    walk(tree, ())
+def norm_name(path: Sequence[str]) -> str:
+    """A GaGNet flax norm module path (`en/last_norm`) -> the port's norm
+    module name (`en.last_conv.1.norm`), whose running statistics it holds."""
+    return gagnet_name(tuple(path) + ("scale",))[: -len(".weight")]
+
+
+def batch_stats_from_jax(tree: Mapping[str, Any], device=None) -> Dict[str, Dict[str, torch.Tensor]]:
+    """One net's flax `batch_stats` tree ({norm path: {"mean", "var"}}) ->
+    {port norm module name: {"mean", "var"}} float32 tensors on `device`,
+    for `backbones.gagnet.stats_attached`."""
+    out: Dict[str, Dict[str, torch.Tensor]] = {}
+    for path, v in _flat(tree).items():
+        if path[-1] not in ("mean", "var"):
+            raise KeyError(f"batch_stats: leaf {'/'.join(path)} is neither mean nor var")
+        out.setdefault(norm_name(path[:-1]), {})[path[-1]] = torch.as_tensor(
+            np.asarray(v, np.float32), device=device)
     return out
 
 

@@ -65,7 +65,7 @@ from .sampling.correctors import CORRECTORS
 from .sampling.predictors import PREDICTORS
 from .sampling.samplers import ODE_METHODS
 from .utils.inference import BucketedEnhancer
-from .utils.serving import calibrate_or_load_scales
+from .utils.serving import calibrate_or_load_scales, load_gagnet_batch_stats
 from .utils.streaming import stream_enhance
 
 MODEL_SR = 16000
@@ -181,6 +181,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             torch.Generator(device=device).manual_seed(1), N=args.N,
             min_channels=args.quant_min_channels, stream_chunk_s=args.stream_chunk_s,
             params_source="raw" if args.no_ema else "ema", model_sr=MODEL_SR)
+    batch_stats = load_gagnet_batch_stats(args.ckpt, model)
 
     enhancer = BucketedEnhancer(
         model, minibatch=args.batch if args.batch > 1 else None,
@@ -188,7 +189,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         sampler_type=args.sampler, predictor=args.predictor, corrector=args.corrector,
         corrector_steps=args.corrector_steps, snr=args.snr, method=args.ode_method,
         rtol=args.rtol, atol=args.atol, sweeps=args.sweeps, quant=quant,
-        deepcache=args.deepcache, deepcache_depth=args.deepcache_depth)
+        batch_stats=batch_stats, deepcache=args.deepcache,
+        deepcache_depth=args.deepcache_depth)
     gen = torch.Generator(device=device).manual_seed(0)
 
     if args.stream_chunk_s > 0:

@@ -46,7 +46,7 @@ from .sampling.predictors import PREDICTORS
 from .sampling.samplers import ODE_METHODS
 from .utils.inference import BucketedEnhancer
 from .utils.metrics import Method, pesq_wb, si_sdr, wer
-from .utils.serving import calibrate_or_load_scales
+from .utils.serving import calibrate_or_load_scales, load_gagnet_batch_stats
 from .utils.stoi import stoi
 
 MODEL_SR = 16000
@@ -145,7 +145,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         model, minibatch=args.batch, N=args.N, sampler_type=args.sampler,
         predictor=args.predictor, corrector=args.corrector,
         corrector_steps=args.corrector_steps, snr=args.snr, method=args.ode_method,
-        quant=quant, deepcache=args.deepcache, deepcache_depth=args.deepcache_depth)
+        quant=quant, batch_stats=load_gagnet_batch_stats(args.ckpt, model),
+        deepcache=args.deepcache, deepcache_depth=args.deepcache_depth)
     generator = torch.Generator(device=device).manual_seed(args.seed)
 
     metrics = ["pesq", "si_sdr", "estoi"] + (["wer"] if args.wer else [])

@@ -21,6 +21,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from ..backbones.gagnet import stats_attached
 from ..nn.qconv import scales_attached, stats_collected
 from ..signal import cplx
 from ..signal.stft import STFTConfig
@@ -123,11 +124,13 @@ class DiscriminativeModel(EnhancementModel):
     @torch.inference_mode()
     def enhance(self, y: torch.Tensor, quant: Optional[Dict[str, float]] = None,
                 generator: Optional[torch.Generator] = None, noise=None,
-                **ignored) -> Tuple[torch.Tensor, int]:
+                batch_stats: Optional[Dict] = None, **ignored) -> Tuple[torch.Tensor, int]:
         """Enhance waveforms y (B, T) -> (x_hat (B, T), 1) in one forward.
 
         `quant`: int8 activation scales of `dnn` by conv module name, from
-        `models.quant.calibrate_discriminative`. Draws no noise: `generator`
+        `models.quant.calibrate_discriminative`. `batch_stats`: the running
+        statistics of a GaGNet-BN `dnn` ({norm module name: {"mean", "var"}}),
+        used by its BN norms in place of the batch's. Draws no noise: `generator`
         and `noise` are accepted and unused, and the samplers' options are
         ignored, as the reference's `**ignored_kwargs` are."""
         T_orig = y.shape[-1]
@@ -137,7 +140,8 @@ class DiscriminativeModel(EnhancementModel):
                 x_hat = self(y_n)
             return x_hat[..., :T_orig] * norm, 1
         Y, _ = prepare_spec(y_n, self.stft_config, self.transform)
-        with self.cast_nets(), scales_attached(self.dnn, quant or {}):
+        with self.cast_nets(), scales_attached(self.dnn, quant or {}), \
+                stats_attached(self.dnn, batch_stats):
             X_hat = self(Y)
         x_hat = spec_to_wav(X_hat, self.stft_config, self.transform, length=T_orig)
         return x_hat * norm, 1

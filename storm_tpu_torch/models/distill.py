@@ -196,13 +196,17 @@ class DistilledModel(EnhancementModel):
     def enhance(self, y: torch.Tensor, generator: Optional[torch.Generator] = None,
                 noise: Optional[NoiseSource] = None,
                 quant: Optional[Dict[str, Optional[Dict[str, float]]]] = None,
-                deepcache: int = 0, **ignored_sampler_kwargs) -> Tuple[torch.Tensor, int]:
+                deepcache: int = 0, batch_stats=None,
+                **ignored_sampler_kwargs) -> Tuple[torch.Tensor, int]:
         """Enhance waveforms y (B, T) -> (x_hat (B, T), 2): the denoiser, one
         prior draw z (from `noise` if given, else `generator`), then the
         student's one-step map. The samplers' options are accepted and
         ignored, so the serving stack drives a distilled model unchanged.
         `quant`: {"denoiser": scales or None, "score": scales or None} from
-        `models.quant.calibrate_distill`. `deepcache` is refused."""
+        `models.quant.calibrate_distill`. `deepcache` is refused;
+        `batch_stats` is dropped, as the reference's `make_enhance` drops it
+        (storm_tpu/models/distill.py:255)."""
+        del batch_stats
         refuse_deepcache(deepcache)
         T_orig = y.shape[-1]
         y_n, norm = normalize_wav(y)

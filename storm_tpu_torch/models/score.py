@@ -17,6 +17,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from ..backbones.gagnet import stats_attached
 from ..nn.qconv import scales_attached, stats_collected
 from ..sampling.samplers import DeepCache, NoiseSource
 from ..sde.sdes import SDE
@@ -124,6 +125,7 @@ class ScoreModel(EnhancementModel):
         atol: float = 1e-5,
         max_steps: int = 1000,
         sweeps: int = 8,
+        batch_stats: Optional[Dict] = None,
     ) -> Tuple[torch.Tensor, int]:
         """Enhance waveforms y (B, T) -> (x_hat (B, T), nfe).
 
@@ -133,12 +135,15 @@ class ScoreModel(EnhancementModel):
         at Y, the noisy spec, and the score conditioned on Y. `quant`: int8
         activation scales of `dnn` by conv module name, from
         `models.quant.calibrate_score_model`. nfe counts score evaluations.
+        `batch_stats`: the running statistics of a GaGNet-BN `dnn`, as in
+        `StochasticRegenerationModel.enhance`.
         """
         check_sampler(self.dnn, sampler_type, deepcache, deepcache_depth, method)
         T_orig = y.shape[-1]
         y_n, norm = normalize_wav(y)
         Y, _ = prepare_spec(y_n, self.stft_config, self.transform)
-        with self.cast_nets(), scales_attached(self.dnn, quant or {}):
+        with self.cast_nets(), scales_attached(self.dnn, quant or {}), \
+                stats_attached(self.dnn, batch_stats):
             def score_fn(x, t, y_sde):  # Picard's sweeps pass y_sde tiled to their rows
                 return self.score_apply(x, t, y_sde)
 

@@ -25,6 +25,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
+from ..backbones.gagnet import stats_attached
 from ..nn.qconv import scales_attached, stats_collected
 from ..sampling.samplers import DeepCache, NoiseSource, time_major
 from ..sde.sdes import SDE
@@ -204,6 +205,7 @@ class StochasticRegenerationModel(EnhancementModel):
         atol: float = 1e-5,
         max_steps: int = 1000,
         sweeps: int = 8,
+        batch_stats: Optional[Dict[str, Optional[Dict]]] = None,
     ) -> Tuple[torch.Tensor, int]:
         """Enhance waveforms y (B, T) -> (x_hat (B, T), nfe).
 
@@ -227,15 +229,21 @@ class StochasticRegenerationModel(EnhancementModel):
         `deepcache_depth` levels per score evaluation (DeepCache-style
         serving, arXiv:2312.00858; pc and ode only); nfe counts the score
         evaluations, not the refreshes, as the reference does.
+        `batch_stats`: {"denoiser": stats or None, "score": stats or None},
+        the running statistics of a GaGNet-BN net ({norm module name:
+        {"mean", "var"}}, `convert.batch_stats_from_jax`), used by its BN
+        norms for the whole call in place of the batch's statistics.
         """
         check_sampler(self.score_net, sampler_type, deepcache, deepcache_depth, method)
         T_orig = y.shape[-1]
         y_n, norm = normalize_wav(y)
         Y, _ = prepare_spec(y_n, self.stft_config, self.transform)
-        quant = quant or {}
+        quant, batch_stats = quant or {}, batch_stats or {}
         with self.cast_nets(), \
                 scales_attached(self.denoiser_net, quant.get("denoiser") or {}), \
-                scales_attached(self.score_net, quant.get("score") or {}):
+                scales_attached(self.score_net, quant.get("score") or {}), \
+                stats_attached(self.denoiser_net, batch_stats.get("denoiser")), \
+                stats_attached(self.score_net, batch_stats.get("score")):
             Y_denoised = self.forward_denoiser(Y)
             cond = self._conditioning(Y, Y_denoised)
 

@@ -60,7 +60,7 @@ from .sampling.predictors import PREDICTORS
 from .sampling.samplers import ODE_METHODS
 from .utils.inference import BucketedEnhancer
 from .utils.server import DynamicBatcher, _default_row_sizes, decode_wav_bytes, encode_wav_bytes
-from .utils.serving import calibrate_or_load_scales
+from .utils.serving import calibrate_or_load_scales, load_gagnet_batch_stats
 
 MODEL_SR = 16000
 
@@ -223,7 +223,8 @@ def build_server(args):
         model, data_parallel=args.data_parallel, seq_parallel=args.seq_parallel,
         N=args.N, sampler_type=args.sampler, predictor=args.predictor,
         corrector=args.corrector, corrector_steps=args.corrector_steps, snr=args.snr,
-        method=args.ode_method, quant=quant, deepcache=args.deepcache,
+        method=args.ode_method, quant=quant,
+        batch_stats=load_gagnet_batch_stats(args.ckpt, model), deepcache=args.deepcache,
         deepcache_depth=args.deepcache_depth)
     if args.row_sizes:
         row_sizes = sorted({int(r) for r in args.row_sizes.split(",")})

@@ -11,7 +11,8 @@ by N and the step index) and the iSTFT, with no read of a device value and
 no upload. `graphed_enhance` keeps one `Program` per key: the input's shape
 and dtype, the nets' dtypes, and every keyword that changes the program (N,
 sampler and method, corrector and its steps, snr, deepcache and its depth,
-sweeps, the int8 scales by value).
+sweeps, the int8 scales by value, and whether GaGNet's running statistics
+were supplied, by the storage of their tensors).
 
 A shape's first call runs the eager loop on the caller's stream and keeps
 nothing but its key: a shape met once (a one-off file length) costs what
@@ -74,7 +75,11 @@ def eager_reason(kw: Dict) -> Optional[str]:
 
 
 def _freeze(v):
-    """A hashable, order-free copy of a keyword value (dicts of scales)."""
+    """A hashable, order-free copy of a keyword value (dicts of scales; a
+    tensor, as GaGNet's running statistics, by its storage, which the
+    program reads at every replay)."""
+    if isinstance(v, torch.Tensor):
+        return ("tensor", v.data_ptr(), tuple(v.shape), str(v.dtype), str(v.device))
     if isinstance(v, dict):
         return tuple(sorted((k, _freeze(x)) for k, x in v.items()))
     if isinstance(v, (list, tuple)):

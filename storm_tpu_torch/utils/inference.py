@@ -46,7 +46,7 @@ class BucketedEnhancer:
     has one shape (the reference's sgmse/model.py:210-222 chunking).
     `enhance_kwargs` go to `model.enhance` (N, sampler_type, predictor,
     corrector, corrector_steps, snr, method, rtol, atol, sweeps, quant,
-    deepcache, deepcache_depth).
+    deepcache, deepcache_depth, batch_stats).
     `graphs`: every call replays its shape's captured program (on a CPU
     device: runs its body on the program's static buffers), except rk45,
     which runs eagerly; False calls `model.enhance` directly, the eager

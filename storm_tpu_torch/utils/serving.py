@@ -1,5 +1,5 @@
-"""int8 scale management for the serving CLI (counterpart of
-storm_tpu/utils/serving.py).
+"""int8 scale management and GaGNet's running statistics for the serving
+CLIs (counterpart of storm_tpu/utils/serving.py).
 
 Calibrate once on representative files, keep the scales beside the
 checkpoint with the calibration configuration, and reuse them on later runs
@@ -11,6 +11,12 @@ outlives a checkpoint written anew at the same path (training rewrites
 digest of the weights served: new weights recalibrate. As in the reference,
 the configuration holds no compute dtype: scales calibrated in float32
 serve bfloat16 and back.
+
+A GaGNet-BN checkpoint converted from the reference carries its BatchNorm
+running statistics in a side file beside the `.pt`,
+`<ckpt>.gagnet_batch_stats.json` (compat/convert.py writes it, in the JAX
+package's format and flax paths); `load_gagnet_batch_stats` validates it
+against the model and hands it to `enhance(batch_stats=...)`.
 """
 from __future__ import annotations
 
@@ -43,6 +49,26 @@ def params_digest(model: torch.nn.Module) -> str:
 
 def scale_cache_path(ckpt: str) -> str:
     return f"{ckpt}.quant_int8_scales.json"
+
+
+def batch_stats_path(ckpt: str) -> str:
+    return f"{ckpt}.gagnet_batch_stats.json"
+
+
+def load_gagnet_batch_stats(ckpt: str, model: torch.nn.Module):
+    """The running statistics of the side file beside `ckpt`, validated
+    against `model`'s norms (compat/torch_ckpt.validate_batch_stats: a
+    corrupt or mis-pathed file raises ValueError) and on its device, in the
+    form `model.enhance(batch_stats=...)` takes; None without a side file."""
+    from ..compat.torch_ckpt import load_batch_stats, model_batch_stats, validate_batch_stats
+
+    path = batch_stats_path(ckpt)
+    if not os.path.exists(path):
+        return None
+    stats = load_batch_stats(path)
+    validate_batch_stats(stats, model)
+    print(f"BatchNorm running stats loaded from {path}")
+    return model_batch_stats(stats, model, device=next(model.parameters()).device)
 
 
 def calibrate_or_load_scales(

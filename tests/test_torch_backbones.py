@@ -134,26 +134,14 @@ def test_deepcache_refuses_other_configurations_with_the_reference_message(kw):
         pnet.deep_features(torch.zeros(1, 2, 64, 32, 2), torch.ones(1), cache_depth=1)
 
 
-def test_the_gagnet_refusal_names_its_roadmap_item():
-    """The refusal's "ROADMAP Queue 1 item N" is the item of ROADMAP.md's
-    Queue 1 whose heading names GaGNet and R4."""
-    from pathlib import Path
-
-    with pytest.raises(NotImplementedError) as err:
-        backbones.get_by_name("gagnet")()
-    found = re.search(r"ROADMAP Queue 1 item (\d+), (R\d+)", str(err.value))
-    assert found, str(err.value)
-    roadmap = (Path(__file__).resolve().parent.parent / "ROADMAP.md").read_text()
-    queue = roadmap.split("### Queue 1", 1)[1].split("\n### ", 1)[0]
-    heading = re.search(rf"^{found.group(1)}\. \*\*(.*?)\*\*", queue, re.M | re.S)
-    assert heading, f"ROADMAP Queue 1 has no item {found.group(1)}"
-    assert "GaGNet" in heading.group(1) and found.group(2) in heading.group(1)
-
-
 def test_registry_names_and_the_gagnet_refusal():
+    """Every name of the reference's registry builds in the port, GaGNet
+    included (no backbone is refused any more); an unknown name raises."""
+    from storm_tpu_torch.backbones.gagnet import GaGNet
+
     assert set(backbones.get_all_names()) == set(BackboneRegistry.get_all_names())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        backbones.get_by_name("gagnet").from_kwargs(discriminative=True)
+    gagnet = backbones.get_by_name("gagnet").from_kwargs(discriminative=True, q=1, p=1)
+    assert isinstance(gagnet, GaGNet) and not gagnet.SUPPORTS_DEEPCACHE
     with pytest.raises(ValueError, match="unknown"):
         backbones.get_by_name("unet")
     for name in ("ncsnpp", "ncsnpplarge", "ncsnpp12M", "ncsnpp6M"):

@@ -105,12 +105,6 @@ def test_distill_line_has_the_reference_keys(capsys):
         assert line["value"] > 0 and (d["nfe"], d["batch"], d["quant"]) == (2, 2, quant)
 
 
-@pytest.mark.parametrize("argv,item", [(["--backbone", "gagnet"], "R4")])
-def test_unported_flags_raise(argv, item):
-    with pytest.raises(NotImplementedError, match=item):
-        bench.main([*TINY, *argv])
-
-
 def test_default_device_and_defaults():
     args = bench.parse_args([])
     assert (args.batch, args.frames, args.N, args.corrector, args.corrector_steps, args.reps,

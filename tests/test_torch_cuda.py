@@ -1125,3 +1125,80 @@ def test_graph_replay_of_the_new_nets_equals_eager_on_the_card(cuda, dtype, extr
     assert not torch.backends.cudnn.deterministic
     stats = graphs.programs_of(model).stats
     assert (stats["first_calls"], stats["captures"], stats["replays"]) == (1, 1, 2)
+
+
+GAGNET_TINY = {"backbone_denoiser": "gagnet", "n_fft": 126, "hop_length": 32, "fft_num": 128,
+               "d_feat": 64, "c": 8, "cd1": 8, "p": 1, "q": 1, "image_size": 64}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode,stats", [("regen-joint-training", False),
+                                        ("denoiser-only", False), ("denoiser-only", True)],
+                         ids=["storm", "denoiser-in", "denoiser-bn-stats"])
+def test_graph_replay_of_gagnet_equals_eager_on_the_card(cuda, dtype, mode, stats):
+    """GaGNet as StoRM's denoiser and alone (BN served with running
+    statistics): the eager call, the capture and two replays equal the eager
+    loop bit for bit at cuDNN's default flags (its transposed convs hold
+    cuDNN to deterministic algorithms themselves); no K1 launch of its own."""
+    from storm_tpu_torch.backbones.gagnet import norm_modules
+    from storm_tpu_torch.utils import graphs
+    config = dict(GRAPH_TINY, **GAGNET_TINY, mode=mode, dtype=dtype,
+                  norm_type="BN" if stats else "IN")
+    model = build_model(config, device=cuda, seed=0)
+    kw = {"N": 2, "corrector": "ald"}
+    if stats:
+        g = torch.Generator(device=cuda).manual_seed(3)
+        kw["batch_stats"] = {n: {"mean": 0.1 * torch.randn(m.norm.weight.shape[0], device=cuda,
+                                                           generator=g),
+                                 "var": 0.5 + torch.rand(m.norm.weight.shape[0], device=cuda,
+                                                         generator=g)}
+                             for n, m in norm_modules(model.dnn).items()}
+    eager = BucketedEnhancer(model, graphs=False, **kw)
+    graphed = BucketedEnhancer(model, **kw)
+    y = _graph_waves(T=2500)
+    before = kup.upfirdn2d_cuda.launches
+    for seed in (0, 1, 2, 3):
+        want, nfe = eager(y, torch.Generator(device=cuda).manual_seed(seed))
+        got, gnfe = graphed(y, torch.Generator(device=cuda).manual_seed(seed))
+        assert gnfe == nfe and np.isfinite(got).all()
+        np.testing.assert_array_equal(got, want)
+    assert not torch.backends.cudnn.deterministic
+    stats_ = graphs.programs_of(model).stats
+    assert (stats_["first_calls"], stats_["captures"], stats_["replays"]) == (1, 1, 2)
+    if mode == "denoiser-only":
+        assert kup.upfirdn2d_cuda.launches == before
+        if stats:
+            plain, _ = BucketedEnhancer(model, graphs=False)(y)  # the batch's statistics
+            assert np.abs(plain - want).max() > 1e-4
+
+
+def test_int8_storm_with_gagnet_launches_k3_for_the_score_net_alone(cuda):
+    """int8 StoRM with a GaGNet denoiser: calibration gives the denoiser no
+    scales; per call K3 launches once per quantized conv of each score
+    forward (N x 2 with ald) and K1 18 times per score forward, as the
+    module list says (GaGNet adds none)."""
+    from storm_tpu_torch.models import quant as quant_mod
+    from storm_tpu_torch.nn.qconv import quantizable_convs
+    model = build_model(dict(GRAPH_TINY, **GAGNET_TINY), device=cuda, seed=0)
+    y = torch.from_numpy(_graph_waves(T=2048)).to(cuda)
+    quant = quant_mod.calibrate_storm(model, y, N=2, min_channels=16,
+                                      generator=torch.Generator(device=cuda).manual_seed(0))
+    assert quant["denoiser"] is None and quant["score"]
+    assert set(quant["score"]) <= set(quantizable_convs(model.score_net))
+    n_calls = 0
+    real = kup.upfirdn2d
+
+    def counted(*args, **kwargs):
+        nonlocal n_calls
+        n_calls += 1
+        return real(*args, **kwargs)
+
+    with mock.patch.object(resample, "upfirdn2d", counted), torch.inference_mode():
+        model.score_net(torch.zeros(1, 3, 64, 64, 2, device=cuda), torch.ones(1, device=cuda))
+    k1, k3 = kup.upfirdn2d_cuda.launches, kq.quantize_int8_cuda.launches
+    _, nfe = model.enhance(y, N=2, corrector="ald", quant=quant,
+                           generator=torch.Generator(device=cuda).manual_seed(1))
+    torch.cuda.synchronize()
+    score_forwards = nfe - 1
+    assert kup.upfirdn2d_cuda.launches - k1 == n_calls * score_forwards
+    assert kq.quantize_int8_cuda.launches - k3 == len(quant["score"]) * score_forwards

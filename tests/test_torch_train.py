@@ -224,11 +224,7 @@ def test_cli_trains_resumes_and_enhances_on_cpu(tmp_path):
     assert sr == 16000 and x.shape == (1, 900) and np.isfinite(x).all()
 
 
-@pytest.mark.parametrize("flag", [
-    ["--backbone_score", "gagnet"],
-    ["--spatial_channels", "2"], ["--backbone_denoiser", "gagnet", "--backbone_score", "gagnet"],
-    ["--backbone_denoiser", "gagnet"],
-])
+@pytest.mark.parametrize("flag", [["--spatial_channels", "2"]])
 def test_cli_refuses_what_is_not_ported(flag, tmp_path):
     args = TRAIN_ARGS + ["--base_dir", str(tmp_path), "--nolog", "--device", "cpu"]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
