@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port (storm_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py --train_worker OUT -- <train flags>   (phase 71's worker)
 
 Phases, each of which exits non-zero on failure:
 
@@ -184,7 +185,7 @@ Phases, each of which exits non-zero on failure:
    (audio s per wall s, latency p50 and p95, batch fill), no error, exact
    launch counts, K1 against plain at every shape it gave it (rows up to 8).
 32. `python -m storm_tpu_torch.bench` at bench.py's defaults (B=16, 256
-   frames, N=50 + ald, bf16, int8, dc3; 1 timed rep here, the extras' budget
+   frames, ald, bf16, int8, dc3) but N=10; 1 timed rep here, the extras' budget
    at 0 s: the headline line alone), then `--train` (the eager step, then
    the replayed one: its line's value and `step_ms`, beside
    `eager_step_ms`): their JSON lines; the serving run's launches held to
@@ -288,10 +289,11 @@ Phases, each of which exits non-zero on failure:
    the eager loop alone (no capture), its second captures, and a replay
    from the first call's generator state must equal it bit for bit, for
    StoRM pc N=10 + ald in f32, N=50 + ald in bf16 and int8 + bf16 (phase
-   19's scales), dc3 bf16, etd2 and picard (4 sweeps) at N=10 in bf16, the score-only model's
+   19's scales), dc3 bf16, etd2 and picard (4 sweeps) at N=10 in bf16 (dc3
+   too), the score-only model's
    pc N=10 and the denoiser-only model in bf16, and the distilled NFE-2 path
-   in bf16 and int8 + bf16; a replay from another generator state equals
-   eager from it; weights swapped in place (`swapped_in`) are served by the
+   in bf16 and int8 + bf16; a replay of the f32 N=10 program from another
+   generator state equals eager from it; weights swapped in place (`swapped_in`) are served by the
    next replay, bit for bit eager's with them.
 53. one replay each of StoRM pc N=10 + ald in bf16, int8 + bf16 and dc3
    bf16 under torch.profiler: its K1 and K3 kernel events, by name, equal
@@ -372,7 +374,7 @@ denoisers) run last:
    the CLI on phase 5's files in f32, bf16 and int8 + bf16 (N=4 + ald: per
    file the score net's 18 x 8 K1 launches and, int8, 55 x 8 K3; GaGNet
    adds none and has no quantizable conv), RTF per file; its captured
-   program at the CLI's default N=50 + ald at 4 s in bf16 against the eager
+   program at N=10 + ald at 4 s in bf16 against the eager
    loop; the server at its bf16 default on phase 15's burst.
 67. `python -m storm_tpu_torch.train` with GaGNet, 4 steps at B=8 x 256
    each, through its programs: StoRM with a GaGNet denoiser in bf16 (the
@@ -385,6 +387,34 @@ denoisers) run last:
    converted `.pt` through the enhancement CLI, which must load the side
    file and give what the model's `enhance` gives with those statistics
    (and not what it gives with the batch's); `evaluate` on the `tt` split.
+69. multichannel input: a full-width StoRM of 2 spatial channels (both
+   nets take 2-channel spectrograms: the score net's input pyramid is 12
+   channels wide, the denoiser's 4) through the CLI on synthesized
+   2-channel files of 1, 2.5 and 4 s in f32, bf16 and int8 + bf16 (N=4 +
+   ald), `--batch 4` and a 12 s 2-channel stream in bf16 (N=3): 2-channel
+   outputs of the inputs' lengths, exact K1 / K3 launches per enhancer call
+   from the module list and the calibrated scales; the server (bf16, N=3)
+   on 3-channel payloads (served on their first 2) and a mono one (400),
+   `spatial_channels` in /healthz and /stats; K1 and K3 against plain at
+   every shape these runs gave them; the program at N=50 + ald in bf16 at 4
+   s against the eager loop, bit for bit, its RTF beside phase 52's
+   one-channel row.
+70. `python -m storm_tpu_torch.train --spatial_channels 2 --dtype bfloat16`,
+   4 steps at B=8 x 256 on a 2-channel corpus through its programs (36 + 33
+   launches per step): step period and peak memory beside phase 25's; the
+   checkpoint enhances a 2-channel file; K1 and its adjoint against plain
+   at the shapes it gave them.
+71. data-parallel training on one card: `python -m storm_tpu_torch.train`
+   (f32, graphs) for 3 steps at global B=8 as one process, then as two
+   processes under gloo (STORM_TPU_* variables; 4 rows each, the same
+   seed), each a subprocess of this script (`--train_worker`, timed per
+   step with CUDA events): every step's loss and the validation loss held
+   to the one process's (rtol 5e-3 and 1e-3), step 1's summed gradients
+   within 1e-5 of the one process's by the norm, the parameters after step
+   1 within 2 lr, 36 + 33 launches per step on every process, each process's
+   step period, peak memory and the all-reduce's ms per step; only process
+   0 writes metrics and checkpoints, and its last.pt enhances; K1 and its
+   adjoint against plain at the processes' B=4 shapes.
 
 A serving path's first call of a shape runs the eager loop, its second
 also captures the shape's graph, and later calls replay it. To keep the
@@ -1062,9 +1092,9 @@ def phase_train_gradients(gen: torch.Generator, config=STORM_CONFIG):
     torch.cuda.empty_cache()
 
 
-def write_corpus(root: str):
+def write_corpus(root: str, channels: int = 1):
     """wsj0 layout: TRAIN_FILES `tr` and VALID_FILES `cv` pairs of FILE_S
-    seconds; a corpus already there is kept."""
+    seconds, of `channels` channels; a corpus already there is kept."""
     if os.path.isdir(root):
         return
     rng = np.random.default_rng(1)
@@ -1072,8 +1102,9 @@ def write_corpus(root: str):
         for kind in ("clean", "noisy"):
             os.makedirs(os.path.join(root, sub, kind))
         for i in range(n):
-            clean = synth_wav(FILE_S, i, rng)
-            noisy = clean + 0.1 * rng.standard_normal(clean.shape[-1]).astype(np.float32)
+            clean = (synth_wav(FILE_S, i, rng) if channels == 1
+                     else synth_waves(FILE_S, i, rng, channels))
+            noisy = clean + 0.1 * rng.standard_normal(clean.shape).astype(np.float32)
             save_wav(os.path.join(root, sub, "clean", f"u{i:03d}.wav"), clean, SR)
             save_wav(os.path.join(root, sub, "noisy", f"u{i:03d}.wav"), noisy, SR)
 
@@ -2746,6 +2777,7 @@ def phase_profile_train_bf16():
 
 DC_K, DC_DEPTH = 3, 1  # bench.py's production refresh interval, the default cache depth
 BENCH_REPS = 1  # the bench's timed reps here (its default, 3, in a run of its own)
+BENCH_N = 10  # the bench's serving line's N here (its default, 50, in a run of its own)
 
 
 def pass_modules(net: NCSNpp, depth: int = DC_DEPTH):
@@ -3040,8 +3072,8 @@ def phase_deepcache_server(workdir: str, gen: torch.Generator):
 
 def phase_bench(workdir: str, gen: torch.Generator):
     """Phase 32. `python -m storm_tpu_torch.bench` at bench.py's defaults
-    (B=16, 256 frames, N=50 + ald, bf16, int8, dc3) with BENCH_REPS timed
-    reps and its extras' budget at 0 s (the headline line alone: the N=30
+    (B=16, 256 frames, bf16, int8, dc3, ald) but N=BENCH_N, with BENCH_REPS
+    timed reps and its extras' budget at 0 s (the headline line alone: the N=30
     and exact extras are None), then `--train`: their JSON lines, printed;
     the serving run's K1 and K3 launches held to the counts of its calls
     (int8 calibration, the headline), the train run's to 36 + 33 per
@@ -3053,7 +3085,7 @@ def phase_bench(workdir: str, gen: torch.Generator):
 
     scales = quant_mod.load_scales(scale_cache_path(os.path.join(workdir, "storm.pt")))
     lines, k1_paths, k3_paths, k1_shapes, k3_shapes = {}, {}, {}, set(), set()
-    for path, extra in (("bench_serving", []), ("bench_train", ["--train"])):
+    for path, extra in (("bench_serving", ["--N", str(BENCH_N)]), ("bench_train", ["--train"])):
         torch.cuda.empty_cache()
         kup.upfirdn2d_cuda.launches = kq.quantize_int8_cuda.launches = 0
         kup.upfirdn2d_bwd_cuda.launches = 0
@@ -3066,17 +3098,18 @@ def phase_bench(workdir: str, gen: torch.Generator):
         lines[path] = line
         d = line["detail"]
         calls = 1 + BENCH_REPS  # a warm-up call (eager, then the capture), then the timed reps
-        if extra:  # the eager steps (one untimed), then the program's (two untimed)
+        if path == "bench_train":  # the eager steps (one untimed), then the program's (two untimed)
             steps = 1 + BENCH_REPS * 5 + 2 + BENCH_REPS * 5
             want = (STEP_FWD * steps, 0, STEP_BWD * steps)
             check(line["metric"] == "train_utt_per_sec_per_chip", f"{path}: {line}")
         else:
-            check(line["metric"] == "audio_sec_per_sec_per_chip_50step_pc" and d["nfe"] == DEFAULT_NFE
+            check(line["metric"] == "audio_sec_per_sec_per_chip_50step_pc"
+                  and d["nfe"] == 1 + 2 * BENCH_N
                   and d["exact_nfe101_audio_sec_per_sec"] is None
                   and d["storm_default_nfe31_audio_sec_per_sec"] is None,
                   f"{path}: {line}")
-            k1_h, k3_h = dc_call_launches(DEFAULT_N, 2, scales)
-            want = (K1_PER_FORWARD * calib_forwards(min(DEFAULT_N, 10), probes=4) + calls * k1_h,
+            k1_h, k3_h = dc_call_launches(BENCH_N, 2, scales)
+            want = (K1_PER_FORWARD * calib_forwards(min(BENCH_N, 10), probes=4) + calls * k1_h,
                     calls * k3_h, 0)
         got = (kup.upfirdn2d_cuda.launches, kq.quantize_int8_cuda.launches,
                kup.upfirdn2d_bwd_cuda.launches)
@@ -3084,13 +3117,14 @@ def phase_bench(workdir: str, gen: torch.Generator):
               flush=True)
         check(got == want, f"{path}: launches {got}, expected {want}")
         check({s[-1] for s in k1s} == {BF16}, f"{path} gave upfirdn2d {k1s}")
-        check({(s[0], *s[2:5]) for s in bwds} == (set(k1_bwd_calls()) if extra else set())
+        train_run = path == "bench_train"
+        check({(s[0], *s[2:5]) for s in bwds} == (set(k1_bwd_calls()) if train_run else set())
               and {s[1] for s in bwds} <= {16} and {s[-1] for s in bwds} <= {BF16},
               f"{path} gave upfirdn2d's adjoint {sorted(bwds, key=str)}")
         k1_paths[path], k3_paths[path], bwd = got
         k1_shapes |= k1s
         k3_shapes |= k3s
-        bwd_shapes = bwds if extra else None
+        bwd_shapes = bwds if train_run else None
     print(f"  bench line: {json.dumps(lines['bench_serving'])}", flush=True)
     d = lines["bench_train"]["detail"]
     print(f"  bench --train line: {json.dumps(lines['bench_train'])}; the replayed step "
@@ -4279,10 +4313,10 @@ def phase_graph_equals_eager(workdir: str, models, rows):
     ald bf16, at B=4 on the 2.5 s bucket: the shape's first call (the eager
     loop) and a replay from the same generator state, bit for bit (between
     them the second call captures), for StoRM pc N=10 + ald in f32, N=50 +
-    ald in bf16, N=10 + ald in int8 + bf16, dc3 bf16, ode etd2 N=10 bf16, picard N=10 bf16, the
+    ald in bf16, N=10 + ald in int8 + bf16, dc3 N=10 bf16, ode etd2 N=10 bf16, picard N=10 bf16, the
     score-only model's pc N=10 bf16, the denoiser-only model bf16 and the
-    distilled NFE-2 path in bf16 and int8 + bf16. A second replay from
-    another generator state equals eager from that state; weights swapped
+    distilled NFE-2 path in bf16 and int8 + bf16. A second replay of the
+    f32 program from another generator state equals eager from that state; weights swapped
     in place are served by the next replay, bit for bit eager's with them.
     Returns {config: the 4 s graph enhancer}."""
     y = load_wav(os.path.join(workdir, "noisy", f"utt2_{SECONDS[2]:.1f}s.wav"))[0][0]
@@ -4294,7 +4328,8 @@ def phase_graph_equals_eager(workdir: str, models, rows):
         ("storm pc bf16", models["bf16"], pc),
         ("storm pc N=10 int8+bf16", models["bf16"],
          dict(N=GRAPH_N, corrector="ald", quant=s)),
-        ("storm pc dc3 bf16", models["bf16"], dict(pc, deepcache=DC_K)),
+        ("storm pc N=10 dc3 bf16", models["bf16"],
+         dict(N=GRAPH_N, corrector="ald", deepcache=DC_K)),
         ("storm ode etd2 N=10 bf16", models["bf16"],
          dict(N=GRAPH_N, sampler_type="ode", method=ODE_METHOD)),
         ("storm picard N=10 bf16", models["bf16"],
@@ -4309,10 +4344,12 @@ def phase_graph_equals_eager(workdir: str, models, rows):
         _, enhancers[what], _ = graph_against_eager(f"{what}, 4 s", model, y, audio, rows, **kw)
 
     # another generator state, on the same program
-    enh, eager = enhancers["storm pc bf16"], BucketedEnhancer(models["bf16"], graphs=False, **pc)
-    got, want = enh(y, cuda_gen(2))[0], eager(y, cuda_gen(2))[0]
+    short = dict(N=GRAPH_N, corrector="ald")
+    enh = enhancers["storm pc N=10 f32"]
+    got, want = enh(y, cuda_gen(2))[0], BucketedEnhancer(models["f32"], graphs=False,
+                                                          **short)(y, cuda_gen(2))[0]
     err = float(np.abs(got - want).max())
-    print(f"  storm pc bf16, 4 s, another generator state: max|replay - eager| {err:.3e}",
+    print(f"  storm pc N=10 f32, 4 s, another generator state: max|replay - eager| {err:.3e}",
           flush=True)
     check(err == 0.0, f"a replay from another state parts from eager by {err:.3e}")
 
@@ -5277,13 +5314,13 @@ def phase_gagnet_storm(workdir: str, lengths, gen: torch.Generator):
     err = check_k1_at("the GaGNet StoRM CLI (f32)", shapes[True], gen)
     err_bf16 = check_k1_at("the GaGNet StoRM CLI (bf16)", shapes[False], gen)
     k3_err = check_k3_at("the GaGNet StoRM CLI (int8 + bf16)", k3_shapes, gen)
-    # the CLI's defaults, N=50 + ald, at 4 s in bf16: the captured program against eager
+    # pc + ald at N=GRAPH_N, at 4 s in bf16: the captured program against eager
     model = build_model(dict(GAGNET_STORM, dtype="bfloat16"), device="cuda", seed=0)
     y = load_wav(os.path.join(noisy, f"utt2_{SECONDS[2]:.1f}s.wav"))[0][0]
-    row, _, _ = graph_against_eager(f"storm gagnet pc N={DEFAULT_N} bf16, 4 s", model, y,
-                                    y.shape[-1] / SR, [], N=DEFAULT_N, corrector="ald")
+    row, _, _ = graph_against_eager(f"storm gagnet pc N={GRAPH_N} bf16, 4 s", model, y,
+                                    y.shape[-1] / SR, [], N=GRAPH_N, corrector="ald")
     k1["graph_against_eager_gagnet_bfloat16"] = row["k1"]
-    rtfs["graph_n50_bfloat16"] = row
+    rtfs[f"graph_n{GRAPH_N}_bfloat16"] = row
     del model
     torch.cuda.empty_cache()
     rng = np.random.default_rng(4)
@@ -5396,6 +5433,455 @@ def phase_gagnet_bn_checkpoint(workdir: str, lengths):
     return rows
 
 
+# --- multichannel input (phases 69-70) and data-parallel training (phase 71)
+
+D2 = 2  # the multichannel phases' spatial channels
+D2_CONFIG = dict(STORM_CONFIG, spatial_channels=D2)
+# phase 69's 2-channel requests to the server (seconds), from as many clients
+D2_SERVE_SECONDS = (1.0, 2.5, 4.0, 4.0)
+# phase 71: steps of each run, the global batch's rows per process
+DP_STEPS, DP_PROCESSES = 3, 2
+DP_TIMEOUT_S = 600
+
+
+def synth_waves(seconds: float, i: int, rng: np.random.Generator, channels: int = D2):
+    """`channels` channels of `synth_wav`, each its own tone and noise: (channels, n)."""
+    return np.stack([synth_wav(seconds, i + 7 * c, rng) for c in range(channels)])
+
+
+def write_d2_wavs(directory: str, seconds, prefix: str, seed: int):
+    """One 2-channel synthesized file per entry of `seconds`; {name: samples}."""
+    os.makedirs(directory)
+    rng = np.random.default_rng(seed)
+    lengths = {}
+    for i, s in enumerate(seconds):
+        name = f"{prefix}{i}_{s:.1f}s.wav"
+        save_wav(os.path.join(directory, name), synth_waves(s, i, rng), SR)
+        lengths[name] = int(s * SR)
+    return lengths
+
+
+def check_d2_outputs(out: str, lengths):
+    for name, n in lengths.items():
+        x, sr = load_wav(os.path.join(out, name))
+        check(sr == SR and x.shape == (D2, n), f"{name}: output shape {x.shape}, expected "
+                                               f"({D2}, {n})")
+        check(bool(np.isfinite(x).all()), f"{name}: output not finite")
+
+
+def phase_d2_serving(workdir: str, graph_rows, gen: torch.Generator):
+    """Phase 69. Returns ({path: K1 launches} f32, bf16, {path: K3
+    launches}, K1's max error f32, bf16, K3's)."""
+    model = build_model(D2_CONFIG, device="cpu", seed=0)
+    ckpt = os.path.join(workdir, "storm_d2.pt")
+    save_checkpoint(ckpt, D2_CONFIG, model.state_dict())
+    del model
+    noisy = os.path.join(workdir, "noisy_d2")
+    lengths = write_d2_wavs(noisy, SECONDS, "d2_", seed=6)
+    base = ["--test_dir", noisy, "--ckpt", ckpt, "--mode", "storm", "--timeit",
+            "--device", "cuda"]
+    stream_dir = os.path.join(workdir, "stream_noisy_d2")
+    stream = write_d2_wavs(stream_dir, (STREAM_S,), "long_d2_", seed=8)
+    bf16 = ("--dtype", "bfloat16")
+    k1, k3, shapes, k3_shapes = {}, {}, {True: set(), False: set()}, set()
+    # (path, N, files, enhancer calls: one a file, one a bucket of --batch rows,
+    # one for the 12 s file's 8 chunks, extra flags)
+    for tag, n_steps, files, calls, extra in (
+            ("float32", N_STEPS, lengths, len(SECONDS), ()),
+            ("bfloat16", N_STEPS, lengths, len(SECONDS), bf16),
+            ("int8_bfloat16", N_STEPS, lengths, len(SECONDS), (*bf16, "--quant", "int8")),
+            (f"batch{CLI_BATCH}_bfloat16", SERVE_N, lengths, len(SECONDS),
+             (*bf16, "--batch", str(CLI_BATCH))),
+            ("streaming_bfloat16", SERVE_N, stream, 1,
+             (*bf16, "--stream_chunk_s", str(STREAM_CHUNK_S), "--stream_overlap_s",
+              str(STREAM_OVERLAP_S)))):
+        out = os.path.join(workdir, f"enhanced_d2_{tag}")
+        argv = base + ["--enhanced_dir", out, "--N", str(n_steps), *extra]
+        if files is stream:
+            argv[1] = stream_dir
+        nfe = 1 + 2 * n_steps
+        kup.upfirdn2d_cuda.launches = kq.quantize_int8_cuda.launches = 0
+        t0 = time.perf_counter()
+        with shapes_recorded() as (k1s, k3s), calls_counted() as per_call:
+            text = run_enhancement(argv)
+        wall = time.perf_counter() - t0
+        check_d2_outputs(out, files)
+        nq = (0, 0)
+        if "int8" in tag:
+            scales = quant_mod.load_scales(scale_cache_path(ckpt))
+            nq = (n_quantized(scales["denoiser"]), n_quantized(scales["score"]))
+            check(f"int8 calibration done ({sum(nq)} convs quantized" in text and min(nq) > 0,
+                  f"the D=2 int8 calibration quantized {nq}")
+            k3[f"enhancement_d2_{tag}"] = kq.quantize_int8_cuda.launches
+            k3_shapes |= k3s
+        want = (K1_PER_FORWARD * nfe, nq[0] + nq[1] * (nfe - 1), nfe)
+        check(per_call == [want] * calls,
+              f"D=2 {tag}: (K1, K3, NFE) per call {per_call}, expected {want} x {calls}")
+        k1[f"enhancement_d2_{tag}"] = kup.upfirdn2d_cuda.launches
+        shapes[tag == "float32"].update(k1s)
+        rtf = rtf_of(text)
+        print(f"  D={D2} {tag} through the CLI ({len(files)} file(s), N={n_steps} + ald): "
+              f"{wall:.2f} s wall; (K1, K3, NFE) per call {per_call[0]} x {len(per_call)}"
+              + (f"; RTF " + ", ".join(f"{n} {v:.4f}" for n, v in rtf.items()) if rtf else "")
+              + (f"; {nq[0]} + {nq[1]} convs quantized" if nq[0] else ""), flush=True)
+    check(any(s[2] == 2 * D2 * 3 for s in shapes[True]),
+          f"no K1 call at the score net's {2 * D2 * 3}-channel input pyramid: {shapes[True]}")
+    err = check_k1_at("the D=2 CLI (f32)", shapes[True], gen)
+    err_bf16 = check_k1_at("the D=2 CLI, --batch and streaming (bf16)", shapes[False], gen)
+    k3_err = check_k3_at("the D=2 int8 + bf16 CLI", k3_shapes, gen)
+
+    # the server with 2-channel payloads (the first 2 of 3 channels) and a mono one
+    args = serve.build_argparser().parse_args(
+        ["--ckpt", ckpt, "--mode", "storm", "--port", "0", "--batch", str(CLI_BATCH),
+         "--N", str(SERVE_N), "--device", "cuda"])
+    rng = np.random.default_rng(9)
+    waves = [synth_waves(s, i, rng, channels=3) for i, s in enumerate(D2_SERVE_SECONDS)]
+    kup.upfirdn2d_cuda.launches = 0
+    with shapes_recorded() as (srv_shapes, _):
+        (httpd, batcher), _ = captured(serve.build_server, args)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        try:
+            host, port = httpd.server_address[:2]
+            health = json.loads(http_call(host, port, "GET", "/healthz")[2])
+            with concurrent.futures.ThreadPoolExecutor(len(waves)) as pool:
+                t0 = time.perf_counter()
+                replies = list(pool.map(lambda w: http_call(host, port, "POST", "/enhance",
+                                                            encode_wav_bytes(w, SR)), waves))
+                wall = time.perf_counter() - t0
+            mono = http_call(host, port, "POST", "/enhance", encode_wav_bytes(waves[0][0], SR))
+            stats = json.loads(http_call(host, port, "GET", "/stats")[2])
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            batcher.close()
+            thread.join(timeout=60)
+    torch.cuda.synchronize()
+    for (status, headers, payload, _), w in zip(replies, waves):
+        check(status == 200, f"D=2 server: reply {status}: {payload[:300]!r}")
+        x, _ = decode_wav_bytes(payload)
+        check(x.shape == (D2, w.shape[-1]) and bool(np.isfinite(x).all())
+              and int(headers["X-NFE"]) == SERVE_NFE, f"D=2 server: a reply of {x.shape}")
+    check(mono[0] == 400 and b"1 channels, model needs 2" in mono[2],
+          f"D=2 server: a mono payload got {mono[0]} {mono[2][:200]!r}")
+    check(health["spatial_channels"] == D2 and stats["spatial_channels"] == D2
+          and stats["requests"] == len(waves) and stats["errors"] == 0,
+          f"D=2 server: /healthz {health.get('spatial_channels')}, /stats {stats}")
+    want = K1_PER_FORWARD * SERVE_NFE * stats["batches"]
+    check(kup.upfirdn2d_cuda.launches == want,
+          f"the D=2 server launched {kup.upfirdn2d_cuda.launches}, expected {want}")
+    k1["server_d2_bfloat16"] = want
+    audio_s = sum(w.shape[-1] for w in waves) / SR
+    print(f"  D={D2} server (bf16, N={SERVE_N}): {len(waves)} 3-channel requests served on "
+          f"their first 2 in {stats['batches']} batches, {audio_s / wall:.4f} audio s per wall "
+          f"s; a mono payload answered {mono[0]}; /healthz and /stats spatial_channels "
+          f"{health['spatial_channels']}", flush=True)
+    err_bf16 = max(err_bf16, check_k1_at("the D=2 server", srv_shapes, gen))
+
+    # the CLI's defaults, N=50 + ald, at 4 s in bf16: the captured program against
+    # eager, beside phase 52's D=1 row of this run
+    model = build_model(dict(D2_CONFIG, dtype="bfloat16"), device="cuda", seed=0)
+    y = load_wav(os.path.join(noisy, f"d2_2_{SECONDS[2]:.1f}s.wav"))[0]
+    row, _, _ = graph_against_eager(f"storm D={D2} pc N={DEFAULT_N} bf16, 4 s", model, y,
+                                    y.shape[-1] / SR, [], N=DEFAULT_N, corrector="ald")
+    k1["graph_against_eager_d2_bfloat16"] = row["k1"]
+    d1 = next(r for r in graph_rows if r["what"] == "storm pc bf16, 4 s")
+    print(f"  N={DEFAULT_N} + ald bf16 at 4 s: D={D2} replay RTF {row['graph_rtf']:.4f} "
+          f"against D=1's {d1['graph_rtf']:.4f} (phase 52, this run; "
+          f"{row['graph_rtf'] / d1['graph_rtf']:.3f}x); eager {row['eager_rtf']:.4f} against "
+          f"{d1['eager_rtf']:.4f}", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    f32 = {k: v for k, v in k1.items() if k.endswith("float32")}
+    bf16 = {k: v for k, v in k1.items() if not k.endswith("float32")}
+    return f32, bf16, k3, err, err_bf16, k3_err
+
+
+def phase_d2_train(workdir: str, train_bf16, gen: torch.Generator):
+    """Phase 70. Returns (phase_train's dict, K1's bf16 error, its adjoint's)."""
+    root = os.path.join(workdir, "train_d2")
+    write_corpus(os.path.join(root, "corpus"), channels=D2)
+    os.makedirs(os.path.join(root, "noisy_one"))
+    save_wav(os.path.join(root, "noisy_one", "one.wav"),
+             synth_waves(1.0, 3, np.random.default_rng(2)), SR)
+    with shapes_recorded() as (k1s, _), adjoint_shapes_recorded() as bwds:
+        r = phase_train(root, "bfloat16", steps_total=TRAIN_FILES // TRAIN_B,
+                        extra=("--spatial_channels", str(D2)), tag="d2_")
+    print(f"  D={D2} bf16 step {r['step_ms']:.2f} ms, peak of the steps "
+          f"{r['step_peak_gib']:.2f} GiB, against D=1's {train_bf16['step_ms']:.2f} ms and "
+          f"{train_bf16['step_peak_gib']:.2f} GiB (phase 25, this run; "
+          f"{r['step_ms'] / train_bf16['step_ms']:.3f}x)", flush=True)
+    return (r, check_k1_at("the D=2 trainer", k1s, gen),
+            check_k1_bwd_at("the D=2 trainer", bwds, gen))
+
+
+GATE_ENV = "CHIP_SMOKE_TRAIN_GATE"  # a file the train worker waits for before it trains
+
+
+def train_worker(out: str, argv) -> None:
+    """`python3 chip_smoke.py --train_worker OUT -- <train flags>` (phase 71):
+    `python -m storm_tpu_torch.train` in this process, with every step timed
+    between CUDA events (the loop gains no sync), the kernels' launches per
+    step and the shapes given to upfirdn2d and its adjoint recorded, and the
+    parameters after the first step and the gradients Adam read there (across
+    processes: summed) written to OUT.step1.pt (by process 0);
+    writes what it measured to OUT as JSON, with the wall-clock times at
+    which it started, passed the gate (the file that GATE_ENV names, if set:
+    its start-up overlaps another run's training), took its first step and
+    ended its training."""
+    times = {"start": time.time()}
+    resolve_device("cuda")
+    gate = os.environ.get(GATE_ENV)
+    if gate:
+        deadline = time.perf_counter() + DP_TIMEOUT_S
+        while not os.path.exists(gate):
+            check(time.perf_counter() < deadline, f"the train worker's gate {gate} never opened")
+            time.sleep(0.05)
+    times["gate"] = time.time()
+    steps, runs = [], []
+    original = train_graphs.TrainPrograms.step
+
+    def timed_step(programs, arrays, generator):
+        if not runs:
+            runs.append(programs)
+            times["first_step"] = time.time()
+        before = (kup.upfirdn2d_cuda.launches, kup.upfirdn2d_bwd_cuda.launches)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        aux = original(programs, arrays, generator)
+        end.record()
+        steps.append(dict(start=start, end=end, launches=(
+            kup.upfirdn2d_cuda.launches - before[0], kup.upfirdn2d_bwd_cuda.launches - before[1])))
+        if len(steps) == 1 and programs.world.is_main:
+            torch.save({"params": {k: v.detach().cpu()
+                                   for k, v in programs.model.state_dict().items()},
+                        "grads": [p.grad.detach().cpu() for p in programs.params]},
+                       out + ".step1.pt")
+        return aux
+
+    kup.upfirdn2d_cuda.launches = kup.upfirdn2d_bwd_cuda.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(train_graphs.TrainPrograms, "step", timed_step), \
+            shapes_recorded() as (k1s, _), adjoint_shapes_recorded() as bwds:
+        train.main(argv)
+    torch.cuda.synchronize()
+    times["trained"] = time.time()
+    (programs,) = runs
+    st = programs.stats
+    record = dict(
+        rank=programs.world.rank, size=programs.world.size, backend=programs.world.backend,
+        periods_ms=[steps[i - 1]["end"].elapsed_time(steps[i]["end"])
+                    for i in range(1, len(steps))],
+        calls_ms=[s["start"].elapsed_time(s["end"]) for s in steps],
+        launches=[s["launches"] for s in steps],
+        totals=(kup.upfirdn2d_cuda.launches, kup.upfirdn2d_bwd_cuda.launches),
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        reserved_gib=torch.cuda.max_memory_reserved() / 2 ** 30,
+        allreduce_ms=1e3 * st["allreduce_s"] / max(st["allreduces"], 1),
+        allreduces=st["allreduces"], captures=st["captures"], replays=st["replays"],
+        flat_mib=(programs.flat.numel() * 4 / 2 ** 20 if programs.flat is not None else 0),
+        k1_shapes=[[*s[:-1], str(s[-1])] for s in k1s],
+        bwd_shapes=[[*s[:-1], str(s[-1])] for s in bwds], times=times)
+    with open(out, "w") as f:
+        json.dump(record, f)
+
+
+def _shapes(rows):
+    return {(*r[:-1], getattr(torch, r[-1].split(".")[-1])) for r in rows}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class Workers:
+    """`processes` train workers started now (one without the STORM_TPU_*
+    variables; several as one gloo group on a free port), each writing its
+    output to a file; `gate`: a file they wait for before they train.
+    `finish` waits for them (DP_TIMEOUT_S in all), prints their output and
+    returns their records by rank; every process is stopped before it
+    returns."""
+
+    def __init__(self, argv, log_dir: str, out: str, processes: int, gate=None):
+        self.out, self.processes, self.started = out, processes, time.time()
+        port = _free_port()
+        env = {k: v for k, v in os.environ.items() if not k.startswith("STORM_TPU_")}
+        if gate:
+            env[GATE_ENV] = gate
+        self.procs, self.logs = [], []
+        try:
+            for rank in range(processes):
+                penv = dict(env) if processes == 1 else dict(
+                    env, STORM_TPU_COORDINATOR=f"127.0.0.1:{port}",
+                    STORM_TPU_NUM_PROCESSES=str(processes), STORM_TPU_PROCESS_ID=str(rank))
+                self.logs.append(open(f"{out}.{rank}.log", "w"))  # a full pipe cannot stall it
+                self.procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--train_worker",
+                     f"{out}.{rank}", "--", *argv, "--log_dir", log_dir],
+                    env=penv, stdout=self.logs[-1], stderr=subprocess.STDOUT))
+        except BaseException:
+            self.stop()
+            raise
+
+    def stop(self) -> None:
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in self.logs:
+            f.close()
+
+    def finish(self):
+        try:
+            deadline = self.started + DP_TIMEOUT_S
+            for p in self.procs:
+                p.wait(timeout=max(1.0, deadline - time.time()))
+        finally:
+            self.stop()
+        texts = [open(f"{self.out}.{rank}.log").read() for rank in range(self.processes)]
+        for rank, (p, text) in enumerate(zip(self.procs, texts)):
+            print("".join(f"    | [{rank}] {line}\n" for line in text.splitlines()
+                          if "socket.cpp" not in line), end="", flush=True)
+            check(p.returncode == 0,
+                  f"train worker {rank} of {self.processes} exited {p.returncode}")
+        records = []
+        for rank in range(self.processes):
+            with open(f"{self.out}.{rank}") as f:
+                records.append(json.load(f))
+        return records, texts
+
+
+def phase_data_parallel(workdir: str, gen: torch.Generator):
+    """Phase 71. Returns ({path: K1 launches}, {path: K1-bwd launches}, K1's
+    error, its adjoint's)."""
+    train_dir = os.path.join(workdir, "train")
+    corpus = os.path.join(train_dir, "corpus")  # phase 8's
+    argv = ["--mode", "regen-joint-training", "--base_dir", corpus, "--format", "wsj0",
+            "--batch_size", str(TRAIN_B), "--num_frames", str(TRAIN_FRAMES),
+            "--max_steps", str(DP_STEPS), "--num_eval_files", "0", "--log_every_n_steps", "1",
+            "--num_workers", "4", "--seed", "0", "--device", "cuda"]
+    torch.cuda.empty_cache()
+    # the two processes start up while the one process trains, and train after it
+    gate = os.path.join(workdir, "dp_gate")
+    logs = {name: os.path.join(workdir, f"logs_dp_{name}") for name in ("one", "two")}
+    t0 = time.time()
+    workers = {"two": Workers(argv, logs["two"], os.path.join(workdir, "dp_two.json"),
+                              DP_PROCESSES, gate=gate)}
+    try:
+        workers["one"] = Workers(argv, logs["one"], os.path.join(workdir, "dp_one.json"), 1)
+        finished = {"one": workers["one"].finish()}
+        open(gate, "w").close()
+        finished["two"] = workers["two"].finish()
+    finally:
+        for w in workers.values():
+            w.stop()
+    runs = {}
+    for name, (records, texts) in finished.items():
+        (run,) = os.listdir(logs[name])
+        rows = [json.loads(line)
+                for line in open(os.path.join(logs[name], run, "metrics.jsonl"))]
+        runs[name] = dict(records=records, rows=rows, texts=texts,
+                          ckpts=os.path.join(logs[name], run, "checkpoints"))
+    one, two = runs["one"], runs["two"]
+    for name, run in runs.items():
+        times = [r["times"] for r in run["records"]]
+        begin = t0 if name == "one" else max(t["gate"] for t in times)
+        print(f"  {name} process(es): launch to the worker's start "
+              f"{max(t['start'] for t in times) - t0:.1f} s; from "
+              f"{'the launch' if name == 'one' else 'the gate'} to the first step "
+              f"{max(t['first_step'] for t in times) - begin:.1f} s; the first step to the "
+              f"trainer's end {max(t['trained'] - t['first_step'] for t in times):.1f} s",
+              flush=True)
+    check(all(f"process {r} of {DP_PROCESSES}: backend gloo on cuda" in two["texts"][r]
+              for r in range(DP_PROCESSES)), "the two processes did not choose gloo on one card")
+    check(all(r["backend"] == "gloo" and r["size"] == DP_PROCESSES for r in two["records"]),
+          f"the workers' groups: {[(r['backend'], r['size']) for r in two['records']]}")
+    # the losses of every step and the validation loss, as the reference's test holds them
+    for key, rtol in (("train_loss", 5e-3), ("valid_loss", 1e-3)):
+        a = [r[key] for r in one["rows"] if key in r]
+        b = [r[key] for r in two["rows"] if key in r]
+        rel = [abs(x - y) / abs(x) for x, y in zip(a, b)]
+        print(f"  {key}: one process {[round(v, 4) for v in a]}, two {[round(v, 4) for v in b]}; "
+              f"largest relative difference {max(rel):.3e} (held at {rtol})", flush=True)
+        check(len(a) == len(b) == (DP_STEPS if key == "train_loss" else 1) and max(rel) <= rtol,
+              f"{key}: two processes {b} against one {a}")
+    # the first step's gradients, summed across the two processes, against
+    # one process's: float32 sums in another order; a gradient left unsummed
+    # is off by ~0.5 of the norm
+    s1 = torch.load(os.path.join(workdir, "dp_one.json.0.step1.pt"))
+    s2 = torch.load(os.path.join(workdir, "dp_two.json.0.step1.pt"))
+    g1, g2 = s1["grads"], s2["grads"]
+    check(len(g1) == len(g2) and all(a.shape == b.shape for a, b in zip(g1, g2)),
+          "the two runs' gradients differ in their tensors")
+    rel = float(torch.cat([(b - a).flatten() for a, b in zip(g1, g2)]).norm()
+                / torch.cat([a.flatten() for a in g1]).norm())
+    worst = max(float((b - a).norm() / max(float(a.norm()), 1e-30)) for a, b in zip(g1, g2))
+    print(f"  gradients at step 1 (two processes summed, against one): |two - one| / |one| "
+          f"{rel:.3e} over all {sum(a.numel() for a in g1)} elements (held at 1e-5), the "
+          f"largest of one tensor {worst:.3e}", flush=True)
+    check(rel <= 1e-5, f"the summed gradients part from one process's by {rel:.3e}")
+    # after the first step: Adam's first step moves an element by lr times its
+    # gradient's sign, so the runs agree within 2 lr (ROADMAP Queue 3)
+    p1, p2 = s1["params"], s2["params"]
+    lr = 1e-4
+    diff = max(float((p1[k] - p2[k]).abs().max()) for k in p1)
+    near = sum(int(((p1[k] - p2[k]).abs() > 1e-6).sum()) for k in p1)
+    print(f"  parameters after step 1: max |two - one| {diff:.3e} (held at 2 lr = {2 * lr:.0e}); "
+          f"{near} of {sum(v.numel() for v in p1.values())} elements part by more than 1e-6",
+          flush=True)
+    check(diff <= 2 * lr, f"parameters after step 1 part by {diff:.3e}")
+    check(sorted(os.listdir(two["ckpts"])) == ["best_loss.pt", "last.pt"]
+          and len(two["rows"]) == len(one["rows"]),
+          f"the two-process run wrote {os.listdir(two['ckpts'])} and {len(two['rows'])} rows")
+    want = (STEP_FWD, STEP_BWD)  # per step, at the global batch's rows or this process's
+    for name, run in runs.items():
+        for r in run["records"]:
+            # the one-process step is one program; across processes "grads" and
+            # "update", each captured at its second call and replayed at the third
+            programs = 1 if r["size"] == 1 else 2
+            check(r["launches"] == [list(want)] * DP_STEPS
+                  and r["totals"] == [STEP_FWD * (DP_STEPS + 1), STEP_BWD * DP_STEPS]
+                  and r["captures"] == programs and r["replays"] == programs,
+                  f"{name}, rank {r['rank']}: launches {r['launches']}, {r['totals']}; "
+                  f"{r['captures']} captures, {r['replays']} replays")
+            print(f"  {name} process(es), rank {r['rank']} of {r['size']} "
+                  f"({r['backend'] or 'no group'}): step periods "
+                  f"{[round(v, 2) for v in r['periods_ms']]} ms (the last a replay), calls "
+                  f"{[round(v, 2) for v in r['calls_ms']]} ms; peak {r['peak_gib']:.2f} GiB "
+                  f"allocated, {r['reserved_gib']:.2f} GiB reserved"
+                  + (f"; all-reduce of {r['flat_mib']:.1f} MiB through the host "
+                     f"{r['allreduce_ms']:.2f} ms per step ({r['allreduces']} steps)"
+                     if r["size"] > 1 else "")
+                  + f"; launches per step {r['launches'][-1]}, in all {r['totals']} (with "
+                  f"the validation batch's forward)", flush=True)
+    # only process 0 wrote the checkpoint; it serves
+    out = os.path.join(workdir, "enhanced_dp")
+    noisy = os.path.join(train_dir, "noisy_one")
+    enhancement.main(["--test_dir", noisy, "--enhanced_dir", out, "--ckpt",
+                      os.path.join(two["ckpts"], "last.pt"), "--mode", "storm", "--N", "2",
+                      "--device", "cuda"])
+    x, _ = load_wav(os.path.join(noisy, "one.wav"))
+    y, _ = load_wav(os.path.join(out, "one.wav"))
+    check(y.shape == x.shape and bool(np.isfinite(y).all()),
+          f"the two-process checkpoint enhanced to {y.shape}")
+    print("  the two-process run's last.pt (written by process 0 alone) enhanced a 1 s file at "
+          "N=2", flush=True)
+    k1 = {f"train_dp_{name}_rank{r['rank']}": r["totals"][0]
+          for name, run in runs.items() for r in run["records"]}
+    bwd = {f"train_dp_{name}_rank{r['rank']}": r["totals"][1]
+           for name, run in runs.items() for r in run["records"]}
+    fwd_shapes = set().union(*(_shapes(r["k1_shapes"]) for r in two["records"]))
+    bwd_shapes = set().union(*(_shapes(r["bwd_shapes"]) for r in two["records"]))
+    check({s[1] for s in bwd_shapes} == {TRAIN_B // DP_PROCESSES},
+          f"the two processes' backward rows {sorted({s[1] for s in bwd_shapes})}")
+    return (k1, bwd, check_k1_at("the two-process trainer", fwd_shapes, gen),
+            check_k1_bwd_at("the two-process trainer", bwd_shapes, gen))
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -5403,9 +5889,17 @@ def main():
                              "enhancement, one B=4 enhancement, one bf16 enhancement, two "
                              "bf16 train steps, one dc3 bf16 enhancement and one bench call "
                              "with and without int8 and print the device time by kernel")
+    parser.add_argument("--train_worker", default=None, metavar="OUT",
+                        help="phase 71's worker: run the training CLI on the flags after '--' "
+                             "and write what it measured to OUT (no smoke run)")
+    parser.add_argument("train_flags", nargs=argparse.REMAINDER, help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         fail("no CUDA device: chip_smoke.py runs on a card only")
+    if args.train_worker:
+        flags = args.train_flags[1:] if args.train_flags[:1] == ["--"] else args.train_flags
+        train_worker(args.train_worker, flags)
+        return
     global T_START
     t_start = T_START = time.perf_counter()
 
@@ -5715,7 +6209,7 @@ def main():
         phase_gagnet(gen)
 
         phase_header("== phase 66: StoRM with a GaGNet denoiser through the CLI (f32, bf16, int8 "
-                     f"+ bf16), its program at N={DEFAULT_N} + ald, the server", flush=True)
+                     f"+ bf16), its program at N={GRAPH_N} + ald, the server", flush=True)
         gs_k1, gs_k1_bf16, gs_k3, gs_err, gs_bf16_err, gs_k3_err, _ = phase_gagnet_storm(
             workdir, lengths, gen)
 
@@ -5727,6 +6221,20 @@ def main():
                      "storm_tpu_torch.compat.convert, the CLI with its side file, evaluate",
                      flush=True)
         phase_gagnet_bn_checkpoint(workdir, lengths)
+
+        phase_header(f"== phase 69: multichannel input (D={D2}) through the CLI (f32, bf16, int8 "
+                     f"+ bf16; --batch {CLI_BATCH}; streaming), the server, and its program at "
+                     f"N={DEFAULT_N} + ald", flush=True)
+        (d2_k1, d2_k1_bf16, d2_k3, d2_err, d2_bf16_err,
+         d2_k3_err) = phase_d2_serving(workdir, g_rows, gen)
+
+        phase_header(f"== phase 70: python -m storm_tpu_torch.train --spatial_channels {D2} "
+                     "--dtype bfloat16; its checkpoint served", flush=True)
+        d2_train, d2_train_err, d2_bwd_err = phase_d2_train(workdir, train_bf16, gen)
+
+        phase_header(f"== phase 71: data-parallel training, {DP_PROCESSES} processes on one card "
+                     "(gloo), against one process at the same global batch", flush=True)
+        dp_k1, dp_bwd, dp_err, dp_bwd_err = phase_data_parallel(workdir, gen)
 
     def entry(name, source, replaces, per_shape_ms, calls, err, launches, work, **extra):
         keys = ("ms", "device_ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms")
@@ -5821,12 +6329,22 @@ def main():
         gs_train)
     ode_k1_err = max(ode_k1_err, gs_err)
     ode_k1_bf16_err = max(ode_k1_bf16_err, gs_bf16_err)
+    # multichannel input and data-parallel training (phases 69-71)
+    k1_by_path.update(d2_k1)
+    k1_bf16_by_path.update({**d2_k1_bf16, "train_d2_bf16": d2_train["launches"][0]})
+    k3_bf16_by_path.update(d2_k3)
+    bwd_bf16_by_path["train_d2_bf16"] = d2_train["launches"][1]
+    k1_by_path.update(dp_k1)
+    bwd_by_path.update(dp_bwd)
+    ode_k1_err = max(ode_k1_err, d2_err, dp_err)
+    ode_k1_bf16_err = max(ode_k1_bf16_err, d2_bf16_err, d2_train_err)
+    nm_k3_err = max(nm_k3_err, d2_k3_err)
     print(f"  ncsnpplarge StoRM: bf16 trainer step {large_train['step_ms']:.2f} ms at B={TRAIN_B}, "
           f"peak {large_train['step_peak_gib']:.2f} GiB; one f32 step fits at B={large_f32['B']} "
           f"(peak {large_f32['peak_gib']:.2f} GiB); ConvTasNet return_time trainer step "
           f"{ctn_train['step_ms']:.2f} ms, peak {ctn_train['step_peak_gib']:.2f} GiB", flush=True)
-    nt_bwd_err = max(nt_bwd_err, nf32_bwd_err)
-    nt_bwd_bf16_err = max(nt_bwd_bf16_err, nf32_bwd_bf16_err)
+    nt_bwd_err = max(nt_bwd_err, nf32_bwd_err, dp_bwd_err)
+    nt_bwd_bf16_err = max(nt_bwd_bf16_err, nf32_bwd_bf16_err, d2_bwd_err)
     nm_k3_err = max(nm_k3_err, d_k3_err, d_bench_k3_err, gs_k3_err)
     print(f"  distill: f32 step {d_step} launches, {d_step_ms:.2f} ms, {d_step_peak:.2f} GiB, "
           f"gradients {d_grad_err:.3e} of their norm from plain; bf16 trainer step "

@@ -1,7 +1,8 @@
 """Throughput benchmark of the port on one card (counterpart of bench.py).
 
     python -m storm_tpu_torch.bench [--batch 16] [--frames 256] [--N 50] \\
-        [--quant int8|none] [--deepcache 3] [--dtype bfloat16] [--train] [--device cuda]
+        [--quant int8|none] [--deepcache 3] [--dtype bfloat16] [--train] \\
+        [--spatial_channels 1] [--device cuda]
 
 Primary metric: audio seconds enhanced per wall-clock second on one card
 at 50-step PC sampling with the reference CLI's sampler (reverse-diffusion
@@ -53,6 +54,10 @@ deepcache), one warm-up and `--reps` timed calls, under the reference's
 metric name `audio_sec_per_sec_per_chip_distill_nfe2`. Backbones other than
 ncsnpp are not ported and raise, naming their ROADMAP item.
 
+`--spatial_channels D` builds both nets for D-channel input (the trainer's
+flag, which the reference bench lacks) and runs every line on (B, D, T)
+batches.
+
 Prints ONE JSON line.
 """
 from __future__ import annotations
@@ -63,7 +68,7 @@ import json
 import os
 import sys
 import time
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -113,6 +118,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                          "one-shot student, models/distill.py) instead of the N-step sampler; "
                          "the time does not depend on the weights, so random ones measure the "
                          "program a trained student serves")
+    ap.add_argument("--spatial_channels", type=int, default=1,
+                    help="waveform channels D of both nets' input (the trainer's "
+                         "--spatial_channels): the batch is (B, D, T) for D > 1")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the kernels' plain versions")
     return ap.parse_args(argv)
@@ -170,6 +178,12 @@ def generator(device: torch.device, seed: int) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed)
 
 
+def wav_shape(args, samples: int) -> Tuple[int, ...]:
+    """The bench's wav batch: (B, T), or (B, D, T) for --spatial_channels D > 1."""
+    d = args.spatial_channels
+    return (args.batch, d, samples) if d > 1 else (args.batch, samples)
+
+
 def train_step_s(args, model, device: torch.device, graphs: bool, profile=None) -> float:
     """Seconds per joint training step at (batch, frames) on a fixed wav
     batch, through the trainer's programs (utils/train_graphs.py: from the
@@ -182,7 +196,7 @@ def train_step_s(args, model, device: torch.device, graphs: bool, profile=None) 
     gen = generator(device, 1)
     rng = np.random.default_rng(0)
     samples = (args.frames - 1) * model.stft_config.hop_length
-    batch = tuple((0.1 * rng.standard_normal((args.batch, samples))).astype(np.float32)
+    batch = tuple((0.1 * rng.standard_normal(wav_shape(args, samples))).astype(np.float32)
                   for _ in range(2))
     for _ in range(2 if graphs else 1):
         aux = programs.step(batch, gen)
@@ -225,7 +239,7 @@ def bench_distill(args, model, device: torch.device) -> dict:
     scales from `calibrate_distill` on y[:4] (bench.py:173-200)."""
     num_samples = (args.frames - 1) * model.stft_config.hop_length
     audio_sec = args.batch * num_samples / SR
-    y = torch.from_numpy((np.random.default_rng(0).standard_normal((args.batch, num_samples))
+    y = torch.from_numpy((np.random.default_rng(0).standard_normal(wav_shape(args, num_samples))
                           * 0.1).astype(np.float32)).to(device)
     quant = None
     if args.quant == "int8":
@@ -269,7 +283,7 @@ def bench_serving(args, model, device: torch.device, budget_s: float, t_start: f
     hop = model.stft_config.hop_length
     num_samples = (args.frames - 1) * hop  # the reference's crop formula
     audio_sec = args.batch * num_samples / SR
-    y = torch.from_numpy((np.random.default_rng(0).standard_normal((args.batch, num_samples))
+    y = torch.from_numpy((np.random.default_rng(0).standard_normal(wav_shape(args, num_samples))
                           * 0.1).astype(np.float32)).to(device)
 
     quant = None
@@ -360,7 +374,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     t_start = time.perf_counter()
     budget_s = extras_budget_s()
     config = {"mode": "regen-joint-training", "dtype": args.dtype,
-              "backbone_denoiser": args.backbone, "backbone_score": args.backbone}
+              "backbone_denoiser": args.backbone, "backbone_score": args.backbone,
+              "spatial_channels": args.spatial_channels}
     if args.nf:
         config["nf"] = args.nf
     model = build_model(config, device=args.device, seed=0)

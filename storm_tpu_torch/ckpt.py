@@ -14,6 +14,10 @@ three keys, so a trainer's checkpoint enhances as it is.
 loss) and `best_pesq.pt` (best in-training evaluation) in one directory, as
 the reference's manager keeps `last`, `best_loss` and `best_pesq`;
 `AsyncCheckpointManager` writes the same files from a thread.
+
+In data-parallel training only process 0 writes checkpoints (the trainer
+makes its manager, and the manager's thread, there alone), and
+`resume_training_state` reads one on process 0 and broadcasts it.
 """
 from __future__ import annotations
 
@@ -27,6 +31,8 @@ import warnings
 from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import torch
+
+from .utils.distributed import World, broadcast_
 
 
 def _map_tensors(tree, fn: Callable[[torch.Tensor], Any]):
@@ -108,6 +114,36 @@ def load_training_checkpoint(path: str) -> Dict[str, Any]:
         "step": payload.get("step"),
         "meta": json.loads(payload["meta"]) if "meta" in payload else None,
     }
+
+
+def resume_training_state(path: str, state, world: World = World()) -> Dict[str, Any]:
+    """Resume `state` (a TrainState) from the trainer's checkpoint `path`, in
+    place (the programs read the EMA and Adam's state where they are):
+    parameters, EMA, Adam's state and the step count. Process 0 reads the
+    file; every other process gets its tensors by broadcast and its meta
+    (the loop's state) from process 0. Returns the meta ({} if the
+    checkpoint has none). A checkpoint without optimizer state exits, on
+    every process."""
+    error, meta, step = None, None, None
+    if world.is_main:
+        ckpt = load_training_checkpoint(path)
+        if ckpt["optimizer"] is None or ckpt["step"] is None:
+            error = f"{path}: no optimizer state to resume from"
+        else:
+            state.model.load_state_dict(ckpt["params"], strict=True)
+            for k, v in ckpt["ema_params"].items():
+                state.ema[k].copy_(v)
+            state.optimizer.load_state_dict(ckpt["optimizer"])
+            meta, step = ckpt["meta"] or {}, ckpt["step"]
+    error, meta, step = world.agree((error, meta, step))
+    if error:
+        raise SystemExit(error)
+    opt = state.optimizer
+    broadcast_([*state.model.state_dict().values(), *state.ema.values(),
+                *(t for group in opt.param_groups for p in group["params"]
+                  for _, t in sorted(opt.state[p].items()) if torch.is_tensor(t))], world)
+    state.set_step(step)
+    return meta
 
 
 def _finite_or_none(v: Optional[float]) -> Optional[float]:

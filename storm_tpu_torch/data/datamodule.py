@@ -7,7 +7,7 @@ transcripts, for the evaluation's WER.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -26,6 +26,9 @@ class SpecsDataModule:
     num_workers: int = 8
     dummy: bool = False
     seed: int = 10
+    # data-parallel training: (process index, process count); each process
+    # loads its rows of every global training and validation batch
+    shard: Tuple[int, int] = (0, 1)
 
     def __post_init__(self):
         self.train_set: Optional[Specs] = None
@@ -51,13 +54,14 @@ class SpecsDataModule:
         if self._train_loader is None:
             self._train_loader = DataLoader(self.train_set, batch_size=self.batch_size,
                                             shuffle=True, num_workers=self.num_workers,
-                                            seed=self.seed)
+                                            seed=self.seed, shard=self.shard)
         return self._train_loader
 
     def val_dataloader(self) -> DataLoader:
-        """Every validation file in order; the last batch may be short."""
+        """Every validation file in order, this process's rows of each global
+        batch; the last batch may be short (padded, with several processes)."""
         return DataLoader(self.valid_set, batch_size=self.batch_size, shuffle=False,
-                          drop_last=False, num_workers=self.num_workers)
+                          drop_last=False, num_workers=self.num_workers, shard=self.shard)
 
     def test_dataloader(self) -> DataLoader:
         """Every test file in order; the last batch may be short."""
@@ -73,4 +77,5 @@ class SpecsAndTranscriptionsDataModule(SpecsDataModule):
         if stage == "fit":
             raise NotImplementedError("SpecsAndTranscriptionsDataModule has a test set only")
         self.test_set = SpecsAndTranscriptions(self.base_dir, "test", num_frames=self.num_frames,
-                                               hop_length=self.hop_length, dummy=self.dummy)
+                                               hop_length=self.hop_length, dummy=self.dummy,
+                                               spatial_channels=self.spatial_channels)

@@ -1,17 +1,26 @@
 """Batching iterator with thread-pool prefetch (counterpart of
-storm_tpu/data/loader.py, single process).
+storm_tpu/data/loader.py).
 
 Items are loaded by a small thread pool in a background thread, up to
 PREFETCH batches ahead of the consumer. The shuffle order is a pure
 function of (seed, epoch), so a resumed run replays the batches a continuous
 run would have seen.
+
+Data-parallel training (`shard=(index, count)`, storm_tpu/data/loader.py:
+32-57, 93-100): `batch_size` stays the global batch, and process `index` of
+`count` loads only its contiguous rows of every global batch. The order and
+the crops being pure functions of (seed, epoch) on every process, the
+processes' rows put together are the single-process batch stream. A ragged
+global tail (drop_last=False) is padded by repeating its last index, so
+that every process gets a full slice; the consumer masks the rows past the
+global count (the trainer's validation).
 """
 from __future__ import annotations
 
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterator
+from typing import Iterator, Tuple
 
 import numpy as np
 
@@ -22,7 +31,13 @@ class DataLoader:
     """Iterates (x, y) numpy batches (B, C, T), squeezed to (B, T) for C = 1."""
 
     def __init__(self, dataset, batch_size: int = 8, shuffle: bool = False,
-                 drop_last: bool = True, num_workers: int = 4, seed: int = 0):
+                 drop_last: bool = True, num_workers: int = 4, seed: int = 0,
+                 shard: Tuple[int, int] = (0, 1)):
+        self.process_index, self.process_count = shard
+        if batch_size % self.process_count:
+            raise ValueError(f"global batch_size {batch_size} not divisible by "
+                             f"{self.process_count} processes")
+        self.local_batch_size = batch_size // self.process_count
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -56,8 +71,12 @@ class DataLoader:
             if hasattr(self.dataset, "set_epoch"):
                 self.dataset.set_epoch(epoch)
         end = len(idx) - len(idx) % self.batch_size if self.drop_last else len(idx)
+        lo = self.process_index * self.local_batch_size
         for i in range(0, end, self.batch_size):
-            yield idx[i: i + self.batch_size]
+            g = idx[i: i + self.batch_size]
+            if self.process_count > 1 and len(g) < self.batch_size:
+                g = np.concatenate([g, np.full(self.batch_size - len(g), g[-1], g.dtype)])
+            yield g[lo: lo + self.local_batch_size]
 
     def __iter__(self) -> Iterator:
         q: queue.Queue = queue.Queue(maxsize=PREFETCH)

@@ -18,7 +18,10 @@ integrates the probability-flow ODE with `--ode-method` (default etd2, 2N +
 N); `--sampler picard` runs `--sweeps` Picard sweeps of it, each one
 score-net call on N rows per file. Every file goes through
 `BucketedEnhancer`, zero-padded to a multiple of 64 hops as the reference
-pads it, with noise from one torch.Generator seeded with 0.
+pads it, with noise from one torch.Generator seeded with 0. A checkpoint of
+D > 1 spatial channels (`train --spatial_channels D`) enhances each file's
+first D channels and writes a D-channel WAV; a file of fewer channels exits
+with the reference's message.
 
 `--batch k` groups the files by padded length (probed from their WAV
 headers) and enhances up to k of a group per call, each call row-padded to k
@@ -59,6 +62,7 @@ import torch
 
 from .ckpt import load_checkpoint
 from .data.audio import load_wav, save_wav, wav_info
+from .models.base import spatial_channels
 from .models.distill import refuse_deepcache
 from .models.factory import SERVING_MODES, build_model, check_checkpoint_mode
 from .sampling.correctors import CORRECTORS
@@ -159,11 +163,18 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         raise SystemExit(f"no .wav files in {args.test_dir}")
     os.makedirs(args.enhanced_dir, exist_ok=True)
 
+    D = spatial_channels(model)
+
     def load_checked(path) -> np.ndarray:
-        """(T,) float32: the file's first channel."""
+        """(T,) float32, the file's first channel; (D, T), its first D, for a
+        model of D > 1 spatial channels (enhancement.py:165-179)."""
         y, sr = load_wav(path)
         if sr != MODEL_SR:
             raise SystemExit(f"{path}: sample rate {sr}, the model needs {MODEL_SR}: resample first")
+        if D > 1:
+            if y.shape[0] < D:
+                raise SystemExit(f"{path}: has {y.shape[0]} channels, model needs {D}")
+            return y[:D]
         return y[0]
 
     def save(path, x_hat, nfe, elapsed):
@@ -224,13 +235,14 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         for i in range(0, len(files), args.batch):
             group = files[i: i + args.batch]
             waves = [load_checked(f) for f in group]
-            ys = np.stack([np.pad(y, (0, padded - y.shape[-1])) for y in waves])
+            ys = np.stack([np.pad(y, [(0, 0)] * (y.ndim - 1) + [(0, padded - y.shape[-1])])
+                           for y in waves])
             t0 = time.perf_counter()
             x_hats, nfe = enhancer(ys, gen)
             elapsed = time.perf_counter() - t0
             for f, y, x_hat in zip(group, waves, x_hats):
                 save_wav(os.path.join(args.enhanced_dir, os.path.basename(f)),
-                         x_hat[: y.shape[-1]], MODEL_SR)
+                         x_hat[..., : y.shape[-1]], MODEL_SR)
                 print(os.path.basename(f))
             if args.timeit:
                 audio_s = sum(y.shape[-1] for y in waves) / MODEL_SR

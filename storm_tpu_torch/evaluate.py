@@ -13,7 +13,8 @@ first, and each group goes through `BucketedEnhancer` in chunks of
 (int8 calibration, on the first 4 files, from its own seeded `--seed` + 1).
 Each file prints a line of its metrics; then `--- mean +/- 95% CI ---` and a
 line per metric; `--csv` writes the per-file rows. PESQ is NaN without the
-`pesq` package.
+`pesq` package. A checkpoint of D > 1 spatial channels enhances each test
+pair's first D channels and scores the first (evaluate.py:123).
 
 `--wer` evaluates the TIMIT layout's test split with its transcripts: each
 enhanced file is written to a temporary WAV and transcribed by `--asr_cmd`,
@@ -39,6 +40,7 @@ import torch
 from .ckpt import load_checkpoint
 from .data.audio import save_wav, wav_info
 from .data.datamodule import SpecsAndTranscriptionsDataModule, SpecsDataModule
+from .models.base import spatial_channels
 from .models.distill import refuse_deepcache
 from .models.factory import SERVING_MODES, build_model, check_checkpoint_mode
 from .sampling.correctors import CORRECTORS
@@ -123,20 +125,26 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     model = build_model(config, device=device)
     model.load_state_dict(params if args.no_ema else ema_params, strict=True)
 
+    D = spatial_channels(model)
     if args.wer:
-        dm = SpecsAndTranscriptionsDataModule(base_dir=args.base_dir, format="timit")
+        dm = SpecsAndTranscriptionsDataModule(base_dir=args.base_dir, format="timit",
+                                              spatial_channels=D)
     else:
-        dm = SpecsDataModule(base_dir=args.base_dir, format=args.format)
+        dm = SpecsDataModule(base_dir=args.base_dir, format=args.format, spatial_channels=D)
     dm.setup("test")
     test_set = dm.test_set
     n = len(test_set) if not args.num_files else min(args.num_files, len(test_set))
     print(f"evaluating {n} test files from {args.base_dir}")
 
+    def wave(y: np.ndarray) -> np.ndarray:
+        """A raw item's noisy (C, T) as the model takes it: (D, T), or (T,) for D = 1."""
+        return y if D > 1 else y[0]
+
     quant = None
     if args.quant == "int8":
         quant = calibrate_or_load_scales(
             model, args.mode, args.ckpt,
-            lambda: [test_set.__getitem__(i, raw=True)[1][0] for i in range(min(4, n))],
+            lambda: [wave(test_set.__getitem__(i, raw=True)[1]) for i in range(min(4, n))],
             torch.Generator(device=device).manual_seed(args.seed + 1), N=args.N,
             min_channels=args.quant_min_channels,
             params_source="raw" if args.no_ema else "ema", model_sr=MODEL_SR)
@@ -176,11 +184,14 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         for s in range(0, len(idxs), args.batch):
             group = idxs[s: s + args.batch]
             items = [test_set.__getitem__(i, raw=True) for i in group]
-            ys = [it[1][0] for it in items]
-            y_batch = np.stack([np.pad(y, (0, padded - y.shape[-1])) for y in ys])
+            ys = [wave(it[1]) for it in items]
+            y_batch = np.stack([np.pad(y, [(0, 0)] * (y.ndim - 1) + [(0, padded - y.shape[-1])])
+                                for y in ys])
             x_hats, _ = enhancer(y_batch.astype(np.float32), generator)
             for j, i in enumerate(group):
-                score_one(i, items[j][0][0], x_hats[j][: ys[j].shape[-1]],
+                x_hat = x_hats[j][..., : ys[j].shape[-1]]
+                # the metrics take the first channel (evaluate.py:123, 232-234)
+                score_one(i, items[j][0][0], x_hat[0] if D > 1 else x_hat,
                           items[j][2] if args.wer else None)
 
     print("--- mean +/- 95% CI ---")

@@ -169,6 +169,16 @@ def draw_tz(sde, t_eps: float, x: torch.Tensor,
     return t, cplx.complex_normal(x.shape[:-1], generator=generator, device=x.device)
 
 
+def spatial_channels(model) -> int:
+    """D, the waveform channels `model` takes: its first net's
+    `spatial_channels` (NCSN++), 1 for a net without the field (the
+    time-domain nets, GaGNet) and for a model without nets. The serving
+    layer expects (B, D, T) for D > 1 and (B, T) for D = 1, as the
+    reference's `BucketedEnhancer` does."""
+    nets = getattr(model, "NETS", ())
+    return int(getattr(getattr(model, nets[0]), "spatial_channels", 1)) if nets else 1
+
+
 def per_example_sum(v: torch.Tensor) -> torch.Tensor:
     """0.5 * the sum of each example's elements, (B,)."""
     return 0.5 * v.reshape(v.shape[0], -1).sum(dim=-1)

@@ -10,9 +10,13 @@ and `distill`.
 Endpoints:
     POST /enhance   16 kHz WAV in, enhanced WAV out (X-NFE and X-RTF headers;
                     X-NFE is 1 for the denoiser-only model's one forward, 2 for
-                    the distilled student's)
-    GET  /healthz   readiness and the serving configuration (mode, torch device, card)
+                    the distilled student's); a model of D > 1 spatial channels
+                    serves the payload's first D channels and answers 400 to
+                    one of fewer
+    GET  /healthz   readiness and the serving configuration (mode, torch device, card,
+                    spatial_channels)
     GET  /stats     request and batch counters, audio seconds served, batch fill,
+                    spatial_channels,
                     and under "graphs" the captured programs' counters
 
 Sampler flags and defaults are the enhancement CLI's, with the samplers
@@ -52,7 +56,7 @@ import torch
 
 from .ckpt import load_checkpoint
 from .data.audio import load_wav
-from .models.base import check_deepcache_config
+from .models.base import check_deepcache_config, spatial_channels
 from .models.distill import refuse_deepcache
 from .models.factory import SERVING_MODES, backbones_of, build_model, check_checkpoint_mode
 from .sampling.correctors import CORRECTORS
@@ -148,6 +152,7 @@ def make_handler(batcher: DynamicBatcher, info: dict, model_sr: int = MODEL_SR):
                 s["batch_fill"] = (round(s["batched_requests"] / s["row_slots"], 4)
                                    if s["row_slots"] else None)
                 s["graphs"] = getattr(batcher.enhancer, "graph_stats", None)
+                s["spatial_channels"] = info["spatial_channels"]
                 self._json(200, s)
             else:
                 self._json(404, {"error": f"unknown path {self.path}"})
@@ -165,7 +170,11 @@ def make_handler(batcher: DynamicBatcher, info: dict, model_sr: int = MODEL_SR):
             if sr != model_sr:
                 self._json(400, {"error": f"sample rate {sr} != {model_sr}; resample to 16 kHz"})
                 return
-            y = y[0]
+            D = info["spatial_channels"]
+            if y.shape[0] < D:
+                self._json(400, {"error": f"{y.shape[0]} channels, model needs {D}"})
+                return
+            y = y[:D] if D > 1 else y[0]
             t0 = time.perf_counter()
             try:
                 x_hat, nfe = batcher.submit(y)
@@ -204,6 +213,7 @@ def build_server(args):
                                args.deepcache, args.sampler, args.deepcache_depth,
                                args.ode_method)
 
+    D = spatial_channels(model)
     quant = None
     if args.quant == "int8":
         def calib():
@@ -211,7 +221,8 @@ def build_server(args):
             if not files:
                 raise SystemExit("--quant int8 needs --calib_dir with wavs (or scales cached "
                                  "beside the checkpoint)")
-            return [load_wav(f)[0][0] for f in files]
+            # (D, T) for a D-channel model: calibration sees what it serves
+            return [load_wav(f)[0][:D] if D > 1 else load_wav(f)[0][0] for f in files]
 
         quant = calibrate_or_load_scales(
             model, args.mode, args.ckpt, calib,
@@ -245,7 +256,7 @@ def build_server(args):
     lens = sorted({enhancer.padded_len(int(s * MODEL_SR)) for s in warmup_s})
     shapes = [(rows, T) for T in lens for rows in row_sizes]
     for done, (rows, T) in enumerate(shapes, 1):
-        enhancer.warm_up(np.zeros((rows, T), np.float32), generator)
+        enhancer.warm_up(np.zeros((rows, D, T) if D > 1 else (rows, T), np.float32), generator)
         print(f"warmup {done}/{len(shapes)}: rows={rows} bucket={T / MODEL_SR:.3f}s", flush=True)
 
     batcher = DynamicBatcher(enhancer, generator, max_batch=args.batch,
@@ -254,6 +265,7 @@ def build_server(args):
         "mode": args.mode, "sampler": args.sampler, "N": args.N,
         "quant": args.quant or "none", "deepcache": args.deepcache,
         "deepcache_depth": args.deepcache_depth, "batch": args.batch,
+        "spatial_channels": D,
         "device": str(enhancer.device),
         "device_name": (torch.cuda.get_device_name(enhancer.device)
                         if enhancer.device.type == "cuda" else "cpu"),

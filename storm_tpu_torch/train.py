@@ -1,4 +1,5 @@
-"""Training on the GPU (counterpart of train.py, single process).
+"""Training on the GPU (counterpart of train.py), in one process or data
+parallel across several.
 
     python -m storm_tpu_torch.train --mode regen-joint-training --base_dir corpus/ \\
         [--batch_size 8 --num_frames 256 --num_eval_files 10 --eval_N 30 \\
@@ -55,6 +56,27 @@ waveforms themselves, with no STFT on the loss path.
 and EMA from a StoRM checkpoint or a one-net (denoiser-only, score-only)
 one into a StoRM model (train.py:396-419). Without a CUDA card the default
 device raises (pass `--device cpu` for the plain versions).
+`--spatial_channels D` trains on the first D channels of every file: the
+batches are (B, D, T), both nets take D-channel spectrograms, and the
+evaluation enhances D channels and scores the first (train.py:127, 319,
+331).
+
+Data parallel (train.py:220-360): every process runs this command with
+STORM_TPU_COORDINATOR=host:port, STORM_TPU_NUM_PROCESSES=n and
+STORM_TPU_PROCESS_ID=p (utils/distributed.py: NCCL with a card per process,
+process p on cuda:p; Gloo for processes that share a card or run on the
+CPU; the choice is printed first). `--batch_size` stays the global batch:
+each process loads its rows of every global batch (the loader's `shard`),
+draws the random inputs of the whole batch and keeps its rows, and sums its
+gradients and losses with the others' before Adam and the EMA
+(utils/train_graphs.py), so that n processes compute what one does at the
+same global batch. The validation sums each process's rows, masked by
+global row index, across the processes. Only process 0 logs, writes
+`metrics.jsonl` and checkpoints, and runs the evaluation; the others wait
+for it at a barrier, and take its validation loss and metrics, so that
+early stopping and the best checkpoints are decided once for all. A resumed
+run reads the checkpoint on process 0 and broadcasts it
+(`ckpt.resume_training_state`).
 """
 from __future__ import annotations
 
@@ -72,13 +94,15 @@ import numpy as np
 import torch
 
 from . import backbones
+from .backbones.gagnet import NormSwitch
 from .ckpt import (AsyncCheckpointManager, CheckpointManager, load_checkpoint,
-                   load_training_checkpoint)
+                   resume_training_state)
 from .data.datamodule import SpecsDataModule
 from .models.base import TrainState, init_train_state, is_time_domain, swapped_in
 from .models.distill import DISTILL_METHODS
 from .models.factory import build_model, resolve_device
 from .models.storm import StochasticRegenerationModel
+from .utils.distributed import World, all_reduce_, init_from_env
 from .utils.inference import evaluate_model
 from .utils.train_graphs import TrainPrograms, use_expandable_segments
 
@@ -242,15 +266,6 @@ def check_return_time(args: argparse.Namespace, model) -> None:
         raise SystemExit(RETURN_TIME_REFUSED)
 
 
-def check_supported(args: argparse.Namespace) -> None:
-    """Raise NotImplementedError for a value this slice does not run."""
-    todo = []
-    if args.spatial_channels != 1:
-        todo.append(f"--spatial_channels {args.spatial_channels} (ROADMAP R7)")
-    if todo:
-        raise NotImplementedError("not ported yet: " + "; ".join(todo))
-
-
 def model_config(args: argparse.Namespace) -> dict:
     """The checkpoint's config: the model's flags, without the other SDE's
     (train.py:308-313)."""
@@ -319,55 +334,72 @@ def graft_pretrained(state: TrainState, path: str, net: str) -> None:
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = parse_args(argv)
+    world = init_from_env(args.device)
+    if world.size > 1:
+        print(f"process {world.rank} of {world.size}: backend {world.backend} on "
+              f"{world.device}", flush=True)
+    try:
+        train(args, world)
+    except BaseException:
+        world.close(barrier=False)  # the others fail at their next collective
+        raise
+    world.close()
+
+
+def train(args: argparse.Namespace, world: World = World()) -> None:
+    """The training run of `args`, as process `world.rank` of `world.size`."""
+    say = print if world.is_main else (lambda *a, **k: None)
     teacher = None
     if args.mode == "distill":
         config, teacher = distill_config(args)
     else:
         config = model_config(args)
-    check_supported(args)
-    device = resolve_device(args.device)
+    device = resolve_device(world.device or args.device)
     model = build_model(config, device=device, seed=args.seed).train()
     check_return_time(args, model)
+    if world.size > 1:
+        if args.batch_size % world.size:
+            raise SystemExit(f"--batch_size {args.batch_size} not divisible by "
+                             f"{world.size} processes")
+        if any(isinstance(m, NormSwitch) and m.norm_type == "BN" for m in model.modules()):
+            raise SystemExit(
+                "GaGNet with --norm_type BN takes its batch statistics over each process's "
+                "rows, not the global batch's, across processes: not ported "
+                "(ROADMAP Queue 1 item 9)")
     if teacher is not None:
         # the student starts at the teacher: params and EMA are its EMA weights,
         # and the denoiser rides along frozen, so the checkpoint serves alone
         model.load_state_dict(teacher, strict=True)
         model.with_teacher({k[len("score_net."):]: v for k, v in teacher.items()
                             if k.startswith("score_net.")})
-        print(f"distilling teacher {args.teacher_ckpt} "
+        say(f"distilling teacher {args.teacher_ckpt} "
               f"(N={args.distill_N} {args.distill_method} targets)")
     state = init_train_state(model, args.lr)
 
     dm = SpecsDataModule(base_dir=args.base_dir, format=args.format,
                          spatial_channels=args.spatial_channels, batch_size=args.batch_size,
                          hop_length=args.hop_length, num_frames=args.num_frames,
-                         num_workers=args.num_workers, dummy=args.dummy, seed=args.seed)
+                         num_workers=args.num_workers, dummy=args.dummy, seed=args.seed,
+                         shard=world.shard)
     dm.setup("fit")
-    print(f"train files: {len(dm.train_set)}, valid files: {len(dm.valid_set)}")
+    say(f"train files: {len(dm.train_set)}, valid files: {len(dm.valid_set)}")
 
     start_epoch, meta = 0, None
     if args.resume_from_checkpoint:
-        ckpt = load_training_checkpoint(args.resume_from_checkpoint)
-        if ckpt["optimizer"] is None or ckpt["step"] is None:
-            raise SystemExit(f"{args.resume_from_checkpoint}: no optimizer state to resume from")
-        model.load_state_dict(ckpt["params"], strict=True)
-        for k, v in ckpt["ema_params"].items():  # in place: the programs read the EMA there
-            state.ema[k].copy_(v)
-        state.optimizer.load_state_dict(ckpt["optimizer"])
-        state.set_step(ckpt["step"])
-        meta = ckpt["meta"] or {}
+        meta = resume_training_state(args.resume_from_checkpoint, state, world)
         if meta.get("epoch") is not None:
             start_epoch = int(meta["epoch"]) + 1
-        print(f"resumed from {args.resume_from_checkpoint} at step {state.step}, "
+        say(f"resumed from {args.resume_from_checkpoint} at step {state.step}, "
               f"epoch {start_epoch}")
     # component grafting, after a resume as in the reference (train.py:396-419)
     for path, net, what in ((args.pretrained_denoiser, "denoiser_net", "denoiser"),
                             (args.pretrained_score, "score_net", "score model")):
         if path:
             graft_pretrained(state, path, net)
-            print(f"grafted pretrained {what} from {path}")
-    programs = TrainPrograms(state, debug_nans=args.debug_nans, return_time=args.return_time)
-    print(f"training steps and validation: {programs.execution}")
+            say(f"grafted pretrained {what} from {path}")
+    programs = TrainPrograms(state, debug_nans=args.debug_nans, return_time=args.return_time,
+                             world=world)
+    say(f"training steps and validation: {programs.execution}")
 
     sde_name = {"ouve": "OUVESDE", "ouvp": "OUVPSDE"}[args.sde]
     run_name = (f"mode={args.mode}_sde={sde_name}_score={args.backbone_score}"
@@ -375,7 +407,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                 f"_data={args.format}_ch={args.spatial_channels}")
     log_dir = os.path.join(args.log_dir, run_name)
     metrics_file, ckpt_mgr, writer = None, None, None
-    if not args.nolog:
+    if not args.nolog and world.is_main:
         os.makedirs(log_dir, exist_ok=True)
         try:  # TensorBoard where it is installed, as the reference logs
             from torch.utils.tensorboard import SummaryWriter
@@ -385,7 +417,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         metrics_file = open(os.path.join(log_dir, "metrics.jsonl"), "a")
         ckpt_mgr = AsyncCheckpointManager(
             CheckpointManager(os.path.join(log_dir, "checkpoints"), config))
-        print(f"logging to {log_dir}")
+        say(f"logging to {log_dir}")
 
     def log(step: int, **metrics) -> None:
         if writer is not None:
@@ -415,7 +447,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                 if args.debug_nans and not bool(torch.isfinite(aux["loss"])):
                     raise FloatingPointError(
                         f"non-finite loss {float(aux['loss'])} at step {state.step}")
-                if state.step % args.log_every_n_steps == 0:
+                if world.is_main and state.step % args.log_every_n_steps == 0:
                     log(state.step, **{f"train_{k}": float(v) for k, v in aux.items()})
                 # a copy: the program's next replay overwrites its output
                 epoch_losses.append(aux["loss"].clone())
@@ -425,26 +457,31 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
             # validation over every file with the EMA weights, cast once per
             # batch to the compute dtype; the short last batch is padded and
-            # masked, the sum is taken on the device and read once, and the
-            # mean keeps the scale of the model's batch reduction (a sum for
-            # StoRM, train.py:548-574). Then the evaluation enhances with
-            # them (model.py:605-622); a failure is printed and logged as
-            # NaN, and training goes on
+            # its rows masked by global row index, the sum is taken on the
+            # device (across the processes) and read once, and the mean keeps
+            # the scale of the model's batch reduction (a sum for StoRM,
+            # train.py:548-575). Then the evaluation enhances with them
+            # (model.py:605-622), on process 0; a failure is printed and
+            # logged as NaN, and training goes on
             model.eval()
             gen = seeded_generator(device, args.seed, epoch, 1)
             v_sum, v_count = torch.zeros((), device=device), 0
             pesq = si_sdr = estoi = math.nan
+            rows = args.batch_size // world.size
+            row_ids = world.rank * rows + np.arange(rows)
             with swapped_in(model, state.ema):
-                for bx, by in dm.val_dataloader():
-                    n = bx.shape[0]
-                    if n < args.batch_size:
-                        widths = [(0, args.batch_size - n)] + [(0, 0)] * (bx.ndim - 1)
+                for bi, (bx, by) in enumerate(dm.val_dataloader()):
+                    if bx.shape[0] < rows:  # one process's short last batch
+                        widths = [(0, rows - bx.shape[0])] + [(0, 0)] * (bx.ndim - 1)
                         bx, by = np.pad(bx, widths), np.pad(by, widths)
+                    mask = row_ids < min(args.batch_size, len(dm.valid_set) - bi * args.batch_size)
                     # a new tensor: the program's next replay overwrites its output
-                    v_sum = v_sum + programs.validate((bx, by, np.arange(args.batch_size) < n),
-                                                      gen)
-                    v_count += n
-                if args.num_eval_files:
+                    v_sum = v_sum + programs.validate((bx, by, mask), gen)
+                    v_count += int(mask.sum())
+                if world.size > 1:
+                    total = all_reduce_(torch.stack([v_sum, v_sum.new_tensor(v_count)]), world)
+                    v_sum, v_count = total[0], int(total[1])
+                if args.num_eval_files and world.is_main:
                     eval_kwargs = {"N": args.eval_N} if args.eval_N else {}
                     # audio and spectrograms every VIS_EPOCHS epochs, where
                     # a TensorBoard writer imports (model.py:20, 624-641)
@@ -464,8 +501,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             valid_loss = float(v_sum) / v_count if v_count else math.nan
             if model.batch_reduction == "sum":
                 valid_loss *= args.batch_size
+            # process 0 evaluated: every process waits for it and takes its numbers
+            valid_loss, pesq, si_sdr, estoi = world.agree((valid_loss, pesq, si_sdr, estoi))
 
-            print(f"epoch {epoch}: train_loss={train_loss:.4f} valid_loss={valid_loss:.4f} "
+            say(f"epoch {epoch}: train_loss={train_loss:.4f} valid_loss={valid_loss:.4f} "
                   f"step={state.step} ({time.time() - t_start:.0f}s)", flush=True)
             log(state.step, train_loss_epoch=train_loss, valid_loss=valid_loss,
                 ValidationPESQ=pesq, ValidationSISDR=si_sdr, ValidationESTOI=estoi)
@@ -478,7 +517,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                               bad_epochs=bad_epochs, best_valid=best_valid, pesq=pesq,
                               estoi=estoi)
             if bad_epochs >= args.patience:
-                print(f"early stopping at epoch {epoch}")
+                say(f"early stopping at epoch {epoch}")
                 break
             if args.max_steps and state.step >= args.max_steps:
                 break
@@ -491,7 +530,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             metrics_file.close()
         if writer is not None:
             writer.close()
-    print("training done.")
+    say("training done.")
 
 
 def log_examples(writer, epoch: int, spec, audio, sr: int = 16000) -> None:

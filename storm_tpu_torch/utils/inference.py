@@ -16,7 +16,10 @@ warms up and captures, later calls replay (`warm_up` captures at once);
 `graphs=False` runs the eager loop, to compare.
 
 The model computes in its own dtype (`model.enhance` casts); the waveforms,
-the pinned upload buffers and the outputs stay float32.
+the pinned upload buffers and the outputs stay float32. A model of D > 1
+spatial channels (`--spatial_channels`) takes (D, T) utterances and (B, D,
+T) batches, as the reference's does; the D axis is part of a program's
+shape.
 
 Noise for every call comes from one `torch.Generator` owned by the caller
 (or an injected noise source), drawn in order: chunk after chunk, each chunk
@@ -30,6 +33,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..models.base import spatial_channels
 from ..sampling.samplers import NoiseSource
 from ..signal.stft import stft_real
 from .graphs import eager_reason, graphed_enhance, programs_of
@@ -39,7 +43,8 @@ from .stoi import stoi
 
 class BucketedEnhancer:
     """Enhances (B, T) float32 waveforms of any length through
-    `model.enhance`, padded to their bucket.
+    `model.enhance`, padded to their bucket; (B, D, T) for a model of D > 1
+    spatial channels.
 
     `minibatch`: enhance B rows in sequential chunks of this many rows, the
     last one row-padded with zeros to `minibatch`, so every call of a bucket
@@ -61,6 +66,7 @@ class BucketedEnhancer:
                 "data_parallel / seq_parallel serving over several GPUs is not ported yet "
                 "(ROADMAP R7)")
         self.model = model
+        self.spatial_channels = spatial_channels(model)
         self.device = next(model.parameters()).device
         self.enhance_kwargs = enhance_kwargs
         self.bucket_samples = bucket_frames * model.stft_config.hop_length
@@ -93,17 +99,26 @@ class BucketedEnhancer:
         rk45 = kw.get("sampler_type", "pc") == "ode" and kw.get("method") == "rk45"
         return self.minibatch is None and not rk45
 
+    def batched(self, y: np.ndarray) -> Tuple[np.ndarray, bool]:
+        """(the waveforms as a batch (B, T) or (B, D, T), whether `y` was one
+        utterance: (T,) or, for D > 1, (D, T)). A D > 1 batch with another
+        channel count raises ValueError (the reference's)."""
+        y = np.asarray(y, np.float32)
+        D = self.spatial_channels
+        single = y.ndim == (1 if D == 1 else 2)
+        y = y[None] if single else y
+        if y.ndim != (2 if D == 1 else 3) or (D > 1 and y.shape[1] != D):
+            raise ValueError(f"expected {D} spatial channels, got shape {y.shape}")
+        return y, single
+
     def _upload(self, y: np.ndarray) -> torch.Tensor:
-        """(B, T) numpy -> tensor on the model's device, tail-padded to its
-        bucket. To a card the copy goes from pinned memory without a host
-        sync, so it queues behind the work already on the stream."""
-        if y.ndim == 3:
-            raise NotImplementedError("multichannel (B, D, T) input is not ported yet "
-                                      "(ROADMAP R7)")
-        if y.ndim != 2:
-            raise ValueError(f"expected (B, T) waveforms, got shape {y.shape}")
+        """(B, T) or (B, D, T) numpy -> tensor on the model's device,
+        tail-padded to its bucket. To a card the copy goes from pinned memory
+        without a host sync, so it queues behind the work already on the
+        stream."""
+        y = self.batched(y)[0]
         T = y.shape[-1]
-        y = np.pad(np.asarray(y, np.float32), [(0, 0), (0, self.padded_len(T) - T)])
+        y = np.pad(y, [(0, 0)] * (y.ndim - 1) + [(0, self.padded_len(T) - T)])
         t = torch.from_numpy(y)
         if self.device.type == "cuda":
             return t.pin_memory().to(self.device, non_blocking=True)
@@ -117,12 +132,12 @@ class BucketedEnhancer:
         return self.model.enhance(y, generator=generator, noise=noise, **self.enhance_kwargs)
 
     def warm_up(self, y: np.ndarray, generator: Optional[torch.Generator] = None) -> None:
-        """One call on (T,) or (B, T) float32 waveforms that also makes their
+        """One call on (T,) or (B, T) float32 waveforms ((D, T) or (B, D, T)
+        for D > 1) that also makes their
         shape's program (on a card: the eager loop, then the capture), so
         that the shape's next call replays; a server warms its row ladder so
         before traffic. B: the rows of one call (with `minibatch`, B =
         minibatch)."""
-        y = np.atleast_2d(np.asarray(y, np.float32))
         x_hat, _ = self._enhance(self._upload(y), generator, None, warm_up=True)
         if x_hat.is_cuda:
             torch.cuda.current_stream(x_hat.device).synchronize()
@@ -131,8 +146,8 @@ class BucketedEnhancer:
                       noise: Optional[NoiseSource] = None) -> Tuple[torch.Tensor, int]:
         """Enqueue one batched enhancement and return without waiting for it.
 
-        `y`: float32 (B, T), its row count already what the caller wants
-        computed. Returns (x_hat, nfe): x_hat (B, padded T) on the model's
+        `y`: float32 (B, T) or (B, D, T), its row count already what the
+        caller wants computed. Returns (x_hat, nfe): x_hat (B, [D,] padded T) on the model's
         device, still being computed on its current stream; the caller
         finalizes on that stream (an event recorded after it, or a copy to
         the host) and keeps x_hat alive until then. x_hat is the caller's
@@ -148,12 +163,10 @@ class BucketedEnhancer:
 
     def __call__(self, y: np.ndarray, generator: Optional[torch.Generator] = None,
                  noise: Optional[NoiseSource] = None) -> Tuple[np.ndarray, int]:
-        """Enhance (T,) or (B, T) float32 waveforms; the output has the
-        input's shape and length. Returns (x_hat, nfe), nfe summed over the
-        minibatch chunks."""
-        y = np.asarray(y, np.float32)
-        squeeze = y.ndim == 1
-        y = np.atleast_2d(y)
+        """Enhance (T,) or (B, T) float32 waveforms ((D, T) or (B, D, T) for
+        D > 1); the output has the input's shape and length. Returns (x_hat,
+        nfe), nfe summed over the minibatch chunks."""
+        y, squeeze = self.batched(y)
         T = y.shape[-1]
         y_dev = self._upload(y)
         if self.minibatch is None:
@@ -164,8 +177,8 @@ class BucketedEnhancer:
                 chunk = y_dev[i: i + self.minibatch]
                 rows = chunk.shape[0]
                 if rows < self.minibatch:  # one shape per bucket, ragged tails too
-                    chunk = torch.cat([chunk, chunk.new_zeros(self.minibatch - rows,
-                                                              chunk.shape[-1])])
+                    chunk = torch.cat([chunk, chunk.new_zeros(
+                        (self.minibatch - rows,) + tuple(chunk.shape[1:]))])
                 xc, n = self._enhance(chunk, generator, noise)
                 chunks.append(xc[:rows])
                 nfe += n
@@ -189,7 +202,8 @@ def evaluate_model(model, valid_set, num_eval_files: int, noise: Optional[NoiseS
     As in the reference, the files are grouped by their bucket's length
     (shortest bucket first) and each group goes through one
     `BucketedEnhancer` call in chunks of `minibatch` rows; the metrics take
-    the first channel. `enhance_kwargs` go to `model.enhance` (its defaults
+    the first channel (a D > 1 model enhances each file's D channels).
+    `enhance_kwargs` go to `model.enhance` (its defaults
     are the reference's: N=30, reverse diffusion, no corrector). Noise comes
     from `noise` if given (tests replay the reference's), else from a
     generator seeded with 0 on every call, as the reference takes
@@ -205,21 +219,24 @@ def evaluate_model(model, valid_set, num_eval_files: int, noise: Optional[NoiseS
     enhancer = BucketedEnhancer(model, minibatch=minibatch, **enhance_kwargs)
     n = min(num_eval_files, len(valid_set))
     items = [valid_set.__getitem__(i, raw=True) for i in range(n)]
+    D = enhancer.spatial_channels
     xs = [x[0] for x, _ in items]  # the metrics take the first channel
-    ys = [y[0] for _, y in items]
+    ys = [y if D > 1 else y[0] for _, y in items]
     groups: Dict[int, List[int]] = {}
     for i, y in enumerate(ys):
         groups.setdefault(enhancer.padded_len(y.shape[-1]), []).append(i)
     x_hats: List[Optional[np.ndarray]] = [None] * n
     for L, idxs in sorted(groups.items()):
-        batch = np.stack([np.pad(ys[i], (0, L - ys[i].shape[-1])) for i in idxs])
+        batch = np.stack([np.pad(ys[i], [(0, 0)] * (ys[i].ndim - 1)
+                                 + [(0, L - ys[i].shape[-1])]) for i in idxs])
         x_hat, _ = enhancer(batch.astype(np.float32), generator=generator, noise=noise)
         for row, i in enumerate(idxs):
-            x_hats[i] = x_hat[row, : ys[i].shape[-1]]
+            out = x_hat[row, ..., : ys[i].shape[-1]]
+            x_hats[i] = out[0] if D > 1 else out
     pesq_sum = si_sdr_sum = estoi_sum = 0.0
     spec_lists = ([], [], []) if spec else None
     audio_lists = ([], [], []) if audio else None
-    for i, (x, y, x_hat) in enumerate(zip(xs, ys, x_hats)):
+    for i, (x, y, x_hat) in enumerate(zip(xs, (y if y.ndim == 1 else y[0] for y in ys), x_hats)):
         si_sdr_sum += si_sdr(x, x_hat)
         pesq_sum += pesq_wb(sr, x, x_hat)
         estoi_sum += stoi(x, x_hat, sr, extended=True)

@@ -115,8 +115,9 @@ class DynamicBatcher:
     # -- caller side ------------------------------------------------------
 
     def submit(self, y: np.ndarray, timeout: Optional[float] = None):
-        """Enhance one (T,) float32 waveform; blocks until its batch is
-        served. Returns (x_hat, nfe), x_hat of the input's length."""
+        """Enhance one (T,) float32 waveform, or (D, T) for a model of D > 1
+        spatial channels; blocks until its batch is served. Returns (x_hat,
+        nfe), x_hat of the input's shape."""
         y = np.asarray(y, np.float32)
         req = _Request(y)
         with self._lock:
@@ -182,9 +183,10 @@ class DynamicBatcher:
             try:
                 padded = self.enhancer.padded_len(max(r.y.shape[-1] for r in batch))
                 rows = next(r for r in self.row_sizes if r >= len(batch))
-                ys = np.zeros((rows, padded), np.float32)  # pad rows and tails with zeros
+                # pad rows and tails with zeros
+                ys = np.zeros((rows,) + batch[0].y.shape[:-1] + (padded,), np.float32)
                 for i, r in enumerate(batch):
-                    ys[i, : r.y.shape[-1]] = r.y
+                    ys[i, ..., : r.y.shape[-1]] = r.y
                 t0 = time.monotonic()
                 if self._async:
                     self._inflight.acquire()  # bound the queued device work

@@ -49,6 +49,23 @@ backward, and `graphs=False` runs the eager step; `execution` says which.
 On a CPU device there are no graphs: a program's later calls run its body
 eagerly on the same static buffers.
 
+Data-parallel training (a `world` of several processes, utils/distributed.py)
+splits the step in two programs, each captured as above: "grads" (the STFT,
+the loss on this process's rows of the global batch, its gradients, and
+their copy with the detached losses into one flat float32 buffer outside
+the pool) and "update" (the gradients set to views of that buffer, Adam and
+the EMA). Between their replays the buffer is summed across the processes
+in place (`distributed.all_reduce_`): a Gloo collective cannot be captured,
+and the one design serves both backends. The random inputs of the whole
+global batch are drawn from the step's generator on every process, which
+keeps its own rows (`draw`), so that n processes at global batch B draw and
+compute what one process does at B. Every process holds as many rows,
+so the summed buffer of a "sum" loss (StoRM's) is the global one, and
+that of a "mean" loss, divided by the process count, is the global
+mean's. `stats` counts the all-reduces and their host seconds (on a card:
+from the end of the "grads" program's work, Gloo's copies through the
+host included).
+
 The training CLI and the bench run with PyTorch's expandable segments
 (`use_expandable_segments`). With the allocator's default segments, a small
 live block left in a large cached segment (cuBLAS's workspace, allocated
@@ -60,6 +77,7 @@ from __future__ import annotations
 
 import itertools
 import os
+import time
 from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
@@ -67,6 +85,7 @@ import torch
 
 from ..kernels import LAUNCH_COUNTERS
 from ..models.base import TrainState, wav_to_spec
+from .distributed import World, all_reduce_
 from .graphs import capture
 
 Arrays = Sequence[np.ndarray]
@@ -105,9 +124,11 @@ class Program:
         self.out: Dict[str, torch.Tensor] = {}
         self.launches: Tuple[int, ...] = ()
 
-    def fill(self, arrays: Arrays, model, generator: Optional[torch.Generator]) -> None:
+    def fill(self, arrays: Arrays, draw: Callable,
+             generator: Optional[torch.Generator]) -> None:
         """The call's batch into the static inputs, then its random inputs
-        from `generator` into the static buffers, in the body's order."""
+        `draw(spec batch, generator)` into the static buffers, in the body's
+        order."""
         if self.staging:
             if self.copied is not None:
                 self.copied.synchronize()  # the previous copy has left the staging buffers
@@ -120,8 +141,9 @@ class Program:
         else:
             for t, a in zip(self.inputs, arrays):
                 t.copy_(torch.from_numpy(np.asarray(a)))
-        for buf, z in zip(self.draws, model.draw_step(self.spec, generator)):
-            buf.copy_(z)
+        if self.draws:
+            for buf, z in zip(self.draws, draw(self.spec, generator)):
+                buf.copy_(z)
 
     def static_bytes(self) -> int:
         """The device bytes of the static inputs and random inputs (outside the pool)."""
@@ -138,8 +160,14 @@ class TrainPrograms:
     the allocator could not give back)."""
 
     def __init__(self, state: TrainState, graphs: bool = True, debug_nans: bool = False,
-                 return_time: bool = False):
+                 return_time: bool = False, world: World = World()):
         self.state, self.model = state, state.model
+        self.world = world
+        self.params = [p for p in self.model.parameters() if p.requires_grad]
+        # data parallel: the gradients and the losses, summed across processes
+        self.flat: Optional[torch.Tensor] = None
+        self.grad_views: List[torch.Tensor] = []
+        self.losses: Dict[str, torch.Tensor] = {}
         self.return_time = return_time
         self.device = next(self.model.parameters()).device
         self.debug_nans = debug_nans
@@ -152,7 +180,8 @@ class TrainPrograms:
         self.failed: List[torch.cuda.CUDAGraph] = []
         self.stats = {"first_calls": 0, "captures": 0, "replays": 0, "eager": 0,
                       "capture_s": 0.0, "pool_bytes": 0, "static_bytes": 0, "invalidated": 0,
-                      "reserved_before_warm_up": 0, "reserved_before_capture": 0}
+                      "reserved_before_warm_up": 0, "reserved_before_capture": 0,
+                      "allreduces": 0, "allreduce_s": 0.0}
 
     @property
     def execution(self) -> str:
@@ -167,8 +196,11 @@ class TrainPrograms:
         """One optimizer step on the wav batch `arrays` (clean, noisy: (B, T)
         numpy) with its random inputs from `generator`; the host's step count
         advances by one. Returns the detached losses: from the key's third
-        call on, the program's static tensors."""
-        if self.graphs:
+        call on, the program's static tensors (across processes: the global
+        batch's losses, views of the summed buffer)."""
+        if self.world.size > 1:
+            out = self._step_across(arrays, generator)
+        elif self.graphs:
             out = self._call("step", arrays, generator, self._step_body)
         else:
             self.stats["eager"] += 1
@@ -183,7 +215,8 @@ class TrainPrograms:
         `arrays` (clean, noisy: (B, T) numpy; then a (B,) bool mask of the
         rows that count), its random inputs from `generator`: a 0-d tensor
         on the device, from the key's third call on the program's static
-        output."""
+        output. Across processes, this process's rows' sum; the caller sums
+        over the processes."""
         if self.graphs:
             return self._call("valid", arrays, generator, self._valid_body)["sum"]
         self.stats["eager"] += 1
@@ -208,8 +241,67 @@ class TrainPrograms:
             per_example = self.model.per_example_given(batch, *draw(batch))
         return {"sum": torch.where(inputs[2], per_example, 0.0).sum()}, batch
 
+    def _grads_body(self, inputs: List[torch.Tensor], draw: Callable):
+        batch = self._specs(inputs[:2])
+        aux = self.model.compute_gradients(batch, *draw(batch))
+        if self.flat is None:  # made at the first (eager) call, outside any pool
+            self._make_flat(aux)
+        torch._foreach_copy_(self.grad_views + list(self.losses.values()),
+                             [p.grad for p in self.params] + [aux[k] for k in self.losses])
+        return {}, batch
+
+    def _update_body(self, inputs: List[torch.Tensor], draw: Callable):
+        for p, g in zip(self.params, self.grad_views):
+            p.grad = g
+        self.model.update(self.state)
+        return {}, ()
+
+    def _make_flat(self, aux: Dict[str, torch.Tensor]) -> None:
+        sizes = [p.numel() for p in self.params] + [1] * len(aux)
+        self.flat = torch.zeros(sum(sizes), dtype=torch.float32, device=self.device)
+        views = [v.view(p.shape) for v, p in zip(self.flat.split(sizes), self.params)]
+        self.grad_views = views
+        tail = self.flat[sum(sizes[:len(self.params)]):]
+        self.losses = {k: tail[i] for i, k in enumerate(aux)}
+
+    def _step_across(self, arrays: Arrays,
+                     generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
+        """The data-parallel step (module docstring): "grads", the sum of the
+        buffer across the processes, "update"."""
+        if self.graphs:
+            self._call("grads", arrays, generator, self._grads_body)
+        else:
+            self.stats["eager"] += 1
+            with torch.autograd.set_detect_anomaly(self.debug_nans):
+                self._grads_body(self._upload(arrays), self._drawer(generator))
+        if self.flat.is_cuda:  # so that allreduce_s times the sum alone
+            torch.cuda.current_stream(self.device).synchronize()
+        t0 = time.perf_counter()
+        all_reduce_(self.flat, self.world)
+        self.stats["allreduce_s"] += time.perf_counter() - t0
+        self.stats["allreduces"] += 1
+        if self.model.batch_reduction == "mean":
+            self.flat.div_(self.world.size)
+        if self.graphs:
+            self._call("update", (), None, self._update_body)
+        else:
+            self._update_body([], None)
+        return self.losses
+
+    def draw(self, batch, generator: Optional[torch.Generator]) -> Tuple:
+        """The model's random inputs for this process's rows of the batch:
+        across processes, those of the global batch (this batch's rows x the
+        process count) drawn whole and sliced to this process's rows."""
+        n = self.world.size
+        if n == 1:
+            return self.model.draw_step(batch, generator)
+        rows = batch[0].shape[0]
+        whole = tuple(b.new_zeros(()).expand((rows * n,) + tuple(b.shape[1:])) for b in batch)
+        lo = self.world.rank * rows
+        return tuple(z[lo: lo + rows] for z in self.model.draw_step(whole, generator))
+
     def _drawer(self, generator: Optional[torch.Generator]) -> Callable:
-        return lambda batch: self.model.draw_step(batch, generator)
+        return lambda batch: self.draw(batch, generator)
 
     def _upload(self, arrays: Arrays) -> List[torch.Tensor]:
         return [torch.from_numpy(np.asarray(a)).to(self.device) for a in arrays]
@@ -256,7 +348,7 @@ class TrainPrograms:
             prog, out = self._make(key, arrays, generator, body)
             self.programs[key] = prog
             return out
-        prog.fill(arrays, self.model, generator)
+        prog.fill(arrays, self.draw, generator)
         self.stats["replays"] += 1
         if prog.graph is None:  # a CPU device: the body, eagerly, on the static buffers
             out, _ = body(prog.inputs, lambda batch: prog.draws)
@@ -277,7 +369,7 @@ class TrainPrograms:
         def recorded(batch):
             prog.spec = batch
             prog.draws = [z.clone(memory_format=torch.contiguous_format)
-                          for z in self.model.draw_step(batch, generator)]
+                          for z in self.draw(batch, generator)]
             return prog.draws
 
         if self.device.type != "cuda":
@@ -308,7 +400,7 @@ class TrainPrograms:
         """Before a step's warm-up or capture: the last step's gradients go,
         so that the allocator's cache they hold can be given back (a step
         sets new ones; a validation program leaves them)."""
-        if key[0] == "step":
+        if key[0] in ("step", "grads"):
             self.model.zero_grad(set_to_none=True)
 
     def _capture(self, prog: Program, body: Body) -> None:

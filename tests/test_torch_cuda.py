@@ -944,6 +944,65 @@ def test_replayed_train_step_equals_eager_on_the_card(cuda, mode):
     assert all(s.is_cuda and float(s) == 5 for s in steps)
 
 
+def test_d2_graph_replay_equals_eager_on_the_card(cuda):
+    """A tiny two-channel StoRM ((B, 2, T) waves): the captured program's
+    replays equal the eager loop bit for bit, as at one channel."""
+    model = build_model(dict(GRAPH_TINY, spatial_channels=2, dtype="bfloat16"), device=cuda,
+                        seed=0)
+    kw = dict(N=3, corrector="ald")
+    eager, graphed = BucketedEnhancer(model, graphs=False, **kw), BucketedEnhancer(model, **kw)
+    y = np.stack([_graph_waves(), _graph_waves()[::-1]], axis=1)
+    for seed in (0, 1, 2, 3):
+        want, _ = eager(y, torch.Generator(device=cuda).manual_seed(seed))
+        got, _ = graphed(y, torch.Generator(device=cuda).manual_seed(seed))
+        assert got.shape == y.shape
+        np.testing.assert_array_equal(got, want)
+
+
+def test_data_parallel_programs_replay_the_eager_split_step_on_the_card(cuda):
+    """The data-parallel step's "grads" and "update" programs around the
+    all-reduce (gloo on a card's tensor), as process 0 of 2 in a one-member
+    gloo group (the sum is the identity): losses, parameters,
+    EMA and Adam's state equal the eager split step's bit for bit after
+    every step, cuDNN deterministic."""
+    import socket
+
+    import torch.distributed as dist
+
+    from storm_tpu_torch.models.base import init_train_state
+    from storm_tpu_torch.utils.distributed import World
+    from storm_tpu_torch.utils.train_graphs import TrainPrograms
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0)
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = []
+        for graphs_on in (True, False):
+            model = build_model(dict(GRAPH_TINY, dtype="bfloat16"), device=cuda, seed=0).train()
+            state = init_train_state(model, model.lr)
+            runs.append((state, TrainPrograms(state, graphs=graphs_on,
+                                              world=World(0, 2, "gloo", cuda))))
+        for i in range(4):
+            out = []
+            for state, programs in runs:
+                aux = programs.step(_train_waves(i), torch.Generator(device=cuda).manual_seed(i))
+                out.append({k: v.clone() for k, v in aux.items()})
+            assert all(torch.equal(out[0][k], out[1][k]) for k in out[1]), i
+            (a, _), (b, _) = runs
+            for k, v in b.model.state_dict().items():
+                assert torch.equal(a.model.state_dict()[k], v) and torch.equal(a.ema[k], b.ema[k])
+            for sa, sb in zip(a.optimizer.state.values(), b.optimizer.state.values()):
+                assert all(torch.equal(sa[k], sb[k]) for k in sb)
+    finally:
+        torch.backends.cudnn.deterministic = False
+        dist.destroy_process_group()
+    programs = runs[0][1]
+    assert (programs.stats["captures"], programs.stats["replays"]) == (2, 4)
+    assert programs.stats["allreduces"] == 4 and programs.flat.is_cuda
+
+
 def test_ema_update_on_the_card_is_a_fused_multiply_add(cuda):
     """The EMA on the card rounds d*e inside a fused multiply-add, as the
     reference's compiled update does: against fma emulated in float64 on

@@ -250,11 +250,15 @@ def test_enhance_async_returns_the_padded_batch_on_the_device(pair):
 
 
 def test_refusals(pair):
+    """Multi-device serving is still refused. A (B, D, T) batch is the input
+    of a D-channel model (tests/test_torch_multichannel.py); a one-channel
+    model refuses it with the ValueError the reference raises for a wrong
+    channel count."""
     _, _, pmodel = pair
     for kw in ({"data_parallel": True}, {"seq_parallel": 2}):
         with pytest.raises(NotImplementedError, match="R7"):
             BucketedEnhancer(pmodel, **kw)
-    with pytest.raises(NotImplementedError, match="multichannel"):
+    with pytest.raises(ValueError, match="expected 1 spatial channels"):
         BucketedEnhancer(pmodel)(np.zeros((1, 2, 100), np.float32))
 
 

@@ -67,11 +67,21 @@ def test_stream_identity_equals_reference(T, chunk, overlap, max_batch):
 
 
 def test_stream_refuses_bad_overlap_and_multichannel():
+    """A bad overlap is refused; a (D, T) recording, refused before
+    multichannel streaming was ported, now streams in the reference's
+    chunks, its channels together (identity enhancer: the input back)."""
     with pytest.raises(ValueError, match="overlap"):
         stream_enhance(_Identity(), np.zeros(5000, np.float32), None, chunk_samples=1024,
                        overlap_samples=1024)
-    with pytest.raises(NotImplementedError, match="multichannel"):
-        stream_enhance(_Identity(), np.zeros((2, 5000), np.float32), None)
+    y = np.random.default_rng(2).standard_normal((2, 5000)).astype(np.float32)
+    port, ref = _Identity(), _Identity()
+    got, nfe = stream_enhance(port, y, None, chunk_samples=1024, overlap_samples=256,
+                              max_batch=3)
+    want, jnfe = jstream(ref, y, jax.random.PRNGKey(0), chunk_samples=1024,
+                         overlap_samples=256, max_batch=3)
+    assert got.shape == y.shape and nfe == jnfe and port.calls == ref.calls
+    np.testing.assert_array_equal(got, np.asarray(want))
+    np.testing.assert_allclose(got, y, atol=1e-5)
 
 
 def test_stream_tiny_model_matches_reference():
