@@ -415,6 +415,19 @@ denoisers) run last:
    step period, peak memory and the all-reduce's ms per step; only process
    0 writes metrics and checkpoints, and its last.pt enhances; K1 and its
    adjoint against plain at the processes' B=4 shapes.
+72. serving across devices on one card: `--data_parallel` through the CLI
+   (one replica: minibatch 8; N=2 + ald) on phase 5's files against
+   `--batch 8`, bit for bit; one full-width score forward (B=1, 576 frames) over 2 and 4
+   shards on cuda:0 (`ShardedNCSNpp`) against unsharded, f32 (1e-5 of the
+   output's scale), bf16 and int8 + bf16 (against the f32 forward, within
+   2x the unsharded one's distance), 18 K1 launches per shard (and the
+   int8 scales' count of K3 launches per shard); ncsnpplarge over 4
+   unequal shards and the DDPM + residual net (12 stride-1 launches per
+   shard) over 2 and 4; StoRM enhancing the 4 s file at N=2 + ald with
+   `seq_parallel` 2 and 4 (`devices=["cuda:0"] * k`), f32 and bf16: the
+   captured program against the eager loop bit for bit, and against
+   unsharded serving (f32 1e-4 of the scale; bf16 in the 2x form); K1 and
+   K3 against plain at every shard shape.
 
 A serving path's first call of a shape runs the eager loop, its second
 also captures the shape's graph, and later calls replay it. To keep the
@@ -470,7 +483,7 @@ import torch
 import torch.nn.functional as F
 
 from storm_tpu_torch import backbones, enhancement, evaluate, serve, train
-from storm_tpu_torch.backbones.ncsnpp import NCSNpp, count_parameters
+from storm_tpu_torch.backbones.ncsnpp import NCSNpp, ShardedNCSNpp, count_parameters
 from storm_tpu_torch.ckpt import (AsyncCheckpointManager, CheckpointManager,
                                   load_training_checkpoint, save_checkpoint)
 from storm_tpu_torch.compat import convert as ref_convert
@@ -489,7 +502,7 @@ from storm_tpu_torch.models.distill import DEEPCACHE_REFUSAL, DistilledModel
 from storm_tpu_torch.models.factory import build_model, resolve_device
 from storm_tpu_torch.models.score import ScoreModel
 from storm_tpu_torch.models.storm import StochasticRegenerationModel
-from storm_tpu_torch.nn import qconv, resample
+from storm_tpu_torch.nn import qconv, resample, seqpar
 from storm_tpu_torch.nn.cast import cast_params
 from storm_tpu_torch.nn.init import reset_parameters
 from storm_tpu_torch.nn.layers import (Combine, Downsample, GroupNorm, ResnetBlockBigGANpp,
@@ -5882,6 +5895,194 @@ def phase_data_parallel(workdir: str, gen: torch.Generator):
             check_k1_bwd_at("the two-process trainer", bwd_shapes, gen))
 
 
+# --- phase 72: serving across devices, on one card
+
+
+SP_KS = (2, 4)  # the sequence-parallel groups, their shards all on cuda:0
+SP_N = 2  # phase 72's sampler depth (its CLI runs too): N + ald, 5 forwards a call
+SP_F32_FORWARD_RTOL = 1e-5  # sharded f32 forward against unsharded, of the output's scale
+SP_F32_ENHANCE_RTOL = 1e-4  # sharded f32 enhancement (N=2 + ald), of the output's scale
+# bf16 (and int8 + bf16): sharded against the f32 unsharded output, within
+# this many times the unsharded bf16 output's distance from it: sharding
+# reorders bf16 sums as a batch width does, and adds no error of its own
+SP_BF16_RATIO = 2.0
+
+
+def rel_err(got, want) -> float:
+    got, want = (torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v).float().cpu()
+                 for v in (got, want))
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def sharded_forwards(what: str, net, x, t, ks, per_forward: int, want, gen,
+                     scales=None):
+    """`net`'s forward over each group of ks shards on cuda:0 against `want`;
+    returns ({k: (output, K1 launches, K3 launches)}, the K1 shapes, the K3
+    inputs)."""
+    out, k1s_all, k3s_all = {}, set(), set()
+    for k in ks:
+        sharded = ShardedNCSNpp(net, ["cuda:0"] * k)
+        before = (kup.upfirdn2d_cuda.launches, kq.quantize_int8_cuda.launches)
+        with shapes_recorded() as (k1s, k3s), torch.inference_mode():
+            got = sharded(x, t)
+        torch.cuda.synchronize()
+        launched = (kup.upfirdn2d_cuda.launches - before[0],
+                    kq.quantize_int8_cuda.launches - before[1])
+        check(launched[0] == per_forward * k,
+              f"{what}: {k} shards launched K1 {launched[0]} times, expected {per_forward} x {k}")
+        check(scales is None or launched[1] == len(scales) * k,
+              f"{what}: {k} shards launched K3 {launched[1]} times, expected "
+              f"{len(scales or {})} x {k}")
+        out[k] = (got, *launched)
+        k1s_all |= k1s
+        k3s_all |= k3s
+        widths = seqpar.frame_widths(x.shape[-2], net.num_resolutions, k)
+        print(f"  {what}, {k} shards of {widths} frames (deepest level "
+              f"{[w >> (net.num_resolutions - 1) for w in widths]}): max|sharded - unsharded| "
+              f"{rel_err(got, want):.3e} of the output's scale; K1 {launched[0]} = "
+              f"{per_forward} x {k}" + (f", K3 {launched[1]}" if scales else ""), flush=True)
+    return out, k1s_all, k3s_all
+
+
+def phase_seq_parallel(workdir: str, lengths, gen: torch.Generator):
+    """Phase 72. Returns ({path: K1 launches} f32, bf16, {path: K3
+    launches} int8 + bf16, {path: stride-1 K1 launches} f32, the errors of
+    K1 f32, bf16, K3, stride-1 K1 against plain)."""
+    k1, k1_bf16, k3, s1 = {}, {}, {}, {}
+    # --data_parallel through the CLI on the one card: --batch 8, bit for bit
+    ckpt, noisy = os.path.join(workdir, "storm.pt"), os.path.join(workdir, "noisy")
+    outs = {}
+    for tag, extra in (("batch8", ("--batch", "8")), ("data_parallel", ("--data_parallel",))):
+        outs[tag] = {}
+        kup.upfirdn2d_cuda.launches = 0
+        with calls_counted() as per_call:
+            text = run_enhancement(["--test_dir", noisy, "--enhanced_dir",
+                                    os.path.join(workdir, f"enhanced_{tag}"), "--ckpt", ckpt,
+                                    "--mode", "storm", "--N", str(SP_N), "--device", "cuda",
+                                    *extra], outs[tag])
+        nfe = 1 + 2 * SP_N
+        check(per_call == [(K1_PER_FORWARD * nfe, 0, nfe)] * len(lengths),
+              f"{tag}: (K1, K3, NFE) per call {per_call}")
+        k1[f"enhancement_{tag}_float32"] = kup.upfirdn2d_cuda.launches
+    diff = max(float(np.abs(outs["data_parallel"][f] - outs["batch8"][f]).max()) for f in lengths)
+    print(f"  --data_parallel on the one card (minibatch 8, one replica) against --batch 8 on "
+          f"phase 5's {len(lengths)} files (N={SP_N} + ald): max|diff| {diff:.3e}", flush=True)
+    check(diff == 0.0, f"--data_parallel parts from --batch 8 by {diff:.3e}")
+
+    models = {"float32": build_model(STORM_CONFIG, device="cuda", seed=0),
+              "bfloat16": build_model(dict(STORM_CONFIG, dtype="bfloat16"), device="cuda",
+                                      seed=0)}
+    x = 0.5 * torch.randn(1, 3, FREQS, FRAMES, 2, device="cuda", generator=gen)
+    t = torch.full((1,), 0.5, device="cuda")
+    shapes = {"float32": set(), "bfloat16": set()}
+    with torch.inference_mode():
+        ref = models["float32"].score_net(x, t)
+    # one full-width score forward over 2 and 4 shards, f32 and bf16
+    fwd_bf16_dist = None
+    for name, model in models.items():
+        net = model.score_net
+        with torch.inference_mode(), cast_params(net, net.dtype):
+            want = net(x, t)
+            got, k1s, _ = sharded_forwards(f"full-width score net, {name}", net, x, t, SP_KS,
+                                           K1_PER_FORWARD, want, gen)
+        shapes[name] |= k1s
+        (k1 if name == "float32" else k1_bf16)[f"sp_forward_{name}"] = sum(
+            v[1] for v in got.values())
+        if name == "float32":
+            check(all(rel_err(v[0], want) <= SP_F32_FORWARD_RTOL for v in got.values()),
+                  "a sharded f32 forward parts from unsharded")
+        else:
+            fwd_bf16_dist = rel_err(want, ref)
+            worst = max(rel_err(v[0], ref) for v in got.values())
+            print(f"  bf16 against f32 unsharded: unsharded {fwd_bf16_dist:.3e}, sharded "
+                  f"{worst:.3e} ({worst / fwd_bf16_dist:.2f}x, held at {SP_BF16_RATIO}x)",
+                  flush=True)
+            check(worst <= SP_BF16_RATIO * fwd_bf16_dist, "a sharded bf16 forward parts from f32")
+
+    # int8 + bf16: the scales of one unsharded bf16 forward, K3 on the shards
+    net = models["bfloat16"].score_net
+    with torch.inference_mode(), cast_params(net, BF16):
+        with qconv.stats_collected(net) as stats:
+            net(x, t)
+        scales = quant_mod.scales_from_stats(stats, net, 128)
+        with qconv.scales_attached(net, scales):
+            want = net(x, t)
+            got, k1s, k3s = sharded_forwards("full-width int8 + bf16 score net", net, x, t,
+                                             SP_KS, K1_PER_FORWARD, want, gen, scales=scales)
+    shapes["bfloat16"] |= k1s
+    k1_bf16["sp_forward_int8_bfloat16"] = sum(v[1] for v in got.values())
+    k3["sp_forward_int8_bfloat16"] = sum(v[2] for v in got.values())
+    unsharded, worst = rel_err(want, ref), max(rel_err(v[0], ref) for v in got.values())
+    print(f"  int8 + bf16 against f32: unsharded {unsharded:.3e}, sharded {worst:.3e}",
+          flush=True)
+    check(worst <= SP_BF16_RATIO * unsharded, "a sharded int8 + bf16 forward parts from f32")
+    k3_err = check_k3_at("the sharded int8 + bf16 forwards", k3s, gen)
+
+    # ncsnpplarge (attention at 16, its deepest level 9 frames: 3, 2, 2, 2 on 4
+    # shards) and the DDPM + residual net (the stride-1 instance), f32
+    large = backbones.get_by_name("ncsnpplarge")(input_channels=6)  # phase 61's is on the card
+    reset_parameters(large, torch.Generator().manual_seed(0))
+    large = large.cuda().eval()
+    with torch.inference_mode():
+        want = large(x, t)
+    got, k1s, _ = sharded_forwards("ncsnpplarge, f32", large, x, t, (4,), LARGE_PER_FORWARD,
+                                   want, gen)
+    check(rel_err(got[4][0], want) <= SP_F32_FORWARD_RTOL, "sharded ncsnpplarge parts")
+    k1["sp_forward_ncsnpplarge_float32"] = got[4][1]
+    shapes["float32"] |= k1s
+    del large
+    ddpm = ddpm_net().eval()
+    with torch.inference_mode():
+        want = ddpm(x, t)
+    got, s1s, _ = sharded_forwards("DDPM + residual, f32", ddpm, x, t, SP_KS, S1_PER_FORWARD,
+                                   want, gen)
+    check(all(rel_err(v[0], want) <= SP_F32_FORWARD_RTOL for v in got.values())
+          and {s[0] for s in s1s} <= {"same1", "same2"}, "the sharded DDPM net")
+    s1["sp_forward_ddpm_float32"] = sum(v[1] for v in got.values())
+    del ddpm
+    torch.cuda.empty_cache()
+
+    # enhance at N=2 + ald on the 4 s file: each group's captured program
+    # against its eager loop (bit for bit), and against unsharded serving
+    y = load_wav(os.path.join(noisy, f"utt2_{SECONDS[2]:.1f}s.wav"))[0][0]
+    enh_f32 = None
+    for name, model in models.items():
+        want, _ = BucketedEnhancer(model, N=SP_N, corrector="ald", graphs=False)(y, cuda_gen(1))
+        enh_f32 = want if name == "float32" else enh_f32
+        for k in SP_KS:
+            before = kup.upfirdn2d_cuda.launches
+            with shapes_recorded() as (k1s, _):
+                row, enhancer, got = graph_against_eager(
+                    f"storm seq_parallel={k} pc N={SP_N} {name}, 4 s", model, y,
+                    y.shape[-1] / SR, [], N=SP_N, corrector="ald", seq_parallel=k,
+                    devices=["cuda:0"] * k)
+            check(enhancer.execution == "graph" and enhancer.minibatch == 1,
+                  f"seq_parallel={k}: {enhancer.execution}, minibatch {enhancer.minibatch}")
+            n = kup.upfirdn2d_cuda.launches - before
+            check(n == 3 * K1_PER_FORWARD * k * (1 + 2 * SP_N),
+                  f"seq_parallel={k} {name}: K1 launched {n} in three calls")
+            (k1 if name == "float32" else k1_bf16)[f"sp_enhancement_{k}_{name}"] = n
+            shapes[name] |= k1s
+            err = rel_err(got, want)
+            if name == "float32":
+                print(f"    against unsharded: {err:.3e} of the output's scale (held at "
+                      f"{SP_F32_ENHANCE_RTOL})", flush=True)
+                check(err <= SP_F32_ENHANCE_RTOL, f"seq_parallel={k} f32 enhancement parts")
+            else:
+                unsharded, sharded = rel_err(want, enh_f32), rel_err(got, enh_f32)
+                print(f"    against f32 unsharded: bf16 unsharded {unsharded:.3e}, sharded "
+                      f"{sharded:.3e} ({sharded / unsharded:.2f}x, held at {SP_BF16_RATIO}x)",
+                      flush=True)
+                check(sharded <= SP_BF16_RATIO * unsharded,
+                      f"seq_parallel={k} bf16 enhancement parts")
+    del models
+    torch.cuda.empty_cache()
+    err = check_k1_at("the sharded f32 forwards and enhancements", shapes["float32"], gen)
+    err_bf16 = check_k1_at("the sharded bf16 forwards and enhancements", shapes["bfloat16"], gen)
+    s1_err = check_k1_at("the sharded DDPM forwards (stride-1 instance)", s1s, gen)
+    return k1, k1_bf16, k3, s1, err, err_bf16, k3_err, s1_err
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -6236,6 +6437,13 @@ def main():
                      "(gloo), against one process at the same global batch", flush=True)
         dp_k1, dp_bwd, dp_err, dp_bwd_err = phase_data_parallel(workdir, gen)
 
+        phase_header(f"== phase 72: serving across devices on one card: --data_parallel through "
+                     f"the CLI; seq_parallel {SP_KS} with every shard on cuda:0 (forwards, int8 "
+                     f"+ bf16, ncsnpplarge, DDPM; enhance at N={SP_N} + ald, graph and eager)",
+                     flush=True)
+        (sp_k1, sp_k1_bf16, sp_k3, sp_s1, sp_err, sp_bf16_err, sp_k3_err,
+         sp_s1_err) = phase_seq_parallel(workdir, lengths, gen)
+
     def entry(name, source, replaces, per_shape_ms, calls, err, launches, work, **extra):
         keys = ("ms", "device_ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms")
         total = {k: sum(per_shape_ms[c][k] for c in calls) if k in per_shape_ms[calls[0]]
@@ -6339,6 +6547,14 @@ def main():
     ode_k1_err = max(ode_k1_err, d2_err, dp_err)
     ode_k1_bf16_err = max(ode_k1_bf16_err, d2_bf16_err, d2_train_err)
     nm_k3_err = max(nm_k3_err, d2_k3_err)
+    # serving across devices on one card (phase 72)
+    k1_by_path.update(sp_k1)
+    k1_bf16_by_path.update(sp_k1_bf16)
+    k3_bf16_by_path.update(sp_k3)
+    s1_launched[("float32", "fwd")].update(sp_s1)
+    ode_k1_err = max(ode_k1_err, sp_err)
+    ode_k1_bf16_err = max(ode_k1_bf16_err, sp_bf16_err)
+    nm_k3_err = max(nm_k3_err, sp_k3_err)
     print(f"  ncsnpplarge StoRM: bf16 trainer step {large_train['step_ms']:.2f} ms at B={TRAIN_B}, "
           f"peak {large_train['step_peak_gib']:.2f} GiB; one f32 step fits at B={large_f32['B']} "
           f"(peak {large_f32['peak_gib']:.2f} GiB); ConvTasNet return_time trainer step "
@@ -6423,6 +6639,8 @@ def main():
                                         ("upfirdn2d_s1_bf16", "bfloat16", "fwd"),
                                         ("upfirdn2d_s1_bwd_bf16", "bfloat16", "bwd")):
         per_shape, keys, err, by_path = s1_rows[(dtype_name, direction)]
+        if (dtype_name, direction) == ("float32", "fwd"):
+            err = max(err, sp_s1_err)
         paths = s1_launched[(dtype_name, direction)]
         record["kernels"].append(entry(
             name, k1_src, "storm_tpu/kernels/upfirdn.py:139" if direction == "fwd"

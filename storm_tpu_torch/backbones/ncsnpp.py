@@ -31,18 +31,26 @@ forward_shallow(x, t, deep_features(x, t)) == forward(x, t). The cache is
 in the compute dtype, as the reference carries it. It splits the default
 pyramids and BigGAN resblocks only; any other configuration refuses it with
 the reference's message.
+
+Sequence-parallel serving (`ShardedNCSNpp`, the counterpart of the
+reference's `spec_sharding_constraint` meshes): the same `_unet` runs on a
+frame-sharded activation (nn/seqpar.py), each layer dispatching on it;
+`_pack`, `_unpack` and the output conv run per shard, the time embedding on
+the group's first device (a per-row tensor each shard takes a copy of).
 """
 from __future__ import annotations
 
+import contextlib
 import inspect
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..nn.cast import param, scalar
+from ..nn import seqpar
+from ..nn.cast import cast_params, param, scalar
 from ..nn.init import ddpm_init_
 from ..nn.layers import (
     AttnBlockpp,
@@ -58,7 +66,9 @@ from ..nn.layers import (
     get_act,
     group_norm,
 )
+from ..nn.qconv import scales_like
 from ..nn.resample import conv_transpose
+from ..nn.seqpar import ShardContext, Sharded
 
 
 DEEPCACHE_REFUSED = "deep-feature caching supports the default NCSN++ config only"
@@ -84,6 +94,7 @@ class NCSNpp(nn.Module):
     # when it is asked for (`check_cache_depth`), as the reference does
     SUPPORTS_DEEPCACHE = True
     FORCE_STFT_OUT = False  # a spectrogram net
+    SEQ_PARALLEL = True  # shards along the frame axis (`ShardedNCSNpp`)
 
     def __init__(
         self,
@@ -443,6 +454,7 @@ class AutoEncodeNCSNpp(NCSNpp):
 
     SUPPORTS_DEEPCACHE = False  # the filterbank around the trunk is not split
     FORCE_STFT_OUT = True
+    SEQ_PARALLEL = False  # a time-domain net runs whole
 
     def __init__(self, input_channels: int = 1, discriminative: bool = True, **kwargs):
         super().__init__(input_channels=input_channels, discriminative=discriminative, **kwargs)
@@ -510,6 +522,91 @@ class NCSNpp6M(NCSNpp):
                  num_res_blocks: int = 1, attn_resolutions: Sequence[int] = (0,), **kwargs):
         super().__init__(nf=nf, ch_mult=ch_mult, num_res_blocks=num_res_blocks,
                          attn_resolutions=attn_resolutions, **kwargs)
+
+
+class ShardedNCSNpp(nn.Module):
+    """An NCSN++ spectrogram net with its activations split along the frame
+    axis over `devices` (k of them; a device may repeat), with the net's call
+    signatures: `forward`, `deep_features` (its cache stays sharded) and
+    `forward_shallow`. Each call cuts its input (B, Cc, F, T, 2) along T at
+    `seqpar.frame_widths`, runs `_unet` on the shards and gathers the output
+    (B, D, F, T, 2) on the first device, the net's. `nets[i]` is the net
+    part i runs: the net itself on its own device, else a replica there
+    (`serving` keeps the replicas' weights, casts and int8 scales the net's)."""
+
+    SUPPORTS_DEEPCACHE = True
+    FORCE_STFT_OUT = False
+
+    def __init__(self, net: NCSNpp, devices: Sequence, nets: Optional[Sequence[nn.Module]] = None):
+        super().__init__()
+        self.net = net
+        self.devices = [torch.device(d) for d in devices]
+        home = next(net.parameters()).device
+        if nets is None:
+            copies = {}
+            nets = [net if d == home else copies.setdefault(d, seqpar.replica(net, d))
+                    for d in self.devices]
+        self._nets = list(nets)  # not submodules: the net's own state_dict stays its own
+        self.ctx = ShardContext(self.devices, net, self._nets)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.net.dtype
+
+    @property
+    def spatial_channels(self) -> int:
+        return self.net.spatial_channels
+
+    def replicas(self) -> List[nn.Module]:
+        """The distinct replicas (not the net itself)."""
+        seen = {id(self.net)}
+        return [r for r in self._nets if id(r) not in seen and not seen.add(id(r))]
+
+    def check_cache_depth(self, cache_depth: int) -> None:
+        self.net.check_cache_depth(cache_depth)
+
+    def _scatter(self, x: torch.Tensor) -> Sharded:
+        widths = seqpar.frame_widths(x.shape[-2], self.net.num_resolutions, len(self.devices))
+        parts = seqpar.scatter(x, widths, self.devices, dim=-2)
+        return Sharded([self.net._pack(p) for p in parts], self.ctx)
+
+    def _gather(self, h: Sharded, x_shape) -> torch.Tensor:
+        B, Cc, Fdim, _, two = x_shape
+        outs = [self._nets[i]._unpack(p, (B, Cc, Fdim, p.shape[-1], two))
+                for i, p in enumerate(h.parts)]
+        return seqpar.gather(outs, self.devices[0], dim=-2)
+
+    def forward(self, x: torch.Tensor, time_cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self._gather(self.net._unet(self._scatter(x), time_cond), x.shape)
+
+    def deep_features(self, x: torch.Tensor, time_cond: Optional[torch.Tensor] = None,
+                      cache_depth: int = 1) -> Tuple[Sharded, Sharded]:
+        return self.net._unet(self._scatter(x), time_cond, cache_depth=cache_depth,
+                              return_cache=True)
+
+    def forward_shallow(self, x: torch.Tensor, time_cond: Optional[torch.Tensor],
+                        cache: Tuple[Sharded, Sharded], cache_depth: int = 1) -> torch.Tensor:
+        h = self.net._unet(self._scatter(x), time_cond, cache=cache, cache_depth=cache_depth)
+        return self._gather(h, x.shape)
+
+    @classmethod
+    @contextlib.contextmanager
+    def serving(cls, net: NCSNpp, devices: Sequence[str]) -> Iterator["ShardedNCSNpp"]:
+        """The net sharded over `devices` for one inference call: made once
+        per net and device group (kept on the net), its replicas given the
+        net's weights as they are now, its casts (`cast_params`) and the int8
+        scales attached to it, for the block."""
+        made = net.__dict__.setdefault("_seq_parallel", {})
+        key = tuple(str(d) for d in devices)
+        sharded = made.get(key)
+        if sharded is None:
+            sharded = made[key] = cls(net, devices)
+        with contextlib.ExitStack() as stack:
+            for r in sharded.replicas():
+                seqpar.copy_weights_(r, net)
+                stack.enter_context(cast_params(r, net.dtype))
+                stack.enter_context(scales_like(r, net))
+            yield sharded
 
 
 def count_parameters(module: nn.Module) -> int:

@@ -25,7 +25,11 @@ with the reference's message.
 
 `--batch k` groups the files by padded length (probed from their WAV
 headers) and enhances up to k of a group per call, each call row-padded to k
-rows. `--stream_chunk_s s` enhances each file in crossfaded chunks of s
+rows. `--data_parallel` keeps one replica of the model on every visible card
+and splits each call's rows over them (`--batch 1` becomes 8, and the batch
+is rounded up to a multiple of the cards); `--seq_parallel k` shards each
+spectrogram's frame axis over k cards for every NCSN++ forward, composing
+with `--data_parallel` on the cards // k replicas (`utils/inference.py`). `--stream_chunk_s s` enhances each file in crossfaded chunks of s
 seconds (rounded up to the bucket), 8 chunks per call unless `--batch` sets
 another count.
 
@@ -122,9 +126,12 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--stream_overlap_s", type=float, default=0.5,
                    help="crossfaded overlap between streaming chunks")
     p.add_argument("--data_parallel", action="store_true",
-                   help="not ported yet (ROADMAP R7): raises")
+                   help="shard serving batches over ALL visible devices (one replica per "
+                        "card, batch-split) — implies batched serving")
     p.add_argument("--seq_parallel", type=int, default=0,
-                   help="not ported yet (ROADMAP R7): raises when > 1")
+                   help="model-parallel serving: shard each spectrogram's time-frame axis over "
+                        "this many devices for the whole reverse diffusion (latency axis; halo "
+                        "exchange). Composes with --data_parallel on the remaining devices")
     p.add_argument("--quant", default=None, choices=("int8",),
                    help="post-training W8A8 int8 serving: calibrates activation scales on "
                         "the first files, then runs the large NCSN++ convs as int8 x int8 -> "
@@ -143,7 +150,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         "(--deepcache)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cpu' runs the kernels' plain versions")
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    if args.data_parallel and args.batch <= 1:
+        args.batch = 8
+    return args
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:

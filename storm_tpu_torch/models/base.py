@@ -10,11 +10,12 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Callable, Dict, Iterator, Optional, Tuple
+from typing import Callable, Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
+from ..backbones.ncsnpp import ShardedNCSNpp
 from ..nn.cast import cast_params
 from ..sampling.samplers import (DeepCache, check_deepcache_method, ode_sample, pc_sample,
                                  picard_sample)
@@ -167,6 +168,29 @@ def draw_tz(sde, t_eps: float, x: torch.Tensor,
     t = torch.rand(x.shape[0], generator=generator, device=x.device)
     t = t * (sde.T - t_eps) + t_eps
     return t, cplx.complex_normal(x.shape[:-1], generator=generator, device=x.device)
+
+
+@contextlib.contextmanager
+def nets_sharded(owner: nn.Module, shards: Optional[Sequence[str]]) -> Iterator[nn.Module]:
+    """For one call, each NCSN++ spectrogram net of `owner` (its `NETS`)
+    swapped for its `ShardedNCSNpp` over the devices `shards`, which has the
+    same call signatures (the counterpart of the reference's
+    `spec_sharding_constraint`, storm_tpu/models/base.py:156-183). Every net
+    call then cuts its input along the frame axis and gathers its output on
+    the group's first device, so the sampler, the SDE, the front end and the
+    iSTFT run whole there, unchanged. Time-domain nets and GaGNet run whole
+    on the first device. Enter it inside the nets' casts and int8 scales:
+    the replicas take theirs. `shards` None or of one device: no change."""
+    if not shards or len(shards) < 2:
+        yield owner
+        return
+    with contextlib.ExitStack() as stack:
+        for name in owner.NETS:
+            net = getattr(owner, name)
+            if getattr(net, "SEQ_PARALLEL", False):
+                setattr(owner, name, stack.enter_context(ShardedNCSNpp.serving(net, shards)))
+                stack.callback(setattr, owner, name, net)
+        yield owner
 
 
 def spatial_channels(model) -> int:

@@ -26,8 +26,8 @@ from ..nn.qconv import scales_attached, stats_collected
 from ..signal import cplx
 from ..signal.stft import STFTConfig
 from ..signal.transforms import SpecTransform
-from .base import (EnhancementModel, is_time_domain, lift_spec, normalize_wav, per_example_sum,
-                   prepare_spec, spec_to_wav)
+from .base import (EnhancementModel, is_time_domain, lift_spec, nets_sharded, normalize_wav,
+                   per_example_sum, prepare_spec, spec_to_wav)
 
 LOSS_TYPES = ("mse", "mae", "sisdr")
 
@@ -124,7 +124,8 @@ class DiscriminativeModel(EnhancementModel):
     @torch.inference_mode()
     def enhance(self, y: torch.Tensor, quant: Optional[Dict[str, float]] = None,
                 generator: Optional[torch.Generator] = None, noise=None,
-                batch_stats: Optional[Dict] = None, **ignored) -> Tuple[torch.Tensor, int]:
+                batch_stats: Optional[Dict] = None, shards: Optional[Tuple[str, ...]] = None,
+                **ignored) -> Tuple[torch.Tensor, int]:
         """Enhance waveforms y (B, T) -> (x_hat (B, T), 1) in one forward.
 
         `quant`: int8 activation scales of `dnn` by conv module name, from
@@ -132,7 +133,11 @@ class DiscriminativeModel(EnhancementModel):
         statistics of a GaGNet-BN `dnn` ({norm module name: {"mean", "var"}}),
         used by its BN norms in place of the batch's. Draws no noise: `generator`
         and `noise` are accepted and unused, and the samplers' options are
-        ignored, as the reference's `**ignored_kwargs` are."""
+        ignored, as the reference's `**ignored_kwargs` are.
+        `shards`: the devices of a sequence-parallel group (the
+        reference's `mesh=`): the NCSN++ nets run sharded along the frame
+        axis over them (`base.nets_sharded`); None runs them whole.
+        A time-domain dnn runs whole."""
         T_orig = y.shape[-1]
         y_n, norm = normalize_wav(y)
         if self.force_stft_out:  # the waveform straight in
@@ -141,7 +146,7 @@ class DiscriminativeModel(EnhancementModel):
             return x_hat[..., :T_orig] * norm, 1
         Y, _ = prepare_spec(y_n, self.stft_config, self.transform)
         with self.cast_nets(), scales_attached(self.dnn, quant or {}), \
-                stats_attached(self.dnn, batch_stats):
+                stats_attached(self.dnn, batch_stats), nets_sharded(self, shards):
             X_hat = self(Y)
         x_hat = spec_to_wav(X_hat, self.stft_config, self.transform, length=T_orig)
         return x_hat * norm, 1

@@ -39,7 +39,8 @@ from ..sampling.samplers import NoiseSource, generator_noise, ode_sample
 from ..sde.sdes import OUVESDE, OUVPSDE
 from ..signal import cplx
 from ..utils.tensors import right_pad_dims
-from .base import EnhancementModel, normalize_wav, per_example_sum, prepare_spec, spec_to_wav
+from .base import (EnhancementModel, nets_sharded, normalize_wav, per_example_sum, prepare_spec,
+                   spec_to_wav)
 from .storm import StochasticRegenerationModel
 
 DISTILL_METHODS = ("euler", "heun", "rk4", "etd1", "etd2")
@@ -197,6 +198,7 @@ class DistilledModel(EnhancementModel):
                 noise: Optional[NoiseSource] = None,
                 quant: Optional[Dict[str, Optional[Dict[str, float]]]] = None,
                 deepcache: int = 0, batch_stats=None,
+                shards: Optional[Tuple[str, ...]] = None,
                 **ignored_sampler_kwargs) -> Tuple[torch.Tensor, int]:
         """Enhance waveforms y (B, T) -> (x_hat (B, T), 2): the denoiser, one
         prior draw z (from `noise` if given, else `generator`), then the
@@ -205,7 +207,9 @@ class DistilledModel(EnhancementModel):
         `quant`: {"denoiser": scales or None, "score": scales or None} from
         `models.quant.calibrate_distill`. `deepcache` is refused;
         `batch_stats` is dropped, as the reference's `make_enhance` drops it
-        (storm_tpu/models/distill.py:255)."""
+        (storm_tpu/models/distill.py:255). `shards`: the devices of a
+        sequence-parallel group (the reference's `mesh=`), over which StoRM's
+        nets run sharded along the frame axis (`base.nets_sharded`)."""
         del batch_stats
         refuse_deepcache(deepcache)
         T_orig = y.shape[-1]
@@ -216,7 +220,8 @@ class DistilledModel(EnhancementModel):
         quant = quant or {}
         with self.cast_nets(), \
                 scales_attached(self.denoiser_net, quant.get("denoiser") or {}), \
-                scales_attached(self.score_net, quant.get("score") or {}):
+                scales_attached(self.score_net, quant.get("score") or {}), \
+                nets_sharded(self.storm, shards):
             Y_denoised = self.storm.forward_denoiser(Y)
             x_T, std_T = self.prior(Y, Y_denoised, noise(Y.shape[:-1]))
             x0 = self._student_x0(x_T, self.storm._conditioning(Y, Y_denoised), std_T,

@@ -26,7 +26,8 @@ from ..signal.stft import STFTConfig
 from ..signal.transforms import SpecTransform
 from ..utils.tensors import right_pad_dims
 from .base import (EnhancementModel, check_sampler, draw_tz, lift_spec, make_deepcache_fns,
-                   normalize_wav, per_example_sum, prepare_spec, run_sampler, spec_to_wav)
+                   nets_sharded, normalize_wav, per_example_sum, prepare_spec, run_sampler,
+                   spec_to_wav)
 
 LOSS_TYPES = ("mse", "mae")
 
@@ -126,6 +127,7 @@ class ScoreModel(EnhancementModel):
         max_steps: int = 1000,
         sweeps: int = 8,
         batch_stats: Optional[Dict] = None,
+        shards: Optional[Tuple[str, ...]] = None,
     ) -> Tuple[torch.Tensor, int]:
         """Enhance waveforms y (B, T) -> (x_hat (B, T), nfe).
 
@@ -137,13 +139,16 @@ class ScoreModel(EnhancementModel):
         `models.quant.calibrate_score_model`. nfe counts score evaluations.
         `batch_stats`: the running statistics of a GaGNet-BN `dnn`, as in
         `StochasticRegenerationModel.enhance`.
+        `shards`: the devices of a sequence-parallel group (the
+        reference's `mesh=`): the NCSN++ nets run sharded along the frame
+        axis over them (`base.nets_sharded`); None runs them whole.
         """
         check_sampler(self.dnn, sampler_type, deepcache, deepcache_depth, method)
         T_orig = y.shape[-1]
         y_n, norm = normalize_wav(y)
         Y, _ = prepare_spec(y_n, self.stft_config, self.transform)
         with self.cast_nets(), scales_attached(self.dnn, quant or {}), \
-                stats_attached(self.dnn, batch_stats):
+                stats_attached(self.dnn, batch_stats), nets_sharded(self, shards):
             def score_fn(x, t, y_sde):  # Picard's sweeps pass y_sde tiled to their rows
                 return self.score_apply(x, t, y_sde)
 

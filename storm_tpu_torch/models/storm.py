@@ -34,8 +34,8 @@ from ..signal.stft import STFTConfig
 from ..signal.transforms import SpecTransform
 from ..utils.tensors import right_pad_dims
 from .base import (EnhancementModel, check_sampler, draw_tz, is_time_domain, lift_spec,
-                   make_deepcache_fns, normalize_wav, per_example_sum, prepare_spec, run_sampler,
-                   spec_to_wav, time_domain_denoise)
+                   make_deepcache_fns, nets_sharded, normalize_wav, per_example_sum, prepare_spec,
+                   run_sampler, spec_to_wav, time_domain_denoise)
 
 CONDITION_CHANNELS = {"noisy": 1, "post_denoiser": 1, "both": 2}
 STORM_MODES = ("regen-joint-training", "regen-freeze-denoiser")
@@ -206,6 +206,7 @@ class StochasticRegenerationModel(EnhancementModel):
         max_steps: int = 1000,
         sweeps: int = 8,
         batch_stats: Optional[Dict[str, Optional[Dict]]] = None,
+        shards: Optional[Tuple[str, ...]] = None,
     ) -> Tuple[torch.Tensor, int]:
         """Enhance waveforms y (B, T) -> (x_hat (B, T), nfe).
 
@@ -233,6 +234,9 @@ class StochasticRegenerationModel(EnhancementModel):
         the running statistics of a GaGNet-BN net ({norm module name:
         {"mean", "var"}}, `convert.batch_stats_from_jax`), used by its BN
         norms for the whole call in place of the batch's statistics.
+        `shards`: the devices of a sequence-parallel group (the
+        reference's `mesh=`): the NCSN++ nets run sharded along the frame
+        axis over them (`base.nets_sharded`); None runs them whole.
         """
         check_sampler(self.score_net, sampler_type, deepcache, deepcache_depth, method)
         T_orig = y.shape[-1]
@@ -243,7 +247,8 @@ class StochasticRegenerationModel(EnhancementModel):
                 scales_attached(self.denoiser_net, quant.get("denoiser") or {}), \
                 scales_attached(self.score_net, quant.get("score") or {}), \
                 stats_attached(self.denoiser_net, batch_stats.get("denoiser")), \
-                stats_attached(self.score_net, batch_stats.get("score")):
+                stats_attached(self.score_net, batch_stats.get("score")), \
+                nets_sharded(self, shards):
             Y_denoised = self.forward_denoiser(Y)
             cond = self._conditioning(Y, Y_denoised)
 

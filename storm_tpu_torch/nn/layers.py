@@ -10,6 +10,11 @@ Dense and NIN cast their parameters (nn/cast.py) and round the product
 before adding the bias; GroupNorm takes its statistics and normalizes in
 float32 and rounds once; attention's softmax runs in float32; Python
 scalars are rounded to the dtype as JAX's weak typing rounds them.
+
+Each layer NCSN++ runs also takes a frame-sharded activation (nn/seqpar.py
+`Sharded`, sequence-parallel serving): the convs, NIN and the resamplers on
+halo'd shards, GroupNorm with cross-shard moments, attention with gathered
+keys and values; the resblocks and `Combine` are compositions of those.
 """
 from __future__ import annotations
 
@@ -21,9 +26,11 @@ import torch.nn.functional as F
 from torch import nn
 from torch.autograd.function import once_differentiable
 
+from . import seqpar
 from .cast import param, scalar
 from .init import ddpm_init_, lecun_normal_
 from .qconv import QuantizableConv, conv_forward
+from .seqpar import Sharded
 from .resample import (
     conv_downsample_2d,
     downsample_2d,
@@ -60,6 +67,10 @@ class GroupNorm(nn.GroupNorm):
     result.)"""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if isinstance(x, Sharded):  # moments over every shard, then each shard normalized
+            mean, var = seqpar.group_norm_moments(x, self.num_groups)
+            mul, add = _group_affine(mean, torch.rsqrt(var + self.eps), self.weight, self.bias)
+            return x.map(lambda p: _normalize(p, mul.to(p.device), add.to(p.device)))
         if x.dtype == self.weight.dtype:
             return super().forward(x)
         if torch.is_grad_enabled() and (x.requires_grad or self.weight.requires_grad
@@ -72,14 +83,24 @@ class GroupNorm(nn.GroupNorm):
 def _group_norm_low(x, weight, bias, G: int, eps: float):
     """(GroupNorm of x in x's dtype, the float32 group means, the float32
     inverse deviations): moments and normalize in float32, one rounding."""
-    B, C = x.shape[:2]
-    var, mean = torch.var_mean(x.reshape(B, G, -1).float(), dim=-1, correction=0)
+    var, mean = torch.var_mean(x.reshape(x.shape[0], G, -1).float(), dim=-1, correction=0)
     rstd = torch.rsqrt(var + eps)
+    return _normalize(x, *_group_affine(mean, rstd, weight, bias)), mean, rstd
+
+
+def _group_affine(mean, rstd, weight, bias):
+    """(mul, add), each (B, C) float32, of GroupNorm's x * mul + add from the
+    group means and inverse deviations (B, G) and the scale and bias (C,)."""
+    B, G = mean.shape
+    C = weight.shape[0]
     mul = (rstd[:, :, None] * weight.view(G, -1)).reshape(B, C)
-    add = bias - mean.repeat_interleave(C // G, dim=1) * mul
-    shape = (B, C) + (1,) * (x.dim() - 2)
-    out = torch.addcmul(add.view(shape), x, mul.view(shape), out=torch.empty_like(x))
-    return out, mean, rstd
+    return mul, bias - mean.repeat_interleave(C // G, dim=1) * mul
+
+
+def _normalize(x, mul, add):
+    """x * mul + add per channel in float32, written in x's dtype (one rounding)."""
+    shape = mul.shape + (1,) * (x.dim() - 2)
+    return torch.addcmul(add.view(shape), x, mul.view(shape), out=torch.empty_like(x))
 
 
 class LowPrecisionGroupNorm(torch.autograd.Function):
@@ -167,6 +188,8 @@ class OutputConv(nn.Conv2d):
         super().__init__(in_ch, out_ch, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if isinstance(x, Sharded):
+            return x.apply(self)
         return conv_forward(self, x)
 
     def init_from(self, generator=None):
@@ -237,6 +260,8 @@ class NIN(nn.Module):
         nn.init.zeros_(self.b)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if isinstance(x, Sharded):
+            return x.apply(self)
         W, b = param(self, "W", x.dtype), param(self, "b", x.dtype)
         return torch.einsum("bchw,cd->bdhw", x, W) + b[None, :, None, None]
 
@@ -272,6 +297,11 @@ class AttnBlockpp(nn.Module):
         self.NIN_3 = NIN(channels, channels, init_scale=init_scale)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if isinstance(x, Sharded):
+            h = self.GroupNorm_0(x)
+            h = seqpar.attention_gathered(self.NIN_0(h), self.NIN_1(h), self.NIN_2(h))
+            h = self.NIN_3(h)
+            return (x + h) / scalar(math.sqrt(2.0), x.dtype) if self.skip_rescale else x + h
         B, C, H, W = x.shape
         h = self.GroupNorm_0(x)
         q = self.NIN_0(h).reshape(B, C, H * W)
@@ -301,6 +331,13 @@ class StridedConv(nn.Conv2d):
 
     def reset_parameters(self):
         self.init_from(None)
+
+
+# the frames of halo a sharded 2x resampler takes on either side: every
+# output frame of the FIR (4 taps) and of the 3x3 conv around it reads
+# input frames within 2 of its own, and an even halo keeps a stride-2 op's
+# phase (nn/seqpar.py)
+RESAMPLE_HALO = 2
 
 
 class _Resample(nn.Module):
@@ -347,6 +384,8 @@ class Upsample(_Resample):
         return conv3x3(in_ch, out_ch)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if isinstance(x, Sharded):
+            return x.apply(self, halo=RESAMPLE_HALO, scale=2)
         if not self.fir:
             h = naive_upsample_2d(x, factor=2)
             return self.Conv_0(h) if self.with_conv else h
@@ -364,6 +403,8 @@ class Downsample(_Resample):
         return StridedConv(in_ch, out_ch, 3, stride=2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if isinstance(x, Sharded):
+            return x.apply(self, halo=RESAMPLE_HALO, scale=0.5)
         if not self.fir:
             if not self.with_conv:
                 return naive_downsample_2d(x, factor=2)
@@ -446,6 +487,9 @@ class ResnetBlockBigGANpp(nn.Module):
             self.Conv_2 = conv1x1(in_ch, out_ch)
 
     def _resample(self, x: torch.Tensor) -> torch.Tensor:
+        if isinstance(x, Sharded) and (self.up or self.down):
+            return x.halo_map(lambda i, t: self._resample(t), RESAMPLE_HALO,
+                              2 if self.up else 0.5)
         if self.up:
             return (upsample_2d(x, self.fir_kernel, factor=2) if self.fir
                     else naive_upsample_2d(x, factor=2))

@@ -53,6 +53,7 @@ from torch import nn
 
 from ..kernels.quant import quantize_int8
 from .cast import param
+from .seqpar import Sharded
 
 
 def activation_inverse(a_scale: float) -> float:
@@ -147,6 +148,8 @@ class QuantizableConv(nn.Conv2d):
                       {torch.float32: dequant, torch.bfloat16: dequant.to(torch.bfloat16)})
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if isinstance(x, Sharded):  # "same" padding: a halo of the padding, the conv as it is
+            return x.apply(self, halo=self.padding[1])
         if self.calibrating:
             big = x.detach().abs().amax().to(torch.float32)
             self.amax = big if self.amax is None else torch.maximum(self.amax, big)
@@ -184,6 +187,23 @@ def scales_attached(net: nn.Module, scales: Mapping[str, float]) -> Iterator[nn.
     finally:
         for name in scales:
             convs[name].set_scale(None)
+
+
+@contextlib.contextmanager
+def scales_like(dst: nn.Module, src: nn.Module) -> Iterator[nn.Module]:
+    """For the block, the int8 scales attached to `src`'s convs attached to
+    the same convs of `dst`, a replica of it (each quantizing its own
+    weights)."""
+    pairs = [(d, s.a_scale) for d, s in zip(quantizable_convs(dst).values(),
+                                             quantizable_convs(src).values())
+             if s.a_scale is not None]
+    try:
+        for conv, a_scale in pairs:
+            conv.set_scale(a_scale)
+        yield dst
+    finally:
+        for conv, _ in pairs:
+            conv.set_scale(None)
 
 
 @contextlib.contextmanager

@@ -14,7 +14,8 @@ Endpoints:
                     serves the payload's first D channels and answers 400 to
                     one of fewer
     GET  /healthz   readiness and the serving configuration (mode, torch device, card,
-                    spatial_channels)
+                    spatial_channels, data_parallel, seq_parallel and the devices
+                    served on)
     GET  /stats     request and batch counters, audio seconds served, batch fill,
                     spatial_channels,
                     and under "graphs" the captured programs' counters
@@ -30,6 +31,11 @@ served. Noise comes
 from one torch.Generator seeded with `--seed`, owned by the batcher's
 dispatcher thread; int8 calibration draws from its own, seeded `--seed` + 1.
 SIGTERM stops accepting requests and drains the queue.
+
+`--data_parallel` and `--seq_parallel k` serve on several cards, as the
+enhancement CLI does (`utils/inference.py`): every batch is row-padded to
+`--batch`, rounded up to a multiple of the replicas, and goes through the
+batcher's synchronous path (one batch on the cards at a time).
 
 On a card every batch is the replay of the captured CUDA graph of its row
 count and bucket (`utils/graphs.py`): `--warmup_s` / `--warmup_buckets`
@@ -118,8 +124,11 @@ def build_argparser() -> argparse.ArgumentParser:
                         "--deepcache); 0 = the exact trajectory")
     p.add_argument("--deepcache_depth", type=int, default=1,
                    help="top U-Net levels recomputed per cached score eval")
-    p.add_argument("--data_parallel", action="store_true", help="not ported yet (ROADMAP R7)")
-    p.add_argument("--seq_parallel", type=int, default=0, help="not ported yet (ROADMAP R7)")
+    p.add_argument("--data_parallel", action="store_true",
+                   help="shard request batches over all visible devices")
+    p.add_argument("--seq_parallel", type=int, default=0,
+                   help="shard each spectrogram's time-frame axis over this many devices "
+                        "(latency axis; composes with --data_parallel)")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the kernels' plain versions")
     return p
@@ -230,14 +239,21 @@ def build_server(args):
             min_channels=args.quant_min_channels,
             params_source="raw" if args.no_ema else "ema", model_sr=MODEL_SR)
 
+    # the mesh modes pin one program shape (its rows split over the
+    # replicas), so the enhancer row-pads every batch to `minibatch`; one
+    # device leaves the row sizing to the batcher's ladder
+    mesh_mode = args.data_parallel or args.seq_parallel > 1
     enhancer = BucketedEnhancer(
-        model, data_parallel=args.data_parallel, seq_parallel=args.seq_parallel,
-        N=args.N, sampler_type=args.sampler, predictor=args.predictor,
-        corrector=args.corrector, corrector_steps=args.corrector_steps, snr=args.snr,
+        model, minibatch=args.batch if mesh_mode else None, data_parallel=args.data_parallel,
+        seq_parallel=args.seq_parallel, N=args.N, sampler_type=args.sampler,
+        predictor=args.predictor, corrector=args.corrector, corrector_steps=args.corrector_steps, snr=args.snr,
         method=args.ode_method, quant=quant,
         batch_stats=load_gagnet_batch_stats(args.ckpt, model), deepcache=args.deepcache,
         deepcache_depth=args.deepcache_depth)
-    if args.row_sizes:
+    if mesh_mode:  # the batch as the enhancer rounded it to the replicas
+        args.batch = enhancer.minibatch
+        row_sizes = [args.batch]
+    elif args.row_sizes:
         row_sizes = sorted({int(r) for r in args.row_sizes.split(",")})
         if row_sizes[0] < 1 or row_sizes[-1] > args.batch:
             raise SystemExit(f"--row_sizes must lie in [1, {args.batch}]")
@@ -276,6 +292,8 @@ def build_server(args):
         "warmup_buckets_s": [T / MODEL_SR for T in lens],
         **backbones_of(config), "dtype": config.get("dtype", "float32"), "seed": args.seed,
         "execution": enhancer.execution,
+        "data_parallel": bool(args.data_parallel), "seq_parallel": args.seq_parallel,
+        "devices": enhancer.devices,
         "ckpt": os.path.abspath(args.ckpt),
     }
     try:

@@ -32,10 +32,18 @@ overwrites. Replay and eager run the same kernels on the same numbers, so
 from the same generator state they give the same bits.
 
 The capture raises, naming the op that broke it, if the body reads the
-device or uploads from pageable memory: no call falls back to eager. The
-one exception is the ODE's rk45, whose step controller reads the error norm
-after every attempted step; `graphed_enhance` runs it eagerly and counts it
-under "eager".
+device or uploads from pageable memory: no call falls back to eager. Two
+exceptions, which `graphed_enhance` runs eagerly and counts under "eager"
+(`eager_reason` names them, and `BucketedEnhancer.execution` reports
+them): the ODE's rk45, whose step controller reads the error norm after
+every attempted step, and a sequence-parallel group whose shards span
+several cards (`shards`), whose body queues work on every card of the group
+where a capture records one card's stream.
+
+A data-parallel replica's programs are its own model's, on its card: the
+input's device is part of the key. A sequence-parallel group's devices
+(`shards`) are part of the key as a keyword; a group on one card captures
+as any call does.
 
 The kernels' wrappers count their launches in Python, and a replay runs no
 Python: each program records the launches its capture made (the capture
@@ -56,6 +64,7 @@ from __future__ import annotations
 
 import gc
 import itertools
+import threading
 import time
 import weakref
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Set, Tuple
@@ -65,12 +74,15 @@ import torch
 from ..kernels import LAUNCH_COUNTERS
 from ..sampling import samplers
 from ..sampling.samplers import NoiseSource
+from .devices import spans_cards
 
 
 def eager_reason(kw: Dict) -> Optional[str]:
     """Why a call with these `enhance` keywords cannot be captured, or None."""
     if kw.get("sampler_type") == "ode" and kw.get("method") == "rk45":
         return "rk45"
+    if spans_cards(kw.get("shards")):
+        return "seq_parallel across cards"
     return None
 
 
@@ -96,6 +108,9 @@ def program_key(model, y: torch.Tensor, kw: Dict) -> Tuple:
              torch.backends.cuda.matmul.allow_tf32)
     return (tuple(y.shape), str(y.dtype), str(y.device), dtypes, model.training, flags,
             _freeze(kw))
+
+
+_COUNTING = threading.Lock()
 
 
 def _launch_counts() -> List[int]:
@@ -158,8 +173,9 @@ class Program:
     def replay(self) -> torch.Tensor:
         """Run the captured graph on the current stream; a copy of its output."""
         self.graph.replay()
-        for f, n in zip(LAUNCH_COUNTERS, self.launches):
-            f.launches += n
+        with _COUNTING:  # data-parallel replicas replay from threads of their own
+            for f, n in zip(LAUNCH_COUNTERS, self.launches):
+                f.launches += n
         return self.out.clone()
 
 
@@ -311,6 +327,20 @@ def programs_of(model) -> Programs:
     if progs is None:
         progs = _PROGRAMS[model] = Programs()
     return progs
+
+
+def replay_noise_shapes(model, y: torch.Tensor, kw: Dict) -> Optional[List[Tuple[int, ...]]]:
+    """The shapes `graphed_enhance(model, y, **kw)` will draw, in order, if
+    that call is a replay of its captured program; None if it is not (a
+    shape's first or second call, an eager call, a CPU device)."""
+    if not y.is_cuda or eager_reason(kw):
+        return None
+    progs = programs_of(model)
+    progs.check_storage(model)
+    prog = progs.programs.get(program_key(model, y, kw))
+    if prog is None or prog.graph is None:
+        return None
+    return [tuple(buf.shape[:-1]) for buf in prog.noise]
 
 
 @torch.inference_mode()

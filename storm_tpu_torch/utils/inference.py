@@ -25,18 +25,36 @@ Noise for every call comes from one `torch.Generator` owned by the caller
 (or an injected noise source), drawn in order: chunk after chunk, each chunk
 as its sampler draws it. The reference splits a PRNG key per chunk; the
 noise of a batch depends on its row count in both.
+
+Several devices (`data_parallel`, `seq_parallel`; `utils/devices.py`): the
+device set is laid out as the reference lays out its mesh
+(storm_tpu/utils/inference.py:36-87), one replica of the model per row of
+the grid, on the row's first device, each chunk's rows split evenly over
+the replicas (`minibatch` rounded up to a multiple of their count); a row
+of k > 1 devices runs its replica's NCSN++ nets sharded along the frame
+axis over them (`models.base.nets_sharded`). A chunk's noise is drawn once
+from the one generator at the chunk's row count, in the sampler's order,
+and each replica is handed its rows of every draw (`RowSplit`): every row
+sees the draws of unsharded serving. The replicas on other devices are
+copies of the model made when the enhancer is built. Each replica's calls
+are its own captured programs on its own card; a group that spans cards
+runs eagerly (`execution` says so: `utils/graphs.eager_reason`).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+import concurrent.futures
+import contextlib
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..models.base import spatial_channels
-from ..sampling.samplers import NoiseSource
+from ..nn.seqpar import replica
+from ..sampling.samplers import NoiseSource, generator_noise
 from ..signal.stft import stft_real
-from .graphs import eager_reason, graphed_enhance, programs_of
+from .devices import serving_devices, serving_grid
+from .graphs import eager_reason, graphed_enhance, programs_of, replay_noise_shapes
 from .metrics import pesq_wb, si_sdr
 from .stoi import stoi
 
@@ -56,15 +74,17 @@ class BucketedEnhancer:
     device: runs its body on the program's static buffers), except rk45,
     which runs eagerly; False calls `model.enhance` directly, the eager
     loop the programs are compared with.
+    `data_parallel`: one replica per device, each chunk's rows split over
+    them; `seq_parallel=k > 1`: k devices per replica, its NCSN++ nets
+    sharded along the frame axis over them (with `data_parallel`, on
+    devices // k replicas; else one); k must divide the device count.
+    `devices`: the device set (`utils/devices.serving_devices`; by default
+    every visible card, or the model's device on the CPU), e.g. ["cpu"] * 8.
     """
 
     def __init__(self, model, bucket_frames: int = 64, minibatch: Optional[int] = None,
                  data_parallel: bool = False, seq_parallel: int = 0, graphs: bool = True,
-                 **enhance_kwargs):
-        if data_parallel or (seq_parallel and seq_parallel > 1):
-            raise NotImplementedError(
-                "data_parallel / seq_parallel serving over several GPUs is not ported yet "
-                "(ROADMAP R7)")
+                 devices: Optional[Sequence] = None, **enhance_kwargs):
         self.model = model
         self.spatial_channels = spatial_channels(model)
         self.device = next(model.parameters()).device
@@ -72,20 +92,55 @@ class BucketedEnhancer:
         self.bucket_samples = bucket_frames * model.stft_config.hop_length
         self.minibatch = minibatch
         self.graphs = graphs
+        self.groups = serving_grid(serving_devices(self.device, devices), data_parallel,
+                                   seq_parallel)
+        self.replicas: List[Tuple[torch.nn.Module, Dict]] = []
+        if self.groups is not None:
+            n = len(self.groups)
+            if self.minibatch is None:
+                self.minibatch = n
+            elif self.minibatch % n:  # the rows of a chunk split evenly over the replicas
+                self.minibatch = -(-self.minibatch // n) * n
+            copies = {self.device: model}
+            for group in self.groups:
+                home = torch.device(group[0])
+                if home not in copies:
+                    copies[home] = replica(model, home)
+                kw = dict(enhance_kwargs)
+                if kw.get("batch_stats") is not None:
+                    kw["batch_stats"] = _moved(kw["batch_stats"], home)
+                if len(group) > 1:
+                    kw["shards"] = group
+                self.replicas.append((copies[home], kw))
 
     @property
     def execution(self) -> str:
         """How calls run: "graph" (CPU: the programs' bodies, eagerly),
-        "eager: rk45" where a graph cannot serve, or "eager"."""
+        "eager: <reason>" where a graph cannot serve (rk45, a sequence-parallel
+        group across cards), or "eager"."""
         if not self.graphs:
             return "eager"
-        reason = eager_reason(self.enhance_kwargs)
+        reason = eager_reason(self.replicas[0][1] if self.replicas else self.enhance_kwargs)
         return f"eager: {reason}" if reason else "graph"
 
     @property
+    def devices(self) -> List[str]:
+        """The devices served on: every group's, in order (the model's alone
+        without a grid)."""
+        if self.groups is None:
+            return [str(self.device)]
+        return [d for group in self.groups for d in group]
+
+    @property
     def graph_stats(self) -> dict:
-        """The model's captured programs' counters (`utils/graphs.Programs.stats`)."""
-        return dict(programs_of(self.model).stats)
+        """The captured programs' counters (`utils/graphs.Programs.stats`),
+        summed over the replicas' models."""
+        models = {id(m): m for m, _ in self.replicas} or {id(self.model): self.model}
+        stats: Dict = {}
+        for m in models.values():
+            for k, v in programs_of(m).stats.items():
+                stats[k] = stats.get(k, 0) + v
+        return stats
 
     def padded_len(self, T: int) -> int:
         """The bucketed input length of a T-sample waveform."""
@@ -97,7 +152,7 @@ class BucketedEnhancer:
         a sampler that enqueues without a sync (all but the ODE's rk45)."""
         kw = self.enhance_kwargs
         rk45 = kw.get("sampler_type", "pc") == "ode" and kw.get("method") == "rk45"
-        return self.minibatch is None and not rk45
+        return self.minibatch is None and not rk45 and self.groups is None
 
     def batched(self, y: np.ndarray) -> Tuple[np.ndarray, bool]:
         """(the waveforms as a batch (B, T) or (B, D, T), whether `y` was one
@@ -126,10 +181,51 @@ class BucketedEnhancer:
 
     def _enhance(self, y: torch.Tensor, generator, noise,
                  warm_up: bool = False) -> Tuple[torch.Tensor, int]:
+        if self.groups is not None:
+            return self._enhance_replicas(y, generator, noise, warm_up)
         if self.graphs:
             return graphed_enhance(self.model, y, generator, noise, warm_up=warm_up,
                                    **self.enhance_kwargs)
         return self.model.enhance(y, generator=generator, noise=noise, **self.enhance_kwargs)
+
+    def _enhance_replicas(self, y: torch.Tensor, generator, noise,
+                          warm_up: bool) -> Tuple[torch.Tensor, int]:
+        """One chunk (`minibatch` rows) over the replicas, each given its
+        rows and its rows of the chunk's noise; the output joined on the
+        model's device. A copy between cards waits for the work queued
+        before it on both (PyTorch's two-way barrier), so every row, and
+        where the calls replay every draw, is copied before any replica's
+        work is queued. Replicas of models of their own (one per card)
+        then replay from threads of their own: a program of ~100k kernels
+        fills the card's launch queue, and its launch returns only as the
+        card drains it, so one thread would run the cards one after
+        another. Other calls (a shape's first and second, eager ones) run
+        the replicas in turn."""
+        rows = y.shape[0] // len(self.replicas)
+        homes = [next(model.parameters()).device for model, _ in self.replicas]
+        parts = [(r * rows, (r + 1) * rows, home) for r, home in enumerate(homes)]
+        split = RowSplit(noise if noise is not None else generator_noise(generator, self.device),
+                         parts)
+        ys = [y[lo:hi].to(home) for lo, hi, home in parts]
+
+        def run(r: int):
+            model, kw = self.replicas[r]
+            with _on(homes[r]):
+                if self.graphs:
+                    return graphed_enhance(model, ys[r], None, split.part(r), warm_up=warm_up,
+                                           **kw)
+                return model.enhance(ys[r], noise=split.part(r), **kw)
+
+        shapes = [replay_noise_shapes(m, y_r, kw) for (m, kw), y_r in zip(self.replicas, ys)]
+        own_models = len({id(m) for m, _ in self.replicas}) == len(self.replicas)
+        if own_models and len(self.replicas) > 1 and all(s is not None for s in shapes):
+            split.predraw(shapes[0])
+            with concurrent.futures.ThreadPoolExecutor(len(self.replicas)) as pool:
+                results = [f.result() for f in [pool.submit(run, r)
+                                                for r in range(len(self.replicas))]]
+        else:
+            results = [run(r) for r in range(len(self.replicas))]
+        return torch.cat([out.to(self.device) for out, _ in results]), results[-1][1]
 
     def warm_up(self, y: np.ndarray, generator: Optional[torch.Generator] = None) -> None:
         """One call on (T,) or (B, T) float32 waveforms ((D, T) or (B, D, T)
@@ -185,6 +281,72 @@ class BucketedEnhancer:
             x_hat = torch.cat(chunks)
         x_hat = x_hat[..., :T].cpu().numpy()
         return (x_hat[0] if squeeze else x_hat), int(nfe)
+
+
+class RowSplit:
+    """A chunk's noise drawn once from `source` at the chunk's row count,
+    each draw in the order the replicas' samplers ask for it, and replica
+    r given its rows of it (`part(r)`). `parts`: each replica's (first row,
+    end row, device). A draw's rows are copied to every replica's device
+    when it is made (the first replica's program fills its noise before it
+    runs: the copies then wait for no replica's work), and, while the
+    replicas ask in turn, dropped once every replica has taken them."""
+
+    def __init__(self, source: NoiseSource, parts: Sequence[Tuple[int, int, torch.device]]):
+        self.source, self.parts = source, list(parts)
+        self.draws: List[Optional[List[torch.Tensor]]] = []
+        self.taken: List[int] = []
+        self.frozen = False
+
+    def _draw(self, shape) -> None:
+        z = self.source((self.parts[-1][1],) + tuple(shape[1:]))
+        self.draws.append([z[a:b].to(dev) for a, b, dev in self.parts])
+        self.taken.append(0)
+
+    def predraw(self, shapes) -> None:
+        """Make every draw of the call now, in order (`shapes`: one
+        replica's), and no more later: the replicas may then ask from
+        threads of their own."""
+        for shape in shapes:
+            self._draw(shape)
+        self.frozen = True
+
+    def part(self, r: int) -> NoiseSource:
+        lo, hi, _ = self.parts[r]
+        used = [0]
+
+        def draw(shape) -> torch.Tensor:
+            j = used[0]
+            used[0] += 1
+            if j == len(self.draws) and not self.frozen:
+                self._draw(shape)
+            rows = self.draws[j][r] if j < len(self.draws) and self.draws[j] is not None else None
+            if rows is None or tuple(rows.shape[:-1]) != tuple(shape):
+                raise RuntimeError(f"replica rows {lo}:{hi} asked for draw {j} of shape "
+                                   f"{tuple(shape)}, not the chunk's")
+            if not self.frozen:  # the replicas ask in turn: drop what all have taken
+                self.taken[j] += 1
+                if self.taken[j] == len(self.parts):
+                    self.draws[j] = None
+            return rows
+
+        return draw
+
+
+def _moved(value, device: torch.device):
+    """`value` (None, a tensor, or dicts of them: GaGNet's running
+    statistics) with its tensors on `device`."""
+    if isinstance(value, torch.Tensor):
+        return value.to(device)
+    if isinstance(value, dict):
+        return {k: _moved(v, device) for k, v in value.items()}
+    return value
+
+
+def _on(device: torch.device):
+    """The device's context for a card (graph capture and replay run on the
+    current card), nothing for the CPU."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
 
 
 MAX_VIS_SAMPLES = 10

@@ -77,9 +77,11 @@ class DynamicBatcher:
     `enhance_async(ys, generator) -> (x_hats, nfe)`. `row_sizes` are the
     allowed batch row counts (default 1, 2, 4, ..., max_batch);
     `pipeline_depth` bounds the batches in flight on the pipelined path.
-    `build_server` always takes the pipelined path; the synchronous one stays
-    for enhancers without `enhance_async` (a `minibatch` enhancer, the
-    reference's synchronous batcher cases) and for `pipeline_depth` 1.
+    `build_server` takes the pipelined path on one device; the synchronous
+    one serves enhancers without `enhance_async` (a `minibatch` enhancer:
+    the data- and sequence-parallel modes, whose every batch is one
+    `minibatch` call over the cards, as the reference's mesh modes) and
+    `pipeline_depth` 1.
     """
 
     def __init__(self, enhancer, generator: Optional[torch.Generator] = None,

@@ -250,14 +250,16 @@ def test_enhance_async_returns_the_padded_batch_on_the_device(pair):
 
 
 def test_refusals(pair):
-    """Multi-device serving is still refused. A (B, D, T) batch is the input
-    of a D-channel model (tests/test_torch_multichannel.py); a one-channel
-    model refuses it with the ValueError the reference raises for a wrong
-    channel count."""
+    """A sequence-parallel group that does not divide the device set is
+    refused with the reference's message (the model's one CPU device by
+    default; the multi-device modes are tests/test_torch_{dp,sp}_serving.py).
+    A (B, D, T) batch is the input of a D-channel model
+    (tests/test_torch_multichannel.py); a one-channel model refuses it with
+    the ValueError the reference raises for a wrong channel count."""
     _, _, pmodel = pair
-    for kw in ({"data_parallel": True}, {"seq_parallel": 2}):
-        with pytest.raises(NotImplementedError, match="R7"):
-            BucketedEnhancer(pmodel, **kw)
+    assert BucketedEnhancer(pmodel, data_parallel=True).devices == ["cpu"]
+    with pytest.raises(ValueError, match="must divide the device count"):
+        BucketedEnhancer(pmodel, seq_parallel=2)
     with pytest.raises(ValueError, match="expected 1 spatial channels"):
         BucketedEnhancer(pmodel)(np.zeros((1, 2, 100), np.float32))
 
@@ -346,6 +348,8 @@ def test_cli_refuses_unported_flags(pair, tmp_path):
     save_wav(str(tmp_path / "a.wav"), wave(700, 0))
     base = ["--test_dir", str(tmp_path), "--enhanced_dir", str(tmp_path / "o"), "--ckpt", ckpt,
             "--mode", "storm", "--device", "cpu"]
-    for extra in (["--data_parallel"], ["--seq_parallel", "2"]):
-        with pytest.raises(NotImplementedError, match="R7"):
-            enhancement.main(base + extra)
+    # the mesh flags are served (tests/test_torch_dp_serving.py); on the one
+    # CPU device a group of 2 does not divide the device set
+    with pytest.raises(ValueError, match="must divide the device count"):
+        enhancement.main(base + ["--seq_parallel", "2"])
+    assert enhancement.parse_args(base + ["--data_parallel"]).batch == 8

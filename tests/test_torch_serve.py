@@ -466,11 +466,20 @@ def test_batched_requests_equal_the_enhancer_on_the_same_batch(tiny_ckpt):
 @pytest.mark.parametrize("extra,item", [
     (["--dtype", "float32", "--mode", "distill"], "incompatible"),
     (["--mode", "distill"], "incompatible"),
-    (["--data_parallel"], "R7"), (["--seq_parallel", "2"], "R7")])
+    pytest.param(["--data_parallel"], None, id="extra2-R7"),
+    pytest.param(["--seq_parallel", "2"], "must divide", id="extra3-R7")])
 def test_unported_flags_raise(tiny_ckpt, extra, item):
-    """The R7 flags raise naming their item; `--mode distill` on a StoRM
-    checkpoint exits with the reference's message."""
-    error = SystemExit if item == "incompatible" else NotImplementedError
+    """`--mode distill` on a StoRM checkpoint exits with the reference's
+    message. The mesh flags are served (tests/test_torch_sp_serving.py): on
+    the one CPU device `--data_parallel` serves one replica, and a
+    `--seq_parallel` group of 2 raises the reference's "must divide"."""
+    if item is None:
+        httpd, batcher = serve.build_server(_args(tiny_ckpt, *extra))
+        httpd.server_close()
+        batcher.close()
+        assert batcher.enhancer.devices == ["cpu"] and batcher.row_sizes == [8]
+        return
+    error = SystemExit if item == "incompatible" else ValueError
     with pytest.raises(error, match=item):
         serve.build_server(_args(tiny_ckpt, *extra))
 
