@@ -255,14 +255,15 @@ Phases, each of which exits non-zero on failure:
    `--mode denoiser-only` on phase 39's test split: 8 rows, each row's
    SI-SDR within 1e-4 dB of the enhancer's output.
 45. the distilled student: one full-width f32 distill step (B=8, 256 x 256,
-   etd2 targets of N=8: 17 teacher forwards) from phase 8's checkpoint
-   through the kernels against the plain path: 18 x (1 + 17 + 1) = 342 K1
+   etd2 targets of N=4: 9 teacher forwards) from phase 8's checkpoint
+   through the kernels against the plain path: 18 x (1 + 9 + 1) = 198 K1
    and 15 adjoint launches, read from the module lists; the score net's
    gradients within phase 8's tolerances, the denoiser's 0; after Adam's
    step the denoiser is the teacher's bit for bit; the step's time and
    peak memory.
 46. `python -m storm_tpu_torch.train --mode distill --teacher_ckpt` phase
-   25's bf16 checkpoint, one epoch of 4 steps with `--num_eval_files 2`:
+   25's bf16 checkpoint, `--distill_N 4`, one epoch of 4 steps with
+   `--num_eval_files 2`:
    phase 8's checks (launches per step from the module lists, all bf16;
    the evaluation's 2 forwards per call), the denoiser unmoved; the step
    and its peak memory beside StoRM's bf16 step.
@@ -301,7 +302,7 @@ Phases, each of which exits non-zero on failure:
    its busy share; 5 replays of the distilled int8 program add 5 times its
    recorded launches to the counters.
 54. RTF graph against eager at B=1 on the 1 / 2.5 / 4 s files (bf16 pc
-   + ald at N=50 at 4 s and N=10 at 1 and 2.5 s, dc3 bf16 N=50, distill
+   + ald at N=50 at 4 s and N=10 at 1 and 2.5 s, dc3 bf16 N=10, distill
    NFE-2 bf16; f32 at N=10 and int8 + bf16 at 4 s),
    each replay equal to eager bit for bit; the second call's seconds; the
    busy share of phase 53's replays; each capture's seconds, the graph
@@ -317,7 +318,7 @@ the process holds the least memory:
 56. the trainer's programs (utils/train_graphs.py) at full width, B=8 x 256
    frames, cuDNN deterministic: StoRM joint in f32 and bf16, score-only
    bf16, denoiser-only sisdr f32 and the distilled student in bf16 (phase
-   45's teacher, etd2 N=8): 3 eager steps and 3 through the program (the
+   45's teacher, etd2 N=4): 3 eager steps and 3 through the program (the
    eager first call, the warm-up and capture, a replay) from the same
    model, batches and generator states: losses, parameters, EMA, Adam's
    state and the step counts equal after every step (max abs 0); each
@@ -331,7 +332,7 @@ the process holds the least memory:
    run resumed for the second epoch from the first's epoch-0 `last.pt`:
    the final `last.pt` equal bit for bit.
 58. the asynchronous checkpoint (`ckpt.AsyncCheckpointManager`) of a
-   full-width f32 StoRM state against the synchronous one, 3 saves each:
+   full-width f32 StoRM state against the synchronous one, 2 saves each:
    the wall the loop waits, the async save's wall to its end, the files
    equal bit for bit.
 Phases 59-64 (the NCSN++ family's other sizes and options, the time-domain
@@ -396,8 +397,8 @@ denoisers) run last:
    from the module list and the calibrated scales; the server (bf16, N=3)
    on 3-channel payloads (served on their first 2) and a mono one (400),
    `spatial_channels` in /healthz and /stats; K1 and K3 against plain at
-   every shape these runs gave them; the program at N=50 + ald in bf16 at 4
-   s against the eager loop, bit for bit, its RTF beside phase 52's
+   every shape these runs gave them; the program at N=10 + ald in bf16 at
+   2.5 s against the eager loop, bit for bit, its RTF beside phase 54's
    one-channel row.
 70. `python -m storm_tpu_torch.train --spatial_channels 2 --dtype bfloat16`,
    4 steps at B=8 x 256 on a 2-channel corpus through its programs (36 + 33
@@ -428,14 +429,38 @@ denoisers) run last:
    captured program against the eager loop bit for bit, and against
    unsharded serving (f32 1e-4 of the scale; bf16 in the 2x form); K1 and
    K3 against plain at every shard shape.
+73. dataset creation on the card's machine: a seeded tree (5 speech files
+   of 2.3-3.1 s in one split, wham-style and CHiME-style noise) through
+   `python -m storm_tpu_torch.preprocessing.create_data --task derev+enh`
+   (a process of its own; `--dummy`, 2 corruptions a file), then in this
+   process `--task bwe --bwe-method decimate`, `--task enh --noise chime`,
+   `simulate_wind_noise --n 2` and `nonlinear_mixing`: the reference's
+   layout and file names, clean and noisy of each pair of one length, the
+   wind files 8 s; one batch of the derev+enh corpus through
+   `SpecsDataModule` (format timit: `audio/<split>/{clean,noisy}`) and one
+   full-width f32 StoRM step on it (`TrainPrograms`, eager): a finite loss
+   and the module list's 36 + 33 K1 launches; K1 and its adjoint against
+   plain at its shapes.
+74. `storm_tpu_torch.scripts.stream_quality` at full width in bf16 on
+   phase 5's checkpoint: one 64 s file (8064 frames) whole at B=1 and in 4
+   s chunks overlapping by 0.5 s, 8 per call, N=3 without a corrector: one
+   whole and 3 streamed enhancer calls of 18 x 4 K1 launches each, the
+   whole call's wall s, RTF and peak allocated memory, the streamed RTF,
+   the SUMMARY line (finite); K1-bf16 against plain at every shape the run
+   gave it; one int8 + bf16 score forward at 8064 frames (scales from a bf16
+   forward there): 55 K3 launches, codes identical to plain at each input;
+   the widest K1-bf16 call and K3 input event-timed beside plain, the
+   library call (K1) and the bound.
 
 A serving path's first call of a shape runs the eager loop, its second
 also captures the shape's graph, and later calls replay it. To keep the
 script inside its time, the CLI phases 5, 11, 19, 30, 35, 36 and 42 and
 the batched, evaluate and score-only runs (14, 19, 39, 41, 44) run at N=4
-(9 forwards per file, 10 for the ODE), not at the CLI's default N=50, and
-the servers and streaming (15, 16, 21, 22, 31, 37, 43, 48, 55) at N=3. The
-RTF at the defaults, graph and eager, is phase 54's.
+(9 forwards per file, 10 for the ODE), not at the CLI's default N=50, the
+servers and streaming (15, 16, 21, 22, 31, 37, 43, 48, 55) at N=3, the
+distilled student's teacher targets (45, 46, 56) at N=4 and stream_quality
+(74) at N=3. The RTF at the defaults, graph and
+eager, is phase 54's.
 
 Each phase's header line ends with the seconds since the script started.
 
@@ -488,7 +513,8 @@ from storm_tpu_torch.ckpt import (AsyncCheckpointManager, CheckpointManager,
                                   load_training_checkpoint, save_checkpoint)
 from storm_tpu_torch.compat import convert as ref_convert
 from storm_tpu_torch.compat.torch_ckpt import BN_BUFFERS
-from storm_tpu_torch.data.audio import load_wav, save_wav
+from storm_tpu_torch.data.audio import load_wav, save_wav, wav_info
+from storm_tpu_torch.data.datamodule import SpecsDataModule
 from storm_tpu_torch.data.datasets import Specs
 from storm_tpu_torch.kernels import LAUNCH_COUNTERS as LAUNCH_COUNTERS_ALL
 from storm_tpu_torch.kernels import build
@@ -505,9 +531,11 @@ from storm_tpu_torch.models.storm import StochasticRegenerationModel
 from storm_tpu_torch.nn import qconv, resample, seqpar
 from storm_tpu_torch.nn.cast import cast_params
 from storm_tpu_torch.nn.init import reset_parameters
+from storm_tpu_torch.preprocessing import create_data, nonlinear_mixing, simulate_wind_noise
 from storm_tpu_torch.nn.layers import (Combine, Downsample, GroupNorm, ResnetBlockBigGANpp,
                                        Upsample, group_norm)
 from storm_tpu_torch.sampling import samplers
+from storm_tpu_torch.scripts import stream_quality
 from storm_tpu_torch.signal.transforms import pad_spec_amount
 from storm_tpu_torch.utils import graphs, train_graphs
 from storm_tpu_torch.utils.inference import BucketedEnhancer
@@ -581,8 +609,9 @@ OTHER_FRAMES = sorted({padded_frames(s) for s in SECONDS} - {FRAMES})
 TRAIN_B, TRAIN_FRAMES, TRAIN_STEPS = 8, 256, 4
 TRAIN_AUDIO_S = (TRAIN_FRAMES - 1) * 128 / SR
 TRAIN_FILES, VALID_FILES, FILE_S = 32, 4, 2.5  # 4 steps per epoch, 2 epochs
-# distillation at the trainer's defaults: etd2 targets of N=8, 2 x 8 + 1 teacher forwards
-DISTILL_N, DISTILL_METHOD = 8, "etd2"
+# distillation with etd2 targets of N=4 (the trainer's default is 8), 2 x 4 + 1
+# teacher forwards, to keep the script inside its time
+DISTILL_N, DISTILL_METHOD = 4, "etd2"
 DISTILL_TEACHER_FORWARDS = 2 * DISTILL_N + 1
 F32_EVAL_N = 4  # the float32 evaluation's reverse steps (bf16's: the default, 30)
 # upfirdn2d launches per joint-training step: 18 per forward of each net, and
@@ -3907,7 +3936,7 @@ def distill_model(teacher_ckpt: str, dtype: str):
 
 def phase_distill_step(teacher_ckpt: str, gen: torch.Generator):
     """Phase 45. One full-width f32 distill step (B=8, 256 x 256, etd2 targets
-    of N=8) from phase 8's checkpoint, through the kernels and through the
+    of N=DISTILL_N) from phase 8's checkpoint, through the kernels and through the
     plain path (the same z, cuDNN deterministic): launches exactly as
     `step_launches` reads them from the module lists, each score-net gradient
     within GRAD_RTOL of its scale plus GRAD_FLOOR of the largest element and
@@ -3985,7 +4014,8 @@ def phase_distill_train(train_dir: str, teacher_ckpt: str, storm_bf16):
     (phase 25). Returns phase_train's dict."""
     r = phase_train(train_dir, "bfloat16", steps_total=TRAIN_FILES // TRAIN_B,
                     eval_files=DISTILL_EVAL_FILES, mode="distill",
-                    extra=("--teacher_ckpt", teacher_ckpt), tag="distill_")
+                    extra=("--teacher_ckpt", teacher_ckpt, "--distill_N", str(DISTILL_N)),
+                    tag="distill_")
     print(f"  distill bf16: {step_launches('distill', DISTILL_TEACHER_FORWARDS)} K1 launches "
           f"per step; step {r['step_ms']:.2f} ms, peak of the steps {r['step_peak_gib']:.2f} "
           f"GiB, against StoRM's {storm_bf16['step_ms']:.2f} ms and "
@@ -4447,19 +4477,19 @@ def phase_graph_launches(workdir: str, models, enhancers):
 def phase_graph_time(workdir: str, models, rows, busy):
     """Phase 54. RTF graph against eager at B=1 on phase 5's 1 and 2.5 s
     files (the 4 s rows are phase 52's, StoRM pc at N=50) for StoRM pc N=10
-    + ald in bf16, dc3 N=50 bf16 and the distilled NFE-2 path in bf16 (int8
+    + ald in bf16, dc3 N=10 bf16 and the distilled NFE-2 path in bf16 (int8
     + bf16 at 4 s only: phase 52's N=10 row), each replay
     equal to eager bit for bit; then every row of phases 52 and 54: RTF both
     ways, the capture's seconds and the pool's growth, the busy share of
     phase 53's replays."""
-    pc = dict(N=DEFAULT_N, corrector="ald")
+    short = dict(N=GRAPH_N, corrector="ald")
     for seconds in SECONDS[:2]:
         y = load_wav(os.path.join(workdir, "noisy", f"utt{SECONDS.index(seconds)}_"
                                                     f"{seconds:.1f}s.wav"))[0][0]
         audio = y.shape[-1] / SR
         for what, model, kw in (
-                ("storm pc N=10 bf16", models["bf16"], dict(N=GRAPH_N, corrector="ald")),
-                ("storm pc dc3 bf16", models["bf16"], dict(pc, deepcache=DC_K)),
+                ("storm pc N=10 bf16", models["bf16"], short),
+                ("storm pc N=10 dc3 bf16", models["bf16"], dict(short, deepcache=DC_K)),
                 ("distill bf16", models["distill"], {})):
             graph_against_eager(f"{what}, {seconds:g} s", model, y, audio, rows, **kw)
     print("  | configuration | NFE | RTF eager (first call) | RTF replay | eager / replay | "
@@ -4558,7 +4588,7 @@ TRAIN_GRAPH_STEPS = 3  # phase 56's steps per mode: eager, warm-up and capture, 
 # phase 56's replays under the profiler: two of the bf16 StoRM step (phase
 # 28's bf16 profile traces two eager steps), one of the others
 TRAIN_GRAPH_PROFILED = {"storm joint bf16": 2}
-SAVE_REPS = 3  # phase 58's saves per manager
+SAVE_REPS = 2  # phase 58's saves per manager
 
 
 def train_waves(seed: int):
@@ -4606,7 +4636,7 @@ def phase_train_graphs(teacher_ckpt: str, trainers):
     eager step at full width, B=8 x 256 frames, cuDNN deterministic: StoRM
     joint in f32 and bf16, score-only bf16, denoiser-only sisdr f32 and the
     distilled student in bf16 (phase 45's f32 checkpoint as the teacher,
-    etd2 N=8). From one initial model, TRAIN_GRAPH_STEPS eager steps
+    etd2 N=4). From one initial model, TRAIN_GRAPH_STEPS eager steps
     (`TrainPrograms(graphs=False)`) and as many through the programs (the
     eager first call, the warm-up and capture, then replays), on the same
     wav batches and generator states: after every step the losses,
@@ -5591,16 +5621,16 @@ def phase_d2_serving(workdir: str, graph_rows, gen: torch.Generator):
           f"{health['spatial_channels']}", flush=True)
     err_bf16 = max(err_bf16, check_k1_at("the D=2 server", srv_shapes, gen))
 
-    # the CLI's defaults, N=50 + ald, at 4 s in bf16: the captured program against
-    # eager, beside phase 52's D=1 row of this run
+    # N=10 + ald at 2.5 s in bf16: the captured program against eager, beside
+    # phase 54's D=1 row of this run
     model = build_model(dict(D2_CONFIG, dtype="bfloat16"), device="cuda", seed=0)
-    y = load_wav(os.path.join(noisy, f"d2_2_{SECONDS[2]:.1f}s.wav"))[0]
-    row, _, _ = graph_against_eager(f"storm D={D2} pc N={DEFAULT_N} bf16, 4 s", model, y,
-                                    y.shape[-1] / SR, [], N=DEFAULT_N, corrector="ald")
+    y = load_wav(os.path.join(noisy, f"d2_1_{SECONDS[1]:.1f}s.wav"))[0]
+    row, _, _ = graph_against_eager(f"storm D={D2} pc N={GRAPH_N} bf16, {SECONDS[1]:g} s",
+                                    model, y, y.shape[-1] / SR, [], N=GRAPH_N, corrector="ald")
     k1["graph_against_eager_d2_bfloat16"] = row["k1"]
-    d1 = next(r for r in graph_rows if r["what"] == "storm pc bf16, 4 s")
-    print(f"  N={DEFAULT_N} + ald bf16 at 4 s: D={D2} replay RTF {row['graph_rtf']:.4f} "
-          f"against D=1's {d1['graph_rtf']:.4f} (phase 52, this run; "
+    d1 = next(r for r in graph_rows if r["what"] == f"storm pc N=10 bf16, {SECONDS[1]:g} s")
+    print(f"  N={GRAPH_N} + ald bf16 at {SECONDS[1]:g} s: D={D2} replay RTF "
+          f"{row['graph_rtf']:.4f} against D=1's {d1['graph_rtf']:.4f} (phase 54, this run; "
           f"{row['graph_rtf'] / d1['graph_rtf']:.3f}x); eager {row['eager_rtf']:.4f} against "
           f"{d1['eager_rtf']:.4f}", flush=True)
     del model
@@ -6083,6 +6113,256 @@ def phase_seq_parallel(workdir: str, lengths, gen: torch.Generator):
     return k1, k1_bf16, k3, s1, err, err_bf16, k3_err, s1_err
 
 
+# phase 73: the dataset CLIs on a seeded tree (one split, --dummy: 5 files)
+DATA_SPEECH_S = (2.3, 2.5, 2.7, 2.9, 3.1)  # every crop of 256 frames fits
+CHIME_TYPES = ("CAF", "PED", "STR", "BUS")
+DATA_NAME = re.compile(r"^s\d_\d+(_t60=\d\.\d\d)?(_snr=-?\d+\.\d)?(_down=[248])?\.wav$")
+
+
+def write_data_tree(root: str) -> None:
+    """Speech (<root>/speech/tr/s{i}.wav), wham-style noise per split and
+    CHiME-style CH1 recordings of every noise type, seeded."""
+    rng = np.random.default_rng(73)
+    for d in ("speech/tr", "wham/tr", "chime"):
+        os.makedirs(os.path.join(root, d))
+    for i, sec in enumerate(DATA_SPEECH_S):
+        save_wav(os.path.join(root, "speech", "tr", f"s{i}.wav"), synth_wav(sec, i, rng), SR)
+    for i in range(2):
+        save_wav(os.path.join(root, "wham", "tr", f"n{i}.wav"),
+                 0.3 * rng.standard_normal(4 * SR).astype(np.float32), SR)
+    for kind in CHIME_TYPES:
+        save_wav(os.path.join(root, "chime", f"r_{kind}.CH1.wav"),
+                 0.3 * rng.standard_normal(4 * SR).astype(np.float32), SR)
+
+
+def check_corpus(directory: str, n: int, tags) -> int:
+    """`n` clean and noisy files of the same names (the reference's name
+    pattern, every tag in `tags`), each pair of one length; returns the
+    shortest file's samples."""
+    clean, noisy = (sorted(os.listdir(os.path.join(directory, k))) for k in ("clean", "noisy"))
+    check(clean == noisy and len(noisy) == n,
+          f"{directory}: {len(clean)} clean and {len(noisy)} noisy files, expected {n} pairs")
+    shortest = None
+    for name in noisy:
+        check(bool(DATA_NAME.match(name)) and all(t in name for t in tags),
+              f"{directory}: file name {name} (expected the tags {tags})")
+        a, b = (wav_info(os.path.join(directory, k, name)) for k in ("clean", "noisy"))
+        check(a == b and a[:2] == (SR, 1), f"{directory}/{name}: clean {a} against noisy {b}")
+        shortest = a[2] if shortest is None else min(shortest, a[2])
+    return shortest
+
+
+def phase_create_data(workdir: str, gen: torch.Generator):
+    """Phase 73. Returns ({path: K1 launches}, {path: K1-bwd launches}, the
+    K1 and its adjoint's errors against plain)."""
+    root = os.path.join(workdir, "data")
+    write_data_tree(root)
+    out = os.path.join(root, "corpora")
+    speech = ["--speech", "dir", "--speech_dir", os.path.join(root, "speech"), "--splits", "tr",
+              "--dummy", "--root", out]
+    t0 = time.perf_counter()
+    # the user's line, in a process of its own, then the other CLIs in this one
+    proc = subprocess.run([sys.executable, "-m", "storm_tpu_torch.preprocessing.create_data",
+                           "--task", "derev+enh", "--noise", "wham", "--noise_dir",
+                           os.path.join(root, "wham", "{split}"), "--corruption-per-sample",
+                           "2", *speech], capture_output=True, text=True, timeout=300)
+    print("".join(f"    | {line}\n" for line in proc.stdout.splitlines()), end="", flush=True)
+    check(proc.returncode == 0, f"create_data --task derev+enh failed:\n{proc.stderr[-3000:]}")
+    derev_s = time.perf_counter() - t0
+    captured(create_data.main, ["--task", "bwe", "--bwe-method", "decimate", *speech])
+    captured(create_data.main, ["--task", "enh", "--noise", "chime", "--noise_dir",
+                                os.path.join(root, "chime"), *speech])
+    wind = os.path.join(root, "wind")
+    captured(simulate_wind_noise.main, ["--dir", wind, "--n", "2"])
+    captured(nonlinear_mixing.main, ["--speech_dir", os.path.join(root, "speech", "{}"),
+                                     "--noise_dir", wind, "--root", out, "--dummy"])
+    wall = time.perf_counter() - t0
+    files = len(DATA_SPEECH_S)
+    corpus = os.path.join(out, "dir_derev+enh")
+    shortest = check_corpus(os.path.join(corpus, "audio", "tr"), 2 * files, ("_t60=", "_snr="))
+    check_corpus(os.path.join(out, "dir_bwe", "audio", "tr"), files, ("_down=",))
+    check_corpus(os.path.join(out, "dir_enh_chime", "audio", "tr"), files, ("_snr=",))
+    winds = sorted(os.listdir(wind))
+    check(winds == ["simulated_0.wav", "simulated_1.wav"]
+          and all(wav_info(os.path.join(wind, w)) == (SR, 1, 8 * SR) for w in winds),
+          f"wind noise: {winds}")
+    mixed = os.path.join(out, "speech_in_noise_nonlinear", "tr")
+    for i, name in enumerate(sorted(os.listdir(os.path.join(mixed, "clean")))):
+        (noisy,) = [f for f in os.listdir(os.path.join(mixed, "noisy"))
+                    if f.startswith(f"{name[:-4]}_{i}_snr=")]
+        check(wav_info(os.path.join(mixed, "clean", name))
+              == wav_info(os.path.join(mixed, "noisy", noisy)), f"nonlinear mix {noisy}")
+    for d in ("dir_derev+enh", "dir_bwe", "dir_enh_chime", "speech_in_noise_nonlinear"):
+        check(os.path.isfile(os.path.join(out, d, "log_stats.txt")), f"{d}: no log_stats.txt")
+    print(f"  corpora written in {wall:.2f} s ({derev_s:.2f} s for derev+enh in its own "
+          f"process): derev+enh {2 * files} pairs (the shortest {shortest / SR:.3f} s), bwe "
+          f"(decimate) {files}, enh (CHiME-style noise) {files}, 2 wind noise files of 8 s, "
+          f"{files} nonlinear mixtures; names and pair lengths checked", flush=True)
+
+    # one batch of the derev+enh corpus through the port's loader, one
+    # full-width StoRM step on it (forward, backward, Adam, EMA)
+    dm = SpecsDataModule(base_dir=corpus, format="timit", batch_size=TRAIN_B, num_workers=4)
+    dm.setup("fit")
+    batch = next(iter(dm.train_dataloader()))
+    target = (TRAIN_FRAMES - 1) * HOP
+    check(batch[0].shape == batch[1].shape == (TRAIN_B, target),
+          f"loader batch {batch[0].shape}, expected ({TRAIN_B}, {target})")
+    model = build_model(STORM_CONFIG, device="cuda", seed=0).train()
+    programs = train_graphs.TrainPrograms(init_train_state(model, model.lr), graphs=False)
+    kup.upfirdn2d_cuda.launches = kup.upfirdn2d_bwd_cuda.launches = 0
+    with shapes_recorded() as (k1s, _), adjoint_shapes_recorded() as bwds:
+        aux, ms = timed_event(lambda: programs.step(batch, cuda_gen(73)))
+    launched = (kup.upfirdn2d_cuda.launches, kup.upfirdn2d_bwd_cuda.launches)
+    want = step_launches("regen-joint-training")
+    loss = float(aux["loss"])
+    print(f"  one B={TRAIN_B} step on the created corpus (SpecsDataModule, format timit): loss "
+          f"{loss:.4f}, {ms:.2f} ms (eager, the first step); K1 launches {launched}, expected "
+          f"{want} from the module list", flush=True)
+    check(math.isfinite(loss) and launched == want,
+          f"the step on the created corpus: loss {loss}, launches {launched}")
+    del programs, model
+    torch.cuda.empty_cache()
+    err = check_k1_at("the step on the created corpus", k1s, gen)
+    bwd_err = check_k1_bwd_at("the step on the created corpus", bwds, gen)
+    return ({"train_created_corpus_float32": launched[0]},
+            {"train_created_corpus_float32": launched[1]}, err, bwd_err)
+
+
+# phase 74: stream_quality at full width, bf16: one 64 s file whole and streamed
+SQ_DUR_S, SQ_N, SQ_CHUNK_S, SQ_OVERLAP_S, SQ_BATCH = 64.0, 3, 4.0, 0.5, 8
+SQ_FRAMES = padded_frames(SQ_DUR_S)
+
+
+def stream_calls(seconds: float, chunk_s: float, overlap_s: float, batch: int) -> int:
+    """The enhancer calls of `utils/streaming.stream_enhance` on a file."""
+    T, chunk, overlap = int(seconds * SR), -(-int(chunk_s * SR) // BUCKET) * BUCKET, int(
+        overlap_s * SR)
+    return -(-len(range(0, T - overlap, chunk - overlap)) // batch)
+
+
+def widest_call_ms(what: str, x: torch.Tensor, kernel, plain, library, bounds) -> dict:
+    """Event-timed kernel, plain and library times of one call beside its
+    bound (the larger of bytes and operations)."""
+    row = dict(shape=list(x.shape), dtype=str(x.dtype).split(".")[-1], ms=time_ms(kernel),
+               plain_ms=time_ms(plain, reps=3, repeats=3),
+               library_ms=time_ms(library, reps=5, repeats=3) if library else None,
+               bound_ms=max(bounds), bound_by="bytes" if bounds[0] >= bounds[1] else "operations")
+    print(f"  {what} {tuple(x.shape)} {row['dtype']}: ms={row['ms']:.4f} plain_ms="
+          f"{row['plain_ms']:.4f} library_ms="
+          + ("-" if library is None else f"{row['library_ms']:.4f}")
+          + f" bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) ms/bound="
+          f"{row['ms'] / row['bound_ms']:.2f}", flush=True)
+    return row
+
+
+def phase_stream_quality(workdir: str, gen: torch.Generator):
+    """Phase 74. Returns ({path: K1 launches} bf16, {path: K3 launches}, the
+    K1-bf16 and K3 errors against plain, the widest calls' times)."""
+    calls, streamed = [], []
+
+    class Timed(BucketedEnhancer):
+        """The script's enhancer, each call timed (its numpy result is
+        synced) with its launches and, at minibatch 1, its peak memory."""
+
+        def __call__(self, y, generator=None, noise=None):
+            torch.cuda.synchronize()
+            if self.minibatch == 1:
+                torch.cuda.reset_peak_memory_stats()
+            before, t0 = kup.upfirdn2d_cuda.launches, time.perf_counter()
+            out = super().__call__(y, generator, noise)
+            calls.append(dict(minibatch=self.minibatch, s=time.perf_counter() - t0,
+                              k1=kup.upfirdn2d_cuda.launches - before,
+                              peak=torch.cuda.max_memory_allocated() / 2**30))
+            return out
+
+    real_stream = stream_quality.stream_enhance
+
+    def timed_stream(*args, **kw):
+        t0 = time.perf_counter()
+        out = real_stream(*args, **kw)
+        streamed.append(time.perf_counter() - t0)
+        return out
+
+    argv = ["--ckpt", os.path.join(workdir, "storm.pt"), "--dur_s", str(SQ_DUR_S), "--n_files",
+            "1", "--N", str(SQ_N), "--chunk_s", str(SQ_CHUNK_S), "--overlap_s",
+            str(SQ_OVERLAP_S), "--batch", str(SQ_BATCH), "--dtype", "bfloat16", "--json",
+            os.path.join(workdir, "stream_quality.json")]
+    kup.upfirdn2d_cuda.launches = 0
+    with shapes_recorded() as (k1s, _), \
+            mock.patch.object(stream_quality, "BucketedEnhancer", Timed), \
+            mock.patch.object(stream_quality, "stream_enhance", timed_stream):
+        out, _ = captured(stream_quality.main, argv)
+    per_call = K1_PER_FORWARD * (1 + SQ_N)  # the denoiser and N score forwards
+    whole = [c for c in calls if c["minibatch"] == 1]
+    chunked = [c for c in calls if c["minibatch"] == SQ_BATCH]
+    n_stream = stream_calls(SQ_DUR_S, SQ_CHUNK_S, SQ_OVERLAP_S, SQ_BATCH)
+    check(len(whole) == 1 and len(chunked) == n_stream and len(streamed) == 1
+          and all(c["k1"] == per_call for c in calls),
+          f"stream_quality's enhancer calls {calls}: expected one whole, {n_stream} streamed, "
+          f"{per_call} K1 launches each")
+    check(kup.upfirdn2d_cuda.launches == per_call * (1 + n_stream), "K1 launches")
+    check({s[-1] for s in k1s} == {BF16} and any(s[4] == SQ_FRAMES for s in k1s),
+          f"K1 shapes {sorted(k1s, key=str)[:4]}")
+    s = out["summary"]
+    check(all(math.isfinite(v) for v in s["noisy"] + s["whole"] + s["stream"]),
+          f"stream_quality SUMMARY not finite: {s}")
+    (w,) = whole
+    print(f"  {SQ_DUR_S:.0f} s whole at B=1 ({SQ_FRAMES} frames, N={SQ_N}, no corrector, bf16, "
+          f"the shape's first call: the eager loop): {w['s']:.3f} s wall, RTF "
+          f"{w['s'] / SQ_DUR_S:.4f}, max_memory_allocated {w['peak']:.2f} GiB; streamed "
+          f"({n_stream} calls of {SQ_BATCH} chunks of {SQ_CHUNK_S} s, overlap {SQ_OVERLAP_S} s; "
+          f"first call eager, second captured, third replayed): {streamed[0]:.3f} s, RTF "
+          f"{streamed[0] / SQ_DUR_S:.4f} (calls {[round(c['s'], 3) for c in chunked]} s); K1 "
+          f"{per_call} per call, {kup.upfirdn2d_cuda.launches} in all", flush=True)
+    k1 = {"stream_quality_whole_64s_bf16": w["k1"],
+          "stream_quality_streamed_bf16": sum(c["k1"] for c in chunked)}
+    err = check_k1_at("stream_quality (64 s whole, 4 s chunks at B=8)", k1s, gen)
+    widest = max(k1s, key=lambda c: c[1] * c[2] * c[3] * c[4])  # by input elements
+    cfg, B, C, H, W, _ = widest
+    x = torch.randn(B, C, H, W, device="cuda", generator=gen).to(BF16)
+    c = CONFIGS[cfg]
+    args = dict(up=c["up"], down=c["down"], pad=c["pad"])
+    Ho, Wo = (kup.output_size(n, 4, c["up"], c["down"], c["pad"]) for n in (H, W))
+    lib = library_call(cfg, C, dtype=BF16)
+    times = {"upfirdn2d_bf16": widest_call_ms(
+        f"K1-bf16 {cfg}, the widest call of the 64 s file", x,
+        lambda: kup.upfirdn2d_cuda(x, c["kernel"], **args),
+        lambda: kup.upfirdn2d_plain(x, c["kernel"], **args), lambda: lib(x),
+        bound_ms(x.numel(), B * C * Ho * Wo, 16, 2))}
+    del x, lib
+    torch.cuda.empty_cache()
+
+    # K3 at the 64 s widths: one int8 + bf16 score forward (scales from a
+    # bf16 forward at that width)
+    model = build_model(dict(STORM_CONFIG, dtype="bfloat16"), device="cuda", seed=0)
+    net = model.score_net
+    xin = 0.5 * torch.randn(1, 3, FREQS, SQ_FRAMES, 2, device="cuda", generator=gen)
+    t = torch.full((1,), 0.5, device="cuda")
+    with torch.inference_mode(), cast_params(net, BF16):
+        with qconv.stats_collected(net) as stats:
+            net(xin, t)
+        scales = quant_mod.scales_from_stats(stats, net, QUANT_MIN_CHANNELS)
+        kq.quantize_int8_cuda.launches = 0
+        with qconv.scales_attached(net, scales), shapes_recorded() as (_, k3s):
+            y = net(xin, t)
+        torch.cuda.synchronize()
+    k3 = kq.quantize_int8_cuda.launches
+    check(k3 == len(scales) == N_QUANT and bool(torch.isfinite(y).all()),
+          f"the 64 s int8 + bf16 forward: {k3} K3 launches, {len(scales)} scales")
+    del model, net, xin, y, stats
+    torch.cuda.empty_cache()
+    k3_err = check_k3_at(f"one int8 + bf16 score forward at {SQ_FRAMES} frames", k3s, gen)
+    shape = max((s[0] for s in k3s), key=math.prod)
+    x = (10.0 * torch.randn(shape, device="cuda", generator=gen)).to(BF16)
+    times["quantize_int8_bf16_product"] = widest_call_ms(
+        "K3 bf16-product, the widest input of the 64 s forward", x,
+        lambda: kq.quantize_int8_cuda(x, PROBE_S, BF16),
+        lambda: kq.quantize_int8_plain(x, PROBE_S, BF16), None, k3_bound_ms(x))
+    del x
+    torch.cuda.empty_cache()
+    return k1, {"int8_forward_64s_bfloat16": k3}, err, k3_err, times
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
@@ -6425,7 +6705,7 @@ def main():
 
         phase_header(f"== phase 69: multichannel input (D={D2}) through the CLI (f32, bf16, int8 "
                      f"+ bf16; --batch {CLI_BATCH}; streaming), the server, and its program at "
-                     f"N={DEFAULT_N} + ald", flush=True)
+                     f"N={GRAPH_N} + ald", flush=True)
         (d2_k1, d2_k1_bf16, d2_k3, d2_err, d2_bf16_err,
          d2_k3_err) = phase_d2_serving(workdir, g_rows, gen)
 
@@ -6443,6 +6723,16 @@ def main():
                      flush=True)
         (sp_k1, sp_k1_bf16, sp_k3, sp_s1, sp_err, sp_bf16_err, sp_k3_err,
          sp_s1_err) = phase_seq_parallel(workdir, lengths, gen)
+
+        phase_header("== phase 73: the dataset CLIs on a seeded tree (create_data derev+enh, "
+                     "bwe, enh; simulate_wind_noise; nonlinear_mixing), one full-width step on "
+                     "the derev+enh corpus", flush=True)
+        cd_k1, cd_bwd, cd_err, cd_bwd_err = phase_create_data(workdir, gen)
+
+        phase_header(f"== phase 74: stream_quality at full width in bf16: a {SQ_DUR_S:.0f} s "
+                     f"file whole and in {SQ_CHUNK_S} s chunks (N={SQ_N}); K3 at the "
+                     f"{SQ_DUR_S:.0f} s widths", flush=True)
+        sq_k1, sq_k3, sq_err, sq_k3_err, sq_widest = phase_stream_quality(workdir, gen)
 
     def entry(name, source, replaces, per_shape_ms, calls, err, launches, work, **extra):
         keys = ("ms", "device_ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms")
@@ -6555,11 +6845,19 @@ def main():
     ode_k1_err = max(ode_k1_err, sp_err)
     ode_k1_bf16_err = max(ode_k1_bf16_err, sp_bf16_err)
     nm_k3_err = max(nm_k3_err, sp_k3_err)
+    # dataset creation and stream_quality (phases 73-74)
+    k1_by_path.update(cd_k1)
+    bwd_by_path.update(cd_bwd)
+    k1_bf16_by_path.update(sq_k1)
+    k3_bf16_by_path.update(sq_k3)
+    ode_k1_err = max(ode_k1_err, cd_err)
+    ode_k1_bf16_err = max(ode_k1_bf16_err, sq_err)
+    nm_k3_err = max(nm_k3_err, sq_k3_err)
     print(f"  ncsnpplarge StoRM: bf16 trainer step {large_train['step_ms']:.2f} ms at B={TRAIN_B}, "
           f"peak {large_train['step_peak_gib']:.2f} GiB; one f32 step fits at B={large_f32['B']} "
           f"(peak {large_f32['peak_gib']:.2f} GiB); ConvTasNet return_time trainer step "
           f"{ctn_train['step_ms']:.2f} ms, peak {ctn_train['step_peak_gib']:.2f} GiB", flush=True)
-    nt_bwd_err = max(nt_bwd_err, nf32_bwd_err, dp_bwd_err)
+    nt_bwd_err = max(nt_bwd_err, nf32_bwd_err, dp_bwd_err, cd_bwd_err)
     nt_bwd_bf16_err = max(nt_bwd_bf16_err, nf32_bwd_bf16_err, d2_bwd_err)
     nm_k3_err = max(nm_k3_err, d_k3_err, d_bench_k3_err, gs_k3_err)
     print(f"  distill: f32 step {d_step} launches, {d_step_ms:.2f} ms, {d_step_peak:.2f} GiB, "
@@ -6604,7 +6902,8 @@ def main():
               bf16_elements_that_differ={k: {f: n[1] for f, n in v.items()}
                                          for k, v in BF16_FLIPS.items()},
               bf16_elements_compared={k: {f: n[0] for f, n in v.items()}
-                                      for k, v in BF16_FLIPS.items()}),
+                                      for k, v in BF16_FLIPS.items()},
+              widest_call_64s=sq_widest["upfirdn2d_bf16"]),
         entry("upfirdn2d_bwd_bf16", k1_src, "storm_tpu/kernels/upfirdn.py:172-181",
               bf16_bwd_shape, k1_bwd_calls(),
               max(bf16_err, bf16_bwd_err, bench_bwd_err, nt_bwd_bf16_err),
@@ -6631,7 +6930,8 @@ def main():
               sum(k3_bf16_by_path.values()),
               f"the {N_QUANT} quantized-conv inputs of one full-width score-net forward, "
               f"B=1, 256 x {FRAMES}, bfloat16, the product in bfloat16", library=no_library,
-              launches_by_path=k3_bf16_by_path),
+              launches_by_path=k3_bf16_by_path,
+              widest_call_64s=sq_widest["quantize_int8_bf16_product"]),
     ]}
     depthwise = "F.conv2d(groups=C) with the flipped FIR (the adjoint: the FIR as is)"
     for name, dtype_name, direction in (("upfirdn2d_s1", "float32", "fwd"),

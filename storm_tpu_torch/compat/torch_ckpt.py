@@ -16,6 +16,9 @@ so both packages read one checkpoint into the same weights:
     TCN.TCN.{i}.conv1d.weight     TCN.TCN_{i}.conv1d_w         (ConvTasNet)
     en.*, gags.*                  unchanged                    (GaGNet)
 
+`port_to_torch_backbone` goes the other way for an NCSN++ net (the first
+four rows read right to left), to export a net trained with the port.
+
 GaGNet's BatchNorm buffers (`running_mean`, `running_var`,
 `num_batches_tracked`) are not parameters: `convert_gagnet_batch_stats`
 extracts the running statistics as a flax-path tree, which
@@ -241,6 +244,30 @@ def convert_backbone_state_dict(sd: Mapping[str, Any], prefix: str = "") -> Dict
     """A reference NCSN++ (or ae-ncsnpp) state_dict, optionally under
     `prefix` ('dnn.', 'score_net.'), -> the port's net state_dict."""
     return module_params_from_jax(_ncsnpp_tree(sd, prefix))
+
+
+_EXPORTED = {"encoder_w": "encoder.weight", "decoder_w": "decoder.weight",
+             "Conv2d_0_weight": "Conv2d_0.weight", "Conv2d_0_bias": "Conv2d_0.bias"}
+_NCSNPP_LEAVES = {"weight", "bias", "W", "b", *_EXPORTED}
+
+
+def port_to_torch_backbone(sd: Mapping[str, torch.Tensor], prefix: str = "") -> Dict[str, torch.Tensor]:
+    """A port NCSN++ (or ae-ncsnpp) net's state_dict -> the reference's
+    torch state_dict naming, each key under `prefix` ('dnn.', 'score_net.'):
+    the counterpart of the JAX package's `flax_to_torch_backbone`, so that a
+    net trained with the port exports to the reference's format. The port's
+    layouts are torch's already; only the FIR resamplers' flat conv
+    (`Conv2d_0_weight` / `_bias` -> `Conv2d_0.weight` / `.bias`) and
+    ae-ncsnpp's `encoder_w` / `decoder_w` change name. A leaf NCSN++ does not
+    have (ConvTasNet's `*_w`, `gain`) raises KeyError;
+    `convert_backbone_state_dict` inverts it."""
+    out: Dict[str, torch.Tensor] = {}
+    for key, value in sd.items():
+        *mods, leaf = key.split(".")
+        if leaf not in _NCSNPP_LEAVES:
+            raise KeyError(f"port_to_torch_backbone: {key} is not an NCSN++ parameter")
+        out[prefix + ".".join(mods + [_EXPORTED.get(leaf, leaf)])] = value.detach().cpu().clone()
+    return out
 
 
 def convert_convtasnet_state_dict(sd: Mapping[str, Any],

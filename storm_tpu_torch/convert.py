@@ -29,6 +29,9 @@ flipped (flax correlates the dilated input, PyTorch convolves it), PReLU
 kernels (K, I, O) -> (O, I, K). `batch_stats_from_jax` maps a flax
 `batch_stats` tree ({norm path: {mean, var}}) onto the port's norm names.
 
+`legacy_params_from_jax` carries a block of storm_tpu/nn/legacy.py (the
+RefineNet blocks and norms that no model uses) onto nn/legacy.py's port.
+
 Conversion is strict: a leaf it cannot map raises, and with `target` (a
 module or state_dict) a missing, leftover or misshapen key raises too.
 
@@ -192,6 +195,36 @@ def module_params_from_jax(tree: Mapping[str, Any], prefix: str = "") -> Dict[st
         else:
             name, arr = _leaf(path, v)
         out[prefix + name] = torch.from_numpy(np.array(arr, dtype=np.float32, order="C"))
+    return out
+
+
+# a legacy block's flax module names -> the reference's torch names (nn/legacy.py)
+_LEGACY_MODULES = [(re.compile(r"^conv_(\d+)$"), r"convs.\1"),
+                   (re.compile(r"^adapt_(\d+)$"), r"adapt_convs.\1"),
+                   (re.compile(r"^output$"), "output_convs")]
+
+
+def legacy_params_from_jax(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, torch.Tensor]:
+    """The parameters of a block of storm_tpu/nn/legacy.py -> the state_dict
+    of its port in nn/legacy.py: modules `conv_{i}` -> `convs.{i}`,
+    `adapt_{i}` -> `adapt_convs.{i}`, `output` -> `output_convs`; conv
+    kernels (3, 3, I, O) -> weight (O, I, 3, 3); the class embedding `embed`
+    -> `embed.weight`; bias, alpha, gamma, beta unchanged."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, v in _flat(tree).items():
+        mods = []
+        for m in path[:-1]:
+            for rx, repl in _LEGACY_MODULES:
+                m = rx.sub(repl, m)
+            mods.append(m)
+        name, v = path[-1], np.asarray(v, dtype=np.float32)
+        if name == "kernel" and v.ndim == 4:
+            name, v = "weight", np.transpose(v, (3, 2, 0, 1))
+        elif name == "embed":
+            name = "embed.weight"
+        elif name not in ("bias", "alpha", "gamma", "beta"):
+            raise KeyError(f"legacy_params_from_jax: no mapping for {'/'.join(path)} {v.shape}")
+        out[prefix + ".".join(mods + [name])] = torch.from_numpy(np.ascontiguousarray(v))
     return out
 
 
