@@ -185,7 +185,7 @@ Phases, each of which exits non-zero on failure:
    (audio s per wall s, latency p50 and p95, batch fill), no error, exact
    launch counts, K1 against plain at every shape it gave it (rows up to 8).
 32. `python -m storm_tpu_torch.bench` at bench.py's defaults (B=16, 256
-   frames, ald, bf16, int8, dc3) but N=10; 1 timed rep here, the extras' budget
+   frames, ald, bf16, int8, dc3) but N=5; 1 timed rep here, the extras' budget
    at 0 s: the headline line alone), then `--train` (the eager step, then
    the replayed one: its line's value and `step_ms`, beside
    `eager_step_ms`): their JSON lines; the serving run's launches held to
@@ -415,20 +415,35 @@ denoisers) run last:
    1 within 2 lr, 36 + 33 launches per step on every process, each process's
    step period, peak memory and the all-reduce's ms per step; only process
    0 writes metrics and checkpoints, and its last.pt enhances; K1 and its
-   adjoint against plain at the processes' B=4 shapes.
+   adjoint against plain at the processes' B=4 shapes. Then GaGNet-BN
+   denoiser-only at the reference CLI's width the same way, its BN moments
+   over both processes' rows (eager, `execution` "eager: BN moments across
+   processes (gloo)"; the one process replays its programs): every step's
+   loss at rtol 5e-3, and step 1's gradients of either run held to a
+   float64 step on the same weights and batch, the two processes' summed
+   within 1.5x the one process's distance (float32 rounding, amplified
+   through its 169 BN layers, puts both ~6e-3 from it).
 72. serving across devices on one card: `--data_parallel` through the CLI
-   (one replica: minibatch 8; N=2 + ald) on phase 5's files against
+   (one replica: minibatch 8; N=1 + ald) on phase 5's files against
    `--batch 8`, bit for bit; one full-width score forward (B=1, 576 frames) over 2 and 4
    shards on cuda:0 (`ShardedNCSNpp`) against unsharded, f32 (1e-5 of the
    output's scale), bf16 and int8 + bf16 (against the f32 forward, within
    2x the unsharded one's distance), 18 K1 launches per shard (and the
    int8 scales' count of K3 launches per shard); ncsnpplarge over 4
    unequal shards and the DDPM + residual net (12 stride-1 launches per
-   shard) over 2 and 4; StoRM enhancing the 4 s file at N=2 + ald with
+   shard) over 2 and 4; StoRM enhancing the 4 s file at N=1 + ald with
    `seq_parallel` 2 and 4 (`devices=["cuda:0"] * k`), f32 and bf16: the
    captured program against the eager loop bit for bit, and against
    unsharded serving (f32 1e-4 of the scale; bf16 in the 2x form); K1 and
-   K3 against plain at every shard shape.
+   K3 against plain at every shard shape. More shards than the coarsest
+   level holds frames: ncsnpplarge at 64 frames over 4 shards and at 128
+   over 4 and 8 (1 and 2 coarse frames: parts that start on odd frames, and
+   parts empty at the deep levels), f32 and bf16, K1 exactly the plan's
+   launches (none for an empty part), the 128-frame call timed against
+   unsharded; `--seq_parallel 4` through the CLI on the 1 s file with
+   phase 61's StoRM (its ncsnpplarge score net's coarsest level 3 frames)
+   against the same CLI unsharded, and that group's captured program
+   against its eager loop.
 73. dataset creation on the card's machine: a seeded tree (5 speech files
    of 2.3-3.1 s in one split, wham-style and CHiME-style noise) through
    `python -m storm_tpu_torch.preprocessing.create_data --task derev+enh`
@@ -508,6 +523,7 @@ import torch
 import torch.nn.functional as F
 
 from storm_tpu_torch import backbones, enhancement, evaluate, serve, train
+from storm_tpu_torch.backbones.gagnet import batch_norms
 from storm_tpu_torch.backbones.ncsnpp import NCSNpp, ShardedNCSNpp, count_parameters
 from storm_tpu_torch.ckpt import (AsyncCheckpointManager, CheckpointManager,
                                   load_training_checkpoint, save_checkpoint)
@@ -537,7 +553,7 @@ from storm_tpu_torch.nn.layers import (Combine, Downsample, GroupNorm, ResnetBlo
 from storm_tpu_torch.sampling import samplers
 from storm_tpu_torch.scripts import stream_quality
 from storm_tpu_torch.signal.transforms import pad_spec_amount
-from storm_tpu_torch.utils import graphs, train_graphs
+from storm_tpu_torch.utils import graphs, inference, train_graphs
 from storm_tpu_torch.utils.inference import BucketedEnhancer
 from storm_tpu_torch.utils.metrics import si_sdr
 from storm_tpu_torch.utils.server import decode_wav_bytes, encode_wav_bytes
@@ -2819,7 +2835,7 @@ def phase_profile_train_bf16():
 
 DC_K, DC_DEPTH = 3, 1  # bench.py's production refresh interval, the default cache depth
 BENCH_REPS = 1  # the bench's timed reps here (its default, 3, in a run of its own)
-BENCH_N = 10  # the bench's serving line's N here (its default, 50, in a run of its own)
+BENCH_N = 5  # the bench's serving line's N here (its default, 50, in a run of its own)
 
 
 def pass_modules(net: NCSNpp, depth: int = DC_DEPTH):
@@ -5484,6 +5500,11 @@ D2_CONFIG = dict(STORM_CONFIG, spatial_channels=D2)
 D2_SERVE_SECONDS = (1.0, 2.5, 4.0, 4.0)
 # phase 71: steps of each run, the global batch's rows per process
 DP_STEPS, DP_PROCESSES = 3, 2
+# phase 71's second pair of runs: GaGNet with BN at the reference CLI's width
+DP_BN_FLAGS = ("--mode", "denoiser-only", "--backbone_denoiser", "gagnet", "--norm_type", "BN")
+# the two-process BN gradients' distance from the float64 step, against the
+# one process's: float32 rounding sets both (PERF.md §6)
+DP_BN_F64_RATIO = 1.5
 DP_TIMEOUT_S = 600
 
 
@@ -5688,6 +5709,12 @@ def train_worker(out: str, argv) -> None:
         if not runs:
             runs.append(programs)
             times["first_step"] = time.time()
+            if programs.world.is_main and batch_norms(programs.model):  # BN: phase 71's f64 step
+                # the weights and the batch step 1 starts from
+                torch.save({"params": {k: v.detach().cpu()
+                                       for k, v in programs.model.state_dict().items()},
+                            "batch": [torch.from_numpy(np.asarray(a)) for a in arrays]},
+                           out + ".step0.pt")
         before = (kup.upfirdn2d_cuda.launches, kup.upfirdn2d_bwd_cuda.launches)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
@@ -5720,6 +5747,7 @@ def train_worker(out: str, argv) -> None:
         totals=(kup.upfirdn2d_cuda.launches, kup.upfirdn2d_bwd_cuda.launches),
         peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
         reserved_gib=torch.cuda.max_memory_reserved() / 2 ** 30,
+        execution=programs.execution,
         allreduce_ms=1e3 * st["allreduce_s"] / max(st["allreduces"], 1),
         allreduces=st["allreduces"], captures=st["captures"], replays=st["replays"],
         flat_mib=(programs.flat.numel() * 4 / 2 ** 20 if programs.flat is not None else 0),
@@ -5807,21 +5835,29 @@ def phase_data_parallel(workdir: str, gen: torch.Generator):
             "--batch_size", str(TRAIN_B), "--num_frames", str(TRAIN_FRAMES),
             "--max_steps", str(DP_STEPS), "--num_eval_files", "0", "--log_every_n_steps", "1",
             "--num_workers", "4", "--seed", "0", "--device", "cuda"]
+    bn_argv = [*DP_BN_FLAGS, *argv[2:]]
     torch.cuda.empty_cache()
-    # the two processes start up while the one process trains, and train after it
-    gate = os.path.join(workdir, "dp_gate")
-    logs = {name: os.path.join(workdir, f"logs_dp_{name}") for name in ("one", "two")}
+    # every run's processes start up while the one-process StoRM run trains,
+    # and each trains after the one before it (its gate)
+    names = ("one", "two", "bn_one", "bn_two")
+    logs = {name: os.path.join(workdir, f"logs_dp_{name}") for name in names}
+    gates = {name: os.path.join(workdir, f"dp_gate_{name}") for name in names[1:]}
     t0 = time.time()
-    workers = {"two": Workers(argv, logs["two"], os.path.join(workdir, "dp_two.json"),
-                              DP_PROCESSES, gate=gate)}
+    workers = {}
     try:
+        for name in names[1:]:
+            workers[name] = Workers(bn_argv if name.startswith("bn") else argv, logs[name],
+                                    os.path.join(workdir, f"dp_{name}.json"),
+                                    1 if name == "bn_one" else DP_PROCESSES, gate=gates[name])
         workers["one"] = Workers(argv, logs["one"], os.path.join(workdir, "dp_one.json"), 1)
         finished = {"one": workers["one"].finish()}
-        open(gate, "w").close()
-        finished["two"] = workers["two"].finish()
+        for name in names[1:]:
+            open(gates[name], "w").close()
+            finished[name] = workers[name].finish()
     finally:
         for w in workers.values():
             w.stop()
+    bn_runs = {name: finished.pop(name) for name in names[2:]}
     runs = {}
     for name, (records, texts) in finished.items():
         (run,) = os.listdir(logs[name])
@@ -5921,17 +5957,109 @@ def phase_data_parallel(workdir: str, gen: torch.Generator):
     bwd_shapes = set().union(*(_shapes(r["bwd_shapes"]) for r in two["records"]))
     check({s[1] for s in bwd_shapes} == {TRAIN_B // DP_PROCESSES},
           f"the two processes' backward rows {sorted({s[1] for s in bwd_shapes})}")
+    data_parallel_bn(workdir, bn_runs, logs)
     return (k1, bwd, check_k1_at("the two-process trainer", fwd_shapes, gen),
             check_k1_bwd_at("the two-process trainer", bwd_shapes, gen))
+
+
+def float64_gradients(start: str, ckpt: str):
+    """The gradients of one step of the checkpoint's model at the weights and
+    on the batch that `start` holds (a train worker's step0 file), the net
+    computing in float64 (its parameters, its `dtype`) on the card."""
+    config = load_training_checkpoint(ckpt)["config"]
+    saved = torch.load(start)
+    model = build_model(config, device="cuda", seed=0)
+    model.load_state_dict(saved["params"])
+    model = model.double().train()
+    for name in model.NETS:
+        getattr(model, name).dtype = torch.float64
+    programs = train_graphs.TrainPrograms(init_train_state(model, 1e-4), graphs=False)
+    programs.step([a.numpy().astype(np.float64) for a in saved["batch"]], None)
+    grads = [p.grad.detach().cpu() for p in programs.params]
+    del model, programs
+    torch.cuda.empty_cache()
+    return grads
+
+
+def data_parallel_bn(workdir: str, finished, logs):
+    """Phase 71's GaGNet-BN denoiser at the reference CLI's width: one
+    process at B=TRAIN_B (its programs replayed) against DP_PROCESSES gloo
+    processes at TRAIN_B / DP_PROCESSES rows each, whose BN moments span
+    both (eager: `execution` says why): every step's loss and step 1's
+    summed gradients. The validation loss is printed, not held: phase 8's
+    validation batch is a ragged tail (VALID_FILES rows of TRAIN_B), padded
+    with zero rows by one process and with the last file's rows repeated
+    across processes, and BN's moments span the padding, in the reference
+    as here."""
+    runs = {}
+    for name, (records, texts) in finished.items():
+        (run,) = os.listdir(logs[name])
+        rows = [json.loads(line)
+                for line in open(os.path.join(logs[name], run, "metrics.jsonl"))]
+        runs[name] = dict(records=records, rows=rows, texts=texts)
+    one, two = runs["bn_one"], runs["bn_two"]
+    executions = {name: sorted({r["execution"] for r in run["records"]})
+                  for name, run in runs.items()}
+    print(f"  GaGNet-BN denoiser-only ({' '.join(DP_BN_FLAGS[3:])}): execution, one process "
+          f"{executions['bn_one']}, {DP_PROCESSES} processes {executions['bn_two']}", flush=True)
+    check(executions == {"bn_one": ["graph"],
+                         "bn_two": ["eager: BN moments across processes (gloo)"]},
+          f"the BN runs' execution {executions}")
+    a = [r["train_loss"] for r in one["rows"] if "train_loss" in r]
+    b = [r["train_loss"] for r in two["rows"] if "train_loss" in r]
+    rel = [abs(x - y) / abs(x) for x, y in zip(a, b)]
+    valid = [[r["valid_loss"] for r in run["rows"] if "valid_loss" in r] for run in (one, two)]
+    print(f"  train_loss: one process {[round(v, 5) for v in a]}, {DP_PROCESSES} "
+          f"{[round(v, 5) for v in b]}; largest relative difference {max(rel):.3e} (held at "
+          f"5e-3); valid_loss (not held: the ragged batch's padding) {valid[0]} and {valid[1]}",
+          flush=True)
+    check(len(a) == len(b) == DP_STEPS and max(rel) <= 5e-3, f"BN train_loss: {b} against {a}")
+    t0 = time.perf_counter()
+    f64 = float64_gradients(os.path.join(workdir, "dp_bn_one.json.0.step0.pt"),
+                            os.path.join(logs["bn_one"], os.listdir(logs["bn_one"])[0],
+                                         "checkpoints", "last.pt"))
+    print(f"  the float64 step on the one process's first batch: {time.perf_counter() - t0:.1f} "
+          "s", flush=True)
+    s1 = torch.load(os.path.join(workdir, "dp_bn_one.json.0.step1.pt"))["grads"]
+    s2 = torch.load(os.path.join(workdir, "dp_bn_two.json.0.step1.pt"))["grads"]
+    check(len(s1) == len(s2) == len(f64)
+          and all(x.shape == y.shape == z.shape for x, y, z in zip(s1, s2, f64)),
+          "the BN runs' gradients differ in their tensors")
+    # float32 rounding, amplified through the net's 169 BN layers, sets how
+    # far any float32 step lies from the exact gradient (PERF.md §6): both
+    # runs are held to the float64 step on the same weights and batch
+    exact = torch.cat([g.flatten() for g in f64])
+    e1, e2 = (float((torch.cat([g.double().flatten() for g in s]) - exact).norm()
+                    / exact.norm()) for s in (s1, s2))
+    rel = float(torch.cat([(y - x).flatten() for x, y in zip(s1, s2)]).norm()
+                / torch.cat([x.flatten() for x in s1]).norm())
+    print(f"  BN gradients at step 1, over {exact.numel()} elements: |two - one| / |one| "
+          f"{rel:.3e}; from the float64 step, one process {e1:.3e}, {DP_PROCESSES} processes "
+          f"summed {e2:.3e} ({e2 / e1:.2f}x, held at {DP_BN_F64_RATIO}x)", flush=True)
+    check(e2 <= DP_BN_F64_RATIO * e1, f"the BN runs' summed gradients lie {e2:.3e} from the "
+          f"float64 step, one process's {e1:.3e}")
+    for name, run in runs.items():
+        for r in run["records"]:
+            print(f"  GaGNet-BN, rank {r['rank']} of {r['size']}: step periods "
+                  f"{[round(v, 2) for v in r['periods_ms']]} ms, calls "
+                  f"{[round(v, 2) for v in r['calls_ms']]} ms; peak {r['peak_gib']:.2f} GiB"
+                  + (f"; gradient all-reduce {r['allreduce_ms']:.2f} ms a step"
+                     if r["size"] > 1 else ""), flush=True)
+            check(r["totals"] == [0, 0], f"GaGNet launched K1 {r['totals']}")
 
 
 # --- phase 72: serving across devices, on one card
 
 
 SP_KS = (2, 4)  # the sequence-parallel groups, their shards all on cuda:0
-SP_N = 2  # phase 72's sampler depth (its CLI runs too): N + ald, 5 forwards a call
+# more shards than the coarsest level holds frames: ncsnpplarge (7 levels:
+# T / 64 frames there) at (frames, shards) = 1 coarse frame for 4 shards, 2
+# for 4 and for 8; parts start on odd frames and hold none at the deep levels
+SP_DEEP = ((64, 4), (128, 4), (128, 8))
+SP_CLI_SHARDS = 4  # `--seq_parallel 4` on a 1 s file (192 frames: 3 coarse) with ncsnpplarge
+SP_N = 1  # phase 72's sampler depth (its CLI runs too): N + ald, 3 forwards a call
 SP_F32_FORWARD_RTOL = 1e-5  # sharded f32 forward against unsharded, of the output's scale
-SP_F32_ENHANCE_RTOL = 1e-4  # sharded f32 enhancement (N=2 + ald), of the output's scale
+SP_F32_ENHANCE_RTOL = 1e-4  # sharded f32 enhancement (N=SP_N + ald), of the output's scale
 # bf16 (and int8 + bf16): sharded against the f32 unsharded output, within
 # this many times the unsharded bf16 output's distance from it: sharding
 # reorders bf16 sums as a batch width does, and adds no error of its own
@@ -5944,34 +6072,157 @@ def rel_err(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max())
 
 
-def sharded_forwards(what: str, net, x, t, ks, per_forward: int, want, gen,
-                     scales=None):
+def sharded_k1_launches(net, frames: int, k: int) -> int:
+    """K1 launches of one forward of `net` (BigGAN resblocks, output_skip and
+    input_skip pyramids) over k shards of `frames` frames: each of a level
+    change's 3 calls (a resampling resblock's 2, a pyramid's 1) once per
+    part that has frames at the level it writes, none for an empty one."""
+    plan = seqpar.FramePlan.of(frames, net.num_resolutions, k)
+    full = [sum(w > 0 for w in plan.widths(frames >> lv)) for lv in range(net.num_resolutions)]
+    return 3 * (sum(full[1:]) + sum(full[:-1]))
+
+
+def sharded_forwards(what: str, net, x, t, ks, per_forward, want, gen, scales=None):
     """`net`'s forward over each group of ks shards on cuda:0 against `want`;
-    returns ({k: (output, K1 launches, K3 launches)}, the K1 shapes, the K3
-    inputs)."""
+    `per_forward`: K1 launches per shard (every part full at every level),
+    or None for `sharded_k1_launches`. Returns ({k: (output, K1 launches, K3
+    launches)}, the K1 shapes, the K3 inputs)."""
     out, k1s_all, k3s_all = {}, set(), set()
+    frames = x.shape[-2]
     for k in ks:
         sharded = ShardedNCSNpp(net, ["cuda:0"] * k)
-        before = (kup.upfirdn2d_cuda.launches, kq.quantize_int8_cuda.launches)
+        before = (kup.upfirdn2d_cuda.launches, kq.quantize_int8_cuda.launches,
+                  seqpar.Sharded.empty_parts)
         with shapes_recorded() as (k1s, k3s), torch.inference_mode():
             got = sharded(x, t)
         torch.cuda.synchronize()
         launched = (kup.upfirdn2d_cuda.launches - before[0],
                     kq.quantize_int8_cuda.launches - before[1])
-        check(launched[0] == per_forward * k,
-              f"{what}: {k} shards launched K1 {launched[0]} times, expected {per_forward} x {k}")
+        empty = seqpar.Sharded.empty_parts - before[2]
+        expected = (per_forward * k if per_forward is not None
+                    else sharded_k1_launches(net, frames, k))
+        check(launched[0] == expected,
+              f"{what}: {k} shards launched K1 {launched[0]} times, expected {expected}")
         check(scales is None or launched[1] == len(scales) * k,
               f"{what}: {k} shards launched K3 {launched[1]} times, expected "
               f"{len(scales or {})} x {k}")
         out[k] = (got, *launched)
         k1s_all |= k1s
         k3s_all |= k3s
-        widths = seqpar.frame_widths(x.shape[-2], net.num_resolutions, k)
-        print(f"  {what}, {k} shards of {widths} frames (deepest level "
-              f"{[w >> (net.num_resolutions - 1) for w in widths]}): max|sharded - unsharded| "
-              f"{rel_err(got, want):.3e} of the output's scale; K1 {launched[0]} = "
-              f"{per_forward} x {k}" + (f", K3 {launched[1]}" if scales else ""), flush=True)
+        plan = seqpar.FramePlan.of(frames, net.num_resolutions, k)
+        print(f"  {what}, {k} shards of {plan.widths(frames)} frames (deepest level "
+              f"{plan.widths(frames >> (net.num_resolutions - 1))}): max|sharded - unsharded| "
+              f"{rel_err(got, want):.3e} of the output's scale; K1 {launched[0]} a call "
+              f"(expected {expected}), empty parts that launched nothing {empty}"
+              + (f", K3 {launched[1]}" if scales else ""), flush=True)
     return out, k1s_all, k3s_all
+
+
+def sharded_past_the_coarsest(workdir: str, gen: torch.Generator, shapes):
+    """Phase 72's groups of more shards than ncsnpplarge's coarsest level
+    holds frames (SP_DEEP), f32 against unsharded and bf16 against f32, and
+    `--seq_parallel SP_CLI_SHARDS` through the CLI on a 1 s file with phase
+    61's StoRM (an ncsnpplarge score net) against the same CLI unsharded.
+    Adds the K1 shapes to `shapes`; returns ({path: K1 launches} f32, bf16)."""
+    k1, k1_bf16 = {}, {}
+    nets = {}
+    for name, dtype in (("float32", torch.float32), ("bfloat16", BF16)):
+        net = backbones.get_by_name("ncsnpplarge")(input_channels=6, dtype=dtype)
+        reset_parameters(net, torch.Generator().manual_seed(0))
+        nets[name] = net.cuda().eval()
+    t = torch.full((1,), 0.5, device="cuda")
+    for frames in sorted({T for T, _ in SP_DEEP}):
+        ks = [k for T, k in SP_DEEP if T == frames]
+        x = 0.5 * torch.randn(1, 3, FREQS, frames, 2, device="cuda", generator=gen)
+        with torch.inference_mode():
+            ref = nets["float32"](x, t)
+        for name, net in nets.items():
+            with torch.inference_mode(), cast_params(net, net.dtype):
+                want = net(x, t)
+                got, k1s, _ = sharded_forwards(
+                    f"ncsnpplarge at {frames} frames ({frames // 64} at its coarsest level), "
+                    f"{name}", net, x, t, ks, None, want, gen)
+            shapes[name] |= k1s
+            (k1 if name == "float32" else k1_bf16)[f"sp_forward_ncsnpplarge_{frames}_{name}"] = \
+                sum(v[1] for v in got.values())
+            if frames == 128:  # the sharded call's time at the 128-frame bucket, eager
+                sharded = ShardedNCSNpp(net, ["cuda:0"] * SP_CLI_SHARDS)
+                with torch.inference_mode(), cast_params(net, net.dtype):
+                    ms = (time_ms(lambda: net(x, t), reps=2, repeats=3),
+                          time_ms(lambda: sharded(x, t), reps=2, repeats=3))
+                print(f"  ncsnpplarge {name} forward at {frames} frames: unsharded {ms[0]:.3f} "
+                      f"ms, {SP_CLI_SHARDS} shards on the one card {ms[1]:.3f} ms "
+                      f"({ms[1] / ms[0]:.2f}x; eager, event-timed)", flush=True)
+            if name == "float32":
+                check(all(rel_err(v[0], want) <= SP_F32_FORWARD_RTOL for v in got.values()),
+                      f"a sharded f32 ncsnpplarge forward at {frames} frames parts from unsharded")
+            else:
+                unsharded = rel_err(want, ref)
+                worst = max(rel_err(v[0], ref) for v in got.values())
+                print(f"  bf16 against f32 unsharded: unsharded {unsharded:.3e}, sharded "
+                      f"{worst:.3e} ({worst / unsharded:.2f}x, held at {SP_BF16_RATIO}x)",
+                      flush=True)
+                check(worst <= SP_BF16_RATIO * unsharded,
+                      f"a sharded bf16 ncsnpplarge forward at {frames} frames parts from f32")
+    del nets
+    torch.cuda.empty_cache()
+
+    ckpt, one = os.path.join(workdir, "storm_large.pt"), os.path.join(workdir, "noisy_sp_1s")
+    name = f"utt0_{SECONDS[0]:.1f}s.wav"
+    os.makedirs(one, exist_ok=True)
+    shutil.copy(os.path.join(workdir, "noisy", name), one)
+    frames = padded_frames(SECONDS[0])
+    denoiser, score = large_structure()
+    nfe = 1 + 2 * SP_N
+    want_k1 = (sharded_k1_launches(denoiser, frames, SP_CLI_SHARDS)
+               + 2 * SP_N * sharded_k1_launches(score, frames, SP_CLI_SHARDS))
+    outs, calls = {}, {}
+    for tag, extra in (("unsharded", ()), ("seq_parallel", ("--seq_parallel",
+                                                             str(SP_CLI_SHARDS)))):
+        outs[tag] = {}
+        before = (kup.upfirdn2d_cuda.launches, seqpar.Sharded.empty_parts)
+        with mock.patch.object(inference, "serving_devices",
+                               lambda device, devices=None: [torch.device("cuda:0")]
+                               * SP_CLI_SHARDS), shapes_recorded() as (k1s, _), \
+                calls_counted() as per_call:
+            text = run_enhancement(["--test_dir", one, "--enhanced_dir",
+                                    os.path.join(workdir, f"enhanced_large_{tag}"), "--ckpt",
+                                    ckpt, "--mode", "storm", "--N", str(SP_N), "--timeit",
+                                    "--device", "cuda", *extra], outs[tag])
+        calls[tag] = (per_call, kup.upfirdn2d_cuda.launches - before[0],
+                      seqpar.Sharded.empty_parts - before[1], rtf_of(text)[name])
+        shapes["float32"] |= k1s
+    check(calls["unsharded"][0] == [(K1_PER_FORWARD + LARGE_PER_FORWARD * 2 * SP_N, 0, nfe)]
+          and calls["seq_parallel"][0] == [(want_k1, 0, nfe)],
+          f"(K1, K3, NFE) per call: unsharded {calls['unsharded'][0]}, sharded "
+          f"{calls['seq_parallel'][0]} (expected K1 {want_k1})")
+    k1["enhancement_ncsnpplarge_seq_parallel_float32"] = calls["seq_parallel"][1]
+    err = rel_err(outs["seq_parallel"][name], outs["unsharded"][name])
+    print(f"  --seq_parallel {SP_CLI_SHARDS} through the CLI, StoRM with an ncsnpplarge score "
+          f"net on a {SECONDS[0]:.0f} s file ({frames} frames; the score net's coarsest level "
+          f"{frames >> 6}; N={SP_N} + ald): K1 {calls['seq_parallel'][1]} a call against "
+          f"{calls['unsharded'][1]} unsharded, empty parts that launched nothing "
+          f"{calls['seq_parallel'][2]}; RTF (a shape's first call: eager) "
+          f"{calls['seq_parallel'][3]:.4f} against {calls['unsharded'][3]:.4f} unsharded; "
+          f"against the same CLI unsharded {err:.3e} of the output's scale (held at "
+          f"{SP_F32_ENHANCE_RTOL})", flush=True)
+    check(err <= SP_F32_ENHANCE_RTOL, f"--seq_parallel {SP_CLI_SHARDS} parts from unsharded")
+    # a group on one card with empty parts is captured and replayed as any call is
+    model = build_model(LARGE_STORM, device="cuda", seed=0)  # the checkpoint's weights
+    y = load_wav(os.path.join(one, name))[0][0]
+    with shapes_recorded() as (k1s, _):
+        row, enhancer, _ = graph_against_eager(
+            f"storm ncsnpplarge seq_parallel={SP_CLI_SHARDS} pc N={SP_N} f32, "
+            f"{SECONDS[0]:.0f} s", model, y, y.shape[-1] / SR, [], N=SP_N, corrector="ald",
+            seq_parallel=SP_CLI_SHARDS, devices=["cuda:0"] * SP_CLI_SHARDS)
+    check(enhancer.execution == "graph" and row["k1"] == 3 * want_k1,
+          f"the ncsnpplarge group's program: {enhancer.execution}, K1 {row['k1']} in three "
+          f"calls (expected 3 x {want_k1})")
+    k1["sp_enhancement_ncsnpplarge_float32"] = row["k1"]
+    shapes["float32"] |= k1s
+    del model, enhancer
+    torch.cuda.empty_cache()
+    return k1, k1_bf16
 
 
 def phase_seq_parallel(workdir: str, lengths, gen: torch.Generator):
@@ -6071,8 +6322,11 @@ def phase_seq_parallel(workdir: str, lengths, gen: torch.Generator):
     s1["sp_forward_ddpm_float32"] = sum(v[1] for v in got.values())
     del ddpm
     torch.cuda.empty_cache()
+    deep_k1, deep_k1_bf16 = sharded_past_the_coarsest(workdir, gen, shapes)
+    k1.update(deep_k1)
+    k1_bf16.update(deep_k1_bf16)
 
-    # enhance at N=2 + ald on the 4 s file: each group's captured program
+    # enhance at N=SP_N + ald on the 4 s file: each group's captured program
     # against its eager loop (bit for bit), and against unsharded serving
     y = load_wav(os.path.join(noisy, f"utt2_{SECONDS[2]:.1f}s.wav"))[0][0]
     enh_f32 = None
@@ -6714,12 +6968,15 @@ def main():
         d2_train, d2_train_err, d2_bwd_err = phase_d2_train(workdir, train_bf16, gen)
 
         phase_header(f"== phase 71: data-parallel training, {DP_PROCESSES} processes on one card "
-                     "(gloo), against one process at the same global batch", flush=True)
+                     "(gloo), against one process at the same global batch: StoRM, and "
+                     "GaGNet-BN with its moments across the processes", flush=True)
         dp_k1, dp_bwd, dp_err, dp_bwd_err = phase_data_parallel(workdir, gen)
 
         phase_header(f"== phase 72: serving across devices on one card: --data_parallel through "
                      f"the CLI; seq_parallel {SP_KS} with every shard on cuda:0 (forwards, int8 "
-                     f"+ bf16, ncsnpplarge, DDPM; enhance at N={SP_N} + ald, graph and eager)",
+                     f"+ bf16, ncsnpplarge, DDPM; ncsnpplarge over more shards than its "
+                     f"coarsest level's frames, {SP_DEEP}, and through the CLI; enhance at "
+                     f"N={SP_N} + ald, graph and eager)",
                      flush=True)
         (sp_k1, sp_k1_bf16, sp_k3, sp_s1, sp_err, sp_bf16_err, sp_k3_err,
          sp_s1_err) = phase_seq_parallel(workdir, lengths, gen)

@@ -20,7 +20,13 @@ and spatial axes (BN), with a biased variance and eps 1e-5; it keeps no
 running statistics. Under `stats_attached(net, batch_stats)` a BN norm
 named in `batch_stats` ({norm module name: {"mean", "var"}}, the converted
 running statistics of a reference checkpoint) normalizes with those instead,
-as torch's eval-mode BatchNorm does; the trainer never attaches them.
+as torch's eval-mode BatchNorm does; the trainer never attaches them. Under
+`moments_across(norms, world)`, which only the data-parallel trainer's
+step and validation enter (utils/train_graphs.py), a BN norm takes its
+moments over every process's rows (`utils/distributed.BatchMoments`), as
+the reference's BN under the trainer's data `Mesh` takes them over the
+global batch; a serving call, and the trainer's evaluation, never call a
+collective.
 
 The net computes in its `dtype` with float32 parameters, cast per use, and
 returns float32, as the reference's `dtype` field does. The reference's
@@ -32,7 +38,7 @@ from __future__ import annotations
 import contextlib
 import inspect
 import math
-from typing import Dict, Iterator, Mapping, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -41,6 +47,7 @@ from torch import nn
 from ..nn.cast import param, scalar
 from ..nn.init import lecun_normal_
 from ..nn.resample import conv_transpose
+from ..utils.distributed import BatchMoments, World
 from .convtasnet import optional_bool
 
 BatchStats = Mapping[str, Mapping[str, torch.Tensor]]
@@ -120,7 +127,9 @@ class NormSwitch(nn.Module):
     input's dtype, the variance biased; the normalization runs in the
     input's dtype. A BN norm with attached running statistics (`stats`,
     set by `stats_attached`) uses them instead; a mean without its var
-    raises."""
+    raises. A BN norm with a training `world` of several processes
+    attached (`moments_across`) and no running statistics takes the batch
+    axis over every process's rows, in the same float32 two-pass form."""
 
     def __init__(self, norm_type: str, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -129,6 +138,7 @@ class NormSwitch(nn.Module):
         self.norm_type, self.eps = norm_type, eps
         self.norm = _Affine(channels)
         self.stats: Optional[Mapping[str, torch.Tensor]] = None
+        self.world: Optional[World] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         stats = self.stats if self.norm_type == "BN" else None
@@ -144,9 +154,12 @@ class NormSwitch(nn.Module):
         else:
             axes = tuple(range(2, x.dim())) if self.norm_type == "IN" else (0,) + tuple(
                 range(2, x.dim()))
-            xf = x.to(torch.promote_types(x.dtype, torch.float32))
-            mean = xf.mean(dim=axes, keepdim=True)
-            var = torch.square(xf - mean).mean(dim=axes, keepdim=True)
+            if self.norm_type == "BN" and self.world is not None and self.world.size > 1:
+                mean, var = BatchMoments.apply(x, axes, self.world)
+            else:
+                xf = x.to(torch.promote_types(x.dtype, torch.float32))
+                mean = xf.mean(dim=axes, keepdim=True)
+                var = torch.square(xf - mean).mean(dim=axes, keepdim=True)
             mean, var = mean.to(x.dtype), var.to(x.dtype)
         x = (x - mean) * torch.rsqrt(var + scalar(self.eps, x.dtype))
         return x * self.norm.weight.to(x.dtype).reshape(shape) + self.norm.bias.to(
@@ -179,6 +192,25 @@ def stats_attached(net: nn.Module, batch_stats: Optional[BatchStats]) -> Iterato
     finally:
         for name in batch_stats:
             norms[name].stats = None
+
+
+def batch_norms(net: nn.Module) -> List[NormSwitch]:
+    """The BN norms under `net`: those whose moments span the batch."""
+    return [m for m in net.modules() if isinstance(m, NormSwitch) and m.norm_type == "BN"]
+
+
+@contextlib.contextmanager
+def moments_across(norms: Sequence[NormSwitch], world: World) -> Iterator[None]:
+    """For the block, `norms` (`batch_norms`) take their moments over the
+    rows of every process of `world`: each forward through them then calls
+    collectives, which every process must enter in the same order."""
+    try:
+        for m in norms:
+            m.world = world
+        yield
+    finally:
+        for m in norms:
+            m.world = None
 
 
 def _unit(conv: nn.Module, norm_type: str, channels: int) -> nn.Sequential:

@@ -529,7 +529,8 @@ class ShardedNCSNpp(nn.Module):
     axis over `devices` (k of them; a device may repeat), with the net's call
     signatures: `forward`, `deep_features` (its cache stays sharded) and
     `forward_shallow`. Each call cuts its input (B, Cc, F, T, 2) along T at
-    `seqpar.frame_widths`, runs `_unet` on the shards and gathers the output
+    its `seqpar.FramePlan` (parts may be empty at the deep levels, and at the
+    top where T < k), runs `_unet` on the shards and gathers the output
     (B, D, F, T, 2) on the first device, the net's. `nets[i]` is the net
     part i runs: the net itself on its own device, else a replica there
     (`serving` keeps the replicas' weights, casts and int8 scales the net's)."""
@@ -566,13 +567,17 @@ class ShardedNCSNpp(nn.Module):
         self.net.check_cache_depth(cache_depth)
 
     def _scatter(self, x: torch.Tensor) -> Sharded:
-        widths = seqpar.frame_widths(x.shape[-2], self.net.num_resolutions, len(self.devices))
-        parts = seqpar.scatter(x, widths, self.devices, dim=-2)
-        return Sharded([self.net._pack(p) for p in parts], self.ctx)
+        """x cut along T at the call's plan: every level's boundaries, which
+        the skip connections, the pyramids and a deep-feature cache share,
+        as each level is named by its frame count."""
+        plan = seqpar.FramePlan.of(x.shape[-2], self.net.num_resolutions, len(self.devices))
+        parts = seqpar.scatter(x, plan.widths(x.shape[-2]), self.devices, dim=-2)
+        return Sharded([self.net._pack(p) for p in parts], self.ctx, plan)
 
     def _gather(self, h: Sharded, x_shape) -> torch.Tensor:
         B, Cc, Fdim, _, two = x_shape
-        outs = [self._nets[i]._unpack(p, (B, Cc, Fdim, p.shape[-1], two))
+        outs = [self._nets[i]._unpack(p, (B, Cc, Fdim, p.shape[-1], two)) if p.shape[-1]
+                else p.new_empty((B, self.spatial_channels, Fdim, 0, two), dtype=torch.float32)
                 for i, p in enumerate(h.parts)]
         return seqpar.gather(outs, self.devices[0], dim=-2)
 

@@ -51,8 +51,10 @@ chip (BASELINE.json), as in the reference bench; no TPU figure applies to
 the port. `--distill` measures the distilled one-step program instead (NFE
 2: the denoiser and the student; int8 scales from `calibrate_distill`, no
 deepcache), one warm-up and `--reps` timed calls, under the reference's
-metric name `audio_sec_per_sec_per_chip_distill_nfe2`. Backbones other than
-ncsnpp are not ported and raise, naming their ROADMAP item.
+metric name `audio_sec_per_sec_per_chip_distill_nfe2`. `--backbone` builds
+any registered backbone for both nets (backbones/__init__.py), as the
+reference bench does; GaGNet then refuses the score net's input at its
+first forward, as the reference's does (ROADMAP Queue 3).
 
 `--spatial_channels D` builds both nets for D-channel input (the trainer's
 flag, which the reference bench lacks) and runs every line on (B, D, T)

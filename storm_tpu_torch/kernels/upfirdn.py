@@ -335,6 +335,8 @@ def _check_kernel_contract(x: torch.Tensor, k: np.ndarray, up: int, down: int) -
         raise ValueError(f"upfirdn2d: float32 or bfloat16 only, got {x.dtype}")
     if x.dim() != 4 or not x.is_contiguous():
         raise ValueError("upfirdn2d: input must be a contiguous (B, C, H, W) tensor")
+    if x.numel() == 0:  # a sharded caller skips a part with no frames (nn/seqpar.py)
+        raise ValueError(f"upfirdn2d: an input of no elements {tuple(x.shape)}")
     if k.shape != (_TAPS, _TAPS):
         raise ValueError(f"upfirdn2d: built for a {_TAPS}x{_TAPS} FIR, got {k.shape}")
     if (up, down) not in _CONFIGS:

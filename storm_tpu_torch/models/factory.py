@@ -8,8 +8,9 @@ architecture the teacher's, with the `distill_*` keys), with the backbones
 of the registry (backbones/__init__.py; the time-domain ones as denoisers)
 and the OUVE or OUVP SDE,
 computing in the config's `dtype`, "float32" (the default) or "bfloat16",
-with float32 parameters; other choices raise NotImplementedError naming
-their ROADMAP item.
+with float32 parameters. Another dtype, a conditioning the reference does
+not know and a time-domain net of several spatial channels raise
+NotImplementedError; an unknown mode or backbone raises ValueError.
 """
 from __future__ import annotations
 

@@ -335,8 +335,8 @@ class StridedConv(nn.Conv2d):
 
 # the frames of halo a sharded 2x resampler takes on either side: every
 # output frame of the FIR (4 taps) and of the 3x3 conv around it reads
-# input frames within 2 of its own, and an even halo keeps a stride-2 op's
-# phase (nn/seqpar.py)
+# input frames within 2 of its own, and an even halo starts a stride-2 op's
+# window on an even frame, its unsharded phase (nn/seqpar.py)
 RESAMPLE_HALO = 2
 
 

@@ -5,33 +5,45 @@ inserts for the reference's `spec_sharding_constraint`,
 storm_tpu/models/base.py:156-183).
 
 A `Sharded` activation is k tensors (B, C, F, T_i), part i on device i of
-its group (a device may repeat: k shards on one card). The boundaries come
-from the net's coarsest level and are scaled by 2^level (`frame_widths`),
-so that every level's boundaries line up under the FIR down- and
-up-sampling; parts may be unequal (ncsnpplarge's bottleneck holds 9 frames
-of a 576-frame bucket).
+its group (a device may repeat: k shards on one card), and the `FramePlan`
+of its call: the parts' boundaries at every level of the net. The top
+level's k widths come from `frame_widths`. Where the coarsest level holds
+at least k frames, its frames are split as evenly as they go and scaled by
+2^(levels - 1), so that every level's boundaries are exact halvings of the
+top's; where it holds fewer, the top level's T frames are split as evenly
+as they go. Each deeper level's boundaries are the finer level's halved
+and rounded up (ceil(b / 2)). So a part may start on an odd frame, and may
+hold no frames at a deep level: a 64-frame bucket over 4 shards of a
+7-level net has parts of 1, 0, 1, 0 frames at its sixth level and 1, 0, 0,
+0 at its seventh. Parts may be unequal.
 
 The primitives:
 
-- `Sharded.halo_map(fn, halo, scale)`: each part with `halo` frames of its
-  neighbours on either side (taken from as many shards as that needs, so a
-  level narrower than its halo is still right; zeros at the global edges,
-  the padding the op adds itself), `fn` on it, then the output's frames that
-  belong to the halo cropped (halo * scale of them each side, `scale` the
-  op's frame ratio: 1, 2 or 1/2), contiguous. A "same" conv takes a halo of
-  (k - 1) / 2 frames, the FIR resamplers a halo of 2 (even, so that a
-  stride-2 op keeps its phase).
+- `Sharded.halo_map(fn, halo, scale)`: for each part of the output, at the
+  level the op's frame ratio `scale` (1, 2 or 1/2) leads to, `fn` on the
+  window of input frames that part reads: the input frames its own frames
+  map back to, `halo` more on either side, taken from as many shards as
+  that needs (so a part narrower than its halo, or empty at the input's
+  level, is still right), zeros past the global edges (the padding the op
+  adds itself). The output is cropped to the part's frames, contiguous. A
+  stride-2 op's window starts on an even frame (its halo is even), so the
+  op keeps the unsharded phase whichever frame the part starts on. An
+  output part with no frames is an empty tensor, and `fn` is not called
+  for it: nothing is launched (`Sharded.empty_parts` counts them). A "same"
+  conv takes a halo of (k - 1) / 2 frames, the FIR resamplers a halo of 2.
 - `group_norm_moments`: the group means, then the variances around them,
   over all shards in float32 (the two-pass form of the unsharded GroupNorm;
   nn/layers.GroupNorm then normalizes each shard in float32, one rounding).
+  An empty part adds no count and no sum.
 - `attention_gathered`: each shard's queries against every shard's keys
   and values, gathered in frame order, so that each logit is the dot
-  product of the unsharded attention.
+  product of the unsharded attention. An empty part has no queries.
 - Elementwise ops (arithmetic with scalars, per-row tensors or another
   `Sharded` of the same boundaries, the activations, dropout, `.to(dtype)`)
-  run per part; `torch.cat` joins channels (dim 1) per part. Any other
-  torch function on a `Sharded` raises NotImplementedError: nothing falls
-  back to a gathered tensor unseen.
+  run per part, and PyTorch launches nothing for an empty one; `torch.cat`
+  joins channels (dim 1) per part. Any other torch function on a `Sharded`
+  raises NotImplementedError: nothing falls back to a gathered tensor
+  unseen.
 
 The layers dispatch on a `Sharded` input themselves (nn/layers.py,
 nn/qconv.py); a layer's parameters for part i are those of the replica of
@@ -41,7 +53,7 @@ from __future__ import annotations
 
 import copy
 import operator
-from typing import Callable, Dict, List, Sequence, Union
+from typing import Callable, Dict, List, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -52,18 +64,48 @@ from .cast import scalar
 
 def frame_widths(T: int, levels: int, k: int) -> List[int]:
     """The k shards' widths at the top level of a net of `levels` levels on
-    T frames: the coarsest level's T / 2^(levels - 1) frames split as evenly
-    as they go (the first shards one frame wider), each scaled by
-    2^(levels - 1)."""
+    T frames (module docstring): the coarsest level's T / 2^(levels - 1)
+    frames split as evenly as they go (the first shards one frame wider),
+    each scaled by 2^(levels - 1), where there are at least k of them; else
+    the T frames split as evenly as they go."""
     f = 2 ** (levels - 1)
     if T % f:
         raise ValueError(f"{T} frames do not halve {levels - 1} times")
-    coarse = T // f
-    if coarse < k:
-        raise ValueError(f"seq_parallel={k}: the coarsest level holds {coarse} frames, fewer "
-                         "than the shards")
-    base, extra = divmod(coarse, k)
-    return [(base + (i < extra)) * f for i in range(k)]
+    n, scale = (T // f, f) if T // f >= k else (T, 1)
+    base, extra = divmod(n, k)
+    return [(base + (i < extra)) * scale for i in range(k)]
+
+
+class FramePlan:
+    """The shard boundaries at every level of a net: the top level's from
+    its widths, each deeper level's the finer one's halved and rounded up.
+    A level is named by its frame count (T / 2^level)."""
+
+    def __init__(self, widths: Sequence[int], levels: int):
+        bounds = [0]
+        for w in widths:
+            bounds.append(bounds[-1] + w)
+        self._bounds: Dict[int, Tuple[int, ...]] = {}
+        for _ in range(levels):
+            self._bounds[bounds[-1]] = tuple(bounds)
+            bounds = [-(-b // 2) for b in bounds]
+
+    @classmethod
+    def of(cls, T: int, levels: int, k: int) -> "FramePlan":
+        """The plan of k shards of a `levels`-level net on T frames."""
+        return cls(frame_widths(T, levels, k), levels)
+
+    def bounds(self, frames: int) -> Tuple[int, ...]:
+        """The k + 1 boundaries of the level of `frames` frames."""
+        if frames not in self._bounds:
+            raise ValueError(f"no level of the shard plan holds {frames} frames (its levels "
+                             f"hold {sorted(self._bounds, reverse=True)})")
+        return self._bounds[frames]
+
+    def widths(self, frames: int) -> List[int]:
+        """The parts' widths at the level of `frames` frames."""
+        b = self.bounds(frames)
+        return [b[i + 1] - b[i] for i in range(len(b) - 1)]
 
 
 def scatter(x: torch.Tensor, widths: Sequence[int], devices: Sequence[torch.device],
@@ -132,16 +174,19 @@ Operand = Union["Sharded", torch.Tensor, float, int]
 
 class Sharded:
     """An activation split along its last (frame) axis into parts on the
-    devices of a `ShardContext` (module docstring)."""
+    devices of a `ShardContext`, at the boundaries `plan` gives its level
+    (module docstring)."""
 
-    __slots__ = ("parts", "ctx")
+    __slots__ = ("parts", "ctx", "plan")
+    empty_parts = 0  # output parts of `halo_map` that had no frames: nothing launched
 
-    def __init__(self, parts: Sequence[torch.Tensor], ctx: ShardContext):
+    def __init__(self, parts: Sequence[torch.Tensor], ctx: ShardContext, plan: FramePlan):
         self.parts = list(parts)
         self.ctx = ctx
+        self.plan = plan
 
     def _like(self, parts) -> "Sharded":
-        return Sharded(parts, self.ctx)
+        return Sharded(parts, self.ctx, self.plan)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -212,42 +257,54 @@ class Sharded:
 
     # --- halo exchange ---------------------------------------------------
 
-    def with_halo(self, i: int, halo: int) -> torch.Tensor:
-        """Part i with `halo` frames on either side, from its neighbours
-        (as many as that takes), zeros past the global edges."""
+    def bounds(self) -> Tuple[int, ...]:
+        """The parts' boundaries, as the plan gives them at this level."""
+        bounds = self.plan.bounds(sum(self.widths))
+        if [bounds[i + 1] - bounds[i] for i in range(len(self.parts))] != self.widths:
+            raise ValueError(f"shards of widths {self.widths}, where the plan has {bounds}")
+        return bounds
+
+    def window(self, i: int, lo: int, hi: int, bounds: Sequence[int]) -> torch.Tensor:
+        """The frames [lo, hi) of the whole activation on part i's device,
+        from the parts that hold them (at `bounds`), zeros outside [0, T)."""
         p = self.parts[i]
-        if halo == 0:
+        if (lo, hi) == (bounds[i], bounds[i + 1]):
             return p
-        sides = []
-        for step in (-1, 1):
-            pieces, need, j = [], halo, i + step
-            while need and 0 <= j < len(self.parts):
-                q = self.parts[j]
-                take = min(need, q.shape[-1])
-                piece = q[..., q.shape[-1] - take:] if step < 0 else q[..., :take]
-                pieces.append(piece.to(p.device))
-                need -= take
-                j += step
-            if need:
-                pieces.append(p.new_zeros(p.shape[:-1] + (need,)))
-            sides.append(pieces[::-1] if step < 0 else pieces)
-        return torch.cat(sides[0] + [p] + sides[1], dim=-1)
+        pieces = [p.new_zeros(p.shape[:-1] + (-lo,))] if lo < 0 else []
+        for j, q in enumerate(self.parts):
+            a, b = max(lo, bounds[j]), min(hi, bounds[j + 1])
+            if a < b:
+                pieces.append(q[..., a - bounds[j]: b - bounds[j]].to(p.device))
+        if hi > bounds[-1]:
+            pieces.append(p.new_zeros(p.shape[:-1] + (hi - bounds[-1],)))
+        return torch.cat(pieces, dim=-1)
 
     def halo_map(self, fn: Callable[[int, torch.Tensor], torch.Tensor], halo: int,
                  scale: float = 1.0) -> "Sharded":
-        """fn(i, part i with its halo) per part, each output cropped by
-        halo * scale frames on either side, contiguous (module docstring)."""
-        crop = halo * scale
-        if crop != int(crop):
-            raise ValueError(f"a halo of {halo} frames at scale {scale} crops a fraction")
-        crop = int(crop)
-        out = []
-        for i, p in enumerate(self.parts):
-            y = fn(i, self.with_halo(i, halo))
-            if y.shape[-1] != (p.shape[-1] + 2 * halo) * scale:
-                raise RuntimeError(f"a sharded op gave {y.shape[-1]} frames for "
-                                   f"{p.shape[-1]} + 2 x {halo} at scale {scale}")
-            out.append((y[..., crop: y.shape[-1] - crop] if crop else y).contiguous())
+        """fn(i, the window part i of the output reads) per non-empty output
+        part, each output cropped to the part's frames, contiguous; an empty
+        tensor for an empty part (module docstring)."""
+        up, down = {1.0: (1, 1), 2.0: (2, 1), 0.5: (1, 2)}[float(scale)]
+        src = self.bounds()
+        dst = self.plan.bounds(src[-1] * up // down)
+        out: List[Union[torch.Tensor, None]] = [None] * len(self.parts)
+        for i in range(len(self.parts)):
+            start, stop = dst[i], dst[i + 1]
+            if start == stop:
+                continue
+            lo, hi = (start * down) // up - halo, -(-(stop * down) // up) + halo
+            if lo * up % down:
+                raise ValueError(f"a window from frame {lo} breaks a stride-{down} op's phase")
+            y = fn(i, self.window(i, lo, hi, src))
+            if y.shape[-1] != (hi - lo) * up // down:
+                raise RuntimeError(f"a sharded op gave {y.shape[-1]} frames for a window of "
+                                   f"{hi - lo} at scale {scale}")
+            offset = start - lo * up // down
+            out[i] = like = y[..., offset: offset + stop - start].contiguous()
+        for i, y in enumerate(out):
+            if y is None:
+                out[i] = like.new_empty(like.shape[:-1] + (0,), device=self.ctx.devices[i])
+                Sharded.empty_parts += 1
         return self._like(out)
 
     def apply(self, module: nn.Module, halo: int = 0, scale: float = 1.0) -> "Sharded":
@@ -260,10 +317,11 @@ class Sharded:
 
 def group_norm_moments(x: Sharded, groups: int):
     """(mean, var), each (B, G) float32 on the first part's device: the group
-    means over all shards, then the mean squared deviation from them."""
+    means over all shards, then the mean squared deviation from them; an
+    empty part takes no part."""
     B = x.parts[0].shape[0]
     home = x.parts[0].device
-    grouped = [p.reshape(B, groups, -1) for p in x.parts]
+    grouped = [p.reshape(B, groups, -1) for p in x.parts if p.shape[-1]]
     n = sum(g.shape[-1] for g in grouped)
     mean = sum(g.float().sum(dim=-1).to(home) for g in grouped) / n
     var = sum((g.float() - mean.to(g.device)[:, :, None]).square().sum(dim=-1).to(home)
@@ -275,9 +333,13 @@ def attention_gathered(q: Sharded, k: Sharded, v: Sharded) -> Sharded:
     """Single-head attention of each shard's queries over every position of
     the unsharded activation, with the unsharded AttnBlockpp's roundings:
     the logits in the compute dtype times C^-0.5 in it, the softmax in
-    float32, its weights rounded before the second product."""
+    float32, its weights rounded before the second product. An empty part
+    has no queries: its output is the part itself."""
     out = []
     for qi in q.parts:
+        if not qi.shape[-1]:
+            out.append(qi)
+            continue
         B, C = qi.shape[:2]
         dev = qi.device
         keys = gather(k.parts, dev, -1).reshape(B, C, -1)

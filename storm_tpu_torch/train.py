@@ -35,9 +35,10 @@ follows the validation loss. Each epoch writes `last.pt`, and `best_loss.pt`
 when the loss improved and `best_pesq.pt` when PESQ, or ESTOI where PESQ is
 NaN, improved. Per-step training losses and the epoch's losses and metrics
 go to `metrics.jsonl` under the reference's keys. An evaluation that fails
-is printed and logged as NaN, and training goes on, as in the reference. A
-value this port does not run yet raises NotImplementedError naming its
-ROADMAP item.
+is printed and logged as NaN, and training goes on, as in the reference.
+The run exits with a message for `--return_time` without a denoiser-only
+model on a mono time-domain net, for `--mode distill` without a StoRM
+`--teacher_ckpt`, and for a `--batch_size` the processes do not divide.
 
 Each training step and each validation batch runs as the replay of a
 captured CUDA graph from its program's third call, the first running
@@ -94,7 +95,6 @@ import numpy as np
 import torch
 
 from . import backbones
-from .backbones.gagnet import NormSwitch
 from .ckpt import (AsyncCheckpointManager, CheckpointManager, load_checkpoint,
                    resume_training_state)
 from .data.datamodule import SpecsDataModule
@@ -361,11 +361,6 @@ def train(args: argparse.Namespace, world: World = World()) -> None:
         if args.batch_size % world.size:
             raise SystemExit(f"--batch_size {args.batch_size} not divisible by "
                              f"{world.size} processes")
-        if any(isinstance(m, NormSwitch) and m.norm_type == "BN" for m in model.modules()):
-            raise SystemExit(
-                "GaGNet with --norm_type BN takes its batch statistics over each process's "
-                "rows, not the global batch's, across processes: not ported "
-                "(ROADMAP Queue 1 item 9)")
     if teacher is not None:
         # the student starts at the teacher: params and EMA are its EMA weights,
         # and the denoiser rides along frozen, so the checkpoint serves alone

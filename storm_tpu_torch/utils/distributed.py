@@ -16,6 +16,10 @@ the host has a card of its own (local index i on `cuda:i`), Gloo where
 they share the host's cards (local index i on `cuda:i % cards`: NCCL
 refuses two processes on one device) or run on the CPU.
 
+`BatchMoments` is the collective of a BN's moments over the global batch
+(GaGNet's `NormSwitch` while a training world is attached to it, as the
+reference's BN under the trainer's data `Mesh` takes them).
+
 The group's timeout is `TIMEOUT` (two hours, as `mh_barrier`'s): a process
 that waits at a barrier or a collective while process 0 evaluates and
 writes checkpoints does not give up. Gloo takes a card's tensors itself
@@ -127,6 +131,45 @@ def all_reduce_(t: torch.Tensor, world: World) -> torch.Tensor:
     if world.size > 1:
         dist.all_reduce(t)
     return t
+
+
+class BatchMoments(torch.autograd.Function):
+    """(mean, var) of x over `axes` (the batch and spatial axes of a BN) and
+    over every process's x, in float32, keeping x's dims: the two-pass form
+    of one process's moments on the global batch. Forward: the count and
+    the sum all-reduced (one collective), then the sum of squares about
+    their mean (another). Backward, the synchronized-BN rule: the two
+    per-channel gradients, d/dmean and d/dvar, are summed over the
+    processes (one collective), so that each process's input gradient,
+    (g_mean + 2 g_var (x - mean)) / count, is the derivative of the sum of
+    every process's loss. The count travels as a float32, exact below 2^24
+    elements a channel."""
+
+    @staticmethod
+    def forward(ctx, x, axes: Tuple[int, ...], world: World):
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        total = xf.sum(dim=axes, keepdim=True)
+        local = xf.numel() // total.numel()
+        if local * world.size >= 2 ** 24:
+            raise ValueError(f"BN over {local * world.size} elements a channel: the float32 "
+                             "count would round")
+        summed = all_reduce_(torch.cat([total.flatten(), total.new_full((1,), float(local))]),
+                             world)
+        count = summed[-1]
+        mean = (summed[:-1] / count).reshape(total.shape)
+        var = all_reduce_(torch.square(xf - mean).sum(dim=axes, keepdim=True), world) / count
+        ctx.save_for_backward(x, mean, count)
+        ctx.world = world
+        return mean, var
+
+    @staticmethod
+    def backward(ctx, g_mean, g_var):
+        x, mean, count = ctx.saved_tensors
+        grads = [torch.zeros_like(mean) if g is None else g for g in (g_mean, g_var)]
+        summed = all_reduce_(torch.cat([g.flatten() for g in grads]), ctx.world)
+        g_mean, g_var = (g.reshape(mean.shape) for g in summed.split(mean.numel()))
+        xf = x.to(mean.dtype)
+        return ((g_mean + 2.0 * g_var * (xf - mean)) / count).to(x.dtype), None, None
 
 
 def broadcast_(tensors: Iterable[torch.Tensor], world: World) -> None:

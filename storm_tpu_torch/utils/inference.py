@@ -77,7 +77,9 @@ class BucketedEnhancer:
     `data_parallel`: one replica per device, each chunk's rows split over
     them; `seq_parallel=k > 1`: k devices per replica, its NCSN++ nets
     sharded along the frame axis over them (with `data_parallel`, on
-    devices // k replicas; else one); k must divide the device count.
+    devices // k replicas; else one); k must divide the device count, and
+    may exceed a level's frames (its parts are then empty there:
+    nn/seqpar.py).
     `devices`: the device set (`utils/devices.serving_devices`; by default
     every visible card, or the model's device on the CPU), e.g. ["cpu"] * 8.
     """

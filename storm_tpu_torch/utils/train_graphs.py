@@ -66,6 +66,22 @@ mean's. `stats` counts the all-reduces and their host seconds (on a card:
 from the end of the "grads" program's work, Gloo's copies through the
 host included).
 
+A model with GaGNet's BN norms (`--norm_type BN`) takes their moments over
+the global batch across processes, in its step's forward and backward and
+in its validation batches (`backbones/gagnet.moments_across`, entered only
+by those bodies: the evaluation, on process 0 alone, never calls a
+collective). The validation batches are the loader's padded global rows,
+as the reference's BN normalizes over them under its mesh; the mask only
+zeroes their losses. Those collectives sit inside the programs' bodies,
+where a Gloo collective cannot be captured, and NCCL's is not captured
+either (its step would be one program: ROADMAP Queue 1 item 7), so such a
+run's steps and validation batches run eagerly, and `execution` says why
+("eager: BN moments across processes (gloo)"). The moments' backward sums
+d/dmean and d/dvar over the processes, so each process's gradients are the
+derivative of the sum of every process's loss on its rows, and the flat
+buffer's sum (and, for a "mean" loss, its division by the process count)
+counts each process's share of the moments' gradient once.
+
 The training CLI and the bench run with PyTorch's expandable segments
 (`use_expandable_segments`). With the allocator's default segments, a small
 live block left in a large cached segment (cuBLAS's workspace, allocated
@@ -83,6 +99,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple
 import numpy as np
 import torch
 
+from ..backbones.gagnet import batch_norms, moments_across
 from ..kernels import LAUNCH_COUNTERS
 from ..models.base import TrainState, wav_to_spec
 from .distributed import World, all_reduce_
@@ -171,7 +188,12 @@ class TrainPrograms:
         self.return_time = return_time
         self.device = next(self.model.parameters()).device
         self.debug_nans = debug_nans
-        self.graphs = graphs and not debug_nans
+        # BN norms whose moments span every process's rows (module docstring)
+        self.synced = batch_norms(self.model) if world.size > 1 else []
+        self.eager_reason = ("debug_nans" if debug_nans else
+                             f"BN moments across processes ({world.backend})"
+                             if graphs and self.synced else None)
+        self.graphs = graphs and self.eager_reason is None
         self.programs: Dict[Tuple, Program] = {}
         self.seen: Set[Tuple] = set()
         self.pool = None
@@ -186,10 +208,11 @@ class TrainPrograms:
     @property
     def execution(self) -> str:
         """How steps run: "graph" (on the CPU: the programs' bodies, eagerly),
-        "eager: debug_nans", or "eager" (graphs=False)."""
+        "eager: <reason>" where a program cannot serve (debug_nans, BN
+        moments across processes), or "eager" (graphs=False)."""
         if self.graphs:
             return "graph"
-        return "eager: debug_nans" if self.debug_nans else "eager"
+        return f"eager: {self.eager_reason}" if self.eager_reason else "eager"
 
     def step(self, arrays: Arrays,
              generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
@@ -237,13 +260,14 @@ class TrainPrograms:
 
     def _valid_body(self, inputs: List[torch.Tensor], draw: Callable):
         batch = self._specs(inputs[:2])
-        with self.model.cast_nets():
+        with self.model.cast_nets(), moments_across(self.synced, self.world):
             per_example = self.model.per_example_given(batch, *draw(batch))
         return {"sum": torch.where(inputs[2], per_example, 0.0).sum()}, batch
 
     def _grads_body(self, inputs: List[torch.Tensor], draw: Callable):
         batch = self._specs(inputs[:2])
-        aux = self.model.compute_gradients(batch, *draw(batch))
+        with moments_across(self.synced, self.world):
+            aux = self.model.compute_gradients(batch, *draw(batch))
         if self.flat is None:  # made at the first (eager) call, outside any pool
             self._make_flat(aux)
         torch._foreach_copy_(self.grad_views + list(self.losses.values()),

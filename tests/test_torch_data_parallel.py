@@ -1,8 +1,10 @@
 """Data-parallel training on the CPU: the loader's shards against the
 single-process batch stream and the reference loader's `shard`, the split
-step's draws and loss shares, and two Gloo processes of `python -m
-storm_tpu_torch.train` against one process at the same global batch (the
-port's counterpart of tests/test_multihost_train.py).
+step's draws and loss shares, GaGNet's BN norm with its moments across two
+Gloo processes against one norm over their rows, and two Gloo processes of
+`python -m storm_tpu_torch.train` against one process at the same global
+batch, GaGNet-BN among them (the port's counterpart of
+tests/test_multihost_train.py).
 
 Tolerances: batches bit for bit; the draws of a process's rows bit for bit;
 the split step's losses and summed gradients against one process's step on
@@ -12,8 +14,9 @@ not divided by the process count is off by ~1); the two-process run's epoch
 losses as the reference's test holds its own, `train_loss_epoch` at rtol
 5e-3 and `valid_loss` at 1e-3 (the gradients' sum across processes
 reassociates the batch's float32 sum, and Adam carries that into later
-steps), and its first step's gradients at 1e-5 as above. Tiny nets (nf 8,
-two levels, n_fft 62, 32 frames). Every
+steps), and its first step's gradients at 1e-5 as above; the BN norm's
+outputs and gradients at 1e-6 of their scale. Tiny nets (nf 8, two levels,
+n_fft 62, 32 frames; GaGNet at n_fft 126, its smallest encoder). Every
 subprocess has a timeout; the process group's port comes from a socket
 bound to port 0.
 """
@@ -28,7 +31,7 @@ import pytest
 import torch
 
 from storm_tpu.data.datamodule import SpecsDataModule as JDataModule
-from storm_tpu_torch import train
+from storm_tpu_torch.backbones.gagnet import NormSwitch
 from storm_tpu_torch.data.audio import save_wav
 from storm_tpu_torch.data.datamodule import SpecsDataModule as PDataModule
 from storm_tpu_torch.models.base import init_train_state
@@ -60,6 +63,14 @@ def _write_corpus(root, n_train, n_valid, seed=0):
 @pytest.fixture(scope="module")
 def corpus(tmp_path_factory):
     return _write_corpus(tmp_path_factory.mktemp("corpus_dp"), n_train=4, n_valid=3)
+
+
+@pytest.fixture(scope="module")
+def even_corpus(tmp_path_factory):
+    """No ragged validation tail: a BN net's moments over a padded tail
+    depend on the padding, zeros for one process and the repeated last
+    file across processes, in the reference as here."""
+    return _write_corpus(tmp_path_factory.mktemp("corpus_dp_even"), n_train=4, n_valid=2)
 
 
 # --- the loader's shard
@@ -193,21 +204,6 @@ def test_each_process_takes_its_card_and_the_backend(device, rank, size, cards, 
     assert (backend, str(dev)) == want
 
 
-def test_gagnet_batch_statistics_are_refused_across_processes(tmp_path):
-    """GaGNet with --norm_type BN takes its moments over a process's rows,
-    not the global batch's: `train` refuses it with more than one process,
-    before any collective, naming its ROADMAP item."""
-    args = train.parse_args([
-        "--mode", "denoiser-only", "--backbone_denoiser", "gagnet", "--norm_type", "BN",
-        "--base_dir", str(tmp_path), "--batch_size", "2", "--n_fft", "126",
-        "--hop_length", "32", "--fft_num", "128", "--d_feat", "64", "--c", "8", "--cd1", "8",
-        "--p", "1", "--q", "1", "--device", "cpu"])
-    with pytest.raises(SystemExit, match=r"--norm_type BN .*\(ROADMAP Queue 1 item 9\)"):
-        train.train(args, World(0, 2, "gloo", torch.device("cpu")))
-    with open(os.path.join(REPO, "ROADMAP.md")) as f:
-        assert "\n9. **GaGNet's batch statistics across processes.**" in f.read()
-
-
 # --- two processes of the CLI
 
 
@@ -284,20 +280,38 @@ def _rows(log_dir):
     return run, rows
 
 
-@pytest.mark.parametrize("mode", ["regen-joint-training", "denoiser-only"])
-def test_two_processes_train_as_one_at_the_same_global_batch(mode, corpus, tmp_path):
-    """StoRM (a loss summed over the batch) and the denoiser (the batch's
-    mean): two Gloo processes, one row each of every global batch of 2, log
-    the single process's losses at every step and epoch; only process 0
-    logs and checkpoints; a resumed two-process run (StoRM) continues as a
-    resumed single-process run does. The first step's gradients, summed
-    across the processes, are the single process's."""
+# GaGNet with BN at the width of the reference CLI's smallest encoder (n_fft 126)
+# and one TCN dilation: fewer BN layers, each of which amplifies the float32
+# rounding that parts the two runs' gradients (tools/gagnet_bn_precision.py:
+# at the reference CLI's full width float32 runs part by ~3e-3, each as far
+# from the float64 gradient)
+GAGNET_BN = ("--backbone_denoiser", "gagnet", "--norm_type", "BN", "--n_fft", "126",
+             "--hop_length", "32", "--fft_num", "128", "--d_feat", "64", "--c", "8", "--cd1",
+             "8", "--p", "1", "--q", "1", "--dilas", "1")
+
+
+@pytest.mark.parametrize("mode,net", [("regen-joint-training", ()), ("denoiser-only", ()),
+                                      ("denoiser-only", GAGNET_BN)],
+                         ids=["regen-joint-training", "denoiser-only", "denoiser-only-gagnet-bn"])
+def test_two_processes_train_as_one_at_the_same_global_batch(mode, net, corpus, even_corpus,
+                                                             tmp_path):
+    """StoRM (a loss summed over the batch), the denoiser (the batch's
+    mean) and the GaGNet-BN denoiser (its moments over the global batch, in
+    the steps and the validation): two Gloo processes, one row each of
+    every global batch of 2, log the single process's losses at every step
+    and epoch; only process 0 logs and checkpoints; a resumed two-process
+    run (StoRM) continues as a resumed single-process run does. The first
+    step's gradients, summed across the processes, are the single
+    process's. The BN run says why its steps run eagerly."""
     resume = mode == "regen-joint-training"
     epochs = ["--max_epochs", "1"] if resume else ["--max_epochs", "2"]
+    corpus = even_corpus if net else corpus
     one, two = tmp_path / "one", tmp_path / "two"
     grads = {name: str(tmp_path / f"grads_{name}.pt") for name in ("one", "two")}
-    _one(_cmd(corpus, one, mode, epochs), STEP1_GRADS=grads["one"])
-    outs = _two(_cmd(corpus, two, mode, epochs), STEP1_GRADS=grads["two"])
+    _one(_cmd(corpus, one, mode, epochs + list(net)), STEP1_GRADS=grads["one"])
+    outs = _two(_cmd(corpus, two, mode, epochs + list(net)), STEP1_GRADS=grads["two"])
+    execution = "eager: BN moments across processes (gloo)" if net else "graph"
+    assert f"training steps and validation: {execution}" in outs[0]
     g1, g2 = (torch.load(grads[name]) for name in ("one", "two"))
     assert len(g1) == len(g2) and _relative(g2, g1) <= 1e-5
     assert "process 0 of 2: backend gloo on cpu" in outs[0]
@@ -321,3 +335,69 @@ def test_two_processes_train_as_one_at_the_same_global_batch(mode, corpus, tmp_p
             np.testing.assert_allclose(b["valid_loss"], a["valid_loss"], rtol=1e-3)
     assert sorted(os.listdir(two / run2 / "checkpoints")) == sorted(
         os.listdir(one / run1 / "checkpoints"))
+
+
+# --- GaGNet's BN moments across processes, in process
+
+
+SYNCED_NORM = """
+import sys
+import torch
+import torch.distributed as dist
+from storm_tpu_torch.backbones.gagnet import NormSwitch, moments_across
+from storm_tpu_torch.utils.distributed import World
+rank, port, inputs, out = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4]
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2, rank=rank)
+x, weight, bias, up = torch.load(inputs)
+norm = NormSwitch("BN", x.shape[1])
+with torch.no_grad():
+    norm.norm.weight.copy_(weight)
+    norm.norm.bias.copy_(bias)
+rows = slice(rank * x.shape[0] // 2, (rank + 1) * x.shape[0] // 2)
+xi = x[rows].clone().requires_grad_(True)
+with moments_across([norm], World(rank, 2, "gloo", torch.device("cpu"))):
+    y = norm(xi)
+    (y * up[rows]).sum().backward()
+torch.save({"y": y.detach(), "dx": xi.grad, "dw": norm.norm.weight.grad,
+            "db": norm.norm.bias.grad}, out)
+dist.destroy_process_group()
+"""
+
+
+def test_synchronized_norm_switch_is_one_norm_over_the_concatenated_rows(tmp_path):
+    """Two Gloo processes, two rows each, through one BN `NormSwitch` under
+    `moments_across`: their outputs and input gradients put together, and
+    their affine gradients summed, are one NormSwitch's on the four rows
+    (the loss the sum of both processes' losses), 1e-6 of scale (float32
+    sums in another order)."""
+    g = torch.Generator().manual_seed(0)
+    x = 2.0 + 3.0 * torch.randn(4, 6, 5, 9, generator=g)
+    weight, bias = 1.0 + torch.randn(6, generator=g), torch.randn(6, generator=g)
+    up = torch.randn(4, 6, 5, 9, generator=g)
+    inputs = str(tmp_path / "inputs.pt")
+    torch.save((x, weight, bias, up), inputs)
+    port = _free_port()
+    procs = [subprocess.Popen([sys.executable, "-c", SYNCED_NORM, str(rank), str(port), inputs,
+                               str(tmp_path / f"out{rank}.pt")], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, cwd=REPO, env=_env())
+             for rank in range(2)]
+    try:
+        for p in procs:
+            _, err = p.communicate(timeout=TIMEOUT_S)
+            assert p.returncode == 0, err[-4000:]
+    finally:
+        for p in procs:
+            p.kill()
+    outs = [torch.load(tmp_path / f"out{rank}.pt") for rank in range(2)]
+    norm = NormSwitch("BN", 6)
+    with torch.no_grad():
+        norm.norm.weight.copy_(weight)
+        norm.norm.bias.copy_(bias)
+    xw = x.clone().requires_grad_(True)
+    y = norm(xw)
+    (y * up).sum().backward()
+    for got, want, what in ((torch.cat([o["y"] for o in outs]), y.detach(), "outputs"),
+                            (torch.cat([o["dx"] for o in outs]), xw.grad, "input gradients"),
+                            (outs[0]["dw"] + outs[1]["dw"], norm.norm.weight.grad, "d weight"),
+                            (outs[0]["db"] + outs[1]["db"], norm.norm.bias.grad, "d bias")):
+        assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max()), what

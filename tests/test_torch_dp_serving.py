@@ -74,14 +74,15 @@ def pair(mode):
     return PAIRS[mode]
 
 
-def chunk_noise(mode, key, rows, chunks, n_steps=KW["N"], corrector="ald"):
+def chunk_noise(mode, key, rows, chunks, n_steps=KW["N"], corrector="ald", spec=(F, None)):
     """The reference `BucketedEnhancer`'s draws with `minibatch` set: a key
     split off per chunk, the chunk's sampler drawing from it (pc for StoRM
-    and score-only, the one prior of distill, none for the denoiser)."""
+    and score-only, the one prior of distill, none for the denoiser).
+    `spec`: the (bins, frames) of a draw (frames None: `frames()`)."""
     draws = []
     for _ in range(chunks):
         key, k = jax.random.split(key)
-        shape = (rows, F, frames())
+        shape = (rows, spec[0], spec[1] or frames())
         if mode == "distill":
             draws.append(np.asarray(jcplx.complex_normal(k, shape), np.float32))
         elif mode != "denoiser-only":
